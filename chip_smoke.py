@@ -13,10 +13,15 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    net) with MAPPO acting, 2 warm-up + 3 timed rollouts of 64 steps, then
    the bootstrap value; checks launch counts, finiteness, the episode-stat
    keys and agreement with the CPU path on a small input; and a short
-   rollout with 8-step episodes so auto-reset and scene sampling run.
+   rollout with 8-step episodes so auto-reset and scene sampling run;
+4. training: `make_train_iter` (rollout + the MAPPO and TP-net update) at
+   bench.py's configuration, 2 warm-up + 3 timed iterations; prints training
+   env-steps/s and where an iteration's time goes, checks launch counts,
+   the metrics' keys and finiteness, and the update on the card against the
+   update on the CPU from the same state and trajectory.
 
-The line before the last is the kernels' JSON summary; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is the kernels' JSON summary (launches counted over
+phase 4's run); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -34,7 +39,14 @@ STEPS = 64
 WARMUP_ROLLOUTS = 2
 TIMED_ROLLOUTS = 3
 TIMING_RUNS = 20
+WARMUP_ITERS = 2
+TIMED_ITERS = 3
+MB_ROWS = NUM_ENVS * STEPS // 16 * 3  # one PPO minibatch's encoder rows (16 minibatches)
+TP_WINDOWS = (STEPS - 5) * NUM_ENVS   # the TP step's windows (5 future steps)
 GROUPS = ((1, 35), (3, 5), (2, 3))  # state_self, cylinders, state_others
+METRIC_KEYS = {"advantages_mean", "advantages_std", "TP_loss", "policy_loss",
+               "actor_grad_norm", "entropy", "ESS", "value_loss", "critic_grad_norm",
+               "explained_var", "approx_kl", "action_norm", "value_running_mean"}
 
 
 def log(msg: str) -> None:
@@ -100,6 +112,40 @@ def control(name, plain, tol) -> None:
     log(f"  control {name} in f32 throughout: max_rel_err={errs['max_rel']:.3e} "
         f"mean_rel_err={errs['mean_rel']:.3e} -> {'rejected' if rejected else 'PASSED'}")
     if not rejected:
+        raise AssertionError(f"{name}: the tolerance does not reject the f32 control")
+
+
+def bwd_compare(name, outs, refs, tol) -> float:
+    """A backward kernel's gradients against its plain version, leaf by
+    leaf; returns the largest absolute error."""
+    errs = tol.errors(outs, refs)
+    bad = tol.failing(errs)
+    ok = not bad and all(bool(torch.isfinite(o).all()) for o in outs)
+    worst_max = max(range(len(errs)), key=lambda i: errs[i]["max_rel"])
+    worst_mean = max(range(len(errs)), key=lambda i: errs[i]["mean_rel"])
+    log(f"  {name}: {len(errs)} leaves, worst max_rel_err={errs[worst_max]['max_rel']:.3e} "
+        f"(leaf {worst_max}), worst mean_rel_err={errs[worst_mean]['mean_rel']:.3e} "
+        f"(leaf {worst_mean}) (tol {tol.max_rel:g} max, {tol.mean_rel:g} mean per leaf)"
+        f" -> {'ok' if ok else f'FAIL leaves {bad}'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel gradients disagree with the plain version")
+    return max(e["max_abs"] for e in errs)
+
+
+def bwd_control(name, plain, tol, blind) -> None:
+    """The plain backward without its bf16 rounding must fail the limit on
+    every leaf but those of `blind` (the module's BWD_CONTROL_BLIND, which
+    keep only the max-error check)."""
+    errs = tol.errors(plain(bf16=False), plain())
+    bad = set(tol.failing(errs))
+    blind = {i % len(errs) for i in blind}
+    passed = [i for i in range(len(errs)) if i not in bad]
+    least = min((errs[i]["mean_rel"] for i in bad), default=float("nan"))
+    blind_errs = ", ".join(f"{i}: {errs[i]['mean_rel']:.3e}" for i in passed)
+    log(f"  control {name} in f32 throughout: rejected on {len(bad)} of {len(errs)} leaves "
+        f"(least mean_rel_err among them {least:.3e}); passes leaves {passed} "
+        f"(mean_rel_err {blind_errs})")
+    if not set(range(len(errs))) - blind <= bad:
         raise AssertionError(f"{name}: the tolerance does not reject the f32 control")
 
 
@@ -189,6 +235,105 @@ def phase_kernels(dev) -> dict:
         route="cuda", source="mupe_tpu_torch/csrc/tp_lstm.cu",
         replaces="mupe_tpu/ops/tp_lstm.py:422", max_abs_err=err,
         ms=ms, plain_ms=plain)
+    results.update(phase_backward_kernels(dev, gen, spec_a, spec_c, la, lc, tspec, lt))
+    return results
+
+
+def _bwd_blocks(fn: str, *args) -> int:
+    """The persistent grid a backward kernel picks (its C helper)."""
+    import ctypes
+
+    from mupe_tpu_torch.ops import build
+
+    blocks = ctypes.c_int(0)
+    build.check(getattr(build.library(), fn)(*args, ctypes.byref(blocks)), fn)
+    return blocks.value
+
+
+def phase_backward_kernels(dev, gen, spec_a, spec_c, la, lc, tspec, lt) -> dict:
+    """The backward kernels at the update's shapes: one PPO minibatch (S =
+    16,384 (t, env) rows x 3 agents) and the TP step's 59 x 4096 windows."""
+    from mupe_tpu_torch.ops import fused_encoder as fe
+    from mupe_tpu_torch.ops import tp_lstm as tl
+
+    results = {}
+    s_main = MB_ROWS
+    errs = []
+    log(f"  backward tolerance: per gradient leaf, scaled by the leaf's magnitude; the key-bias "
+        f"gradient is analytically zero, bounded by {fe.BWD_KERNEL_TOL.noise_floor:g} of the "
+        f"network's largest gradient")
+    for s in (s_main, s_main + 1):
+        x = (2.0 * torch.randn((s, spec_a.obs_dim), generator=gen)).to(dev)
+        da = torch.randn((s, 4), generator=gen).to(dev)
+        dc = torch.randn((s, 1), generator=gen).to(dev)
+        for nets, douts in (([(spec_a, la), (spec_c, lc)], [da, dc]),
+                            ([(spec_a, la)], [da]), ([(spec_c, lc)], [dc])):
+            grads = fe.encoder_backward(nets, x, douts)
+            again = fe.encoder_backward(nets, x, douts)
+            torch.cuda.synchronize()
+            for (spec, leaves), d, g, g2 in zip(nets, douts, grads, again):
+                tag = f"encoder_backward S={s} nets={len(nets)} head={spec.head_dim}"
+                errs.append(bwd_compare(tag, g, fe.reference_backward(spec, leaves, x, d),
+                                        fe.BWD_KERNEL_TOL))
+                if not all(torch.equal(u, v) for u, v in zip(g, g2)):
+                    raise AssertionError(f"{tag}: two launches gave different bits")
+        ones = torch.ones((s, 1), device=dev)
+        (gc,) = fe.encoder_backward([(spec_c, lc)], x, [ones])
+        _, gc2 = fe.encoder_backward([(spec_a, la), (spec_c, lc)], x, [da, ones])
+        dbh = (gc[-1].item(), gc2[-1].item())
+        log(f"  encoder_backward S={s}: repeat launches bit-identical; dout = 1 gives "
+            f"dbh = {dbh[0]:.1f} (one net), {dbh[1]:.1f} (pair)")
+        if dbh != (float(s), float(s)):
+            raise AssertionError(f"encoder_backward S={s}: dbh {dbh} != S (a row was dropped)")
+    x = (2.0 * torch.randn((s_main, spec_a.obs_dim), generator=gen)).to(dev)
+    da = torch.randn((s_main, 4), generator=gen).to(dev)
+    dc = torch.randn((s_main, 1), generator=gen).to(dev)
+    bwd_control(f"actor backward S={s_main}",
+                lambda **k: fe.reference_backward(spec_a, la, x, da, **k), fe.BWD_KERNEL_TOL,
+                fe.BWD_CONTROL_BLIND)
+    bwd_control(f"critic backward S={s_main}",
+                lambda **k: fe.reference_backward(spec_c, lc, x, dc, **k), fe.BWD_KERNEL_TOL,
+                fe.BWD_CONTROL_BLIND)
+    pair = [(spec_a, la), (spec_c, lc)]
+    ms = cuda_time_ms(lambda: fe.encoder_backward(pair, x, [da, dc]), runs=10)
+    plain = cuda_time_ms(lambda: (fe.reference_backward(spec_a, la, x, da),
+                                  fe.reference_backward(spec_c, lc, x, dc)), runs=10)
+    ms1 = cuda_time_ms(lambda: fe.encoder_backward([(spec_a, la)], x, [da]), runs=10)
+    plain1 = cuda_time_ms(lambda: fe.reference_backward(spec_a, la, x, da), runs=10)
+    log(f"  encoder_backward S={s_main}: pair kernel {ms:.4f} ms, plain {plain:.4f} ms; "
+        f"actor alone kernel {ms1:.4f} ms, plain {plain1:.4f} ms; "
+        f"{_bwd_blocks('mupe_encoder_backward_blocks', len(GROUPS), 6, spec_a.obs_dim, 2, s_main)}"
+        f" blocks per network (workspace slices)")
+    results["encoder_backward"] = dict(
+        route="cuda", source="mupe_tpu_torch/csrc/fused_encoder_bwd.cu",
+        replaces="mupe_tpu/ops/fused_encoder.py:483", max_abs_err=max(errs),
+        ms=ms, plain_ms=plain)
+
+    n_main = TP_WINDOWS
+    errs = []
+    for n in (n_main, n_main + 1):
+        xt = torch.randn((n, 10, 16), generator=gen).to(dev)
+        dy = torch.randn((n, 15), generator=gen).to(dev)
+        g = tl.tp_backward(tspec, lt, xt, dy)
+        g2 = tl.tp_backward(tspec, lt, xt, dy)
+        torch.cuda.synchronize()
+        errs.append(bwd_compare(f"tp_backward N={n}", g,
+                                tl.reference_backward(tspec, lt, xt, dy), tl.BWD_KERNEL_TOL))
+        if not all(torch.equal(u, v) for u, v in zip(g, g2)):
+            raise AssertionError(f"tp_backward N={n}: two launches gave different bits")
+    log("  tp_backward: repeat launches bit-identical")
+    bwd_control(f"tp backward N={n_main}",
+                lambda **k: tl.reference_backward(tspec, lt, xt[:n_main], dy[:n_main], **k),
+                tl.BWD_KERNEL_TOL, tl.BWD_CONTROL_BLIND)
+    xt, dy = xt[:n_main].contiguous(), dy[:n_main].contiguous()
+    ms = cuda_time_ms(lambda: tl.tp_backward(tspec, lt, xt, dy), runs=5)
+    plain = cuda_time_ms(lambda: tl.reference_backward(tspec, lt, xt, dy), runs=5)
+    log(f"  tp_backward N={n_main}: kernel {ms:.4f} ms, plain {plain:.4f} ms; "
+        f"{_bwd_blocks('mupe_tp_lstm_backward_blocks', n_main, 10, 16)} blocks")
+    results["tp_backward"] = dict(
+        route="cuda", source="mupe_tpu_torch/csrc/tp_lstm_bwd.cu",
+        replaces="mupe_tpu/ops/tp_lstm.py:428", max_abs_err=max(errs),
+        ms=ms, plain_ms=plain)
     return results
 
 
@@ -257,7 +402,7 @@ def check_against_cpu(dev) -> None:
         raise AssertionError("card and CPU rollouts disagree on done")
 
 
-def phase_slice(dev, card: str) -> dict:
+def phase_slice(dev, card: str) -> None:
     from mupe_tpu_torch.envs.hideandseek import STAT_KEYS
     from mupe_tpu_torch.learning import init_carry, make_rollout
     from mupe_tpu_torch.ops import fused_encoder as fe
@@ -324,6 +469,110 @@ def phase_slice(dev, card: str) -> dict:
     log(f"  resets at steps {done_steps}; episodes {int(ep8['episode_count'])}; "
         f"success {float(ep8['success']):.4f}, scene_fallback {float(ep8['scene_fallback']):.4f}")
     check_against_cpu(dev)
+
+
+def check_update_against_cpu(dev) -> None:
+    """The update on the card (kernels) against the update on the CPU (plain
+    versions): one `train_op` at 16 arenas x 8 steps, 2 minibatches, 1
+    epoch, from the same state and weights, on the same trajectory (a CPU
+    rollout, copied to the card) with the same permutation.  Metrics within
+    5e-3 relative, the forward kernel's largest error against its plain
+    version (heads at unit gain, so the loss's every term moves; measured
+    2.4e-3 on policy_loss on an H100), 1e-2 for the gradient norms (the
+    kernel's gradients part from the plain version's by its tolerance);
+    parameters within 3e-3 absolute (two Adam steps of about lr = 5e-4)."""
+    from mupe_tpu_torch.envs import HideAndSeek, HideAndSeekCfg, tree_to
+    from mupe_tpu_torch.learning import MAPPOCfg, MAPPOPolicy, init_carry, make_rollout
+
+    cfg = MAPPOCfg(train_every=8, num_minibatches=2, ppo_epochs=1, use_tp_net=True)
+    env_c = HideAndSeek(HideAndSeekCfg(num_envs=16, max_episode_length=800))
+    pols = {d: MAPPOPolicy(cfg, n_agents=3, action_dim=4, obs_is_dict=True,
+                           tp_input_dim=env_c.cfg.tp_input_dim, device=d) for d in ("cpu", dev)}
+    template = {k: torch.zeros((1,) + s) for k, s in env_c.obs_groups().items()}
+    ts = {d: p.init(template, torch.Generator().manual_seed(8)) for d, p in pols.items()}
+    with torch.no_grad():  # heads at unit gain: the loss's every term moves
+        for t in ts.values():
+            t.actor.leaves[-2].mul_(100.0)
+            t.critic.leaves[-2].mul_(100.0)
+    carry = init_carry(env_c, pols["cpu"], torch.Generator().manual_seed(9), ts["cpu"])
+    carry, traj, _ = make_rollout(env_c, pols["cpu"])(carry)
+    perms = torch.randperm(16 * 8, generator=torch.Generator().manual_seed(10))[None]
+    out = {}
+    for d, pol in pols.items():
+        state, metrics = pol.train_op(ts[d], tree_to(traj, d), tree_to(carry.obs, d), perms=perms)
+        out[d] = (state, {k: float(v) for k, v in metrics.items()})
+    (ts_c, m_c), (ts_g, m_g) = out["cpu"], out[dev]
+    worst = max((abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1e-5), k) for k in m_c)
+    log(f"  card vs CPU update metrics: worst relative difference {worst[0]:.3e} ({worst[1]})")
+    for k, v in m_c.items():
+        rel = 1e-2 if k.endswith("grad_norm") else 5e-3
+        if not abs(m_g[k] - v) <= rel * abs(v) + 1e-5:
+            raise AssertionError(f"card and CPU updates disagree on {k}: {m_g[k]} vs {v}")
+    pairs = [(ts_g.actor.flat, ts_c.actor.flat), (ts_g.log_std, ts_c.log_std),
+             (ts_g.critic.flat, ts_c.critic.flat),
+             *zip(ts_g.tp_net.leaves(), ts_c.tp_net.leaves())]
+    err = max((g.detach().cpu() - c.detach()).abs().max().item() for g, c in pairs)
+    log(f"  card vs CPU parameters after the update: max_abs_err={err:.3e} (tol 3e-3)")
+    if not err <= 3e-3:
+        raise AssertionError("card and CPU updates disagree on the parameters")
+
+
+def phase_train(dev, card: str) -> dict:
+    from mupe_tpu_torch.learning import init_carry, make_train_iter
+    from mupe_tpu_torch.ops import fused_encoder as fe
+    from mupe_tpu_torch.ops import tp_lstm as tl
+
+    log(f"[4] training: make_train_iter, HideAndSeek {NUM_ENVS} arenas x {STEPS} steps, "
+        f"bench.py's MAPPOCfg (16 minibatches, 4 PPO epochs, TP net)")
+    env, policy = make_slice(dev, NUM_ENVS, 800)
+    carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(2))
+    train_iter = make_train_iter(env, policy)
+    wrappers = {"encoder_pair_forward": fe.encoder_pair_forward,
+                "encoder_forward": fe.encoder_forward, "tp_forward": tl.tp_forward,
+                "encoder_backward": fe.encoder_backward, "tp_backward": tl.tp_backward}
+    for fn in wrappers.values():
+        fn.launches = 0
+    for _ in range(WARMUP_ITERS):
+        carry, metrics, ep_stats = train_iter(carry)
+    torch.cuda.synchronize()
+    split = {}
+    last = [0.0]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split[name] = split.get(name, 0.0) + now - last[0]
+        last[0] = now
+
+    t0 = time.perf_counter()
+    for _ in range(TIMED_ITERS):
+        carry, metrics, ep_stats = train_iter(carry)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    # a further iteration with the phase boundaries synchronised, for the split
+    last[0] = time.perf_counter()
+    carry, metrics, ep_stats = train_iter(carry, mark=mark)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    iters = WARMUP_ITERS + TIMED_ITERS + 1
+    log(f"  launches over {iters} iterations: {launches}")
+    if (launches["encoder_backward"] < 64 * iters or launches["tp_backward"] < iters
+            or launches["encoder_pair_forward"] < 128 * iters
+            or launches["encoder_forward"] < iters or launches["tp_forward"] < 65 * iters):
+        raise AssertionError(f"the training path skipped a kernel: {launches}")
+    if set(metrics) != METRIC_KEYS:
+        raise AssertionError(f"metrics keys {sorted(metrics)}")
+    if not (_all_finite(metrics) and _all_finite(ep_stats)
+            and all(bool(torch.isfinite(p).all()) for p in
+                    (carry.ts.actor.flat, carry.ts.log_std, carry.ts.critic.flat))):
+        raise AssertionError("non-finite metric or parameter after training")
+    log("  metrics: " + ", ".join(f"{k}={float(v):.5g}" for k, v in sorted(metrics.items())))
+    rate = NUM_ENVS * STEPS * TIMED_ITERS / seconds
+    log(f"  training: {NUM_ENVS} x {STEPS} x {TIMED_ITERS} env-steps in {seconds:.4f} s "
+        f"= {rate:.1f} env-steps/s ({seconds / TIMED_ITERS * 1e3:.2f} ms per iteration) "
+        f"on {card}")
+    log("  one iteration, phases synchronised: " + ", ".join(
+        f"{k} {v * 1e3:.2f} ms" for k, v in split.items()))
+    check_update_against_cpu(dev)
     return launches
 
 
@@ -341,7 +590,8 @@ def main() -> int:
     log(f"[0] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     phase_build()
     kernels = phase_kernels(dev)
-    launches = phase_slice(dev, card)
+    phase_slice(dev, card)
+    launches = phase_train(dev, card)
     summary = {"kernels": [
         dict(name=name, launches=launches[name], **info)
         for name, info in kernels.items()

@@ -17,6 +17,8 @@ from .dynamics import DroneState
 from .envs.hideandseek import HideAndSeekState
 from .learning.mappo import MAPPOPolicy, MAPPOState
 from .learning.modules.networks import entity_group_order
+from .learning.optim import AdamState
+from .learning.valuenorm import ValueNorm1
 
 _GATES = ("i", "f", "g", "o")
 
@@ -100,6 +102,42 @@ def policy_state(
         log_std=actor_log_std(actor_params),
         critic_leaves=encoder_leaves(critic_params),
         tp_leaves=tp_leaves(tp_params) if tp_params is not None else None,
+    )
+
+
+def value_norm(d: Mapping[str, Any], device="cpu") -> ValueNorm1:
+    """JAX `ValueNorm1` (as a dict of numpy arrays) → the port's."""
+    return ValueNorm1(
+        running_mean=_t(d["running_mean"], device),
+        running_mean_sq=_t(d["running_mean_sq"], device),
+        debiasing_term=_t(d["debiasing_term"], device),
+        beta=float(d.get("beta", 0.995)),
+        epsilon=float(d.get("epsilon", 1e-5)),
+    )
+
+
+def _group_tensors(tree: Mapping, device) -> list:
+    """A parameter-shaped tree → the port's parameter group: [flat encoder
+    leaves, log_std] (actor), [flat encoder leaves] (critic) or the TP net's
+    five leaves."""
+    p = tree["params"]
+    if any(k.startswith("PartialAttentionEncoder") for k in p):
+        group = [torch.cat([l.reshape(-1) for l in encoder_leaves(tree, device)])]
+        if "DiagGaussianHead_0" in p:
+            group.append(actor_log_std(tree, device))
+        return group
+    return list(tp_leaves(tree, device))
+
+
+def adam_state(mu_tree: Mapping, nu_tree: Mapping, count, device="cpu") -> AdamState:
+    """optax Adam moments → the port's `AdamState`.  The JAX optimizers run
+    on flattened vectors (`optax.flatten`); unravel each moment into the
+    parameter tree first (`jax.flatten_util.ravel_pytree`'s unravel) and
+    pass the trees, as numpy arrays."""
+    return AdamState(
+        mu=_group_tensors(mu_tree, device),
+        nu=_group_tensors(nu_tree, device),
+        count=torch.as_tensor(np.asarray(count), dtype=torch.int32).to(device),
     )
 
 

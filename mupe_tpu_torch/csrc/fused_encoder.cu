@@ -28,22 +28,9 @@
 // Rows past S in the last tile are computed on zeros and never stored.
 // Tensor-core products (mma.sync / wgmma) are left for a later change.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-constexpr int E = 128;         // embed width == feed-forward width
-constexpr int NTHREADS = 128;  // one thread per feature column
-constexpr int TR = 8;          // rows per block
-constexpr int MAX_TOK = 8;
-constexpr int MAX_GROUPS = 4;
-constexpr int MAX_OBS = 128;
-constexpr int MAX_HEAD = 8;
-constexpr int N_FIXED = 20;  // leaves after the per-group (W, b) pairs
-constexpr int MAX_LEAVES = 2 * MAX_GROUPS + N_FIXED;
-constexpr float LN_EPS = 1e-6f;
 
 struct NetParams {
   const float* leaf[MAX_LEAVES];
@@ -64,77 +51,6 @@ struct EncoderArgs {
   int tok_group[MAX_TOK];
   NetParams net[2];
 };
-
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ void unpack8(const uint4& raw, float (&a)[8]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(p[i]);
-    a[2 * i] = f.x;
-    a[2 * i + 1] = f.y;
-  }
-}
-
-// acc[w][m] = sum_k A[m0 + m][k] * bf16(W[w][k][j]) for TR rows, NW weight
-// matrices sharing the same A rows.  A: bf16 [*, E] in shared memory;
-// W: f32 [E, E] row-major (in, out) in global memory.
-template <int NW>
-__device__ __forceinline__ void mm_tile(const __nv_bfloat16* A, int m0,
-                                        const float* const (&W)[NW], int j,
-                                        float (&acc)[NW][TR]) {
-#pragma unroll
-  for (int w = 0; w < NW; ++w)
-#pragma unroll
-    for (int m = 0; m < TR; ++m) acc[w][m] = 0.f;
-  for (int k = 0; k < E; k += 8) {
-    float wv[NW][8];
-#pragma unroll
-    for (int w = 0; w < NW; ++w)
-#pragma unroll
-      for (int i = 0; i < 8; ++i) wv[w][i] = bf16r(__ldg(W[w] + (k + i) * E + j));
-#pragma unroll
-    for (int m = 0; m < TR; ++m) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(A + (m0 + m) * E + k);
-      float a[8];
-      unpack8(raw, a);
-#pragma unroll
-      for (int w = 0; w < NW; ++w)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[w][m] = fmaf(a[i], wv[w][i], acc[w][m]);
-    }
-  }
-}
-
-// LayerNorm of one 128-wide row held by a warp, 4 values per lane.
-__device__ __forceinline__ void ln_row(float (&v)[4], const float* __restrict__ g,
-                                       const float* __restrict__ b, int lane) {
-  const float s = warp_sum(v[0] + v[1] + v[2] + v[3]);
-  const float ss = warp_sum(v[0] * v[0] + v[1] * v[1] + v[2] * v[2] + v[3] * v[3]);
-  const float m = s / float(E);
-  const float var = ss / float(E) - m * m;
-  const float inv = 1.0f / sqrtf(var + LN_EPS);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = lane * 4 + i;
-    v[i] = (v[i] - m) * inv * __ldg(g + c) + __ldg(b + c);
-  }
-}
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-  const float inner = c * (x + 0.044715f * x * x * x);
-  return 0.5f * x * (1.0f + tanhf(inner));
-}
 
 __global__ void __launch_bounds__(NTHREADS)
     encoder_fwd_kernel(const __grid_constant__ EncoderArgs args) {

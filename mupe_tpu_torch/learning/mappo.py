@@ -1,17 +1,19 @@
-"""MAPPO acting (counterpart of the acting half of mupe_tpu/learning/mappo.py).
+"""MAPPO (counterpart of mupe_tpu/learning/mappo.py): acting and the update.
 
-This slice carries the configuration, the policy's parameters, `act` and the
-bootstrap `value_op`.  The actor and the critic are PartialAttentionEncoder
-networks with linear heads over dict observations, held as canonical
-parameter leaves (mupe_tpu_torch/ops/fused_encoder.py); `act` runs both in
-one `encoder_pair_forward` launch and `value_op` runs the critic through
-`encoder_forward`.  The PPO update (`train_op`) is not ported yet.
+The actor and the critic are PartialAttentionEncoder networks with linear
+heads over dict observations, held as canonical parameter leaves
+(mupe_tpu_torch/ops/fused_encoder.py); `act` runs both in one
+`encoder_pair_forward` launch and `value_op` runs the critic through
+`encoder_forward`.  `train_op` is the update of the JAX package's packed
+path: GAE, `ValueNorm1`, the TP net's supervised step and the joint PPO
+minibatches of `_update_joint_flat`, whose gradients come from the backward
+kernels through the autograd Functions under the forward wrappers.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -22,10 +24,16 @@ from ..ops.fused_encoder import (
     encoder_pair_forward,
     leaf_shapes,
     pack_obs,
+    split_flat,
 )
 from .modules.distributions import Gaussian
 from .modules.networks import entity_group_order, lecun_normal, orthogonal
+from .gae import compute_gae
+from .optim import AdamState, adam_updates, clip_by_global_norm, global_norm
 from .tp_net import TPNet
+from .valuenorm import ValueNorm1
+
+_LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,9 +77,11 @@ class MAPPOCfg:
 
 
 class EncoderHead(nn.Module):
-    """The parameters of one encoder + linear head as its canonical leaves
-    (Wg, bg per group, ln0, Wq, bq, Wk, bk, Wv, bv, Wo, bo, ln1, W1, b1, W2,
-    b2, ln2, Wh, bh); `MAPPOPolicy` runs them through the kernel wrappers."""
+    """The parameters of one encoder + linear head: one flat vector (the
+    layout `optax.flatten` gives the JAX optimizer) whose views are the
+    canonical leaves (Wg, bg per group, ln0, Wq, bq, Wk, bk, Wv, bv, Wo, bo,
+    ln1, W1, b1, W2, b2, ln2, Wh, bh); `MAPPOPolicy` runs them through the
+    kernel wrappers, and gradients reach `flat` through the views."""
 
     def __init__(self, spec: EncoderSpec, leaves: Sequence[torch.Tensor]):
         super().__init__()
@@ -81,9 +91,13 @@ class EncoderHead(nn.Module):
         for i, (leaf, shape) in enumerate(zip(leaves, shapes)):
             if tuple(leaf.shape) != shape:
                 raise ValueError(f"leaf {i}: shape {tuple(leaf.shape)} != {shape}")
-        self.leaves = nn.ParameterList(
-            [nn.Parameter(torch.as_tensor(l, dtype=torch.float32).contiguous()) for l in leaves]
-        )
+        self.spec = spec
+        self.flat = nn.Parameter(torch.cat(
+            [torch.as_tensor(l, dtype=torch.float32).reshape(-1) for l in leaves]))
+
+    @property
+    def leaves(self) -> List[torch.Tensor]:
+        return list(split_flat(self.spec, self.flat))
 
 
 def init_encoder_leaves(spec: EncoderSpec, head: str, generator=None):
@@ -111,13 +125,111 @@ def init_encoder_leaves(spec: EncoderSpec, head: str, generator=None):
 
 @dataclasses.dataclass
 class MAPPOState:
-    """The policy's parameters (the optimizers and the value normaliser
-    belong to the update, which is not ported yet)."""
+    """All learnable state: parameters, optimizer states, the value
+    normaliser and (with `entropy_target`) the adaptive entropy coefficient.
+    `train_op` updates it in place (the tensors' storage is reused)."""
 
     actor: EncoderHead
     log_std: torch.Tensor          # [A]
     critic: EncoderHead
     tp_net: Optional[TPNet] = None
+    actor_opt: Optional[AdamState] = None   # over [actor.flat, log_std]
+    critic_opt: Optional[AdamState] = None  # over [critic.flat]
+    tp_opt: Optional[AdamState] = None      # over the TP net's five leaves
+    value_norm: Optional[ValueNorm1] = None
+    entropy_coef: Optional[torch.Tensor] = None
+
+    def actor_params(self) -> List[torch.Tensor]:
+        return [self.actor.flat, self.log_std]
+
+    def critic_params(self) -> List[torch.Tensor]:
+        return [self.critic.flat]
+
+
+@dataclasses.dataclass(frozen=True)
+class PackMeta:
+    """Lane layout of one packed row (one (t, env) sample), as
+    mupe_tpu/learning/mappo.py:204-249 has it:
+    [ obs: n_agents x (entity groups in order) | action n*A | logp n |
+      value n | advantages n | returns n ]."""
+
+    names: Tuple[str, ...]
+    groups: Tuple[Tuple[int, int], ...]
+    n_agents: int
+    action_dim: int
+
+    @property
+    def obs_dim(self) -> int:
+        return sum(k * d for k, d in self.groups)
+
+    @property
+    def obs_cols(self) -> int:
+        return self.n_agents * self.obs_dim
+
+    @property
+    def off_action(self) -> int:
+        return self.obs_cols
+
+    @property
+    def off_logp(self) -> int:
+        return self.off_action + self.n_agents * self.action_dim
+
+    @property
+    def off_value(self) -> int:
+        return self.off_logp + self.n_agents
+
+    @property
+    def off_adv(self) -> int:
+        return self.off_value + self.n_agents
+
+    @property
+    def off_ret(self) -> int:
+        return self.off_adv + self.n_agents
+
+    @property
+    def total(self) -> int:
+        return self.off_ret + self.n_agents
+
+
+def compute_pack_meta(obs_example, n_agents: int, action_dim: int) -> PackMeta:
+    """The packed-row layout of an observation dict (leaves [..., n, k, d])."""
+    names = tuple(entity_group_order(obs_example.keys()))
+    groups = tuple((obs_example[n].shape[-2], obs_example[n].shape[-1]) for n in names)
+    return PackMeta(names=names, groups=groups, n_agents=n_agents, action_dim=action_dim)
+
+
+def pack_rows(meta: PackMeta, obs, action, logp, value, advantages, returns) -> torch.Tensor:
+    """[T, E, ...] trajectory fields → [T*E, total] rows in `meta`'s layout."""
+    b, n = action.shape[0] * action.shape[1], meta.n_agents
+    x = torch.cat([obs[nm].reshape(b, n, -1) for nm in meta.names], dim=-1).reshape(b, -1)
+    return torch.cat([x, action.reshape(b, -1), logp.reshape(b, n), value.reshape(b, n),
+                      advantages.reshape(b, n), returns.reshape(b, n)], dim=-1)
+
+
+def unpack_rows(meta: PackMeta, rows: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Minibatch rows → the kernels' [m*n, obs_dim] rows and flat [m*n]
+    per-sample fields (the flat `unpack` of mappo.py:658-684)."""
+    m, n = rows.shape[0], meta.n_agents
+
+    def lanes(off, width):
+        return rows[:, off : off + width]
+
+    return {
+        "obs_rows": rows[:, : meta.obs_cols].reshape(m * n, meta.obs_dim),
+        "action": lanes(meta.off_action, n * meta.action_dim).reshape(m * n, meta.action_dim),
+        "logp": lanes(meta.off_logp, n).reshape(m * n),
+        "value": lanes(meta.off_value, n).reshape(m * n),
+        "advantages": lanes(meta.off_adv, n).reshape(m * n),
+        "returns": lanes(meta.off_ret, n).reshape(m * n),
+    }
+
+
+def _huber(pred, target, delta):
+    """mean of optax.huber_loss."""
+    abs_err = torch.abs(pred - target)
+    quadratic = torch.minimum(abs_err, torch.full_like(abs_err, delta))
+    linear = abs_err - quadratic
+    return torch.mean(0.5 * quadratic ** 2 + delta * linear)
 
 
 class MAPPOPolicy:
@@ -182,12 +294,20 @@ class MAPPOPolicy:
                 self.tp_input_dim, 3 * self.cfg.future_prediction_step,
                 leaves=tp_leaves, generator=generator, device=self.device,
             )
-        return MAPPOState(
+        ts = MAPPOState(
             actor=EncoderHead(spec_a, actor_leaves).to(self.device),
             log_std=torch.as_tensor(log_std, dtype=torch.float32).to(self.device),
             critic=EncoderHead(spec_c, critic_leaves).to(self.device),
             tp_net=tp_net,
+            value_norm=ValueNorm1.create((1,), beta=self.cfg.value_norm_beta, device=self.device),
         )
+        ts.actor_opt = AdamState.zeros_like(ts.actor_params())
+        ts.critic_opt = AdamState.zeros_like(ts.critic_params())
+        if tp_net is not None:
+            ts.tp_opt = AdamState.zeros_like(list(tp_net.leaves()))
+        if self.cfg.entropy_target is not None:
+            ts.entropy_coef = torch.tensor(self.cfg.entropy_coef, device=self.device)
+        return ts
 
     @torch.no_grad()
     def value_op(self, ts: MAPPOState, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -217,3 +337,204 @@ class MAPPOPolicy:
         dist = Gaussian(mean=mean, log_std=ts.log_std.expand(mean.shape))
         action = dist.mode if deterministic else dist.sample(generator, noise)
         return action, dist.log_prob(action)[..., None], value.reshape(lead + (1,))
+
+    # ------------------------------------------------------------------ train
+    def _entropy_coef(self, ts: MAPPOState):
+        """The static cfg value, or the adaptive scalar of the state."""
+        return ts.entropy_coef if self.cfg.entropy_target is not None else self.cfg.entropy_coef
+
+    def _apply_log_std_floor(self, log_std: torch.Tensor) -> torch.Tensor:
+        if self.cfg.min_log_std is None:
+            return log_std
+        return torch.clamp(log_std, min=self.cfg.min_log_std)
+
+    @staticmethod
+    def _write(params, new, opt: AdamState, new_opt: AdamState, stop) -> None:
+        """Store a step's parameters and optimizer state; with a `stop` flag
+        (target_kl) the old values are kept where it is set, as
+        `jnp.where(stop, old, new)` does (mappo.py:755-757)."""
+        with torch.no_grad():
+            for dst, src in zip(params + opt.tensors(), new + new_opt.tensors()):
+                if stop is None:
+                    dst.copy_(src)
+                else:
+                    dst.copy_(torch.where(stop, dst, src))
+
+    def train_op(
+        self,
+        ts: MAPPOState,
+        traj: Dict[str, Any],
+        last_obs: Dict[str, torch.Tensor],
+        generator: Optional[torch.Generator] = None,
+        perms: Optional[torch.Tensor] = None,
+        mark: Optional[Callable[[str], None]] = None,
+    ) -> Tuple[MAPPOState, Dict[str, torch.Tensor]]:
+        """The update (mappo.py:593-806) on a rollout's trajectory: bootstrap
+        value, flat GAE + advantage normalisation + `ValueNorm1`, the TP
+        net's supervised step, then `ppo_epochs` x `num_minibatches` joint
+        actor+critic steps.  Minibatches are drawn from `perms`
+        ([ppo_epochs, T*E] permutations, e.g. the JAX package's) or from
+        `generator`.  Metrics stay device tensors (no host sync).  `mark`,
+        if given, is called with "prep", "tp" and "ppo" as each phase ends
+        (a timer may synchronise there)."""
+        cfg = self.cfg
+        t_len, e, n_ag = traj["reward"].shape[:3]
+        with torch.no_grad():
+            next_value = self.value_op(ts, last_obs)
+            values = ts.value_norm.denormalize(traj["value"].reshape(t_len, e * n_ag))
+            next_value = ts.value_norm.denormalize(next_value.reshape(e * n_ag))
+            reward = traj["reward"].reshape(t_len, e * n_ag)
+            done = traj["done"][:, :, None, 0].expand(t_len, e, n_ag).reshape(t_len, e * n_ag)
+            advantages, returns = compute_gae(reward, done, values, next_value,
+                                              cfg.gamma, cfg.gae_lambda)
+            adv_mean = torch.mean(advantages)
+            adv_std = torch.std(advantages, correction=0)
+            if cfg.normalize_advantages:
+                advantages = (advantages - adv_mean) / (adv_std + 1e-8)
+            ts.value_norm = ts.value_norm.update(returns[..., None])
+            returns = ts.value_norm.normalize(returns)
+            meta = compute_pack_meta(last_obs, self.n_agents, self.action_dim)
+            packed = pack_rows(meta, traj["obs"], traj["action"], traj["logp"],
+                               traj["value"], advantages, returns)
+        mark = mark or (lambda name: None)
+        mark("prep")
+        metrics: Dict[str, torch.Tensor] = {"advantages_mean": adv_mean,
+                                            "advantages_std": adv_std}
+        if ts.tp_net is not None and "tp_input" in traj:
+            metrics.update(self._update_tp(ts, traj))
+        mark("tp")
+
+        b = t_len * e
+        mb_size = b // cfg.num_minibatches
+        stop = (torch.zeros((), dtype=torch.bool, device=packed.device)
+                if cfg.target_kl is not None else None)
+        infos: Dict[str, List[torch.Tensor]] = {}
+        for epoch in range(cfg.ppo_epochs):
+            if perms is not None:
+                perm = perms[epoch].to(packed.device)
+            else:
+                perm = torch.randperm(b, generator=generator, device=packed.device)
+            mb_idx = perm[: mb_size * cfg.num_minibatches].reshape(cfg.num_minibatches, mb_size)
+            for idx in mb_idx:
+                mb = unpack_rows(meta, packed[idx])
+                info = self._update_joint_flat(ts, mb, stop)
+                if stop is not None:
+                    stop = torch.logical_or(stop, info["approx_kl"] > cfg.target_kl)
+                    info["kl_stop"] = stop.to(torch.float32)
+                for k, v in info.items():
+                    infos.setdefault(k, []).append(v)
+        with torch.no_grad():
+            metrics.update({k: torch.mean(torch.stack(v)) for k, v in infos.items()})
+            if cfg.entropy_target is not None:
+                err = cfg.entropy_target - metrics["entropy"]
+                err = torch.sign(err) * torch.clamp(torch.abs(err) - cfg.entropy_deadband, min=0.0)
+                err = torch.clamp(err, -cfg.entropy_err_clip, cfg.entropy_err_clip)
+                ts.entropy_coef = torch.clamp(
+                    ts.entropy_coef * torch.exp(cfg.entropy_adapt_speed * err),
+                    cfg.entropy_coef_min, cfg.entropy_coef_max)
+                metrics["entropy_coef"] = ts.entropy_coef
+            metrics["action_norm"] = torch.mean(torch.linalg.vector_norm(traj["action"], dim=-1))
+            metrics["value_running_mean"] = torch.mean(ts.value_norm.running_mean)
+        mark("ppo")
+        return ts, metrics
+
+    def _joint_grads(self, ts: MAPPOState, mb: Dict[str, torch.Tensor]):
+        """The joint loss of `_update_joint_flat` (mappo.py:974-1012) and its
+        gradients: the pair forward (one kernel launch), the PPO-clip +
+        clipped-Huber loss on flat [s] vectors in plain torch, and the pair
+        backward (one kernel launch, through the autograd Function).
+        Returns ([d actor.flat, d log_std], [d critic.flat], the loss terms)."""
+        cfg = self.cfg
+        act, logp_old, adv = mb["action"], mb["logp"], mb["advantages"]
+        b_values, b_returns = mb["value"], mb["returns"]
+        with torch.enable_grad():
+            mean, values = encoder_pair_forward(ts.actor.spec, ts.critic.spec, ts.actor.leaves,
+                                                ts.critic.leaves, mb["obs_rows"])
+            values = values[:, 0]
+            log_std = ts.log_std.detach().requires_grad_(True)
+            z = (act - mean) * torch.exp(-log_std)
+            logp_new = torch.sum(-0.5 * torch.square(z) - log_std - _LOG_SQRT_2PI, dim=-1)
+            entropy = torch.sum(log_std) + act.shape[-1] * 0.5 * (1.0 + math.log(2.0 * math.pi))
+            ratio = torch.exp(torch.clamp(logp_new - logp_old, -20.0, 20.0))
+            surr1 = ratio * adv
+            surr2 = torch.clamp(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param) * adv
+            policy_loss = -torch.mean(torch.minimum(surr1, surr2) * self.action_dim)
+            clipped = b_values + torch.clamp(values - b_values, -cfg.clip_param, cfg.clip_param)
+            value_loss = torch.maximum(_huber(values, b_returns, cfg.huber_delta),
+                                       _huber(clipped, b_returns, cfg.huber_delta))
+            total = policy_loss - entropy * self._entropy_coef(ts) + value_loss
+            ga_enc, ga_ls, gc = torch.autograd.grad(
+                total, [ts.actor.flat, log_std, ts.critic.flat])
+        terms = dict(policy_loss=policy_loss.detach(), entropy=entropy.detach(),
+                     value_loss=value_loss.detach(), ratio=ratio.detach(),
+                     values=values.detach())
+        return [ga_enc, ga_ls], [gc], terms
+
+    def _update_joint_flat(
+        self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None
+    ) -> Dict[str, torch.Tensor]:
+        """One minibatch (mappo.py:949-1045): `_joint_grads`, then clip +
+        Adam for the actor (log_std in its global norm) and the critic;
+        returns the info metrics."""
+        cfg = self.cfg
+        ga, gc, terms = self._joint_grads(ts, mb)
+        with torch.no_grad():
+            upd_a, opt_a = adam_updates(clip_by_global_norm(ga, cfg.max_grad_norm),
+                                        ts.actor_opt, cfg.actor_lr)
+            new_a = [p + u for p, u in zip(ts.actor_params(), upd_a)]
+            new_a[1] = self._apply_log_std_floor(new_a[1])
+            upd_c, opt_c = adam_updates(clip_by_global_norm(gc, cfg.max_grad_norm),
+                                        ts.critic_opt, cfg.critic_lr)
+            new_c = [p + u for p, u in zip(ts.critic_params(), upd_c)]
+            self._write(ts.actor_params(), new_a, ts.actor_opt, opt_a, stop)
+            self._write(ts.critic_params(), new_c, ts.critic_opt, opt_c, stop)
+            ratio, values, b_returns = terms["ratio"], terms["values"], mb["returns"]
+            explained_var = 1.0 - torch.mean(torch.square(values - b_returns)) / (
+                torch.var(b_returns, correction=0) + 1e-8)
+            return {
+                "policy_loss": terms["policy_loss"],
+                "actor_grad_norm": global_norm(ga),
+                "entropy": terms["entropy"],
+                "ESS": torch.square(torch.sum(ratio))
+                / (torch.sum(torch.square(ratio)) * ratio.shape[0]),
+                "value_loss": terms["value_loss"],
+                "critic_grad_norm": global_norm(gc),
+                "explained_var": explained_var,
+                "approx_kl": torch.mean(ratio - 1.0 - torch.log(ratio)),
+            }
+
+    def _update_tp(self, ts: MAPPOState, traj: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The TP net's supervised epochs (mappo.py:1197-1270): every window
+        of `future_prediction_step` future evader positions, masked where an
+        episode ends inside it or `tp_done` is unset; plain Adam, no clip.
+        The forward is the TP kernel and its backward the TP backward kernel
+        (autograd Function under `tp_forward`)."""
+        cfg = self.cfg
+        w = cfg.future_prediction_step
+        tp_gt, tp_input = traj["tp_gt"], traj["tp_input"]
+        t_len = tp_gt.shape[0]
+        n_windows = t_len - w
+        dev = tp_gt.device
+        idx = (torch.arange(n_windows, device=dev)[:, None]
+               + torch.arange(1, w + 1, device=dev)[None, :])
+        windows = tp_gt[idx].transpose(1, 2)                # [W, E, w, 3]
+        targets = windows.reshape(windows.shape[:2] + (w * 3,))
+        inputs = tp_input[:n_windows]                        # [W, E, H, F]
+        win_done = traj["done"][..., 0].to(torch.bool)[idx]  # [W, w, E]
+        valid = (~torch.any(win_done, dim=1)) & traj["tp_done"][:n_windows, :, 0].to(torch.bool)
+        valid = valid.to(torch.float32)[..., None]           # [W, E, 1]
+        flat_in = inputs.reshape((-1,) + tuple(inputs.shape[2:]))
+        net = ts.tp_net
+        losses = []
+        for _ in range(cfg.tp_epochs):
+            with torch.enable_grad():
+                pred = net(flat_in).reshape(targets.shape)
+                se = torch.square(pred - targets) * valid
+                loss = torch.sum(se) / (torch.sum(valid) * targets.shape[-1] + 1e-8)
+                grads = torch.autograd.grad(loss, list(net.leaves()))
+            with torch.no_grad():
+                upd, opt = adam_updates(grads, ts.tp_opt, cfg.tp_lr)
+                new = [p + u for p, u in zip(net.leaves(), upd)]
+                self._write(list(net.leaves()), new, ts.tp_opt, opt, None)
+            losses.append(loss.detach())
+        return {"TP_loss": torch.mean(torch.stack(losses))}

@@ -4,7 +4,7 @@
 Each step runs `policy.act` (actor + critic, one encoder kernel launch) and
 `env.step` (which runs the TP-LSTM kernel for the next observation).  The
 trajectory is returned time-major, as the JAX package's `rollout_prog`
-returns it; the PPO update that consumes it is not ported yet.
+returns it; `make_train_iter` feeds it to `MAPPOPolicy.train_op`.
 """
 from __future__ import annotations
 
@@ -106,3 +106,26 @@ def make_rollout(
         return new_carry, traj, ep_stats
 
     return rollout
+
+
+def make_train_iter(
+    env, policy: MAPPOPolicy, deterministic: bool = False
+) -> Callable[..., Tuple[IterCarry, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]]:
+    """Build `train_iter(carry, perms=None) -> (carry, metrics, ep_stats)`:
+    one rollout of `train_every` steps, then `policy.train_op` on it (the
+    counterpart of both `make_train_iter` and `make_split_train_iter` of
+    mupe_tpu/learning/rollout.py; PyTorch runs eagerly, so the two are one).
+    The carry's parameters are updated in place.  `perms` ([ppo_epochs,
+    T*E]) fixes the minibatch draws; otherwise they come from the carry's
+    generator.  `mark` is called with "rollout", then as `train_op` calls it."""
+    rollout = make_rollout(env, policy, deterministic=deterministic)
+
+    def train_iter(carry: IterCarry, perms: Optional[torch.Tensor] = None,
+                   mark: Optional[Callable[[str], None]] = None):
+        carry, traj, ep_stats = rollout(carry)
+        if mark is not None:
+            mark("rollout")
+        ts, metrics = policy.train_op(carry.ts, traj, carry.obs, carry.generator, perms, mark)
+        return dataclasses.replace(carry, ts=ts), metrics, ep_stats
+
+    return train_iter

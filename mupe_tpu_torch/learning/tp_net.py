@@ -3,7 +3,8 @@
 `TPNet` holds the canonical leaves of `extract_tp_leaves`
 (mupe_tpu/ops/tp_lstm.py:58-77): wi [F, 4H], wh [H, 4H], b [4H], wfc [H, O],
 bfc [O], gates in (i, f, g, o) order.  Its forward is `tp_forward`: the
-TP-LSTM kernel on the card, its plain version on the CPU.
+TP-LSTM kernel on the card, its plain version on the CPU; gradients reach
+the leaves through the TP-LSTM backward (kernel or plain version).
 """
 from __future__ import annotations
 

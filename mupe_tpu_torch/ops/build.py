@@ -19,7 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("fused_encoder.cu", "tp_lstm.cu")
+SOURCES = ("fused_encoder.cu", "fused_encoder_bwd.cu", "tp_lstm.cu", "tp_lstm_bwd.cu")
+HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,6 +37,14 @@ C_FUNCTIONS = {
     "mupe_tp_lstm_forward": (
         _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P,
     ),
+    "mupe_encoder_backward_blocks": (_I, _I, _I, _I, _I, _P),
+    "mupe_encoder_backward": (
+        _P, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P,
+    ),
+    "mupe_tp_lstm_backward_blocks": (_I, _I, _I, _P),
+    "mupe_tp_lstm_backward": (
+        _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P,
+    ),
 }
 
 
@@ -51,7 +60,7 @@ def nvcc_path() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

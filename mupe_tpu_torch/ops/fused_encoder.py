@@ -1,4 +1,5 @@
-"""Encoder + linear head forward for one network or an actor+critic pair.
+"""Encoder + linear head, forward and backward, for one network or an
+actor+critic pair.
 
 Counterpart of mupe_tpu/ops/fused_encoder.py.  The network is the
 PartialAttentionEncoder with a linear head, over a canonical tuple of
@@ -7,10 +8,14 @@ parameter leaves (`leaf_shapes`); its plain PyTorch version is
 the same bf16 rounding points.  `encoder_forward` and `encoder_pair_forward`
 run it on packed observation rows: on CPU tensors through `reference_apply`,
 on CUDA tensors through the hand-written kernel in `csrc/fused_encoder.cu`
-(one launch for one or both networks).
+(one launch for one or both networks).  Both are differentiable in the
+leaves: `encoder_backward` (`reference_backward`, the plain version of
+`_backward_core`, or the kernel in `csrc/fused_encoder_bwd.cu`) recomputes
+the forward and sums the parameter gradients over the rows.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 from typing import Dict, Sequence, Tuple
@@ -18,7 +23,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from . import build
-from .tolerance import KernelTol
+from .tolerance import GradTol, KernelTol
 
 _LN_EPS = 1e-6  # flax LayerNorm default
 _KERNEL_WIDTH = 128  # the kernel's embed and feed-forward width
@@ -28,6 +33,16 @@ _KERNEL_MAX_OBS = 128
 _KERNEL_MAX_HEAD = 8
 # Kernel vs `reference_apply` (see tolerance.py).
 KERNEL_TOL = KernelTol(max_rel=5e-3, mean_rel=1e-4)
+# Backward kernel vs `reference_backward`, per gradient leaf, for sums over
+# the main path's tens of thousands of rows; the key bias gradient (15th leaf
+# from the end) is analytically zero (see tolerance.py).  On an H100 at
+# S = 49,152 the kernel's mean error reached 8.4e-4 of a leaf's mean, the f32
+# control's stayed above 2.3e-3, except on the leaves of BWD_CONTROL_BLIND,
+# which the control passes (and which keep the max check): the key bias
+# (noise), the second FFN bias and LN2's bias (1.4e-3 to 1.5e-3: their
+# gradients meet one rounding point) and the head bias (no rounding point).
+BWD_KERNEL_TOL = GradTol(max_rel=1e-2, mean_rel=1.5e-3, noise_floor=1e-4, noise_leaves=(-15,))
+BWD_CONTROL_BLIND = (-15, -5, -3, -1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,17 +105,75 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _ln_f32(x, scale, bias):
+def _gelu_tanh(x):
+    c = math.sqrt(2.0 / math.pi)
+    return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x * x * x)))
+
+
+def _ln_parts(x, scale, bias):
+    """LayerNorm → (out, n, inv) as `_ln_f32` of the JAX package returns them."""
     x = x.to(torch.float32)
     m = x.mean(-1, keepdim=True)
     var = (x * x).mean(-1, keepdim=True) - m * m
     inv = torch.rsqrt(var + _LN_EPS)
-    return (x - m) * inv * scale + bias
+    n = (x - m) * inv
+    return n * scale + bias, n, inv
 
 
-def _gelu_tanh(x):
+def _dgelu_tanh(x):
     c = math.sqrt(2.0 / math.pi)
-    return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x * x * x)))
+    t = torch.tanh(c * (x + 0.044715 * x * x * x))
+    dinner = c * (1.0 + 3.0 * 0.044715 * x * x)
+    return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * dinner
+
+
+def _unpack_leaves(spec: EncoderSpec, leaves):
+    it = iter(leaves)
+    gw = [(next(it), next(it)) for _ in spec.groups]
+    rest = [next(it) for _ in range(20)]
+    return gw, rest
+
+
+def _forward_res(spec: EncoderSpec, leaves, x, rnd):
+    """`_forward_core` (fused_encoder.py:278-364): output and the residuals
+    its backward reads, at the same rounding points."""
+
+    def mm(a, b):  # bf16 operands, f32 products and sums (`_mm` of the JAX package)
+        return rnd(a) @ rnd(b)
+
+    gw, (g0, b0, wq, bq, wk, bk, wv, bv, wo, bo, g1, b1, w1, bf1, w2, bf2,
+         g2, b2, wh, bh) = _unpack_leaves(spec, leaves)
+    es, xs = [], []
+    off = 0
+    for (k, d), (wg, bg) in zip(spec.groups, gw):
+        for _ in range(k):
+            xt = x[:, off : off + d]
+            es.append(rnd(mm(xt, wg) + bg))
+            xs.append(xt)
+            off += d
+    e_all = torch.stack(es)                        # [n_tok, S, E] bf16 values
+    h_f32, n0_all, inv0_all = _ln_parts(e_all, g0, b0)
+    h_all = rnd(h_f32)
+    h0 = h_f32[0]
+    q = mm(h0, wq) + bq                            # [S, E] f32
+    ks_all = rnd(mm(h_all, wk) + bk)
+    vs_all = rnd(mm(h_all, wv) + bv)
+    scale = 1.0 / math.sqrt(spec.embed_dim)
+    s = (q[None] * ks_all).sum(-1) * scale         # [n_tok, S]
+    e = torch.exp(s - s.max(0, keepdim=True).values)
+    a = e * (1.0 / e.sum(0, keepdim=True))
+    att = (a[..., None] * vs_all).sum(0)           # [S, E]
+    r1 = h0 + (mm(att, wo) + bo)
+    y1, n1, inv1 = _ln_parts(r1, g1, b1)
+    pre1 = mm(y1, w1) + bf1
+    f = _gelu_tanh(pre1)
+    r2 = y1 + (mm(f, w2) + bf2)
+    y2, n2, inv2 = _ln_parts(r2, g2, b2)
+    out = mm(y2, wh) + bh
+    res = dict(xs=xs, h_all=h_all, n0_all=rnd(n0_all), inv0_all=inv0_all, q=q,
+               ks_all=ks_all, vs_all=vs_all, a=a, att=att, n1=n1, inv1=inv1,
+               y1=y1, pre1=pre1, f=f, n2=n2, inv2=inv2, y2=y2)
+    return out, res
 
 
 def reference_apply(
@@ -116,44 +189,96 @@ def reference_apply(
     TPU's row-stacked layout; the arithmetic and its rounding are those of
     `_forward_core`.  bf16=False skips every rounding point: the control
     that `KERNEL_TOL` must reject."""
+    return _forward_res(spec, leaves, x, _bf16 if bf16 else _f32)[0]
+
+
+def _ln_bwd(dy, n, inv, scale):
+    dscale = (dy * n).sum(-2)
+    dbias = dy.sum(-2)
+    dn = dy * scale
+    dx = inv * (dn - dn.mean(-1, keepdim=True) - n * (dn * n).mean(-1, keepdim=True))
+    return dx, dscale, dbias
+
+
+def reference_backward(
+    spec: EncoderSpec,
+    leaves: Sequence[torch.Tensor],
+    x: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    bf16: bool = True,
+) -> Tuple[torch.Tensor, ...]:
+    """Gradients of sum(out · dout) for every leaf, summed over the rows, in
+    plain PyTorch: `_forward_core` recomputed, then `_backward_core`
+    (fused_encoder.py:377-463) at its rounding points (both operands of
+    every `_mm_tn` / `_mm_nt` in bf16, dout included; dk and dv blocks in
+    bf16; n0 in bf16; LayerNorm backward and the column sums in f32).
+    Returns the gradients in the canonical leaf order.  bf16=False skips
+    every rounding point: the control that `BWD_KERNEL_TOL` must reject."""
     rnd = _bf16 if bf16 else _f32
 
-    def mm(a, b):  # bf16 operands, f32 products and sums (`_mm` of the JAX package)
-        return rnd(a) @ rnd(b)
+    def mm_tn(a, b):  # aᵀ b over the rows (and tokens)
+        return rnd(a).reshape(-1, a.shape[-1]).T @ rnd(b).reshape(-1, b.shape[-1])
 
-    it = iter(leaves)
-    gw = [(next(it), next(it)) for _ in spec.groups]
-    g0, b0 = next(it), next(it)
-    wq, bq, wk, bk, wv, bv, wo, bo = (next(it) for _ in range(8))
-    g1, b1 = next(it), next(it)
-    w1, bf1, w2, bf2 = (next(it) for _ in range(4))
-    g2, b2 = next(it), next(it)
-    wh, bh = next(it), next(it)
+    def mm_nt(a, w):  # a wᵀ
+        return rnd(a) @ rnd(w).T
 
-    es = []
-    off = 0
-    for (k, d), (wg, bg) in zip(spec.groups, gw):
-        for _ in range(k):
-            es.append(rnd(mm(x[:, off : off + d], wg) + bg))
-            off += d
-    e_all = torch.stack(es)                        # [n_tok, S, E] bf16 values
-    h_f32 = _ln_f32(e_all, g0, b0)
-    h_all = rnd(h_f32)
-    h0 = h_f32[0]
-    q = mm(h0, wq) + bq                            # [S, E] f32
-    ks_all = rnd(mm(h_all, wk) + bk)
-    vs_all = rnd(mm(h_all, wv) + bv)
+    _, res = _forward_res(spec, leaves, x, rnd)
+    gw, (g0, b0, wq, bq, wk, bk, wv, bv, wo, bo, g1, b1, w1, bf1, w2, bf2,
+         g2, b2, wh, bh) = _unpack_leaves(spec, leaves)
     scale = 1.0 / math.sqrt(spec.embed_dim)
-    s = (q[None] * ks_all).sum(-1) * scale         # [n_tok, S]
-    e = torch.exp(s - s.max(0, keepdim=True).values)
-    a = e * (1.0 / e.sum(0, keepdim=True))
-    att = (a[..., None] * vs_all).sum(0)           # [S, E]
-    r1 = h0 + (mm(att, wo) + bo)
-    y1 = _ln_f32(r1, g1, b1)
-    f = _gelu_tanh(mm(y1, w1) + bf1)
-    r2 = y1 + (mm(f, w2) + bf2)
-    y2 = _ln_f32(r2, g2, b2)
-    return mm(y2, wh) + bh
+    dout = dout.to(x.dtype)
+
+    dwh = mm_tn(res["y2"], dout)
+    dbh = dout.sum(0)
+    dy2 = mm_nt(dout, wh)
+    dr2, dg2ln, db2ln = _ln_bwd(dy2, res["n2"], res["inv2"], g2)
+    dw2 = mm_tn(res["f"], dr2)
+    dbf2 = dr2.sum(0)
+    dpre1 = mm_nt(dr2, w2) * _dgelu_tanh(res["pre1"])
+    dw1 = mm_tn(res["y1"], dpre1)
+    dbf1 = dpre1.sum(0)
+    dy1 = dr2 + mm_nt(dpre1, w1)
+    dr1, dg1ln, db1ln = _ln_bwd(dy1, res["n1"], res["inv1"], g1)
+    dwo = mm_tn(res["att"], dr1)
+    dbo = dr1.sum(0)
+    datt = mm_nt(dr1, wo)
+    a, q = res["a"], res["q"]                      # [n_tok, S], [S, E]
+    das = (datt[None] * res["vs_all"]).sum(-1)     # [n_tok, S]
+    wsum = a[0] * das[0]
+    for t in range(1, spec.n_tokens):
+        wsum = wsum + a[t] * das[t]
+    dss = a * (das - wsum)
+    dq = dss[0, :, None] * res["ks_all"][0]
+    for t in range(1, spec.n_tokens):
+        dq = dq + dss[t, :, None] * res["ks_all"][t]
+    dq = dq * scale
+    dks = rnd(dss[..., None] * q * scale)          # [n_tok, S, E]
+    dvs = rnd(a[..., None] * datt)
+    h_all = res["h_all"]
+    dwq = mm_tn(h_all[0], dq)
+    dbq = dq.sum(0)
+    dwk = mm_tn(h_all, dks)
+    dbk = dks.sum((0, 1))
+    dwv = mm_tn(h_all, dvs)
+    dbv = dvs.sum((0, 1))
+    dh_all = mm_nt(dks, wk) + mm_nt(dvs, wv)
+    dh0 = dh_all[0] + dr1 + mm_nt(dq, wq)
+    dh_all = torch.cat([dh0[None], dh_all[1:]])
+    de_all, dg0, db0 = _ln_bwd(dh_all, res["n0_all"], res["inv0_all"], g0)
+    dg0, db0 = dg0.sum(0), db0.sum(0)
+    dgw = []
+    t = 0
+    for (k, _), (wg, bg) in zip(spec.groups, gw):
+        dwg = torch.zeros_like(wg)
+        dbg = torch.zeros_like(bg)
+        for _ in range(k):
+            dwg = dwg + mm_tn(res["xs"][t], de_all[t])
+            dbg = dbg + de_all[t].sum(0)
+            t += 1
+        dgw += [dwg, dbg]
+    return tuple(dgw + [dg0, db0, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo,
+                        dg1ln, db1ln, dw1, dbf1, dw2, dbf2, dg2ln, db2ln, dwh, dbh])
 
 
 # ---------------------------------------------------------------- kernel
@@ -220,14 +345,118 @@ def _launch(x: torch.Tensor, nets) -> Tuple[torch.Tensor, ...]:
     return tuple(outs)
 
 
+def _forward(nets, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    if x.device.type == "cpu":
+        return tuple(reference_apply(spec, leaves, x) for spec, leaves in nets)
+    outs = _launch(x, nets)
+    (encoder_forward if len(nets) == 1 else encoder_pair_forward).launches += 1
+    return outs
+
+
+def n_params(spec: EncoderSpec) -> int:
+    return sum(math.prod(s) for s in leaf_shapes(spec))
+
+
+def split_flat(spec: EncoderSpec, flat: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """A flat [n_params] vector → views shaped as the canonical leaves."""
+    shapes = leaf_shapes(spec)
+    parts = torch.split(flat, [math.prod(s) for s in shapes])
+    return tuple(p.view(s) for p, s in zip(parts, shapes))
+
+
+def _launch_bwd(x: torch.Tensor, nets, douts) -> Tuple[torch.Tensor, ...]:
+    """One backward launch (+ its fixed-order reduction) for every network of
+    `nets`; returns one flat gradient vector per network."""
+    _check_kernel_args(x, nets)
+    s = x.shape[0]
+    for (spec, _), d in zip(nets, douts):
+        if (d.device != x.device or d.dtype != torch.float32 or not d.is_contiguous()
+                or tuple(d.shape) != (s, spec.head_dim)):
+            raise ValueError(
+                f"dout must be contiguous float32 [{s}, {spec.head_dim}] on {x.device}, "
+                f"got {d.dtype} {tuple(d.shape)} on {d.device}")
+    spec0 = nets[0][0]
+    sizes = [n_params(spec) for spec, _ in nets]
+    # the transposes of wq, wk, wv, wo, w1, w2, for the kernel's `_mm_nt` products
+    base = 2 * len(spec0.groups)
+    wts = [leaves[base + i].t().contiguous() for _, leaves in nets for i in (2, 4, 6, 8, 12, 14)]
+    grads = [torch.empty(p, device=x.device, dtype=torch.float32) for p in sizes]
+    lib = build.library()
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(x.device):
+        build.check(lib.mupe_encoder_backward_blocks(
+            len(spec0.groups), spec0.n_tokens, spec0.obs_dim, len(nets), s,
+            ctypes.byref(blocks)), "mupe_encoder_backward_blocks")
+        ws = torch.empty(blocks.value * sum(sizes), device=x.device, dtype=torch.float32)
+        err = lib.mupe_encoder_backward(
+            x.data_ptr(), s, spec0.obs_dim, len(spec0.groups),
+            build.int_array([k for k, _ in spec0.groups]),
+            build.int_array([d for _, d in spec0.groups]),
+            len(nets),
+            build.ptr_array([leaf.data_ptr() for _, leaves in nets for leaf in leaves]),
+            spec0.n_leaves,
+            build.ptr_array([d.data_ptr() for d in douts]),
+            build.int_array([spec.head_dim for spec, _ in nets]),
+            build.ptr_array([w.data_ptr() for w in wts]),
+            build.ptr_array([g.data_ptr() for g in grads]),
+            build.int_array(sizes), ws.data_ptr(), blocks.value,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    build.check(err, "mupe_encoder_backward")
+    return tuple(grads)
+
+
+def encoder_backward(nets, x: torch.Tensor, douts) -> Tuple[Tuple[torch.Tensor, ...], ...]:
+    """Parameter gradients of sum_n (out_n · dout_n), summed over the rows,
+    for one network or two (`nets` = [(spec, leaves), ...], `douts` one
+    [S, head_dim] cotangent each).  Returns per network the gradients in
+    the canonical leaf order, views of one flat vector.  On CPU tensors
+    `reference_backward`; on CUDA tensors one launch of the kernel in
+    `csrc/fused_encoder_bwd.cu` for all the networks."""
+    if x.device.type == "cpu":
+        return tuple(reference_backward(spec, leaves, x, d)
+                     for (spec, leaves), d in zip(nets, douts))
+    flats = _launch_bwd(x, nets, [d.contiguous() for d in douts])
+    encoder_backward.launches += 1
+    return tuple(split_flat(spec, g) for (spec, _), g in zip(nets, flats))
+
+
+encoder_backward.launches = 0
+
+
+def _nets(specs, leaves):
+    """[(spec, that network's leaves), ...] from the concatenated leaves."""
+    nets, off = [], 0
+    for spec in specs:
+        nets.append((spec, leaves[off : off + spec.n_leaves]))
+        off += spec.n_leaves
+    return nets
+
+
+class _EncoderFn(torch.autograd.Function):
+    """Forward of one or two networks; the backward recomputes the forward
+    from x and the leaves (it saves no activations, as the TPU kernel does)
+    and returns no gradient for x (observations are data)."""
+
+    @staticmethod
+    def forward(ctx, specs, x, *leaves):
+        ctx.specs = specs
+        ctx.save_for_backward(x, *leaves)
+        return _forward(_nets(specs, leaves), x)
+
+    @staticmethod
+    def backward(ctx, *douts):
+        x, *leaves = ctx.saved_tensors
+        grads = encoder_backward(_nets(ctx.specs, leaves), x, douts)
+        return (None, None) + tuple(g for net in grads for g in net)
+
+
 def encoder_forward(
     spec: EncoderSpec, leaves: Sequence[torch.Tensor], x: torch.Tensor
 ) -> torch.Tensor:
-    """[S, obs_dim] → [S, head_dim] for one network."""
-    if x.device.type == "cpu":
-        return reference_apply(spec, leaves, x)
-    (out,) = _launch(x, [(spec, leaves)])
-    encoder_forward.launches += 1
+    """[S, obs_dim] → [S, head_dim] for one network; differentiable in the
+    leaves."""
+    (out,) = _EncoderFn.apply((spec,), x, *leaves)
     return out
 
 
@@ -241,15 +470,9 @@ def encoder_pair_forward(
     leaves_b: Sequence[torch.Tensor],
     x: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Two networks over the same rows (actor mean, critic value)."""
-    if x.device.type == "cpu":
-        return (
-            reference_apply(spec_a, leaves_a, x),
-            reference_apply(spec_b, leaves_b, x),
-        )
-    out_a, out_b = _launch(x, [(spec_a, leaves_a), (spec_b, leaves_b)])
-    encoder_pair_forward.launches += 1
-    return out_a, out_b
+    """Two networks over the same rows (actor mean, critic value), one
+    kernel launch in each direction; differentiable in both leaf sets."""
+    return _EncoderFn.apply((spec_a, spec_b), x, *leaves_a, *leaves_b)
 
 
 encoder_pair_forward.launches = 0

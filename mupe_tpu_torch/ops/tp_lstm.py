@@ -1,4 +1,4 @@
-"""TP-net LSTM + head forward.
+"""TP-net LSTM + head, forward and backward.
 
 Counterpart of mupe_tpu/ops/tp_lstm.py.  Over canonical leaves
 (wi [F, 4H], wh [H, 4H], b [4H], wfc [H, O], bfc [O], gates in (i, f, g, o)
@@ -6,25 +6,39 @@ order, as `extract_tp_leaves` gives them), `tp_forward` maps history windows
 [..., T, F] to tanh predictions [..., O]: on CPU tensors through
 `reference_forward`, the plain version of `_fwd_steps_t` + `_head_t`
 (tp_lstm.py:377-419); on CUDA tensors through the hand-written kernel in
-`csrc/tp_lstm.cu`.
+`csrc/tp_lstm.cu`.  It is differentiable in the leaves: `tp_backward`
+(`reference_backward`, or the kernel in `csrc/tp_lstm_bwd.cu`) recomputes
+the forward and runs the BPTT of `_tp_bwd_kernel_t`.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import Sequence
+import math
+from typing import Sequence, Tuple
 
 import torch
 
 from . import build
 from .fused_encoder import _bf16, _f32
-from .tolerance import KernelTol
+from .tolerance import GradTol, KernelTol
 
 _KERNEL_HIDDEN = 64
 _KERNEL_MAX_F = 64
 _KERNEL_MAX_T = 32
 _KERNEL_MAX_O = 64
+_BWD_MAX_F = 16
+_BWD_MAX_T = 16
+_BWD_MAX_O = 16
 # Kernel vs `reference_forward` (see tolerance.py).
 KERNEL_TOL = KernelTol(max_rel=5e-3, mean_rel=1e-4)
+# Backward kernel vs `reference_backward`, per gradient leaf.  On an H100 at
+# N = 241,664 the kernel's mean error reached 5.3e-5 of a leaf's mean, the f32
+# control's stayed above 3.2e-3, except on the output bias (2.7e-4: its
+# gradient meets no rounding point but y), which the control passes and
+# which keeps the max check (BWD_CONTROL_BLIND).
+BWD_KERNEL_TOL = GradTol(max_rel=1e-2, mean_rel=3e-4)
+BWD_CONTROL_BLIND = (-1,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +65,7 @@ def reference_forward(
     rnd = _bf16 if bf16 else _f32
     wi, wh, b, wfc, bfc = leaves
     n, hd = x.shape[0], spec.hidden
-    h = torch.zeros((n, hd), dtype=torch.float32, device=x.device)
+    h = torch.zeros((n, hd), dtype=x.dtype, device=x.device)
     c = torch.zeros_like(h)
     wi_b, wh_b = rnd(wi), rnd(wh)
     for t in range(spec.t_steps):
@@ -118,17 +132,143 @@ def _launch(spec: TPLSTMSpec, leaves, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def reference_backward(
+    spec: TPLSTMSpec,
+    leaves: Sequence[torch.Tensor],
+    x: torch.Tensor,
+    dy: torch.Tensor,
+    *,
+    bf16: bool = True,
+) -> Tuple[torch.Tensor, ...]:
+    """Gradients of sum(y · dy) for (wi, wh, b, wfc, bfc), summed over the
+    windows: `_tp_bwd_kernel_t`'s recompute + BPTT (tp_lstm.py:428-505) in
+    the [N, T, F] layout.  dz and every step's gate gradient are rounded to
+    bf16 before they meet a matmul; db and dbfc are f32 sums of the
+    unrounded values.  bf16=False skips the rounding: the control that
+    `BWD_KERNEL_TOL` must reject."""
+    rnd = _bf16 if bf16 else _f32
+    wi, wh, b, wfc, bfc = leaves
+    n, hd = x.shape[0], spec.hidden
+    h = torch.zeros((n, hd), dtype=x.dtype, device=x.device)
+    c = torch.zeros_like(h)
+    wi_b, wh_b = rnd(wi), rnd(wh)
+    acts, cs, hs = [], [c], [h]
+    for t in range(spec.t_steps):
+        g = (rnd(x[:, t]) @ wi_b + rnd(h) @ wh_b) + b
+        gi = torch.sigmoid(g[:, :hd])
+        gf = torch.sigmoid(g[:, hd : 2 * hd])
+        gg = torch.tanh(g[:, 2 * hd : 3 * hd])
+        go = torch.sigmoid(g[:, 3 * hd :])
+        c = gf * c + gi * gg
+        h = go * torch.tanh(c)
+        acts.append((gi, gf, gg, go))
+        cs.append(c)
+        hs.append(h)
+    y = torch.tanh(rnd(h) @ rnd(wfc) + bfc)
+    dz = dy.to(x.dtype) * (1.0 - y * y)
+    dzb = rnd(dz)
+    dwfc = rnd(h).T @ dzb
+    dbfc = dz.sum(0)
+    dh = dzb @ rnd(wfc).T
+    dc = torch.zeros_like(dh)
+    dwi, dwh, db = torch.zeros_like(wi), torch.zeros_like(wh), torch.zeros_like(b)
+    for t in reversed(range(spec.t_steps)):
+        gi, gf, gg, go = acts[t]
+        tc = torch.tanh(cs[t + 1])
+        do = dh * tc
+        dc = dc + dh * go * (1.0 - tc * tc)
+        di = dc * gg
+        dgg = dc * gi
+        df = dc * cs[t]
+        dc = dc * gf
+        dg = torch.cat([di * gi * (1.0 - gi), df * gf * (1.0 - gf),
+                        dgg * (1.0 - gg * gg), do * go * (1.0 - go)], dim=1)
+        db = db + dg.sum(0)
+        dgb = rnd(dg)
+        dwh = dwh + rnd(hs[t]).T @ dgb
+        dwi = dwi + rnd(x[:, t]).T @ dgb
+        dh = dgb @ wh_b.T
+    return dwi, dwh, db, dwfc, dbfc
+
+
+def _launch_bwd(spec: TPLSTMSpec, leaves, x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    _check_kernel_args(spec, leaves, x)
+    if spec.input_dim > _BWD_MAX_F or spec.t_steps > _BWD_MAX_T or spec.out_dim > _BWD_MAX_O:
+        raise ValueError(f"spec exceeds the backward kernel's limits: {spec}")
+    n = x.shape[0]
+    if (dy.device != x.device or dy.dtype != torch.float32 or not dy.is_contiguous()
+            or tuple(dy.shape) != (n, spec.out_dim)):
+        raise ValueError(f"dy must be contiguous float32 [{n}, {spec.out_dim}] on {x.device}, "
+                         f"got {dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    size = sum(math.prod(s) for s in spec.leaf_shapes())
+    grad = torch.empty(size, device=x.device, dtype=torch.float32)
+    wi, wh, b, wfc, bfc = leaves
+    lib = build.library()
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(x.device):
+        build.check(lib.mupe_tp_lstm_backward_blocks(
+            n, spec.t_steps, spec.input_dim, ctypes.byref(blocks)),
+                    "mupe_tp_lstm_backward_blocks")
+        ws = torch.empty(blocks.value * size, device=x.device, dtype=torch.float32)
+        err = lib.mupe_tp_lstm_backward(
+            x.data_ptr(), dy.data_ptr(), n, spec.t_steps, spec.input_dim,
+            wi.data_ptr(), wh.data_ptr(), b.data_ptr(), wfc.data_ptr(), bfc.data_ptr(),
+            spec.out_dim, grad.data_ptr(), ws.data_ptr(), blocks.value,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    build.check(err, "mupe_tp_lstm_backward")
+    return grad
+
+
+def tp_backward(
+    spec: TPLSTMSpec, leaves: Sequence[torch.Tensor], x: torch.Tensor, dy: torch.Tensor
+) -> Tuple[torch.Tensor, ...]:
+    """Gradients of sum(y · dy) for (wi, wh, b, wfc, bfc) over windows
+    x [N, T, F] and cotangents dy [N, O]: on CPU tensors
+    `reference_backward`, on CUDA tensors the kernel in `csrc/tp_lstm_bwd.cu`
+    (views of one flat gradient vector)."""
+    if x.device.type == "cpu":
+        return reference_backward(spec, leaves, x, dy)
+    flat = _launch_bwd(spec, leaves, x.contiguous(), dy.contiguous())
+    tp_backward.launches += 1
+    shapes = spec.leaf_shapes()
+    parts = torch.split(flat, [math.prod(s) for s in shapes])
+    return tuple(p.view(s) for p, s in zip(parts, shapes))
+
+
+tp_backward.launches = 0
+
+
+class _TPFn(torch.autograd.Function):
+    """TP forward; the backward recomputes it from x and the leaves and
+    returns no gradient for x (windows are data)."""
+
+    @staticmethod
+    def forward(ctx, spec, x, *leaves):
+        ctx.spec = spec
+        ctx.save_for_backward(x, *leaves)
+        if x.device.type == "cpu":
+            return reference_forward(spec, leaves, x)
+        y = _launch(spec, leaves, x)
+        tp_forward.launches += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *leaves = ctx.saved_tensors
+        return (None, None) + tuple(tp_backward(ctx.spec, leaves, x, dy))
+
+
 def tp_forward(
     spec: TPLSTMSpec, leaves: Sequence[torch.Tensor], x: torch.Tensor
 ) -> torch.Tensor:
-    """Windows [..., T, F] → tanh predictions [..., O]."""
+    """Windows [..., T, F] → tanh predictions [..., O]; differentiable in
+    the leaves."""
     batch_shape = tuple(x.shape[:-2])
     xf = x.reshape((-1,) + tuple(x.shape[-2:]))
-    if x.device.type == "cpu":
-        y = reference_forward(spec, leaves, xf)
-    else:
-        y = _launch(spec, leaves, xf.contiguous())
-        tp_forward.launches += 1
+    if xf.device.type != "cpu":
+        xf = xf.contiguous()
+    y = _TPFn.apply(spec, xf, *leaves)
     return y.reshape(batch_shape + (spec.out_dim,))
 
 

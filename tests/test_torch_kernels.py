@@ -14,6 +14,7 @@ scale and the mean error at 1e-4 of the mean magnitude
 the stand-in for a kernel that misses a rounding point, must fail it.
 """
 import ast
+import dataclasses
 import math
 from pathlib import Path
 
@@ -55,18 +56,46 @@ def _tp_case(n, device="cpu"):
     return spec, _leaves(spec.leaf_shapes(), g, device), torch.randn((n, 10, 16), generator=g).to(device)
 
 
+def _launch_counts():
+    return (fe.encoder_forward.launches, fe.encoder_pair_forward.launches,
+            tl.tp_forward.launches, fe.encoder_backward.launches, tl.tp_backward.launches)
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     spec_a, spec_c, la, lc, x = _encoder_case(17)
-    before = (fe.encoder_forward.launches, fe.encoder_pair_forward.launches,
-              tl.tp_forward.launches)
+    before = _launch_counts()
     a, c = fe.encoder_pair_forward(spec_a, spec_c, la, lc, x)
     assert torch.equal(a, fe.reference_apply(spec_a, la, x))
     assert torch.equal(c, fe.reference_apply(spec_c, lc, x))
     assert torch.equal(fe.encoder_forward(spec_c, lc, x), c)
     spec, lt, xt = _tp_case(9)
     assert torch.equal(tl.tp_forward(spec, lt, xt), tl.reference_forward(spec, lt, xt))
-    assert (fe.encoder_forward.launches, fe.encoder_pair_forward.launches,
-            tl.tp_forward.launches) == before
+    assert _launch_counts() == before
+
+
+def test_cpu_tensors_take_the_plain_backward_and_count_no_launch():
+    """The backward wrappers and the autograd Functions under the forward
+    wrappers run `reference_backward` for CPU tensors."""
+    spec_a, spec_c, la, lc, x = _encoder_case(19)
+    before = _launch_counts()
+    g = torch.Generator().manual_seed(3)
+    da, dc = torch.randn((19, 4), generator=g), torch.randn((19, 1), generator=g)
+    la = [l.requires_grad_() for l in la]
+    lc = [l.requires_grad_() for l in lc]
+    a, c = fe.encoder_pair_forward(spec_a, spec_c, la, lc, x)
+    grads = torch.autograd.grad((a * da).sum() + (c * dc).sum(), la + lc)
+    want = (fe.reference_backward(spec_a, [l.detach() for l in la], x, da)
+            + fe.reference_backward(spec_c, [l.detach() for l in lc], x, dc))
+    assert all(torch.equal(u, v) for u, v in zip(grads, want))
+    (ga,) = fe.encoder_backward([(spec_c, [l.detach() for l in lc])], x, [dc])
+    assert all(torch.equal(u, v) for u, v in zip(ga, want[len(la):]))
+    spec, lt, xt = _tp_case(11)
+    lt = [l.requires_grad_() for l in lt]
+    dy = torch.randn((11, 15), generator=g)
+    grads = torch.autograd.grad((tl.tp_forward(spec, lt, xt) * dy).sum(), lt)
+    want = tl.reference_backward(spec, [l.detach() for l in lt], xt, dy)
+    assert all(torch.equal(u, v) for u, v in zip(grads, want))
+    assert _launch_counts() == before
 
 
 def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
@@ -80,6 +109,11 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
     spec, lt, xt = _tp_case(3)
     with pytest.raises(ValueError, match="CUDA"):
         tl.tp_forward(spec, lt, xt.to("meta"))
+    dout = torch.zeros((5, 1), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fe.encoder_backward([(spec_c, lc)], x.to("meta"), [dout])
+    with pytest.raises(ValueError, match="CUDA"):
+        tl.tp_backward(spec, lt, xt.to("meta"), torch.zeros((3, 15), device="meta"))
 
 
 def test_c_sources_and_build_helper_exist():
@@ -174,6 +208,72 @@ def test_tp_kernel_matches_plain_version(cuda, n):
     y = tl.tp_forward(spec, lt, xt)
     torch.cuda.synchronize()
     _close_scaled(y, tl.reference_forward(spec, lt, xt), tl.KERNEL_TOL)
+
+
+def _bwd_close(outs, refs, tol):
+    errs = tol.errors(outs, refs)
+    assert tol.holds(errs), [(i, errs[i]) for i in tol.failing(errs)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nets", [1, 2])
+@pytest.mark.parametrize("s", [1, 7, 8, 49152, 49153])
+def test_encoder_backward_kernel_matches_plain_version(cuda, s, nets):
+    """Gradients within `BWD_KERNEL_TOL` of `reference_backward`, one or two
+    networks a launch; a second launch gives the same bits; with dout = 1
+    the critic's head-bias gradient is exactly S (every row counted).
+    Below 300 rows the mean limit is 5e-3: a sum over a handful of rows
+    averages no rounding flip away (one flip moved a leaf's mean error to
+    1.2e-3 at S = 8 on an H100)."""
+    spec_a, spec_c, la, lc, x = _encoder_case(s, cuda)
+    g = torch.Generator().manual_seed(s + 1)
+    da = torch.randn((s, 4), generator=g).to(cuda)
+    ones = torch.ones((s, 1), device=cuda)
+    case = [(spec_a, la), (spec_c, lc)][2 - nets:]
+    douts = [da, ones][2 - nets:]
+    n = fe.encoder_backward.launches
+    grads = fe.encoder_backward(case, x, douts)
+    again = fe.encoder_backward(case, x, douts)
+    torch.cuda.synchronize()
+    assert fe.encoder_backward.launches == n + 2
+    tol = fe.BWD_KERNEL_TOL if s >= 300 else dataclasses.replace(fe.BWD_KERNEL_TOL, mean_rel=5e-3)
+    for (spec, leaves), d, gk, g2 in zip(case, douts, grads, again):
+        _bwd_close(gk, fe.reference_backward(spec, leaves, x, d), tol)
+        assert all(torch.equal(u, v) for u, v in zip(gk, g2))
+    assert grads[-1][-1].item() == float(s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 15, 241664, 241665])
+def test_tp_backward_kernel_matches_plain_version(cuda, n):
+    spec, lt, xt = _tp_case(n, cuda)
+    dy = torch.randn((n, 15), generator=torch.Generator().manual_seed(n + 1)).to(cuda)
+    grads = tl.tp_backward(spec, lt, xt, dy)
+    again = tl.tp_backward(spec, lt, xt, dy)
+    torch.cuda.synchronize()
+    _bwd_close(grads, tl.reference_backward(spec, lt, xt, dy), tl.BWD_KERNEL_TOL)
+    assert all(torch.equal(u, v) for u, v in zip(grads, again))
+
+
+@pytest.mark.gpu
+def test_backward_wrappers_reject_bad_inputs(cuda):
+    spec_a, spec_c, la, lc, x = _encoder_case(8, cuda)
+    d = torch.ones((8, 1), device=cuda)
+    with pytest.raises(ValueError):
+        fe.encoder_backward([(spec_c, lc)], x, [d.double()])
+    with pytest.raises(ValueError):
+        fe.encoder_backward([(spec_c, lc)], x, [torch.ones((8, 2), device=cuda)])
+    with pytest.raises(ValueError):
+        fe.encoder_backward([(spec_c, lc)], x.double(), [d])
+    with pytest.raises(ValueError):
+        fe.encoder_backward([(spec_c, [l.cpu() for l in lc])], x, [d])
+    spec, lt, xt = _tp_case(4, cuda)
+    with pytest.raises(ValueError):
+        tl.tp_backward(spec, lt, xt, torch.ones((4, 14), device=cuda))
+    with pytest.raises(ValueError):
+        tl.tp_backward(spec, lt, xt.transpose(0, 1).contiguous(), torch.ones((4, 15), device=cuda))
+    with pytest.raises(ValueError):
+        tl.tp_backward(spec, lt, xt, torch.ones((4, 15), device=cuda).cpu())
 
 
 @pytest.mark.gpu
