@@ -18,19 +18,34 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    bench.py's configuration, 2 warm-up + 3 timed iterations; prints training
    env-steps/s and where an iteration's time goes, checks launch counts,
    the metrics' keys and finiteness, and the update on the card against the
-   update on the CPU from the same state and trajectory.
+   update on the CPU from the same state and trajectory;
+5. AEG training: `harness.train` with task HideAndSeek_envgen (4096 arenas,
+   a 5000-task buffer, TP net), 2 warm-up + 3 timed iterations; prints AEG
+   training env-steps/s, checks that closed cycles took the FPS kernel, the
+   buffer, the AEG stats, the update, `update_history` on the card against
+   the CPU, and a checkpoint written and read back.
 
-The line before the last is the kernels' JSON summary (launches counted over
-phase 4's run); the last line is {"ok": true, "device": {...}}.
+Phase 2 also holds the FPS kernel (the AEG buffer's downsampling) against
+its plain version at the AEG's pool, N = 9,096 tasks of D = 27, K = 5,000.
+Each kernel's bound is the larger of its operations over the H100's peak
+for their operand type (bf16 products summed in f32 for the encoder and
+TP-LSTM kernels, which the tensor cores do at the bf16 rate; f32 for FPS)
+and its bytes (each input read once, each output written once) over the
+memory rate.  The line before the
+last is the kernels' JSON summary (launches counted over phase 4's run, FPS
+over phase 5's); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import csv
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 
@@ -47,6 +62,14 @@ GROUPS = ((1, 35), (3, 5), (2, 3))  # state_self, cylinders, state_others
 METRIC_KEYS = {"advantages_mean", "advantages_std", "TP_loss", "policy_loss",
                "actor_grad_norm", "entropy", "ESS", "value_loss", "critic_grad_norm",
                "explained_var", "approx_kl", "action_norm", "value_running_mean"}
+AEG_BUFFER = 5000                  # HideAndSeekEnvgenCfg.buffer_length
+FPS_N, FPS_D = AEG_BUFFER + NUM_ENVS, 27  # the FPS pool: buffer + eval tasks, task_dim
+AEG_EPISODE = 16                   # cut from 800 so a 3-episode cycle closes in an iteration
+# H100 SXM dense peaks (NVIDIA's data sheet): bf16 tensor cores, f32 outside
+# the tensor cores, memory rate
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -61,9 +84,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, runs: int = TIMING_RUNS) -> float:
+def cuda_time_ms(fn, runs: int = TIMING_RUNS, warmup: int = 3) -> float:
     """Median of `runs` CUDA-event timings of fn() after a warm-up."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -76,6 +99,46 @@ def cuda_time_ms(fn, runs: int = TIMING_RUNS) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops: float, moved: float, peak: float = PEAK_BF16_FLOPS) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the peak for their type and the bytes over the memory rate."""
+    t_ops, t_mem = flops / peak, moved / PEAK_BYTES_PER_S
+    return dict(bound_ms=max(t_ops, t_mem) * 1e3,
+                bound_by="operations" if t_ops >= t_mem else "bytes")
+
+
+def encoder_flops(spec, rows: int) -> int:
+    """Multiply-adds (x2) of the products of one network's forward: embeds,
+    q (token 0), k and v (every token), scores and the weighted sum, the out
+    projection, the FFN and the head.  Elementwise work is not counted."""
+    e, f, t = spec.embed_dim, spec.ff_dim, spec.n_tokens
+    per_row = (spec.obs_dim * e + e * e + 2 * t * e * e + 2 * t * e + e * e + 2 * e * f
+               + e * spec.head_dim)
+    return 2 * rows * per_row
+
+
+def encoder_bwd_flops(spec, rows: int) -> int:
+    """Recomputed forward + two products per forward product (weights and
+    inputs), less the input gradient of the embeds (x gets none)."""
+    return 3 * encoder_flops(spec, rows) - 2 * rows * spec.obs_dim * spec.embed_dim
+
+
+def tp_flops(spec, n: int) -> int:
+    t, f, h, o = spec.t_steps, spec.input_dim, spec.hidden, spec.out_dim
+    return 2 * n * (t * 4 * h * (f + h) + h * o)
+
+
+def tp_bwd_flops(spec, n: int) -> int:
+    """Recomputed forward, the head's two products, and per step the
+    gradients of wi and wh and the carried dh."""
+    t, f, h, o = spec.t_steps, spec.input_dim, spec.hidden, spec.out_dim
+    return tp_flops(spec, n) + 2 * n * (2 * h * o + t * 4 * h * (f + 2 * h))
 
 
 def random_leaves(shapes, gen, device):
@@ -202,7 +265,9 @@ def phase_kernels(dev) -> dict:
     results["encoder_pair_forward"] = dict(
         route="cuda", source="mupe_tpu_torch/csrc/fused_encoder.cu",
         replaces="mupe_tpu/ops/fused_encoder.py:502", max_abs_err=max(errs),
-        ms=ms, plain_ms=plain)
+        ms=ms, plain_ms=plain, library_ms=None,
+        **bound(encoder_flops(spec_a, s_main) + encoder_flops(spec_c, s_main),
+                nbytes(x, *la, *lc) + s_main * (spec_a.head_dim + spec_c.head_dim) * 4))
 
     out = fe.encoder_forward(spec_c, lc, x)
     torch.cuda.synchronize()
@@ -214,7 +279,8 @@ def phase_kernels(dev) -> dict:
     results["encoder_forward"] = dict(
         route="cuda", source="mupe_tpu_torch/csrc/fused_encoder.cu",
         replaces="mupe_tpu/ops/fused_encoder.py:474", max_abs_err=err,
-        ms=ms, plain_ms=plain)
+        ms=ms, plain_ms=plain, library_ms=None,
+        **bound(encoder_flops(spec_c, s_main), nbytes(x, *lc, out)))
 
     xt = torch.randn((NUM_ENVS, 10, 16), generator=gen).to(dev)
     y = tl.tp_forward(tspec, lt, xt)
@@ -234,8 +300,10 @@ def phase_kernels(dev) -> dict:
     results["tp_forward"] = dict(
         route="cuda", source="mupe_tpu_torch/csrc/tp_lstm.cu",
         replaces="mupe_tpu/ops/tp_lstm.py:422", max_abs_err=err,
-        ms=ms, plain_ms=plain)
+        ms=ms, plain_ms=plain, library_ms=None,
+        **bound(tp_flops(tspec, NUM_ENVS), nbytes(xt, *lt, y)))
     results.update(phase_backward_kernels(dev, gen, spec_a, spec_c, la, lc, tspec, lt))
+    results.update(phase_fps_kernel(dev, gen))
     return results
 
 
@@ -300,14 +368,18 @@ def phase_backward_kernels(dev, gen, spec_a, spec_c, la, lc, tspec, lt) -> dict:
                                   fe.reference_backward(spec_c, lc, x, dc)), runs=10)
     ms1 = cuda_time_ms(lambda: fe.encoder_backward([(spec_a, la)], x, [da]), runs=10)
     plain1 = cuda_time_ms(lambda: fe.reference_backward(spec_a, la, x, da), runs=10)
+    b1 = bound(encoder_bwd_flops(spec_a, s_main), nbytes(x, da) + 2 * nbytes(*la))
     log(f"  encoder_backward S={s_main}: pair kernel {ms:.4f} ms, plain {plain:.4f} ms; "
-        f"actor alone kernel {ms1:.4f} ms, plain {plain1:.4f} ms; "
+        f"actor alone kernel {ms1:.4f} ms, plain {plain1:.4f} ms, bound {b1['bound_ms']:.4f} "
+        f"ms ({b1['bound_by']}); "
         f"{_bwd_blocks('mupe_encoder_backward_blocks', len(GROUPS), 6, spec_a.obs_dim, 2, s_main)}"
         f" blocks per network (workspace slices)")
     results["encoder_backward"] = dict(
         route="cuda", source="mupe_tpu_torch/csrc/fused_encoder_bwd.cu",
         replaces="mupe_tpu/ops/fused_encoder.py:483", max_abs_err=max(errs),
-        ms=ms, plain_ms=plain)
+        ms=ms, plain_ms=plain, library_ms=None,
+        **bound(encoder_bwd_flops(spec_a, s_main) + encoder_bwd_flops(spec_c, s_main),
+                nbytes(x, da, dc) + 2 * nbytes(*la, *lc)))
 
     n_main = TP_WINDOWS
     errs = []
@@ -333,8 +405,53 @@ def phase_backward_kernels(dev, gen, spec_a, spec_c, la, lc, tspec, lt) -> dict:
     results["tp_backward"] = dict(
         route="cuda", source="mupe_tpu_torch/csrc/tp_lstm_bwd.cu",
         replaces="mupe_tpu/ops/tp_lstm.py:428", max_abs_err=max(errs),
-        ms=ms, plain_ms=plain)
+        ms=ms, plain_ms=plain, library_ms=None,
+        **bound(tp_bwd_flops(tspec, n_main), nbytes(xt, dy) + 2 * nbytes(*lt)))
     return results
+
+
+def fps_pool(n: int, gen, dev, keep_last=None):
+    """An AEG-like FPS pool: normalised tasks (uniform in [0, 1)); with
+    `keep_last`, the last rows (the eval tasks) kept at random."""
+    pts = torch.rand((n, FPS_D), generator=gen)
+    valid = torch.ones(n, dtype=torch.bool)
+    if keep_last:
+        valid[-keep_last:] = torch.rand(keep_last, generator=gen) < 0.6
+    return pts.to(dev), valid.to(dev)
+
+
+def phase_fps_kernel(dev, gen) -> dict:
+    """The FPS kernel at the AEG's pool: index for index equal to its plain
+    version (the same f32 sums in the same order), bit-identical on a
+    repeat, no invalid point chosen."""
+    from mupe_tpu_torch.ops import fps
+
+    k = AEG_BUFFER
+    for n, keep_last in ((FPS_N, NUM_ENVS), (FPS_N, None), (FPS_N + 1, NUM_ENVS + 1)):
+        pts, valid = fps_pool(n, gen, dev, keep_last)
+        start = torch.argmax(valid.to(torch.uint8))
+        idx = fps.farthest_point_sampling(pts, k, valid, start)
+        again = fps.farthest_point_sampling(pts, k, valid, start)
+        ref = fps.reference_fps(pts, k, valid, start)
+        torch.cuda.synchronize()
+        bad = int((~valid[idx.long()]).sum())
+        tag = f"farthest_point_sampling N={n} D={FPS_D} K={k} " + (
+            f"last {keep_last} kept at random" if keep_last else "all valid")
+        log(f"  {tag}: indices equal to the plain version: {torch.equal(idx, ref)}, repeat "
+            f"bit-identical: {torch.equal(idx, again)}, invalid chosen: {bad}")
+        if not (torch.equal(idx, ref) and torch.equal(idx, again) and bad == 0):
+            raise AssertionError(f"{tag}: the FPS kernel disagrees with its plain version")
+    pts, valid = fps_pool(FPS_N, gen, dev, NUM_ENVS)
+    start = torch.argmax(valid.to(torch.uint8))
+    ms = cuda_time_ms(lambda: fps.farthest_point_sampling(pts, k, valid, start), runs=5)
+    plain = cuda_time_ms(lambda: fps.reference_fps(pts, k, valid, start), runs=2, warmup=1)
+    b = bound(3 * (k - 1) * FPS_N * FPS_D, nbytes(pts, valid) + 4 + 4 * k, PEAK_F32_FLOPS)
+    log(f"  farthest_point_sampling N={FPS_N}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return {"farthest_point_sampling": dict(
+        route="cuda", source="mupe_tpu_torch/csrc/fps.cu",
+        replaces="mupe_tpu/ops/fps_pallas.py:25", max_abs_err=0.0,
+        ms=ms, plain_ms=plain, library_ms=None, **b)}
 
 
 def _all_finite(tree) -> bool:
@@ -485,7 +602,7 @@ def check_update_against_cpu(dev) -> None:
     from mupe_tpu_torch.learning import MAPPOCfg, MAPPOPolicy, init_carry, make_rollout
 
     cfg = MAPPOCfg(train_every=8, num_minibatches=2, ppo_epochs=1, use_tp_net=True)
-    env_c = HideAndSeek(HideAndSeekCfg(num_envs=16, max_episode_length=800))
+    env_c = HideAndSeek(HideAndSeekCfg(num_envs=16, max_episode_length=800), device="cpu")
     pols = {d: MAPPOPolicy(cfg, n_agents=3, action_dim=4, obs_is_dict=True,
                            tp_input_dim=env_c.cfg.tp_input_dim, device=d) for d in ("cpu", dev)}
     template = {k: torch.zeros((1,) + s) for k, s in env_c.obs_groups().items()}
@@ -576,6 +693,112 @@ def phase_train(dev, card: str) -> dict:
     return launches
 
 
+def _equal_trees(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal_trees(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_equal_trees(u, v) for u, v in zip(a, b))
+    return a == b
+
+
+def check_update_history_against_cpu(dev, gen_saved: dict) -> None:
+    """`update_history` on the card (the FPS kernel) against the CPU (the
+    plain FPS) from the same buffer state: the trained run's buffer and
+    eval tasks with 3 episodes of success drawn per arena.  The history
+    must be the same bits."""
+    from mupe_tpu_torch.envs import GenBufferState, tree_to
+    from mupe_tpu_torch.envs.genbuffer import update_history
+
+    g = torch.Generator().manual_seed(11)
+    gb = GenBufferState(**gen_saved)
+    gb.weight_sum = torch.randint(0, 4, gb.weight_sum.shape, generator=g).to(torch.float32)
+    gb.weight_count = torch.tensor(3, dtype=torch.int32)
+    t0 = time.perf_counter()
+    cpu, added_c = update_history(gb, 0.0, 0.9)
+    cpu_s = time.perf_counter() - t0
+    card, added_g = update_history(tree_to(gb, dev), 0.0, 0.9)
+    card = tree_to(card, "cpu")
+    log(f"  update_history card vs CPU: {int(added_g)} vs {int(added_c)} added, history_len "
+        f"{int(card.history_len)} vs {int(cpu.history_len)}, history bit-identical: "
+        f"{torch.equal(card.history, cpu.history)} (the CPU's plain FPS took {cpu_s:.2f} s)")
+    if not (int(added_g) == int(added_c) and int(card.history_len) == int(cpu.history_len)
+            and torch.equal(card.history, cpu.history)):
+        raise AssertionError("update_history on the card disagrees with the CPU")
+
+
+def phase_aeg(dev, card: str) -> dict:
+    """AEG training through the port's entry point: `harness.train` with task
+    HideAndSeek_envgen at 4096 arenas, a 5000-task buffer and the TP net,
+    bench.py's MAPPOCfg.  Cut so that cycles close inside the run:
+    max_episode_length 16 (a 3-episode cycle closes inside one 64-step
+    iteration) and the buffer full from the easy cases with r_min = 0 (every
+    cycle overflows it and downsamples by FPS)."""
+    from mupe_tpu_torch import harness
+    from mupe_tpu_torch.envs.hideandseek_envgen import envgen_extra_stats
+    from mupe_tpu_torch.learning import init_carry
+    from mupe_tpu_torch.ops import fps
+    from mupe_tpu_torch.ops import fused_encoder as fe
+    from mupe_tpu_torch.ops import tp_lstm as tl
+    from mupe_tpu_torch.utils.checkpoint import load_checkpoint, to_plain
+    from mupe_tpu_torch.utils.config import parse_cli
+
+    iters = WARMUP_ITERS + TIMED_ITERS
+    log(f"[5] AEG training: harness.train task=HideAndSeek_envgen, {NUM_ENVS} arenas x {STEPS} "
+        f"steps, buffer {AEG_BUFFER}, TP net; cuts: max_episode_length={AEG_EPISODE}, "
+        f"use_init_easy_cases with r_min=0")
+    wrappers = {"encoder_pair_forward": fe.encoder_pair_forward,
+                "encoder_forward": fe.encoder_forward, "tp_forward": tl.tp_forward,
+                "encoder_backward": fe.encoder_backward, "tp_backward": tl.tp_backward,
+                "farthest_point_sampling": fps.farthest_point_sampling}
+    with tempfile.TemporaryDirectory() as run_dir:
+        argv = [f"env.num_envs={NUM_ENVS}", f"env.max_episode_length={AEG_EPISODE}",
+                f"env.buffer_length={AEG_BUFFER}", "env.use_init_easy_cases=true",
+                "env.r_min=0.0", f"algo.train_every={STEPS}", f"max_iters={iters}",
+                "log_interval=1", "save_interval=-1", f"run_dir={run_dir}", "run_name=aeg",
+                "seed=3"]
+        for fn in wrappers.values():
+            fn.launches = 0
+        metrics = harness.train(argv, default_task="HideAndSeek_envgen", device=dev)
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        log(f"  launches over {iters} iterations: {launches}")
+        cycles = (iters * STEPS // AEG_EPISODE) // 3
+        if launches["farthest_point_sampling"] < 1 or any(v < 1 for v in launches.values()):
+            raise AssertionError(f"the AEG path skipped a kernel: {launches}")
+        log(f"  FPS launches {launches['farthest_point_sampling']} for {cycles} closed cycles")
+        with open(Path(run_dir) / "aeg" / "metrics.csv") as f:
+            rows = list(csv.DictReader(f))
+        frames = NUM_ENVS * STEPS
+        seconds = sum(frames / float(r["rollout_fps"]) for r in rows[WARMUP_ITERS:])
+        rate = frames * TIMED_ITERS / seconds
+        missing = [k for k in METRIC_KEYS | {f"stats/{k}" for k in
+                                             envgen_extra_stats(5)} if k not in metrics]
+        if missing or not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"AEG training: missing {missing} or non-finite metrics")
+        log("  AEG stats: " + ", ".join(f"{k}={metrics[f'stats/{k}']:.5g}"
+                                         for k in envgen_extra_stats(5)[:4]))
+        full = Path(run_dir) / "aeg" / "checkpoints" / "full"
+        saved = load_checkpoint(full)
+        hist_len = int(saved["env_state"]["gen"]["history_len"])
+        if hist_len != AEG_BUFFER:
+            raise AssertionError(f"history_buffer {hist_len} after a cycle, want {AEG_BUFFER}")
+        sections, _ = parse_cli(argv)
+        env, policy, _, _ = harness.build("HideAndSeek_envgen", sections["env"],
+                                          sections["algo"], device=dev)
+        restored = load_checkpoint(full, target=init_carry(
+            env, policy, torch.Generator(device=dev).manual_seed(0)))
+        if not _equal_trees(to_plain(restored), saved):
+            raise AssertionError("the full checkpoint did not read back equal")
+        log(f"  checkpoint {full.name}/step_{iters} written and read back equal; "
+            f"history_buffer {hist_len}")
+    log(f"  AEG training: {NUM_ENVS} x {STEPS} x {TIMED_ITERS} env-steps in {seconds:.4f} s "
+        f"= {rate:.1f} env-steps/s ({seconds / TIMED_ITERS * 1e3:.2f} ms per iteration, "
+        f"harness log rows {WARMUP_ITERS + 1}-{iters}) on {card}")
+    check_update_history_against_cpu(dev, saved["env_state"]["gen"])
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
@@ -592,6 +815,7 @@ def main() -> int:
     kernels = phase_kernels(dev)
     phase_slice(dev, card)
     launches = phase_train(dev, card)
+    launches["farthest_point_sampling"] = phase_aeg(dev, card)["farthest_point_sampling"]
     summary = {"kernels": [
         dict(name=name, launches=launches[name], **info)
         for name, info in kernels.items()

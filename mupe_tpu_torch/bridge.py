@@ -14,6 +14,7 @@ import torch
 
 from .controllers import PIDRateState
 from .dynamics import DroneState
+from .envs.genbuffer import GenBufferState
 from .envs.hideandseek import HideAndSeekState
 from .learning.mappo import MAPPOPolicy, MAPPOState
 from .learning.modules.networks import entity_group_order
@@ -142,8 +143,9 @@ def adam_state(mu_tree: Mapping, nu_tree: Mapping, count, device="cpu") -> AdamS
 
 
 def env_state(d: Mapping[str, Any], device="cpu") -> HideAndSeekState:
-    """JAX `HideAndSeekState` (as a dict of numpy arrays) → the port's state.
-    The JAX state's PRNG key and AEG buffer have no counterpart here."""
+    """JAX `HideAndSeekState` (as a dict of numpy arrays) → the port's state,
+    the AEG buffer (`gen`, a `GenBufferState` as a dict) included.  The JAX
+    state's PRNG key has no counterpart here."""
     dr, pid = d["drone"], d["pid"]
     return HideAndSeekState(
         drone=DroneState(**{k: _t(dr[k], device)
@@ -160,6 +162,8 @@ def env_state(d: Mapping[str, Any], device="cpu") -> HideAndSeekState:
         stats={k: _t(v, device) for k, v in d["stats"].items()},
         update_epoch=_t(d["update_epoch"], device),
         tp_pred=_t(d["tp_pred"], device),
+        gen=None if d.get("gen") is None else GenBufferState(
+            **{k: _t(v, device) for k, v in d["gen"].items()}),
     )
 
 

@@ -1,9 +1,9 @@
-"""Environment core: the transition record and the done-select
-(counterpart of mupe_tpu/envs/base.py)."""
+"""Environment core: the transition record, the done-select and the env
+registry (counterpart of mupe_tpu/envs/base.py)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import torch
 
@@ -38,6 +38,21 @@ def where_done(done: torch.Tensor, reset_val: Any, old_val: Any) -> Any:
             },
         )
     raise TypeError(f"where_done: unsupported leaf {type(reset_val)}")
+
+
+ENV_REGISTRY: Dict[str, Callable] = {}
+
+
+def register_env(name: str):
+    """Env class registry under the name and its lower case
+    (mupe_tpu/envs/base.py:55-66)."""
+
+    def deco(cls):
+        ENV_REGISTRY[name] = cls
+        ENV_REGISTRY[name.lower()] = cls
+        return cls
+
+    return deco
 
 
 def tree_to(obj: Any, device) -> Any:

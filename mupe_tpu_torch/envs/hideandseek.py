@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -28,7 +28,7 @@ from ..dynamics import DroneState, RigidBodyCfg, hover_state, make_params
 from ..dynamics import step as dynamics_step
 from ..learning.tp_net import denormalize_predictions, normalize_groundtruth
 from ..transforms.ctbr import hover_prev_action_init, pid_rate_transform
-from .base import Transition, where_done
+from .base import Transition, register_env, where_done
 from .geometry import k_nearest_cylinders, line_blocked_by_cylinder
 from .placement import (
     feasible_layout,
@@ -174,13 +174,16 @@ class HideAndSeekState:
     stats: Dict[str, torch.Tensor]  # each [E, 1]
     update_epoch: torch.Tensor     # [] smoothness ramp
     tp_pred: torch.Tensor          # [E, fut, 3] last TP prediction (world frame)
+    gen: Any = None                # AEG GenBufferState (HideAndSeekEnvgen only)
 
 
+@register_env("HideAndSeek")
 class HideAndSeek:
     provides_tp = True
+    cfg_cls = HideAndSeekCfg
 
     def __init__(
-        self, cfg: HideAndSeekCfg = HideAndSeekCfg(), device: torch.device | str = "cpu"
+        self, cfg: HideAndSeekCfg = HideAndSeekCfg(), device: torch.device | str = "cuda"
     ):
         deferred = {
             "use_random_cylinder=False (fixed scenarios)": not cfg.use_random_cylinder,

@@ -242,7 +242,7 @@ class MAPPOPolicy:
         action_dim: int,
         obs_is_dict: bool,
         tp_input_dim: Optional[int] = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
         unsupported = {
             "obs_is_dict=False": not obs_is_dict,

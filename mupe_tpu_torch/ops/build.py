@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels into one shared library, at first use.
 
-The sources in `mupe_tpu_torch/csrc/` are compiled by `nvcc` for `sm_90a`
-into a shared library with a plain C interface, loaded with `ctypes`.  The
+The sources in `mupe_tpu_torch/csrc/` are compiled by `nvcc` for `sm_90a`,
+one process per source, all started together, and linked into a shared
+library with a plain C interface, loaded with `ctypes`.  The
 library's file name carries a hash of the sources and flags, so an edited
 source builds anew and an unchanged one is loaded from
 `mupe_tpu_torch/_build/`.  A failed build raises with the compiler's output.
@@ -15,15 +16,16 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("fused_encoder.cu", "fused_encoder_bwd.cu", "tp_lstm.cu", "tp_lstm_bwd.cu")
+SOURCES = ("fused_encoder.cu", "fused_encoder_bwd.cu", "tp_lstm.cu", "tp_lstm_bwd.cu", "fps.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -45,6 +47,7 @@ C_FUNCTIONS = {
     "mupe_tp_lstm_backward": (
         _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P,
     ),
+    "mupe_fps": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
 }
 
 
@@ -73,27 +76,38 @@ def library_path() -> Path:
 @functools.lru_cache(maxsize=1)
 def build() -> dict:
     """Compile (if needed) and describe the library: path, seconds, the
-    nvcc command and its output (register and spill report)."""
+    nvcc commands and their output (register and spill report)."""
     path = library_path()
     if path.exists():
         return {"path": str(path), "built": False, "seconds": 0.0,
                 "command": None, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp)] + [
-        str(CSRC / s) for s in SOURCES
-    ]
+    nvcc = nvcc_path()
+    objs = [tmp.with_suffix(f".{Path(s).stem}.o") for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+
+    def run(cmd):
+        return subprocess.run(cmd, capture_output=True, text=True)
+
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        procs = list(pool.map(run, cmds))
+    if all(p.returncode == 0 for p in procs):
+        procs.append(run(link))
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    for o in objs:
+        o.unlink(missing_ok=True)
+    log = "".join(p.stdout + p.stderr for p in procs)
+    failed = [p for p in procs if p.returncode != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc failed ({' '.join(failed[0].args)}):\n{log}")
     os.replace(tmp, path)  # atomic: concurrent builders never see a partial file
     return {"path": str(path), "built": True, "seconds": seconds,
-            "command": " ".join(cmd), "log": proc.stdout + proc.stderr}
+            "command": " ; ".join(" ".join(c) for c in cmds + [link]), "log": log}
 
 
 @functools.lru_cache(maxsize=1)

@@ -118,7 +118,7 @@ def test_sample_cylinders_avoids_agents():
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_sampled_scenes_are_free_disjoint_and_feasible(seed):
-    env = HideAndSeek(HideAndSeekCfg(num_envs=64))
+    env = HideAndSeek(HideAndSeekCfg(num_envs=64), device="cpu")
     drone, quat, target, cyl, fallback, degraded = env._sample_scene(
         torch.Generator().manual_seed(seed))
     active = cyl[..., 2] > 0

@@ -69,7 +69,7 @@ def _close(t, j, rtol=1e-4, atol=1e-5, what=""):
 @pytest.fixture(scope="module")
 def envs():
     jenv = KernelTPEnv(JCfg(num_envs=E, max_episode_length=LIMIT))
-    tenv = HideAndSeek(HideAndSeekCfg(num_envs=E, max_episode_length=LIMIT))
+    tenv = HideAndSeek(HideAndSeekCfg(num_envs=E, max_episode_length=LIMIT), device="cpu")
     tp_params = JTPNet(output_dim=15).init(jax.random.PRNGKey(1), jnp.zeros((1, 10, 16)))
     tnet = TPNet(16, 15, leaves=bridge.tp_leaves(jax.device_get(tp_params)))
     jstep = jax.jit(jenv.step)
@@ -91,7 +91,7 @@ def test_teacher_forced_steps_match_jax(envs):
             # the port resets to the scene the JAX env drew
             fresh = jenv._fresh(jax.random.split(key)[0], new.v_prey, new.update_epoch)
             port_fresh = bridge.env_state(to_np(fresh))
-            port_env = HideAndSeek(tenv.cfg)
+            port_env = HideAndSeek(tenv.cfg, device="cpu")
             port_env._fresh = lambda gen, v_prey, update_epoch: port_fresh
         tnew, ttr = port_env.step(bridge.env_state(to_np(state)), torch.as_tensor(action),
                                   torch.Generator().manual_seed(t), tnet)
@@ -141,7 +141,7 @@ def test_auto_reset_selects_injected_fresh_state(envs):
 
 
 def test_reset_and_observation_shapes():
-    env = HideAndSeek(HideAndSeekCfg(num_envs=4))
+    env = HideAndSeek(HideAndSeekCfg(num_envs=4), device="cpu")
     s = env.reset(torch.Generator().manual_seed(0))
     net = TPNet(env.cfg.tp_input_dim, 15, generator=torch.Generator().manual_seed(1))
     obs, critic_state = env.observe_full(s, net)
@@ -158,7 +158,8 @@ def test_deferred_config_paths_raise(field):
     value = {"use_random_cylinder": False, "eval_spawn_ratio": 0.2,
              "eval_scenario_ratio": 0.2}.get(field, True)
     with pytest.raises(NotImplementedError):
-        HideAndSeek(dataclasses.replace(HideAndSeekCfg(num_envs=2), **{field: value}))
+        HideAndSeek(dataclasses.replace(HideAndSeekCfg(num_envs=2), **{field: value}),
+                    device="cpu")
 
 
 def test_configs_match_jax():

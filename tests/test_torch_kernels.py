@@ -11,7 +11,9 @@ order, so a few values near a bf16 rounding boundary round one ulp apart:
 each module's `KERNEL_TOL` bounds the largest error at 5e-3 of the output
 scale and the mean error at 1e-4 of the mean magnitude
 (mupe_tpu_torch/ops/tolerance.py).  The plain version in f32 throughout,
-the stand-in for a kernel that misses a rounding point, must fail it.
+the stand-in for a kernel that misses a rounding point, must fail it.  The
+FPS kernel sums the same f32 values in the same order as its plain version:
+its indices must be equal.
 """
 import ast
 import dataclasses
@@ -23,6 +25,7 @@ import torch
 
 import mupe_tpu_torch
 from mupe_tpu_torch.ops import build
+from mupe_tpu_torch.ops import fps
 from mupe_tpu_torch.ops import fused_encoder as fe
 from mupe_tpu_torch.ops import tp_lstm as tl
 from mupe_tpu_torch.ops.tolerance import KernelTol
@@ -56,9 +59,21 @@ def _tp_case(n, device="cpu"):
     return spec, _leaves(spec.leaf_shapes(), g, device), torch.randn((n, 10, 16), generator=g).to(device)
 
 
+def _fps_case(n, device="cpu", d=27, keep_last=None):
+    """An AEG-like pool: uniform points (normalised tasks); with `keep_last`,
+    the last rows kept at random as `update_history`'s kept eval tasks."""
+    g = torch.Generator().manual_seed(n)
+    pts = torch.rand((n, d), generator=g)
+    valid = torch.ones(n, dtype=torch.bool)
+    if keep_last:
+        valid[-keep_last:] = torch.rand(keep_last, generator=g) < 0.6
+    return pts.to(device), valid.to(device)
+
+
 def _launch_counts():
     return (fe.encoder_forward.launches, fe.encoder_pair_forward.launches,
-            tl.tp_forward.launches, fe.encoder_backward.launches, tl.tp_backward.launches)
+            tl.tp_forward.launches, fe.encoder_backward.launches, tl.tp_backward.launches,
+            fps.farthest_point_sampling.launches)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
@@ -70,6 +85,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert torch.equal(fe.encoder_forward(spec_c, lc, x), c)
     spec, lt, xt = _tp_case(9)
     assert torch.equal(tl.tp_forward(spec, lt, xt), tl.reference_forward(spec, lt, xt))
+    pts, valid = _fps_case(40)
+    assert torch.equal(fps.farthest_point_sampling(pts, 9, valid, 3),
+                       fps.reference_fps(pts, 9, valid, 3))
     assert _launch_counts() == before
 
 
@@ -114,12 +132,15 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
         fe.encoder_backward([(spec_c, lc)], x.to("meta"), [dout])
     with pytest.raises(ValueError, match="CUDA"):
         tl.tp_backward(spec, lt, xt.to("meta"), torch.zeros((3, 15), device="meta"))
+    pts, valid = _fps_case(10)
+    with pytest.raises(ValueError, match="CUDA"):
+        fps.farthest_point_sampling(pts.to("meta"), 4, valid.to("meta"))
 
 
 def test_c_sources_and_build_helper_exist():
     for name in build.SOURCES:
         src = (build.CSRC / name).read_text()
-        assert "Replaces the TPU kernels mupe_tpu/ops/" in src
+        assert "Replaces the TPU kernel" in src and "mupe_tpu/ops/" in src
         assert "What bounds it on an H100" in src
         assert "cudaGetLastError()" in src
     exported = "".join((build.CSRC / n).read_text() for n in build.SOURCES)
@@ -288,3 +309,38 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
     spec, lt, xt = _tp_case(4, cuda)
     with pytest.raises(ValueError):
         tl.tp_forward(spec, lt, xt.transpose(0, 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,k,keep_last", [(9096, 27, 5000, 4096), (9096, 27, 5000, None),
+                                             (9097, 27, 5000, 4097), (1025, 5, 1025, None),
+                                             (1, 3, 1, None)])
+def test_fps_kernel_matches_plain_version(cuda, n, d, k, keep_last):
+    """Index for index equal to `reference_fps` (the same f32 sums in the same
+    order), bit-identical on a repeat, no invalid point chosen."""
+    pts, valid = _fps_case(n, cuda, d, keep_last)
+    start = torch.argmax(valid.to(torch.uint8))
+    launches = fps.farthest_point_sampling.launches
+    idx = fps.farthest_point_sampling(pts, k, valid, start)
+    again = fps.farthest_point_sampling(pts, k, valid, start)
+    torch.cuda.synchronize()
+    assert fps.farthest_point_sampling.launches == launches + 2
+    assert idx.dtype == torch.int32 and tuple(idx.shape) == (k,)
+    assert torch.equal(idx, fps.reference_fps(pts, k, valid, start))
+    assert torch.equal(idx, again)
+    assert bool(valid[idx.long()].all()) or int(valid.sum()) < k
+
+
+@pytest.mark.gpu
+def test_fps_wrapper_rejects_bad_inputs(cuda):
+    pts, valid = _fps_case(64, cuda)
+    with pytest.raises(ValueError):
+        fps.farthest_point_sampling(pts, 65, valid)
+    with pytest.raises(ValueError):
+        fps.farthest_point_sampling(pts.double(), 8, valid)
+    with pytest.raises(ValueError):
+        fps.farthest_point_sampling(pts.t(), 8, valid)
+    with pytest.raises(ValueError):
+        fps.farthest_point_sampling(pts, 8, valid[:10])
+    with pytest.raises(ValueError):
+        fps.farthest_point_sampling(pts, 8, valid.float())

@@ -65,9 +65,9 @@ def slice_pair():
     critic = jcarry.ts.critic_params["params"]["Dense_0"]
     critic["kernel"] = critic["kernel"] * 100.0
 
-    tenv = HideAndSeek(HideAndSeekCfg(num_envs=E, max_episode_length=800))
+    tenv = HideAndSeek(HideAndSeekCfg(num_envs=E, max_episode_length=800), device="cpu")
     tpol = MAPPOPolicy(MAPPOCfg(train_every=STEPS, use_tp_net=True), n_agents=3,
-                       action_dim=4, obs_is_dict=True, tp_input_dim=16)
+                       action_dim=4, obs_is_dict=True, tp_input_dim=16, device="cpu")
     env_state = bridge.env_state(to_np(jcarry.env_state))
     obs = bridge.tensors(to_np(jcarry.obs))
     ts = bridge.policy_state(tpol, obs, jax.device_get(params),
@@ -146,7 +146,7 @@ def test_value_op_and_short_episodes_run_the_port(slice_pair):
     jv = jpol.value_op(jcarry.ts, jcarry.obs, fused=True)
     tv = tpol.value_op(tcarry.ts, tcarry.obs)
     _close_scaled(tv, jv, EAGER_REL, "value_op")
-    env = HideAndSeek(HideAndSeekCfg(num_envs=4, max_episode_length=3))
+    env = HideAndSeek(HideAndSeekCfg(num_envs=4, max_episode_length=3), device="cpu")
     carry = init_carry(env, tpol, torch.Generator().manual_seed(5))
     carry, traj, stats = make_rollout(env, tpol)(carry, 7)
     assert traj["done"][:, 0, 0].tolist() == [0, 0, 1, 0, 0, 1, 0]

@@ -106,9 +106,9 @@ def _port_traj(jpol, carry, traj):
 
 
 def _port(jcarry, extra=None):
-    tenv = HideAndSeek(HideAndSeekCfg(num_envs=E, max_episode_length=16))
+    tenv = HideAndSeek(HideAndSeekCfg(num_envs=E, max_episode_length=16), device="cpu")
     tpol = MAPPOPolicy(MAPPOCfg(**BASE, **(extra or {})), n_agents=3, action_dim=4,
-                       obs_is_dict=True, tp_input_dim=16)
+                       obs_is_dict=True, tp_input_dim=16, device="cpu")
     obs = bridge.tensors(to_np(jcarry.obs))
     ts = bridge.policy_state(tpol, obs, jax.device_get(jcarry.ts.actor_params),
                              jax.device_get(jcarry.ts.critic_params),

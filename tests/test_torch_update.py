@@ -80,7 +80,7 @@ def pair():
     jts = jts.replace(actor_opt=jpol.actor_tx.init(ap),
                       critic_opt=jpol.critic_tx.init(jts.critic_params))
     tpol = MAPPOPolicy(MAPPOCfg(use_tp_net=True), n_agents=N_AG, action_dim=A,
-                       obs_is_dict=True, tp_input_dim=16)
+                       obs_is_dict=True, tp_input_dim=16, device="cpu")
     tobs = {k: torch.as_tensor(v) for k, v in obs.items()}
     tts = bridge.policy_state(tpol, tobs, jax.device_get(ap), jax.device_get(jts.critic_params),
                               jax.device_get(jts.tp_params))
