@@ -23,17 +23,30 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    a 5000-task buffer, TP net), 2 warm-up + 3 timed iterations; prints AEG
    training env-steps/s, checks that closed cycles took the FPS kernel, the
    buffer, the AEG stats, the update, `update_history` on the card against
-   the CPU, and a checkpoint written and read back.
+   the CPU, and a checkpoint written and read back;
+6. in-kernel-loss training: phase 4's configuration with
+   `use_inkernel_loss=True`, once with `direct_mode="fwdloss"` and once with
+   "agrad", 2 warm-up + 3 timed iterations each (and one with its phases
+   synchronised); prints training env-steps/s per mode beside phase 4's and
+   where an iteration's time goes, checks each mode's launch counts
+   (64 loss-kernel launches an iteration, no pair forward from the update),
+   the metrics and the update on the card against the CPU.
 
 Phase 2 also holds the FPS kernel (the AEG buffer's downsampling) against
-its plain version at the AEG's pool, N = 9,096 tasks of D = 27, K = 5,000.
+its plain version at the AEG's pool, N = 9,096 tasks of D = 27, K = 5,000,
+and the in-kernel loss kernels (`pair_forward_loss`, `pair_forward_loss_agrad`)
+at the update's minibatch, S = 49,152 and 49,153 rows, with a third of the
+rows saturated in one case; the agrad kernel's gradients must be the same
+bits on a repeat launch and its head-bias gradient the column sum of the
+fwdloss kernel's dmu.
 Each kernel's bound is the larger of its operations over the H100's peak
 for their operand type (bf16 products summed in f32 for the encoder and
 TP-LSTM kernels, which the tensor cores do at the bf16 rate; f32 for FPS)
 and its bytes (each input read once, each output written once) over the
 memory rate.  The line before the
 last is the kernels' JSON summary (launches counted over phase 4's run, FPS
-over phase 5's); the last line is {"ok": true, "device": {...}}.
+over phase 5's, the loss kernels over phase 6's run of their mode); the last
+line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -221,7 +234,7 @@ def phase_build() -> None:
     if info["command"]:
         log(f"  {info['command']}")
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
+        if any(w in line for w in ("entry function", "registers", "spill", "rror")):
             log(f"  ptxas: {line.strip()}")
     build.library()
 
@@ -304,6 +317,7 @@ def phase_kernels(dev) -> dict:
         **bound(tp_flops(tspec, NUM_ENVS), nbytes(xt, *lt, y)))
     results.update(phase_backward_kernels(dev, gen, spec_a, spec_c, la, lc, tspec, lt))
     results.update(phase_fps_kernel(dev, gen))
+    results.update(phase_loss_kernels(dev, gen, spec_a, spec_c, la, lc))
     return results
 
 
@@ -454,20 +468,188 @@ def phase_fps_kernel(dev, gen) -> dict:
         ms=ms, plain_ms=plain, library_ms=None, **b)}
 
 
+def loss_inputs(spec_a, spec_c, la, lc, x, gen, saturate=False):
+    """The in-kernel loss's inputs for the rows x, as the kernels take them:
+    (loss, (log_std, x, act, logp_old, adv, v_old, ret)).  Actions drawn from
+    the policy about the plain actor's mean (log_std about -1, so that the
+    ratio feels the forward's rounding); logp_old such that the ratio under
+    the plain forward lies in [0.5, 1.64], 2e-2 or more from the clip rails
+    1 +- eps, and v_old such that |v - v_old| lies 1e-2 or more from eps: a
+    kernel's forward parts from the plain one by well under 1e-3 (its log-prob
+    by z / sigma times that), which then flips no row's branch (a flip moves
+    that row's output by its whole size).
+    Returns within about 0.3 of the value, every 500th row 12-16 away (the
+    Huber loss's linear branch, delta 10).  With `saturate`, a sixth of the
+    rows' log-ratios at +40 and a sixth at -40."""
+    from mupe_tpu_torch.learning import MAPPOCfg
+    from mupe_tpu_torch.ops import fused_encoder as fe
+
+    cfg = MAPPOCfg()
+    eps, dev, s = cfg.clip_param, x.device, x.shape[0]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    mean, vout = fe.reference_apply(spec_a, la, x), fe.reference_apply(spec_c, lc, x)
+    log_std = -1.0 + 0.3 * rnd(spec_a.head_dim)
+    act = mean + torch.exp(log_std) * rnd(s, spec_a.head_dim)
+    z = (act - mean) / torch.exp(log_std)
+    logp = torch.sum(-0.5 * z * z - log_std - fe._LOG_SQRT_2PI, dim=-1, keepdim=True)
+    ratio = 0.5 + 1.1 * torch.rand((s, 1), generator=gen).to(dev)
+    for rail in (1.0 - eps, 1.0 + eps):
+        ratio = torch.where((ratio - rail).abs() < 2e-2, ratio + 4e-2, ratio)
+    logp_old = logp - torch.log(ratio)
+    if saturate:
+        k = s // 6
+        logp_old[:k] += 40.0
+        logp_old[s - k:] -= 40.0
+    off = 0.1 * rnd(s, 1)
+    off = torch.where((off.abs() - eps).abs() < 1e-2, 1.25 * off, off)
+    loss = fe.PPOLossCfg(clip_param=eps, huber_delta=cfg.huber_delta,
+                         action_dim=spec_a.head_dim, n_rows=s)
+    ret = vout + 0.3 * rnd(s, 1)
+    n_far = (s + 499) // 500
+    ret[::500] += torch.sign(rnd(n_far, 1)) * (12.0 + 4.0 * torch.rand((n_far, 1),
+                                                                       generator=gen).to(dev))
+    return loss, (log_std, x, act, logp_old, rnd(s, 1), vout - off, ret)
+
+
+def columns_compare(name, out, ref, tol) -> float:
+    """A stats matrix against its plain version column by column (each
+    column at its own scale); returns the largest absolute error."""
+    errs = [tol.errors(out[:, c], ref[:, c]) for c in range(ref.shape[1])]
+    bad = [c for c, e in enumerate(errs) if not tol.holds(e)]
+    ok = not bad and bool(torch.isfinite(out).all())
+    worst_max = max(range(len(errs)), key=lambda c: errs[c]["max_rel"])
+    worst = max(range(len(errs)), key=lambda c: errs[c]["mean_rel"])
+    log(f"  {name}: {len(errs)} columns, worst max_rel_err={errs[worst_max]['max_rel']:.3e} "
+        f"(column {worst_max}), worst mean_rel_err={errs[worst]['mean_rel']:.3e} (column "
+        f"{worst}) (tol {tol.max_rel:g} max, {tol.mean_rel:g} mean per column)"
+        f" -> {'ok' if ok else f'FAIL columns {bad}'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return max(e["max_abs"] for e in errs)
+
+
+def loss_control(name, args) -> None:
+    """The plain forward + loss without its bf16 rounding must fail the
+    limits (KERNEL_TOL, LOSS_STATS_TOL) on dmu, dv1 and dv2 and on every
+    stats column that the forward moves (all but R and R², the returns)."""
+    from mupe_tpu_torch.ops import fused_encoder as fe
+
+    ref = fe.reference_pair_fwd_loss(*args)
+    ctl = fe.reference_pair_fwd_loss(*args, bf16=False)
+    parts = {n: (fe.KERNEL_TOL, fe.KERNEL_TOL.errors(c, r))
+             for n, c, r in zip(("dmu", "dv1", "dv2"), ctl[:3], ref[:3])}
+    for c in range(ref[3].shape[1]):
+        if c not in (fe._SUM_RET, fe._SUM_RET2):
+            parts[f"stats[{c}]"] = (fe.LOSS_STATS_TOL,
+                                    fe.LOSS_STATS_TOL.errors(ctl[3][:, c], ref[3][:, c]))
+    passed = [n for n, (tol, e) in parts.items() if tol.holds(e)]
+    least = min(e["mean_rel"] for _, e in parts.values())
+    log(f"  control {name} in f32 throughout: rejected on {len(parts) - len(passed)} of "
+        f"{len(parts)} outputs (least mean_rel_err {least:.3e}); passes {passed}")
+    if passed:
+        raise AssertionError(f"{name}: the tolerance does not reject the f32 control")
+
+
+def phase_loss_kernels(dev, gen, spec_a, spec_c, la, lc) -> dict:
+    """The in-kernel loss kernels at the update's minibatch (S = 49,152 rows
+    and one more), against their plain versions on the card; a third of the
+    rows saturated in one case."""
+    from mupe_tpu_torch.ops import fused_encoder as fe
+
+    s_main = MB_ROWS
+    errs9, errs10 = [], []
+    log("  in-kernel loss kernels: inputs from `loss_inputs` (ratios 2e-2, value offsets 1e-2 "
+        "or more from the clip rails); per-row outputs to KERNEL_TOL, stats column by column, "
+        "the agrad kernel's gradients to BWD_KERNEL_TOL")
+    for s, saturate in ((s_main, False), (s_main + 1, False), (s_main, True)):
+        x = (2.0 * torch.randn((s, spec_a.obs_dim), generator=gen)).to(dev)
+        loss, rows = loss_inputs(spec_a, spec_c, la, lc, x, gen, saturate)
+        args = (spec_a, spec_c, loss, la, lc, *rows)
+        out9 = fe.pair_forward_loss(*args)
+        out10 = fe.pair_forward_loss_agrad(*args)
+        again = fe.pair_forward_loss_agrad(*args)
+        torch.cuda.synchronize()
+        ref9 = fe.reference_pair_fwd_loss(*args)
+        tag = f"S={s}" + (", a third of the rows saturated" if saturate else "")
+        for name, o, r in zip(("dmu", "dv1", "dv2"), out9[:3], ref9[:3]):
+            errs9.append(compare(f"pair_forward_loss {tag} {name}", o, r, fe.KERNEL_TOL))
+        errs9.append(columns_compare(f"pair_forward_loss {tag} stats", out9[3], ref9[3],
+                                     fe.LOSS_STATS_TOL))
+        for name, o, r in zip(("dv1", "dv2"), out10[:2], ref9[1:3]):
+            errs10.append(compare(f"pair_forward_loss_agrad {tag} {name}", o, r, fe.KERNEL_TOL))
+        errs10.append(columns_compare(f"pair_forward_loss_agrad {tag} stats", out10[2], ref9[3],
+                                      fe.LOSS_STATS_TOL))
+        errs10.append(bwd_compare(f"pair_forward_loss_agrad {tag} actor gradients", out10[3],
+                                  fe.reference_backward(spec_a, la, x, ref9[0]),
+                                  fe.BWD_KERNEL_TOL))
+        repeat = all(torch.equal(u, v) for u, v in zip((*out10[:3], *out10[3]),
+                                                       (*again[:3], *again[3])))
+        same = all(torch.equal(u, v) for u, v in zip(out10[:3], out9[1:]))
+        log(f"  pair_forward_loss_agrad {tag}: repeat launch bit-identical: {repeat}; "
+            f"dv1, dv2, stats bit-identical to pair_forward_loss's: {same}")
+        if not repeat:
+            raise AssertionError(f"pair_forward_loss_agrad {tag}: two launches gave different bits")
+        errs10.append(compare(f"pair_forward_loss_agrad {tag} head-bias gradient vs the column "
+                              f"sum of pair_forward_loss's dmu", out10[3][-1], out9[0].sum(0),
+                              fe.KERNEL_TOL))
+        if saturate:
+            k = s // 6
+            zero = float(torch.cat([out9[0][:k], out9[0][s - k:]]).abs().max())
+            log(f"  pair_forward_loss {tag}: largest |dmu| on the saturated rows {zero:g}")
+            if zero != 0.0:
+                raise AssertionError("a saturated row has a nonzero gradient")
+    x = (2.0 * torch.randn((s_main, spec_a.obs_dim), generator=gen)).to(dev)
+    loss, rows = loss_inputs(spec_a, spec_c, la, lc, x, gen)
+    args = (spec_a, spec_c, loss, la, lc, *rows)
+    loss_control(f"forward + loss S={s_main}", args)
+    bwd_control(f"agrad actor gradients S={s_main}",
+                lambda **k: fe.reference_pair_fwd_loss_agrad(*args, **k)[3], fe.BWD_KERNEL_TOL,
+                fe.BWD_CONTROL_BLIND)
+    ms9 = cuda_time_ms(lambda: fe.pair_forward_loss(*args))
+    plain9 = cuda_time_ms(lambda: fe.reference_pair_fwd_loss(*args))
+    ms10 = cuda_time_ms(lambda: fe.pair_forward_loss_agrad(*args), runs=10)
+    plain10 = cuda_time_ms(lambda: fe.reference_pair_fwd_loss_agrad(*args), runs=10)
+    a = spec_a.head_dim
+    moved_in = nbytes(*rows, *la, *lc)
+    b9 = bound(encoder_flops(spec_a, s_main) + encoder_flops(spec_c, s_main),
+               moved_in + s_main * (a + 2 + fe._N_STATS + a) * 4)
+    b10 = bound(encoder_flops(spec_c, s_main) + encoder_bwd_flops(spec_a, s_main),
+                moved_in + s_main * (2 + fe._N_STATS + a) * 4 + nbytes(*la))
+    blocks = _bwd_blocks("mupe_encoder_fwd_loss_agrad_blocks", len(GROUPS), spec_a.n_tokens,
+                         spec_a.obs_dim, s_main)
+    log(f"  pair_forward_loss S={s_main}: kernel {ms9:.4f} ms, plain {plain9:.4f} ms, bound "
+        f"{b9['bound_ms']:.4f} ms ({b9['bound_by']}); pair_forward_loss_agrad: kernel "
+        f"{ms10:.4f} ms, plain {plain10:.4f} ms, bound {b10['bound_ms']:.4f} ms "
+        f"({b10['bound_by']}), {blocks} blocks (workspace slices)")
+    src = "mupe_tpu_torch/csrc/fused_encoder_loss.cu"
+    return {
+        "pair_forward_loss": dict(
+            route="cuda", source=src, replaces="mupe_tpu/ops/fused_encoder.py:568",
+            max_abs_err=max(errs9), ms=ms9, plain_ms=plain9, library_ms=None, **b9),
+        "pair_forward_loss_agrad": dict(
+            route="cuda", source=src, replaces="mupe_tpu/ops/fused_encoder.py:730",
+            max_abs_err=max(errs10), ms=ms10, plain_ms=plain10, library_ms=None, **b10),
+    }
+
+
 def _all_finite(tree) -> bool:
     if isinstance(tree, torch.Tensor):
         return bool(torch.isfinite(tree).all())
     return all(_all_finite(v) for v in tree.values())
 
 
-def make_slice(dev, num_envs, max_episode_length):
-    """bench.py's HideAndSeek and MAPPO configuration (TP net on) on `dev`."""
+def make_slice(dev, num_envs, max_episode_length, **algo):
+    """bench.py's HideAndSeek and MAPPO configuration (TP net on) on `dev`;
+    `algo` overrides MAPPOCfg fields."""
     from mupe_tpu_torch.envs import HideAndSeek, HideAndSeekCfg
     from mupe_tpu_torch.learning import MAPPOCfg, MAPPOPolicy
 
     env = HideAndSeek(HideAndSeekCfg(num_envs=num_envs,
                                      max_episode_length=max_episode_length), device=dev)
-    policy = MAPPOPolicy(MAPPOCfg(train_every=STEPS, use_tp_net=True), n_agents=3,
+    policy = MAPPOPolicy(MAPPOCfg(train_every=STEPS, use_tp_net=True, **algo), n_agents=3,
                          action_dim=4, obs_is_dict=True,
                          tp_input_dim=env.cfg.tp_input_dim, device=dev)
     return env, policy
@@ -588,7 +770,7 @@ def phase_slice(dev, card: str) -> None:
     check_against_cpu(dev)
 
 
-def check_update_against_cpu(dev) -> None:
+def check_update_against_cpu(dev, **algo) -> None:
     """The update on the card (kernels) against the update on the CPU (plain
     versions): one `train_op` at 16 arenas x 8 steps, 2 minibatches, 1
     epoch, from the same state and weights, on the same trajectory (a CPU
@@ -597,11 +779,15 @@ def check_update_against_cpu(dev) -> None:
     version (heads at unit gain, so the loss's every term moves; measured
     2.4e-3 on policy_loss on an H100), 1e-2 for the gradient norms (the
     kernel's gradients part from the plain version's by its tolerance);
-    parameters within 3e-3 absolute (two Adam steps of about lr = 5e-4)."""
+    parameters within 3e-3 absolute (two Adam steps of about lr = 5e-4).
+    `algo` overrides MAPPOCfg fields (the in-kernel loss's); the card's
+    update must launch the loss kernel of its `direct_mode` once a minibatch
+    and the other one never."""
     from mupe_tpu_torch.envs import HideAndSeek, HideAndSeekCfg, tree_to
     from mupe_tpu_torch.learning import MAPPOCfg, MAPPOPolicy, init_carry, make_rollout
+    from mupe_tpu_torch.ops import fused_encoder as fe
 
-    cfg = MAPPOCfg(train_every=8, num_minibatches=2, ppo_epochs=1, use_tp_net=True)
+    cfg = MAPPOCfg(train_every=8, num_minibatches=2, ppo_epochs=1, use_tp_net=True, **algo)
     env_c = HideAndSeek(HideAndSeekCfg(num_envs=16, max_episode_length=800), device="cpu")
     pols = {d: MAPPOPolicy(cfg, n_agents=3, action_dim=4, obs_is_dict=True,
                            tp_input_dim=env_c.cfg.tp_input_dim, device=d) for d in ("cpu", dev)}
@@ -615,9 +801,16 @@ def check_update_against_cpu(dev) -> None:
     carry, traj, _ = make_rollout(env_c, pols["cpu"])(carry)
     perms = torch.randperm(16 * 8, generator=torch.Generator().manual_seed(10))[None]
     out = {}
+    loss_kernels = {"fwdloss": fe.pair_forward_loss, "agrad": fe.pair_forward_loss_agrad}
+    before = {m: fn.launches for m, fn in loss_kernels.items()}
     for d, pol in pols.items():
         state, metrics = pol.train_op(ts[d], tree_to(traj, d), tree_to(carry.obs, d), perms=perms)
         out[d] = (state, {k: float(v) for k, v in metrics.items()})
+    took = {m: fn.launches - before[m] for m, fn in loss_kernels.items()}
+    want = {m: cfg.num_minibatches if cfg.use_inkernel_loss and m == cfg.direct_mode else 0
+            for m in loss_kernels}
+    if took != want:
+        raise AssertionError(f"loss-kernel launches in the card's update {took}, want {want}")
     (ts_c, m_c), (ts_g, m_g) = out["cpu"], out[dev]
     worst = max((abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1e-5), k) for k in m_c)
     log(f"  card vs CPU update metrics: worst relative difference {worst[0]:.3e} ({worst[1]})")
@@ -625,16 +818,54 @@ def check_update_against_cpu(dev) -> None:
         rel = 1e-2 if k.endswith("grad_norm") else 5e-3
         if not abs(m_g[k] - v) <= rel * abs(v) + 1e-5:
             raise AssertionError(f"card and CPU updates disagree on {k}: {m_g[k]} vs {v}")
-    pairs = [(ts_g.actor.flat, ts_c.actor.flat), (ts_g.log_std, ts_c.log_std),
-             (ts_g.critic.flat, ts_c.critic.flat),
-             *zip(ts_g.tp_net.leaves(), ts_c.tp_net.leaves())]
-    err = max((g.detach().cpu() - c.detach()).abs().max().item() for g, c in pairs)
-    log(f"  card vs CPU parameters after the update: max_abs_err={err:.3e} (tol 3e-3)")
+    groups = {"actor": [(ts_g.actor.flat, ts_c.actor.flat), (ts_g.log_std, ts_c.log_std)],
+              "critic": [(ts_g.critic.flat, ts_c.critic.flat)],
+              "tp": list(zip(ts_g.tp_net.leaves(), ts_c.tp_net.leaves()))}
+    errs = {name: max((g.detach().cpu() - c.detach()).abs().max().item() for g, c in pairs)
+            for name, pairs in groups.items()}
+    err = max(errs.values())
+    log(f"  card vs CPU parameters after the update: max_abs_err={err:.3e} (tol 3e-3; "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + ")")
     if not err <= 3e-3:
         raise AssertionError("card and CPU updates disagree on the parameters")
 
 
-def phase_train(dev, card: str) -> dict:
+def run_train_iters(train_iter, carry):
+    """WARMUP_ITERS + TIMED_ITERS iterations, then a further one with the
+    phase boundaries synchronised, for the split.  Returns (carry, metrics,
+    ep_stats, seconds of the timed iterations, {phase: seconds})."""
+    for _ in range(WARMUP_ITERS):
+        carry, metrics, ep_stats = train_iter(carry)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_ITERS):
+        carry, metrics, ep_stats = train_iter(carry)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    split, last = {}, [time.perf_counter()]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split[name] = split.get(name, 0.0) + now - last[0]
+        last[0] = now
+
+    carry, metrics, ep_stats = train_iter(carry, mark=mark)
+    return carry, metrics, ep_stats, seconds, split
+
+
+def check_train_outputs(carry, metrics, ep_stats) -> None:
+    """The metrics' keys, and every metric, stat and parameter finite."""
+    if set(metrics) != METRIC_KEYS:
+        raise AssertionError(f"metrics keys {sorted(metrics)}")
+    if not (_all_finite(metrics) and _all_finite(ep_stats)
+            and all(bool(torch.isfinite(p).all()) for p in
+                    (carry.ts.actor.flat, carry.ts.log_std, carry.ts.critic.flat))):
+        raise AssertionError("non-finite metric or parameter after training")
+    log("  metrics: " + ", ".join(f"{k}={float(v):.5g}" for k, v in sorted(metrics.items())))
+
+
+def phase_train(dev, card: str):
     from mupe_tpu_torch.learning import init_carry, make_train_iter
     from mupe_tpu_torch.ops import fused_encoder as fe
     from mupe_tpu_torch.ops import tp_lstm as tl
@@ -649,26 +880,7 @@ def phase_train(dev, card: str) -> dict:
                 "encoder_backward": fe.encoder_backward, "tp_backward": tl.tp_backward}
     for fn in wrappers.values():
         fn.launches = 0
-    for _ in range(WARMUP_ITERS):
-        carry, metrics, ep_stats = train_iter(carry)
-    torch.cuda.synchronize()
-    split = {}
-    last = [0.0]
-
-    def mark(name):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        split[name] = split.get(name, 0.0) + now - last[0]
-        last[0] = now
-
-    t0 = time.perf_counter()
-    for _ in range(TIMED_ITERS):
-        carry, metrics, ep_stats = train_iter(carry)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    # a further iteration with the phase boundaries synchronised, for the split
-    last[0] = time.perf_counter()
-    carry, metrics, ep_stats = train_iter(carry, mark=mark)
+    carry, metrics, ep_stats, seconds, split = run_train_iters(train_iter, carry)
     launches = {name: fn.launches for name, fn in wrappers.items()}
     iters = WARMUP_ITERS + TIMED_ITERS + 1
     log(f"  launches over {iters} iterations: {launches}")
@@ -676,13 +888,7 @@ def phase_train(dev, card: str) -> dict:
             or launches["encoder_pair_forward"] < 128 * iters
             or launches["encoder_forward"] < iters or launches["tp_forward"] < 65 * iters):
         raise AssertionError(f"the training path skipped a kernel: {launches}")
-    if set(metrics) != METRIC_KEYS:
-        raise AssertionError(f"metrics keys {sorted(metrics)}")
-    if not (_all_finite(metrics) and _all_finite(ep_stats)
-            and all(bool(torch.isfinite(p).all()) for p in
-                    (carry.ts.actor.flat, carry.ts.log_std, carry.ts.critic.flat))):
-        raise AssertionError("non-finite metric or parameter after training")
-    log("  metrics: " + ", ".join(f"{k}={float(v):.5g}" for k, v in sorted(metrics.items())))
+    check_train_outputs(carry, metrics, ep_stats)
     rate = NUM_ENVS * STEPS * TIMED_ITERS / seconds
     log(f"  training: {NUM_ENVS} x {STEPS} x {TIMED_ITERS} env-steps in {seconds:.4f} s "
         f"= {rate:.1f} env-steps/s ({seconds / TIMED_ITERS * 1e3:.2f} ms per iteration) "
@@ -690,7 +896,7 @@ def phase_train(dev, card: str) -> dict:
     log("  one iteration, phases synchronised: " + ", ".join(
         f"{k} {v * 1e3:.2f} ms" for k, v in split.items()))
     check_update_against_cpu(dev)
-    return launches
+    return launches, rate
 
 
 def _equal_trees(a, b) -> bool:
@@ -799,6 +1005,54 @@ def phase_aeg(dev, card: str) -> dict:
     return launches
 
 
+def phase_inkernel(dev, card: str, rate4: float) -> dict:
+    """Training with the in-kernel loss (`use_inkernel_loss=True`) at phase
+    4's configuration, in each `direct_mode`.  Returns each loss kernel's
+    launches over the run of its mode."""
+    from mupe_tpu_torch.learning import init_carry, make_train_iter
+    from mupe_tpu_torch.ops import fused_encoder as fe
+    from mupe_tpu_torch.ops import tp_lstm as tl
+
+    iters = WARMUP_ITERS + TIMED_ITERS + 1
+    wrappers = {"pair_forward_loss": fe.pair_forward_loss,
+                "pair_forward_loss_agrad": fe.pair_forward_loss_agrad,
+                "encoder_backward": fe.encoder_backward,
+                "encoder_pair_forward": fe.encoder_pair_forward,
+                "encoder_forward": fe.encoder_forward, "tp_forward": tl.tp_forward,
+                "tp_backward": tl.tp_backward}
+    kernel = {"fwdloss": "pair_forward_loss", "agrad": "pair_forward_loss_agrad"}
+    minibatches = 16 * 4
+    out = {}
+    for mode in ("fwdloss", "agrad"):
+        log(f"[6] in-kernel-loss training, direct_mode={mode!r}: make_train_iter, phase 4's "
+            f"configuration with use_inkernel_loss=True")
+        env, policy = make_slice(dev, NUM_ENVS, 800, use_inkernel_loss=True, direct_mode=mode)
+        carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(4))
+        train_iter = make_train_iter(env, policy)
+        for fn in wrappers.values():
+            fn.launches = 0
+        carry, metrics, ep_stats, seconds, split = run_train_iters(train_iter, carry)
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        log(f"  launches over {iters} iterations: {launches}")
+        want = {kernel[mode]: minibatches * iters, "encoder_backward": minibatches * iters,
+                "encoder_pair_forward": STEPS * iters,
+                kernel["agrad" if mode == "fwdloss" else "fwdloss"]: 0}
+        if (any(launches[k] != v for k, v in want.items()) or launches["encoder_forward"] < iters
+                or launches["tp_forward"] < (STEPS + 1) * iters or launches["tp_backward"] < iters):
+            raise AssertionError(f"launches {launches}, want {want} (64 loss-kernel launches "
+                                 f"and 64 backwards an iteration, pair forwards only from acting)")
+        check_train_outputs(carry, metrics, ep_stats)
+        rate = NUM_ENVS * STEPS * TIMED_ITERS / seconds
+        log(f"  training ({mode}): {NUM_ENVS} x {STEPS} x {TIMED_ITERS} env-steps in "
+            f"{seconds:.4f} s = {rate:.1f} env-steps/s ({seconds / TIMED_ITERS * 1e3:.2f} ms per "
+            f"iteration) against phase 4's {rate4:.1f} on {card}")
+        log("  one iteration, phases synchronised: " + ", ".join(
+            f"{k} {v * 1e3:.2f} ms" for k, v in split.items()))
+        check_update_against_cpu(dev, use_inkernel_loss=True, direct_mode=mode)
+        out[kernel[mode]] = launches[kernel[mode]]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
@@ -814,8 +1068,9 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(dev)
     phase_slice(dev, card)
-    launches = phase_train(dev, card)
+    launches, rate = phase_train(dev, card)
     launches["farthest_point_sampling"] = phase_aeg(dev, card)["farthest_point_sampling"]
+    launches.update(phase_inkernel(dev, card, rate))
     summary = {"kernels": [
         dict(name=name, launches=launches[name], **info)
         for name, info in kernels.items()

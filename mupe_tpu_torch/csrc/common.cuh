@@ -1,8 +1,8 @@
-// Helpers shared by the kernels: the encoder forward (fused_encoder.cu) and
-// backward (fused_encoder_bwd.cu) tiles -- one block of 128 threads per tile
-// of TR rows, thread j owning feature column j, activations in shared memory
-// and bf16 where the reference rounds -- and the fixed-order sum of the
-// backward kernels' per-block gradient slices (also tp_lstm_bwd.cu).
+// Helpers shared by the kernels: the encoder tiles' building blocks (the
+// tiles themselves are in encoder_tile.cuh) -- one block of 128 threads per
+// tile of TR rows, thread j owning feature column j, activations in shared
+// memory and bf16 where the reference rounds -- and the fixed-order sum of
+// the backward kernels' per-block gradient slices (also tp_lstm_bwd.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -89,12 +89,6 @@ __device__ __forceinline__ void ln_row_n(float (&v)[4], float (&n)[4], float& in
     v[i] = n[i] * __ldg(g + c) + __ldg(b + c);
   }
   inv_out = inv;
-}
-
-__device__ __forceinline__ void ln_row(float (&v)[4], const float* __restrict__ g,
-                                       const float* __restrict__ b, int lane) {
-  float n[4], inv;
-  ln_row_n(v, n, inv, g, b, lane);
 }
 
 __device__ __forceinline__ float gelu_tanh(float x) {

@@ -7,7 +7,9 @@ heads over dict observations, held as canonical parameter leaves
 `encoder_forward`.  `train_op` is the update of the JAX package's packed
 path: GAE, `ValueNorm1`, the TP net's supervised step and the joint PPO
 minibatches of `_update_joint_flat`, whose gradients come from the backward
-kernels through the autograd Functions under the forward wrappers.
+kernels through the autograd Functions under the forward wrappers, or, with
+`use_inkernel_loss`, of `_update_joint_direct`, whose loss gradients come out
+of the forward kernel itself (`pair_ppo_grads_fwdloss` / `pair_ppo_grads`).
 """
 from __future__ import annotations
 
@@ -19,11 +21,24 @@ import torch
 from torch import nn
 
 from ..ops.fused_encoder import (
+    _LOG_SQRT_2PI,
+    _SUM_H1,
+    _SUM_H2,
+    _SUM_LOGR,
+    _SUM_MIN12,
+    _SUM_RATIO,
+    _SUM_RATIO2,
+    _SUM_RET,
+    _SUM_RET2,
+    _SUM_SQERR,
     EncoderSpec,
+    PPOLossCfg,
     encoder_forward,
     encoder_pair_forward,
     leaf_shapes,
     pack_obs,
+    pair_ppo_grads,
+    pair_ppo_grads_fwdloss,
     split_flat,
 )
 from .modules.distributions import Gaussian
@@ -33,14 +48,22 @@ from .optim import AdamState, adam_updates, clip_by_global_norm, global_norm
 from .tp_net import TPNet
 from .valuenorm import ValueNorm1
 
-_LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
+
+def _gaussian_entropy(log_std: torch.Tensor) -> torch.Tensor:
+    """The diagonal Gaussian's entropy (it does not depend on the mean)."""
+    return torch.sum(log_std) + log_std.shape[-1] * 0.5 * (1.0 + math.log(2.0 * math.pi))
 
 
 @dataclasses.dataclass(frozen=True)
 class MAPPOCfg:
     """Hyper-parameters (reference cfg/algo/mappo.yaml); the fields and
     defaults of the JAX package's MAPPOCfg without its TPU launch knobs
-    (use_fused_encoder, use_inkernel_loss, use_fused_act, pack_rollout)."""
+    (use_fused_encoder, use_fused_act, pack_rollout).  `use_inkernel_loss`
+    selects the update whose loss gradients come out of the forward kernel
+    (`_update_joint_direct`); `direct_mode`, the port's counterpart of the
+    JAX package's MUPE_DIRECT_MODE environment variable, picks its kernel:
+    "fwdloss" (forward + loss, then the pair backward) or "agrad" (forward +
+    loss + the actor's backward in one kernel, then the critic's backward)."""
 
     train_every: int = 64
     num_minibatches: int = 16
@@ -74,6 +97,11 @@ class MAPPOCfg:
     entropy_err_clip: float = 1.0
     target_kl: Optional[float] = None
     min_log_std: Optional[float] = None
+    use_inkernel_loss: bool = False
+    direct_mode: str = "fwdloss"
+
+
+DIRECT_MODES = ("fwdloss", "agrad")
 
 
 class EncoderHead(nn.Module):
@@ -256,6 +284,8 @@ class MAPPOPolicy:
                 raise NotImplementedError(f"MAPPO {what} is not ported yet")
         if cfg.use_tp_net and tp_input_dim is None:
             raise ValueError("use_tp_net needs tp_input_dim")
+        if cfg.direct_mode not in DIRECT_MODES:
+            raise ValueError(f"direct_mode {cfg.direct_mode!r} is not one of {DIRECT_MODES}")
         self.cfg = cfg
         self.n_agents = n_agents
         self.action_dim = action_dim
@@ -372,7 +402,8 @@ class MAPPOPolicy:
         """The update (mappo.py:593-806) on a rollout's trajectory: bootstrap
         value, flat GAE + advantage normalisation + `ValueNorm1`, the TP
         net's supervised step, then `ppo_epochs` x `num_minibatches` joint
-        actor+critic steps.  Minibatches are drawn from `perms`
+        actor+critic steps (`_update_joint_flat`, or `_update_joint_direct`
+        with `use_inkernel_loss`).  Minibatches are drawn from `perms`
         ([ppo_epochs, T*E] permutations, e.g. the JAX package's) or from
         `generator`.  Metrics stay device tensors (no host sync).  `mark`,
         if given, is called with "prep", "tp" and "ppo" as each phase ends
@@ -409,6 +440,7 @@ class MAPPOPolicy:
         stop = (torch.zeros((), dtype=torch.bool, device=packed.device)
                 if cfg.target_kl is not None else None)
         infos: Dict[str, List[torch.Tensor]] = {}
+        update = self._update_joint_direct if cfg.use_inkernel_loss else self._update_joint_flat
         for epoch in range(cfg.ppo_epochs):
             if perms is not None:
                 perm = perms[epoch].to(packed.device)
@@ -417,7 +449,7 @@ class MAPPOPolicy:
             mb_idx = perm[: mb_size * cfg.num_minibatches].reshape(cfg.num_minibatches, mb_size)
             for idx in mb_idx:
                 mb = unpack_rows(meta, packed[idx])
-                info = self._update_joint_flat(ts, mb, stop)
+                info = update(ts, mb, stop)
                 if stop is not None:
                     stop = torch.logical_or(stop, info["approx_kl"] > cfg.target_kl)
                     info["kl_stop"] = stop.to(torch.float32)
@@ -454,7 +486,7 @@ class MAPPOPolicy:
             log_std = ts.log_std.detach().requires_grad_(True)
             z = (act - mean) * torch.exp(-log_std)
             logp_new = torch.sum(-0.5 * torch.square(z) - log_std - _LOG_SQRT_2PI, dim=-1)
-            entropy = torch.sum(log_std) + act.shape[-1] * 0.5 * (1.0 + math.log(2.0 * math.pi))
+            entropy = _gaussian_entropy(log_std)
             ratio = torch.exp(torch.clamp(logp_new - logp_old, -20.0, 20.0))
             surr1 = ratio * adv
             surr2 = torch.clamp(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param) * adv
@@ -470,14 +502,10 @@ class MAPPOPolicy:
                      values=values.detach())
         return [ga_enc, ga_ls], [gc], terms
 
-    def _update_joint_flat(
-        self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None
-    ) -> Dict[str, torch.Tensor]:
-        """One minibatch (mappo.py:949-1045): `_joint_grads`, then clip +
-        Adam for the actor (log_std in its global norm) and the critic;
-        returns the info metrics."""
+    def _step(self, ts: MAPPOState, ga, gc, stop) -> None:
+        """Clip + Adam for the actor (log_std in its global norm, then its
+        floor) and the critic, written into `ts` (held where `stop` is set)."""
         cfg = self.cfg
-        ga, gc, terms = self._joint_grads(ts, mb)
         with torch.no_grad():
             upd_a, opt_a = adam_updates(clip_by_global_norm(ga, cfg.max_grad_norm),
                                         ts.actor_opt, cfg.actor_lr)
@@ -488,6 +516,16 @@ class MAPPOPolicy:
             new_c = [p + u for p, u in zip(ts.critic_params(), upd_c)]
             self._write(ts.actor_params(), new_a, ts.actor_opt, opt_a, stop)
             self._write(ts.critic_params(), new_c, ts.critic_opt, opt_c, stop)
+
+    def _update_joint_flat(
+        self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None
+    ) -> Dict[str, torch.Tensor]:
+        """One minibatch (mappo.py:949-1045): `_joint_grads`, then clip +
+        Adam for the actor (log_std in its global norm) and the critic;
+        returns the info metrics."""
+        ga, gc, terms = self._joint_grads(ts, mb)
+        self._step(ts, ga, gc, stop)
+        with torch.no_grad():
             ratio, values, b_returns = terms["ratio"], terms["values"], mb["returns"]
             explained_var = 1.0 - torch.mean(torch.square(values - b_returns)) / (
                 torch.var(b_returns, correction=0) + 1e-8)
@@ -502,6 +540,46 @@ class MAPPOPolicy:
                 "explained_var": explained_var,
                 "approx_kl": torch.mean(ratio - 1.0 - torch.log(ratio)),
             }
+
+    @torch.no_grad()
+    def _update_joint_direct(
+        self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None
+    ) -> Dict[str, torch.Tensor]:
+        """One minibatch with the loss's gradients from the forward kernel
+        (mappo.py:1048-1157): `pair_ppo_grads_fwdloss` ("fwdloss") or
+        `pair_ppo_grads` ("agrad") give the encoder gradients, the policy
+        term of dlog_std and the stats' column sums; the entropy bonus adds
+        -entropy_coef to dlog_std (the Gaussian's entropy does not depend on
+        the state).  Then `_step`; the metrics come from the sums."""
+        cfg = self.cfg
+        a_dim = self.action_dim
+        x = mb["obs_rows"]
+        s = x.shape[0]
+        loss = PPOLossCfg(clip_param=cfg.clip_param, huber_delta=cfg.huber_delta,
+                          action_dim=a_dim, n_rows=s)
+        grads_fn = pair_ppo_grads if cfg.direct_mode == "agrad" else pair_ppo_grads_fwdloss
+        dla, dls, dlc, sums = grads_fn(
+            ts.actor.spec, ts.critic.spec, loss, ts.actor.leaves, ts.critic.leaves,
+            ts.log_std, x, mb["action"].reshape(s, a_dim), mb["logp"].reshape(s, 1),
+            mb["advantages"].reshape(s, 1), mb["value"].reshape(s, 1),
+            mb["returns"].reshape(s, 1))
+        ga = [torch.cat([g.reshape(-1) for g in dla]), dls - self._entropy_coef(ts)]
+        gc = [torch.cat([g.reshape(-1) for g in dlc])]
+        inv_s = 1.0 / s
+        ret_var = sums[_SUM_RET2] * inv_s - torch.square(sums[_SUM_RET] * inv_s)
+        info = {
+            "policy_loss": -(a_dim * inv_s) * sums[_SUM_MIN12],
+            "actor_grad_norm": global_norm(ga),
+            "entropy": _gaussian_entropy(ts.log_std),
+            "ESS": torch.square(sums[_SUM_RATIO]) / (sums[_SUM_RATIO2] * s),
+            "value_loss": torch.maximum(sums[_SUM_H1] * inv_s, sums[_SUM_H2] * inv_s),
+            "critic_grad_norm": global_norm(gc),
+            "explained_var": 1.0 - (sums[_SUM_SQERR] * inv_s) / (ret_var + 1e-8),
+            # the k3 estimator from the sums
+            "approx_kl": (sums[_SUM_RATIO] - s - sums[_SUM_LOGR]) * inv_s,
+        }
+        self._step(ts, ga, gc, stop)
+        return info
 
     def _update_tp(self, ts: MAPPOState, traj: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """The TP net's supervised epochs (mappo.py:1197-1270): every window

@@ -43,6 +43,14 @@ KERNEL_TOL = KernelTol(max_rel=5e-3, mean_rel=1e-4)
 # gradients meet one rounding point) and the head bias (no rounding point).
 BWD_KERNEL_TOL = GradTol(max_rel=1e-2, mean_rel=1.5e-3, noise_floor=1e-4, noise_leaves=(-15,))
 BWD_CONTROL_BLIND = (-15, -5, -3, -1)
+# The forward + loss kernels' stats [S, 9 + A] vs `reference_loss_math`'s,
+# column by column: KERNEL_TOL's mean limit, and twice its max limit, for the
+# columns that carry the log-ratio (ratio, ratio², the clamped log-ratio,
+# min(surr1, surr2), the dlog_std columns): a row's log-prob error is the
+# actor's output error times |act - mean| / sigma² (up to ~10x at sigma =
+# e^-1), and ratio² doubles the ratio's relative error.  Measured on an H100
+# at S = 49,152: 5.2e-3 on ratio², mean errors under 1e-5.
+LOSS_STATS_TOL = KernelTol(max_rel=1e-2, mean_rel=1e-4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -476,3 +484,233 @@ def encoder_pair_forward(
 
 
 encoder_pair_forward.launches = 0
+
+
+# ---------------------------------------------------------------- in-kernel PPO loss
+@dataclasses.dataclass(frozen=True)
+class PPOLossCfg:
+    """The PPO loss's constants (`PPOLossCfg` of the JAX package)."""
+
+    clip_param: float
+    huber_delta: float
+    action_dim: int
+    n_rows: int  # S: the means' normaliser
+
+
+_LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
+
+# column layout of the per-row stats [S, 9 + A]
+_SUM_MIN12 = 0   # min(surr1, surr2)
+_SUM_RATIO = 1   # ratio
+_SUM_RATIO2 = 2  # ratio²
+_SUM_H1 = 3      # huber(v − R)
+_SUM_H2 = 4      # huber(clip_v − R)
+_SUM_SQERR = 5   # (v − R)²
+_SUM_RET = 6     # R
+_SUM_RET2 = 7    # R²
+_SUM_LOGR = 8    # clamped log-ratio (the k3 approx-KL estimator)
+_SUM_DLS = 9     # columns 9 .. 9+A: dlogp·(z²−1) per action dimension
+_N_STATS = 9
+
+
+def reference_loss_math(loss: PPOLossCfg, mean, vout, act, logp_old, adv, v_old, ret, log_std):
+    """`_loss_math` (fused_encoder.py:605-681) in plain PyTorch, f32, term for
+    term: mean [S, A], vout / logp_old / adv / v_old / ret [S, 1], log_std
+    [A] → (dmu [S, A], dv1 [S, 1], dv2 [S, 1], stats [S, 9 + A]), the
+    gradients of the mean PPO-clip loss (the entropy term aside) and of each
+    clipped-Huber value branch, per row.  Every row is a real one (no
+    padding), so the row mask is all ones."""
+    inv_s = 1.0 / loss.n_rows
+    eps, delta = loss.clip_param, loss.huber_delta
+    sigma = torch.exp(log_std)
+    z = (act - mean) / sigma
+    logp = torch.sum(-0.5 * torch.square(z) - log_std - _LOG_SQRT_2PI, dim=-1, keepdim=True)
+    log_ratio = logp - logp_old
+    ratio = torch.exp(torch.clamp(log_ratio, -20.0, 20.0))
+    surr1 = ratio * adv
+    surr2 = torch.clamp(ratio, 1.0 - eps, 1.0 + eps) * adv
+    in_clip = ((ratio > 1.0 - eps) & (ratio < 1.0 + eps)).to(torch.float32)
+    g_ratio = adv * torch.where(surr1 <= surr2, torch.ones_like(in_clip), in_clip)
+    # zero gradient where the clamp saturates (its cotangent is zero there)
+    unsat = ((log_ratio > -20.0) & (log_ratio < 20.0)).to(torch.float32)
+    dlogp = -(loss.action_dim * inv_s) * g_ratio * ratio * unsat
+    dmu = dlogp * z / sigma
+
+    d1 = vout - ret
+    d2 = v_old + torch.clamp(vout - v_old, -eps, eps) - ret
+
+    def hub(d):
+        ad = torch.abs(d)
+        return torch.where(ad <= delta, 0.5 * d * d, delta * (ad - 0.5 * delta))
+
+    dv1 = inv_s * torch.clamp(d1, -delta, delta)
+    dv2 = inv_s * torch.clamp(d2, -delta, delta) * (torch.abs(vout - v_old) <= eps).to(torch.float32)
+    stats = torch.cat([
+        torch.minimum(surr1, surr2), ratio, torch.square(ratio), hub(d1), hub(d2),
+        torch.square(d1), ret, torch.square(ret), torch.clamp(log_ratio, -20.0, 20.0),
+        dlogp * (torch.square(z) - 1.0),
+    ], dim=-1)
+    return dmu, dv1, dv2, stats
+
+
+def reference_pair_fwd_loss(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, adv,
+                            v_old, ret, *, bf16: bool = True):
+    """The plain version of `_pair_fwd_loss_kernel`: `reference_apply` for
+    both networks, then `reference_loss_math` → (dmu, dv1, dv2, stats).
+    bf16=False skips every rounding point of the forwards (the control)."""
+    mean = reference_apply(spec_a, la, x, bf16=bf16)
+    vout = reference_apply(spec_c, lc, x, bf16=bf16)
+    return reference_loss_math(loss, mean, vout, act, logp_old, adv, v_old, ret, log_std)
+
+
+def reference_pair_fwd_loss_agrad(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, adv,
+                                  v_old, ret, *, bf16: bool = True):
+    """The plain version of `_pair_fwd_loss_agrad_kernel`: (dv1, dv2, stats,
+    the actor's gradients with dout = dmu in canonical leaf order)."""
+    dmu, dv1, dv2, stats = reference_pair_fwd_loss(
+        spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, adv, v_old, ret, bf16=bf16)
+    return dv1, dv2, stats, reference_backward(spec_a, la, x, dmu, bf16=bf16)
+
+
+def _loss_rows(loss: PPOLossCfg, x, act, logp_old, adv, v_old, ret, log_std):
+    """The row inputs as the kernels take them (contiguous f32 on x's
+    device: act [S, A], the others [S, 1], log_std [A]); raises otherwise."""
+    s, a = x.shape[0], loss.action_dim
+    rows = []
+    for name, t, shape in (("act", act, (s, a)), ("logp_old", logp_old, (s, 1)),
+                           ("adv", adv, (s, 1)), ("v_old", v_old, (s, 1)),
+                           ("ret", ret, (s, 1)), ("log_std", log_std, (a,))):
+        if t.device != x.device or t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be float32 {shape} on {x.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        rows.append(t.contiguous())
+    if loss.n_rows != s:
+        raise ValueError(f"loss.n_rows {loss.n_rows} != S {s}")
+    return rows
+
+
+def _loss_consts(loss: PPOLossCfg):
+    """The loss's f32 constants, in the order the kernels read them."""
+    eps, delta, inv_s = loss.clip_param, loss.huber_delta, 1.0 / loss.n_rows
+    return build.float_array([eps, 1.0 - eps, 1.0 + eps, delta, 0.5 * delta, inv_s,
+                              -(loss.action_dim * inv_s), _LOG_SQRT_2PI])
+
+
+def _check_loss_nets(spec_a, spec_c, loss, x, la, lc):
+    _check_kernel_args(x, [(spec_a, la), (spec_c, lc)])
+    if spec_a.head_dim != loss.action_dim or spec_c.head_dim != 1:
+        raise ValueError(f"actor head {spec_a.head_dim} (want {loss.action_dim}), "
+                         f"critic head {spec_c.head_dim} (want 1)")
+
+
+def pair_forward_loss(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, adv, v_old, ret):
+    """Actor and critic forward + the PPO loss's per-row gradient math →
+    (dmu [S, A], dv1 [S, 1], dv2 [S, 1], stats [S, 9 + A]).  On CPU tensors
+    `reference_pair_fwd_loss`; on CUDA tensors one launch of
+    `pair_fwd_loss_kernel` (csrc/fused_encoder_loss.cu)."""
+    if x.device.type == "cpu":
+        return reference_pair_fwd_loss(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old,
+                                       adv, v_old, ret)
+    _check_loss_nets(spec_a, spec_c, loss, x, la, lc)
+    rows = _loss_rows(loss, x, act, logp_old, adv, v_old, ret, log_std)
+    s, a = x.shape[0], loss.action_dim
+    outs = [torch.empty(shape, device=x.device, dtype=torch.float32)
+            for shape in ((s, a), (s, 1), (s, 1), (s, _N_STATS + a))]
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        err = lib.mupe_encoder_fwd_loss(
+            x.data_ptr(), s, spec_a.obs_dim, len(spec_a.groups),
+            build.int_array([k for k, _ in spec_a.groups]),
+            build.int_array([d for _, d in spec_a.groups]),
+            build.ptr_array([leaf.data_ptr() for leaf in (*la, *lc)]), spec_a.n_leaves, a,
+            build.ptr_array([t.data_ptr() for t in rows]), _loss_consts(loss),
+            build.ptr_array([o.data_ptr() for o in outs]),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    build.check(err, "mupe_encoder_fwd_loss")
+    pair_forward_loss.launches += 1
+    return tuple(outs)
+
+
+pair_forward_loss.launches = 0
+
+
+def pair_forward_loss_agrad(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, adv, v_old,
+                            ret):
+    """`pair_forward_loss` followed by the actor's backward with dout = dmu,
+    in one kernel → (dv1, dv2, stats, the actor's gradients in canonical leaf
+    order, views of one flat vector).  On CPU tensors
+    `reference_pair_fwd_loss_agrad`; on CUDA tensors one launch of
+    `pair_fwd_loss_agrad_kernel` (+ its fixed-order reduction)."""
+    if x.device.type == "cpu":
+        return reference_pair_fwd_loss_agrad(spec_a, spec_c, loss, la, lc, log_std, x, act,
+                                             logp_old, adv, v_old, ret)
+    _check_loss_nets(spec_a, spec_c, loss, x, la, lc)
+    rows = _loss_rows(loss, x, act, logp_old, adv, v_old, ret, log_std)
+    s, a = x.shape[0], loss.action_dim
+    outs = [torch.empty(shape, device=x.device, dtype=torch.float32)
+            for shape in ((s, 1), (s, 1), (s, _N_STATS + a))]
+    p = n_params(spec_a)
+    base = 2 * len(spec_a.groups)
+    wts = [la[base + i].t().contiguous() for i in (2, 4, 6, 8, 12, 14)]
+    grads = torch.empty(p, device=x.device, dtype=torch.float32)
+    lib = build.library()
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(x.device):
+        build.check(lib.mupe_encoder_fwd_loss_agrad_blocks(
+            len(spec_a.groups), spec_a.n_tokens, spec_a.obs_dim, s, ctypes.byref(blocks)),
+            "mupe_encoder_fwd_loss_agrad_blocks")
+        ws = torch.empty(blocks.value * p, device=x.device, dtype=torch.float32)
+        err = lib.mupe_encoder_fwd_loss_agrad(
+            x.data_ptr(), s, spec_a.obs_dim, len(spec_a.groups),
+            build.int_array([k for k, _ in spec_a.groups]),
+            build.int_array([d for _, d in spec_a.groups]),
+            build.ptr_array([leaf.data_ptr() for leaf in (*la, *lc)]), spec_a.n_leaves, a,
+            build.ptr_array([t.data_ptr() for t in rows]), _loss_consts(loss),
+            build.ptr_array([o.data_ptr() for o in outs]),
+            build.ptr_array([w.data_ptr() for w in wts]), grads.data_ptr(), p,
+            ws.data_ptr(), blocks.value, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    build.check(err, "mupe_encoder_fwd_loss_agrad")
+    pair_forward_loss_agrad.launches += 1
+    return (*outs, split_flat(spec_a, grads))
+
+
+pair_forward_loss_agrad.launches = 0
+
+
+def _value_branch(loss: PPOLossCfg, sums, dv1, dv2):
+    """The clipped-Huber loss is the larger of two batch means: the critic's
+    cotangent is that branch's (branch 1 on a tie)."""
+    h1 = sums[_SUM_H1] / loss.n_rows
+    h2 = sums[_SUM_H2] / loss.n_rows
+    return torch.where(h1 >= h2, dv1, dv2)
+
+
+def pair_ppo_grads_fwdloss(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, adv, v_old,
+                           ret):
+    """The PPO gradients in two launches (`fused_pair_ppo_grads_fwdloss`,
+    fused_encoder.py:832-898): `pair_forward_loss`, then the value branch
+    chosen from the stats' sums, then one pair launch of `encoder_backward`
+    for the actor (dout = dmu) and the critic (dout = dv).  Returns (the
+    actor's gradients, the policy term of dlog_std [A], the critic's
+    gradients, the stats' column sums [9 + A])."""
+    dmu, dv1, dv2, stats = pair_forward_loss(spec_a, spec_c, loss, la, lc, log_std, x, act,
+                                             logp_old, adv, v_old, ret)
+    sums = stats.sum(0)
+    dv = _value_branch(loss, sums, dv1, dv2)
+    dla, dlc = encoder_backward([(spec_a, la), (spec_c, lc)], x, [dmu, dv])
+    return dla, sums[_SUM_DLS : _SUM_DLS + loss.action_dim], dlc, sums
+
+
+def pair_ppo_grads(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, adv, v_old, ret):
+    """The PPO gradients in two launches without recomputing the actor
+    (`fused_pair_ppo_grads`, fused_encoder.py:901-975): `pair_forward_loss_agrad`,
+    then the critic's backward (one-network `encoder_backward`) with the
+    chosen branch's dv.  Returns as `pair_ppo_grads_fwdloss`."""
+    dv1, dv2, stats, dla = pair_forward_loss_agrad(spec_a, spec_c, loss, la, lc, log_std, x, act,
+                                                   logp_old, adv, v_old, ret)
+    sums = stats.sum(0)
+    dv = _value_branch(loss, sums, dv1, dv2)
+    (dlc,) = encoder_backward([(spec_c, lc)], x, [dv])
+    return dla, sums[_SUM_DLS : _SUM_DLS + loss.action_dim], dlc, sums

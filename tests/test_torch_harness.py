@@ -12,6 +12,8 @@ the FPS path (the buffer starts full from the easy cases, r_min = 0).
 """
 import csv
 import dataclasses
+import json
+import math
 
 import pytest
 import torch
@@ -101,6 +103,25 @@ def test_deploy_stage_ramps_update_epoch(tmp_path):
     _run(tmp_path, "d", "max_iters=2", deploy_stage=True)
     full = load_checkpoint(tmp_path / "d" / "checkpoints" / "full")
     assert float(full["env_state"]["update_epoch"]) == 1.0
+
+
+@pytest.fixture(scope="module")
+def default_keys(tmp_path_factory):
+    """The metric keys of one iteration of the default update."""
+    return set(_run(tmp_path_factory.mktemp("default"), "d", "max_iters=1"))
+
+
+@pytest.mark.parametrize("mode", ["fwdloss", "agrad"])
+def test_train_runs_the_inkernel_loss_update(tmp_path, default_keys, mode):
+    """`algo.use_inkernel_loss` / `algo.direct_mode` reach the update from the
+    entry point: one iteration with the default path's metrics, all finite."""
+    m = _run(tmp_path, mode, "max_iters=1", "algo.use_inkernel_loss=true",
+             f"algo.direct_mode={mode}")
+    assert set(m) == default_keys
+    assert all(math.isfinite(v) for v in m.values())
+    with open(tmp_path / mode / "config.json") as f:
+        algo = json.load(f)["MAPPOCfg"]
+    assert algo["use_inkernel_loss"] is True and algo["direct_mode"] == mode
 
 
 @pytest.mark.parametrize("arg", ["algo=ppo", "task=Hover", "eval_interval=1", "video=ev.gif",

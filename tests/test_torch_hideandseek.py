@@ -164,7 +164,8 @@ def test_deferred_config_paths_raise(field):
 
 def test_configs_match_jax():
     """Same fields and defaults as the JAX configs (MAPPOCfg without its
-    TPU launch knobs), and the same stat keys."""
+    TPU launch knobs, with `direct_mode`, the port's counterpart of the JAX
+    package's MUPE_DIRECT_MODE environment variable), and the same stat keys."""
     from mupe_tpu.envs.hideandseek import STAT_KEYS as JSTAT_KEYS
     from mupe_tpu.learning.mappo import MAPPOCfg as JMCfg
     from mupe_tpu_torch.learning.mappo import MAPPOCfg
@@ -173,8 +174,9 @@ def test_configs_match_jax():
         return {f.name: f.default for f in dataclasses.fields(c)}
 
     assert fields(HideAndSeekCfg) == fields(JCfg)
-    knobs = {"use_fused_encoder", "use_inkernel_loss", "use_fused_act", "pack_rollout"}
+    knobs = {"use_fused_encoder", "use_fused_act", "pack_rollout"}
     jm = fields(JMCfg)
-    assert fields(MAPPOCfg) == {k: v for k, v in jm.items() if k not in knobs}
+    assert fields(MAPPOCfg) == {**{k: v for k, v in jm.items() if k not in knobs},
+                                "direct_mode": "fwdloss"}
     assert knobs <= set(jm)
     assert STAT_KEYS == JSTAT_KEYS

@@ -17,6 +17,7 @@ its indices must be equal.
 """
 import ast
 import dataclasses
+import importlib.util
 import math
 from pathlib import Path
 
@@ -70,10 +71,24 @@ def _fps_case(n, device="cpu", d=27, keep_last=None):
     return pts.to(device), valid.to(device)
 
 
+def _loss_case(s, device="cpu", saturate=False):
+    """An encoder pair over s rows with the in-kernel loss's inputs from
+    chip_smoke.py's `loss_inputs` (ratios and value offsets kept off the clip
+    rails): (spec_a, spec_c, la, lc, x, the loss wrappers' arguments)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", PKG.parent / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    spec_a, spec_c, la, lc, x = _encoder_case(s, device)
+    loss, rows = cs.loss_inputs(spec_a, spec_c, la, lc, x, torch.Generator().manual_seed(s),
+                                saturate)
+    return spec_a, spec_c, la, lc, x, (spec_a, spec_c, loss, la, lc, *rows)
+
+
 def _launch_counts():
     return (fe.encoder_forward.launches, fe.encoder_pair_forward.launches,
             tl.tp_forward.launches, fe.encoder_backward.launches, tl.tp_backward.launches,
-            fps.farthest_point_sampling.launches)
+            fps.farthest_point_sampling.launches, fe.pair_forward_loss.launches,
+            fe.pair_forward_loss_agrad.launches)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
@@ -116,6 +131,18 @@ def test_cpu_tensors_take_the_plain_backward_and_count_no_launch():
     assert _launch_counts() == before
 
 
+def test_cpu_tensors_take_the_plain_loss_versions_and_count_no_launch():
+    *_, args = _loss_case(23)
+    before = _launch_counts()
+    got = fe.pair_forward_loss(*args)
+    assert all(torch.equal(u, v) for u, v in zip(got, fe.reference_pair_fwd_loss(*args)))
+    dv1, dv2, stats, grads = fe.pair_forward_loss_agrad(*args)
+    want = fe.reference_pair_fwd_loss_agrad(*args)
+    assert all(torch.equal(u, v) for u, v in zip((dv1, dv2, stats, *grads),
+                                                 (*want[:3], *want[3])))
+    assert _launch_counts() == before
+
+
 def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
     """A tensor on another device goes to the kernel path, whose checks
     raise for anything but a contiguous float32 CUDA tensor."""
@@ -135,6 +162,11 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
     pts, valid = _fps_case(10)
     with pytest.raises(ValueError, match="CUDA"):
         fps.farthest_point_sampling(pts.to("meta"), 4, valid.to("meta"))
+    *_, args = _loss_case(6)
+    meta_args = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
+    for fn in (fe.pair_forward_loss, fe.pair_forward_loss_agrad):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*meta_args)
 
 
 def test_c_sources_and_build_helper_exist():
@@ -167,14 +199,16 @@ def test_mupe_tpu_torch_imports_no_jax_or_flax():
                 assert name.split(".")[0] not in banned, f"{path}: imports {name}"
 
 
-@pytest.mark.parametrize("net", ["actor", "critic", "tp"])
+@pytest.mark.parametrize("net", ["actor", "critic", "tp", "loss"])
 def test_kernel_tolerance_rejects_the_plain_version_without_bf16_rounding(net):
     spec_a, spec_c, la, lc, x = _encoder_case(300)
     spec, lt, xt = _tp_case(300)
+    *_, args = _loss_case(300)
     plain, tol = {
         "actor": (lambda **k: fe.reference_apply(spec_a, la, x, **k), fe.KERNEL_TOL),
         "critic": (lambda **k: fe.reference_apply(spec_c, lc, x, **k), fe.KERNEL_TOL),
         "tp": (lambda **k: tl.reference_forward(spec, lt, xt, **k), tl.KERNEL_TOL),
+        "loss": (lambda **k: fe.reference_pair_fwd_loss(*args, **k)[0], fe.KERNEL_TOL),
     }[net]
     ref = plain()
     errs = tol.errors(plain(bf16=False), ref)
@@ -262,6 +296,54 @@ def test_encoder_backward_kernel_matches_plain_version(cuda, s, nets):
         _bwd_close(gk, fe.reference_backward(spec, leaves, x, d), tol)
         assert all(torch.equal(u, v) for u, v in zip(gk, g2))
     assert grads[-1][-1].item() == float(s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,saturate", [(1, False), (7, False), (8, False), (49152, False),
+                                        (49153, False), (49152, True)])
+def test_loss_kernels_match_plain_version(cuda, s, saturate):
+    """The fwdloss kernel's dmu, dv1, dv2 and stats (column by column) and the
+    agrad kernel's dv1, dv2, stats and actor gradients within the limits of
+    the forward and backward kernels; a repeat launch gives the same bits,
+    and the actor's head-bias gradient is the column sum of dmu (every row
+    counted).  Saturated rows (log-ratio past +-20) get dmu = 0."""
+    spec_a, spec_c, la, lc, x, args = _loss_case(s, cuda, saturate)
+    n = (fe.pair_forward_loss.launches, fe.pair_forward_loss_agrad.launches)
+    dmu, dv1, dv2, stats = fe.pair_forward_loss(*args)
+    out = fe.pair_forward_loss_agrad(*args)
+    again = fe.pair_forward_loss_agrad(*args)
+    torch.cuda.synchronize()
+    assert (fe.pair_forward_loss.launches, fe.pair_forward_loss_agrad.launches) == (n[0] + 1,
+                                                                                    n[1] + 2)
+    ref = fe.reference_pair_fwd_loss(*args)
+    for got, want in zip((dmu, dv1, dv2, out[0], out[1]), (*ref[:3], *ref[1:3])):
+        _close_scaled(got, want, fe.KERNEL_TOL)
+    for st in (stats, out[2]):
+        for c in range(st.shape[1]):
+            _close_scaled(st[:, c], ref[3][:, c], fe.LOSS_STATS_TOL)
+    tol = fe.BWD_KERNEL_TOL if s >= 300 else dataclasses.replace(fe.BWD_KERNEL_TOL, mean_rel=5e-3)
+    _bwd_close(out[3], fe.reference_backward(spec_a, la, x, ref[0]), tol)
+    assert all(torch.equal(u, v) for u, v in zip((*out[:3], *out[3]), (*again[:3], *again[3])))
+    _close_scaled(out[3][-1], dmu.sum(0), fe.KERNEL_TOL)
+    if saturate:
+        k = s // 6
+        assert float(torch.cat([dmu[:k], dmu[s - k:]]).abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_loss_wrappers_reject_bad_inputs(cuda):
+    spec_a, spec_c, la, lc, x, args = _loss_case(8, cuda)
+    loss, log_std, _, act, logp_old, adv, v_old, ret = args[2], *args[5:]
+    for fn in (fe.pair_forward_loss, fe.pair_forward_loss_agrad):
+        with pytest.raises(ValueError):  # a row input of the wrong shape
+            fn(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old[:4], adv, v_old, ret)
+        with pytest.raises(ValueError):  # a row input on the CPU
+            fn(spec_a, spec_c, loss, la, lc, log_std, x, act.cpu(), logp_old, adv, v_old, ret)
+        with pytest.raises(ValueError):  # n_rows is not S
+            fn(spec_a, spec_c, dataclasses.replace(loss, n_rows=9), la, lc, log_std, x, act,
+               logp_old, adv, v_old, ret)
+        with pytest.raises(ValueError):  # the networks swapped
+            fn(spec_c, spec_a, loss, lc, la, log_std, x, act, logp_old, adv, v_old, ret)
 
 
 @pytest.mark.gpu
