@@ -1,8 +1,10 @@
 // Helpers shared by the kernels: the encoder tiles' building blocks (the
-// tiles themselves are in encoder_tile.cuh) -- one block of 128 threads per
-// tile of TR rows, thread j owning feature column j, activations in shared
-// memory and bf16 where the reference rounds -- and the fixed-order sum of
-// the backward kernels' per-block gradient slices (also tp_lstm_bwd.cu).
+// tiles themselves are in encoder_tile.cuh and encoder_bwd_tile.cuh) -- one
+// block of 128 threads per tile of rows, thread j owning feature column j,
+// activations in shared memory and bf16 where the reference rounds -- the
+// tensor-core primitives (mma.sync, ldmatrix, cp.async) of the backward's
+// two stages, and the fixed-order sums of the backward kernels' per-block
+// gradient slices and partial products (also tp_lstm_bwd.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -130,20 +132,145 @@ inline bool make_layout(int obs_dim, int n_groups, const int* group_k, const int
   return off == obs_dim && t >= 1;
 }
 
-// out[p] = sum over b = 0 .. n_slices-1, in that order, of ws[b * P + p]:
-// the fixed-order second pass of the backward kernels' reductions.
-__global__ void sum_slices_kernel(const float* __restrict__ ws, int n_slices, int P,
-                                  float* __restrict__ out) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  float s = 0.f;
-  for (int b = 0; b < n_slices; ++b) s += ws[(size_t)b * P + p];
-  out[p] = s;
+// Offsets of each leaf's gradient in a network's flat gradient vector
+// (canonical order) and its length P; false if the head is too wide.
+inline bool leaf_offsets(const TokenLayout& lay, const int* group_d, int hd, int* off, int* P) {
+  if (hd < 1 || hd > MAX_HEAD) return false;
+  int sizes[MAX_LEAVES];
+  int n = 0;
+  for (int g = 0; g < lay.n_groups; ++g) {
+    sizes[n++] = group_d[g] * E;
+    sizes[n++] = E;
+  }
+  const int fixed[N_FIXED] = {E, E, E * E, E, E * E, E, E * E, E, E * E, E,
+                              E, E, E * E, E, E * E, E, E, E, E * hd, hd};
+  for (int i = 0; i < N_FIXED; ++i) sizes[n++] = fixed[i];
+  int o = 0;
+  for (int i = 0; i < n; ++i) {
+    off[i] = o;
+    o += sizes[i];
+  }
+  *P = o;
+  return true;
 }
 
-inline cudaError_t sum_slices(const float* ws, int n_slices, int P, float* out,
-                              cudaStream_t stream) {
-  sum_slices_kernel<<<(P + 255) / 256, 256, 0, stream>>>(ws, n_slices, P, out);
+// ---------------------------------------------------------------- tensor cores
+// A bf16 [rows][w] buffer in shared memory (w a multiple of 64) keeps its
+// 16-byte chunks XOR-swizzled by the row: chunk c of row r sits at c ^ (r & 7),
+// so that the eight row addresses of an ldmatrix fall in distinct banks.
+__device__ __forceinline__ int swzw(int r, int c, int w) {
+  return r * w + ((((c >> 3) ^ (r & 7)) << 3) | (c & 7));
+}
+
+__device__ __forceinline__ int swz(int r, int c) { return swzw(r, c, E); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ldmatrix: lane l gives the address of a row of one 8x8 b16 matrix (lanes
+// 0-7 the first matrix's rows, 8-15 the second's, ...); thread t gets row
+// t / 4, columns 2 (t % 4) and 2 (t % 4) + 1 of each, or with .trans those
+// of the transpose.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t ldsm_x1(const void* p) {
+  uint32_t r;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];\n"
+               : "=r"(r)
+               : "r"(smem_u32(p))
+               : "memory");
+  return r;
+}
+
+// d += a b for one m16n8k16 tile: bf16 operands, f32 sums (a row-major
+// 16x16, b column-major 16x8; d: rows t / 4 and t / 4 + 8, columns 2 (t % 4)
+// and 2 (t % 4) + 1).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared, asynchronously; the bytes past `src_bytes` are
+// filled with zeros (0 reads nothing).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------- fixed-order sums
+// dst[e] = sum over b = 0 .. n_slices-1, in that order, of src[b * stride + e],
+// for e < len: one segment of a gradient vector.
+struct Seg {
+  const float* src;
+  float* dst;
+  int n_slices;
+  int stride;
+  int len;
+};
+
+constexpr int MAX_SEGS = 64;
+
+struct SegArgs {
+  Seg seg[MAX_SEGS];
+  int n;
+};
+
+__global__ void sum_segments_kernel(const __grid_constant__ SegArgs a) {
+  const Seg& g = a.seg[blockIdx.y];
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < g.len; e += gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int b = 0; b < g.n_slices; ++b) s += g.src[(size_t)b * g.stride + e];
+    g.dst[e] = s;
+  }
+}
+
+inline cudaError_t sum_segments(const SegArgs& a, cudaStream_t stream) {
+  if (a.n < 1 || a.n > MAX_SEGS) return a.n == 0 ? cudaSuccess : cudaErrorInvalidValue;
+  int len = 1;
+  for (int i = 0; i < a.n; ++i) len = a.seg[i].len > len ? a.seg[i].len : len;
+  const int bx = (len + 255) / 256 < 64 ? (len + 255) / 256 : 64;
+  sum_segments_kernel<<<dim3(bx, a.n), 256, 0, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -1,0 +1,964 @@
+// Stage A of the encoder backward on tensor cores: one tile of TA rows of the
+// encoder + linear head (PartialAttentionEncoder), its forward recomputed with
+// the residuals its backward reads, then the chain of data gradients, as
+// __device__ functions shared by the backward kernel (fused_encoder_bwd.cu)
+// and the forward + loss + actor-backward kernel (fused_encoder_loss.cu).
+//
+// `tc_forward` is `_forward_core` (mupe_tpu/ops/fused_encoder.py:278-364) to
+// LN2 at its rounding points; `tc_backward` is `_backward_core` (:377-463)
+// without its `_mm_tn` weight products: it writes their bf16 operands to
+// staging buffers in device memory (weight_grad.cu sums them, stage B) and
+// keeps the column sums (biases, LayerNorm) and the head's gradient in
+// registers across the block's tiles.
+//
+// Every product runs on the tensor cores (mma.sync m16n8k16, bf16 operands,
+// f32 sums), computed transposed, out^T = W^T X^T: the 128 output features
+// are mma's M (each of the 8 warps takes 16), the tile's rows its N (8 a
+// step).  The weights are bf16 copies that the wrapper makes; each matrix in
+// turn is copied into one of two shared-memory slots by cp.async while the
+// previous product runs (`Ring`), and each warp loads its fragments of it
+// into registers with ldmatrix (.trans for the forward's X W, plain for the
+// backward's dY W^T, so no transposed copy exists).  The k and v products
+// and their backward take every token's rows against one load of the
+// weight.  The embeds' K (35, 5, 3) is padded to 16 with zeros, exactly.
+// LayerNorm, softmax, GELU and their backwards stay f32 on the CUDA cores.
+// A block has 8 warps: each takes 16 features of a product; thread j owns
+// column j % 128 of half the tile's rows (j / 128 says which half); warps own
+// rows for the row reductions.
+#pragma once
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int TA = 16;      // rows per tile
+constexpr int NTA = 256;    // threads a block: 8 warps; two threads a column, each half the rows
+constexpr int FP = E + 4;   // f32 row stride (conflict-free mma epilogues)
+constexpr int MAX_SEQ = 2 * 7 + 6;  // weight loads per tile (agrad: two forwards, a backward)
+constexpr int N_FIXED_COLS = 12;  // column-sum leaves after the groups' biases
+// bf16 weight copies of a network: the embeds' (every group's, stacked, each
+// K padded to 16 with zero rows), then these
+enum { B_Q = 1, B_K, B_V, B_O, B_1, B_2, B_H, N_BW };
+// staged operands (token-major [n_tok][S_pad][E] or [S_pad][E]), then the
+// groups' x slices [k][S_pad][KP]
+enum { S_H, S_DK, S_DV, S_DE, S_ATT, S_Y1, S_F, S_DQ, S_DR1, S_DPRE1, S_DR2, N_STAGED };
+
+// The token layout with the embeds' K padded to 16: token t reads columns
+// xcol[t] .. xcol[t] + kp[t] of the tile's bf16 rows Xb (xw wide).
+struct TcLayout {
+  TokenLayout lay;
+  int kp[MAX_TOK];
+  int xcol[MAX_TOK];
+  int tok_in_group[MAX_TOK];
+  int xw;
+};
+
+inline bool make_tc_layout(const TokenLayout& lay, TcLayout& L) {
+  L.lay = lay;
+  int c = 0;
+  int seen[MAX_GROUPS] = {0, 0, 0, 0};
+  for (int t = 0; t < lay.n_tokens; ++t) {
+    L.kp[t] = (lay.tok_dim[t] + 15) / 16 * 16;
+    L.xcol[t] = c;
+    L.tok_in_group[t] = seen[lay.tok_group[t]]++;
+    c += L.kp[t];
+  }
+  L.xw = (c + 63) / 64 * 64;
+  return L.xw <= E;
+}
+
+// The weight matrices a tile loads, in the order its products take them.
+struct WSeq {
+  const __nv_bfloat16* w[MAX_SEQ];
+  int rows[MAX_SEQ];   // rows in the slot (K of an embed padded to 16)
+  int valid[MAX_SEQ];  // rows read from memory; the rest are zeros
+  int len;
+};
+
+// The rows of the stacked embeds' weights: each group's K padded to 16.
+inline int embed_rows(const TcLayout& L) {
+  int rows = 0;
+  for (int g = 0; g < L.lay.n_groups; ++g) {
+    int t = 0;
+    while (L.lay.tok_group[t] != g) ++t;
+    rows += L.kp[t];
+  }
+  return rows;
+}
+
+// The sequence of one network's forward (embeds, q, k, v, o, w1, w2), and
+// with `bwd` its backward's (w2, w1, o, q, k, v), appended to `s`.
+inline void seq_append(WSeq& s, const TcLayout& L, const __nv_bfloat16* const* wb, bool bwd) {
+  s.w[s.len] = wb[0];
+  s.rows[s.len] = s.valid[s.len] = embed_rows(L);
+  ++s.len;
+  const int fwd[6] = {B_Q, B_K, B_V, B_O, B_1, B_2};
+  const int back[6] = {B_2, B_1, B_O, B_Q, B_K, B_V};
+  for (int i = 0; i < 6; ++i) {
+    s.w[s.len] = wb[fwd[i]];
+    s.rows[s.len] = s.valid[s.len] = E;
+    ++s.len;
+  }
+  for (int i = 0; bwd && i < 6; ++i) {
+    s.w[s.len] = wb[back[i]];
+    s.rows[s.len] = s.valid[s.len] = E;
+    ++s.len;
+  }
+}
+
+// The two weight slots: `take` returns the slot holding the next matrix of
+// the sequence (waiting for its copy) and starts the copy of the one after
+// it into the other slot, whose previous matrix every warp has by then
+// loaded into registers (the __syncthreads in between).
+struct Ring {
+  __nv_bfloat16* slot[2];
+  int cur;
+  int i;
+};
+
+__device__ __forceinline__ void ring_issue(__nv_bfloat16* dst, const WSeq& s, int i, int j) {
+  const __nv_bfloat16* src = s.w[i];
+  const int valid = s.valid[i];
+  for (int idx = j; idx < s.rows[i] * (E / 8); idx += NTA) {
+    const int r = idx >> 4;
+    const int c = (idx & 15) * 8;
+    cp_async16(dst + swz(r, c), src + (r < valid ? r * E + c : 0), r < valid ? 16 : 0);
+  }
+  cp_async_commit();
+}
+
+__device__ __forceinline__ void ring_start(Ring& R, unsigned char* smem, const WSeq& s, int j) {
+  R.slot[0] = reinterpret_cast<__nv_bfloat16*>(smem);
+  R.slot[1] = R.slot[0] + E * E;
+  R.cur = 0;
+  R.i = 0;
+  ring_issue(R.slot[0], s, 0, j);
+}
+
+__device__ __forceinline__ const __nv_bfloat16* ring_take(Ring& R, const WSeq& s, int j) {
+  cp_async_wait<0>();
+  __syncthreads();
+  const __nv_bfloat16* cur = R.slot[R.cur];
+  R.cur ^= 1;
+  R.i = R.i + 1 == s.len ? 0 : R.i + 1;  // the next tile starts the sequence again
+  ring_issue(R.slot[R.cur], s, R.i, j);
+  return cur;
+}
+
+// Fragments (A operands) of the warp's 16 output features for nks k-steps.
+// Forward, out = X W: A = W^T, from the slot W[k][m] with .trans.
+__device__ __forceinline__ void frags_fwd(const __nv_bfloat16* W, int nks, uint32_t (&fr)[8][4],
+                                          int warp, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks)
+    if (ks < nks)
+      ldsm_x4_t(fr[ks], W + swz(ks * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                warp * 16 + ((lane >> 3) & 1) * 8));
+}
+
+// Backward, dx = dy W^T: A = W, from the slot W[m][k] as it is.
+__device__ __forceinline__ void frags_bwd(const __nv_bfloat16* W, uint32_t (&fr)[8][4], int warp,
+                                          int lane) {
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks)
+    ldsm_x4(fr[ks], W + swz(warp * 16 + (lane & 15), ks * 16 + (lane >> 4) * 8));
+}
+
+// The output feature of value v of an m16n8 fragment for the warp's 16.
+__device__ __forceinline__ int frag_feature(int warp, int lane, int v) {
+  return warp * 16 + (lane >> 2) + 8 * (v >> 1);
+}
+
+// acc += a b for one k-step of 16, the step's sum taken by the tensor core
+// from zero and added to acc on the CUDA cores (round to nearest), so that
+// the tensor core's truncating accumulation spans one step, not a product's
+// 8.  Its sums still part from the plain version's (cuBLAS, f32) more than
+// the CUDA-core kernels' did: the gradients' mean errors sit 1.2-1.5x higher
+// (scripts/torch_tolerance_survey.py).
+__device__ __forceinline__ void mma_step(float (&acc)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16(t, a, b0, b1);
+#pragma unroll
+  for (int v = 0; v < 4; ++v) acc[v] += t[v];
+}
+
+// Runs the warp's part of out^T = A X^T over n_rows rows of X (bf16 [row][k]
+// in shared memory, xw wide, K from column xcol) and calls
+// epi(row, feature, value) for each of its outputs.
+template <class Epi>
+__device__ __forceinline__ void tc_run(const uint32_t (&fr)[8][4], int nks,
+                                       const __nv_bfloat16* X, int xw, int xcol, int n_rows,
+                                       int warp, int lane, Epi epi) {
+  for (int nb = 0; nb < n_rows / 8; ++nb) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      if (ks < nks) {
+        uint32_t b[2];
+        ldsm_x2(b, X + swzw(nb * 8 + (lane & 7), xcol + ks * 16 + ((lane >> 3) & 1) * 8, xw));
+        mma_step(acc, fr[ks], b[0], b[1]);
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      epi(nb * 8 + 2 * (lane & 3) + (v & 1), frag_feature(warp, lane, v), acc[v]);
+  }
+}
+
+// The tile's buffers in shared memory (bf16 ones swizzled, E wide unless
+// said otherwise).
+struct TcBufs {
+  __nv_bfloat16* Hb;   // [ntr] embeds, then h_all; its bytes hold G, G2 after the k/v products
+  __nv_bfloat16* N0b;  // [ntr] LN0's n
+  __nv_bfloat16* Kb;   // [ntr] k, then dk
+  __nv_bfloat16* Vb;   // [ntr] v, then dv
+  __nv_bfloat16* Xb;   // [TA][xw] the rows, bf16, each token's K padded to 16
+  __nv_bfloat16* OPb;  // [TA] att, then y1, then f
+  __nv_bfloat16* Y2b;  // [TA] LN2's output
+  __nv_bfloat16* Rb;   // [TA] the rounded cotangent operand
+  __nv_bfloat16* DOb;  // [TA][8] the head's cotangent, bf16 (not swizzled)
+  __nv_bfloat16* WH[2];  // [E][8] bf16 head weights, zero past the head (not swizzled)
+  float* Q;            // [TA][FP] q
+  float* H0;           // [TA][FP] h0, r1, y1; then datt, dh
+  float* N1;
+  float* N2;
+  float* PRE1;
+  float* G;            // [TA][FP] r2, dy2, dr2, dy1, dr1 (in Hb's bytes)
+  float* G2;           // [TA][FP] dpre1, dq, dq wq^T (in Hb's bytes)
+  float* inv0;         // [ntr]
+  float* inv1;         // [TA]
+  float* inv2;         // [TA]
+  float* P;            // [TA][MAX_TOK] scores, then softmax weights
+  float* DS;           // [TA][MAX_TOK]
+  float* DOUT;         // [TA][MAX_HEAD] the head's cotangent, f32
+};
+
+__host__ __device__ inline size_t tc_hregion(int n_tokens) {
+  const size_t h = (size_t)n_tokens * TA * E * 2;
+  const size_t g = (size_t)2 * TA * FP * 4;
+  return h > g ? h : g;
+}
+
+// Bytes of shared memory: the weight ring, then the buffers above.
+__host__ __device__ inline size_t tc_smem_bytes(int n_tokens, int xw) {
+  const size_t ntr = (size_t)n_tokens * TA;
+  return (size_t)2 * E * E * 2 + tc_hregion(n_tokens) + 3 * ntr * E * 2 + (size_t)TA * xw * 2 +
+         (size_t)3 * TA * E * 2 + TA * 8 * 2 + 2 * E * 8 * 2 + (size_t)5 * TA * FP * 4 +
+         (ntr + 2 * TA + 2 * TA * MAX_TOK + TA * MAX_HEAD) * 4;
+}
+
+__device__ __forceinline__ TcBufs tc_bufs(unsigned char* smem, int n_tokens, int xw) {
+  const int ntr = n_tokens * TA;
+  TcBufs b;
+  unsigned char* p = smem + 2 * E * E * 2;
+  b.Hb = reinterpret_cast<__nv_bfloat16*>(p);
+  b.G = reinterpret_cast<float*>(p);
+  b.G2 = b.G + TA * FP;
+  p += tc_hregion(n_tokens);
+  b.N0b = reinterpret_cast<__nv_bfloat16*>(p);
+  b.Kb = b.N0b + ntr * E;
+  b.Vb = b.Kb + ntr * E;
+  b.Xb = b.Vb + ntr * E;
+  b.OPb = b.Xb + TA * xw;
+  b.Y2b = b.OPb + TA * E;
+  b.Rb = b.Y2b + TA * E;
+  b.DOb = b.Rb + TA * E;
+  b.WH[0] = b.DOb + TA * 8;
+  b.WH[1] = b.WH[0] + E * 8;
+  b.Q = reinterpret_cast<float*>(b.WH[1] + E * 8);
+  b.H0 = b.Q + TA * FP;
+  b.N1 = b.H0 + TA * FP;
+  b.N2 = b.N1 + TA * FP;
+  b.PRE1 = b.N2 + TA * FP;
+  b.inv0 = b.PRE1 + TA * FP;
+  b.inv1 = b.inv0 + ntr;
+  b.inv2 = b.inv1 + TA;
+  b.P = b.inv2 + TA;
+  b.DS = b.P + TA * MAX_TOK;
+  b.DOUT = b.DS + TA * MAX_TOK;
+  return b;
+}
+
+// The head's bf16 weights [E][hd] into a [E][8] buffer, zeros past hd.
+__device__ __forceinline__ void load_head(__nv_bfloat16* WH, const __nv_bfloat16* wh, int hd,
+                                          int j) {
+  for (int idx = j; idx < E * 8; idx += NTA) {
+    const int k = idx >> 3;
+    const int o = idx & 7;
+    WH[idx] = o < hd ? wh[k * hd + o] : __float2bfloat16_rn(0.f);
+  }
+}
+
+// The tile's rows into Xb as bf16, each token's K padded to 16 with zeros,
+// rows past S zeros; with `xs` (the groups' staged slices), staged too.
+__device__ __forceinline__ void tc_load_rows(const TcLayout& L, const TcBufs& B,
+                                             const float* __restrict__ x, int S, int row0,
+                                             __nv_bfloat16* const* xs, size_t s_pad, int j) {
+  const TokenLayout& lay = L.lay;
+  for (int idx = j; idx < TA * L.xw; idx += NTA) {
+    const int r = idx / L.xw;
+    const int c = idx - r * L.xw;
+    const int row = row0 + r;
+    int t = 0;
+    while (t + 1 < lay.n_tokens && c >= L.xcol[t + 1]) ++t;
+    const int k = c - L.xcol[t];
+    const bool in = c < L.xcol[t] + L.kp[t];
+    const float v = in && k < lay.tok_dim[t] && row < S
+                        ? x[(size_t)row * lay.obs_dim + lay.tok_off[t] + k] : 0.f;
+    const __nv_bfloat16 b = __float2bfloat16_rn(v);
+    B.Xb[swzw(r, c, L.xw)] = b;
+    if (xs && in)
+      xs[lay.tok_group[t]][((size_t)L.tok_in_group[t] * s_pad + row) * L.kp[t] + k] = b;
+  }
+}
+
+// `_forward_core` for the tile to LN2's output (B.Y2b), from the rows in
+// B.Xb (loaded and synchronised by the caller); leaf: the network's f32
+// leaves in canonical order.  With `st` (the network's staging buffers), the
+// tile's h_all, att, y1 and f are staged (rows past S as zeros).  Ends
+// synchronised.
+__device__ __forceinline__ void tc_forward(const TcLayout& L, const float* const* leaf,
+                                           float scale, const TcBufs& B, Ring& R, const WSeq& seq,
+                                           __nv_bfloat16* const* st, size_t s_pad, int row0,
+                                           int S, int j) {
+  const TokenLayout& lay = L.lay;
+  const int nt = lay.n_tokens;
+  const int ntr = nt * TA;
+  const int base = 2 * lay.n_groups;
+  const float* g0 = leaf[base + 0];
+  const float* b0 = leaf[base + 1];
+  const float* bq = leaf[base + 3];
+  const float* bk = leaf[base + 5];
+  const float* bv = leaf[base + 7];
+  const float* bo = leaf[base + 9];
+  const float* g1 = leaf[base + 10];
+  const float* b1 = leaf[base + 11];
+  const float* bf1 = leaf[base + 13];
+  const float* bf2 = leaf[base + 15];
+  const float* g2 = leaf[base + 16];
+  const float* b2 = leaf[base + 17];
+  const int warp = j >> 5;
+  const int lane = j & 31;
+  const int nwarps = NTA / 32;
+  const int c = j & (E - 1);               // the thread's column
+  const int rb = (j >> 7) * (TA / 2);      // and its half of the rows
+  const int re = rb + TA / 2;
+  uint32_t fr[8][4];
+
+  {  // per-token embeds -> bf16 e (token-major rows t * TA + r), group by
+     // group, every group's weight in one slot (rows a multiple of 16 apart)
+    const __nv_bfloat16* W = ring_take(R, seq, j);
+    int roff = 0;
+    for (int g = 0; g < lay.n_groups; ++g) {
+      int t0 = 0;
+      while (lay.tok_group[t0] != g) ++t0;
+      frags_fwd(W + roff * E, L.kp[t0] / 16, fr, warp, lane);
+      roff += L.kp[t0];
+      const float* bg = leaf[2 * g + 1];
+      for (int t = t0; t < nt && lay.tok_group[t] == g; ++t)
+        tc_run(fr, L.kp[t] / 16, B.Xb, L.xw, L.xcol[t], TA, warp, lane,
+               [&](int r, int m, float v) {
+                 B.Hb[swz(t * TA + r, m)] = __float2bfloat16_rn(v + __ldg(bg + m));
+               });
+    }
+  }
+  __syncthreads();
+
+  // LN0 over every token row, in place, two rows a warp at a time (ntr is a
+  // multiple of 16); token 0's f32 output kept as h0
+  for (int rt0 = warp; rt0 < ntr; rt0 += 2 * nwarps) {
+    float v[2][4], n[2][4], inv[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c0 = swz(rt0 + u * nwarps, lane * 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[u][i] = __bfloat162float(B.Hb[c0 + i]);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) ln_row_n(v[u], n[u], inv[u], g0, b0, lane);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int rt = rt0 + u * nwarps;
+      const int c0 = swz(rt, lane * 4);
+      const int t = rt / TA;
+      const int row = row0 + rt - t * TA;
+      __align__(8) __nv_bfloat16 h[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        h[i] = __float2bfloat16_rn(row < S || !st ? v[u][i] : 0.f);
+        B.Hb[c0 + i] = __float2bfloat16_rn(v[u][i]);
+        B.N0b[c0 + i] = __float2bfloat16_rn(n[u][i]);
+        if (rt < TA) B.H0[rt * FP + lane * 4 + i] = v[u][i];
+      }
+      if (st)
+        *reinterpret_cast<uint2*>(st[S_H] + ((size_t)t * s_pad + row) * E + lane * 4) =
+            *reinterpret_cast<const uint2*>(h);
+      if (lane == 0) B.inv0[rt] = inv[u];
+    }
+  }
+
+  {  // q from the query token (its bf16 rounding is h_all's)
+    const __nv_bfloat16* W = ring_take(R, seq, j);
+    frags_fwd(W, 8, fr, warp, lane);
+    tc_run(fr, 8, B.Hb, E, 0, TA, warp, lane,
+           [&](int r, int m, float v) { B.Q[r * FP + m] = v + __ldg(bq + m); });
+  }
+  {  // k and v of every token, rounded to bf16, one weight load each
+    const __nv_bfloat16* W = ring_take(R, seq, j);
+    frags_fwd(W, 8, fr, warp, lane);
+    tc_run(fr, 8, B.Hb, E, 0, ntr, warp, lane, [&](int r, int m, float v) {
+      B.Kb[swz(r, m)] = __float2bfloat16_rn(v + __ldg(bk + m));
+    });
+    W = ring_take(R, seq, j);
+    frags_fwd(W, 8, fr, warp, lane);
+    tc_run(fr, 8, B.Hb, E, 0, ntr, warp, lane, [&](int r, int m, float v) {
+      B.Vb[swz(r, m)] = __float2bfloat16_rn(v + __ldg(bv + m));
+    });
+  }
+  __syncthreads();
+
+  // scores q . k_t * scale, four (row, token) pairs a warp at a time
+  for (int p0 = warp; p0 < TA * nt; p0 += 4 * nwarps) {
+    float sc[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int p = min(p0 + u * nwarps, TA * nt - 1);
+      const int r = p / nt;
+      const int kc = swz((p - r * nt) * TA + r, lane * 4);
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        s = fmaf(B.Q[r * FP + lane * 4 + i], __bfloat162float(B.Kb[kc + i]), s);
+      sc[u] = s;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) sc[u] = warp_sum(sc[u]);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int p = p0 + u * nwarps;
+      if (lane == 0 && p < TA * nt) {
+        const int r = p / nt;
+        B.P[r * MAX_TOK + p - r * nt] = sc[u] * scale;
+      }
+    }
+  }
+  __syncthreads();
+
+  if (j < TA) {  // softmax over the tokens, in the reference's order
+    float* p = B.P + j * MAX_TOK;
+    float smax = p[0];
+    for (int t = 1; t < nt; ++t) smax = fmaxf(smax, p[t]);
+    float e[MAX_TOK];
+    float denom = 0.f;
+    for (int t = 0; t < nt; ++t) {
+      e[t] = expf(p[t] - smax);
+      denom = t == 0 ? e[0] : denom + e[t];
+    }
+    const float recip = 1.0f / denom;
+    for (int t = 0; t < nt; ++t) p[t] = e[t] * recip;
+  }
+  __syncthreads();
+
+  for (int r = rb; r < re; ++r) {  // attention output sum_t a_t v_t, rounded
+    float att = B.P[r * MAX_TOK] * __bfloat162float(B.Vb[swz(r, c)]);
+    for (int t = 1; t < nt; ++t)
+      att = fmaf(B.P[r * MAX_TOK + t], __bfloat162float(B.Vb[swz(t * TA + r, c)]), att);
+    const __nv_bfloat16 a = __float2bfloat16_rn(att);
+    B.OPb[swz(r, c)] = a;
+    if (st) st[S_ATT][(size_t)(row0 + r) * E + c] = row0 + r < S ? a : __float2bfloat16_rn(0.f);
+  }
+
+  {  // out-projection + residual: r1 = h0 + o (into H0)
+    const __nv_bfloat16* W = ring_take(R, seq, j);
+    frags_fwd(W, 8, fr, warp, lane);
+    tc_run(fr, 8, B.OPb, E, 0, TA, warp, lane,
+           [&](int r, int m, float v) { B.H0[r * FP + m] += v + __ldg(bo + m); });
+  }
+  __syncthreads();
+
+  for (int r = warp; r < TA; r += nwarps) {  // LN1: y1 f32 in H0, bf16 in OPb
+    float v[4], n[4], inv;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = B.H0[r * FP + lane * 4 + i];
+    ln_row_n(v, n, inv, g1, b1, lane);
+    const int row = row0 + r;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      B.H0[r * FP + lane * 4 + i] = v[i];
+      B.N1[r * FP + lane * 4 + i] = n[i];
+      const __nv_bfloat16 y = __float2bfloat16_rn(v[i]);
+      B.OPb[swz(r, lane * 4 + i)] = y;
+      if (st) st[S_Y1][(size_t)row * E + lane * 4 + i] = row < S ? y : __float2bfloat16_rn(0.f);
+    }
+    if (lane == 0) B.inv1[r] = inv;
+  }
+
+  {  // FFN first layer; then tanh-GELU, rounded for the second layer
+    const __nv_bfloat16* W = ring_take(R, seq, j);
+    frags_fwd(W, 8, fr, warp, lane);
+    tc_run(fr, 8, B.OPb, E, 0, TA, warp, lane,
+           [&](int r, int m, float v) { B.PRE1[r * FP + m] = v + __ldg(bf1 + m); });
+  }
+  __syncthreads();
+  for (int r = rb; r < re; ++r) {
+    const __nv_bfloat16 f = __float2bfloat16_rn(gelu_tanh(B.PRE1[r * FP + c]));
+    B.OPb[swz(r, c)] = f;
+    if (st) st[S_F][(size_t)(row0 + r) * E + c] = row0 + r < S ? f : __float2bfloat16_rn(0.f);
+  }
+
+  {  // FFN second layer + residual: r2 = y1 + FFN(y1) (into G)
+    const __nv_bfloat16* W = ring_take(R, seq, j);
+    frags_fwd(W, 8, fr, warp, lane);
+    tc_run(fr, 8, B.OPb, E, 0, TA, warp, lane, [&](int r, int m, float v) {
+      B.G[r * FP + m] = B.H0[r * FP + m] + (v + __ldg(bf2 + m));
+    });
+  }
+  __syncthreads();
+
+  for (int r = warp; r < TA; r += nwarps) {  // LN2, rounded for the head
+    float v[4], n[4], inv;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = B.G[r * FP + lane * 4 + i];
+    ln_row_n(v, n, inv, g2, b2, lane);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      B.N2[r * FP + lane * 4 + i] = n[i];
+      B.Y2b[swz(r, lane * 4 + i)] = __float2bfloat16_rn(v[i]);
+    }
+    if (lane == 0) B.inv2[r] = inv;
+  }
+  __syncthreads();
+}
+
+// The linear head over the tile's LN2 output on the tensor cores (bf16
+// operands, f32 sum): out[r * stride + o] = y2 wh + bh for o < hd, all TA
+// rows.  Warps 0 and 1 take 8 rows each.  The caller synchronises.
+__device__ __forceinline__ void tc_head(const TcBufs& B, const __nv_bfloat16* WH,
+                                        const float* bh, int hd, float* out, int stride, int j) {
+  const int warp = j >> 5;
+  const int lane = j & 31;
+  if (warp >= 2) return;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    uint32_t a2[2], b[2];
+    ldsm_x2_t(a2, WH + (ks * 16 + (lane & 15)) * 8);  // W_h^T: features 0-7, k and k + 8
+    const uint32_t a[4] = {a2[0], 0u, a2[1], 0u};
+    ldsm_x2(b, B.Y2b + swz(warp * 8 + (lane & 7), ks * 16 + ((lane >> 3) & 1) * 8));
+    mma_bf16(acc, a, b[0], b[1]);
+  }
+  const int o = lane >> 2;
+  if (o < hd)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      out[(warp * 8 + 2 * (lane & 3) + e) * stride + o] = acc[e] + __ldg(bh + o);
+}
+
+// LayerNorm backward of one row held by a warp (`_ln_bwd`): dy <- dx.
+__device__ __forceinline__ void ln_bwd_row(float (&dy)[4], const float (&n)[4], float inv,
+                                           const float* __restrict__ g, int lane) {
+  float dn[4];
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    dn[i] = dy[i] * __ldg(g + lane * 4 + i);
+    s1 += dn[i];
+    s2 += dn[i] * n[i];
+  }
+  const float m1 = warp_sum(s1) / float(E);
+  const float m2 = warp_sum(s2) / float(E);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) dy[i] = inv * (dn[i] - m1 - n[i] * m2);
+}
+
+__device__ __forceinline__ float dgelu_tanh(float x) {
+  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+  const float t = tanhf(c * (x + 0.044715f * x * x * x));
+  const float dinner = c * (1.0f + 3.0f * 0.044715f * x * x);
+  return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * dinner;
+}
+
+// A block's column sums over its tiles (a thread's column over its half of
+// the rows) and its fragments of the head's weight gradient dwh = y2^T dout.
+struct ColSums {
+  float fixed[N_FIXED_COLS];  // g0, b0, bq, bk, bv, bo, g1, b1, bf1, bf2, g2, b2
+  float bg[MAX_GROUPS];
+  float bh;
+  float wh[4];  // the warp's 16 features of dwh
+};
+
+__device__ __forceinline__ void colsums_zero(ColSums& c) {
+#pragma unroll
+  for (int i = 0; i < N_FIXED_COLS; ++i) c.fixed[i] = 0.f;
+#pragma unroll
+  for (int g = 0; g < MAX_GROUPS; ++g) c.bg[g] = 0.f;
+  c.bh = 0.f;
+#pragma unroll
+  for (int v = 0; v < 4; ++v) c.wh[v] = 0.f;
+}
+
+enum { C_G0, C_B0, C_BQ, C_BK, C_BV, C_BO, C_G1, C_B1, C_BF1, C_BF2, C_G2, C_B2 };
+
+// Floats in a block's slice of column sums: the groups' biases, the fixed
+// column-sum leaves, the head's weight and bias.
+__host__ __device__ inline int colsum_floats(int n_groups, int hd) {
+  return (n_groups + N_FIXED_COLS) * E + E * hd + hd;
+}
+
+// The block's two slices (one a half of the threads: its half of the rows'
+// column sums and its warps' features of dwh), at the end of its tiles;
+// `slices` points at the first.
+__device__ __forceinline__ void colsums_store(const ColSums& c, float* slices, int n_groups,
+                                              int hd, int j) {
+  const int warp = j >> 5;
+  const int lane = j & 31;
+  const int col = j & (E - 1);
+  const int half = j >> 7;
+  float* slice = slices + (size_t)half * colsum_floats(n_groups, hd);
+#pragma unroll
+  for (int g = 0; g < MAX_GROUPS; ++g)
+    if (g < n_groups) slice[g * E + col] = c.bg[g];
+#pragma unroll
+  for (int i = 0; i < N_FIXED_COLS; ++i) slice[(n_groups + i) * E + col] = c.fixed[i];
+  float* wh = slice + (n_groups + N_FIXED_COLS) * E;
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    const int o = 2 * (lane & 3) + (v & 1);
+    if (o < hd) wh[frag_feature(warp, lane, v) * hd + o] = c.wh[v];
+  }
+  // zeros for the features of the other half's warps, and for its bh
+  for (int idx = col; idx < (E / 2) * hd; idx += E) wh[(1 - half) * (E / 2) * hd + idx] = 0.f;
+  if (col < hd) wh[E * hd + col] = half == 0 ? c.bh : 0.f;
+}
+
+// The segments that sum a network's slices ([slices][colsum_floats], two a
+// block) in order into its flat gradient vector (leaf offsets `off`).
+inline void colsum_segments(SegArgs& a, const float* ws, int blocks, int n_groups, int hd,
+                            const int* off, float* grad) {
+  const int P = colsum_floats(n_groups, hd);
+  const int base = 2 * n_groups;
+  const int fixed[N_FIXED_COLS] = {0, 1, 3, 5, 7, 9, 10, 11, 13, 15, 16, 17};
+  for (int g = 0; g < n_groups; ++g)
+    a.seg[a.n++] = {ws + g * E, grad + off[2 * g + 1], blocks, P, E};
+  for (int i = 0; i < N_FIXED_COLS; ++i)
+    a.seg[a.n++] = {ws + (n_groups + i) * E, grad + off[base + fixed[i]], blocks, P, E};
+  const int wh = (n_groups + N_FIXED_COLS) * E;
+  a.seg[a.n++] = {ws + wh, grad + off[base + 18], blocks, P, E * hd};
+  a.seg[a.n++] = {ws + wh + E * hd, grad + off[base + 19], blocks, P, hd};
+}
+
+// `_backward_core` for the tile, without its weight products, from the
+// residuals of `tc_forward` and the head's cotangent in B.DOUT (f32) and
+// B.DOb (bf16, zeros past hd and past S): the staged operands of the weight
+// products into `st` (rows past S as zeros), the column sums and dwh into
+// `cs`.  WH: the head's bf16 weights.  Ends synchronised.
+__device__ __forceinline__ void tc_backward(const TcLayout& L, const float* const* leaf,
+                                            const __nv_bfloat16* WH, int hd, float scale,
+                                            const TcBufs& B, Ring& R, const WSeq& seq,
+                                            __nv_bfloat16* const* st, size_t s_pad, int row0,
+                                            int S, ColSums& cs, int j) {
+  const TokenLayout& lay = L.lay;
+  const int nt = lay.n_tokens;
+  const int ntr = nt * TA;
+  const int base = 2 * lay.n_groups;
+  const float* g0 = leaf[base + 0];
+  const float* g1 = leaf[base + 10];
+  const float* g2 = leaf[base + 16];
+  const int warp = j >> 5;
+  const int lane = j & 31;
+  const int nwarps = NTA / 32;
+  const int c = j & (E - 1);               // the thread's column
+  const int rb = (j >> 7) * (TA / 2);      // and its half of the rows
+  const int re = rb + TA / 2;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  float* G = B.G;
+  float* G2 = B.G2;
+  float* DH = B.H0;
+  uint32_t fr[8][4];
+
+  {  // head: dwh += y2^T dout (fragments kept across tiles), dbh, dy2 = dout wh^T
+    uint32_t a[4], b[2];
+    ldsm_x4_t(a, B.Y2b + swz((lane & 7) + ((lane >> 4) << 3), warp * 16 + ((lane >> 3) & 1) * 8));
+    ldsm_x2_t(b, B.DOb + (lane & 15) * 8);
+    mma_bf16(cs.wh, a, b[0], b[1]);
+  }
+  if (j < hd)
+    for (int r = 0; r < TA; ++r) cs.bh += B.DOUT[r * MAX_HEAD + j];
+  {
+    uint32_t a2[2];
+    ldsm_x2(a2, WH + (warp * 16 + (lane & 15)) * 8);
+    const uint32_t a[4] = {a2[0], a2[1], 0u, 0u};
+#pragma unroll
+    for (int nb = 0; nb < TA / 8; ++nb) {
+      const uint32_t b = ldsm_x1(B.DOb + (nb * 8 + (lane & 7)) * 8);
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_bf16(acc, a, b, 0u);
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        G[(nb * 8 + 2 * (lane & 3) + (v & 1)) * FP + frag_feature(warp, lane, v)] = acc[v];
+    }
+  }
+  __syncthreads();
+  for (int r = rb; r < re; ++r) {  // LN2 scale and bias gradients
+    cs.fixed[C_G2] += G[r * FP + c] * B.N2[r * FP + c];
+    cs.fixed[C_B2] += G[r * FP + c];
+  }
+  __syncthreads();
+  for (int r = warp; r < TA; r += nwarps) {  // dr2 = LN2 backward
+    float dy[4], n[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      dy[i] = G[r * FP + lane * 4 + i];
+      n[i] = B.N2[r * FP + lane * 4 + i];
+    }
+    ln_bwd_row(dy, n, B.inv2[r], g2, lane);
+    const int row = row0 + r;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      G[r * FP + lane * 4 + i] = dy[i];
+      const __nv_bfloat16 d = __float2bfloat16_rn(dy[i]);
+      B.Rb[swz(r, lane * 4 + i)] = d;
+      st[S_DR2][(size_t)row * E + lane * 4 + i] = row < S ? d : zero;
+    }
+  }
+  {  // FFN second layer: dbf2, then dpre1 = dr2 w2^T * gelu'(pre1)
+    const __nv_bfloat16* W = ring_take(R, seq, j);
+    for (int r = rb; r < re; ++r) cs.fixed[C_BF2] += G[r * FP + c];
+    frags_bwd(W, fr, warp, lane);
+    tc_run(fr, 8, B.Rb, E, 0, TA, warp, lane, [&](int r, int m, float v) {
+      G2[r * FP + m] = v * dgelu_tanh(B.PRE1[r * FP + m]);
+    });
+  }
+  __syncthreads();
+  for (int r = rb; r < re; ++r) {  // dbf1; dpre1 rounded for the first layer
+    const float d = G2[r * FP + c];
+    cs.fixed[C_BF1] += d;
+    const __nv_bfloat16 b = __float2bfloat16_rn(d);
+    B.Rb[swz(r, c)] = b;
+    st[S_DPRE1][(size_t)(row0 + r) * E + c] = row0 + r < S ? b : zero;
+  }
+  {  // FFN first layer: dy1 = dr2 + dpre1 w1^T
+    const __nv_bfloat16* W = ring_take(R, seq, j);
+    frags_bwd(W, fr, warp, lane);
+    tc_run(fr, 8, B.Rb, E, 0, TA, warp, lane,
+           [&](int r, int m, float v) { G[r * FP + m] = G[r * FP + m] + v; });
+  }
+  __syncthreads();
+  for (int r = rb; r < re; ++r) {  // LN1 scale and bias gradients
+    cs.fixed[C_G1] += G[r * FP + c] * B.N1[r * FP + c];
+    cs.fixed[C_B1] += G[r * FP + c];
+  }
+  __syncthreads();
+  for (int r = warp; r < TA; r += nwarps) {  // dr1 = LN1 backward
+    float dy[4], n[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      dy[i] = G[r * FP + lane * 4 + i];
+      n[i] = B.N1[r * FP + lane * 4 + i];
+    }
+    ln_bwd_row(dy, n, B.inv1[r], g1, lane);
+    const int row = row0 + r;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      G[r * FP + lane * 4 + i] = dy[i];
+      const __nv_bfloat16 d = __float2bfloat16_rn(dy[i]);
+      B.Rb[swz(r, lane * 4 + i)] = d;
+      st[S_DR1][(size_t)row * E + lane * 4 + i] = row < S ? d : zero;
+    }
+  }
+  {  // out-projection: dbo, datt = dr1 wo^T (into DH)
+    const __nv_bfloat16* W = ring_take(R, seq, j);
+    for (int r = rb; r < re; ++r) cs.fixed[C_BO] += G[r * FP + c];
+    frags_bwd(W, fr, warp, lane);
+    tc_run(fr, 8, B.Rb, E, 0, TA, warp, lane,
+           [&](int r, int m, float v) { DH[r * FP + m] = v; });
+  }
+  __syncthreads();
+  for (int p0 = warp; p0 < TA * nt; p0 += 4 * nwarps) {  // das_t = datt . v_t, 4 at a time
+    float sc[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int p = min(p0 + u * nwarps, TA * nt - 1);
+      const int r = p / nt;
+      const int vc = swz((p - r * nt) * TA + r, lane * 4);
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s += DH[r * FP + lane * 4 + i] * __bfloat162float(B.Vb[vc + i]);
+      sc[u] = s;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) sc[u] = warp_sum(sc[u]);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int p = p0 + u * nwarps;
+      if (lane == 0 && p < TA * nt) {
+        const int r = p / nt;
+        B.DS[r * MAX_TOK + p - r * nt] = sc[u];
+      }
+    }
+  }
+  __syncthreads();
+  if (j < TA) {  // softmax backward: dss_t = a_t (das_t - sum_u a_u das_u)
+    const float* a = B.P + j * MAX_TOK;
+    float* d = B.DS + j * MAX_TOK;
+    float wsum = a[0] * d[0];
+    for (int t = 1; t < nt; ++t) wsum = wsum + a[t] * d[t];
+    for (int t = 0; t < nt; ++t) d[t] = a[t] * (d[t] - wsum);
+  }
+  __syncthreads();
+  {  // dq, and the bf16 k / v cotangents in place of k and v (each thread its column)
+    float dbq = 0.f, dbk = 0.f, dbv = 0.f;
+    for (int r = rb; r < re; ++r) {
+      const int row = row0 + r;
+      float d[MAX_TOK], a[MAX_TOK], kk[MAX_TOK];
+#pragma unroll
+      for (int t = 0; t < MAX_TOK; ++t)
+        if (t < nt) {
+          d[t] = B.DS[r * MAX_TOK + t];
+          a[t] = B.P[r * MAX_TOK + t];
+          kk[t] = __bfloat162float(B.Kb[swz(t * TA + r, c)]);
+        }
+      float dq = d[0] * kk[0];
+#pragma unroll
+      for (int t = 1; t < MAX_TOK; ++t)
+        if (t < nt) dq = dq + d[t] * kk[t];
+      dq = dq * scale;
+      const __nv_bfloat16 dqb = __float2bfloat16_rn(dq);
+      B.Rb[swz(r, c)] = dqb;
+      st[S_DQ][(size_t)row * E + c] = row < S ? dqb : zero;
+      dbq += dq;
+      const float qj = B.Q[r * FP + c];
+      const float datt = DH[r * FP + c];
+#pragma unroll
+      for (int t = 0; t < MAX_TOK; ++t)
+        if (t < nt) {
+          const __nv_bfloat16 dk = __float2bfloat16_rn(d[t] * qj * scale);
+          const __nv_bfloat16 dv = __float2bfloat16_rn(a[t] * datt);
+          B.Kb[swz(t * TA + r, c)] = dk;
+          B.Vb[swz(t * TA + r, c)] = dv;
+          dbk += __bfloat162float(dk);
+          dbv += __bfloat162float(dv);
+          const size_t at = ((size_t)t * s_pad + row) * E + c;
+          st[S_DK][at] = row < S ? dk : zero;
+          st[S_DV][at] = row < S ? dv : zero;
+        }
+    }
+    cs.fixed[C_BQ] += dbq;
+    cs.fixed[C_BK] += dbk;
+    cs.fixed[C_BV] += dbv;
+  }
+  {  // dq wq^T (into G2), for the query token's dh
+    const __nv_bfloat16* W = ring_take(R, seq, j);
+    frags_bwd(W, fr, warp, lane);
+    tc_run(fr, 8, B.Rb, E, 0, TA, warp, lane,
+           [&](int r, int m, float v) { G2[r * FP + m] = v; });
+  }
+  // per token: dh = dk wk^T + dv wv^T (+ dr1 + dq wq^T for the query token),
+  // then LN0 backward and the token's staged de; wk and wv stay in registers
+  uint32_t fv[8][4];
+  const __nv_bfloat16* W = ring_take(R, seq, j);
+  frags_bwd(W, fr, warp, lane);
+  W = ring_take(R, seq, j);
+  frags_bwd(W, fv, warp, lane);
+  for (int t = 0; t < nt; ++t) {
+    for (int nb = 0; nb < TA / 8; ++nb) {
+      float ak[4] = {0.f, 0.f, 0.f, 0.f};
+      float av[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        uint32_t bk2[2], bv2[2];
+        const int rr = t * TA + nb * 8 + (lane & 7);
+        const int kc = ks * 16 + ((lane >> 3) & 1) * 8;
+        ldsm_x2(bk2, B.Kb + swz(rr, kc));
+        ldsm_x2(bv2, B.Vb + swz(rr, kc));
+        mma_step(ak, fr[ks], bk2[0], bk2[1]);
+        mma_step(av, fv[ks], bv2[0], bv2[1]);
+      }
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int r = nb * 8 + 2 * (lane & 3) + (v & 1);
+        const int m = frag_feature(warp, lane, v);
+        float dh = ak[v] + av[v];
+        if (t == 0) dh = (dh + G[r * FP + m]) + G2[r * FP + m];
+        DH[r * FP + m] = dh;
+      }
+    }
+    __syncthreads();
+    for (int r = rb; r < re; ++r) {  // LN0 scale and bias gradients
+      const float dh = DH[r * FP + c];
+      cs.fixed[C_G0] += dh * __bfloat162float(B.N0b[swz(t * TA + r, c)]);
+      cs.fixed[C_B0] += dh;
+    }
+    __syncthreads();
+    for (int r = warp; r < TA; r += nwarps) {  // de = LN0 backward
+      float dy[4], n[4];
+      const int nc = swz(t * TA + r, lane * 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        dy[i] = DH[r * FP + lane * 4 + i];
+        n[i] = __bfloat162float(B.N0b[nc + i]);
+      }
+      ln_bwd_row(dy, n, B.inv0[t * TA + r], g0, lane);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) DH[r * FP + lane * 4 + i] = dy[i];
+    }
+    __syncthreads();
+    {  // the token's embed bias gradient and its staged de
+      const int g = lay.tok_group[t];
+      float db = 0.f;
+      for (int r = rb; r < re; ++r) {
+        const float de = DH[r * FP + c];
+        db += de;
+        const int row = row0 + r;
+        st[S_DE][((size_t)t * s_pad + row) * E + c] =
+            row < S ? __float2bfloat16_rn(de) : zero;
+      }
+#pragma unroll
+      for (int gg = 0; gg < MAX_GROUPS; ++gg)
+        if (gg == g) cs.bg[gg] += db;
+    }
+    __syncthreads();
+  }
+}
+
+// Fills `L` and the shared-memory size of a stage-A kernel for these groups;
+// false if the shapes exceed the kernels' limits (the embeds' padded widths
+// must sum to 128 or less, and the tile must fit a block's shared memory).
+inline bool stage_a_layout(int obs_dim, int n_groups, const int* group_k, const int* group_d,
+                    size_t extra_smem, TcLayout& L, size_t* smem) {
+  TokenLayout lay;
+  if (n_groups < 1 || n_groups > MAX_GROUPS ||
+      !make_layout(obs_dim, n_groups, group_k, group_d, lay) || !make_tc_layout(lay, L))
+    return false;
+  *smem = tc_smem_bytes(lay.n_tokens, L.xw) + extra_smem;
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return false;
+  return *smem <= (size_t)optin;
+}
+
+// Blocks per network of a persistent stage-A grid: as many as are resident on
+// the card at once, shared by `n_nets` networks, no more than there are tiles.
+template <typename Kernel>
+inline cudaError_t stage_a_blocks(Kernel kernel, size_t smem, int n_nets, int s_pad, int* blocks) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTA, smem)) !=
+      cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int n_tiles = s_pad / TA;
+  int b = sms * per_sm / n_nets;
+  if (b > n_tiles) b = n_tiles;
+  *blocks = b < 1 ? 1 : b;
+  return cudaSuccess;
+}
+
+}  // namespace

@@ -27,7 +27,7 @@
 // Cross-column reductions (LayerNorm, scores, head) are warp shuffles.
 // Rows past S in the last tile are computed on zeros and never stored.
 // The tile code is `tile_forward` / `tile_head` of encoder_tile.cuh, which
-// the backward and the forward + loss kernels run too.
+// the forward + loss kernel runs too.
 // Tensor-core products (mma.sync / wgmma) are left for a later change.
 
 #include "encoder_tile.cuh"
@@ -57,7 +57,7 @@ __global__ void __launch_bounds__(NTHREADS)
   const int row0 = blockIdx.x * TR;
   load_rows(B.xs, args.x, args.S, args.lay, row0, j);
   __syncthreads();
-  tile_forward<false>(args.lay, net.leaf, args.scale, B, j);
+  tile_forward(args.lay, net.leaf, args.scale, B, j);
   // the head; ragged rows never stored
   const int base = 2 * args.lay.n_groups;
   tile_head(B.Y2b, net.leaf[base + 18], net.leaf[base + 19], net.head_dim,

@@ -1,152 +1,168 @@
 // Encoder + linear head backward (PartialAttentionEncoder) for one or two
-// networks over the same packed observation rows: the parameter gradients of
-// sum(out . dout), summed over the rows.  The cotangent for the rows is not
-// computed (observations are data).
+// networks over the same packed observation rows, stage A: the forward
+// recomputed and the chain of data gradients per row tile, on the tensor
+// cores; the parameter gradients of sum(out . dout) that are column sums
+// (biases, LayerNorm) or the head's go straight to the gradient vectors, and
+// the bf16 operands of every `_mm_tn` weight product go to staging buffers,
+// which stage B (weight_grad.cu) multiplies.  The cotangent for the rows is
+// not computed (observations are data).
 //
 // Replaces the TPU kernels mupe_tpu/ops/fused_encoder.py `_bwd_kernel` (one
 // network, gridDim.y = 1) and `_pair_bwd_kernel` (actor and critic in one
-// launch, gridDim.y = 2).  Per row tile it recomputes `_forward_core`
-// (fused_encoder.py:278-364) and runs `_backward_core` (:377-463) at its
-// rounding points: both operands of every `_mm_tn` / `_mm_nt` are bf16
-// (dout included), the k and v cotangent blocks are bf16, LN0's normalised
-// value is bf16, the LayerNorm backward, q, the scores, the softmax and its
-// backward are f32, and the bias and LayerNorm column sums add f32 values.
+// launch, gridDim.y = 2), with weight_grad.cu.  Per row tile it recomputes
+// `_forward_core` (fused_encoder.py:278-364) and runs `_backward_core`
+// (:377-463) at its rounding points: both operands of every `_mm_tn` /
+// `_mm_nt` are bf16 (dout included), the k and v cotangent blocks are bf16,
+// LN0's normalised value is bf16, the LayerNorm backward, q, the scores, the
+// softmax and its backward are f32, and the bias and LayerNorm column sums
+// add f32 values.  The tile code is `tc_forward` / `tc_backward` of
+// encoder_bwd_tile.cuh.
 //
-// What bounds it on an H100: arithmetic, then the gradient traffic.  A row
-// costs ~810K multiply-adds per network (the forward again, then twice its
-// products), and the 106,244 gradients of a network (425 KB) do not fit a
-// block's shared memory.  The TPU kernel adds each tile's gradients into
-// VMEM-resident outputs because a Pallas grid runs in order; CUDA blocks do
-// not, and float atomics would make the sums depend on scheduling.  Design:
-// a persistent grid of as many blocks as fit on the card; block b walks the
-// row tiles b, b + G, ... (8 rows each, the forward kernel's tile code) and
-// adds each tile's gradients, thread j owning column j, into its own slice of
-// a [G, P] workspace in device memory.  A second kernel then sums the slices
-// in block order, so two launches on the same inputs give the same bits.
-// The tile's activations stay in shared memory; weights stream from L1/L2,
-// the products with a transposed weight reading a transposed copy that the
-// wrapper makes, so that every product's weight reads are coalesced.
-// Rows past S run on zero rows with a zero cotangent and add exact zeros.
-// The tile code is `tile_forward<true>` and `tile_backward` of
-// encoder_tile.cuh.  Tensor-core products are left for a later change.
+// What bounds it on an H100: with the weight products moved to stage B, a
+// row costs ~540K multiply-adds per network on the tensor cores (the forward
+// again and the backward's data products) and writes 8 KB of staged bf16
+// operands; 0.16 ms for the pair at S = 49,152 at the bf16 peak.  In
+// practice the chain of ~45 dependent steps a tile, each a small product or
+// a row reduction between __syncthreads, bounds it, at the issue rate of
+// the CUDA cores' share (LayerNorm, softmax, the attention sums, staging):
+// a block holds one 16-row tile in ~225 KB of shared memory (the residuals,
+// the two weight slots), so one block of 8 warps runs per SM.  Design: a
+// persistent grid of one block per SM (shared by the networks); block b
+// walks the row tiles b, b + G, ... and keeps its column sums in registers,
+// written once to its two slices of a [2G, P] workspace that
+// `sum_segments_kernel` sums in block order: two launches on the same inputs
+// give the same bits, without float atomics.  Rows past S run on zero rows
+// with a zero cotangent; their staged values are zeros.
 
-#include "encoder_tile.cuh"
+#include "encoder_bwd_tile.cuh"
 
 namespace {
 
-struct BwdNet {
-  const float* leaf[MAX_LEAVES];
-  const float* wt[N_T];  // W^T [E][E] of wq, wk, wv, wo, w1, w2
-  const float* dout;  // [S, head_dim]
-  float* ws;          // [G][P] per-block gradient slices
-  int off[MAX_LEAVES];  // offset of each leaf's gradient in a slice
+struct ANet {
+  const float* leaf[MAX_LEAVES];  // f32 leaves, canonical order
+  WSeq seq;                       // the bf16 weights a tile loads, in order
+  const __nv_bfloat16* wh;        // bf16 head weight [E][hd]
+  const float* dout;              // [S, hd]
+  __nv_bfloat16* st[N_STAGED + MAX_GROUPS];  // staged operands, then the groups' x slices
+  float* ws;                      // [G][colsum_floats] per-block slices
   int head_dim;
-  int P;
 };
 
-struct BwdArgs {
+struct AArgs {
   const float* x;
   int S;
+  int s_pad;
   int n_tiles;
   float scale;
-  TokenLayout lay;
-  BwdNet net[2];
+  TcLayout L;
+  ANet net[2];
 };
 
-__global__ void __launch_bounds__(NTHREADS)
-    encoder_bwd_kernel(const __grid_constant__ BwdArgs args) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const TokenLayout& lay = args.lay;
-  const BwdBufs B = bwd_bufs(smem_raw, lay.n_tokens, lay.obs_pad);
-  const BwdNet& net = args.net[blockIdx.y];
-  const int hd = net.head_dim;
+__global__ void __launch_bounds__(NTA, 1)
+    encoder_bwd_stage_a(const __grid_constant__ AArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const TcLayout& L = a.L;
+  const ANet& net = a.net[blockIdx.y];
+  const TcBufs B = tc_bufs(smem, L.lay.n_tokens, L.xw);
   const int j = threadIdx.x;
-  float* ws = net.ws + (size_t)blockIdx.x * net.P;
-  for (int p = j; p < net.P; p += NTHREADS) ws[p] = 0.f;
-  __syncthreads();
-
-  for (int tile = blockIdx.x; tile < args.n_tiles; tile += gridDim.x) {
-    const int row0 = tile * TR;
-    load_rows(B.t.xs, args.x, args.S, lay, row0, j);
-    for (int idx = j; idx < TR * hd; idx += NTHREADS) {
-      const int r = idx / hd;
-      const int o = idx - r * hd;
+  const int hd = net.head_dim;
+  load_head(B.WH[0], net.wh, hd, j);
+  ColSums cs;
+  colsums_zero(cs);
+  Ring R;
+  ring_start(R, smem, net.seq, j);
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+    const int row0 = tile * TA;
+    tc_load_rows(L, B, a.x, a.S, row0, net.st + N_STAGED, a.s_pad, j);
+    for (int idx = j; idx < TA * MAX_HEAD; idx += NTA) {
+      const int r = idx / MAX_HEAD;
+      const int o = idx - r * MAX_HEAD;
       const int row = row0 + r;
-      B.DOUT[r * MAX_HEAD + o] = row < args.S ? net.dout[(size_t)row * hd + o] : 0.f;
+      const float d = o < hd && row < a.S ? net.dout[(size_t)row * hd + o] : 0.f;
+      B.DOUT[idx] = d;
+      B.DOb[idx] = __float2bfloat16_rn(d);
     }
     __syncthreads();
-    tile_forward<true>(lay, net.leaf, args.scale, B.t, j);
-    tile_backward(lay, net.leaf, net.wt, net.off, hd, args.scale, B, ws, j);
+    tc_forward(L, net.leaf, a.scale, B, R, net.seq, net.st, a.s_pad, row0, a.S, j);
+    tc_backward(L, net.leaf, B.WH[0], hd, a.scale, B, R, net.seq, net.st, a.s_pad, row0, a.S,
+                cs, j);
   }
-}
-
-bool net_offsets(const TokenLayout& lay, const int* group_d, int hd, BwdNet& net) {
-  net.head_dim = hd;
-  return leaf_offsets(lay, group_d, hd, net.off, &net.P);
-}
-
-// Blocks per network of the persistent grid (`persistent_blocks`).
-cudaError_t grid_blocks(int n_tokens, int obs_pad, int n_nets, int S, int* blocks) {
-  return persistent_blocks(encoder_bwd_kernel, bwd_smem_bytes(n_tokens, obs_pad), n_nets, S,
-                           blocks);
+  cp_async_wait<0>();
+  colsums_store(cs, net.ws + (size_t)blockIdx.x * 2 * colsum_floats(L.lay.n_groups, hd),
+                L.lay.n_groups, hd, j);
 }
 
 }  // namespace
 
 // Writes to *blocks the number of per-network blocks (= workspace slices)
-// that mupe_encoder_backward wants for these shapes.  Returns a cudaError_t.
-extern "C" int mupe_encoder_backward_blocks(int n_groups, int n_tokens, int obs_dim, int n_nets,
-                                            int S, int* blocks) {
-  if (n_groups < 1 || n_groups > MAX_GROUPS || n_tokens < 1 || n_tokens > MAX_TOK ||
-      obs_dim < 1 || obs_dim > MAX_OBS || n_nets < 1 || n_nets > 2 || S < 0)
+// that mupe_encoder_bwd_operands wants for these shapes (s_pad: the staged
+// rows, a multiple of 32 and at least S).  Returns a cudaError_t.
+extern "C" int mupe_encoder_bwd_blocks(int obs_dim, int n_groups, const int* group_k,
+                                       const int* group_d, int n_nets, int s_pad, int* blocks) {
+  TcLayout L;
+  size_t smem = 0;
+  if (n_nets < 1 || n_nets > 2 || s_pad < 0 || s_pad % 32 ||
+      !stage_a_layout(obs_dim, n_groups, group_k, group_d, 0, L, &smem))
     return (int)cudaErrorInvalidValue;
-  return (int)grid_blocks(n_tokens, (obs_dim + 3) / 4 * 4, n_nets, S, blocks);
+  return (int)stage_a_blocks(encoder_bwd_stage_a, smem, n_nets, s_pad, blocks);
 }
 
-// x: [S, obs_dim] f32; leaves: n_nets * n_leaves device pointers (canonical
-// order of mupe_tpu_torch/ops/fused_encoder.py); douts: n_nets pointers to
-// [S, head_dims[i]] f32; wts: n_nets * 6 pointers to the transposes [E, E] of
-// wq, wk, wv, wo, w1, w2; grads: n_nets pointers to flat f32 gradient vectors
-// of n_params[i] floats (the leaves' gradients concatenated in canonical
-// order); ws: f32 workspace of blocks * sum(n_params) floats, blocks as
-// mupe_encoder_backward_blocks gave it.  Returns a cudaError_t.
-extern "C" int mupe_encoder_backward(const float* x, int S, int obs_dim, int n_groups,
-                                     const int* group_k, const int* group_d, int n_nets,
-                                     const void* const* leaves, int n_leaves,
-                                     const float* const* douts, const int* head_dims,
-                                     const void* const* wts, float* const* grads,
-                                     const int* n_params, float* ws, int blocks, void* stream) {
-  if (n_nets < 1 || n_nets > 2 || n_leaves != 2 * n_groups + N_FIXED || S < 0 || blocks < 1)
+// x: [S, obs_dim] f32 (s_pad >= S staged rows, a multiple of 32); leaves:
+// n_nets * n_leaves device pointers (canonical order of
+// mupe_tpu_torch/ops/fused_encoder.py); wbf: n_nets * 8 bf16 copies: the
+// embeds' weights stacked (each group's rows padded to a multiple of 16 with
+// zero rows), wq, wk, wv, wo, w1, w2, wh;
+// douts: n_nets pointers to [S, head_dims[i]] f32; staged: n_nets * (11 +
+// n_groups) bf16 buffers: h, dk, dv, de [n_tok, s_pad, 128], att, y1, f, dq,
+// dr1, dpre1, dr2 [s_pad, 128], then per group its tokens' x slices [k,
+// s_pad, round16(d)]; grads: n_nets flat f32 gradient vectors of n_params[i]
+// floats, of which this fills every leaf but the weights of the staged
+// products; ws: f32 workspace of 2 * blocks * sum(colsum floats) floats
+// (two slices a block), blocks as mupe_encoder_bwd_blocks gave it.  Returns a cudaError_t.
+extern "C" int mupe_encoder_bwd_operands(const float* x, int S, int s_pad, int obs_dim,
+                                         int n_groups, const int* group_k, const int* group_d,
+                                         int n_nets, const void* const* leaves, int n_leaves,
+                                         const void* const* wbf, const float* const* douts,
+                                         const int* head_dims, void* const* staged,
+                                         float* const* grads, const int* n_params, float* ws,
+                                         int blocks, void* stream) {
+  AArgs a = {};
+  size_t smem = 0;
+  if (n_nets < 1 || n_nets > 2 || n_leaves != 2 * n_groups + N_FIXED || S < 0 || s_pad < S ||
+      s_pad % 32 || blocks < 1 ||
+      !stage_a_layout(obs_dim, n_groups, group_k, group_d, 0, a.L, &smem))
     return (int)cudaErrorInvalidValue;
-  BwdArgs args = {};
-  if (!make_layout(obs_dim, n_groups, group_k, group_d, args.lay))
-    return (int)cudaErrorInvalidValue;
-  args.x = x;
-  args.S = S;
-  args.n_tiles = (S + TR - 1) / TR;
-  args.scale = (float)(1.0 / 11.313708498984761);  // 1 / sqrt(E)
+  a.x = x;
+  a.S = S;
+  a.s_pad = s_pad;
+  a.n_tiles = s_pad / TA;
+  a.scale = (float)(1.0 / 11.313708498984761);  // 1 / sqrt(E)
+  SegArgs seg = {};
   size_t ws_off = 0;
+  const int nb = N_BW;
+  const int ns = N_STAGED + n_groups;
   for (int n = 0; n < n_nets; ++n) {
-    BwdNet& net = args.net[n];
-    if (!net_offsets(args.lay, group_d, head_dims[n], net) || net.P != n_params[n])
+    ANet& net = a.net[n];
+    int off[MAX_LEAVES], P = 0;
+    if (!leaf_offsets(a.L.lay, group_d, head_dims[n], off, &P) || P != n_params[n])
       return (int)cudaErrorInvalidValue;
     for (int l = 0; l < n_leaves; ++l)
       net.leaf[l] = static_cast<const float*>(leaves[n * n_leaves + l]);
-    for (int w = 0; w < N_T; ++w) net.wt[w] = static_cast<const float*>(wts[n * N_T + w]);
+    const __nv_bfloat16* const* wb = reinterpret_cast<const __nv_bfloat16* const*>(wbf) + n * nb;
+    seq_append(net.seq, a.L, wb, true);
+    net.wh = wb[B_H];
     net.dout = douts[n];
+    for (int i = 0; i < ns; ++i) net.st[i] = static_cast<__nv_bfloat16*>(staged[n * ns + i]);
+    net.head_dim = head_dims[n];
     net.ws = ws + ws_off;
-    ws_off += (size_t)blocks * net.P;
+    colsum_segments(seg, net.ws, 2 * blocks, n_groups, head_dims[n], off, grads[n]);
+    ws_off += (size_t)2 * blocks * colsum_floats(n_groups, head_dims[n]);
   }
-  const size_t smem = bwd_smem_bytes(args.lay.n_tokens, args.lay.obs_pad);
   cudaError_t err = cudaFuncSetAttribute(
-      encoder_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      encoder_bwd_stage_a, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  encoder_bwd_kernel<<<dim3(blocks, n_nets), NTHREADS, smem, s>>>(args);
+  encoder_bwd_stage_a<<<dim3(blocks, n_nets), NTA, smem, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  for (int n = 0; n < n_nets; ++n) {
-    err = sum_slices(args.net[n].ws, blocks, args.net[n].P, grads[n], s);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+  return (int)sum_segments(seg, s);
 }

@@ -5,37 +5,42 @@
 //     then per row the PPO-clip and clipped-Huber math: dmu [S, A], both
 //     value-branch cotangents dv1, dv2 [S] and a stats row [S, 9 + A];
 //   pair_fwd_loss_agrad_kernel (direct_mode "agrad"): the same without dmu
-//     leaving the block, followed by the actor's backward with dout = dmu:
-//     the actor's parameter gradients, summed over the rows.
+//     leaving the block, followed by the actor's backward with dout = dmu,
+//     as stage A of the encoder backward: the actor's column-sum and head
+//     gradients, and the staged operands of its weight products, which
+//     stage B (weight_grad.cu) multiplies.
 //
 // Replaces the TPU kernels mupe_tpu/ops/fused_encoder.py
 // `_pair_fwd_loss_kernel` with `_loss_math` (fused_encoder.py:568-681) and
-// `_pair_fwd_loss_agrad_kernel` (:730-777).  The networks run the tile code
-// of encoder_tile.cuh that the forward and backward kernels run, so their
-// values are those kernels' bits.  `_loss_math` runs per row in f32, one
-// rounding per operation (`__fmul_rn` and kin, so that no multiply-add is
-// contracted), with the reference's forms: z = (act - mean) / exp(log_std),
-// the log-ratio clamped to +-20 before exp and a zero gradient where it
-// saturates, `in_clip` with strict inequalities, the ratio's gradient taken
-// on surr1 <= surr2, both value branches (dv2 zero where |v - v_old| > eps).
-// The critic's branch is chosen outside, from the batch means of the stats.
+// `_pair_fwd_loss_agrad_kernel` (:730-777).  The fwdloss kernel runs the
+// forward kernel's tile code (encoder_tile.cuh), so its values are that
+// kernel's bits; the agrad kernel runs the backward's tensor-core tile code
+// (encoder_bwd_tile.cuh) for both forwards and the actor's backward.
+// `_loss_math` runs per row in f32, one rounding per operation (`__fmul_rn`
+// and kin, so that no multiply-add is contracted), with the reference's
+// forms: z = (act - mean) / exp(log_std), the log-ratio clamped to +-20
+// before exp and a zero gradient where it saturates, `in_clip` with strict
+// inequalities, the ratio's gradient taken on surr1 <= surr2, both value
+// branches (dv2 zero where |v - v_old| > eps).  The critic's branch is chosen
+// outside, from the batch means of the stats.
 //
-// What bounds it on an H100: arithmetic, as the encoder kernels: ~540K
-// multiply-adds a row for the two forwards (fwdloss) and ~1.1M with the
-// actor's backward (agrad); the loss math is ~100 flops a row and the rows'
-// loss inputs and outputs ~25 floats.  Design: the pair forward of the
-// existing kernel splits the networks across blockIdx.y, which cannot serve
-// here: the loss needs a row's mean and value in one block.  So one block
-// (128 threads, TR rows) runs the critic first, keeping its value [TR] in
-// shared memory, then the actor in the same buffers; one thread a row then
+// What bounds it on an H100: the fwdloss kernel's arithmetic, ~540K
+// multiply-adds a row for the two forwards on CUDA cores; the agrad kernel
+// adds the actor's backward chain (~270K more a row, tensor cores) and 8 KB
+// of staged operands a row, and like the backward's stage A it is bound by
+// its chain of dependent steps at one 16-row tile (8 warps) per SM (~226 KB
+// of shared memory).  The loss math is ~100 flops a row and the rows' loss inputs and
+// outputs ~25 floats.  Design: the loss needs a row's mean and value in one
+// block, so one block runs the critic's forward first, keeping its value in
+// shared memory, then the actor's in the same buffers; one thread a row then
 // runs the loss.  Rows past S are computed on zeros and never stored.  The
-// agrad kernel is the backward kernel's persistent grid (block b walks the
-// tiles b, b + G, ...; the critic's forward runs in the backward's buffers
-// before the actor's forward + backward take them) and adds the actor's
-// gradients into its own slice of a [G, P] workspace, which
-// `sum_slices_kernel` sums in block order: repeat launches give the same
-// bits, and there are no float atomics.  Tensor cores are left for later.
+// agrad kernel is the backward's persistent grid (block b walks the tiles b,
+// b + G, ...) and keeps the actor's column sums in registers, written once
+// to its two slices of a [2G, P] workspace that `sum_segments_kernel` sums in
+// block order: repeat launches give the same bits, and there are no float
+// atomics.
 
+#include "encoder_bwd_tile.cuh"
 #include "encoder_tile.cuh"
 
 namespace {
@@ -75,18 +80,22 @@ struct FwdLossArgs {
 
 struct AgradArgs {
   FwdLossArgs f;
-  const float* wt[N_T];  // the actor's W^T of wq, wk, wv, wo, w1, w2
-  int off[MAX_LEAVES];   // offset of each actor leaf's gradient in a slice
-  int P;
+  TcLayout L;
+  WSeq seq;                  // the critic's forward, then the actor's forward and backward
+  const __nv_bfloat16* wh_a;  // bf16 head weights [E][A], [E][1]
+  const __nv_bfloat16* wh_c;
+  __nv_bfloat16* st[N_STAGED + MAX_GROUPS];  // the actor's staged operands, x slices
+  float* ws;  // [G][colsum_floats] per-block slices
+  int s_pad;
   int n_tiles;
-  float* ws;  // [G][P] per-block gradient slices
 };
 
-// The tile's loss inputs, LW floats a row; rows past S are zeros.
+// The tile's loss inputs, LW floats a row for `rows` rows (`nth` threads);
+// rows past S are zeros.
 __device__ __forceinline__ void load_loss_rows(float* lin, const LossArgs& a, int S, int row0,
-                                               int j) {
+                                               int rows, int nth, int j) {
   const int w = a.A + 4;
-  for (int idx = j; idx < TR * w; idx += NTHREADS) {
+  for (int idx = j; idx < rows * w; idx += nth) {
     const int r = idx / w;
     const int c = idx - r * w;
     const int row = row0 + r;
@@ -176,12 +185,12 @@ __global__ void __launch_bounds__(NTHREADS)
   const int j = threadIdx.x;
   const int row0 = blockIdx.x * TR;
   load_rows(B.xs, args.x, args.S, lay, row0, j);
-  load_loss_rows(LIN, args.loss, args.S, row0, j);
+  load_loss_rows(LIN, args.loss, args.S, row0, TR, NTHREADS, j);
   __syncthreads();
-  tile_forward<false>(lay, args.lc, args.scale, B, j);
+  tile_forward(lay, args.lc, args.scale, B, j);
   tile_head(B.Y2b, args.lc[base + 18], args.lc[base + 19], 1, VOUT, 1, TR, j);
   __syncthreads();
-  tile_forward<false>(lay, args.la, args.scale, B, j);
+  tile_forward(lay, args.la, args.scale, B, j);
   tile_head(B.Y2b, args.la[base + 18], args.la[base + 19], A, MEAN, MAX_HEAD, TR, j);
   __syncthreads();
   const int row = row0 + j;
@@ -192,52 +201,57 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-    pair_fwd_loss_agrad_kernel(const __grid_constant__ AgradArgs args) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const FwdLossArgs& f = args.f;
-  const TokenLayout& lay = f.lay;
-  const BwdBufs B = bwd_bufs(smem_raw, lay.n_tokens, lay.obs_pad);
-  const TileBufs C = fwd_view(B);  // the critic's forward, in the backward's buffers
-  float* VOUT = reinterpret_cast<float*>(smem_raw + bwd_smem_bytes(lay.n_tokens, lay.obs_pad));
-  float* LIN = VOUT + TR;  // [TR][LW]
-  const int base = 2 * lay.n_groups;
+__global__ void __launch_bounds__(NTA, 1)
+    pair_fwd_loss_agrad_kernel(const __grid_constant__ AgradArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const FwdLossArgs& f = a.f;
+  const TcLayout& L = a.L;
+  const TcBufs B = tc_bufs(smem, L.lay.n_tokens, L.xw);
+  float* VOUT = reinterpret_cast<float*>(smem + tc_smem_bytes(L.lay.n_tokens, L.xw));
+  float* LIN = VOUT + TA;  // [TA][LW]
+  const int G = L.lay.n_groups;
+  const int base = 2 * G;
   const int A = f.loss.A;
   const int j = threadIdx.x;
-  float* ws = args.ws + (size_t)blockIdx.x * args.P;
-  for (int p = j; p < args.P; p += NTHREADS) ws[p] = 0.f;
-  __syncthreads();
-
-  for (int tile = blockIdx.x; tile < args.n_tiles; tile += gridDim.x) {
-    const int row0 = tile * TR;
-    load_rows(B.t.xs, f.x, f.S, lay, row0, j);
-    load_loss_rows(LIN, f.loss, f.S, row0, j);
+  load_head(B.WH[0], a.wh_a, A, j);
+  load_head(B.WH[1], a.wh_c, 1, j);
+  ColSums cs;
+  colsums_zero(cs);
+  Ring R;
+  ring_start(R, smem, a.seq, j);
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+    const int row0 = tile * TA;
+    tc_load_rows(L, B, f.x, f.S, row0, a.st + N_STAGED, a.s_pad, j);
+    load_loss_rows(LIN, f.loss, f.S, row0, TA, NTA, j);
     __syncthreads();
-    // the critic first: its values die before the actor's forward + backward
-    tile_forward<false>(lay, f.lc, f.scale, C, j);
-    tile_head(C.Y2b, f.lc[base + 18], f.lc[base + 19], 1, VOUT, 1, TR, j);
+    // the critic first (its value kept in VOUT), then the actor with its mean in DOUT
+    tc_forward(L, f.lc, f.scale, B, R, a.seq, nullptr, a.s_pad, row0, f.S, j);
+    tc_head(B, B.WH[1], f.lc[base + 19], 1, VOUT, 1, j);
+    tc_forward(L, f.la, f.scale, B, R, a.seq, a.st, a.s_pad, row0, f.S, j);
+    tc_head(B, B.WH[0], f.la[base + 19], A, B.DOUT, MAX_HEAD, j);
     __syncthreads();
-    tile_forward<true>(lay, f.la, f.scale, B.t, j);
-    tile_head(B.t.Y2b, f.la[base + 18], f.la[base + 19], A, B.DOUT, MAX_HEAD, TR, j);
-    __syncthreads();
-    if (j < TR) {  // the mean in DOUT becomes the actor's cotangent dmu
+    if (j < TA) {  // the mean in DOUT becomes the actor's cotangent dmu
       const int row = row0 + j;
       float dmu[MAX_HEAD];
       loss_row(f.loss, B.DOUT + j * MAX_HEAD, VOUT[j], LIN + j * LW, dmu, row < f.S, row);
-      for (int d = 0; d < A; ++d) B.DOUT[j * MAX_HEAD + d] = row < f.S ? dmu[d] : 0.f;
+      for (int d = 0; d < MAX_HEAD; ++d) {
+        const float v = d < A && row < f.S ? dmu[d] : 0.f;
+        B.DOUT[j * MAX_HEAD + d] = v;
+        B.DOb[j * 8 + d] = __float2bfloat16_rn(v);
+      }
     }
     __syncthreads();
-    tile_backward(lay, f.la, args.wt, args.off, A, f.scale, B, ws, j);
+    tc_backward(L, f.la, B.WH[0], A, f.scale, B, R, a.seq, a.st, a.s_pad, row0, f.S, cs, j);
   }
+  cp_async_wait<0>();
+  colsums_store(cs, a.ws + (size_t)blockIdx.x * 2 * colsum_floats(G, A), G, A, j);
 }
 
 size_t fwd_loss_smem(const TokenLayout& lay) {
   return fwd_smem_bytes(lay.n_tokens, lay.obs_pad) + (size_t)(TR + TR * MAX_HEAD + TR * LW) * 4;
 }
 
-size_t agrad_smem(int n_tokens, int obs_pad) {
-  return bwd_smem_bytes(n_tokens, obs_pad) + (size_t)(TR + TR * LW) * 4;
-}
+constexpr size_t AGRAD_EXTRA_SMEM = (size_t)(TA + TA * LW) * 4;  // VOUT, LIN
 
 // Fills everything but the outputs and the workspace; false on bad shapes.
 bool fill_args(FwdLossArgs& f, const float* x, int S, int obs_dim, int n_groups,
@@ -306,47 +320,65 @@ extern "C" int mupe_encoder_fwd_loss(const float* x, int S, int obs_dim, int n_g
 }
 
 // Writes to *blocks the number of blocks (= workspace slices) that
-// mupe_encoder_fwd_loss_agrad wants for these shapes.  Returns a cudaError_t.
-extern "C" int mupe_encoder_fwd_loss_agrad_blocks(int n_groups, int n_tokens, int obs_dim, int S,
-                                                  int* blocks) {
-  if (n_groups < 1 || n_groups > MAX_GROUPS || n_tokens < 1 || n_tokens > MAX_TOK ||
-      obs_dim < 1 || obs_dim > MAX_OBS || S < 0)
+// mupe_encoder_fwd_loss_agrad wants for these shapes (s_pad as for
+// mupe_encoder_bwd_blocks).  Returns a cudaError_t.
+extern "C" int mupe_encoder_fwd_loss_agrad_blocks(int obs_dim, int n_groups, const int* group_k,
+                                                  const int* group_d, int s_pad, int* blocks) {
+  TcLayout L;
+  size_t smem = 0;
+  if (s_pad < 0 || s_pad % 32 ||
+      !stage_a_layout(obs_dim, n_groups, group_k, group_d, AGRAD_EXTRA_SMEM, L, &smem))
     return (int)cudaErrorInvalidValue;
-  return (int)persistent_blocks(pair_fwd_loss_agrad_kernel,
-                                agrad_smem(n_tokens, (obs_dim + 3) / 4 * 4), 1, S, blocks);
+  return (int)stage_a_blocks(pair_fwd_loss_agrad_kernel, smem, 1, s_pad, blocks);
 }
 
 // As mupe_encoder_fwd_loss, with outs: dv1 [S], dv2 [S], stats [S, 9 + A];
-// and the actor's gradients: wts, 6 device pointers to the transposes [E, E]
-// of its wq, wk, wv, wo, w1, w2; grads, a flat f32 vector of n_params floats
-// (the leaves' gradients concatenated in canonical order); ws, an f32
-// workspace of blocks * n_params floats, blocks as
-// mupe_encoder_fwd_loss_agrad_blocks gave it.  Returns a cudaError_t.
-extern "C" int mupe_encoder_fwd_loss_agrad(const float* x, int S, int obs_dim, int n_groups,
-                                           const int* group_k, const int* group_d,
+// and stage A of the actor's backward: wbf, the actor's then the critic's
+// 8 bf16 weight copies (as mupe_encoder_bwd_operands takes them);
+// staged, the actor's 11 + n_groups staging buffers (s_pad rows, as
+// mupe_encoder_bwd_operands); grads, the actor's flat f32 gradient vector of
+// n_params floats, of which this fills every leaf but the weights of the
+// staged products; ws, an f32 workspace of 2 * blocks * colsum floats (two
+// slices a block), blocks as mupe_encoder_fwd_loss_agrad_blocks gave it.
+// Returns a cudaError_t.
+extern "C" int mupe_encoder_fwd_loss_agrad(const float* x, int S, int s_pad, int obs_dim,
+                                           int n_groups, const int* group_k, const int* group_d,
                                            const void* const* leaves, int n_leaves,
                                            int action_dim, const void* const* rows,
                                            const float* consts, float* const* outs,
-                                           const void* const* wts, float* grads, int n_params,
-                                           float* ws, int blocks, void* stream) {
-  AgradArgs args = {};
-  if (blocks < 1 || !fill_args(args.f, x, S, obs_dim, n_groups, group_k, group_d, leaves,
-                               n_leaves, action_dim, rows, consts))
+                                           const void* const* wbf, void* const* staged,
+                                           float* grads, int n_params, float* ws, int blocks,
+                                           void* stream) {
+  AgradArgs a = {};
+  size_t smem = 0;
+  if (blocks < 1 || s_pad < S || s_pad % 32 ||
+      !fill_args(a.f, x, S, obs_dim, n_groups, group_k, group_d, leaves, n_leaves, action_dim,
+                 rows, consts) ||
+      !stage_a_layout(obs_dim, n_groups, group_k, group_d, AGRAD_EXTRA_SMEM, a.L, &smem))
     return (int)cudaErrorInvalidValue;
-  if (!leaf_offsets(args.f.lay, group_d, action_dim, args.off, &args.P) || args.P != n_params)
+  int off[MAX_LEAVES], P = 0;
+  if (!leaf_offsets(a.L.lay, group_d, action_dim, off, &P) || P != n_params)
     return (int)cudaErrorInvalidValue;
-  args.f.loss.dv1 = outs[0];
-  args.f.loss.dv2 = outs[1];
-  args.f.loss.stats = outs[2];
-  for (int w = 0; w < N_T; ++w) args.wt[w] = static_cast<const float*>(wts[w]);
-  args.n_tiles = (S + TR - 1) / TR;
-  args.ws = ws;
-  const size_t smem = agrad_smem(args.f.lay.n_tokens, args.f.lay.obs_pad);
+  a.f.loss.dv1 = outs[0];
+  a.f.loss.dv2 = outs[1];
+  a.f.loss.stats = outs[2];
+  const __nv_bfloat16* const* wb = reinterpret_cast<const __nv_bfloat16* const*>(wbf);
+  const int nb = N_BW;
+  seq_append(a.seq, a.L, wb + nb, false);
+  seq_append(a.seq, a.L, wb, true);
+  a.wh_a = wb[B_H];
+  a.wh_c = wb[nb + B_H];
+  for (int i = 0; i < N_STAGED + n_groups; ++i) a.st[i] = static_cast<__nv_bfloat16*>(staged[i]);
+  a.ws = ws;
+  a.s_pad = s_pad;
+  a.n_tiles = s_pad / TA;
+  SegArgs seg = {};
+  colsum_segments(seg, ws, 2 * blocks, n_groups, action_dim, off, grads);
   cudaError_t err = cudaFuncSetAttribute(
       pair_fwd_loss_agrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  pair_fwd_loss_agrad_kernel<<<blocks, NTHREADS, smem, s>>>(args);
+  pair_fwd_loss_agrad_kernel<<<blocks, NTA, smem, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  return (int)sum_slices(ws, blocks, n_params, grads, s);
+  return (int)sum_segments(seg, s);
 }

@@ -383,5 +383,7 @@ extern "C" int mupe_tp_lstm_backward(const float* x, const float* dy, int N, int
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   tp_lstm_bwd_kernel<<<blocks, G4, smem, s>>>(args);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  return (int)sum_slices(ws, blocks, P, grad, s);
+  SegArgs seg = {};
+  seg.seg[seg.n++] = {ws, grad, blocks, P, P};
+  return (int)sum_segments(seg, s);
 }

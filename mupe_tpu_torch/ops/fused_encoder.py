@@ -10,13 +10,18 @@ run it on packed observation rows: on CPU tensors through `reference_apply`,
 on CUDA tensors through the hand-written kernel in `csrc/fused_encoder.cu`
 (one launch for one or both networks).  Both are differentiable in the
 leaves: `encoder_backward` (`reference_backward`, the plain version of
-`_backward_core`, or the kernel in `csrc/fused_encoder_bwd.cu`) recomputes
-the forward and sums the parameter gradients over the rows.
+`_backward_core`, or two kernel stages: `csrc/fused_encoder_bwd.cu`, the
+forward recomputed and the data gradients per row tile, which stages the
+bf16 operands of the weight products, then `csrc/weight_grad.cu`, those
+products as a split-K GEMM) recomputes the forward and sums the parameter
+gradients over the rows.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import itertools
 import math
 from typing import Dict, Sequence, Tuple
 
@@ -43,6 +48,12 @@ KERNEL_TOL = KernelTol(max_rel=5e-3, mean_rel=1e-4)
 # gradients meet one rounding point) and the head bias (no rounding point).
 BWD_KERNEL_TOL = GradTol(max_rel=1e-2, mean_rel=1.5e-3, noise_floor=1e-4, noise_leaves=(-15,))
 BWD_CONTROL_BLIND = (-15, -5, -3, -1)
+# The weight-gradient stage (`weight_grads`) vs `reference_weight_grads` on
+# the same staged operands, per weight leaf: the same bf16 products, summed in
+# f32 in another order (chunks, tensor-core tiles) and nothing else.  On an
+# H100 (chip_smoke.py phase 2, S = 1 to 49,153) the largest error was 8.3e-6
+# of a leaf's largest value, the largest mean error 4.3e-6.
+WEIGHT_GRAD_TOL = GradTol(max_rel=1e-4, mean_rel=1e-5)
 # The forward + loss kernels' stats [S, 9 + A] vs `reference_loss_math`'s,
 # column by column: KERNEL_TOL's mean limit, and twice its max limit, for the
 # columns that carry the log-ratio (ratio, ratio², the clamped log-ratio,
@@ -51,6 +62,33 @@ BWD_CONTROL_BLIND = (-15, -5, -3, -1)
 # e^-1), and ratio² doubles the ratio's relative error.  Measured on an H100
 # at S = 49,152: 5.2e-3 on ratio², mean errors under 1e-5.
 LOSS_STATS_TOL = KernelTol(max_rel=1e-2, mean_rel=1e-4)
+# Below 300 rows the forward + loss kernels' per-row outputs keep their max
+# limits and get a mean limit of 2e-3: over a handful of rows the mean error
+# is one row's, and the plain loss math (torch.exp, its sums) and the kernels'
+# (expf, one rounding an operation) part by up to 9.3e-4 of a column's mean
+# (the clamped log-ratio and dlog_std columns; the largest errors stayed under
+# a quarter of the max limits), past the 1e-4 limit in 12-16 of 180 cases at
+# S = 1 to 17 over 30 seeds on an H100 (scripts/torch_tolerance_survey.py),
+# for the fwdloss kernel (CUDA-core forward) and the agrad kernel
+# (tensor-core forward) alike.  A missed
+# rounding point is caught at S = 49,152, where the mean limits hold in full.
+SMALL_S_ROWS = 300
+
+
+def loss_row_tols(s: int):
+    """(per-row outputs' limit, stats columns' limit) for s rows."""
+    if s >= SMALL_S_ROWS:
+        return KERNEL_TOL, LOSS_STATS_TOL
+    return (KernelTol(KERNEL_TOL.max_rel, 2e-3), KernelTol(LOSS_STATS_TOL.max_rel, 2e-3))
+
+
+# The agrad kernel's head-bias gradient vs the column sum over the rows of
+# the plain version's dmu: a sum whose terms cancel, so the forward's per-row
+# deviation from the plain version (within KERNEL_TOL) sums to up to 9.2e-4
+# of it, for the fwdloss kernel's own dmu as much as for the agrad kernel's
+# (30 seeds, S = 1 to 49,152, H100, scripts/torch_tolerance_survey.py); a
+# dropped row moves it by about 1/sqrt(S) of it (4.5e-3 at S = 49,152).
+DMU_SUM_TOL = KernelTol(max_rel=5e-3, mean_rel=2e-3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,21 +246,47 @@ def _ln_bwd(dy, n, inv, scale):
     return dx, dscale, dbias
 
 
-def reference_backward(
+# The `_mm_tn` products (`dW = Aᵀ D` over the rows) that the weight-gradient
+# stage computes, per network: (leaf index after the per-group pairs, A, D).
+# A and D name the staged operands of `reference_backward_operands`; "h0" is
+# token 0's rows of "h".  The embeds' products (A = the tokens' x slices,
+# D = their rows of "de") come after them, one per group.
+WEIGHT_PRODUCTS = ((2, "h0", "dq"), (4, "h", "dk"), (6, "h", "dv"), (8, "att", "dr1"),
+                   (12, "y1", "dpre1"), (14, "f", "dr2"))
+
+
+def weight_leaves(spec: EncoderSpec) -> Tuple[int, ...]:
+    """Canonical indices of the leaves whose gradients are `_mm_tn` products
+    of staged operands (`reference_weight_grads`): the embeds' weights and
+    wq, wk, wv, wo, w1, w2.  Every other leaf's gradient is a column sum or
+    the head's, from `reference_backward_operands`."""
+    base = 2 * len(spec.groups)
+    return tuple(2 * g for g in range(len(spec.groups))) + tuple(
+        base + i for i, _, _ in WEIGHT_PRODUCTS)
+
+
+def reference_backward_operands(
     spec: EncoderSpec,
     leaves: Sequence[torch.Tensor],
     x: torch.Tensor,
     dout: torch.Tensor,
     *,
     bf16: bool = True,
-) -> Tuple[torch.Tensor, ...]:
-    """Gradients of sum(out · dout) for every leaf, summed over the rows, in
-    plain PyTorch: `_forward_core` recomputed, then `_backward_core`
-    (fused_encoder.py:377-463) at its rounding points (both operands of
-    every `_mm_tn` / `_mm_nt` in bf16, dout included; dk and dv blocks in
-    bf16; n0 in bf16; LayerNorm backward and the column sums in f32).
-    Returns the gradients in the canonical leaf order.  bf16=False skips
-    every rounding point: the control that `BWD_KERNEL_TOL` must reject."""
+):
+    """The first stage of the backward in plain PyTorch: `_forward_core`
+    recomputed, then `_backward_core` (fused_encoder.py:377-463) at its
+    rounding points without its `_mm_tn` products.  Returns (staged, sums):
+
+    * staged: the operands of every `_mm_tn` product, rounded as that
+      product rounds them (bf16 values in f32 tensors): token-major "h"
+      (h_all), "dk", "dv", "de" [n_tok, S, E]; "att", "y1", "f", "dq",
+      "dr1", "dpre1", "dr2" [S, E]; "xs", per group its tokens' x slices
+      [k, S, d];
+    * sums: {leaf index: gradient} for every leaf that is not in
+      `weight_leaves`: the biases and LayerNorm parameters (column sums in
+      f32) and the head's weight and bias.
+
+    bf16=False skips every rounding point (the control)."""
     rnd = _bf16 if bf16 else _f32
 
     def mm_tn(a, b):  # aᵀ b over the rows (and tokens)
@@ -236,20 +300,19 @@ def reference_backward(
          g2, b2, wh, bh) = _unpack_leaves(spec, leaves)
     scale = 1.0 / math.sqrt(spec.embed_dim)
     dout = dout.to(x.dtype)
+    base = 2 * len(spec.groups)
+    sums = {}
 
-    dwh = mm_tn(res["y2"], dout)
-    dbh = dout.sum(0)
+    sums[base + 18] = mm_tn(res["y2"], dout)
+    sums[base + 19] = dout.sum(0)
     dy2 = mm_nt(dout, wh)
-    dr2, dg2ln, db2ln = _ln_bwd(dy2, res["n2"], res["inv2"], g2)
-    dw2 = mm_tn(res["f"], dr2)
-    dbf2 = dr2.sum(0)
+    dr2, sums[base + 16], sums[base + 17] = _ln_bwd(dy2, res["n2"], res["inv2"], g2)
+    sums[base + 15] = dr2.sum(0)
     dpre1 = mm_nt(dr2, w2) * _dgelu_tanh(res["pre1"])
-    dw1 = mm_tn(res["y1"], dpre1)
-    dbf1 = dpre1.sum(0)
+    sums[base + 13] = dpre1.sum(0)
     dy1 = dr2 + mm_nt(dpre1, w1)
-    dr1, dg1ln, db1ln = _ln_bwd(dy1, res["n1"], res["inv1"], g1)
-    dwo = mm_tn(res["att"], dr1)
-    dbo = dr1.sum(0)
+    dr1, sums[base + 10], sums[base + 11] = _ln_bwd(dy1, res["n1"], res["inv1"], g1)
+    sums[base + 9] = dr1.sum(0)
     datt = mm_nt(dr1, wo)
     a, q = res["a"], res["q"]                      # [n_tok, S], [S, E]
     das = (datt[None] * res["vs_all"]).sum(-1)     # [n_tok, S]
@@ -263,30 +326,86 @@ def reference_backward(
     dq = dq * scale
     dks = rnd(dss[..., None] * q * scale)          # [n_tok, S, E]
     dvs = rnd(a[..., None] * datt)
-    h_all = res["h_all"]
-    dwq = mm_tn(h_all[0], dq)
-    dbq = dq.sum(0)
-    dwk = mm_tn(h_all, dks)
-    dbk = dks.sum((0, 1))
-    dwv = mm_tn(h_all, dvs)
-    dbv = dvs.sum((0, 1))
+    sums[base + 3] = dq.sum(0)
+    sums[base + 5] = dks.sum((0, 1))
+    sums[base + 7] = dvs.sum((0, 1))
     dh_all = mm_nt(dks, wk) + mm_nt(dvs, wv)
     dh0 = dh_all[0] + dr1 + mm_nt(dq, wq)
     dh_all = torch.cat([dh0[None], dh_all[1:]])
     de_all, dg0, db0 = _ln_bwd(dh_all, res["n0_all"], res["inv0_all"], g0)
-    dg0, db0 = dg0.sum(0), db0.sum(0)
-    dgw = []
-    t = 0
-    for (k, _), (wg, bg) in zip(spec.groups, gw):
-        dwg = torch.zeros_like(wg)
+    sums[base + 0], sums[base + 1] = dg0.sum(0), db0.sum(0)
+    xs, t = [], 0
+    for g, ((k, _), (_, bg)) in enumerate(zip(spec.groups, gw)):
         dbg = torch.zeros_like(bg)
         for _ in range(k):
-            dwg = dwg + mm_tn(res["xs"][t], de_all[t])
             dbg = dbg + de_all[t].sum(0)
             t += 1
-        dgw += [dwg, dbg]
-    return tuple(dgw + [dg0, db0, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo,
-                        dg1ln, db1ln, dw1, dbf1, dw2, dbf2, dg2ln, db2ln, dwh, dbh])
+        sums[2 * g + 1] = dbg
+        xs.append(rnd(torch.stack(res["xs"][t - k : t])))
+    staged = dict(h=rnd(res["h_all"]), dk=dks, dv=dvs, de=rnd(de_all), att=rnd(res["att"]),
+                  y1=rnd(res["y1"]), f=rnd(res["f"]), dq=rnd(dq), dr1=rnd(dr1),
+                  dpre1=rnd(dpre1), dr2=rnd(dr2), xs=tuple(xs))
+    return staged, sums
+
+
+def reference_weight_grads(spec: EncoderSpec, staged) -> Dict[int, torch.Tensor]:
+    """The second stage of the backward in plain PyTorch: every `_mm_tn`
+    product of `_backward_core` from the staged operands (f32 products and
+    sums of their values) → {leaf index: gradient} over `weight_leaves`.
+    Takes `reference_backward_operands`' staging or the kernel's (bf16, rows
+    past S zero in D, the x slices' columns zero-padded)."""
+    base = 2 * len(spec.groups)
+    out = {}
+    for i, a_key, d_key in WEIGHT_PRODUCTS:
+        a = staged["h"][0] if a_key == "h0" else staged[a_key]
+        d = staged[d_key]
+        out[base + i] = a.float().reshape(-1, a.shape[-1]).T @ d.float().reshape(-1, d.shape[-1])
+    de, t = staged["de"], 0
+    for g, ((k, dim), xs) in enumerate(zip(spec.groups, staged["xs"])):
+        dwg = torch.zeros((dim, spec.embed_dim), dtype=torch.float32, device=de.device)
+        for i in range(k):
+            dwg = dwg + xs[i, :, :dim].float().T @ de[t].float()
+            t += 1
+        out[2 * g] = dwg
+    return out
+
+
+def _canonical(spec: EncoderSpec, sums, wgrads) -> Tuple[torch.Tensor, ...]:
+    both = {**sums, **wgrads}
+    return tuple(both[i] for i in range(spec.n_leaves))
+
+
+def reference_backward(
+    spec: EncoderSpec,
+    leaves: Sequence[torch.Tensor],
+    x: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    bf16: bool = True,
+) -> Tuple[torch.Tensor, ...]:
+    """Gradients of sum(out · dout) for every leaf, summed over the rows, in
+    plain PyTorch: `reference_backward_operands` then
+    `reference_weight_grads`, which is `_forward_core` recomputed and
+    `_backward_core` (fused_encoder.py:377-463) at its rounding points (both
+    operands of every `_mm_tn` / `_mm_nt` in bf16, dout included; dk and dv
+    blocks in bf16; n0 in bf16; LayerNorm backward and the column sums in
+    f32).  Returns the gradients in the canonical leaf order.  bf16=False
+    skips every rounding point: the control that `BWD_KERNEL_TOL` must
+    reject."""
+    staged, sums = reference_backward_operands(spec, leaves, x, dout, bf16=bf16)
+    return _canonical(spec, sums, reference_weight_grads(spec, staged))
+
+
+def split_k(k_rows: int, blocks: int, step: int) -> Tuple[Tuple[int, int], ...]:
+    """The weight-gradient stage's split of a product's K = k_rows staged
+    rows over at most `blocks` blocks: chunks of a multiple of `step` rows,
+    block c taking [c * chunk, min((c + 1) * chunk, k_rows)), in order.  The
+    kernel computes the same bounds from (k_rows, chunk); its partials are
+    summed in chunk order."""
+    if k_rows <= 0:
+        return ()
+    chunk = -(-(-(-k_rows // max(blocks, 1))) // step) * step
+    return tuple((c, min(c + chunk, k_rows)) for c in range(0, k_rows, chunk))
 
 
 # ---------------------------------------------------------------- kernel
@@ -372,12 +491,110 @@ def split_flat(spec: EncoderSpec, flat: torch.Tensor) -> Tuple[torch.Tensor, ...
     return tuple(p.view(s) for p, s in zip(parts, shapes))
 
 
-def _launch_bwd(x: torch.Tensor, nets, douts) -> Tuple[torch.Tensor, ...]:
-    """One backward launch (+ its fixed-order reduction) for every network of
-    `nets`; returns one flat gradient vector per network."""
+# The backward kernels' limits (the tile of `csrc/encoder_bwd_tile.cuh` must fit
+# a block's shared memory) and its staging: rows padded to a multiple of
+# STAGE_ROWS (stage B's K step), STAGE_B_ROWS staged rows a stage-B block,
+# about.
+_BWD_MAX_TOKENS = 6
+STAGE_ROWS = 32
+STAGE_B_ROWS = 2048
+# the staged operands in the order the C functions take them
+_STAGED = ("h", "dk", "dv", "de", "att", "y1", "f", "dq", "dr1", "dpre1", "dr2")
+
+
+def _kp(d: int) -> int:
+    """An embed's K padded to the tensor cores' 16 (with zeros, exactly)."""
+    return -(-d // 16) * 16
+
+
+def staged_rows(s: int) -> int:
+    return -(-s // STAGE_ROWS) * STAGE_ROWS
+
+
+def _staging_shapes(spec: EncoderSpec, s_pad: int):
+    nt, e = spec.n_tokens, spec.embed_dim
+    return ([(nt, s_pad, e)] * 4 + [(s_pad, e)] * 7
+            + [(k, s_pad, _kp(d)) for k, d in spec.groups])
+
+
+def staging_bytes(spec: EncoderSpec, s: int) -> int:
+    """Bytes of one network's staged operands for s rows (bf16)."""
+    return 2 * sum(math.prod(sh) for sh in _staging_shapes(spec, staged_rows(s)))
+
+
+def _alloc_staging(spec: EncoderSpec, s: int, device):
+    """One bf16 buffer carved into the staged operands of
+    `reference_backward_operands`, each with staged_rows(s) rows, the x
+    slices' columns padded to 16; → (the staging dict, its tensors in the C
+    functions' order)."""
+    shapes = _staging_shapes(spec, staged_rows(s))
+    sizes = [math.prod(sh) for sh in shapes]
+    flat = torch.empty(sum(sizes), dtype=torch.bfloat16, device=device)
+    views = [p.view(sh) for p, sh in zip(torch.split(flat, sizes), shapes)]
+    staged = dict(zip(_STAGED, views[:len(_STAGED)]))
+    staged["xs"] = tuple(views[len(_STAGED):])
+    return staged, views
+
+
+@functools.lru_cache(maxsize=None)
+def _leaf_offsets(spec: EncoderSpec) -> Tuple[int, ...]:
+    """Each canonical leaf's offset in a flat vector of the leaves."""
+    return tuple(itertools.accumulate((math.prod(sh) for sh in leaf_shapes(spec)), initial=0))
+
+
+def _bf16_weights(spec: EncoderSpec, leaves):
+    """One bf16 copy of the weights the tensor cores read (the bits the
+    reference's rounding gives them) → (the copy, a device pointer to each
+    of: the embeds' weights stacked, each group's rows padded to a multiple
+    of 16 with zero rows; wq, wk, wv, wo, w1, w2, wh)."""
+    base = 2 * len(spec.groups)
+    parts = []
+    for g, (_, d) in enumerate(spec.groups):
+        parts += [leaves[2 * g].reshape(-1),
+                  leaves[2 * g].new_zeros((_kp(d) - d) * spec.embed_dim)]
+    starts = [0]
+    for i in (2, 4, 6, 8, 12, 14, 18):
+        starts.append(sum(p.numel() for p in parts))
+        parts.append(leaves[base + i].reshape(-1))
+    copy = torch.cat(parts).to(torch.bfloat16)
+    return copy, [copy.data_ptr() + 2 * o for o in starts]
+
+
+def _colsum_floats(spec: EncoderSpec) -> int:
+    """Floats of a stage-A slice (two a block, one for each half of its
+    threads): the groups' biases, 12 column-sum leaves, the head's weight
+    and bias."""
+    return (len(spec.groups) + 12) * spec.embed_dim + (spec.embed_dim + 1) * spec.head_dim
+
+
+def _check_bwd_spec(spec: EncoderSpec) -> None:
+    if (spec.n_tokens > _BWD_MAX_TOKENS
+            or sum(k * _kp(d) for k, d in spec.groups) > _KERNEL_WIDTH):
+        raise ValueError(f"spec exceeds the backward kernels' limits (at most "
+                         f"{_BWD_MAX_TOKENS} tokens, the embeds' widths padded to 16 summing "
+                         f"to 128 or less): {spec}")
+
+
+def _groups_args(spec: EncoderSpec):
+    return (spec.obs_dim, len(spec.groups), build.int_array([k for k, _ in spec.groups]),
+            build.int_array([d for _, d in spec.groups]))
+
+
+def stage_b_chunk(k_rows: int) -> int:
+    """Rows a stage-B block takes of a product's k_rows staged rows: the
+    chunk of `split_k` over about k_rows / STAGE_B_ROWS blocks."""
+    bounds = split_k(k_rows, max(1, round(k_rows / STAGE_B_ROWS)), STAGE_ROWS)
+    return bounds[0][1] - bounds[0][0] if bounds else STAGE_ROWS
+
+
+def _launch_operands(x: torch.Tensor, nets, douts):
+    """Stage A of the backward, one launch (+ its fixed-order reduction) for
+    every network of `nets` → (per network its flat gradient vector, every
+    leaf but `weight_leaves` filled, and its staging dict)."""
     _check_kernel_args(x, nets)
     s = x.shape[0]
     for (spec, _), d in zip(nets, douts):
+        _check_bwd_spec(spec)
         if (d.device != x.device or d.dtype != torch.float32 or not d.is_contiguous()
                 or tuple(d.shape) != (s, spec.head_dim)):
             raise ValueError(
@@ -385,33 +602,100 @@ def _launch_bwd(x: torch.Tensor, nets, douts) -> Tuple[torch.Tensor, ...]:
                 f"got {d.dtype} {tuple(d.shape)} on {d.device}")
     spec0 = nets[0][0]
     sizes = [n_params(spec) for spec, _ in nets]
-    # the transposes of wq, wk, wv, wo, w1, w2, for the kernel's `_mm_nt` products
-    base = 2 * len(spec0.groups)
-    wts = [leaves[base + i].t().contiguous() for _, leaves in nets for i in (2, 4, 6, 8, 12, 14)]
     grads = [torch.empty(p, device=x.device, dtype=torch.float32) for p in sizes]
+    stagings = [_alloc_staging(spec, s, x.device) for spec, _ in nets]
+    wbf = [_bf16_weights(spec, leaves) for spec, leaves in nets]
     lib = build.library()
     blocks = ctypes.c_int(0)
     with torch.cuda.device(x.device):
-        build.check(lib.mupe_encoder_backward_blocks(
-            len(spec0.groups), spec0.n_tokens, spec0.obs_dim, len(nets), s,
-            ctypes.byref(blocks)), "mupe_encoder_backward_blocks")
-        ws = torch.empty(blocks.value * sum(sizes), device=x.device, dtype=torch.float32)
-        err = lib.mupe_encoder_backward(
-            x.data_ptr(), s, spec0.obs_dim, len(spec0.groups),
-            build.int_array([k for k, _ in spec0.groups]),
-            build.int_array([d for _, d in spec0.groups]),
-            len(nets),
+        build.check(lib.mupe_encoder_bwd_blocks(
+            *_groups_args(spec0), len(nets), staged_rows(s), ctypes.byref(blocks)),
+            "mupe_encoder_bwd_blocks")
+        ws = torch.empty(2 * blocks.value * sum(_colsum_floats(spec) for spec, _ in nets),
+                         device=x.device, dtype=torch.float32)
+        err = lib.mupe_encoder_bwd_operands(
+            x.data_ptr(), s, staged_rows(s), *_groups_args(spec0), len(nets),
             build.ptr_array([leaf.data_ptr() for _, leaves in nets for leaf in leaves]),
-            spec0.n_leaves,
+            spec0.n_leaves, build.ptr_array([p for _, ptrs in wbf for p in ptrs]),
             build.ptr_array([d.data_ptr() for d in douts]),
             build.int_array([spec.head_dim for spec, _ in nets]),
-            build.ptr_array([w.data_ptr() for w in wts]),
+            build.ptr_array([v.data_ptr() for _, views in stagings for v in views]),
             build.ptr_array([g.data_ptr() for g in grads]),
             build.int_array(sizes), ws.data_ptr(), blocks.value,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    build.check(err, "mupe_encoder_backward")
-    return tuple(grads)
+    build.check(err, "mupe_encoder_bwd_operands")
+    return grads, [st for st, _ in stagings]
+
+
+def _products(spec: EncoderSpec, staged):
+    """Stage B's products of one network: (A, D, the gradient's leaf index)."""
+    base = 2 * len(spec.groups)
+    out = [((staged["h"][0] if a_key == "h0" else staged[a_key]), staged[d_key], base + i)
+           for i, a_key, d_key in WEIGHT_PRODUCTS]
+    t = 0
+    for g, ((k, _), xs) in enumerate(zip(spec.groups, staged["xs"])):
+        out.append((xs, staged["de"][t : t + k], 2 * g))
+        t += k
+    return out
+
+
+def weight_grads(items) -> None:
+    """Stage B of the backward: the `_mm_tn` weight products of every
+    network of `items` = [(spec, staged, flat), ...] from its staged
+    operands, written into the `weight_leaves` of its flat gradient vector.
+    On CPU tensors `reference_weight_grads`; on CUDA tensors one launch of
+    the split-K kernel in `csrc/weight_grad.cu` (+ its fixed-order sum of the
+    partial products) for all of them.  The staged tensors must be
+    contiguous bf16 on the vector's device."""
+    if items[0][2].device.type == "cpu":
+        for spec, staged, flat in items:
+            views = split_flat(spec, flat)
+            for i, g in reference_weight_grads(spec, staged).items():
+                views[i].copy_(g)
+        return
+    prods = []  # (A, D, rows of the output, its device pointer, K)
+    for spec, staged, flat in items:
+        if (flat.dtype != torch.float32 or not flat.is_contiguous()
+                or flat.numel() != n_params(spec)):
+            raise ValueError(f"the gradient vector must be contiguous float32 "
+                             f"[{n_params(spec)}], got {flat.dtype} {tuple(flat.shape)}")
+        shapes, offsets = leaf_shapes(spec), _leaf_offsets(spec)
+        for a, d, leaf in _products(spec, staged):
+            for name, t in (("A", a), ("D", d)):
+                if (t.device != flat.device or t.dtype != torch.bfloat16
+                        or not t.is_contiguous()):
+                    raise ValueError(f"staged {name} must be contiguous bfloat16 on "
+                                     f"{flat.device}, got {t.dtype} on {t.device} "
+                                     f"contiguous={t.is_contiguous()}")
+            k_rows = a.numel() // a.shape[-1]
+            m = shapes[leaf][0]
+            if (d.numel() != k_rows * spec.embed_dim or k_rows % STAGE_ROWS
+                    or a.shape[-1] % 16 or a.shape[-1] < m):
+                raise ValueError(f"staged operands of shapes {tuple(a.shape)}, "
+                                 f"{tuple(d.shape)} do not match {shapes[leaf]}")
+            prods.append((a, d, m, flat.data_ptr() + 4 * offsets[leaf], k_rows))
+    chunks = [stage_b_chunk(k_rows) for *_, k_rows in prods]
+    dev = items[0][2].device
+    ws = torch.empty(sum(-(-k // c) * m * _KERNEL_WIDTH
+                         for (_, _, m, _, k), c in zip(prods, chunks)),
+                     device=dev, dtype=torch.float32)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        err = lib.mupe_weight_grads(
+            len(prods), build.ptr_array([a.data_ptr() for a, *_ in prods]),
+            build.ptr_array([d.data_ptr() for _, d, *_ in prods]),
+            build.int_array([a.shape[-1] for a, *_ in prods]),
+            build.int_array([m for _, _, m, _, _ in prods]),
+            build.int_array([k for *_, k in prods]), build.int_array(chunks),
+            build.ptr_array([out for _, _, _, out, _ in prods]), ws.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.check(err, "mupe_weight_grads")
+    weight_grads.launches += 1
+
+
+weight_grads.launches = 0
 
 
 def encoder_backward(nets, x: torch.Tensor, douts) -> Tuple[Tuple[torch.Tensor, ...], ...]:
@@ -419,13 +703,15 @@ def encoder_backward(nets, x: torch.Tensor, douts) -> Tuple[Tuple[torch.Tensor, 
     for one network or two (`nets` = [(spec, leaves), ...], `douts` one
     [S, head_dim] cotangent each).  Returns per network the gradients in
     the canonical leaf order, views of one flat vector.  On CPU tensors
-    `reference_backward`; on CUDA tensors one launch of the kernel in
-    `csrc/fused_encoder_bwd.cu` for all the networks."""
+    `reference_backward`; on CUDA tensors two stages, each one launch for
+    all the networks: the tile kernel of `csrc/fused_encoder_bwd.cu`
+    (counted here), then `weight_grads`."""
     if x.device.type == "cpu":
         return tuple(reference_backward(spec, leaves, x, d)
                      for (spec, leaves), d in zip(nets, douts))
-    flats = _launch_bwd(x, nets, [d.contiguous() for d in douts])
+    flats, stagings = _launch_operands(x, nets, [d.contiguous() for d in douts])
     encoder_backward.launches += 1
+    weight_grads([(spec, st, g) for (spec, _), st, g in zip(nets, stagings, flats)])
     return tuple(split_flat(spec, g) for (spec, _), g in zip(nets, flats))
 
 
@@ -563,13 +849,26 @@ def reference_pair_fwd_loss(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_
     return reference_loss_math(loss, mean, vout, act, logp_old, adv, v_old, ret, log_std)
 
 
+def reference_agrad_operands(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, adv,
+                             v_old, ret, *, bf16: bool = True):
+    """The first stage of `_pair_fwd_loss_agrad_kernel` in plain PyTorch:
+    `reference_pair_fwd_loss`, then the actor's `reference_backward_operands`
+    with dout = dmu → (dv1, dv2, stats, the actor's staged operands, its
+    column sums)."""
+    dmu, dv1, dv2, stats = reference_pair_fwd_loss(
+        spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, adv, v_old, ret, bf16=bf16)
+    return (dv1, dv2, stats,
+            *reference_backward_operands(spec_a, la, x, dmu, bf16=bf16))
+
+
 def reference_pair_fwd_loss_agrad(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, adv,
                                   v_old, ret, *, bf16: bool = True):
     """The plain version of `_pair_fwd_loss_agrad_kernel`: (dv1, dv2, stats,
-    the actor's gradients with dout = dmu in canonical leaf order)."""
-    dmu, dv1, dv2, stats = reference_pair_fwd_loss(
+    the actor's gradients with dout = dmu in canonical leaf order), as
+    `reference_agrad_operands` then `reference_weight_grads`."""
+    dv1, dv2, stats, staged, sums = reference_agrad_operands(
         spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, adv, v_old, ret, bf16=bf16)
-    return dv1, dv2, stats, reference_backward(spec_a, la, x, dmu, bf16=bf16)
+    return dv1, dv2, stats, _canonical(spec_a, sums, reference_weight_grads(spec_a, staged))
 
 
 def _loss_rows(loss: PPOLossCfg, x, act, logp_old, adv, v_old, ret, log_std):
@@ -637,43 +936,54 @@ pair_forward_loss.launches = 0
 
 def pair_forward_loss_agrad(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, adv, v_old,
                             ret):
-    """`pair_forward_loss` followed by the actor's backward with dout = dmu,
-    in one kernel → (dv1, dv2, stats, the actor's gradients in canonical leaf
-    order, views of one flat vector).  On CPU tensors
-    `reference_pair_fwd_loss_agrad`; on CUDA tensors one launch of
-    `pair_fwd_loss_agrad_kernel` (+ its fixed-order reduction)."""
+    """`pair_forward_loss` followed by the actor's backward with dout = dmu
+    → (dv1, dv2, stats, the actor's gradients in canonical leaf order, views
+    of one flat vector).  On CPU tensors `reference_pair_fwd_loss_agrad`; on
+    CUDA tensors one launch of `pair_fwd_loss_agrad_kernel` (stage A, counted
+    here; + its fixed-order reduction), then `weight_grads` for the actor."""
     if x.device.type == "cpu":
         return reference_pair_fwd_loss_agrad(spec_a, spec_c, loss, la, lc, log_std, x, act,
                                              logp_old, adv, v_old, ret)
+    outs, grads, staged = _launch_agrad_operands(spec_a, spec_c, loss, la, lc, log_std, x, act,
+                                                 logp_old, adv, v_old, ret)
+    pair_forward_loss_agrad.launches += 1
+    weight_grads([(spec_a, staged, grads)])
+    return (*outs, split_flat(spec_a, grads))
+
+
+def _launch_agrad_operands(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, adv, v_old,
+                           ret):
+    """Stage A of `pair_forward_loss_agrad` → ((dv1, dv2, stats), the actor's
+    flat gradient vector with every leaf but `weight_leaves` filled, its
+    staging dict)."""
     _check_loss_nets(spec_a, spec_c, loss, x, la, lc)
+    _check_bwd_spec(spec_a)
     rows = _loss_rows(loss, x, act, logp_old, adv, v_old, ret, log_std)
     s, a = x.shape[0], loss.action_dim
     outs = [torch.empty(shape, device=x.device, dtype=torch.float32)
             for shape in ((s, 1), (s, 1), (s, _N_STATS + a))]
-    p = n_params(spec_a)
-    base = 2 * len(spec_a.groups)
-    wts = [la[base + i].t().contiguous() for i in (2, 4, 6, 8, 12, 14)]
-    grads = torch.empty(p, device=x.device, dtype=torch.float32)
+    grads = torch.empty(n_params(spec_a), device=x.device, dtype=torch.float32)
+    staged, views = _alloc_staging(spec_a, s, x.device)
+    wbf = [_bf16_weights(spec_a, la), _bf16_weights(spec_c, lc)]
     lib = build.library()
     blocks = ctypes.c_int(0)
     with torch.cuda.device(x.device):
         build.check(lib.mupe_encoder_fwd_loss_agrad_blocks(
-            len(spec_a.groups), spec_a.n_tokens, spec_a.obs_dim, s, ctypes.byref(blocks)),
+            *_groups_args(spec_a), staged_rows(s), ctypes.byref(blocks)),
             "mupe_encoder_fwd_loss_agrad_blocks")
-        ws = torch.empty(blocks.value * p, device=x.device, dtype=torch.float32)
+        ws = torch.empty(2 * blocks.value * _colsum_floats(spec_a), device=x.device,
+                         dtype=torch.float32)
         err = lib.mupe_encoder_fwd_loss_agrad(
-            x.data_ptr(), s, spec_a.obs_dim, len(spec_a.groups),
-            build.int_array([k for k, _ in spec_a.groups]),
-            build.int_array([d for _, d in spec_a.groups]),
+            x.data_ptr(), s, staged_rows(s), *_groups_args(spec_a),
             build.ptr_array([leaf.data_ptr() for leaf in (*la, *lc)]), spec_a.n_leaves, a,
             build.ptr_array([t.data_ptr() for t in rows]), _loss_consts(loss),
             build.ptr_array([o.data_ptr() for o in outs]),
-            build.ptr_array([w.data_ptr() for w in wts]), grads.data_ptr(), p,
+            build.ptr_array([p for _, ptrs in wbf for p in ptrs]),
+            build.ptr_array([v.data_ptr() for v in views]), grads.data_ptr(), n_params(spec_a),
             ws.data_ptr(), blocks.value, torch.cuda.current_stream(x.device).cuda_stream,
         )
     build.check(err, "mupe_encoder_fwd_loss_agrad")
-    pair_forward_loss_agrad.launches += 1
-    return (*outs, split_flat(spec_a, grads))
+    return outs, grads, staged
 
 
 pair_forward_loss_agrad.launches = 0

@@ -88,7 +88,7 @@ def _launch_counts():
     return (fe.encoder_forward.launches, fe.encoder_pair_forward.launches,
             tl.tp_forward.launches, fe.encoder_backward.launches, tl.tp_backward.launches,
             fps.farthest_point_sampling.launches, fe.pair_forward_loss.launches,
-            fe.pair_forward_loss_agrad.launches)
+            fe.pair_forward_loss_agrad.launches, fe.weight_grads.launches)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
@@ -122,6 +122,12 @@ def test_cpu_tensors_take_the_plain_backward_and_count_no_launch():
     assert all(torch.equal(u, v) for u, v in zip(grads, want))
     (ga,) = fe.encoder_backward([(spec_c, [l.detach() for l in lc])], x, [dc])
     assert all(torch.equal(u, v) for u, v in zip(ga, want[len(la):]))
+    # the weight-gradient stage alone, on the plain first stage's staging
+    staged, sums = fe.reference_backward_operands(spec_c, [l.detach() for l in lc], x, dc)
+    flat = torch.zeros(fe.n_params(spec_c))
+    fe.weight_grads([(spec_c, staged, flat)])
+    got = fe.split_flat(spec_c, flat)
+    assert all(torch.equal(got[i], want[len(la) + i]) for i in fe.weight_leaves(spec_c))
     spec, lt, xt = _tp_case(11)
     lt = [l.requires_grad_() for l in lt]
     dy = torch.randn((11, 15), generator=g)
@@ -185,8 +191,10 @@ def test_c_sources_and_build_helper_exist():
 
 
 def test_mupe_tpu_torch_imports_no_jax_or_flax():
+    """The package and chip_smoke.py (which runs where JAX is not
+    installed) import nothing of JAX, flax, optax or the JAX package."""
     banned = {"jax", "flax", "optax", "mupe_tpu"}
-    for path in PKG.rglob("*.py"):
+    for path in [*PKG.rglob("*.py"), PKG.parent / "chip_smoke.py"]:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -272,7 +280,7 @@ def _bwd_close(outs, refs, tol):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("nets", [1, 2])
-@pytest.mark.parametrize("s", [1, 7, 8, 49152, 49153])
+@pytest.mark.parametrize("s", [1, 7, 8, 15, 16, 17, 49152, 49153])
 def test_encoder_backward_kernel_matches_plain_version(cuda, s, nets):
     """Gradients within `BWD_KERNEL_TOL` of `reference_backward`, one or two
     networks a launch; a second launch gives the same bits; with dout = 1
@@ -286,11 +294,11 @@ def test_encoder_backward_kernel_matches_plain_version(cuda, s, nets):
     ones = torch.ones((s, 1), device=cuda)
     case = [(spec_a, la), (spec_c, lc)][2 - nets:]
     douts = [da, ones][2 - nets:]
-    n = fe.encoder_backward.launches
+    n = (fe.encoder_backward.launches, fe.weight_grads.launches)
     grads = fe.encoder_backward(case, x, douts)
     again = fe.encoder_backward(case, x, douts)
     torch.cuda.synchronize()
-    assert fe.encoder_backward.launches == n + 2
+    assert (fe.encoder_backward.launches, fe.weight_grads.launches) == (n[0] + 2, n[1] + 2)
     tol = fe.BWD_KERNEL_TOL if s >= 300 else dataclasses.replace(fe.BWD_KERNEL_TOL, mean_rel=5e-3)
     for (spec, leaves), d, gk, g2 in zip(case, douts, grads, again):
         _bwd_close(gk, fe.reference_backward(spec, leaves, x, d), tol)
@@ -306,7 +314,10 @@ def test_loss_kernels_match_plain_version(cuda, s, saturate):
     agrad kernel's dv1, dv2, stats and actor gradients within the limits of
     the forward and backward kernels; a repeat launch gives the same bits,
     and the actor's head-bias gradient is the column sum of dmu (every row
-    counted).  Saturated rows (log-ratio past +-20) get dmu = 0."""
+    counted; against the plain dmu, DMU_SUM_TOL: the agrad kernel's forward
+    runs on the tensor cores, the fwdloss kernel's on the CUDA cores, so
+    their dmu are not the same bits).  Saturated rows (log-ratio past +-20)
+    get dmu = 0."""
     spec_a, spec_c, la, lc, x, args = _loss_case(s, cuda, saturate)
     n = (fe.pair_forward_loss.launches, fe.pair_forward_loss_agrad.launches)
     dmu, dv1, dv2, stats = fe.pair_forward_loss(*args)
@@ -324,7 +335,7 @@ def test_loss_kernels_match_plain_version(cuda, s, saturate):
     tol = fe.BWD_KERNEL_TOL if s >= 300 else dataclasses.replace(fe.BWD_KERNEL_TOL, mean_rel=5e-3)
     _bwd_close(out[3], fe.reference_backward(spec_a, la, x, ref[0]), tol)
     assert all(torch.equal(u, v) for u, v in zip((*out[:3], *out[3]), (*again[:3], *again[3])))
-    _close_scaled(out[3][-1], dmu.sum(0), fe.KERNEL_TOL)
+    _close_scaled(out[3][-1], ref[0].sum(0), fe.DMU_SUM_TOL)
     if saturate:
         k = s // 6
         assert float(torch.cat([dmu[:k], dmu[s - k:]]).abs().max()) == 0.0
@@ -344,6 +355,57 @@ def test_loss_wrappers_reject_bad_inputs(cuda):
                logp_old, adv, v_old, ret)
         with pytest.raises(ValueError):  # the networks swapped
             fn(spec_c, spec_a, loss, lc, la, log_std, x, act, logp_old, adv, v_old, ret)
+
+
+def _staged_on(spec, staged, s, device):
+    """The plain first stage's staging in the kernel's form: bf16, S padded
+    to staged_rows(S) with zero rows, the x slices' columns to 16."""
+    st, _ = fe._alloc_staging(spec, s, device)
+    for k in fe._STAGED:
+        st[k].zero_()
+        st[k][..., :s, :] = staged[k].to(torch.bfloat16)
+    for g, (_, d) in enumerate(spec.groups):
+        st["xs"][g].zero_()
+        st["xs"][g][:, :s, :d] = staged["xs"][g].to(torch.bfloat16)
+    return st
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 17, 49152, 49153])
+def test_weight_grads_kernel_matches_plain_version(cuda, s):
+    """Stage B alone: the split-K kernel against `reference_weight_grads` on
+    the same staged operands, to WEIGHT_GRAD_TOL (sum order only); the other
+    leaves of the flat vector are left alone; a repeat gives the same bits."""
+    spec_a, _, la, _, x = _encoder_case(s, cuda)
+    d = torch.randn((s, 4), generator=torch.Generator().manual_seed(s)).to(cuda)
+    st = _staged_on(spec_a, fe.reference_backward_operands(spec_a, la, x, d)[0], s, cuda)
+    flat = torch.full((fe.n_params(spec_a),), 7.0, device=cuda)
+    n = fe.weight_grads.launches
+    fe.weight_grads([(spec_a, st, flat)])
+    again = flat.clone()
+    fe.weight_grads([(spec_a, st, again)])
+    torch.cuda.synchronize()
+    assert fe.weight_grads.launches == n + 2 and torch.equal(flat, again)
+    views, ref = fe.split_flat(spec_a, flat), fe.reference_weight_grads(spec_a, st)
+    wl = fe.weight_leaves(spec_a)
+    _bwd_close([views[i] for i in wl], [ref[i] for i in wl], fe.WEIGHT_GRAD_TOL)
+    assert all(bool((views[i] == 7.0).all()) for i in range(spec_a.n_leaves) if i not in wl)
+
+
+@pytest.mark.gpu
+def test_weight_grads_rejects_bad_staging(cuda):
+    """The stage-B wrapper raises on a staged operand that is not contiguous
+    bf16 on the gradient's device, or does not match its product."""
+    spec_a, _, la, _, x = _encoder_case(40, cuda)
+    d = torch.randn((40, 4), device=cuda)
+    st = _staged_on(spec_a, fe.reference_backward_operands(spec_a, la, x, d)[0], 40, cuda)
+    flat = torch.zeros(fe.n_params(spec_a), device=cuda)
+    for key, bad in (("dq", st["dq"].float()), ("dq", st["dq"].t()),
+                     ("dr2", st["dr2"].cpu()), ("y1", st["y1"][:32])):
+        with pytest.raises(ValueError):
+            fe.weight_grads([(spec_a, dict(st, **{key: bad}), flat)])
+    with pytest.raises(ValueError):
+        fe.weight_grads([(spec_a, dict(st, xs=(st["xs"][0].float(), *st["xs"][1:])), flat)])
 
 
 @pytest.mark.gpu
