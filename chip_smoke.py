@@ -30,7 +30,13 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    synchronised); prints training env-steps/s per mode beside phase 4's and
    where an iteration's time goes, checks each mode's launch counts
    (64 loss-kernel launches an iteration, no pair forward from the update),
-   the metrics and the update on the card against the CPU.
+   the metrics and the update on the card against the CPU;
+7. wide-configuration training: HideAndSeek with 4 pursuers, 4 cylinder
+   tokens, 10 predicted steps and the obstacles in the TP input (8 tokens,
+   `state_self` 50 wide, TP input 34, TP output 30), at 1024 arenas, 2
+   iterations with the default update and 2 with `direct_mode="agrad"`;
+   checks the launch counts, the outputs' finiteness and the update on the
+   card against the CPU.
 
 Phase 2 also holds the FPS kernel (the AEG buffer's downsampling) against
 its plain version at the AEG's pool, N = 9,096 tasks of D = 27, K = 5,000,
@@ -44,7 +50,11 @@ stages the bf16 operands of the weight products; B: `weight_grads`, those
 products as a split-K GEMM): phase 2 holds each stage against its own plain
 version (`reference_backward_operands` / `reference_agrad_operands`, and
 `reference_weight_grads`) at S = 1, 7, 8, 15, 16, 17, 49,152 and 49,153,
-and times each.
+and times each; and every encoder kernel at 7 tokens and at 8 tokens with a
+50-wide group (the 8-row tile of stage A and of the agrad kernel, at its
+edges S = 1, 7, 8, 9, 17), the TP backward at 34 inputs, 20 steps and 30
+outputs, and the forward at a PPO minibatch (S = 49,152) as well as at the
+act (S = 12,288).
 Each kernel's bound is the larger of its operations over the H100's peak
 for their operand type (bf16 products summed in f32 for the encoder and
 TP-LSTM kernels, which the tensor cores do at the bf16 rate; f32 for FPS)
@@ -68,6 +78,9 @@ from pathlib import Path
 
 import torch
 
+# outside a checkout of the repo this fails here, before any output
+from mupe_tpu_torch.ops.tolerance import in_f64
+
 NUM_ENVS = 4096
 STEPS = 64
 WARMUP_ROLLOUTS = 2
@@ -78,6 +91,15 @@ TIMED_ITERS = 3
 MB_ROWS = NUM_ENVS * STEPS // 16 * 3  # one PPO minibatch's encoder rows (16 minibatches)
 TP_WINDOWS = (STEPS - 5) * NUM_ENVS   # the TP step's windows (5 future steps)
 GROUPS = ((1, 35), (3, 5), (2, 3))  # state_self, cylinders, state_others
+# phase 7's configuration: 4 pursuers, 4 cylinder tokens, 10 predicted steps,
+# obstacles in the TP input; its groups, and those of 4 pursuers alone
+WIDE_ENV = dict(num_agents=4, obs_max_cylinder=4, future_prediction_step=10,
+                use_obstacles_tp=True)
+WIDE_GROUPS = ((1, 50), (4, 5), (3, 3))  # 8 tokens, state_self 50 wide
+TOK7_GROUPS = ((1, 35), (3, 5), (3, 3))  # 7 tokens
+WIDE_TP = (34, 20, 30)                   # TP inputs, steps, outputs
+WIDE_NUM_ENVS = 1024
+TILE_EDGE_ROWS = (1, 7, 8, 9, 17)        # the 8-row tile's edges
 METRIC_KEYS = {"advantages_mean", "advantages_std", "TP_loss", "policy_loss",
                "actor_grad_norm", "entropy", "ESS", "value_loss", "critic_grad_norm",
                "explained_var", "approx_kl", "action_norm", "value_running_mean"}
@@ -173,59 +195,63 @@ def random_leaves(shapes, gen, device):
     return leaves
 
 
-def compare(name, out, ref, tol) -> float:
-    """Kernel output against its plain version; returns the max abs error."""
-    errs = tol.errors(out, ref)
+def compare(name, out, ref, tol, exact=None) -> float:
+    """Kernel output against its plain version (`exact`: the plain version in
+    f64, which sets the floor of a `floor_mult` limit); returns the max abs
+    error."""
+    errs = tol.errors(out, ref, exact)
     ok = tol.holds(errs) and bool(torch.isfinite(out).all())
     log(f"  {name}: max_abs_err={errs['max_abs']:.3e} max_rel_err={errs['max_rel']:.3e} "
-        f"mean_rel_err={errs['mean_rel']:.3e} (tol {tol.max_rel:g} max, {tol.mean_rel:g} mean)"
-        f" -> {'ok' if ok else 'FAIL'}")
+        f"mean_rel_err={errs['mean_rel']:.3e} (limits {errs['max_limit']:.3g} max, "
+        f"{errs['mean_limit']:.3g} mean) -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return errs["max_abs"]
 
 
-def control(name, plain, tol) -> None:
+def control(name, plain, tol, exact=None) -> None:
     """The plain version without its bf16 rounding must fail the tolerance
     that the kernel passes; else the tolerance could not see a kernel that
     skips a rounding point."""
-    errs = tol.errors(plain(bf16=False), plain())
+    errs = tol.errors(plain(bf16=False), plain(), exact)
     rejected = not tol.holds(errs)
     log(f"  control {name} in f32 throughout: max_rel_err={errs['max_rel']:.3e} "
-        f"mean_rel_err={errs['mean_rel']:.3e} -> {'rejected' if rejected else 'PASSED'}")
+        f"mean_rel_err={errs['mean_rel']:.3e} (limits {errs['max_limit']:.3g} max, "
+        f"{errs['mean_limit']:.3g} mean) -> {'rejected' if rejected else 'PASSED'}")
     if not rejected:
         raise AssertionError(f"{name}: the tolerance does not reject the f32 control")
 
 
-def bwd_compare(name, outs, refs, tol) -> float:
+def bwd_compare(name, outs, refs, tol, exact=None) -> float:
     """A backward kernel's gradients against its plain version, leaf by
-    leaf; returns the largest absolute error."""
-    errs = tol.errors(outs, refs)
+    leaf (`exact`: the plain version in f64); returns the largest absolute
+    error."""
+    errs = tol.errors(outs, refs, exact)
     bad = tol.failing(errs)
     ok = not bad and all(bool(torch.isfinite(o).all()) for o in outs)
     worst_max = max(range(len(errs)), key=lambda i: errs[i]["max_rel"])
-    worst_mean = max(range(len(errs)), key=lambda i: errs[i]["mean_rel"])
+    worst_mean = max(range(len(errs)), key=lambda i: errs[i]["mean_rel"] / errs[i]["mean_limit"])
     log(f"  {name}: {len(errs)} leaves, worst max_rel_err={errs[worst_max]['max_rel']:.3e} "
-        f"(leaf {worst_max}), worst mean_rel_err={errs[worst_mean]['mean_rel']:.3e} "
-        f"(leaf {worst_mean}) (tol {tol.max_rel:g} max, {tol.mean_rel:g} mean per leaf)"
-        f" -> {'ok' if ok else f'FAIL leaves {bad}'}")
+        f"(leaf {worst_max}; limit {tol.max_rel:g}), worst mean_rel_err against its limit "
+        f"{errs[worst_mean]['mean_rel']:.3e} of {errs[worst_mean]['mean_limit']:.3e} (leaf "
+        f"{worst_mean}) -> {'ok' if ok else f'FAIL leaves {bad}'}")
     if not ok:
         raise AssertionError(f"{name}: kernel gradients disagree with the plain version")
     return max(e["max_abs"] for e in errs)
 
 
-def bwd_control(name, plain, tol, blind) -> None:
+def bwd_control(name, plain, tol, blind, exact=None) -> None:
     """The plain backward without its bf16 rounding must fail the limit on
     every leaf but those of `blind` (the module's BWD_CONTROL_BLIND, which
     keep only the max-error check)."""
-    errs = tol.errors(plain(bf16=False), plain())
+    errs = tol.errors(plain(bf16=False), plain(), exact)
     bad = set(tol.failing(errs))
     blind = {i % len(errs) for i in blind}
     passed = [i for i in range(len(errs)) if i not in bad]
-    least = min((errs[i]["mean_rel"] for i in bad), default=float("nan"))
+    least = min((errs[i]["mean_rel"] / errs[i]["mean_limit"] for i in bad), default=float("nan"))
     blind_errs = ", ".join(f"{i}: {errs[i]['mean_rel']:.3e}" for i in passed)
     log(f"  control {name} in f32 throughout: rejected on {len(bad)} of {len(errs)} leaves "
-        f"(least mean_rel_err among them {least:.3e}); passes leaves {passed} "
+        f"(least mean_rel_err among them {least:.2f}x its limit); passes leaves {passed} "
         f"(mean_rel_err {blind_errs})")
     if not set(range(len(errs))) - blind <= bad:
         raise AssertionError(f"{name}: the tolerance does not reject the f32 control")
@@ -264,34 +290,44 @@ def phase_kernels(dev) -> dict:
         "error catches a missed rounding point, as the f32 control shows")
     s_main = NUM_ENVS * 3
     errs = []
-    for s in (s_main, s_main + 1):
+    for s in (s_main, s_main + 1, MB_ROWS):
         x = (2.0 * torch.randn((s, spec_a.obs_dim), generator=gen)).to(dev)
         out_a, out_c = fe.encoder_pair_forward(spec_a, spec_c, la, lc, x)
         torch.cuda.synchronize()
         errs.append(compare(f"encoder_pair_forward S={s} actor", out_a,
-                            fe.reference_apply(spec_a, la, x), fe.KERNEL_TOL))
+                            fe.reference_apply(spec_a, la, x), fe.KERNEL_TOL,
+                            in_f64(fe.reference_apply, spec_a, la, x)))
         errs.append(compare(f"encoder_pair_forward S={s} critic", out_c,
-                            fe.reference_apply(spec_c, lc, x), fe.KERNEL_TOL))
-    x = (2.0 * torch.randn((s_main, spec_a.obs_dim), generator=gen)).to(dev)
+                            fe.reference_apply(spec_c, lc, x), fe.KERNEL_TOL,
+                            in_f64(fe.reference_apply, spec_c, lc, x)))
+    times = {}
+    for s in (MB_ROWS, s_main):  # x of the act's size last: the control and kernel 2 use it
+        x = (2.0 * torch.randn((s, spec_a.obs_dim), generator=gen)).to(dev)
+        ms = cuda_time_ms(lambda: fe.encoder_pair_forward(spec_a, spec_c, la, lc, x))
+        plain = cuda_time_ms(lambda: (fe.reference_apply(spec_a, la, x),
+                                      fe.reference_apply(spec_c, lc, x)))
+        b = bound(encoder_flops(spec_a, s) + encoder_flops(spec_c, s),
+                  nbytes(x, *la, *lc) + s * (spec_a.head_dim + spec_c.head_dim) * 4)
+        times[s] = (ms, plain, b)
+        log(f"  encoder_pair_forward S={s}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
     control(f"actor S={s_main}", lambda **k: fe.reference_apply(spec_a, la, x, **k),
-            fe.KERNEL_TOL)
+            fe.KERNEL_TOL, in_f64(fe.reference_apply, spec_a, la, x))
     control(f"critic S={s_main}", lambda **k: fe.reference_apply(spec_c, lc, x, **k),
-            fe.KERNEL_TOL)
-    ms = cuda_time_ms(lambda: fe.encoder_pair_forward(spec_a, spec_c, la, lc, x))
-    plain = cuda_time_ms(lambda: (fe.reference_apply(spec_a, la, x),
-                                  fe.reference_apply(spec_c, lc, x)))
-    log(f"  encoder_pair_forward S={s_main}: kernel {ms:.4f} ms, plain {plain:.4f} ms")
+            fe.KERNEL_TOL, in_f64(fe.reference_apply, spec_c, lc, x))
+    ms, plain, b = times[s_main]
+    ms_mb, plain_mb, b_mb = times[MB_ROWS]
     results["encoder_pair_forward"] = dict(
         route="cuda", source="mupe_tpu_torch/csrc/fused_encoder.cu",
         replaces="mupe_tpu/ops/fused_encoder.py:502", max_abs_err=max(errs),
-        ms=ms, plain_ms=plain, library_ms=None,
-        **bound(encoder_flops(spec_a, s_main) + encoder_flops(spec_c, s_main),
-                nbytes(x, *la, *lc) + s_main * (spec_a.head_dim + spec_c.head_dim) * 4))
+        ms=ms, plain_ms=plain, library_ms=None, **b, minibatch_rows=MB_ROWS,
+        minibatch_ms=ms_mb, minibatch_plain_ms=plain_mb, minibatch_bound_ms=b_mb["bound_ms"])
 
     out = fe.encoder_forward(spec_c, lc, x)
     torch.cuda.synchronize()
     err = compare(f"encoder_forward S={s_main} head=1", out,
-                  fe.reference_apply(spec_c, lc, x), fe.KERNEL_TOL)
+                  fe.reference_apply(spec_c, lc, x), fe.KERNEL_TOL,
+                  in_f64(fe.reference_apply, spec_c, lc, x))
     ms = cuda_time_ms(lambda: fe.encoder_forward(spec_c, lc, x))
     plain = cuda_time_ms(lambda: fe.reference_apply(spec_c, lc, x))
     log(f"  encoder_forward S={s_main}: kernel {ms:.4f} ms, plain {plain:.4f} ms")
@@ -324,6 +360,9 @@ def phase_kernels(dev) -> dict:
     results.update(phase_backward_kernels(dev, gen, spec_a, spec_c, la, lc, tspec, lt))
     results.update(phase_fps_kernel(dev, gen))
     results.update(phase_loss_kernels(dev, gen, spec_a, spec_c, la, lc))
+    wide = phase_wide_kernels(dev)
+    for name, extra in wide.items():
+        results[name].update(extra)
     return results
 
 
@@ -349,7 +388,7 @@ def bwd_tol(fe, s):
     return fe.BWD_KERNEL_TOL if s >= 300 else dataclasses.replace(fe.BWD_KERNEL_TOL, mean_rel=5e-3)
 
 
-def hold_stages(tag, spec, flat, staged, ref_staged, ref_sums, tol) -> float:
+def hold_stages(tag, spec, flat, staged, ref_staged, ref_sums, tol, exact=None) -> float:
     """The two stages of a backward apart, each against its own plain version:
     stage A's column sums and head gradients with the plain products of its
     staged operands against `reference_backward_operands` then
@@ -364,7 +403,7 @@ def hold_stages(tag, spec, flat, staged, ref_staged, ref_sums, tol) -> float:
     ref = fe._canonical(spec, ref_sums, fe.reference_weight_grads(spec, ref_staged))
     got = [plain_b[i] if i in plain_b else views[i] for i in range(spec.n_leaves)]
     err = bwd_compare(f"{tag} stage A (column sums; staged operands through the plain products)",
-                      got, ref, tol)
+                      got, ref, tol, exact)
     xs_equal = all(torch.equal(k[:, :s, :r.shape[-1]].float(), r)
                    for k, r in zip(staged["xs"], ref_staged["xs"]))
     if not xs_equal:
@@ -398,6 +437,7 @@ def phase_backward_kernels(dev, gen, spec_a, spec_c, la, lc, tspec, lt) -> dict:
         da = torch.randn((s, 4), generator=g).to(dev)
         dc = torch.randn((s, 1), generator=g).to(dev)
         tol = bwd_tol(fe, s)
+        exact = {}
         for nets, douts in (([(spec_a, la), (spec_c, lc)], [da, dc]),
                             ([(spec_a, la)], [da]), ([(spec_c, lc)], [dc])):
             grads = fe.encoder_backward(nets, x, douts)
@@ -405,7 +445,9 @@ def phase_backward_kernels(dev, gen, spec_a, spec_c, la, lc, tspec, lt) -> dict:
             torch.cuda.synchronize()
             for (spec, leaves), d, g, g2 in zip(nets, douts, grads, again):
                 tag = f"encoder_backward S={s} nets={len(nets)} head={spec.head_dim}"
-                errs.append(bwd_compare(tag, g, fe.reference_backward(spec, leaves, x, d), tol))
+                exact[spec.head_dim] = in_f64(fe.reference_backward, spec, leaves, x, d)
+                errs.append(bwd_compare(tag, g, fe.reference_backward(spec, leaves, x, d), tol,
+                                        exact[spec.head_dim]))
                 if not all(torch.equal(u, v) for u, v in zip(g, g2)):
                     raise AssertionError(f"{tag}: two launches gave different bits")
         flats, stagings = fe._launch_operands(x, [(spec_a, la), (spec_c, lc)], [da, dc])
@@ -414,7 +456,7 @@ def phase_backward_kernels(dev, gen, spec_a, spec_c, la, lc, tspec, lt) -> dict:
                                                stagings):
             errs.append(hold_stages(f"encoder_backward S={s} pair head={spec.head_dim}", spec,
                                     flat, st, *fe.reference_backward_operands(spec, leaves, x, d),
-                                    tol))
+                                    tol, exact[spec.head_dim]))
         ones = torch.ones((s, 1), device=dev)
         (gc,) = fe.encoder_backward([(spec_c, lc)], x, [ones])
         _, gc2 = fe.encoder_backward([(spec_a, la), (spec_c, lc)], x, [da, ones])
@@ -428,10 +470,10 @@ def phase_backward_kernels(dev, gen, spec_a, spec_c, la, lc, tspec, lt) -> dict:
     dc = torch.randn((s_main, 1), generator=gen).to(dev)
     bwd_control(f"actor backward S={s_main}",
                 lambda **k: fe.reference_backward(spec_a, la, x, da, **k), fe.BWD_KERNEL_TOL,
-                fe.BWD_CONTROL_BLIND)
+                fe.BWD_CONTROL_BLIND, in_f64(fe.reference_backward, spec_a, la, x, da))
     bwd_control(f"critic backward S={s_main}",
                 lambda **k: fe.reference_backward(spec_c, lc, x, dc, **k), fe.BWD_KERNEL_TOL,
-                fe.BWD_CONTROL_BLIND)
+                fe.BWD_CONTROL_BLIND, in_f64(fe.reference_backward, spec_c, lc, x, dc))
     pair = [(spec_a, la), (spec_c, lc)]
     ms = cuda_time_ms(lambda: fe.encoder_backward(pair, x, [da, dc]), runs=10)
     plain = cuda_time_ms(lambda: (fe.reference_backward(spec_a, la, x, da),
@@ -478,7 +520,7 @@ def phase_backward_kernels(dev, gen, spec_a, spec_c, la, lc, tspec, lt) -> dict:
     ms = cuda_time_ms(lambda: tl.tp_backward(tspec, lt, xt, dy), runs=5)
     plain = cuda_time_ms(lambda: tl.reference_backward(tspec, lt, xt, dy), runs=5)
     log(f"  tp_backward N={n_main}: kernel {ms:.4f} ms, plain {plain:.4f} ms; "
-        f"{_bwd_blocks('mupe_tp_lstm_backward_blocks', n_main, 10, 16)} blocks")
+        f"{_bwd_blocks('mupe_tp_lstm_backward_blocks', n_main, 10, 16, 15)} blocks")
     results["tp_backward"] = dict(
         route="cuda", source="mupe_tpu_torch/csrc/tp_lstm_bwd.cu",
         replaces="mupe_tpu/ops/tp_lstm.py:428", max_abs_err=max(errs),
@@ -577,10 +619,12 @@ def loss_inputs(spec_a, spec_c, la, lc, x, gen, saturate=False):
     return loss, (log_std, x, act, logp_old, rnd(s, 1), vout - off, ret)
 
 
-def columns_compare(name, out, ref, tol) -> float:
+def columns_compare(name, out, ref, tol, exact=None) -> float:
     """A stats matrix against its plain version column by column (each
-    column at its own scale); returns the largest absolute error."""
-    errs = [tol.errors(out[:, c], ref[:, c]) for c in range(ref.shape[1])]
+    column at its own scale; `exact`: the plain version in f64); returns the
+    largest absolute error."""
+    errs = [tol.errors(out[:, c], ref[:, c], None if exact is None else exact[:, c])
+            for c in range(ref.shape[1])]
     bad = [c for c, e in enumerate(errs) if not tol.holds(e)]
     ok = not bad and bool(torch.isfinite(out).all())
     worst_max = max(range(len(errs)), key=lambda c: errs[c]["max_rel"])
@@ -602,18 +646,34 @@ def loss_control(name, args) -> None:
 
     ref = fe.reference_pair_fwd_loss(*args)
     ctl = fe.reference_pair_fwd_loss(*args, bf16=False)
-    parts = {n: (fe.KERNEL_TOL, fe.KERNEL_TOL.errors(c, r))
-             for n, c, r in zip(("dmu", "dv1", "dv2"), ctl[:3], ref[:3])}
+    exact = in_f64(fe.reference_pair_fwd_loss, *args)
+    parts = {n: (fe.KERNEL_TOL, fe.KERNEL_TOL.errors(c, r, e))
+             for n, c, r, e in zip(("dmu", "dv1", "dv2"), ctl[:3], ref[:3], exact[:3])}
     for c in range(ref[3].shape[1]):
         if c not in (fe._SUM_RET, fe._SUM_RET2):
-            parts[f"stats[{c}]"] = (fe.LOSS_STATS_TOL,
-                                    fe.LOSS_STATS_TOL.errors(ctl[3][:, c], ref[3][:, c]))
+            parts[f"stats[{c}]"] = (fe.LOSS_STATS_TOL, fe.LOSS_STATS_TOL.errors(
+                ctl[3][:, c], ref[3][:, c], exact[3][:, c]))
     passed = [n for n, (tol, e) in parts.items() if tol.holds(e)]
     least = min(e["mean_rel"] for _, e in parts.values())
     log(f"  control {name} in f32 throughout: rejected on {len(parts) - len(passed)} of "
         f"{len(parts)} outputs (least mean_rel_err {least:.3e}); passes {passed}")
     if passed:
         raise AssertionError(f"{name}: the tolerance does not reject the f32 control")
+
+
+def log_forward_bits(tag, args, out9, out10) -> None:
+    """Information: the forward kernel's critic value through the plain loss
+    math gives dv1 = (v - R) / S clipped: the same bits as the agrad kernel's
+    (both forwards run `tc_forward`) and not the fwdloss kernel's (CUDA
+    cores), if the forwards' bits are as their designs say."""
+    from mupe_tpu_torch.ops import fused_encoder as fe
+
+    spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, adv, v_old, ret = args
+    mean, vout = fe.encoder_pair_forward(spec_a, spec_c, la, lc, x)
+    dv1 = fe.reference_loss_math(loss, mean, vout, act, logp_old, adv, v_old, ret, log_std)[1]
+    log(f"  encoder_pair_forward {tag} (information): its value's dv1 bit-identical to "
+        f"pair_forward_loss_agrad's: {torch.equal(dv1, out10[0])}, to pair_forward_loss's: "
+        f"{torch.equal(dv1, out9[1])}")
 
 
 def phase_loss_kernels(dev, gen, spec_a, spec_c, la, lc) -> dict:
@@ -639,24 +699,26 @@ def phase_loss_kernels(dev, gen, spec_a, spec_c, la, lc) -> dict:
         again = fe.pair_forward_loss_agrad(*args)
         torch.cuda.synchronize()
         ref9 = fe.reference_pair_fwd_loss(*args)
+        ex9 = in_f64(fe.reference_pair_fwd_loss, *args)
         tag = f"S={s}" + (", a third of the rows saturated" if saturate else "")
         rows_tol, stats_tol = fe.loss_row_tols(s)
-        for name, o, r in zip(("dmu", "dv1", "dv2"), out9[:3], ref9[:3]):
-            errs9.append(compare(f"pair_forward_loss {tag} {name}", o, r, rows_tol))
+        for name, o, r, e in zip(("dmu", "dv1", "dv2"), out9[:3], ref9[:3], ex9[:3]):
+            errs9.append(compare(f"pair_forward_loss {tag} {name}", o, r, rows_tol, e))
         errs9.append(columns_compare(f"pair_forward_loss {tag} stats", out9[3], ref9[3],
-                                     stats_tol))
-        for name, o, r in zip(("dv1", "dv2"), out10[:2], ref9[1:3]):
-            errs10.append(compare(f"pair_forward_loss_agrad {tag} {name}", o, r, rows_tol))
+                                     stats_tol, ex9[3]))
+        for name, o, r, e in zip(("dv1", "dv2"), out10[:2], ref9[1:3], ex9[1:3]):
+            errs10.append(compare(f"pair_forward_loss_agrad {tag} {name}", o, r, rows_tol, e))
         errs10.append(columns_compare(f"pair_forward_loss_agrad {tag} stats", out10[2], ref9[3],
-                                      stats_tol))
+                                      stats_tol, ex9[3]))
         tol = bwd_tol(fe, s)
+        ex10 = in_f64(fe.reference_pair_fwd_loss_agrad, *args)[3]
         errs10.append(bwd_compare(f"pair_forward_loss_agrad {tag} actor gradients", out10[3],
-                                  fe.reference_backward(spec_a, la, x, ref9[0]), tol))
+                                  fe.reference_backward(spec_a, la, x, ref9[0]), tol, ex10))
         outs, flat, staged = fe._launch_agrad_operands(*args)
         torch.cuda.synchronize()
         _, _, _, ref_staged, ref_sums = fe.reference_agrad_operands(*args)
         errs10.append(hold_stages(f"pair_forward_loss_agrad {tag}", spec_a, flat, staged,
-                                  ref_staged, ref_sums, tol))
+                                  ref_staged, ref_sums, tol, ex10))
         repeat = all(torch.equal(u, v) for u, v in zip((*out10[:3], *out10[3]),
                                                        (*again[:3], *again[3])))
         same = all(torch.equal(u, v) for u, v in zip(out10[:3], out9[1:]))
@@ -665,6 +727,7 @@ def phase_loss_kernels(dev, gen, spec_a, spec_c, la, lc) -> dict:
             f"runs on the CUDA cores: {same})")
         if not repeat:
             raise AssertionError(f"pair_forward_loss_agrad {tag}: two launches gave different bits")
+        log_forward_bits(tag, args, out9, out10)
         errs10.append(compare(f"pair_forward_loss_agrad {tag} head-bias gradient vs the column "
                               f"sum of the plain dmu", out10[3][-1], ref9[0].sum(0),
                               fe.DMU_SUM_TOL))
@@ -680,7 +743,7 @@ def phase_loss_kernels(dev, gen, spec_a, spec_c, la, lc) -> dict:
     loss_control(f"forward + loss S={s_main}", args)
     bwd_control(f"agrad actor gradients S={s_main}",
                 lambda **k: fe.reference_pair_fwd_loss_agrad(*args, **k)[3], fe.BWD_KERNEL_TOL,
-                fe.BWD_CONTROL_BLIND)
+                fe.BWD_CONTROL_BLIND, in_f64(fe.reference_pair_fwd_loss_agrad, *args)[3])
     ms9 = cuda_time_ms(lambda: fe.pair_forward_loss(*args))
     plain9 = cuda_time_ms(lambda: fe.reference_pair_fwd_loss(*args))
     ms10 = cuda_time_ms(lambda: fe.pair_forward_loss_agrad(*args), runs=10)
@@ -712,6 +775,118 @@ def phase_loss_kernels(dev, gen, spec_a, spec_c, la, lc) -> dict:
             stage_a_ms=ms10_a, stage_b_ms=ms10_b,
             stage_b_source="mupe_tpu_torch/csrc/weight_grad.cu", **b10),
     }
+
+
+def phase_wide_kernels(dev) -> dict:
+    """Every encoder kernel at 7 tokens and at 8 tokens with a 50-wide group
+    (phase 7's observation; stage A's and the agrad kernel's 8-row tile) at
+    the tile's edges and at the main path's sizes, and the TP backward at
+    phase 7's TP shapes (4-window tiles); each against its plain version
+    with the main path's limits.  Returns, per kernel, its times at the
+    8-token spec."""
+    from mupe_tpu_torch.ops import fused_encoder as fe
+    from mupe_tpu_torch.ops import tp_lstm as tl
+
+    gen = torch.Generator().manual_seed(7)
+    out = {}
+    log(f"  wide specs: {TOK7_GROUPS} (7 tokens) and {WIDE_GROUPS} (8 tokens, state_self 50)")
+    for groups in (TOK7_GROUPS, WIDE_GROUPS):
+        spec_a = fe.EncoderSpec(groups=groups, head_dim=4)
+        spec_c = fe.EncoderSpec(groups=groups, head_dim=1)
+        la = random_leaves(fe.leaf_shapes(spec_a), gen, dev)
+        lc = random_leaves(fe.leaf_shapes(spec_c), gen, dev)
+        tag = f"{spec_a.n_tokens} tokens"
+        for s in TILE_EDGE_ROWS + (NUM_ENVS * 3, MB_ROWS):
+            x = (2.0 * torch.randn((s, spec_a.obs_dim), generator=gen)).to(dev)
+            mean, vout = fe.encoder_pair_forward(spec_a, spec_c, la, lc, x)
+            compare(f"encoder_pair_forward {tag} S={s} actor", mean,
+                    fe.reference_apply(spec_a, la, x), fe.KERNEL_TOL,
+                    in_f64(fe.reference_apply, spec_a, la, x))
+            compare(f"encoder_pair_forward {tag} S={s} critic", vout,
+                    fe.reference_apply(spec_c, lc, x), fe.KERNEL_TOL,
+                    in_f64(fe.reference_apply, spec_c, lc, x))
+            if s == NUM_ENVS * 3:
+                continue
+            da = torch.randn((s, 4), generator=gen).to(dev)
+            ones = torch.ones((s, 1), device=dev)
+            tol = bwd_tol(fe, s)
+            pair = [(spec_a, la), (spec_c, lc)]
+            ga, gc = fe.encoder_backward(pair, x, [da, ones])
+            exact = [in_f64(fe.reference_backward, spec, leaves, x, d)
+                     for (spec, leaves), d in zip(pair, (da, ones))]
+            bwd_compare(f"encoder_backward {tag} S={s} actor", ga,
+                        fe.reference_backward(spec_a, la, x, da), tol, exact[0])
+            bwd_compare(f"encoder_backward {tag} S={s} critic", gc,
+                        fe.reference_backward(spec_c, lc, x, ones), tol, exact[1])
+            if gc[-1].item() != float(s):
+                raise AssertionError(f"encoder_backward {tag} S={s}: dbh {gc[-1].item()} != S")
+            flats, stagings = fe._launch_operands(x, pair, [da, ones])
+            for (spec, leaves), d, flat, st, ex in zip(pair, (da, ones), flats, stagings, exact):
+                hold_stages(f"encoder_backward {tag} S={s} head={spec.head_dim}", spec, flat, st,
+                            *fe.reference_backward_operands(spec, leaves, x, d), tol, ex)
+            loss, rows = loss_inputs(spec_a, spec_c, la, lc, x, gen)
+            args = (spec_a, spec_c, loss, la, lc, *rows)
+            rows_tol, stats_tol = fe.loss_row_tols(s)
+            ref9 = fe.reference_pair_fwd_loss(*args)
+            ex9 = in_f64(fe.reference_pair_fwd_loss, *args)
+            out9, out10 = fe.pair_forward_loss(*args), fe.pair_forward_loss_agrad(*args)
+            for name, o, r, e in zip(("dmu", "dv1", "dv2", "agrad dv1", "agrad dv2"),
+                                     (*out9[:3], *out10[:2]), (*ref9[:3], *ref9[1:3]),
+                                     (*ex9[:3], *ex9[1:3])):
+                compare(f"pair_forward_loss {tag} S={s} {name}", o, r, rows_tol, e)
+            columns_compare(f"pair_forward_loss {tag} S={s} stats", out9[3], ref9[3], stats_tol,
+                            ex9[3])
+            columns_compare(f"pair_forward_loss_agrad {tag} S={s} stats", out10[2], ref9[3],
+                            stats_tol, ex9[3])
+            bwd_compare(f"pair_forward_loss_agrad {tag} S={s} actor gradients", out10[3],
+                        fe.reference_backward(spec_a, la, x, ref9[0]), tol,
+                        in_f64(fe.reference_pair_fwd_loss_agrad, *args)[3])
+            if s == MB_ROWS and groups == WIDE_GROUPS:
+                pair_ms = cuda_time_ms(lambda: fe.encoder_pair_forward(spec_a, spec_c, la, lc, x))
+                bwd_ms = cuda_time_ms(lambda: fe.encoder_backward(pair, x, [da, ones]), runs=10)
+                ms10 = cuda_time_ms(lambda: fe.pair_forward_loss_agrad(*args), runs=10)
+                ms9 = cuda_time_ms(lambda: fe.pair_forward_loss(*args), runs=10)
+                blocks = _bwd_blocks("mupe_encoder_bwd_blocks", *fe._groups_args(spec_a), 2,
+                                     fe.staged_rows(s))
+                log(f"  {tag} S={s}: encoder_pair_forward {pair_ms:.4f} ms, encoder_backward "
+                    f"pair {bwd_ms:.4f} ms ({blocks} stage-A blocks a network), "
+                    f"pair_forward_loss {ms9:.4f} ms, pair_forward_loss_agrad {ms10:.4f} ms")
+                out["encoder_pair_forward"] = {"wide_minibatch_ms": pair_ms}
+                out["encoder_backward"] = {"wide_ms": bwd_ms}
+                out["pair_forward_loss"] = {"wide_ms": ms9}
+                out["pair_forward_loss_agrad"] = {"wide_ms": ms10}
+    # the smaller spec after the larger, then the larger again: the forward's
+    # shared-memory attribute never drops below a spec's carve
+    for groups in (TOK7_GROUPS, WIDE_GROUPS, GROUPS, WIDE_GROUPS):
+        spec_a = fe.EncoderSpec(groups=groups, head_dim=4)
+        la = random_leaves(fe.leaf_shapes(spec_a), gen, dev)
+        x = (2.0 * torch.randn((4099, spec_a.obs_dim), generator=gen)).to(dev)
+        compare(f"encoder_forward {spec_a.n_tokens} tokens S=4099, after another spec",
+                fe.encoder_forward(spec_a, la, x), fe.reference_apply(spec_a, la, x),
+                fe.KERNEL_TOL, in_f64(fe.reference_apply, spec_a, la, x))
+    f, t, o = WIDE_TP
+    tspec = tl.TPLSTMSpec(input_dim=f, hidden=64, t_steps=t, out_dim=o)
+    lt = random_leaves(tspec.leaf_shapes(), gen, dev)
+    for n in (1, 15, TP_WINDOWS, TP_WINDOWS + 1):
+        xt = torch.randn((n, t, f), generator=gen).to(dev)
+        dy = torch.randn((n, o), generator=gen).to(dev)
+        compare(f"tp_forward F={f} T={t} O={o} N={n}", tl.tp_forward(tspec, lt, xt),
+                tl.reference_forward(tspec, lt, xt), tl.KERNEL_TOL)
+        g = tl.tp_backward(tspec, lt, xt, dy)
+        again = tl.tp_backward(tspec, lt, xt, dy)
+        bwd_compare(f"tp_backward F={f} T={t} O={o} N={n}", g,
+                    tl.reference_backward(tspec, lt, xt, dy), tl.BWD_KERNEL_TOL)
+        if not all(torch.equal(u, v) for u, v in zip(g, again)):
+            raise AssertionError(f"tp_backward F={f} N={n}: two launches gave different bits")
+    xt, dy = xt[:TP_WINDOWS].contiguous(), dy[:TP_WINDOWS].contiguous()
+    bwd_control(f"tp backward F={f} N={TP_WINDOWS}",
+                lambda **k: tl.reference_backward(tspec, lt, xt, dy, **k), tl.BWD_KERNEL_TOL,
+                tl.BWD_CONTROL_BLIND)
+    ms = cuda_time_ms(lambda: tl.tp_backward(tspec, lt, xt, dy), runs=5)
+    log(f"  tp_backward F={f} T={t} O={o} N={TP_WINDOWS}: kernel {ms:.4f} ms, "
+        f"{_bwd_blocks('mupe_tp_lstm_backward_blocks', TP_WINDOWS, t, f, o)} blocks")
+    out["tp_backward"] = {"wide_ms": ms, "wide_shape": list(WIDE_TP)}
+    return out
 
 
 def _all_finite(tree) -> bool:
@@ -849,7 +1024,7 @@ def phase_slice(dev, card: str) -> None:
     check_against_cpu(dev)
 
 
-def check_update_against_cpu(dev, **algo) -> None:
+def check_update_against_cpu(dev, env_kw=None, **algo) -> None:
     """The update on the card (kernels) against the update on the CPU (plain
     versions): one `train_op` at 16 arenas x 8 steps, 2 minibatches, 1
     epoch, from the same state and weights, on the same trajectory (a CPU
@@ -859,17 +1034,23 @@ def check_update_against_cpu(dev, **algo) -> None:
     2.4e-3 on policy_loss on an H100), 1e-2 for the gradient norms (the
     kernel's gradients part from the plain version's by its tolerance);
     parameters within 3e-3 absolute (two Adam steps of about lr = 5e-4).
-    `algo` overrides MAPPOCfg fields (the in-kernel loss's); the card's
-    update must launch the loss kernel of its `direct_mode` once a minibatch
-    and the other one never."""
+    `algo` overrides MAPPOCfg fields (the in-kernel loss's), `env_kw`
+    HideAndSeekCfg fields (then 16 steps, past the 10 predicted ones); the
+    card's update must launch the loss kernel of its `direct_mode` once a
+    minibatch and the other one never."""
     from mupe_tpu_torch.envs import HideAndSeek, HideAndSeekCfg, tree_to
     from mupe_tpu_torch.learning import MAPPOCfg, MAPPOPolicy, init_carry, make_rollout
     from mupe_tpu_torch.ops import fused_encoder as fe
 
-    cfg = MAPPOCfg(train_every=8, num_minibatches=2, ppo_epochs=1, use_tp_net=True, **algo)
-    env_c = HideAndSeek(HideAndSeekCfg(num_envs=16, max_episode_length=800), device="cpu")
-    pols = {d: MAPPOPolicy(cfg, n_agents=3, action_dim=4, obs_is_dict=True,
-                           tp_input_dim=env_c.cfg.tp_input_dim, device=d) for d in ("cpu", dev)}
+    env_kw = env_kw or {}
+    env_c = HideAndSeek(HideAndSeekCfg(num_envs=16, max_episode_length=800, **env_kw),
+                        device="cpu")
+    steps = 16 if env_kw else 8
+    cfg = MAPPOCfg(train_every=steps, num_minibatches=2, ppo_epochs=1, use_tp_net=True,
+                   future_prediction_step=env_c.cfg.future_prediction_step, **algo)
+    pols = {d: MAPPOPolicy(cfg, n_agents=env_c.num_agents, action_dim=4, obs_is_dict=True,
+                           tp_input_dim=env_c.cfg.tp_input_dim, device=d,
+                           tp_history_step=env_c.cfg.history_step) for d in ("cpu", dev)}
     template = {k: torch.zeros((1,) + s) for k, s in env_c.obs_groups().items()}
     ts = {d: p.init(template, torch.Generator().manual_seed(8)) for d, p in pols.items()}
     with torch.no_grad():  # heads at unit gain: the loss's every term moves
@@ -878,7 +1059,7 @@ def check_update_against_cpu(dev, **algo) -> None:
             t.critic.leaves[-2].mul_(100.0)
     carry = init_carry(env_c, pols["cpu"], torch.Generator().manual_seed(9), ts["cpu"])
     carry, traj, _ = make_rollout(env_c, pols["cpu"])(carry)
-    perms = torch.randperm(16 * 8, generator=torch.Generator().manual_seed(10))[None]
+    perms = torch.randperm(16 * steps, generator=torch.Generator().manual_seed(10))[None]
     out = {}
     loss_kernels = {"fwdloss": fe.pair_forward_loss, "agrad": fe.pair_forward_loss_agrad}
     before = {m: fn.launches for m, fn in loss_kernels.items()}
@@ -1140,13 +1321,59 @@ def phase_inkernel(dev, card: str, rate4: float) -> dict:
     return out
 
 
+def phase_wide_train(dev, card: str) -> None:
+    """Training at phase 7's configuration through `harness.build` (as
+    `python -m mupe_tpu_torch.train env.num_agents=4
+    env.obs_max_cylinder=4 env.future_prediction_step=10
+    env.use_obstacles_tp=true` builds it), at WIDE_NUM_ENVS arenas: 2
+    iterations with the default update, 2 with the agrad mode of the
+    in-kernel loss; the update on the card against the CPU for each."""
+    from mupe_tpu_torch import harness
+    from mupe_tpu_torch.learning import init_carry, make_train_iter
+    from mupe_tpu_torch.ops import fused_encoder as fe
+    from mupe_tpu_torch.ops import tp_lstm as tl
+
+    wrappers = {"encoder_pair_forward": fe.encoder_pair_forward,
+                "encoder_forward": fe.encoder_forward, "tp_forward": tl.tp_forward,
+                "encoder_backward": fe.encoder_backward, "weight_grads": fe.weight_grads,
+                "tp_backward": tl.tp_backward,
+                "pair_forward_loss_agrad": fe.pair_forward_loss_agrad}
+    for algo in ({}, {"use_inkernel_loss": True, "direct_mode": "agrad"}):
+        log(f"[7] wide-configuration training: HideAndSeekCfg({WIDE_ENV}), {WIDE_NUM_ENVS} "
+            f"arenas x {STEPS} steps, MAPPOCfg overrides {algo or 'none'}")
+        env, policy, env_cfg, _ = harness.build(
+            "HideAndSeek", dict(WIDE_ENV, num_envs=WIDE_NUM_ENVS), dict(algo, train_every=STEPS),
+            device=dev)
+        _, spec_a, _ = policy.specs({k: torch.zeros((1,) + v)
+                                     for k, v in env.obs_groups().items()})
+        log(f"  observation groups {spec_a.groups} ({spec_a.n_tokens} tokens), TP input "
+            f"{env_cfg.tp_input_dim}, TP output {3 * env_cfg.future_prediction_step}")
+        carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(5))
+        train_iter = make_train_iter(env, policy)
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            carry, metrics, ep_stats = train_iter(carry)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        log(f"  launches over 2 iterations: {launches}")
+        backward = "pair_forward_loss_agrad" if algo else "encoder_pair_forward"
+        if (launches["encoder_backward"] < 2 * 64 or launches["tp_backward"] < 2
+                or launches[backward] < 2 * 64 or launches["tp_forward"] < 2 * (STEPS + 1)):
+            raise AssertionError(f"the wide configuration skipped a kernel: {launches}")
+        check_train_outputs(carry, metrics, ep_stats)
+        log(f"  wide training: {WIDE_NUM_ENVS} x {STEPS} x 2 env-steps in {seconds:.4f} s "
+            f"(first iterations, compile and warm-up included) on {card}")
+        check_update_against_cpu(dev, env_kw=WIDE_ENV, **algo)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
         return 2
-    # outside a checkout of the repo this fails here, before any output
-    import mupe_tpu_torch  # noqa: F401
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1158,6 +1385,7 @@ def main() -> int:
     launches, rate = phase_train(dev, card)
     launches["farthest_point_sampling"] = phase_aeg(dev, card)["farthest_point_sampling"]
     launches.update(phase_inkernel(dev, card, rate))
+    phase_wide_train(dev, card)
     launches["encoder_backward:stage_b"] = launches["weight_grads"]
     summary = {"kernels": [
         dict(name=name, launches=launches[name], **info,

@@ -209,6 +209,15 @@ __device__ __forceinline__ uint32_t ldsm_x1(const void* p) {
   return r;
 }
 
+__device__ __forceinline__ uint32_t ldsm_x1_t(const void* p) {
+  uint32_t r;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.trans.shared.b16 {%0}, [%1];\n"
+               : "=r"(r)
+               : "r"(smem_u32(p))
+               : "memory");
+  return r;
+}
+
 // d += a b for one m16n8k16 tile: bf16 operands, f32 sums (a row-major
 // 16x16, b column-major 16x8; d: rows t / 4 and t / 4 + 8, columns 2 (t % 4)
 // and 2 (t % 4) + 1).

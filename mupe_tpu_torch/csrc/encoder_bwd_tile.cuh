@@ -1,40 +1,50 @@
-// Stage A of the encoder backward on tensor cores: one tile of TA rows of the
-// encoder + linear head (PartialAttentionEncoder), its forward recomputed with
-// the residuals its backward reads, then the chain of data gradients, as
-// __device__ functions shared by the backward kernel (fused_encoder_bwd.cu)
-// and the forward + loss + actor-backward kernel (fused_encoder_loss.cu).
+// The encoder's tensor-core tile: one tile of TA rows (16, or 8 where a
+// 16-row tile does not fit a block's shared memory) of the encoder + linear
+// head (PartialAttentionEncoder), as __device__ functions shared by the
+// forward kernel (fused_encoder.cu), stage A of the backward
+// (fused_encoder_bwd.cu) and the forward + loss + actor-backward kernel
+// (fused_encoder_loss.cu).
 //
 // `tc_forward` is `_forward_core` (mupe_tpu/ops/fused_encoder.py:278-364) to
-// LN2 at its rounding points; `tc_backward` is `_backward_core` (:377-463)
-// without its `_mm_tn` weight products: it writes their bf16 operands to
-// staging buffers in device memory (weight_grad.cu sums them, stage B) and
-// keeps the column sums (biases, LayerNorm) and the head's gradient in
-// registers across the block's tiles.
+// LN2 at its rounding points: with FWD (the forward kernel) it keeps only
+// what the forward reads; otherwise it also keeps the residuals that
+// `tc_backward` reads.  `tc_backward` is `_backward_core` (:377-463) without
+// its `_mm_tn` weight products: it writes their bf16 operands to staging
+// buffers in device memory (weight_grad.cu sums them, stage B) and keeps the
+// column sums (biases, LayerNorm) and the head's gradient in registers
+// across the block's tiles.
 //
 // Every product runs on the tensor cores (mma.sync m16n8k16, bf16 operands,
 // f32 sums), computed transposed, out^T = W^T X^T: the 128 output features
 // are mma's M (each of the 8 warps takes 16), the tile's rows its N (8 a
-// step).  The weights are bf16 copies that the wrapper makes; each matrix in
-// turn is copied into one of two shared-memory slots by cp.async while the
-// previous product runs (`Ring`), and each warp loads its fragments of it
-// into registers with ldmatrix (.trans for the forward's X W, plain for the
-// backward's dY W^T, so no transposed copy exists).  The k and v products
-// and their backward take every token's rows against one load of the
-// weight.  The embeds' K (35, 5, 3) is padded to 16 with zeros, exactly.
-// LayerNorm, softmax, GELU and their backwards stay f32 on the CUDA cores.
-// A block has 8 warps: each takes 16 features of a product; thread j owns
-// column j % 128 of half the tile's rows (j / 128 says which half); warps own
-// rows for the row reductions.
+// step).  The weights reach shared memory one matrix at a time, in the order
+// the products take them (`WSeq`): the backward's from bf16 copies that the
+// wrapper makes, through two slots filled by cp.async while the previous
+// product runs (`Ring`); the forward's from the f32 leaves themselves,
+// converted to bf16 as one slot is filled (`Slot`; two blocks share an SM and
+// hide each other's fills).  Each warp loads its fragments of a matrix into
+// registers with ldmatrix (.trans for the forward's X W, plain for the
+// backward's dY W^T, so no transposed copy exists).  The k and v products and
+// their backward take every token's rows against one load of the weight.
+// The embeds' K is padded to 16 with zeros, exactly; their stacked weights
+// take one or two ring entries of at most 128 rows.  LayerNorm, softmax, GELU
+// and their backwards stay f32 on the CUDA cores.  A block has 8 warps: each
+// takes 16 features of a product; thread j owns column j % 128 of half the
+// tile's rows (j / 128 says which half); warps own rows for the row
+// reductions.
 #pragma once
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int TA = 16;      // rows per tile
 constexpr int NTA = 256;    // threads a block: 8 warps; two threads a column, each half the rows
 constexpr int FP = E + 4;   // f32 row stride (conflict-free mma epilogues)
-constexpr int MAX_SEQ = 2 * 7 + 6;  // weight loads per tile (agrad: two forwards, a backward)
+constexpr int MAX_BINS = 2;  // ring entries of the stacked embed weights
+// weight loads per tile (agrad: two forwards, a backward)
+constexpr int MAX_SEQ = 2 * (MAX_BINS + 6) + 6;
+constexpr int MAX_PARTS = MAX_SEQ + 2 * MAX_GROUPS;
+constexpr int MAX_XW = 256;  // the rows' bf16 width: obs_dim <= 128 plus each token's padding
 constexpr int N_FIXED_COLS = 12;  // column-sum leaves after the groups' biases
 // bf16 weight copies of a network: the embeds' (every group's, stacked, each
 // K padded to 16 with zero rows), then these
@@ -44,13 +54,19 @@ enum { B_Q = 1, B_K, B_V, B_O, B_1, B_2, B_H, N_BW };
 enum { S_H, S_DK, S_DV, S_DE, S_ATT, S_Y1, S_F, S_DQ, S_DR1, S_DPRE1, S_DR2, N_STAGED };
 
 // The token layout with the embeds' K padded to 16: token t reads columns
-// xcol[t] .. xcol[t] + kp[t] of the tile's bf16 rows Xb (xw wide).
+// xcol[t] .. xcol[t] + kp[t] of the tile's bf16 rows Xb (xw wide).  Group
+// g's stacked embed weight sits in ring entry g_bin[g] from row g_roff[g].
 struct TcLayout {
   TokenLayout lay;
   int kp[MAX_TOK];
   int xcol[MAX_TOK];
   int tok_in_group[MAX_TOK];
   int xw;
+  int g_kp[MAX_GROUPS];
+  int g_bin[MAX_GROUPS];
+  int g_roff[MAX_GROUPS];
+  int bin_rows[MAX_BINS];
+  int n_bins;
 };
 
 inline bool make_tc_layout(const TokenLayout& lay, TcLayout& L) {
@@ -61,89 +77,175 @@ inline bool make_tc_layout(const TokenLayout& lay, TcLayout& L) {
     L.kp[t] = (lay.tok_dim[t] + 15) / 16 * 16;
     L.xcol[t] = c;
     L.tok_in_group[t] = seen[lay.tok_group[t]]++;
+    L.g_kp[lay.tok_group[t]] = L.kp[t];
     c += L.kp[t];
   }
   L.xw = (c + 63) / 64 * 64;
-  return L.xw <= E;
+  // the groups' weights in order, a new entry where the next one would pass
+  // 128 rows: the padded K sum to at most 128 + 15 * 4, so two entries do
+  L.n_bins = 1;
+  L.bin_rows[0] = L.bin_rows[1] = 0;
+  for (int g = 0; g < lay.n_groups; ++g) {
+    if (L.bin_rows[L.n_bins - 1] + L.g_kp[g] > E) {
+      if (L.n_bins == MAX_BINS) return false;
+      ++L.n_bins;
+    }
+    L.g_bin[g] = L.n_bins - 1;
+    L.g_roff[g] = L.bin_rows[L.n_bins - 1];
+    L.bin_rows[L.n_bins - 1] += L.g_kp[g];
+  }
+  return L.xw <= MAX_XW;
 }
 
-// The weight matrices a tile loads, in the order its products take them.
-struct WSeq {
-  const __nv_bfloat16* w[MAX_SEQ];
-  int rows[MAX_SEQ];   // rows in the slot (K of an embed padded to 16)
-  int valid[MAX_SEQ];  // rows read from memory; the rest are zeros
-  int len;
+// One block of rows of a weight matrix in a slot: `rows` rows (a multiple
+// of 16), the first `valid` read from src ([valid][E] row-major), the rest
+// zeros.
+struct WPart {
+  const void* src;
+  int valid;
+  int rows;
 };
 
-// The rows of the stacked embeds' weights: each group's K padded to 16.
-inline int embed_rows(const TcLayout& L) {
-  int rows = 0;
-  for (int g = 0; g < L.lay.n_groups; ++g) {
-    int t = 0;
-    while (L.lay.tok_group[t] != g) ++t;
-    rows += L.kp[t];
-  }
-  return rows;
+// The weight matrices a tile loads, in the order its products take them:
+// entry i is parts first[i] .. first[i + 1] - 1, stacked in the slot.
+struct WSeq {
+  WPart part[MAX_PARTS];
+  int first[MAX_SEQ + 1];
+  int len;
+  int n_parts;
+};
+
+// Appends a part to the open entry of a zero-initialised sequence.
+inline void seq_part(WSeq& s, const void* src, int valid, int rows) {
+  s.part[s.n_parts++] = {src, valid, rows};
 }
 
+inline void seq_close(WSeq& s) { s.first[++s.len] = s.n_parts; }
+
 // The sequence of one network's forward (embeds, q, k, v, o, w1, w2), and
-// with `bwd` its backward's (w2, w1, o, q, k, v), appended to `s`.
+// with `bwd` its backward's (w2, w1, o, q, k, v), appended to `s`, from the
+// wrapper's bf16 copies `wb` (the embeds stacked, each group's rows padded to
+// 16 with zero rows).
 inline void seq_append(WSeq& s, const TcLayout& L, const __nv_bfloat16* const* wb, bool bwd) {
-  s.w[s.len] = wb[0];
-  s.rows[s.len] = s.valid[s.len] = embed_rows(L);
-  ++s.len;
+  int r0 = 0;
+  for (int b = 0; b < L.n_bins; ++b) {
+    seq_part(s, wb[0] + (size_t)r0 * E, L.bin_rows[b], L.bin_rows[b]);
+    seq_close(s);
+    r0 += L.bin_rows[b];
+  }
   const int fwd[6] = {B_Q, B_K, B_V, B_O, B_1, B_2};
   const int back[6] = {B_2, B_1, B_O, B_Q, B_K, B_V};
   for (int i = 0; i < 6; ++i) {
-    s.w[s.len] = wb[fwd[i]];
-    s.rows[s.len] = s.valid[s.len] = E;
-    ++s.len;
+    seq_part(s, wb[fwd[i]], E, E);
+    seq_close(s);
   }
   for (int i = 0; bwd && i < 6; ++i) {
-    s.w[s.len] = wb[back[i]];
-    s.rows[s.len] = s.valid[s.len] = E;
-    ++s.len;
+    seq_part(s, wb[back[i]], E, E);
+    seq_close(s);
   }
 }
 
-// The two weight slots: `take` returns the slot holding the next matrix of
-// the sequence (waiting for its copy) and starts the copy of the one after
-// it into the other slot, whose previous matrix every warp has by then
-// loaded into registers (the __syncthreads in between).
+// The forward's sequence from the network's f32 leaves (canonical order):
+// each group's embed weight [d][E] a part of its entry, d rows read and its K
+// padded to 16 with zeros.
+inline void seq_append_f32(WSeq& s, const TcLayout& L, const float* const* leaf) {
+  for (int b = 0; b < L.n_bins; ++b) {
+    for (int g = 0; g < L.lay.n_groups; ++g) {
+      if (L.g_bin[g] != b) continue;
+      int t = 0;
+      while (L.lay.tok_group[t] != g) ++t;
+      seq_part(s, leaf[2 * g], L.lay.tok_dim[t], L.g_kp[g]);
+    }
+    seq_close(s);
+  }
+  const int base = 2 * L.lay.n_groups;
+  const int fwd[6] = {2, 4, 6, 8, 12, 14};  // wq, wk, wv, wo, w1, w2
+  for (int i = 0; i < 6; ++i) {
+    seq_part(s, leaf[base + fwd[i]], E, E);
+    seq_close(s);
+  }
+}
+
+// The backward's weight slots: `take` returns the slot holding the next
+// matrix of the sequence (waiting for its copy) and starts the copy of the
+// one after it into the other slot, whose previous matrix every warp has by
+// then loaded into registers (the __syncthreads in between).
 struct Ring {
   __nv_bfloat16* slot[2];
   int cur;
   int i;
+
+  __device__ __forceinline__ void issue(__nv_bfloat16* dst, const WSeq& s, int e, int j) {
+    int r0 = 0;
+    for (int p = s.first[e]; p < s.first[e + 1]; ++p) {
+      const WPart w = s.part[p];
+      const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(w.src);
+      for (int idx = j; idx < w.rows * (E / 8); idx += NTA) {
+        const int r = idx >> 4;
+        const int c = (idx & 15) * 8;
+        cp_async16(dst + swz(r0 + r, c), src + (r < w.valid ? r * E + c : 0),
+                   r < w.valid ? 16 : 0);
+      }
+      r0 += w.rows;
+    }
+    cp_async_commit();
+  }
+
+  __device__ __forceinline__ void start(unsigned char* smem, const WSeq& s, int j) {
+    slot[0] = reinterpret_cast<__nv_bfloat16*>(smem);
+    slot[1] = slot[0] + E * E;
+    cur = 0;
+    i = 0;
+    issue(slot[0], s, 0, j);
+  }
+
+  __device__ __forceinline__ const __nv_bfloat16* take(const WSeq& s, int j) {
+    cp_async_wait<0>();
+    __syncthreads();
+    const __nv_bfloat16* w = slot[cur];
+    cur ^= 1;
+    i = i + 1 == s.len ? 0 : i + 1;  // the next tile starts the sequence again
+    issue(slot[cur], s, i, j);
+    return w;
+  }
 };
 
-__device__ __forceinline__ void ring_issue(__nv_bfloat16* dst, const WSeq& s, int i, int j) {
-  const __nv_bfloat16* src = s.w[i];
-  const int valid = s.valid[i];
-  for (int idx = j; idx < s.rows[i] * (E / 8); idx += NTA) {
-    const int r = idx >> 4;
-    const int c = (idx & 15) * 8;
-    cp_async16(dst + swz(r, c), src + (r < valid ? r * E + c : 0), r < valid ? 16 : 0);
+// The forward's one slot: `take` waits until every warp has its fragments of
+// the previous matrix, fills the slot with the next one from its f32 source
+// (plain loads, rounded to bf16 as the reference rounds the weights), and
+// returns it.
+struct Slot {
+  __nv_bfloat16* w;
+  int i;
+
+  __device__ __forceinline__ const __nv_bfloat16* take(const WSeq& s, int j) {
+    __syncthreads();
+    int r0 = 0;
+    for (int p = s.first[i]; p < s.first[i + 1]; ++p) {
+      const WPart part = s.part[p];
+      const float* src = static_cast<const float*>(part.src);
+#pragma unroll 4
+      for (int idx = j; idx < part.rows * (E / 8); idx += NTA) {
+        const int r = idx >> 4;
+        const int c = (idx & 15) * 8;
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+        if (r < part.valid) {
+          a = __ldg(reinterpret_cast<const float4*>(src + r * E + c));
+          b = __ldg(reinterpret_cast<const float4*>(src + r * E + c + 4));
+        }
+        __align__(16) __nv_bfloat162 h[4] = {__floats2bfloat162_rn(a.x, a.y),
+                                            __floats2bfloat162_rn(a.z, a.w),
+                                            __floats2bfloat162_rn(b.x, b.y),
+                                            __floats2bfloat162_rn(b.z, b.w)};
+        *reinterpret_cast<uint4*>(w + swz(r0 + r, c)) = *reinterpret_cast<const uint4*>(h);
+      }
+      r0 += part.rows;
+    }
+    i = i + 1 == s.len ? 0 : i + 1;
+    __syncthreads();
+    return w;
   }
-  cp_async_commit();
-}
-
-__device__ __forceinline__ void ring_start(Ring& R, unsigned char* smem, const WSeq& s, int j) {
-  R.slot[0] = reinterpret_cast<__nv_bfloat16*>(smem);
-  R.slot[1] = R.slot[0] + E * E;
-  R.cur = 0;
-  R.i = 0;
-  ring_issue(R.slot[0], s, 0, j);
-}
-
-__device__ __forceinline__ const __nv_bfloat16* ring_take(Ring& R, const WSeq& s, int j) {
-  cp_async_wait<0>();
-  __syncthreads();
-  const __nv_bfloat16* cur = R.slot[R.cur];
-  R.cur ^= 1;
-  R.i = R.i + 1 == s.len ? 0 : R.i + 1;  // the next tile starts the sequence again
-  ring_issue(R.slot[R.cur], s, R.i, j);
-  return cur;
-}
+};
 
 // Fragments (A operands) of the warp's 16 output features for nks k-steps.
 // Forward, out = X W: A = W^T, from the slot W[k][m] with .trans.
@@ -207,7 +309,8 @@ __device__ __forceinline__ void tc_run(const uint32_t (&fr)[8][4], int nks,
 }
 
 // The tile's buffers in shared memory (bf16 ones swizzled, E wide unless
-// said otherwise).
+// said otherwise).  With FWD the residuals of the backward are absent (null),
+// v takes k's bytes and pre1 q's.
 struct TcBufs {
   __nv_bfloat16* Hb;   // [ntr] embeds, then h_all; its bytes hold G, G2 after the k/v products
   __nv_bfloat16* N0b;  // [ntr] LN0's n
@@ -234,64 +337,92 @@ struct TcBufs {
   float* DOUT;         // [TA][MAX_HEAD] the head's cotangent, f32
 };
 
-__host__ __device__ inline size_t tc_hregion(int n_tokens) {
-  const size_t h = (size_t)n_tokens * TA * E * 2;
-  const size_t g = (size_t)2 * TA * FP * 4;
-  return h > g ? h : g;
-}
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
-// Bytes of shared memory: the weight ring, then the buffers above.
-__host__ __device__ inline size_t tc_smem_bytes(int n_tokens, int xw) {
+// Carves a block's shared memory: the weight slots (two, or one with FWD),
+// then the buffers; fills `b` unless null.  Returns the bytes.
+template <int TA, bool FWD>
+__host__ __device__ inline size_t tc_carve(unsigned char* base, int n_tokens, int xw,
+                                           TcBufs* b) {
   const size_t ntr = (size_t)n_tokens * TA;
-  return (size_t)2 * E * E * 2 + tc_hregion(n_tokens) + 3 * ntr * E * 2 + (size_t)TA * xw * 2 +
-         (size_t)3 * TA * E * 2 + TA * 8 * 2 + 2 * E * 8 * 2 + (size_t)5 * TA * FP * 4 +
-         (ntr + 2 * TA + 2 * TA * MAX_TOK + TA * MAX_HEAD) * 4;
+  size_t o = 0;
+  auto take = [&](size_t bytes) {
+    unsigned char* p = base + o;
+    o += align16(bytes);
+    return p;
+  };
+  auto bf = [](unsigned char* p) { return reinterpret_cast<__nv_bfloat16*>(p); };
+  auto f32 = [](unsigned char* p) { return reinterpret_cast<float*>(p); };
+  take((size_t)(FWD ? 1 : 2) * E * E * 2);
+  const size_t h = ntr * E * 2, g = (size_t)2 * TA * FP * 4;
+  unsigned char* hb = take(h > g ? h : g);
+  unsigned char* n0b = FWD ? nullptr : take(ntr * E * 2);
+  unsigned char* kb = take(ntr * E * 2);
+  unsigned char* vb = FWD ? kb : take(ntr * E * 2);
+  unsigned char* xb = take((size_t)TA * xw * 2);
+  unsigned char* opb = take((size_t)TA * E * 2);
+  unsigned char* y2b = take((size_t)TA * E * 2);
+  unsigned char* rb = FWD ? nullptr : take((size_t)TA * E * 2);
+  unsigned char* dob = FWD ? nullptr : take((size_t)TA * 8 * 2);
+  unsigned char* wh0 = take((size_t)E * 8 * 2);
+  unsigned char* wh1 = FWD ? nullptr : take((size_t)E * 8 * 2);
+  unsigned char* q = take((size_t)TA * FP * 4);
+  unsigned char* h0 = take((size_t)TA * FP * 4);
+  unsigned char* n1 = FWD ? nullptr : take((size_t)TA * FP * 4);
+  unsigned char* n2 = FWD ? nullptr : take((size_t)TA * FP * 4);
+  unsigned char* pre1 = FWD ? q : take((size_t)TA * FP * 4);
+  unsigned char* inv0 = FWD ? nullptr : take(ntr * 4);
+  unsigned char* inv1 = FWD ? nullptr : take((size_t)TA * 4);
+  unsigned char* inv2 = FWD ? nullptr : take((size_t)TA * 4);
+  unsigned char* pp = take((size_t)TA * MAX_TOK * 4);
+  unsigned char* ds = FWD ? nullptr : take((size_t)TA * MAX_TOK * 4);
+  unsigned char* dout = FWD ? nullptr : take((size_t)TA * MAX_HEAD * 4);
+  if (b) {
+    b->Hb = bf(hb);
+    b->G = f32(hb);
+    b->G2 = b->G + TA * FP;
+    b->N0b = bf(n0b);
+    b->Kb = bf(kb);
+    b->Vb = bf(vb);
+    b->Xb = bf(xb);
+    b->OPb = bf(opb);
+    b->Y2b = bf(y2b);
+    b->Rb = bf(rb);
+    b->DOb = bf(dob);
+    b->WH[0] = bf(wh0);
+    b->WH[1] = bf(wh1);
+    b->Q = f32(q);
+    b->H0 = f32(h0);
+    b->N1 = f32(n1);
+    b->N2 = f32(n2);
+    b->PRE1 = f32(pre1);
+    b->inv0 = f32(inv0);
+    b->inv1 = f32(inv1);
+    b->inv2 = f32(inv2);
+    b->P = f32(pp);
+    b->DS = f32(ds);
+    b->DOUT = f32(dout);
+  }
+  return o;
 }
 
-__device__ __forceinline__ TcBufs tc_bufs(unsigned char* smem, int n_tokens, int xw) {
-  const int ntr = n_tokens * TA;
-  TcBufs b;
-  unsigned char* p = smem + 2 * E * E * 2;
-  b.Hb = reinterpret_cast<__nv_bfloat16*>(p);
-  b.G = reinterpret_cast<float*>(p);
-  b.G2 = b.G + TA * FP;
-  p += tc_hregion(n_tokens);
-  b.N0b = reinterpret_cast<__nv_bfloat16*>(p);
-  b.Kb = b.N0b + ntr * E;
-  b.Vb = b.Kb + ntr * E;
-  b.Xb = b.Vb + ntr * E;
-  b.OPb = b.Xb + TA * xw;
-  b.Y2b = b.OPb + TA * E;
-  b.Rb = b.Y2b + TA * E;
-  b.DOb = b.Rb + TA * E;
-  b.WH[0] = b.DOb + TA * 8;
-  b.WH[1] = b.WH[0] + E * 8;
-  b.Q = reinterpret_cast<float*>(b.WH[1] + E * 8);
-  b.H0 = b.Q + TA * FP;
-  b.N1 = b.H0 + TA * FP;
-  b.N2 = b.N1 + TA * FP;
-  b.PRE1 = b.N2 + TA * FP;
-  b.inv0 = b.PRE1 + TA * FP;
-  b.inv1 = b.inv0 + ntr;
-  b.inv2 = b.inv1 + TA;
-  b.P = b.inv2 + TA;
-  b.DS = b.P + TA * MAX_TOK;
-  b.DOUT = b.DS + TA * MAX_TOK;
-  return b;
-}
+// The head's weights [E][hd] (bf16 copy or f32 leaf) into a bf16 [E][8]
+// buffer, zeros past hd.
+__device__ __forceinline__ __nv_bfloat16 to_bf16(float v) { return __float2bfloat16_rn(v); }
+__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v) { return v; }
 
-// The head's bf16 weights [E][hd] into a [E][8] buffer, zeros past hd.
-__device__ __forceinline__ void load_head(__nv_bfloat16* WH, const __nv_bfloat16* wh, int hd,
-                                          int j) {
+template <class T>
+__device__ __forceinline__ void load_head(__nv_bfloat16* WH, const T* wh, int hd, int j) {
   for (int idx = j; idx < E * 8; idx += NTA) {
     const int k = idx >> 3;
     const int o = idx & 7;
-    WH[idx] = o < hd ? wh[k * hd + o] : __float2bfloat16_rn(0.f);
+    WH[idx] = o < hd ? to_bf16(wh[k * hd + o]) : __float2bfloat16_rn(0.f);
   }
 }
 
 // The tile's rows into Xb as bf16, each token's K padded to 16 with zeros,
 // rows past S zeros; with `xs` (the groups' staged slices), staged too.
+template <int TA>
 __device__ __forceinline__ void tc_load_rows(const TcLayout& L, const TcBufs& B,
                                              const float* __restrict__ x, int S, int row0,
                                              __nv_bfloat16* const* xs, size_t s_pad, int j) {
@@ -315,13 +446,14 @@ __device__ __forceinline__ void tc_load_rows(const TcLayout& L, const TcBufs& B,
 
 // `_forward_core` for the tile to LN2's output (B.Y2b), from the rows in
 // B.Xb (loaded and synchronised by the caller); leaf: the network's f32
-// leaves in canonical order.  With `st` (the network's staging buffers), the
-// tile's h_all, att, y1 and f are staged (rows past S as zeros).  Ends
-// synchronised.
+// leaves in canonical order; src: the weight slots (Ring or Slot) walking
+// `seq`.  With `st` (the network's staging buffers), the tile's h_all, att,
+// y1 and f are staged (rows past S as zeros).  Ends synchronised.
+template <int TA, bool FWD, class Src>
 __device__ __forceinline__ void tc_forward(const TcLayout& L, const float* const* leaf,
-                                           float scale, const TcBufs& B, Ring& R, const WSeq& seq,
-                                           __nv_bfloat16* const* st, size_t s_pad, int row0,
-                                           int S, int j) {
+                                           float scale, const TcBufs& B, Src& src,
+                                           const WSeq& seq, __nv_bfloat16* const* st,
+                                           size_t s_pad, int row0, int S, int j) {
   const TokenLayout& lay = L.lay;
   const int nt = lay.n_tokens;
   const int ntr = nt * TA;
@@ -347,14 +479,17 @@ __device__ __forceinline__ void tc_forward(const TcLayout& L, const float* const
   uint32_t fr[8][4];
 
   {  // per-token embeds -> bf16 e (token-major rows t * TA + r), group by
-     // group, every group's weight in one slot (rows a multiple of 16 apart)
-    const __nv_bfloat16* W = ring_take(R, seq, j);
-    int roff = 0;
+     // group, each group's weight in its ring entry (rows a multiple of 16 apart)
+    const __nv_bfloat16* W = nullptr;
+    int bin = -1;
     for (int g = 0; g < lay.n_groups; ++g) {
+      if (L.g_bin[g] != bin) {
+        bin = L.g_bin[g];
+        W = src.take(seq, j);
+      }
       int t0 = 0;
       while (lay.tok_group[t0] != g) ++t0;
-      frags_fwd(W + roff * E, L.kp[t0] / 16, fr, warp, lane);
-      roff += L.kp[t0];
+      frags_fwd(W + L.g_roff[g] * E, L.g_kp[g] / 16, fr, warp, lane);
       const float* bg = leaf[2 * g + 1];
       for (int t = t0; t < nt && lay.tok_group[t] == g; ++t)
         tc_run(fr, L.kp[t] / 16, B.Xb, L.xw, L.xcol[t], TA, warp, lane,
@@ -365,13 +500,14 @@ __device__ __forceinline__ void tc_forward(const TcLayout& L, const float* const
   }
   __syncthreads();
 
-  // LN0 over every token row, in place, two rows a warp at a time (ntr is a
-  // multiple of 16); token 0's f32 output kept as h0
+  // LN0 over every token row, in place, two rows a warp at a time; token 0's
+  // f32 output kept as h0
   for (int rt0 = warp; rt0 < ntr; rt0 += 2 * nwarps) {
+    const bool two = rt0 + nwarps < ntr;
     float v[2][4], n[2][4], inv[2];
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      const int c0 = swz(rt0 + u * nwarps, lane * 4);
+      const int c0 = swz(u == 0 || two ? rt0 + u * nwarps : rt0, lane * 4);
 #pragma unroll
       for (int i = 0; i < 4; ++i) v[u][i] = __bfloat162float(B.Hb[c0 + i]);
     }
@@ -379,6 +515,7 @@ __device__ __forceinline__ void tc_forward(const TcLayout& L, const float* const
     for (int u = 0; u < 2; ++u) ln_row_n(v[u], n[u], inv[u], g0, b0, lane);
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
+      if (u == 1 && !two) break;
       const int rt = rt0 + u * nwarps;
       const int c0 = swz(rt, lane * 4);
       const int t = rt / TA;
@@ -388,34 +525,38 @@ __device__ __forceinline__ void tc_forward(const TcLayout& L, const float* const
       for (int i = 0; i < 4; ++i) {
         h[i] = __float2bfloat16_rn(row < S || !st ? v[u][i] : 0.f);
         B.Hb[c0 + i] = __float2bfloat16_rn(v[u][i]);
-        B.N0b[c0 + i] = __float2bfloat16_rn(n[u][i]);
+        if (!FWD) B.N0b[c0 + i] = __float2bfloat16_rn(n[u][i]);
         if (rt < TA) B.H0[rt * FP + lane * 4 + i] = v[u][i];
       }
       if (st)
         *reinterpret_cast<uint2*>(st[S_H] + ((size_t)t * s_pad + row) * E + lane * 4) =
             *reinterpret_cast<const uint2*>(h);
-      if (lane == 0) B.inv0[rt] = inv[u];
+      if (!FWD && lane == 0) B.inv0[rt] = inv[u];
     }
   }
 
   {  // q from the query token (its bf16 rounding is h_all's)
-    const __nv_bfloat16* W = ring_take(R, seq, j);
+    const __nv_bfloat16* W = src.take(seq, j);
     frags_fwd(W, 8, fr, warp, lane);
     tc_run(fr, 8, B.Hb, E, 0, TA, warp, lane,
            [&](int r, int m, float v) { B.Q[r * FP + m] = v + __ldg(bq + m); });
   }
-  {  // k and v of every token, rounded to bf16, one weight load each
-    const __nv_bfloat16* W = ring_take(R, seq, j);
-    frags_fwd(W, 8, fr, warp, lane);
-    tc_run(fr, 8, B.Hb, E, 0, ntr, warp, lane, [&](int r, int m, float v) {
-      B.Kb[swz(r, m)] = __float2bfloat16_rn(v + __ldg(bk + m));
-    });
-    W = ring_take(R, seq, j);
+  // v of every token, rounded to bf16, one weight load
+  auto v_all = [&]() {
+    const __nv_bfloat16* W = src.take(seq, j);
     frags_fwd(W, 8, fr, warp, lane);
     tc_run(fr, 8, B.Hb, E, 0, ntr, warp, lane, [&](int r, int m, float v) {
       B.Vb[swz(r, m)] = __float2bfloat16_rn(v + __ldg(bv + m));
     });
+  };
+  {  // k of every token, rounded to bf16, one weight load
+    const __nv_bfloat16* W = src.take(seq, j);
+    frags_fwd(W, 8, fr, warp, lane);
+    tc_run(fr, 8, B.Hb, E, 0, ntr, warp, lane, [&](int r, int m, float v) {
+      B.Kb[swz(r, m)] = __float2bfloat16_rn(v + __ldg(bk + m));
+    });
   }
+  if (!FWD) v_all();  // right after k; with FWD, v takes k's bytes after the scores
   __syncthreads();
 
   // scores q . k_t * scale, four (row, token) pairs a warp at a time
@@ -458,6 +599,7 @@ __device__ __forceinline__ void tc_forward(const TcLayout& L, const float* const
     const float recip = 1.0f / denom;
     for (int t = 0; t < nt; ++t) p[t] = e[t] * recip;
   }
+  if (FWD) v_all();  // into k's bytes: the scores read them before the take's __syncthreads
   __syncthreads();
 
   for (int r = rb; r < re; ++r) {  // attention output sum_t a_t v_t, rounded
@@ -470,7 +612,7 @@ __device__ __forceinline__ void tc_forward(const TcLayout& L, const float* const
   }
 
   {  // out-projection + residual: r1 = h0 + o (into H0)
-    const __nv_bfloat16* W = ring_take(R, seq, j);
+    const __nv_bfloat16* W = src.take(seq, j);
     frags_fwd(W, 8, fr, warp, lane);
     tc_run(fr, 8, B.OPb, E, 0, TA, warp, lane,
            [&](int r, int m, float v) { B.H0[r * FP + m] += v + __ldg(bo + m); });
@@ -486,16 +628,16 @@ __device__ __forceinline__ void tc_forward(const TcLayout& L, const float* const
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       B.H0[r * FP + lane * 4 + i] = v[i];
-      B.N1[r * FP + lane * 4 + i] = n[i];
+      if (!FWD) B.N1[r * FP + lane * 4 + i] = n[i];
       const __nv_bfloat16 y = __float2bfloat16_rn(v[i]);
       B.OPb[swz(r, lane * 4 + i)] = y;
       if (st) st[S_Y1][(size_t)row * E + lane * 4 + i] = row < S ? y : __float2bfloat16_rn(0.f);
     }
-    if (lane == 0) B.inv1[r] = inv;
+    if (!FWD && lane == 0) B.inv1[r] = inv;
   }
 
   {  // FFN first layer; then tanh-GELU, rounded for the second layer
-    const __nv_bfloat16* W = ring_take(R, seq, j);
+    const __nv_bfloat16* W = src.take(seq, j);
     frags_fwd(W, 8, fr, warp, lane);
     tc_run(fr, 8, B.OPb, E, 0, TA, warp, lane,
            [&](int r, int m, float v) { B.PRE1[r * FP + m] = v + __ldg(bf1 + m); });
@@ -508,7 +650,7 @@ __device__ __forceinline__ void tc_forward(const TcLayout& L, const float* const
   }
 
   {  // FFN second layer + residual: r2 = y1 + FFN(y1) (into G)
-    const __nv_bfloat16* W = ring_take(R, seq, j);
+    const __nv_bfloat16* W = src.take(seq, j);
     frags_fwd(W, 8, fr, warp, lane);
     tc_run(fr, 8, B.OPb, E, 0, TA, warp, lane, [&](int r, int m, float v) {
       B.G[r * FP + m] = B.H0[r * FP + m] + (v + __ldg(bf2 + m));
@@ -523,22 +665,25 @@ __device__ __forceinline__ void tc_forward(const TcLayout& L, const float* const
     ln_row_n(v, n, inv, g2, b2, lane);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      B.N2[r * FP + lane * 4 + i] = n[i];
+      if (!FWD) B.N2[r * FP + lane * 4 + i] = n[i];
       B.Y2b[swz(r, lane * 4 + i)] = __float2bfloat16_rn(v[i]);
     }
-    if (lane == 0) B.inv2[r] = inv;
+    if (!FWD && lane == 0) B.inv2[r] = inv;
   }
   __syncthreads();
 }
 
 // The linear head over the tile's LN2 output on the tensor cores (bf16
-// operands, f32 sum): out[r * stride + o] = y2 wh + bh for o < hd, all TA
-// rows.  Warps 0 and 1 take 8 rows each.  The caller synchronises.
+// operands, f32 sum): out[r * stride + o] = y2 wh + bh for o < hd and the
+// first n_store rows.  Warp w < TA / 8 takes rows 8w .. 8w + 7.  The caller
+// synchronises.
+template <int TA>
 __device__ __forceinline__ void tc_head(const TcBufs& B, const __nv_bfloat16* WH,
-                                        const float* bh, int hd, float* out, int stride, int j) {
+                                        const float* bh, int hd, float* out, int stride,
+                                        int n_store, int j) {
   const int warp = j >> 5;
   const int lane = j & 31;
-  if (warp >= 2) return;
+  if (warp >= TA / 8) return;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int ks = 0; ks < 8; ++ks) {
@@ -551,8 +696,10 @@ __device__ __forceinline__ void tc_head(const TcBufs& B, const __nv_bfloat16* WH
   const int o = lane >> 2;
   if (o < hd)
 #pragma unroll
-    for (int e = 0; e < 2; ++e)
-      out[(warp * 8 + 2 * (lane & 3) + e) * stride + o] = acc[e] + __ldg(bh + o);
+    for (int e = 0; e < 2; ++e) {
+      const int r = warp * 8 + 2 * (lane & 3) + e;
+      if (r < n_store) out[r * stride + o] = acc[e] + __ldg(bh + o);
+    }
 }
 
 // LayerNorm backward of one row held by a warp (`_ln_bwd`): dy <- dx.
@@ -653,6 +800,7 @@ inline void colsum_segments(SegArgs& a, const float* ws, int blocks, int n_group
 // B.DOb (bf16, zeros past hd and past S): the staged operands of the weight
 // products into `st` (rows past S as zeros), the column sums and dwh into
 // `cs`.  WH: the head's bf16 weights.  Ends synchronised.
+template <int TA>
 __device__ __forceinline__ void tc_backward(const TcLayout& L, const float* const* leaf,
                                             const __nv_bfloat16* WH, int hd, float scale,
                                             const TcBufs& B, Ring& R, const WSeq& seq,
@@ -660,7 +808,6 @@ __device__ __forceinline__ void tc_backward(const TcLayout& L, const float* cons
                                             int S, ColSums& cs, int j) {
   const TokenLayout& lay = L.lay;
   const int nt = lay.n_tokens;
-  const int ntr = nt * TA;
   const int base = 2 * lay.n_groups;
   const float* g0 = leaf[base + 0];
   const float* g1 = leaf[base + 10];
@@ -677,10 +824,20 @@ __device__ __forceinline__ void tc_backward(const TcLayout& L, const float* cons
   float* DH = B.H0;
   uint32_t fr[8][4];
 
-  {  // head: dwh += y2^T dout (fragments kept across tiles), dbh, dy2 = dout wh^T
-    uint32_t a[4], b[2];
-    ldsm_x4_t(a, B.Y2b + swz((lane & 7) + ((lane >> 4) << 3), warp * 16 + ((lane >> 3) & 1) * 8));
-    ldsm_x2_t(b, B.DOb + (lane & 15) * 8);
+  {  // head: dwh += y2^T dout (fragments kept across tiles; K = the tile's
+     // rows, the second k half zeros for an 8-row tile), dbh, dy2 = dout wh^T
+    uint32_t a[4] = {0u, 0u, 0u, 0u}, b[2] = {0u, 0u};
+    if (TA == 16) {
+      ldsm_x4_t(a, B.Y2b + swz((lane & 7) + ((lane >> 4) << 3),
+                               warp * 16 + ((lane >> 3) & 1) * 8));
+      ldsm_x2_t(b, B.DOb + (lane & 15) * 8);
+    } else {
+      uint32_t a2[2];
+      ldsm_x2_t(a2, B.Y2b + swz(lane & 7, warp * 16 + ((lane >> 3) & 1) * 8));
+      a[0] = a2[0];
+      a[1] = a2[1];
+      b[0] = ldsm_x1_t(B.DOb + (lane & 7) * 8);
+    }
     mma_bf16(cs.wh, a, b[0], b[1]);
   }
   if (j < hd)
@@ -723,7 +880,7 @@ __device__ __forceinline__ void tc_backward(const TcLayout& L, const float* cons
     }
   }
   {  // FFN second layer: dbf2, then dpre1 = dr2 w2^T * gelu'(pre1)
-    const __nv_bfloat16* W = ring_take(R, seq, j);
+    const __nv_bfloat16* W = R.take(seq, j);
     for (int r = rb; r < re; ++r) cs.fixed[C_BF2] += G[r * FP + c];
     frags_bwd(W, fr, warp, lane);
     tc_run(fr, 8, B.Rb, E, 0, TA, warp, lane, [&](int r, int m, float v) {
@@ -739,7 +896,7 @@ __device__ __forceinline__ void tc_backward(const TcLayout& L, const float* cons
     st[S_DPRE1][(size_t)(row0 + r) * E + c] = row0 + r < S ? b : zero;
   }
   {  // FFN first layer: dy1 = dr2 + dpre1 w1^T
-    const __nv_bfloat16* W = ring_take(R, seq, j);
+    const __nv_bfloat16* W = R.take(seq, j);
     frags_bwd(W, fr, warp, lane);
     tc_run(fr, 8, B.Rb, E, 0, TA, warp, lane,
            [&](int r, int m, float v) { G[r * FP + m] = G[r * FP + m] + v; });
@@ -768,7 +925,7 @@ __device__ __forceinline__ void tc_backward(const TcLayout& L, const float* cons
     }
   }
   {  // out-projection: dbo, datt = dr1 wo^T (into DH)
-    const __nv_bfloat16* W = ring_take(R, seq, j);
+    const __nv_bfloat16* W = R.take(seq, j);
     for (int r = rb; r < re; ++r) cs.fixed[C_BO] += G[r * FP + c];
     frags_bwd(W, fr, warp, lane);
     tc_run(fr, 8, B.Rb, E, 0, TA, warp, lane,
@@ -849,7 +1006,7 @@ __device__ __forceinline__ void tc_backward(const TcLayout& L, const float* cons
     cs.fixed[C_BV] += dbv;
   }
   {  // dq wq^T (into G2), for the query token's dh
-    const __nv_bfloat16* W = ring_take(R, seq, j);
+    const __nv_bfloat16* W = R.take(seq, j);
     frags_bwd(W, fr, warp, lane);
     tc_run(fr, 8, B.Rb, E, 0, TA, warp, lane,
            [&](int r, int m, float v) { G2[r * FP + m] = v; });
@@ -857,9 +1014,9 @@ __device__ __forceinline__ void tc_backward(const TcLayout& L, const float* cons
   // per token: dh = dk wk^T + dv wv^T (+ dr1 + dq wq^T for the query token),
   // then LN0 backward and the token's staged de; wk and wv stay in registers
   uint32_t fv[8][4];
-  const __nv_bfloat16* W = ring_take(R, seq, j);
+  const __nv_bfloat16* W = R.take(seq, j);
   frags_bwd(W, fr, warp, lane);
-  W = ring_take(R, seq, j);
+  W = R.take(seq, j);
   frags_bwd(W, fv, warp, lane);
   for (int t = 0; t < nt; ++t) {
     for (int nb = 0; nb < TA / 8; ++nb) {
@@ -922,27 +1079,40 @@ __device__ __forceinline__ void tc_backward(const TcLayout& L, const float* cons
   }
 }
 
-// Fills `L` and the shared-memory size of a stage-A kernel for these groups;
-// false if the shapes exceed the kernels' limits (the embeds' padded widths
-// must sum to 128 or less, and the tile must fit a block's shared memory).
+inline int smem_optin() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 0;
+  return optin;
+}
+
+// Fills `L`, the tile height and the shared-memory size of a stage-A kernel
+// for these groups (extra_row: bytes the kernel adds a tile row): the 16-row
+// tile where it fits a block's shared memory, else the 8-row one; false if
+// the shapes exceed the kernels' limits (those of make_layout, the embeds'
+// weights in two ring entries, the rows 256 bf16 wide).
 inline bool stage_a_layout(int obs_dim, int n_groups, const int* group_k, const int* group_d,
-                    size_t extra_smem, TcLayout& L, size_t* smem) {
+                           size_t extra_row, TcLayout& L, int* ta, size_t* smem) {
   TokenLayout lay;
   if (n_groups < 1 || n_groups > MAX_GROUPS ||
       !make_layout(obs_dim, n_groups, group_k, group_d, lay) || !make_tc_layout(lay, L))
     return false;
-  *smem = tc_smem_bytes(lay.n_tokens, L.xw) + extra_smem;
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return false;
-  return *smem <= (size_t)optin;
+  const size_t optin = (size_t)smem_optin();
+  *ta = 16;
+  *smem = tc_carve<16, false>(nullptr, lay.n_tokens, L.xw, nullptr) + 16 * extra_row;
+  if (*smem > optin) {
+    *ta = 8;
+    *smem = tc_carve<8, false>(nullptr, lay.n_tokens, L.xw, nullptr) + 8 * extra_row;
+  }
+  return *smem <= optin;
 }
 
 // Blocks per network of a persistent stage-A grid: as many as are resident on
 // the card at once, shared by `n_nets` networks, no more than there are tiles.
 template <typename Kernel>
-inline cudaError_t stage_a_blocks(Kernel kernel, size_t smem, int n_nets, int s_pad, int* blocks) {
+inline cudaError_t stage_a_blocks(Kernel kernel, size_t smem, int ta, int n_nets, int s_pad,
+                                  int* blocks) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -954,7 +1124,7 @@ inline cudaError_t stage_a_blocks(Kernel kernel, size_t smem, int n_nets, int s_
       cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int n_tiles = s_pad / TA;
+  const int n_tiles = s_pad / ta;
   int b = sms * per_sm / n_nets;
   if (b > n_tiles) b = n_tiles;
   *blocks = b < 1 ? 1 : b;

@@ -1,74 +1,118 @@
 // Encoder + linear head forward (PartialAttentionEncoder) for one or two
-// networks over the same packed observation rows.
+// networks over the same packed observation rows, on the tensor cores.
 //
 // Replaces the TPU kernels mupe_tpu/ops/fused_encoder.py `_fwd_kernel`
 // (one network, the bootstrap value) and `_pair_fwd_kernel` (actor and
 // critic together, the rollout's act).  It computes `_forward_core`
-// (fused_encoder.py:278-364) row by row:
+// (fused_encoder.py:278-364) for a tile of rows:
 //   per-token embed -> LN0 -> q (query token only), k, v (all tokens)
 //   -> single-query softmax over the tokens -> out-proj + residual -> LN1
 //   -> tanh-GELU FFN + residual -> LN2 -> linear head.
 //
-// Numerics follow `_forward_core` exactly at its rounding points: every
-// matmul operand is rounded to bf16 and summed in f32 (`_mm`, the head
-// included); the embeds, h_all, ks_all and vs_all are bf16 values; h0 (the
-// query token's LN0 output) stays f32 for the residual; q, the scores, the
-// softmax and the LayerNorm statistics (var = E[x^2] - m^2, eps 1e-6) are f32.
+// Numerics follow `_forward_core` at its rounding points: every matmul
+// operand is rounded to bf16 and summed in f32 (`_mm`, the head included);
+// the embeds, h_all, ks_all and vs_all are bf16 values; h0 (the query
+// token's LN0 output) stays f32 for the residual; q, the scores, the softmax
+// and the LayerNorm statistics (var = E[x^2] - m^2, eps 1e-6) are f32.  The
+// tile code is `tc_forward` / `tc_head` of encoder_bwd_tile.cuh in its
+// forward-only mode: the products run on the tensor cores (mma.sync
+// m16n8k16) exactly as in the backward's recomputed forward, so the backward
+// differentiates the outputs this kernel gives.
 //
-// What bounds it on an H100: arithmetic.  A row costs ~270K multiply-adds
-// per network (the k/v projections of all tokens are 3/4 of it) and reads
-// 56 floats, so the kernel sits far above the memory roofline.  Both
-// networks' weights (~210K floats) stay resident in the 50 MB L2.
-// Design: one block of 128 threads per tile of TR rows and per network
-// (blockIdx.y), thread j owning feature column j.  All activations of the
-// tile live in shared memory (bf16 where the reference rounds, f32
-// elsewhere); matmul operands are read as 8 bf16 values per 16-byte
-// shared load and multiplied by weights streamed from L1/L2 with FMA.
-// Cross-column reductions (LayerNorm, scores, head) are warp shuffles.
-// Rows past S in the last tile are computed on zeros and never stored.
-// The tile code is `tile_forward` / `tile_head` of encoder_tile.cuh, which
-// the forward + loss kernel runs too.
-// Tensor-core products (mma.sync / wgmma) are left for a later change.
+// What bounds it on an H100: a row costs ~270K multiply-adds per network
+// (the k/v projections of all tokens are 3/4 of it) and reads 56 floats, so
+// its bound is the tensor cores' rate; in practice the tile's chain of ~20
+// steps between __syncthreads and its weight fills.  Design: one block of 8
+// warps per tile of TA rows and per network (blockIdx.y).  The weights are
+// read from the f32 leaves (~100K floats a network, resident in L2) and
+// rounded to bf16 as they fill one shared-memory slot (`Slot`), so a call
+// makes no copy of them; without the backward's residuals a 16-row tile
+// takes ~111 KB of shared memory at up to 6 tokens, so two blocks share an
+// SM and one computes while the other fills its slot.  Specs whose 16-row
+// tile does not allow two blocks an SM (7 or 8 tokens, wide embeds) take
+// 8-row tiles.  Rows past S are computed on zeros and never stored.
 
-#include "encoder_tile.cuh"
+#include "encoder_bwd_tile.cuh"
 
 namespace {
 
-struct NetParams {
+struct FNet {
   const float* leaf[MAX_LEAVES];
+  WSeq seq;  // the f32 weights a tile loads, in order
   float* out;
   int head_dim;
 };
 
-struct EncoderArgs {
+struct FArgs {
   const float* x;
   int S;
   float scale;
-  TokenLayout lay;
-  NetParams net[2];
+  TcLayout L;
+  FNet net[2];
 };
 
-__global__ void __launch_bounds__(NTHREADS)
-    encoder_fwd_kernel(const __grid_constant__ EncoderArgs args) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const TileBufs B = fwd_bufs(smem_raw, args.lay.n_tokens, args.lay.obs_pad);
-  const NetParams& net = args.net[blockIdx.y];
+template <int TA>
+__global__ void __launch_bounds__(NTA, 2) encoder_fwd_kernel(const __grid_constant__ FArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const TcLayout& L = a.L;
+  const FNet& net = a.net[blockIdx.y];
+  TcBufs B;
+  tc_carve<TA, true>(smem, L.lay.n_tokens, L.xw, &B);
+  Slot src = {reinterpret_cast<__nv_bfloat16*>(smem), 0};
   const int j = threadIdx.x;
-  const int row0 = blockIdx.x * TR;
-  load_rows(B.xs, args.x, args.S, args.lay, row0, j);
-  __syncthreads();
-  tile_forward(args.lay, net.leaf, args.scale, B, j);
-  // the head; ragged rows never stored
-  const int base = 2 * args.lay.n_groups;
-  tile_head(B.Y2b, net.leaf[base + 18], net.leaf[base + 19], net.head_dim,
-            net.out + (size_t)row0 * net.head_dim, net.head_dim, args.S - row0, j);
+  const int hd = net.head_dim;
+  const int base = 2 * L.lay.n_groups;
+  const int row0 = blockIdx.x * TA;
+  load_head(B.WH[0], net.leaf[base + 18], hd, j);
+  tc_load_rows<TA>(L, B, a.x, a.S, row0, nullptr, 0, j);
+  tc_forward<TA, true>(L, net.leaf, a.scale, B, src, net.seq, nullptr, 0, row0, a.S, j);
+  tc_head<TA>(B, B.WH[0], net.leaf[base + 19], hd, net.out + (size_t)row0 * hd, hd,
+              a.S - row0, j);
+}
+
+// Sets, once a device, both instances' shared-memory attribute to the most a
+// block may have, so that no later call lowers it below another spec's
+// carve; then picks the tile height by arithmetic: 16 rows where two such
+// blocks fit an SM's shared memory (their registers do, by the launch
+// bounds), else 8.  A call does no host work but its launch after the first.
+constexpr int FWD_MAX_DEVICES = 64;
+
+cudaError_t fwd_tile_rows(const TcLayout& L, int* ta) {
+  static int sm_bytes[FWD_MAX_DEVICES] = {};  // 0: the device not set up yet
+  static int reserved[FWD_MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= FWD_MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (sm_bytes[dev] == 0) {
+    int optin = 0, per_sm = 0, res = 0;
+    if ((err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+            cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                                      dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&res, cudaDevAttrReservedSharedMemoryPerBlock, dev)) !=
+            cudaSuccess ||
+        (err = cudaFuncSetAttribute(encoder_fwd_kernel<16>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, optin)) !=
+            cudaSuccess ||
+        (err = cudaFuncSetAttribute(encoder_fwd_kernel<8>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, optin)) !=
+            cudaSuccess)
+      return err;
+    reserved[dev] = res;
+    sm_bytes[dev] = per_sm;
+  }
+  const size_t s16 = tc_carve<16, true>(nullptr, L.lay.n_tokens, L.xw, nullptr);
+  *ta = 2 * (s16 + reserved[dev]) <= (size_t)sm_bytes[dev] ? 16 : 8;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // x: [S, obs_dim] f32; leaves: n_nets * n_leaves device pointers (canonical
-// order of mupe_tpu_torch/ops/fused_encoder.py); outs: n_nets device
-// pointers to [S, head_dims[i]] f32.  Returns a cudaError_t.
+// order of mupe_tpu_torch/ops/fused_encoder.py; the weights 16-byte
+// aligned); outs: n_nets device pointers to [S, head_dims[i]] f32.  Returns
+// a cudaError_t.
 extern "C" int mupe_encoder_forward(const float* x, int S, int obs_dim, int n_groups,
                                     const int* group_k, const int* group_d, int n_nets,
                                     const void* const* leaves, int n_leaves,
@@ -77,25 +121,36 @@ extern "C" int mupe_encoder_forward(const float* x, int S, int obs_dim, int n_gr
   if (n_nets < 1 || n_nets > 2 || n_groups < 1 || n_groups > MAX_GROUPS ||
       n_leaves != 2 * n_groups + N_FIXED || obs_dim < 1 || obs_dim > MAX_OBS || S < 0)
     return (int)cudaErrorInvalidValue;
-  EncoderArgs args = {};
-  if (!make_layout(obs_dim, n_groups, group_k, group_d, args.lay))
+  FArgs a = {};
+  TokenLayout lay;
+  if (!make_layout(obs_dim, n_groups, group_k, group_d, lay) || !make_tc_layout(lay, a.L))
     return (int)cudaErrorInvalidValue;
-  args.x = x;
-  args.S = S;
-  args.scale = (float)(1.0 / 11.313708498984761);  // 1 / sqrt(E)
+  a.x = x;
+  a.S = S;
+  a.scale = (float)(1.0 / 11.313708498984761);  // 1 / sqrt(E)
   for (int n = 0; n < n_nets; ++n) {
     if (head_dims[n] < 1 || head_dims[n] > MAX_HEAD) return (int)cudaErrorInvalidValue;
+    FNet& net = a.net[n];
     for (int l = 0; l < n_leaves; ++l)
-      args.net[n].leaf[l] = static_cast<const float*>(leaves[n * n_leaves + l]);
-    args.net[n].out = outs[n];
-    args.net[n].head_dim = head_dims[n];
+      net.leaf[l] = static_cast<const float*>(leaves[n * n_leaves + l]);
+    seq_append_f32(net.seq, a.L, net.leaf);
+    for (int p = 0; p < net.seq.n_parts; ++p)  // the slot's float4 loads
+      if (reinterpret_cast<uintptr_t>(net.seq.part[p].src) % 16)
+        return (int)cudaErrorInvalidValue;
+    net.out = outs[n];
+    net.head_dim = head_dims[n];
   }
   if (S == 0) return (int)cudaSuccess;
-  const size_t smem = fwd_smem_bytes(args.lay.n_tokens, args.lay.obs_pad);
-  cudaError_t err = cudaFuncSetAttribute(
-      encoder_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int ta = 0;
+  cudaError_t err = fwd_tile_rows(a.L, &ta);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + TR - 1) / TR, n_nets);
-  encoder_fwd_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(args);
+  const dim3 grid((S + ta - 1) / ta, n_nets);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = ta == 16 ? tc_carve<16, true>(nullptr, lay.n_tokens, a.L.xw, nullptr)
+                               : tc_carve<8, true>(nullptr, lay.n_tokens, a.L.xw, nullptr);
+  if (ta == 16)
+    encoder_fwd_kernel<16><<<grid, NTA, smem, s>>>(a);
+  else
+    encoder_fwd_kernel<8><<<grid, NTA, smem, s>>>(a);
   return (int)cudaGetLastError();
 }

@@ -26,7 +26,8 @@
 // a row reduction between __syncthreads, bounds it, at the issue rate of
 // the CUDA cores' share (LayerNorm, softmax, the attention sums, staging):
 // a block holds one 16-row tile in ~225 KB of shared memory (the residuals,
-// the two weight slots), so one block of 8 warps runs per SM.  Design: a
+// the two weight slots), so one block of 8 warps runs per SM; where 16 rows
+// do not fit (7 or 8 tokens, or wide embeds), the tile has 8.  Design: a
 // persistent grid of one block per SM (shared by the networks); block b
 // walks the row tiles b, b + G, ... and keeps its column sums in registers,
 // written once to its two slices of a [2G, P] workspace that
@@ -58,22 +59,24 @@ struct AArgs {
   ANet net[2];
 };
 
+template <int TA>
 __global__ void __launch_bounds__(NTA, 1)
     encoder_bwd_stage_a(const __grid_constant__ AArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const TcLayout& L = a.L;
   const ANet& net = a.net[blockIdx.y];
-  const TcBufs B = tc_bufs(smem, L.lay.n_tokens, L.xw);
+  TcBufs B;
+  tc_carve<TA, false>(smem, L.lay.n_tokens, L.xw, &B);
   const int j = threadIdx.x;
   const int hd = net.head_dim;
   load_head(B.WH[0], net.wh, hd, j);
   ColSums cs;
   colsums_zero(cs);
   Ring R;
-  ring_start(R, smem, net.seq, j);
+  R.start(smem, net.seq, j);
   for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
     const int row0 = tile * TA;
-    tc_load_rows(L, B, a.x, a.S, row0, net.st + N_STAGED, a.s_pad, j);
+    tc_load_rows<TA>(L, B, a.x, a.S, row0, net.st + N_STAGED, a.s_pad, j);
     for (int idx = j; idx < TA * MAX_HEAD; idx += NTA) {
       const int r = idx / MAX_HEAD;
       const int o = idx - r * MAX_HEAD;
@@ -83,9 +86,9 @@ __global__ void __launch_bounds__(NTA, 1)
       B.DOb[idx] = __float2bfloat16_rn(d);
     }
     __syncthreads();
-    tc_forward(L, net.leaf, a.scale, B, R, net.seq, net.st, a.s_pad, row0, a.S, j);
-    tc_backward(L, net.leaf, B.WH[0], hd, a.scale, B, R, net.seq, net.st, a.s_pad, row0, a.S,
-                cs, j);
+    tc_forward<TA, false>(L, net.leaf, a.scale, B, R, net.seq, net.st, a.s_pad, row0, a.S, j);
+    tc_backward<TA>(L, net.leaf, B.WH[0], hd, a.scale, B, R, net.seq, net.st, a.s_pad, row0,
+                    a.S, cs, j);
   }
   cp_async_wait<0>();
   colsums_store(cs, net.ws + (size_t)blockIdx.x * 2 * colsum_floats(L.lay.n_groups, hd),
@@ -101,10 +104,12 @@ extern "C" int mupe_encoder_bwd_blocks(int obs_dim, int n_groups, const int* gro
                                        const int* group_d, int n_nets, int s_pad, int* blocks) {
   TcLayout L;
   size_t smem = 0;
+  int ta = 0;
   if (n_nets < 1 || n_nets > 2 || s_pad < 0 || s_pad % 32 ||
-      !stage_a_layout(obs_dim, n_groups, group_k, group_d, 0, L, &smem))
+      !stage_a_layout(obs_dim, n_groups, group_k, group_d, 0, L, &ta, &smem))
     return (int)cudaErrorInvalidValue;
-  return (int)stage_a_blocks(encoder_bwd_stage_a, smem, n_nets, s_pad, blocks);
+  return ta == 16 ? (int)stage_a_blocks(encoder_bwd_stage_a<16>, smem, ta, n_nets, s_pad, blocks)
+                  : (int)stage_a_blocks(encoder_bwd_stage_a<8>, smem, ta, n_nets, s_pad, blocks);
 }
 
 // x: [S, obs_dim] f32 (s_pad >= S staged rows, a multiple of 32); leaves:
@@ -128,14 +133,15 @@ extern "C" int mupe_encoder_bwd_operands(const float* x, int S, int s_pad, int o
                                          int blocks, void* stream) {
   AArgs a = {};
   size_t smem = 0;
+  int ta = 0;
   if (n_nets < 1 || n_nets > 2 || n_leaves != 2 * n_groups + N_FIXED || S < 0 || s_pad < S ||
       s_pad % 32 || blocks < 1 ||
-      !stage_a_layout(obs_dim, n_groups, group_k, group_d, 0, a.L, &smem))
+      !stage_a_layout(obs_dim, n_groups, group_k, group_d, 0, a.L, &ta, &smem))
     return (int)cudaErrorInvalidValue;
   a.x = x;
   a.S = S;
   a.s_pad = s_pad;
-  a.n_tiles = s_pad / TA;
+  a.n_tiles = s_pad / ta;
   a.scale = (float)(1.0 / 11.313708498984761);  // 1 / sqrt(E)
   SegArgs seg = {};
   size_t ws_off = 0;
@@ -158,11 +164,12 @@ extern "C" int mupe_encoder_bwd_operands(const float* x, int S, int s_pad, int o
     colsum_segments(seg, net.ws, 2 * blocks, n_groups, head_dims[n], off, grads[n]);
     ws_off += (size_t)2 * blocks * colsum_floats(n_groups, head_dims[n]);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      encoder_bwd_stage_a, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = ta == 16 ? encoder_bwd_stage_a<16> : encoder_bwd_stage_a<8>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  encoder_bwd_stage_a<<<dim3(blocks, n_nets), NTA, smem, s>>>(a);
+  kernel<<<dim3(blocks, n_nets), NTA, smem, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return (int)sum_segments(seg, s);
 }

@@ -29,8 +29,8 @@
 // adds the actor's backward chain (~270K more a row, tensor cores) and 8 KB
 // of staged operands a row, and like the backward's stage A it is bound by
 // its chain of dependent steps at one 16-row tile (8 warps) per SM (~226 KB
-// of shared memory).  The loss math is ~100 flops a row and the rows' loss inputs and
-// outputs ~25 floats.  Design: the loss needs a row's mean and value in one
+// of shared memory; 8 rows where 16 do not fit).  The loss math is ~100
+// flops a row and the rows' loss inputs and outputs ~25 floats.  Design: the loss needs a row's mean and value in one
 // block, so one block runs the critic's forward first, keeping its value in
 // shared memory, then the actor's in the same buffers; one thread a row then
 // runs the loss.  Rows past S are computed on zeros and never stored.  The
@@ -201,13 +201,15 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
+template <int TA>
 __global__ void __launch_bounds__(NTA, 1)
     pair_fwd_loss_agrad_kernel(const __grid_constant__ AgradArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const FwdLossArgs& f = a.f;
   const TcLayout& L = a.L;
-  const TcBufs B = tc_bufs(smem, L.lay.n_tokens, L.xw);
-  float* VOUT = reinterpret_cast<float*>(smem + tc_smem_bytes(L.lay.n_tokens, L.xw));
+  TcBufs B;
+  const size_t tc_bytes = tc_carve<TA, false>(smem, L.lay.n_tokens, L.xw, &B);
+  float* VOUT = reinterpret_cast<float*>(smem + tc_bytes);
   float* LIN = VOUT + TA;  // [TA][LW]
   const int G = L.lay.n_groups;
   const int base = 2 * G;
@@ -218,17 +220,17 @@ __global__ void __launch_bounds__(NTA, 1)
   ColSums cs;
   colsums_zero(cs);
   Ring R;
-  ring_start(R, smem, a.seq, j);
+  R.start(smem, a.seq, j);
   for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
     const int row0 = tile * TA;
-    tc_load_rows(L, B, f.x, f.S, row0, a.st + N_STAGED, a.s_pad, j);
+    tc_load_rows<TA>(L, B, f.x, f.S, row0, a.st + N_STAGED, a.s_pad, j);
     load_loss_rows(LIN, f.loss, f.S, row0, TA, NTA, j);
     __syncthreads();
     // the critic first (its value kept in VOUT), then the actor with its mean in DOUT
-    tc_forward(L, f.lc, f.scale, B, R, a.seq, nullptr, a.s_pad, row0, f.S, j);
-    tc_head(B, B.WH[1], f.lc[base + 19], 1, VOUT, 1, j);
-    tc_forward(L, f.la, f.scale, B, R, a.seq, a.st, a.s_pad, row0, f.S, j);
-    tc_head(B, B.WH[0], f.la[base + 19], A, B.DOUT, MAX_HEAD, j);
+    tc_forward<TA, false>(L, f.lc, f.scale, B, R, a.seq, nullptr, a.s_pad, row0, f.S, j);
+    tc_head<TA>(B, B.WH[1], f.lc[base + 19], 1, VOUT, 1, TA, j);
+    tc_forward<TA, false>(L, f.la, f.scale, B, R, a.seq, a.st, a.s_pad, row0, f.S, j);
+    tc_head<TA>(B, B.WH[0], f.la[base + 19], A, B.DOUT, MAX_HEAD, TA, j);
     __syncthreads();
     if (j < TA) {  // the mean in DOUT becomes the actor's cotangent dmu
       const int row = row0 + j;
@@ -241,7 +243,7 @@ __global__ void __launch_bounds__(NTA, 1)
       }
     }
     __syncthreads();
-    tc_backward(L, f.la, B.WH[0], A, f.scale, B, R, a.seq, a.st, a.s_pad, row0, f.S, cs, j);
+    tc_backward<TA>(L, f.la, B.WH[0], A, f.scale, B, R, a.seq, a.st, a.s_pad, row0, f.S, cs, j);
   }
   cp_async_wait<0>();
   colsums_store(cs, a.ws + (size_t)blockIdx.x * 2 * colsum_floats(G, A), G, A, j);
@@ -251,7 +253,7 @@ size_t fwd_loss_smem(const TokenLayout& lay) {
   return fwd_smem_bytes(lay.n_tokens, lay.obs_pad) + (size_t)(TR + TR * MAX_HEAD + TR * LW) * 4;
 }
 
-constexpr size_t AGRAD_EXTRA_SMEM = (size_t)(TA + TA * LW) * 4;  // VOUT, LIN
+constexpr size_t AGRAD_ROW_SMEM = (size_t)(1 + LW) * 4;  // a tile row's VOUT, LIN
 
 // Fills everything but the outputs and the workspace; false on bad shapes.
 bool fill_args(FwdLossArgs& f, const float* x, int S, int obs_dim, int n_groups,
@@ -326,10 +328,13 @@ extern "C" int mupe_encoder_fwd_loss_agrad_blocks(int obs_dim, int n_groups, con
                                                   const int* group_d, int s_pad, int* blocks) {
   TcLayout L;
   size_t smem = 0;
+  int ta = 0;
   if (s_pad < 0 || s_pad % 32 ||
-      !stage_a_layout(obs_dim, n_groups, group_k, group_d, AGRAD_EXTRA_SMEM, L, &smem))
+      !stage_a_layout(obs_dim, n_groups, group_k, group_d, AGRAD_ROW_SMEM, L, &ta, &smem))
     return (int)cudaErrorInvalidValue;
-  return (int)stage_a_blocks(pair_fwd_loss_agrad_kernel, smem, 1, s_pad, blocks);
+  return ta == 16
+             ? (int)stage_a_blocks(pair_fwd_loss_agrad_kernel<16>, smem, ta, 1, s_pad, blocks)
+             : (int)stage_a_blocks(pair_fwd_loss_agrad_kernel<8>, smem, ta, 1, s_pad, blocks);
 }
 
 // As mupe_encoder_fwd_loss, with outs: dv1 [S], dv2 [S], stats [S, 9 + A];
@@ -351,10 +356,11 @@ extern "C" int mupe_encoder_fwd_loss_agrad(const float* x, int S, int s_pad, int
                                            void* stream) {
   AgradArgs a = {};
   size_t smem = 0;
+  int ta = 0;
   if (blocks < 1 || s_pad < S || s_pad % 32 ||
       !fill_args(a.f, x, S, obs_dim, n_groups, group_k, group_d, leaves, n_leaves, action_dim,
                  rows, consts) ||
-      !stage_a_layout(obs_dim, n_groups, group_k, group_d, AGRAD_EXTRA_SMEM, a.L, &smem))
+      !stage_a_layout(obs_dim, n_groups, group_k, group_d, AGRAD_ROW_SMEM, a.L, &ta, &smem))
     return (int)cudaErrorInvalidValue;
   int off[MAX_LEAVES], P = 0;
   if (!leaf_offsets(a.L.lay, group_d, action_dim, off, &P) || P != n_params)
@@ -371,14 +377,15 @@ extern "C" int mupe_encoder_fwd_loss_agrad(const float* x, int S, int s_pad, int
   for (int i = 0; i < N_STAGED + n_groups; ++i) a.st[i] = static_cast<__nv_bfloat16*>(staged[i]);
   a.ws = ws;
   a.s_pad = s_pad;
-  a.n_tiles = s_pad / TA;
+  a.n_tiles = s_pad / ta;
   SegArgs seg = {};
   colsum_segments(seg, ws, 2 * blocks, n_groups, action_dim, off, grads);
-  cudaError_t err = cudaFuncSetAttribute(
-      pair_fwd_loss_agrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = ta == 16 ? pair_fwd_loss_agrad_kernel<16> : pair_fwd_loss_agrad_kernel<8>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  pair_fwd_loss_agrad_kernel<<<blocks, NTA, smem, s>>>(a);
+  kernel<<<blocks, NTA, smem, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return (int)sum_segments(seg, s);
 }

@@ -14,8 +14,10 @@
 // What bounds it on an H100: the recurrence's arithmetic.  A window costs
 // about 3x the forward's 204,800 multiply-adds and reads 700 bytes.  Design:
 // a persistent grid; each block of 256 threads (one per gate column) walks
-// tiles of TB windows.  Per tile it runs the forward, keeping h (bf16, the
-// matmul operand) and c (f32) of every step in shared memory, then walks the
+// tiles of TB windows (8; 4 for inputs wider than 16, whose dwi takes 64
+// registers a thread and whose tile would not fit shared memory at 8).  Per
+// tile it runs the forward, keeping h (bf16, the matmul operand) and c (f32)
+// of every step in shared memory, then walks the
 // steps backwards, recomputing each step's gate pre-activations from x_t and
 // h_{t-1} with the forward's own code (so the gates are bit-identical) rather
 // than storing them.  Thread g accumulates column g of dwh, dwi and db in
@@ -31,11 +33,10 @@ namespace {
 
 constexpr int H = 64;
 constexpr int G4 = 4 * H;         // gate columns == threads per block
-constexpr int TB = 8;             // windows per tile
-constexpr int MAX_F = 16;
-constexpr int MAX_T = 16;
-constexpr int MAX_O = 16;
-constexpr int PAIRS = TB * H / G4;  // (window, hidden) pairs per thread
+constexpr int NARROW_F = 16;      // inputs up to this wide take 8-window tiles
+constexpr int MAX_F = 64;
+constexpr int MAX_T = 32;
+constexpr int MAX_O = 64;
 constexpr int WH_LD = G4 + 2;     // padded bf16 row stride of wh in shared memory
 
 struct TPBwdArgs {
@@ -56,9 +57,9 @@ struct Smem {
   float* Cs;    // [T+1][TB][H] cell state after each step
   float* Gs;    // [TB][4H] gate pre-activations, then their cotangents
   float* DH;    // [TB][H] cotangent of h
-  float* DZ;    // [TB][MAX_O]
+  float* DZ;    // [TB][O]
   float* DWFC;  // [H][O] block accumulator
-  float* DBFC;  // [MAX_O]
+  float* DBFC;  // [O]
   __nv_bfloat16* Wi;   // [F][4H]
   __nv_bfloat16* Whs;  // [H][WH_LD]
   __nv_bfloat16* DGb;  // [TB][4H]
@@ -68,7 +69,8 @@ struct Smem {
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
-__host__ __device__ inline size_t carve(unsigned char* base, int T, int F, Smem* s) {
+template <int TB>
+__host__ __device__ inline size_t carve(unsigned char* base, int T, int F, int O, Smem* s) {
   size_t o = 0;
   auto take = [&](size_t bytes) {
     unsigned char* p = base + o;
@@ -78,9 +80,9 @@ __host__ __device__ inline size_t carve(unsigned char* base, int T, int F, Smem*
   unsigned char* cs = take((size_t)(T + 1) * TB * H * 4);
   unsigned char* gs = take((size_t)TB * G4 * 4);
   unsigned char* dh = take((size_t)TB * H * 4);
-  unsigned char* dz = take((size_t)TB * MAX_O * 4);
-  unsigned char* dwfc = take((size_t)H * MAX_O * 4);
-  unsigned char* dbfc = take((size_t)MAX_O * 4);
+  unsigned char* dz = take((size_t)TB * O * 4);
+  unsigned char* dwfc = take((size_t)H * O * 4);
+  unsigned char* dbfc = take((size_t)O * 4);
   unsigned char* wi = take((size_t)F * G4 * 2);
   unsigned char* whs = take((size_t)H * WH_LD * 2);
   unsigned char* dgb = take((size_t)TB * G4 * 2);
@@ -104,6 +106,7 @@ __host__ __device__ inline size_t carve(unsigned char* base, int T, int F, Smem*
 
 // Gs[w][g] = (x_t W_i + h_{t-1} W_h)[w][g] + b[g] for the tile's windows:
 // bf16 operands, f32 sums, the bias added after both products.
+template <int TB>
 __device__ __forceinline__ void gate_preacts(const Smem& s, int t, int T, int F, int g,
                                              float bg) {
   const int TF = T * F;
@@ -134,10 +137,13 @@ __device__ __forceinline__ void gate_preacts(const Smem& s, int t, int T, int F,
   for (int w = 0; w < TB; ++w) s.Gs[w * G4 + g] = (ax[w] + ah[w]) + bg;
 }
 
+// TB windows a tile, inputs up to MAXF wide (dwi's registers).
+template <int TB, int MAXF>
 __global__ void __launch_bounds__(G4, 1) tp_lstm_bwd_kernel(const __grid_constant__ TPBwdArgs a) {
+  constexpr int PAIRS = TB * H / G4;  // (window, hidden) pairs per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem s;
-  carve(smem_raw, a.T, a.F, &s);
+  carve<TB>(smem_raw, a.T, a.F, a.O, &s);
   const int g = threadIdx.x;
   const int T = a.T, F = a.F, O = a.O, TF = T * F;
 
@@ -147,11 +153,11 @@ __global__ void __launch_bounds__(G4, 1) tp_lstm_bwd_kernel(const __grid_constan
   for (int idx = g; idx < H * O; idx += G4) s.DWFC[idx] = 0.f;
   if (g < O) s.DBFC[g] = 0.f;
   const float bg = __ldg(a.b + g);
-  float dwh[H], dwi[MAX_F], db = 0.f;
+  float dwh[H], dwi[MAXF], db = 0.f;
 #pragma unroll
   for (int k = 0; k < H; ++k) dwh[k] = 0.f;
 #pragma unroll
-  for (int f = 0; f < MAX_F; ++f) dwi[f] = 0.f;
+  for (int f = 0; f < MAXF; ++f) dwi[f] = 0.f;
   __syncthreads();
 
   for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
@@ -170,7 +176,7 @@ __global__ void __launch_bounds__(G4, 1) tp_lstm_bwd_kernel(const __grid_constan
 
     // forward, keeping h and c of every step
     for (int t = 0; t < T; ++t) {
-      gate_preacts(s, t, T, F, g, bg);
+      gate_preacts<TB>(s, t, T, F, g, bg);
       __syncthreads();
 #pragma unroll
       for (int p = 0; p < PAIRS; ++p) {
@@ -200,7 +206,7 @@ __global__ void __launch_bounds__(G4, 1) tp_lstm_bwd_kernel(const __grid_constan
         acc = fmaf(__bfloat162float(hT[w * H + k]), bf16r(__ldg(a.wfc + k * O + o)), acc);
       const float y = tanhf(acc + __ldg(a.bfc + o));
       const float dyv = n < a.N ? a.dy[(size_t)n * O + o] : 0.f;
-      s.DZ[w * MAX_O + o] = dyv * (1.0f - y * y);
+      s.DZ[w * O + o] = dyv * (1.0f - y * y);
     }
     __syncthreads();
     for (int idx = g; idx < H * O; idx += G4) {  // dwfc += bf16(h_T)^T bf16(dz)
@@ -209,13 +215,13 @@ __global__ void __launch_bounds__(G4, 1) tp_lstm_bwd_kernel(const __grid_constan
       float acc = 0.f;
 #pragma unroll
       for (int w = 0; w < TB; ++w)
-        acc = fmaf(__bfloat162float(hT[w * H + k]), bf16r(s.DZ[w * MAX_O + o]), acc);
+        acc = fmaf(__bfloat162float(hT[w * H + k]), bf16r(s.DZ[w * O + o]), acc);
       s.DWFC[idx] += acc;
     }
     if (g < O) {
       float acc = 0.f;
 #pragma unroll
-      for (int w = 0; w < TB; ++w) acc += s.DZ[w * MAX_O + g];
+      for (int w = 0; w < TB; ++w) acc += s.DZ[w * O + g];
       s.DBFC[g] += acc;
     }
     for (int idx = g; idx < TB * H; idx += G4) {  // dh = bf16(dz) bf16(wfc)^T
@@ -223,7 +229,7 @@ __global__ void __launch_bounds__(G4, 1) tp_lstm_bwd_kernel(const __grid_constan
       const int k = idx - w * H;
       float acc = 0.f;
       for (int o = 0; o < O; ++o)
-        acc = fmaf(bf16r(s.DZ[w * MAX_O + o]), bf16r(__ldg(a.wfc + k * O + o)), acc);
+        acc = fmaf(bf16r(s.DZ[w * O + o]), bf16r(__ldg(a.wfc + k * O + o)), acc);
       s.DH[idx] = acc;
     }
     __syncthreads();
@@ -233,7 +239,7 @@ __global__ void __launch_bounds__(G4, 1) tp_lstm_bwd_kernel(const __grid_constan
 #pragma unroll
     for (int p = 0; p < PAIRS; ++p) dc[p] = 0.f;
     for (int t = T - 1; t >= 0; --t) {
-      gate_preacts(s, t, T, F, g, bg);
+      gate_preacts<TB>(s, t, T, F, g, bg);
       __syncthreads();
 #pragma unroll
       for (int p = 0; p < PAIRS; ++p) {
@@ -290,7 +296,7 @@ __global__ void __launch_bounds__(G4, 1) tp_lstm_bwd_kernel(const __grid_constan
         for (int i = 0; i < 8; ++i) dwh[k + i] += acc[i];
       }
 #pragma unroll
-      for (int f = 0; f < MAX_F; ++f) {
+      for (int f = 0; f < MAXF; ++f) {
         if (f < F) {
           float acc = 0.f;
 #pragma unroll
@@ -300,25 +306,25 @@ __global__ void __launch_bounds__(G4, 1) tp_lstm_bwd_kernel(const __grid_constan
         }
       }
       __syncthreads();
-      {  // dh[w][k] = sum_g bf16(dg)[w][g] bf16(wh)[k][g], two windows a thread
+      {  // dh[w][k] = sum_g bf16(dg)[w][g] bf16(wh)[k][g], PAIRS windows a thread
         const int k = g & (H - 1);
-        const int wa = (g / H) * 2;
-        const int wb = wa + 1;
-        float acc_a = 0.f, acc_b = 0.f;
+        const int w0 = (g / H) * PAIRS;
+        float acc[PAIRS];
+#pragma unroll
+        for (int p = 0; p < PAIRS; ++p) acc[p] = 0.f;
         for (int c = 0; c < G4; c += 2) {
           const float2 wv = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(s.Whs + k * WH_LD + c));
-          const float2 da = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(s.DGb + wa * G4 + c));
-          const float2 dbv = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(s.DGb + wb * G4 + c));
-          acc_a = fmaf(da.x, wv.x, acc_a);
-          acc_a = fmaf(da.y, wv.y, acc_a);
-          acc_b = fmaf(dbv.x, wv.x, acc_b);
-          acc_b = fmaf(dbv.y, wv.y, acc_b);
+#pragma unroll
+          for (int p = 0; p < PAIRS; ++p) {
+            const float2 d = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(s.DGb + (w0 + p) * G4 + c));
+            acc[p] = fmaf(d.x, wv.x, acc[p]);
+            acc[p] = fmaf(d.y, wv.y, acc[p]);
+          }
         }
-        s.DH[wa * H + k] = acc_a;
-        s.DH[wb * H + k] = acc_b;
+#pragma unroll
+        for (int p = 0; p < PAIRS; ++p) s.DH[(w0 + p) * H + k] = acc[p];
       }
       __syncthreads();
     }
@@ -327,7 +333,7 @@ __global__ void __launch_bounds__(G4, 1) tp_lstm_bwd_kernel(const __grid_constan
   // this block's slice, in the flat order (wi, wh, b, wfc, bfc)
   float* ws = a.ws + (size_t)blockIdx.x * a.P;
 #pragma unroll
-  for (int f = 0; f < MAX_F; ++f)
+  for (int f = 0; f < MAXF; ++f)
     if (f < F) ws[f * G4 + g] = dwi[f];
 #pragma unroll
   for (int k = 0; k < H; ++k) ws[F * G4 + k * G4 + g] = dwh[k];
@@ -337,27 +343,43 @@ __global__ void __launch_bounds__(G4, 1) tp_lstm_bwd_kernel(const __grid_constan
   if (g < O) ws[off_fc + H * O + g] = s.DBFC[g];
 }
 
-static_assert(TB * H == 2 * G4, "the dh step gives each thread two windows");
+// The kernel for these shapes and its shared memory: 8-window tiles for
+// inputs up to 16 wide (the main path's), else 4.
+struct Plan {
+  void (*kernel)(TPBwdArgs);
+  int tb;
+  size_t smem;
+};
+
+Plan plan_for(int T, int F, int O) {
+  if (F <= NARROW_F)
+    return {tp_lstm_bwd_kernel<8, NARROW_F>, 8, carve<8>(nullptr, T, F, O, nullptr)};
+  return {tp_lstm_bwd_kernel<4, MAX_F>, 4, carve<4>(nullptr, T, F, O, nullptr)};
+}
+
+bool shapes_ok(int T, int F, int O) {
+  return T >= 1 && T <= MAX_T && F >= 1 && F <= MAX_F && O >= 1 && O <= MAX_O;
+}
 
 }  // namespace
 
 // Writes to *blocks the number of blocks (= workspace slices) that
 // mupe_tp_lstm_backward wants for N windows.  Returns a cudaError_t.
-extern "C" int mupe_tp_lstm_backward_blocks(int N, int T, int F, int* blocks) {
-  if (N < 0 || T < 1 || T > MAX_T || F < 1 || F > MAX_F) return (int)cudaErrorInvalidValue;
-  const size_t smem = carve(nullptr, T, F, nullptr);
+extern "C" int mupe_tp_lstm_backward_blocks(int N, int T, int F, int O, int* blocks) {
+  if (N < 0 || !shapes_ok(T, F, O)) return (int)cudaErrorInvalidValue;
+  const Plan plan = plan_for(T, F, O);
   cudaError_t err = cudaFuncSetAttribute(
-      tp_lstm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      plan.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tp_lstm_bwd_kernel, G4,
-                                                           smem)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, plan.kernel, G4,
+                                                           plan.smem)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int n_tiles = (N + TB - 1) / TB;
+  const int n_tiles = (N + plan.tb - 1) / plan.tb;
   int b = sms * per_sm;
   if (b > n_tiles) b = n_tiles;
   *blocks = b < 1 ? 1 : b;
@@ -372,16 +394,15 @@ extern "C" int mupe_tp_lstm_backward(const float* x, const float* dy, int N, int
                                      const float* wi, const float* wh, const float* b,
                                      const float* wfc, const float* bfc, int O, float* grad,
                                      float* ws, int blocks, void* stream) {
-  if (N < 0 || T < 1 || T > MAX_T || F < 1 || F > MAX_F || O < 1 || O > MAX_O || blocks < 1)
-    return (int)cudaErrorInvalidValue;
+  if (N < 0 || !shapes_ok(T, F, O) || blocks < 1) return (int)cudaErrorInvalidValue;
+  const Plan plan = plan_for(T, F, O);
   const int P = (F + H + 1) * G4 + H * O + O;
-  TPBwdArgs args = {x, dy, wi, wh, b, wfc, bfc, ws, N, T, F, O, (N + TB - 1) / TB, P};
-  const size_t smem = carve(nullptr, T, F, nullptr);
+  TPBwdArgs args = {x, dy, wi, wh, b, wfc, bfc, ws, N, T, F, O, (N + plan.tb - 1) / plan.tb, P};
   cudaError_t err = cudaFuncSetAttribute(
-      tp_lstm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      plan.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  tp_lstm_bwd_kernel<<<blocks, G4, smem, s>>>(args);
+  plan.kernel<<<blocks, G4, plan.smem, s>>>(args);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   SegArgs seg = {};
   seg.seg[seg.n++] = {ws, grad, blocks, P, P};

@@ -52,7 +52,8 @@ def build(
         future_prediction_step=env_cfg.future_prediction_step, window_step=env_cfg.window_step)
     algo_cfg = apply_overrides(algo_cfg, algo_overrides or {})
     policy = MAPPOPolicy(algo_cfg, n_agents=env.num_agents, action_dim=env.action_dim,
-                         obs_is_dict=True, tp_input_dim=env_cfg.tp_input_dim, device=device)
+                         obs_is_dict=True, tp_input_dim=env_cfg.tp_input_dim, device=device,
+                         tp_history_step=env_cfg.history_step)
     return env, policy, env_cfg, algo_cfg
 
 

@@ -271,6 +271,7 @@ class MAPPOPolicy:
         obs_is_dict: bool,
         tp_input_dim: Optional[int] = None,
         device: torch.device | str = "cuda",
+        tp_history_step: int = 10,
     ):
         unsupported = {
             "obs_is_dict=False": not obs_is_dict,
@@ -290,6 +291,7 @@ class MAPPOPolicy:
         self.n_agents = n_agents
         self.action_dim = action_dim
         self.tp_input_dim = tp_input_dim
+        self.tp_history_step = tp_history_step
         self.device = torch.device(device)
 
     def specs(self, obs: Dict[str, torch.Tensor]):
@@ -322,7 +324,7 @@ class MAPPOPolicy:
         if self.cfg.use_tp_net:
             tp_net = TPNet(
                 self.tp_input_dim, 3 * self.cfg.future_prediction_step,
-                leaves=tp_leaves, generator=generator, device=self.device,
+                history_step=self.tp_history_step, leaves=tp_leaves, generator=generator, device=self.device,
             )
         ts = MAPPOState(
             actor=EncoderHead(spec_a, actor_leaves).to(self.device),

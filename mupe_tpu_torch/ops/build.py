@@ -50,7 +50,7 @@ C_FUNCTIONS = {
         _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P,
     ),
     "mupe_weight_grads": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    "mupe_tp_lstm_backward_blocks": (_I, _I, _I, _P),
+    "mupe_tp_lstm_backward_blocks": (_I, _I, _I, _I, _P),
     "mupe_tp_lstm_backward": (
         _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P,
     ),

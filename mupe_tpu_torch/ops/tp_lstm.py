@@ -23,13 +23,11 @@ from . import build
 from .fused_encoder import _bf16, _f32
 from .tolerance import GradTol, KernelTol
 
+# The limits of both TP-LSTM kernels (`kernel_spec_ok`).
 _KERNEL_HIDDEN = 64
 _KERNEL_MAX_F = 64
 _KERNEL_MAX_T = 32
 _KERNEL_MAX_O = 64
-_BWD_MAX_F = 16
-_BWD_MAX_T = 16
-_BWD_MAX_O = 16
 # Kernel vs `reference_forward` (see tolerance.py).
 KERNEL_TOL = KernelTol(max_rel=5e-3, mean_rel=1e-4)
 # Backward kernel vs `reference_backward`, per gradient leaf.  On an H100 at
@@ -79,16 +77,24 @@ def reference_forward(
     return torch.tanh(rnd(h) @ rnd(wfc) + bfc)
 
 
+def kernel_spec_ok(spec: TPLSTMSpec) -> bool:
+    """Whether the TP-LSTM kernels (forward and backward) take `spec`: hidden
+    width 64, 1-64 inputs, 1-32 steps, 1-64 outputs."""
+    return (spec.hidden == _KERNEL_HIDDEN and 1 <= spec.input_dim <= _KERNEL_MAX_F
+            and 1 <= spec.t_steps <= _KERNEL_MAX_T and 1 <= spec.out_dim <= _KERNEL_MAX_O)
+
+
+def _check_spec(spec: TPLSTMSpec) -> None:
+    if not kernel_spec_ok(spec):
+        raise ValueError(
+            f"spec exceeds the TP-LSTM kernels' limits (hidden {_KERNEL_HIDDEN}, at most "
+            f"{_KERNEL_MAX_F} inputs, {_KERNEL_MAX_T} steps, {_KERNEL_MAX_O} outputs): {spec}")
+
+
 def _check_kernel_args(spec: TPLSTMSpec, leaves, x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"TP-LSTM kernel takes CUDA tensors, got {x.device}")
-    if (
-        spec.hidden != _KERNEL_HIDDEN
-        or spec.input_dim > _KERNEL_MAX_F
-        or spec.t_steps > _KERNEL_MAX_T
-        or spec.out_dim > _KERNEL_MAX_O
-    ):
-        raise ValueError(f"spec exceeds the kernel's limits: {spec}")
+    _check_spec(spec)
     want = (spec.t_steps, spec.input_dim)
     if (
         x.dtype != torch.float32
@@ -193,8 +199,6 @@ def reference_backward(
 
 def _launch_bwd(spec: TPLSTMSpec, leaves, x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     _check_kernel_args(spec, leaves, x)
-    if spec.input_dim > _BWD_MAX_F or spec.t_steps > _BWD_MAX_T or spec.out_dim > _BWD_MAX_O:
-        raise ValueError(f"spec exceeds the backward kernel's limits: {spec}")
     n = x.shape[0]
     if (dy.device != x.device or dy.dtype != torch.float32 or not dy.is_contiguous()
             or tuple(dy.shape) != (n, spec.out_dim)):
@@ -207,7 +211,7 @@ def _launch_bwd(spec: TPLSTMSpec, leaves, x: torch.Tensor, dy: torch.Tensor) -> 
     blocks = ctypes.c_int(0)
     with torch.cuda.device(x.device):
         build.check(lib.mupe_tp_lstm_backward_blocks(
-            n, spec.t_steps, spec.input_dim, ctypes.byref(blocks)),
+            n, spec.t_steps, spec.input_dim, spec.out_dim, ctypes.byref(blocks)),
                     "mupe_tp_lstm_backward_blocks")
         ws = torch.empty(blocks.value * size, device=x.device, dtype=torch.float32)
         err = lib.mupe_tp_lstm_backward(
@@ -263,7 +267,11 @@ def tp_forward(
     spec: TPLSTMSpec, leaves: Sequence[torch.Tensor], x: torch.Tensor
 ) -> torch.Tensor:
     """Windows [..., T, F] → tanh predictions [..., O]; differentiable in
-    the leaves."""
+    the leaves.  Raises ValueError, on either device, for windows of another
+    length or width than `spec`'s."""
+    if x.dim() < 2 or tuple(x.shape[-2:]) != (spec.t_steps, spec.input_dim):
+        raise ValueError(f"windows must be [..., {spec.t_steps}, {spec.input_dim}], "
+                         f"got {tuple(x.shape)}")
     batch_shape = tuple(x.shape[:-2])
     xf = x.reshape((-1,) + tuple(x.shape[-2:]))
     if xf.device.type != "cpu":

@@ -32,28 +32,25 @@ from mupe_tpu.ops.fused_encoder import (
     pack_obs,
 )
 from mupe_tpu_torch.ops import fused_encoder as fe
-from mupe_tpu_torch.ops.tolerance import GradTol
+from mupe_tpu_torch.ops.tolerance import GradTol, in_f64
 
 torch.set_num_threads(1)
 NAMES = ["state_self", "cylinders", "state_others"]
 GROUPS = ((1, 35), (3, 5), (2, 3))
+WIDE_GROUPS = ((1, 50), (4, 5), (3, 3))  # 8 tokens, state_self 50 wide
 S, TILE = 80, 32
 PARITY_TOL = GradTol(max_rel=1e-2, mean_rel=2e-3, noise_floor=1e-5, noise_leaves=(-15,))
 
 
-def _make_case():
+def _make_case(groups=GROUPS):
     ks = jax.random.split(jax.random.PRNGKey(0), 6)
-    obs = {
-        "state_self": jax.random.normal(ks[0], (S, 1, 35)),
-        "cylinders": jax.random.normal(ks[1], (S, 3, 5)),
-        "state_others": jax.random.normal(ks[2], (S, 2, 3)),
-    }
+    obs = {name: jax.random.normal(k, (S,) + kd) for name, k, kd in zip(NAMES, ks, groups)}
     kw = dict(hidden_units=(256,), attn_encoder="PartialAttentionEncoder", obs_is_dict=True,
               dtype=jnp.bfloat16)
     pa = Actor(action_dim=4, **kw).init(ks[3], obs)
     pc = Critic(out_dim=1, **kw).init(ks[4], obs)
-    ja = JSpec(groups=GROUPS, head_dim=4, tile=TILE, tile_fwd=TILE)
-    jc = JSpec(groups=GROUPS, head_dim=1, tile=TILE, tile_fwd=TILE)
+    ja = JSpec(groups=groups, head_dim=4, tile=TILE, tile_fwd=TILE)
+    jc = JSpec(groups=groups, head_dim=1, tile=TILE, tile_fwd=TILE)
     la = extract_leaves(ja, pa, NAMES)
     lc = extract_leaves(jc, pc, NAMES)
     x, _ = pack_obs(ja, obs, NAMES)
@@ -62,14 +59,19 @@ def _make_case():
     dc = rng.normal(size=(S, 1)).astype(np.float32)
     t = lambda a: torch.as_tensor(np.array(a, dtype=np.float32))
     return dict(ja=ja, jc=jc, la=la, lc=lc, x=x, da=da, dc=dc,
-                ta=fe.EncoderSpec(groups=GROUPS, head_dim=4),
-                tc=fe.EncoderSpec(groups=GROUPS, head_dim=1),
+                ta=fe.EncoderSpec(groups=groups, head_dim=4),
+                tc=fe.EncoderSpec(groups=groups, head_dim=1),
                 tla=[t(l) for l in la], tlc=[t(l) for l in lc], tx=t(x))
 
 
 @pytest.fixture(scope="module")
 def case():
     return _make_case()
+
+
+@pytest.fixture(scope="module")
+def wide_case():
+    return _make_case(WIDE_GROUPS)
 
 
 def _pad(a, rows):
@@ -83,10 +85,13 @@ def _hold(t_grads, j_grads, tol):
     assert tol.holds(errs), [(i, errs[i]) for i in tol.failing(errs)]
 
 
-@pytest.mark.parametrize("net", ["actor", "critic"])
-def test_reference_backward_matches_jax_bwd_kernel(case, net):
+@pytest.mark.parametrize("net", ["actor", "critic", "actor_8_tokens_wide"])
+def test_reference_backward_matches_jax_bwd_kernel(request, net):
+    """Per network; the actor also on 8 tokens with a 50-wide group (the
+    backward kernel's 8-row tile on the card)."""
+    case = request.getfixturevalue("wide_case" if net.endswith("wide") else "case")
     spec, jspec, leaves, tleaves, d = (
-        (case["ta"], case["ja"], case["la"], case["tla"], case["da"]) if net == "actor"
+        (case["ta"], case["ja"], case["la"], case["tla"], case["da"]) if net.startswith("actor")
         else (case["tc"], case["jc"], case["lc"], case["tlc"], case["dc"]))
     rows = -(-S // TILE) * TILE
     _, bwd = _build_calls(jspec, rows, True)
@@ -142,7 +147,9 @@ def test_backward_tolerance_rejects_the_f32_control(head_dim):
     """`BWD_KERNEL_TOL` (the kernel's limit) must reject the plain backward
     without its bf16 rounding at S = 300 on every leaf but those of
     `BWD_CONTROL_BLIND`, and accept the plain backward with its sums in
-    another order."""
+    another order: both against the limits the card applies (the mean limit
+    at least `FLOOR_MULT` times the f32 plain version's error against the
+    f64 one)."""
     g = torch.Generator().manual_seed(300)
     spec = fe.EncoderSpec(groups=GROUPS, head_dim=head_dim)
     leaves = [torch.randn(sh, generator=g) / (sh[0] ** 0.5) if len(sh) == 2
@@ -150,10 +157,12 @@ def test_backward_tolerance_rejects_the_f32_control(head_dim):
     x = 2.0 * torch.randn((300, spec.obs_dim), generator=g)
     d = torch.randn((300, head_dim), generator=g)
     ref = fe.reference_backward(spec, leaves, x, d)
+    exact = in_f64(fe.reference_backward, spec, leaves, x, d)
     tol = fe.BWD_KERNEL_TOL
-    bad = tol.failing(tol.errors(fe.reference_backward(spec, leaves, x, d, bf16=False), ref))
+    bad = tol.failing(tol.errors(fe.reference_backward(spec, leaves, x, d, bf16=False), ref,
+                                 exact))
     blind = {i % len(ref) for i in fe.BWD_CONTROL_BLIND}
     assert set(bad) >= set(range(len(ref))) - blind, bad
     split = [u + v for u, v in zip(fe.reference_backward(spec, leaves, x[:100], d[:100]),
                                    fe.reference_backward(spec, leaves, x[100:], d[100:]))]
-    assert tol.holds(tol.errors(split, ref))
+    assert tol.holds(tol.errors(split, ref, exact))

@@ -51,10 +51,15 @@ INFO_KEYS = ("policy_loss", "actor_grad_norm", "entropy", "ESS", "value_loss",
              "critic_grad_norm", "explained_var", "approx_kl")
 
 
-def _obs(rng, lead):
-    return {"state_self": rng.normal(size=lead + (N_AG, 1, 35)).astype(np.float32),
-            "cylinders": rng.normal(size=lead + (N_AG, 3, 5)).astype(np.float32),
-            "state_others": rng.normal(size=lead + (N_AG, 2, 3)).astype(np.float32)}
+# (tokens, features) of each observation group: the main path's, and an 8-token
+# observation with state_self 50 wide (4 pursuers, 4 cylinder tokens, 10
+# predicted steps)
+DIMS = {"state_self": (1, 35), "cylinders": (3, 5), "state_others": (2, 3)}
+WIDE_DIMS = {"state_self": (1, 50), "cylinders": (4, 5), "state_others": (3, 3)}
+
+
+def _obs(rng, lead, dims=DIMS):
+    return {k: rng.normal(size=lead + (N_AG,) + kd).astype(np.float32) for k, kd in dims.items()}
 
 
 def _jpolicy(**extra):
@@ -67,11 +72,10 @@ def _tpolicy(**extra):
                        obs_is_dict=True, device="cpu")
 
 
-@pytest.fixture(scope="module")
-def case():
+def _make_case(dims):
     rng = np.random.default_rng(0)
     jpol = _jpolicy()
-    obs = _obs(rng, (N,))
+    obs = _obs(rng, (N,), dims)
     jobs = {k: jnp.asarray(v) for k, v in obs.items()}
     jts = jpol.init(jax.random.PRNGKey(0), jobs)
     ap = jts.actor_params
@@ -99,6 +103,16 @@ def case():
                 tla=list(bridge.encoder_leaves(jax.device_get(jts.actor_params))),
                 tlc=list(bridge.encoder_leaves(jax.device_get(jts.critic_params))),
                 log_std=bridge.actor_log_std(jax.device_get(jts.actor_params)))
+
+
+@pytest.fixture(scope="module")
+def case():
+    return _make_case(DIMS)
+
+
+@pytest.fixture(scope="module")
+def wide_case():
+    return _make_case(WIDE_DIMS)
 
 
 def _saturate(mb):
@@ -183,11 +197,14 @@ def test_reference_pair_fwd_loss_agrad_matches_jax_kernel(case):
     _close_grads(ga, jga)
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_drivers_match_jax(case, mode):
+@pytest.mark.parametrize("mode", MODES + ["agrad_8_tokens_wide"])
+def test_drivers_match_jax(request, mode):
+    """Both drivers on the main path's observation; the agrad driver also on
+    8 tokens with a 50-wide group (the kernels' 8-row tile on the card)."""
+    case = request.getfixturevalue("wide_case" if mode.endswith("wide") else "case")
     jloss, tloss = _loss_cfgs(case)
     jfn, tfn = {"fwdloss": (jfe.fused_pair_ppo_grads_fwdloss, fe.pair_ppo_grads_fwdloss),
-                "agrad": (jfe.fused_pair_ppo_grads, fe.pair_ppo_grads)}[mode]
+                "agrad": (jfe.fused_pair_ppo_grads, fe.pair_ppo_grads)}[mode.split("_")[0]]
     x, *rows = _row_inputs(case["mb"])
     jdla, jdls, jdlc, jsums = jfn(case["ja"], case["jc"], jloss, case["la"], case["lc"],
                                   jnp.asarray(case["log_std"].numpy()), jnp.asarray(x),

@@ -29,7 +29,7 @@ from mupe_tpu_torch.ops import build
 from mupe_tpu_torch.ops import fps
 from mupe_tpu_torch.ops import fused_encoder as fe
 from mupe_tpu_torch.ops import tp_lstm as tl
-from mupe_tpu_torch.ops.tolerance import KernelTol
+from mupe_tpu_torch.ops.tolerance import KernelTol, in_f64
 
 torch.set_num_threads(1)
 GROUPS = ((1, 35), (3, 5), (2, 3))
@@ -175,6 +175,16 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
             fn(*meta_args)
 
 
+@pytest.mark.parametrize("shape", [(10, 4, 16), (4, 16), (4, 10, 15), (4, 17, 16), (16,)],
+                         ids=["transposed", "no_window", "narrow", "longer", "flat"])
+def test_tp_forward_rejects_windows_of_another_shape_on_the_cpu(shape):
+    """The CPU path holds the windows to the spec as the kernel path does: a
+    window of another length is an error, not a shorter or longer LSTM."""
+    spec, lt, _ = _tp_case(4)
+    with pytest.raises(ValueError, match=r"windows must be \[\.\.\., 10, 16\]"):
+        tl.tp_forward(spec, lt, torch.zeros(shape))
+
+
 def test_c_sources_and_build_helper_exist():
     for name in build.SOURCES:
         src = (build.CSRC / name).read_text()
@@ -212,17 +222,21 @@ def test_kernel_tolerance_rejects_the_plain_version_without_bf16_rounding(net):
     spec_a, spec_c, la, lc, x = _encoder_case(300)
     spec, lt, xt = _tp_case(300)
     *_, args = _loss_case(300)
-    plain, tol = {
-        "actor": (lambda **k: fe.reference_apply(spec_a, la, x, **k), fe.KERNEL_TOL),
-        "critic": (lambda **k: fe.reference_apply(spec_c, lc, x, **k), fe.KERNEL_TOL),
-        "tp": (lambda **k: tl.reference_forward(spec, lt, xt, **k), tl.KERNEL_TOL),
-        "loss": (lambda **k: fe.reference_pair_fwd_loss(*args, **k)[0], fe.KERNEL_TOL),
+    """Held to the limits the card applies: with the plain version in f64
+    given, each limit is at least `floor_mult` times the f32 plain version's
+    error against it."""
+    plain, inputs, tol = {
+        "actor": (fe.reference_apply, (spec_a, la, x), fe.KERNEL_TOL),
+        "critic": (fe.reference_apply, (spec_c, lc, x), fe.KERNEL_TOL),
+        "tp": (tl.reference_forward, (spec, lt, xt), tl.KERNEL_TOL),
+        "loss": (lambda *a, **k: fe.reference_pair_fwd_loss(*a, **k)[0], args, fe.KERNEL_TOL),
     }[net]
-    ref = plain()
-    errs = tol.errors(plain(bf16=False), ref)
-    assert errs["mean_rel"] > 10 * tol.mean_rel, errs
+    ref = plain(*inputs)
+    exact = in_f64(plain, *inputs)
+    errs = tol.errors(plain(*inputs, bf16=False), ref, exact)
+    assert errs["mean_rel"] > 10 * errs["mean_limit"], errs
     assert not tol.holds(errs)
-    assert tol.holds(tol.errors(ref.clone(), ref))
+    assert tol.holds(tol.errors(ref.clone(), ref, exact))
 
 
 def test_kernel_tolerance_catches_a_dropped_row_and_nan():
@@ -245,23 +259,78 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _close_scaled(out, ref, tol):
-    errs = tol.errors(out, ref)
+def _close_scaled(out, ref, tol, exact=None):
+    errs = tol.errors(out, ref, exact)
     assert tol.holds(errs), errs
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s", [1, 7, 8, 12288, 12289])
+@pytest.mark.parametrize("s", [1, 7, 8, 12288, 12289, 49152])
 def test_encoder_kernel_matches_plain_version(cuda, s):
     spec_a, spec_c, la, lc, x = _encoder_case(s, cuda)
     n = fe.encoder_pair_forward.launches
     a, c = fe.encoder_pair_forward(spec_a, spec_c, la, lc, x)
     torch.cuda.synchronize()
     assert fe.encoder_pair_forward.launches == n + 1
-    _close_scaled(a, fe.reference_apply(spec_a, la, x), fe.KERNEL_TOL)
-    _close_scaled(c, fe.reference_apply(spec_c, lc, x), fe.KERNEL_TOL)
+    exact_c = in_f64(fe.reference_apply, spec_c, lc, x)
+    _close_scaled(a, fe.reference_apply(spec_a, la, x), fe.KERNEL_TOL,
+                  in_f64(fe.reference_apply, spec_a, la, x))
+    _close_scaled(c, fe.reference_apply(spec_c, lc, x), fe.KERNEL_TOL, exact_c)
     _close_scaled(fe.encoder_forward(spec_c, lc, x), fe.reference_apply(spec_c, lc, x),
-                  fe.KERNEL_TOL)
+                  fe.KERNEL_TOL, exact_c)
+
+
+# Specs past the main path's: 7 tokens (num_agents=4), and 8 tokens with
+# state_self 50 wide (num_agents=4, obs_max_cylinder=4,
+# future_prediction_step=10); their stage-A tile is 8 rows.
+WIDE_GROUPS = {"7 tokens": ((1, 35), (3, 5), (3, 3)), "8 tokens, wide": ((1, 50), (4, 5), (3, 3))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 7, 8, 9, 17, 4099])
+@pytest.mark.parametrize("groups", list(WIDE_GROUPS), ids=list(WIDE_GROUPS))
+def test_wide_spec_kernels_match_plain_version(cuda, groups, s):
+    """The forward, the pair backward and the two loss kernels at 7 and 8
+    tokens and a 50-wide group, at the 8-row tile's edges: within their
+    limits of the plain versions, every row counted (dbh == S)."""
+    g = torch.Generator().manual_seed(s)
+    spec_a = fe.EncoderSpec(groups=WIDE_GROUPS[groups], head_dim=4)
+    spec_c = fe.EncoderSpec(groups=WIDE_GROUPS[groups], head_dim=1)
+    la = _leaves(fe.leaf_shapes(spec_a), g, cuda)
+    lc = _leaves(fe.leaf_shapes(spec_c), g, cuda)
+    x = (2.0 * torch.randn((s, spec_a.obs_dim), generator=g)).to(cuda)
+    a, c = fe.encoder_pair_forward(spec_a, spec_c, la, lc, x)
+    _close_scaled(a, fe.reference_apply(spec_a, la, x), fe.KERNEL_TOL,
+                  in_f64(fe.reference_apply, spec_a, la, x))
+    _close_scaled(c, fe.reference_apply(spec_c, lc, x), fe.KERNEL_TOL,
+                  in_f64(fe.reference_apply, spec_c, lc, x))
+    da = torch.randn((s, 4), generator=g).to(cuda)
+    ones = torch.ones((s, 1), device=cuda)
+    tol = fe.BWD_KERNEL_TOL if s >= 300 else dataclasses.replace(fe.BWD_KERNEL_TOL, mean_rel=5e-3)
+    ga, gc = fe.encoder_backward([(spec_a, la), (spec_c, lc)], x, [da, ones])
+    _bwd_close(ga, fe.reference_backward(spec_a, la, x, da), tol,
+               in_f64(fe.reference_backward, spec_a, la, x, da))
+    _bwd_close(gc, fe.reference_backward(spec_c, lc, x, ones), tol,
+               in_f64(fe.reference_backward, spec_c, lc, x, ones))
+    assert gc[-1].item() == float(s)
+    spec = importlib.util.spec_from_file_location("chip_smoke", PKG.parent / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    loss, rows = cs.loss_inputs(spec_a, spec_c, la, lc, x, g)
+    args = (spec_a, spec_c, loss, la, lc, *rows)
+    rows_tol, stats_tol = fe.loss_row_tols(s)
+    ref = fe.reference_pair_fwd_loss(*args)
+    exact = in_f64(fe.reference_pair_fwd_loss, *args)
+    out9 = fe.pair_forward_loss(*args)
+    out10 = fe.pair_forward_loss_agrad(*args)
+    for got, want, ex in zip((*out9[:3], *out10[:2]), (*ref[:3], *ref[1:3]),
+                             (*exact[:3], *exact[1:3])):
+        _close_scaled(got, want, rows_tol, ex)
+    for st in (out9[3], out10[2]):
+        for col in range(st.shape[1]):
+            _close_scaled(st[:, col], ref[3][:, col], stats_tol, exact[3][:, col])
+    _bwd_close(out10[3], fe.reference_backward(spec_a, la, x, ref[0]), tol,
+               in_f64(fe.reference_pair_fwd_loss_agrad, *args)[3])
 
 
 @pytest.mark.gpu
@@ -273,8 +342,8 @@ def test_tp_kernel_matches_plain_version(cuda, n):
     _close_scaled(y, tl.reference_forward(spec, lt, xt), tl.KERNEL_TOL)
 
 
-def _bwd_close(outs, refs, tol):
-    errs = tol.errors(outs, refs)
+def _bwd_close(outs, refs, tol, exact=None):
+    errs = tol.errors(outs, refs, exact)
     assert tol.holds(errs), [(i, errs[i]) for i in tol.failing(errs)]
 
 
@@ -301,7 +370,8 @@ def test_encoder_backward_kernel_matches_plain_version(cuda, s, nets):
     assert (fe.encoder_backward.launches, fe.weight_grads.launches) == (n[0] + 2, n[1] + 2)
     tol = fe.BWD_KERNEL_TOL if s >= 300 else dataclasses.replace(fe.BWD_KERNEL_TOL, mean_rel=5e-3)
     for (spec, leaves), d, gk, g2 in zip(case, douts, grads, again):
-        _bwd_close(gk, fe.reference_backward(spec, leaves, x, d), tol)
+        _bwd_close(gk, fe.reference_backward(spec, leaves, x, d), tol,
+                   in_f64(fe.reference_backward, spec, leaves, x, d))
         assert all(torch.equal(u, v) for u, v in zip(gk, g2))
     assert grads[-1][-1].item() == float(s)
 
@@ -327,13 +397,17 @@ def test_loss_kernels_match_plain_version(cuda, s, saturate):
     assert (fe.pair_forward_loss.launches, fe.pair_forward_loss_agrad.launches) == (n[0] + 1,
                                                                                     n[1] + 2)
     ref = fe.reference_pair_fwd_loss(*args)
-    for got, want in zip((dmu, dv1, dv2, out[0], out[1]), (*ref[:3], *ref[1:3])):
-        _close_scaled(got, want, fe.KERNEL_TOL)
+    exact = in_f64(fe.reference_pair_fwd_loss, *args)
+    rows_tol, stats_tol = fe.loss_row_tols(s)
+    for got, want, ex in zip((dmu, dv1, dv2, out[0], out[1]), (*ref[:3], *ref[1:3]),
+                             (*exact[:3], *exact[1:3])):
+        _close_scaled(got, want, rows_tol, ex)
     for st in (stats, out[2]):
         for c in range(st.shape[1]):
-            _close_scaled(st[:, c], ref[3][:, c], fe.LOSS_STATS_TOL)
+            _close_scaled(st[:, c], ref[3][:, c], stats_tol, exact[3][:, c])
     tol = fe.BWD_KERNEL_TOL if s >= 300 else dataclasses.replace(fe.BWD_KERNEL_TOL, mean_rel=5e-3)
-    _bwd_close(out[3], fe.reference_backward(spec_a, la, x, ref[0]), tol)
+    _bwd_close(out[3], fe.reference_backward(spec_a, la, x, ref[0]), tol,
+               in_f64(fe.reference_pair_fwd_loss_agrad, *args)[3])
     assert all(torch.equal(u, v) for u, v in zip((*out[:3], *out[3]), (*again[:3], *again[3])))
     _close_scaled(out[3][-1], ref[0].sum(0), fe.DMU_SUM_TOL)
     if saturate:
@@ -421,6 +495,45 @@ def test_tp_backward_kernel_matches_plain_version(cuda, n):
 
 
 @pytest.mark.gpu
+def test_forward_takes_specs_in_any_order(cuda):
+    """A larger spec after a smaller one: the forward's shared-memory
+    attribute, set once a device, never drops below a spec's carve."""
+    order = [WIDE_GROUPS["8 tokens, wide"], WIDE_GROUPS["7 tokens"], GROUPS,
+             WIDE_GROUPS["8 tokens, wide"], GROUPS, WIDE_GROUPS["7 tokens"]]
+    for i, groups in enumerate(order):
+        g = torch.Generator().manual_seed(i)
+        spec_a = fe.EncoderSpec(groups=groups, head_dim=4)
+        spec_c = fe.EncoderSpec(groups=groups, head_dim=1)
+        la = _leaves(fe.leaf_shapes(spec_a), g, cuda)
+        lc = _leaves(fe.leaf_shapes(spec_c), g, cuda)
+        x = (2.0 * torch.randn((4099, spec_a.obs_dim), generator=g)).to(cuda)
+        a, c = fe.encoder_pair_forward(spec_a, spec_c, la, lc, x)
+        _close_scaled(a, fe.reference_apply(spec_a, la, x), fe.KERNEL_TOL,
+                      in_f64(fe.reference_apply, spec_a, la, x))
+        _close_scaled(c, fe.reference_apply(spec_c, lc, x), fe.KERNEL_TOL,
+                      in_f64(fe.reference_apply, spec_c, lc, x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,t,o", [(19, 20, 18), (34, 20, 30), (64, 32, 64)])
+@pytest.mark.parametrize("n", [1, 15, 4097])
+def test_wide_tp_backward_kernel_matches_plain_version(cuda, n, f, t, o):
+    """The TP backward past the main path's inputs (F 16): the 4-window
+    tiles of inputs wider than 16, up to the kernels' limits."""
+    g = torch.Generator().manual_seed(n + f)
+    spec = tl.TPLSTMSpec(input_dim=f, hidden=64, t_steps=t, out_dim=o)
+    lt = _leaves(spec.leaf_shapes(), g, cuda)
+    xt = torch.randn((n, t, f), generator=g).to(cuda)
+    dy = torch.randn((n, o), generator=g).to(cuda)
+    _close_scaled(tl.tp_forward(spec, lt, xt), tl.reference_forward(spec, lt, xt), tl.KERNEL_TOL)
+    grads = tl.tp_backward(spec, lt, xt, dy)
+    again = tl.tp_backward(spec, lt, xt, dy)
+    torch.cuda.synchronize()
+    _bwd_close(grads, tl.reference_backward(spec, lt, xt, dy), tl.BWD_KERNEL_TOL)
+    assert all(torch.equal(u, v) for u, v in zip(grads, again))
+
+
+@pytest.mark.gpu
 def test_backward_wrappers_reject_bad_inputs(cuda):
     spec_a, spec_c, la, lc, x = _encoder_case(8, cuda)
     d = torch.ones((8, 1), device=cuda)
@@ -453,6 +566,10 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
     spec, lt, xt = _tp_case(4, cuda)
     with pytest.raises(ValueError):
         tl.tp_forward(spec, lt, xt.transpose(0, 1))
+    with pytest.raises(ValueError):  # 15 input features for a 16-wide wi
+        tl.tp_forward(spec, lt, xt[..., :15])
+    with pytest.raises(ValueError):  # past the kernels' 32 steps
+        tl.tp_forward(spec, lt, torch.zeros((4, 33, 16), device=cuda))
 
 
 @pytest.mark.gpu

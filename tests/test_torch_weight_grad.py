@@ -33,6 +33,7 @@ from mupe_tpu_torch.ops.tolerance import GradTol
 torch.set_num_threads(1)
 NAMES = ["state_self", "cylinders", "state_others"]
 GROUPS = ((1, 35), (3, 5), (2, 3))
+WIDE_GROUPS = ((1, 50), (4, 5), (3, 3))  # 8 tokens, state_self 50 wide
 TILE = 32
 A = 4
 SIZES = [1, 7, 17, 80]
@@ -43,23 +44,31 @@ def _tol(s):
                    noise_leaves=(-15,))
 
 
-@pytest.fixture(scope="module")
-def nets():
+def _make_nets(groups):
     ks = jax.random.split(jax.random.PRNGKey(0), 6)
-    obs = {"state_self": jnp.zeros((1, 1, 35)), "cylinders": jnp.zeros((1, 3, 5)),
-           "state_others": jnp.zeros((1, 2, 3))}
+    obs = {name: jnp.zeros((1,) + kd) for name, kd in zip(NAMES, groups)}
     kw = dict(hidden_units=(256,), attn_encoder="PartialAttentionEncoder", obs_is_dict=True,
               dtype=jnp.bfloat16)
     pa = Actor(action_dim=A, **kw).init(ks[3], obs)
     pc = Critic(out_dim=1, **kw).init(ks[4], obs)
-    ja = jfe.EncoderSpec(groups=GROUPS, head_dim=A, tile=TILE, tile_fwd=TILE)
-    jc = jfe.EncoderSpec(groups=GROUPS, head_dim=1, tile=TILE, tile_fwd=TILE)
+    ja = jfe.EncoderSpec(groups=groups, head_dim=A, tile=TILE, tile_fwd=TILE)
+    jc = jfe.EncoderSpec(groups=groups, head_dim=1, tile=TILE, tile_fwd=TILE)
     la = jfe.extract_leaves(ja, pa, NAMES)
     lc = jfe.extract_leaves(jc, pc, NAMES)
     t = lambda a: torch.as_tensor(np.array(a, dtype=np.float32))
     return dict(ja=ja, jc=jc, la=la, lc=lc, tla=[t(l) for l in la], tlc=[t(l) for l in lc],
-                ta=fe.EncoderSpec(groups=GROUPS, head_dim=A),
-                tc=fe.EncoderSpec(groups=GROUPS, head_dim=1))
+                ta=fe.EncoderSpec(groups=groups, head_dim=A),
+                tc=fe.EncoderSpec(groups=groups, head_dim=1))
+
+
+@pytest.fixture(scope="module")
+def nets():
+    return _make_nets(GROUPS)
+
+
+@pytest.fixture(scope="module")
+def wide_nets():
+    return _make_nets(WIDE_GROUPS)
 
 
 def _pad(a, rows):
@@ -81,19 +90,22 @@ def _hold(t_grads, j_grads, tol):
     assert tol.holds(errs), [(i, errs[i]) for i in tol.failing(errs)]
 
 
-def _rows(s, seed):
+def _rows(s, seed, groups=GROUPS):
     rng = np.random.default_rng(seed)
-    return (2.0 * rng.normal(size=(s, sum(k * d for k, d in GROUPS)))).astype(np.float32), rng
+    return (2.0 * rng.normal(size=(s, sum(k * d for k, d in groups)))).astype(np.float32), rng
 
 
-@pytest.mark.parametrize("net", ["actor", "critic"])
+@pytest.mark.parametrize("net", ["actor", "critic", "actor_8_tokens_wide"])
 @pytest.mark.parametrize("s", SIZES)
-def test_two_stages_match_jax_bwd_kernel(nets, s, net):
-    x, rng = _rows(s, s)
-    hd = A if net == "actor" else 1
+def test_two_stages_match_jax_bwd_kernel(request, s, net):
+    """Per network; the actor also on 8 tokens with a 50-wide group."""
+    wide = net.endswith("wide")
+    nets = request.getfixturevalue("wide_nets" if wide else "nets")
+    x, rng = _rows(s, s, WIDE_GROUPS if wide else GROUPS)
+    hd = A if net.startswith("actor") else 1
     d = rng.normal(size=(s, hd)).astype(np.float32)
     jspec, leaves, tspec, tleaves = ((nets["ja"], nets["la"], nets["ta"], nets["tla"])
-                                     if net == "actor" else
+                                     if net.startswith("actor") else
                                      (nets["jc"], nets["lc"], nets["tc"], nets["tlc"]))
     rows = -(-s // TILE) * TILE
     _, bwd = jfe._build_calls(jspec, rows, True)
