@@ -36,7 +36,11 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    `state_self` 50 wide, TP input 34, TP output 30), at 1024 arenas, 2
    iterations with the default update and 2 with `direct_mode="agrad"`;
    checks the launch counts, the outputs' finiteness and the update on the
-   card against the CPU.
+   card against the CPU;
+8. 16-token training: HideAndSeek with 6 pursuers, 10 cylinder tokens and
+   21 predicted steps (16 tokens over 148 columns, `state_self` 83 wide, TP
+   output 63), at 1024 arenas, 2 iterations each with the default update,
+   `direct_mode="fwdloss"` and `direct_mode="agrad"`; the same checks.
 
 Phase 2 also holds the FPS kernel (the AEG buffer's downsampling) against
 its plain version at the AEG's pool, N = 9,096 tasks of D = 27, K = 5,000,
@@ -50,11 +54,17 @@ stages the bf16 operands of the weight products; B: `weight_grads`, those
 products as a split-K GEMM): phase 2 holds each stage against its own plain
 version (`reference_backward_operands` / `reference_agrad_operands`, and
 `reference_weight_grads`) at S = 1, 7, 8, 15, 16, 17, 49,152 and 49,153,
-and times each; and every encoder kernel at 7 tokens and at 8 tokens with a
+and times each; and every encoder kernel at 7 tokens, at 8 tokens with a
 50-wide group (the 8-row tile of stage A and of the agrad kernel, at its
-edges S = 1, 7, 8, 9, 17), the TP backward at 34 inputs, 20 steps and 30
-outputs, and the forward at a PPO minibatch (S = 49,152) as well as at the
-act (S = 12,288).
+edges S = 1, 7, 8, 9, 17), at 12 tokens and at 16 tokens over 148 columns
+(the 16-token instances), and the forward at a PPO minibatch (S = 49,152) as
+well as at the act (S = 12,288).  The TP forward and backward are held at
+the main shape and at 34 inputs, 20 steps and 30 outputs, at N = 1, 15, 16,
+17 (the warp tile's edges), 4,096, 4,097, 241,664 and 241,665 windows, with
+limits of at least 5x the f32 plain version's error against it in f64;
+windows past N must add exact zeros; the forward is timed at the rollout's
+N = 4,096 and the update's 241,664, the backward stage by stage, beside
+`torch.nn.LSTM` (cuDNN; the recurrence alone) as a yardstick.
 Each kernel's bound is the larger of its operations over the H100's peak
 for their operand type (bf16 products summed in f32 for the encoder and
 TP-LSTM kernels, which the tensor cores do at the bf16 rate; f32 for FPS)
@@ -97,9 +107,15 @@ WIDE_ENV = dict(num_agents=4, obs_max_cylinder=4, future_prediction_step=10,
                 use_obstacles_tp=True)
 WIDE_GROUPS = ((1, 50), (4, 5), (3, 3))  # 8 tokens, state_self 50 wide
 TOK7_GROUPS = ((1, 35), (3, 5), (3, 3))  # 7 tokens
+TOK12_GROUPS = ((1, 50), (8, 5), (3, 3))   # 12 tokens (4 pursuers, 8 cylinder tokens)
+TOK16_GROUPS = ((1, 83), (10, 5), (5, 3))  # 16 tokens over 148 columns (phase 8's)
 WIDE_TP = (34, 20, 30)                   # TP inputs, steps, outputs
 WIDE_NUM_ENVS = 1024
 TILE_EDGE_ROWS = (1, 7, 8, 9, 17)        # the 8-row tile's edges
+TP_EDGE_WINDOWS = (1, 15, 16, 17)        # the TP warp tile's edges (16 windows)
+# phase 8's configuration: 6 pursuers, 10 cylinder tokens, 21 predicted steps
+# (16 tokens, state_self 83 wide, 148 observation columns, TP output 63)
+TOK16_ENV = dict(num_agents=6, obs_max_cylinder=10, future_prediction_step=21)
 METRIC_KEYS = {"advantages_mean", "advantages_std", "TP_loss", "policy_loss",
                "actor_grad_norm", "entropy", "ESS", "value_loss", "critic_grad_norm",
                "explained_var", "approx_kl", "action_norm", "value_running_mean"}
@@ -337,27 +353,8 @@ def phase_kernels(dev) -> dict:
         ms=ms, plain_ms=plain, library_ms=None,
         **bound(encoder_flops(spec_c, s_main), nbytes(x, *lc, out)))
 
-    xt = torch.randn((NUM_ENVS, 10, 16), generator=gen).to(dev)
-    y = tl.tp_forward(tspec, lt, xt)
-    torch.cuda.synchronize()
-    err = compare(f"tp_forward N={NUM_ENVS}", y,
-                  tl.reference_forward(tspec, lt, xt), tl.KERNEL_TOL)
-    xt1 = torch.randn((NUM_ENVS + 1, 10, 16), generator=gen).to(dev)
-    y1 = tl.tp_forward(tspec, lt, xt1)
-    torch.cuda.synchronize()
-    err = max(err, compare(f"tp_forward N={NUM_ENVS + 1}", y1,
-                           tl.reference_forward(tspec, lt, xt1), tl.KERNEL_TOL))
-    control(f"tp N={NUM_ENVS}", lambda **k: tl.reference_forward(tspec, lt, xt, **k),
-            tl.KERNEL_TOL)
-    ms = cuda_time_ms(lambda: tl.tp_forward(tspec, lt, xt))
-    plain = cuda_time_ms(lambda: tl.reference_forward(tspec, lt, xt))
-    log(f"  tp_forward N={NUM_ENVS}: kernel {ms:.4f} ms, plain {plain:.4f} ms")
-    results["tp_forward"] = dict(
-        route="cuda", source="mupe_tpu_torch/csrc/tp_lstm.cu",
-        replaces="mupe_tpu/ops/tp_lstm.py:422", max_abs_err=err,
-        ms=ms, plain_ms=plain, library_ms=None,
-        **bound(tp_flops(tspec, NUM_ENVS), nbytes(xt, *lt, y)))
-    results.update(phase_backward_kernels(dev, gen, spec_a, spec_c, la, lc, tspec, lt))
+    results.update(phase_backward_kernels(dev, gen, spec_a, spec_c, la, lc))
+    results.update(phase_tp_kernels(dev, gen, tspec, lt))
     results.update(phase_fps_kernel(dev, gen))
     results.update(phase_loss_kernels(dev, gen, spec_a, spec_c, la, lc))
     wide = phase_wide_kernels(dev)
@@ -416,12 +413,11 @@ def hold_stages(tag, spec, flat, staged, ref_staged, ref_sums, tol, exact=None) 
                                 [plain_b[i] for i in wl], fe.WEIGHT_GRAD_TOL))
 
 
-def phase_backward_kernels(dev, gen, spec_a, spec_c, la, lc, tspec, lt) -> dict:
-    """The backward kernels at the update's shapes: one PPO minibatch (S =
-    16,384 (t, env) rows x 3 agents), the stage-A tile's edges and small S,
-    and the TP step's 59 x 4096 windows."""
+def phase_backward_kernels(dev, gen, spec_a, spec_c, la, lc) -> dict:
+    """The encoder backward kernels at the update's shapes: one PPO
+    minibatch (S = 16,384 (t, env) rows x 3 agents), the stage-A tile's edges
+    and small S."""
     from mupe_tpu_torch.ops import fused_encoder as fe
-    from mupe_tpu_torch.ops import tp_lstm as tl
 
     results = {}
     s_main = MB_ROWS
@@ -500,32 +496,168 @@ def phase_backward_kernels(dev, gen, spec_a, spec_c, la, lc, tspec, lt) -> dict:
         **bound(encoder_bwd_flops(spec_a, s_main) + encoder_bwd_flops(spec_c, s_main),
                 nbytes(x, da, dc) + 2 * nbytes(*la, *lc)))
 
-    n_main = TP_WINDOWS
-    errs = []
-    for n in (n_main, n_main + 1):
-        xt = torch.randn((n, 10, 16), generator=gen).to(dev)
-        dy = torch.randn((n, 15), generator=gen).to(dev)
-        g = tl.tp_backward(tspec, lt, xt, dy)
-        g2 = tl.tp_backward(tspec, lt, xt, dy)
-        torch.cuda.synchronize()
-        errs.append(bwd_compare(f"tp_backward N={n}", g,
-                                tl.reference_backward(tspec, lt, xt, dy), tl.BWD_KERNEL_TOL))
-        if not all(torch.equal(u, v) for u, v in zip(g, g2)):
-            raise AssertionError(f"tp_backward N={n}: two launches gave different bits")
-    log("  tp_backward: repeat launches bit-identical")
-    bwd_control(f"tp backward N={n_main}",
-                lambda **k: tl.reference_backward(tspec, lt, xt[:n_main], dy[:n_main], **k),
-                tl.BWD_KERNEL_TOL, tl.BWD_CONTROL_BLIND)
-    xt, dy = xt[:n_main].contiguous(), dy[:n_main].contiguous()
+    return results
+
+
+def tp_check(tag, spec, lt, x, dy):
+    """The TP forward and backward on x, dy against their plain versions with
+    the floor-relative limits (the plain version in f64 given), and a second
+    launch of each against the first's bits.  Returns the largest absolute
+    errors (forward, backward)."""
+    from mupe_tpu_torch.ops import tp_lstm as tl
+
+    y, y2 = tl.tp_forward(spec, lt, x), tl.tp_forward(spec, lt, x)
+    g, g2 = tl.tp_backward(spec, lt, x, dy), tl.tp_backward(spec, lt, x, dy)
+    torch.cuda.synchronize()
+    ef = compare(f"tp_forward {tag}", y, tl.reference_forward(spec, lt, x), tl.KERNEL_TOL,
+                 in_f64(tl.reference_forward, spec, lt, x))
+    eb = bwd_compare(f"tp_backward {tag}", g, tl.reference_backward(spec, lt, x, dy),
+                     tl.BWD_KERNEL_TOL, in_f64(tl.reference_backward, spec, lt, x, dy))
+    if not torch.equal(y, y2) or not all(torch.equal(u, v) for u, v in zip(g, g2)):
+        raise AssertionError(f"tp {tag}: two launches gave different bits")
+    return ef, eb
+
+
+def tp_stage_calls(spec, lt, x, dy):
+    """The TP backward's two stages apart, over its chunks of windows, as
+    `tp_backward` runs them: (stage A, stage B)."""
+    from mupe_tpu_torch.ops import tp_lstm as tl
+
+    plan = tl.chunk_plan(spec, x, dy)
+    flat = torch.empty(tl._leaf_offsets(spec)[-1], device=x.device)
+
+    def stage_a():
+        for xa, dya, staged, cs in plan:
+            tl._launch_operands(spec, lt, xa, dya, flat, staged, cs)
+
+    def stage_b():
+        for _, _, staged, _ in plan:
+            tl.tp_weight_grads(spec, staged, flat)
+
+    return stage_a, stage_b
+
+
+def cudnn_lstm_ms(spec, n, dev, gen) -> dict:
+    """The yardstick: `torch.nn.LSTM(F, 64)` (cuDNN) forward, and forward +
+    backward, over n windows of T steps, in bf16 where cuDNN takes it, else
+    f16.  The recurrence only: no head and none of the reference's rounding
+    points, so not the same function as the TP kernels."""
+    for dtype in (torch.bfloat16, torch.float16):
+        lstm = torch.nn.LSTM(spec.input_dim, spec.hidden, batch_first=True).to(dev, dtype)
+        lstm.flatten_parameters()  # cuDNN's one weight buffer, as a user would run it
+        x = torch.randn((n, spec.t_steps, spec.input_dim), generator=gen).to(dev, dtype)
+
+        def fwd():
+            with torch.no_grad():
+                lstm(x)
+
+        def fwd_bwd():
+            lstm(x)[0][:, -1].float().sum().backward()
+
+        try:
+            fwd()
+            fwd_bwd()
+        except RuntimeError as e:  # cuDNN refuses this dtype: the next one
+            log(f"  torch.nn.LSTM in {dtype}: {str(e).splitlines()[0][:120]}")
+            continue
+        return dict(cudnn_lstm_dtype=str(dtype).replace("torch.", ""),
+                    cudnn_lstm_fwd_ms=cuda_time_ms(fwd, runs=10),
+                    cudnn_lstm_fwd_bwd_ms=cuda_time_ms(fwd_bwd, runs=5))
+    return dict(cudnn_lstm_dtype=None, cudnn_lstm_fwd_ms=None, cudnn_lstm_fwd_bwd_ms=None)
+
+
+def phase_tp_kernels(dev, gen, tspec, lt) -> dict:
+    """The TP-LSTM kernels: the forward at the rollout's N = 4,096 (and
+    4,097) and the update's N = 241,664 windows, the backward at 241,664;
+    both at the warp tile's edges (N = 1, 15, 16, 17) and at 241,665, at the
+    main shape (16 inputs, 10 steps, 15 outputs) and at phase 7's (34, 20,
+    30); windows past N add exact zeros; times, stage by stage, beside the
+    plain versions and cuDNN's LSTM as a yardstick."""
+    from mupe_tpu_torch.ops import tp_lstm as tl
+
+    log(f"  TP limits: forward {tl.KERNEL_TOL}, backward per leaf {tl.BWD_KERNEL_TOL}, each "
+        f"at least {tl.FLOOR_MULT:g} x the f32 plain version's error against it in f64")
+    f, t, o = WIDE_TP
+    wspec = tl.TPLSTMSpec(input_dim=f, hidden=64, t_steps=t, out_dim=o)
+    wlt = random_leaves(wspec.leaf_shapes(), gen, dev)
+    errs_f, errs_b = [], []
+    edge = torch.Generator().manual_seed(6)
+    for spec, leaves in ((tspec, lt), (wspec, wlt)):
+        shape = f"F={spec.input_dim} T={spec.t_steps} O={spec.out_dim}"
+        for n in TP_EDGE_WINDOWS + (NUM_ENVS, NUM_ENVS + 1, TP_WINDOWS, TP_WINDOWS + 1):
+            g = gen if n >= NUM_ENVS else edge
+            x = torch.randn((n, spec.t_steps, spec.input_dim), generator=g).to(dev)
+            dy = torch.randn((n, spec.out_dim), generator=g).to(dev)
+            ef, eb = tp_check(f"{shape} N={n}", spec, leaves, x, dy)
+            errs_f.append(ef)
+            errs_b.append(eb)
+        # windows past N add exact zeros: 17 windows against 32 whose last 15
+        # have a zero cotangent
+        x = torch.randn((32, spec.t_steps, spec.input_dim), generator=edge).to(dev)
+        dy = torch.randn((32, spec.out_dim), generator=edge).to(dev)
+        dy[17:] = 0.0
+        same = (torch.equal(tl.tp_forward(spec, leaves, x)[:17],
+                            tl.tp_forward(spec, leaves, x[:17].contiguous()))
+                and all(torch.equal(u, v) for u, v in zip(
+                    tl.tp_backward(spec, leaves, x, dy),
+                    tl.tp_backward(spec, leaves, x[:17].contiguous(), dy[:17].contiguous()))))
+        log(f"  tp {shape}: 17 windows and 32 with 15 zero cotangents give the same bits: {same}")
+        if not same:
+            raise AssertionError(f"tp {shape}: windows past N changed the result")
+    log("  tp: repeat launches bit-identical")
+    xt = torch.randn((TP_WINDOWS, 10, 16), generator=gen).to(dev)
+    dy = torch.randn((TP_WINDOWS, 15), generator=gen).to(dev)
+    control(f"tp N={TP_WINDOWS}", lambda **k: tl.reference_forward(tspec, lt, xt, **k),
+            tl.KERNEL_TOL, in_f64(tl.reference_forward, tspec, lt, xt))
+    bwd_control(f"tp backward N={TP_WINDOWS}",
+                lambda **k: tl.reference_backward(tspec, lt, xt, dy, **k), tl.BWD_KERNEL_TOL,
+                tl.BWD_CONTROL_BLIND, in_f64(tl.reference_backward, tspec, lt, xt, dy))
+    fwd = {}
+    for n in (NUM_ENVS, TP_WINDOWS):  # the rollout's act, the update's TP step
+        x = xt[:n].contiguous()
+        y = tl.tp_forward(tspec, lt, x)
+        fwd[n] = dict(ms=cuda_time_ms(lambda: tl.tp_forward(tspec, lt, x),
+                                      runs=20 if n == NUM_ENVS else 10),
+                      plain_ms=cuda_time_ms(lambda: tl.reference_forward(tspec, lt, x),
+                                            runs=20 if n == NUM_ENVS else 3),
+                      **bound(tp_flops(tspec, n), nbytes(x, *lt, y)))
+    yard = cudnn_lstm_ms(tspec, TP_WINDOWS, dev, gen)
+    for n, r in fwd.items():
+        log(f"  tp_forward N={n}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    log(f"  torch.nn.LSTM(16, 64) at N={TP_WINDOWS}, T=10 ({yard['cudnn_lstm_dtype']}; the "
+        f"recurrence alone, a yardstick): forward {yard['cudnn_lstm_fwd_ms']} ms, forward + "
+        f"backward {yard['cudnn_lstm_fwd_bwd_ms']} ms")
+    main = fwd[TP_WINDOWS]
+    results = {"tp_forward": dict(
+        route="cuda", source="mupe_tpu_torch/csrc/tp_lstm.cu",
+        replaces="mupe_tpu/ops/tp_lstm.py:422", max_abs_err=max(errs_f),
+        ms=fwd[NUM_ENVS]["ms"], plain_ms=fwd[NUM_ENVS]["plain_ms"], library_ms=None,
+        bound_ms=fwd[NUM_ENVS]["bound_ms"], bound_by=fwd[NUM_ENVS]["bound_by"],
+        windows=NUM_ENVS, update_windows=TP_WINDOWS, update_ms=main["ms"],
+        update_plain_ms=main["plain_ms"], update_bound_ms=main["bound_ms"],
+        cudnn_lstm_ms=yard["cudnn_lstm_fwd_ms"], cudnn_lstm_dtype=yard["cudnn_lstm_dtype"])}
     ms = cuda_time_ms(lambda: tl.tp_backward(tspec, lt, xt, dy), runs=5)
-    plain = cuda_time_ms(lambda: tl.reference_backward(tspec, lt, xt, dy), runs=5)
-    log(f"  tp_backward N={n_main}: kernel {ms:.4f} ms, plain {plain:.4f} ms; "
-        f"{_bwd_blocks('mupe_tp_lstm_backward_blocks', n_main, 10, 16, 15)} blocks")
+    stage_a, stage_b = tp_stage_calls(tspec, lt, xt, dy)
+    ms_a = cuda_time_ms(stage_a, runs=5)
+    ms_b = cuda_time_ms(stage_b, runs=5)
+    plain = cuda_time_ms(lambda: tl.reference_backward(tspec, lt, xt, dy), runs=3)
+    b = bound(tp_bwd_flops(tspec, TP_WINDOWS), nbytes(xt, dy) + 2 * nbytes(*lt))
+    xw = torch.randn((TP_WINDOWS, t, f), generator=gen).to(dev)
+    dyw = torch.randn((TP_WINDOWS, o), generator=gen).to(dev)
+    ms_w = cuda_time_ms(lambda: tl.tp_backward(wspec, wlt, xw, dyw), runs=3)
+    chunks = tl.window_chunks(tspec, TP_WINDOWS)
+    log(f"  tp_backward N={TP_WINDOWS}: kernel {ms:.4f} ms (stage A {ms_a:.4f} ms, stage B "
+        f"{ms_b:.4f} ms; {len(chunks)} chunks of windows, "
+        f"{tl.staging_bytes(tspec, TP_WINDOWS) / 1e6:.1f} MB of staging), plain {plain:.4f} ms, "
+        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); F={f} T={t} O={o}: {ms_w:.4f} ms")
     results["tp_backward"] = dict(
         route="cuda", source="mupe_tpu_torch/csrc/tp_lstm_bwd.cu",
-        replaces="mupe_tpu/ops/tp_lstm.py:428", max_abs_err=max(errs),
-        ms=ms, plain_ms=plain, library_ms=None,
-        **bound(tp_bwd_flops(tspec, n_main), nbytes(xt, dy) + 2 * nbytes(*lt)))
+        replaces="mupe_tpu/ops/tp_lstm.py:428", max_abs_err=max(errs_b),
+        ms=ms, plain_ms=plain, library_ms=None, **b, stage_a_ms=ms_a, stage_b_ms=ms_b,
+        stage_b_source="mupe_tpu_torch/csrc/weight_grad.cu", wide_ms=ms_w,
+        wide_shape=list(WIDE_TP), cudnn_lstm_ms=yard["cudnn_lstm_fwd_bwd_ms"],
+        cudnn_lstm_dtype=yard["cudnn_lstm_dtype"])
     return results
 
 
@@ -778,19 +910,20 @@ def phase_loss_kernels(dev, gen, spec_a, spec_c, la, lc) -> dict:
 
 
 def phase_wide_kernels(dev) -> dict:
-    """Every encoder kernel at 7 tokens and at 8 tokens with a 50-wide group
-    (phase 7's observation; stage A's and the agrad kernel's 8-row tile) at
-    the tile's edges and at the main path's sizes, and the TP backward at
-    phase 7's TP shapes (4-window tiles); each against its plain version
-    with the main path's limits.  Returns, per kernel, its times at the
-    8-token spec."""
+    """Every encoder kernel at 7 tokens, at 8 tokens with a 50-wide group
+    (phase 7's observation; stage A's and the agrad kernel's 8-row tile), at
+    12 tokens and at 16 tokens over 148 columns (phase 8's; the kernels'
+    16-token instances) at the tile's edges and at the main path's sizes;
+    each against its plain version with the main path's limits.  Returns, per
+    kernel, its times at the 8- and 16-token specs."""
     from mupe_tpu_torch.ops import fused_encoder as fe
-    from mupe_tpu_torch.ops import tp_lstm as tl
 
     gen = torch.Generator().manual_seed(7)
     out = {}
-    log(f"  wide specs: {TOK7_GROUPS} (7 tokens) and {WIDE_GROUPS} (8 tokens, state_self 50)")
-    for groups in (TOK7_GROUPS, WIDE_GROUPS):
+    timed = {WIDE_GROUPS: "wide", TOK16_GROUPS: "tok16"}
+    log(f"  wide specs: {TOK7_GROUPS} (7 tokens), {WIDE_GROUPS} (8 tokens, state_self 50), "
+        f"{TOK12_GROUPS} (12 tokens) and {TOK16_GROUPS} (16 tokens, 148 columns)")
+    for groups in (TOK7_GROUPS, WIDE_GROUPS, TOK12_GROUPS, TOK16_GROUPS):
         spec_a = fe.EncoderSpec(groups=groups, head_dim=4)
         spec_c = fe.EncoderSpec(groups=groups, head_dim=1)
         la = random_leaves(fe.leaf_shapes(spec_a), gen, dev)
@@ -841,7 +974,8 @@ def phase_wide_kernels(dev) -> dict:
             bwd_compare(f"pair_forward_loss_agrad {tag} S={s} actor gradients", out10[3],
                         fe.reference_backward(spec_a, la, x, ref9[0]), tol,
                         in_f64(fe.reference_pair_fwd_loss_agrad, *args)[3])
-            if s == MB_ROWS and groups == WIDE_GROUPS:
+            if s == MB_ROWS and groups in timed:
+                key = timed[groups]
                 pair_ms = cuda_time_ms(lambda: fe.encoder_pair_forward(spec_a, spec_c, la, lc, x))
                 bwd_ms = cuda_time_ms(lambda: fe.encoder_backward(pair, x, [da, ones]), runs=10)
                 ms10 = cuda_time_ms(lambda: fe.pair_forward_loss_agrad(*args), runs=10)
@@ -851,41 +985,20 @@ def phase_wide_kernels(dev) -> dict:
                 log(f"  {tag} S={s}: encoder_pair_forward {pair_ms:.4f} ms, encoder_backward "
                     f"pair {bwd_ms:.4f} ms ({blocks} stage-A blocks a network), "
                     f"pair_forward_loss {ms9:.4f} ms, pair_forward_loss_agrad {ms10:.4f} ms")
-                out["encoder_pair_forward"] = {"wide_minibatch_ms": pair_ms}
-                out["encoder_backward"] = {"wide_ms": bwd_ms}
-                out["pair_forward_loss"] = {"wide_ms": ms9}
-                out["pair_forward_loss_agrad"] = {"wide_ms": ms10}
+                out.setdefault("encoder_pair_forward", {})[f"{key}_minibatch_ms"] = pair_ms
+                out.setdefault("encoder_backward", {})[f"{key}_ms"] = bwd_ms
+                out.setdefault("pair_forward_loss", {})[f"{key}_ms"] = ms9
+                out.setdefault("pair_forward_loss_agrad", {})[f"{key}_ms"] = ms10
     # the smaller spec after the larger, then the larger again: the forward's
     # shared-memory attribute never drops below a spec's carve
-    for groups in (TOK7_GROUPS, WIDE_GROUPS, GROUPS, WIDE_GROUPS):
+    for groups in (TOK7_GROUPS, WIDE_GROUPS, GROUPS, WIDE_GROUPS, TOK16_GROUPS, GROUPS,
+                   TOK16_GROUPS):
         spec_a = fe.EncoderSpec(groups=groups, head_dim=4)
         la = random_leaves(fe.leaf_shapes(spec_a), gen, dev)
         x = (2.0 * torch.randn((4099, spec_a.obs_dim), generator=gen)).to(dev)
         compare(f"encoder_forward {spec_a.n_tokens} tokens S=4099, after another spec",
                 fe.encoder_forward(spec_a, la, x), fe.reference_apply(spec_a, la, x),
                 fe.KERNEL_TOL, in_f64(fe.reference_apply, spec_a, la, x))
-    f, t, o = WIDE_TP
-    tspec = tl.TPLSTMSpec(input_dim=f, hidden=64, t_steps=t, out_dim=o)
-    lt = random_leaves(tspec.leaf_shapes(), gen, dev)
-    for n in (1, 15, TP_WINDOWS, TP_WINDOWS + 1):
-        xt = torch.randn((n, t, f), generator=gen).to(dev)
-        dy = torch.randn((n, o), generator=gen).to(dev)
-        compare(f"tp_forward F={f} T={t} O={o} N={n}", tl.tp_forward(tspec, lt, xt),
-                tl.reference_forward(tspec, lt, xt), tl.KERNEL_TOL)
-        g = tl.tp_backward(tspec, lt, xt, dy)
-        again = tl.tp_backward(tspec, lt, xt, dy)
-        bwd_compare(f"tp_backward F={f} T={t} O={o} N={n}", g,
-                    tl.reference_backward(tspec, lt, xt, dy), tl.BWD_KERNEL_TOL)
-        if not all(torch.equal(u, v) for u, v in zip(g, again)):
-            raise AssertionError(f"tp_backward F={f} N={n}: two launches gave different bits")
-    xt, dy = xt[:TP_WINDOWS].contiguous(), dy[:TP_WINDOWS].contiguous()
-    bwd_control(f"tp backward F={f} N={TP_WINDOWS}",
-                lambda **k: tl.reference_backward(tspec, lt, xt, dy, **k), tl.BWD_KERNEL_TOL,
-                tl.BWD_CONTROL_BLIND)
-    ms = cuda_time_ms(lambda: tl.tp_backward(tspec, lt, xt, dy), runs=5)
-    log(f"  tp_backward F={f} T={t} O={o} N={TP_WINDOWS}: kernel {ms:.4f} ms, "
-        f"{_bwd_blocks('mupe_tp_lstm_backward_blocks', TP_WINDOWS, t, f, o)} blocks")
-    out["tp_backward"] = {"wide_ms": ms, "wide_shape": list(WIDE_TP)}
     return out
 
 
@@ -1035,7 +1148,7 @@ def check_update_against_cpu(dev, env_kw=None, **algo) -> None:
     kernel's gradients part from the plain version's by its tolerance);
     parameters within 3e-3 absolute (two Adam steps of about lr = 5e-4).
     `algo` overrides MAPPOCfg fields (the in-kernel loss's), `env_kw`
-    HideAndSeekCfg fields (then 16 steps, past the 10 predicted ones); the
+    HideAndSeekCfg fields (then 16 steps, or 6 past the predicted ones); the
     card's update must launch the loss kernel of its `direct_mode` once a
     minibatch and the other one never."""
     from mupe_tpu_torch.envs import HideAndSeek, HideAndSeekCfg, tree_to
@@ -1045,7 +1158,7 @@ def check_update_against_cpu(dev, env_kw=None, **algo) -> None:
     env_kw = env_kw or {}
     env_c = HideAndSeek(HideAndSeekCfg(num_envs=16, max_episode_length=800, **env_kw),
                         device="cpu")
-    steps = 16 if env_kw else 8
+    steps = max(16, env_c.cfg.future_prediction_step + 6) if env_kw else 8
     cfg = MAPPOCfg(train_every=steps, num_minibatches=2, ppo_epochs=1, use_tp_net=True,
                    future_prediction_step=env_c.cfg.future_prediction_step, **algo)
     pols = {d: MAPPOPolicy(cfg, n_agents=env_c.num_agents, action_dim=4, obs_is_dict=True,
@@ -1138,15 +1251,17 @@ def phase_train(dev, card: str):
     wrappers = {"encoder_pair_forward": fe.encoder_pair_forward,
                 "encoder_forward": fe.encoder_forward, "tp_forward": tl.tp_forward,
                 "encoder_backward": fe.encoder_backward, "weight_grads": fe.weight_grads,
-                "tp_backward": tl.tp_backward}
+                "tp_backward": tl.tp_backward, "tp_weight_grads": tl.tp_weight_grads}
     for fn in wrappers.values():
         fn.launches = 0
     carry, metrics, ep_stats, seconds, split = run_train_iters(train_iter, carry)
     launches = {name: fn.launches for name, fn in wrappers.items()}
     iters = WARMUP_ITERS + TIMED_ITERS + 1
-    log(f"  launches over {iters} iterations: {launches} (weight_grads: the backward's "
-        f"stage B, one launch a backward)")
+    log(f"  launches over {iters} iterations: {launches} (weight_grads: the encoder "
+        f"backward's stage B, one launch a backward; tp_weight_grads the TP backward's, one a "
+        f"chunk of windows)")
     if (launches["encoder_backward"] < 64 * iters or launches["tp_backward"] < iters
+            or launches["tp_weight_grads"] != launches["tp_backward"]
             or launches["weight_grads"] != launches["encoder_backward"]
             or launches["encoder_pair_forward"] < 128 * iters
             or launches["encoder_forward"] < iters or launches["tp_forward"] < 65 * iters):
@@ -1321,13 +1436,13 @@ def phase_inkernel(dev, card: str, rate4: float) -> dict:
     return out
 
 
-def phase_wide_train(dev, card: str) -> None:
-    """Training at phase 7's configuration through `harness.build` (as
-    `python -m mupe_tpu_torch.train env.num_agents=4
-    env.obs_max_cylinder=4 env.future_prediction_step=10
-    env.use_obstacles_tp=true` builds it), at WIDE_NUM_ENVS arenas: 2
-    iterations with the default update, 2 with the agrad mode of the
-    in-kernel loss; the update on the card against the CPU for each."""
+def phase_config_train(dev, card: str, phase: int, label: str, env_kw: dict, modes) -> None:
+    """Training at another HideAndSeek configuration through `harness.build`
+    (as `python -m mupe_tpu_torch.train env.<field>=<value> ...` builds it),
+    at WIDE_NUM_ENVS arenas: 2 iterations in each of `modes` (None: the
+    default update; "fwdloss", "agrad": the in-kernel loss); the launch
+    counts, finite outputs and the update on the card against the CPU for
+    each."""
     from mupe_tpu_torch import harness
     from mupe_tpu_torch.learning import init_carry, make_train_iter
     from mupe_tpu_torch.ops import fused_encoder as fe
@@ -1336,18 +1451,23 @@ def phase_wide_train(dev, card: str) -> None:
     wrappers = {"encoder_pair_forward": fe.encoder_pair_forward,
                 "encoder_forward": fe.encoder_forward, "tp_forward": tl.tp_forward,
                 "encoder_backward": fe.encoder_backward, "weight_grads": fe.weight_grads,
-                "tp_backward": tl.tp_backward,
+                "tp_backward": tl.tp_backward, "tp_weight_grads": tl.tp_weight_grads,
+                "pair_forward_loss": fe.pair_forward_loss,
                 "pair_forward_loss_agrad": fe.pair_forward_loss_agrad}
-    for algo in ({}, {"use_inkernel_loss": True, "direct_mode": "agrad"}):
-        log(f"[7] wide-configuration training: HideAndSeekCfg({WIDE_ENV}), {WIDE_NUM_ENVS} "
-            f"arenas x {STEPS} steps, MAPPOCfg overrides {algo or 'none'}")
+    update = {None: "encoder_pair_forward", "fwdloss": "pair_forward_loss",
+              "agrad": "pair_forward_loss_agrad"}
+    for mode in modes:
+        algo = {"use_inkernel_loss": True, "direct_mode": mode} if mode else {}
+        log(f"[{phase}] {label} training: HideAndSeekCfg({env_kw}), {WIDE_NUM_ENVS} arenas x "
+            f"{STEPS} steps, MAPPOCfg overrides {algo or 'none'}")
         env, policy, env_cfg, _ = harness.build(
-            "HideAndSeek", dict(WIDE_ENV, num_envs=WIDE_NUM_ENVS), dict(algo, train_every=STEPS),
+            "HideAndSeek", dict(env_kw, num_envs=WIDE_NUM_ENVS), dict(algo, train_every=STEPS),
             device=dev)
         _, spec_a, _ = policy.specs({k: torch.zeros((1,) + v)
                                      for k, v in env.obs_groups().items()})
-        log(f"  observation groups {spec_a.groups} ({spec_a.n_tokens} tokens), TP input "
-            f"{env_cfg.tp_input_dim}, TP output {3 * env_cfg.future_prediction_step}")
+        log(f"  observation groups {spec_a.groups} ({spec_a.n_tokens} tokens, "
+            f"{spec_a.obs_dim} columns), TP input {env_cfg.tp_input_dim}, TP output "
+            f"{3 * env_cfg.future_prediction_step}")
         carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(5))
         train_iter = make_train_iter(env, policy)
         for fn in wrappers.values():
@@ -1360,14 +1480,14 @@ def phase_wide_train(dev, card: str) -> None:
         seconds = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in wrappers.items()}
         log(f"  launches over 2 iterations: {launches}")
-        backward = "pair_forward_loss_agrad" if algo else "encoder_pair_forward"
         if (launches["encoder_backward"] < 2 * 64 or launches["tp_backward"] < 2
-                or launches[backward] < 2 * 64 or launches["tp_forward"] < 2 * (STEPS + 1)):
-            raise AssertionError(f"the wide configuration skipped a kernel: {launches}")
+                or launches["tp_weight_grads"] != launches["tp_backward"]
+                or launches[update[mode]] < 2 * 64 or launches["tp_forward"] < 2 * (STEPS + 1)):
+            raise AssertionError(f"the {label} configuration skipped a kernel: {launches}")
         check_train_outputs(carry, metrics, ep_stats)
-        log(f"  wide training: {WIDE_NUM_ENVS} x {STEPS} x 2 env-steps in {seconds:.4f} s "
+        log(f"  {label} training: {WIDE_NUM_ENVS} x {STEPS} x 2 env-steps in {seconds:.4f} s "
             f"(first iterations, compile and warm-up included) on {card}")
-        check_update_against_cpu(dev, env_kw=WIDE_ENV, **algo)
+        check_update_against_cpu(dev, env_kw=env_kw, **algo)
 
 
 def main() -> int:
@@ -1385,8 +1505,10 @@ def main() -> int:
     launches, rate = phase_train(dev, card)
     launches["farthest_point_sampling"] = phase_aeg(dev, card)["farthest_point_sampling"]
     launches.update(phase_inkernel(dev, card, rate))
-    phase_wide_train(dev, card)
+    phase_config_train(dev, card, 7, "wide-configuration", WIDE_ENV, (None, "agrad"))
+    phase_config_train(dev, card, 8, "16-token", TOK16_ENV, (None, "fwdloss", "agrad"))
     launches["encoder_backward:stage_b"] = launches["weight_grads"]
+    launches["tp_backward:stage_b"] = launches["tp_weight_grads"]
     summary = {"kernels": [
         dict(name=name, launches=launches[name], **info,
              **({"stage_b_launches": launches[f"{name}:stage_b"]}

@@ -3,8 +3,8 @@
 // block of 128 threads per tile of rows, thread j owning feature column j,
 // activations in shared memory and bf16 where the reference rounds -- the
 // tensor-core primitives (mma.sync, ldmatrix, cp.async) of the backward's
-// two stages, and the fixed-order sums of the backward kernels' per-block
-// gradient slices and partial products (also tp_lstm_bwd.cu).
+// two stages (also the TP-LSTM's, tp_tile.cuh), and the fixed-order sums of
+// the backward kernels' per-block gradient slices and partial products.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,9 +16,9 @@ namespace {
 constexpr int E = 128;         // embed width == feed-forward width
 constexpr int NTHREADS = 128;  // one thread per feature column
 constexpr int TR = 8;          // rows per tile
-constexpr int MAX_TOK = 8;
+constexpr int MAX_TOK = 16;
 constexpr int MAX_GROUPS = 4;
-constexpr int MAX_OBS = 128;
+constexpr int MAX_OBS = 160;
 constexpr int MAX_HEAD = 8;
 constexpr int N_FIXED = 20;  // leaves after the per-group (W, b) pairs
 constexpr int MAX_LEAVES = 2 * MAX_GROUPS + N_FIXED;
@@ -249,13 +249,18 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // ---------------------------------------------------------------- fixed-order sums
 // dst[e] = sum over b = 0 .. n_slices-1, in that order, of src[b * stride + e],
-// for e < len: one segment of a gradient vector.
+// for e < len: one segment of a gradient vector.  With width > 0 the segment
+// is a matrix of len / width rows: element (r, c) is read at r * src_ld + c
+// of a slice and written at r * dst_ld + c.
 struct Seg {
   const float* src;
   float* dst;
   int n_slices;
   int stride;
   int len;
+  int width;
+  int src_ld;
+  int dst_ld;
 };
 
 constexpr int MAX_SEGS = 64;
@@ -268,9 +273,16 @@ struct SegArgs {
 __global__ void sum_segments_kernel(const __grid_constant__ SegArgs a) {
   const Seg& g = a.seg[blockIdx.y];
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < g.len; e += gridDim.x * blockDim.x) {
+    int si = e, di = e;
+    if (g.width > 0) {
+      const int r = e / g.width;
+      const int c = e - r * g.width;
+      si = r * g.src_ld + c;
+      di = r * g.dst_ld + c;
+    }
     float s = 0.f;
-    for (int b = 0; b < g.n_slices; ++b) s += g.src[(size_t)b * g.stride + e];
-    g.dst[e] = s;
+    for (int b = 0; b < g.n_slices; ++b) s += g.src[(size_t)b * g.stride + si];
+    g.dst[di] = s;
   }
 }
 

@@ -44,7 +44,11 @@ constexpr int MAX_BINS = 2;  // ring entries of the stacked embed weights
 // weight loads per tile (agrad: two forwards, a backward)
 constexpr int MAX_SEQ = 2 * (MAX_BINS + 6) + 6;
 constexpr int MAX_PARTS = MAX_SEQ + 2 * MAX_GROUPS;
-constexpr int MAX_XW = 256;  // the rows' bf16 width: obs_dim <= 128 plus each token's padding
+constexpr int MAX_XW = 448;  // the rows' bf16 width: obs_dim <= 160 plus each token's padding
+// Instances take up to NTM tokens: TOK_NARROW (the tiles of up to 8 tokens,
+// 16 or 8 rows) or MAX_TOK (8 rows).  Past TOK_NARROW a backward tile keeps
+// LN0's n in device memory, in a per-block scratch, not in shared memory.
+constexpr int TOK_NARROW = 8;
 constexpr int N_FIXED_COLS = 12;  // column-sum leaves after the groups' biases
 // bf16 weight copies of a network: the embeds' (every group's, stacked, each
 // K padded to 16 with zero rows), then these
@@ -82,7 +86,8 @@ inline bool make_tc_layout(const TokenLayout& lay, TcLayout& L) {
   }
   L.xw = (c + 63) / 64 * 64;
   // the groups' weights in order, a new entry where the next one would pass
-  // 128 rows: the padded K sum to at most 128 + 15 * 4, so two entries do
+  // 128 rows; more than two entries are refused (`kernel_spec_ok` in
+  // ops/fused_encoder.py applies the same rule)
   L.n_bins = 1;
   L.bin_rows[0] = L.bin_rows[1] = 0;
   for (int g = 0; g < lay.n_groups; ++g) {
@@ -313,7 +318,7 @@ __device__ __forceinline__ void tc_run(const uint32_t (&fr)[8][4], int nks,
 // v takes k's bytes and pre1 q's.
 struct TcBufs {
   __nv_bfloat16* Hb;   // [ntr] embeds, then h_all; its bytes hold G, G2 after the k/v products
-  __nv_bfloat16* N0b;  // [ntr] LN0's n
+  __nv_bfloat16* N0b;  // [ntr] LN0's n (device memory past TOK_NARROW tokens)
   __nv_bfloat16* Kb;   // [ntr] k, then dk
   __nv_bfloat16* Vb;   // [ntr] v, then dv
   __nv_bfloat16* Xb;   // [TA][xw] the rows, bf16, each token's K padded to 16
@@ -332,16 +337,17 @@ struct TcBufs {
   float* inv0;         // [ntr]
   float* inv1;         // [TA]
   float* inv2;         // [TA]
-  float* P;            // [TA][MAX_TOK] scores, then softmax weights
-  float* DS;           // [TA][MAX_TOK]
+  float* P;            // [TA][NTM] scores, then softmax weights
+  float* DS;           // [TA][NTM]
   float* DOUT;         // [TA][MAX_HEAD] the head's cotangent, f32
 };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
 // Carves a block's shared memory: the weight slots (two, or one with FWD),
-// then the buffers; fills `b` unless null.  Returns the bytes.
-template <int TA, bool FWD>
+// then the buffers; fills `b` unless null (past TOK_NARROW tokens the caller
+// points b->N0b at its scratch).  Returns the bytes.
+template <int TA, bool FWD, int NTM>
 __host__ __device__ inline size_t tc_carve(unsigned char* base, int n_tokens, int xw,
                                            TcBufs* b) {
   const size_t ntr = (size_t)n_tokens * TA;
@@ -356,7 +362,7 @@ __host__ __device__ inline size_t tc_carve(unsigned char* base, int n_tokens, in
   take((size_t)(FWD ? 1 : 2) * E * E * 2);
   const size_t h = ntr * E * 2, g = (size_t)2 * TA * FP * 4;
   unsigned char* hb = take(h > g ? h : g);
-  unsigned char* n0b = FWD ? nullptr : take(ntr * E * 2);
+  unsigned char* n0b = FWD || NTM > TOK_NARROW ? nullptr : take(ntr * E * 2);
   unsigned char* kb = take(ntr * E * 2);
   unsigned char* vb = FWD ? kb : take(ntr * E * 2);
   unsigned char* xb = take((size_t)TA * xw * 2);
@@ -374,8 +380,8 @@ __host__ __device__ inline size_t tc_carve(unsigned char* base, int n_tokens, in
   unsigned char* inv0 = FWD ? nullptr : take(ntr * 4);
   unsigned char* inv1 = FWD ? nullptr : take((size_t)TA * 4);
   unsigned char* inv2 = FWD ? nullptr : take((size_t)TA * 4);
-  unsigned char* pp = take((size_t)TA * MAX_TOK * 4);
-  unsigned char* ds = FWD ? nullptr : take((size_t)TA * MAX_TOK * 4);
+  unsigned char* pp = take((size_t)TA * NTM * 4);
+  unsigned char* ds = FWD ? nullptr : take((size_t)TA * NTM * 4);
   unsigned char* dout = FWD ? nullptr : take((size_t)TA * MAX_HEAD * 4);
   if (b) {
     b->Hb = bf(hb);
@@ -449,7 +455,7 @@ __device__ __forceinline__ void tc_load_rows(const TcLayout& L, const TcBufs& B,
 // leaves in canonical order; src: the weight slots (Ring or Slot) walking
 // `seq`.  With `st` (the network's staging buffers), the tile's h_all, att,
 // y1 and f are staged (rows past S as zeros).  Ends synchronised.
-template <int TA, bool FWD, class Src>
+template <int TA, bool FWD, int NTM, class Src>
 __device__ __forceinline__ void tc_forward(const TcLayout& L, const float* const* leaf,
                                            float scale, const TcBufs& B, Src& src,
                                            const WSeq& seq, __nv_bfloat16* const* st,
@@ -580,17 +586,17 @@ __device__ __forceinline__ void tc_forward(const TcLayout& L, const float* const
       const int p = p0 + u * nwarps;
       if (lane == 0 && p < TA * nt) {
         const int r = p / nt;
-        B.P[r * MAX_TOK + p - r * nt] = sc[u] * scale;
+        B.P[r * NTM + p - r * nt] = sc[u] * scale;
       }
     }
   }
   __syncthreads();
 
   if (j < TA) {  // softmax over the tokens, in the reference's order
-    float* p = B.P + j * MAX_TOK;
+    float* p = B.P + j * NTM;
     float smax = p[0];
     for (int t = 1; t < nt; ++t) smax = fmaxf(smax, p[t]);
-    float e[MAX_TOK];
+    float e[NTM];
     float denom = 0.f;
     for (int t = 0; t < nt; ++t) {
       e[t] = expf(p[t] - smax);
@@ -603,9 +609,9 @@ __device__ __forceinline__ void tc_forward(const TcLayout& L, const float* const
   __syncthreads();
 
   for (int r = rb; r < re; ++r) {  // attention output sum_t a_t v_t, rounded
-    float att = B.P[r * MAX_TOK] * __bfloat162float(B.Vb[swz(r, c)]);
+    float att = B.P[r * NTM] * __bfloat162float(B.Vb[swz(r, c)]);
     for (int t = 1; t < nt; ++t)
-      att = fmaf(B.P[r * MAX_TOK + t], __bfloat162float(B.Vb[swz(t * TA + r, c)]), att);
+      att = fmaf(B.P[r * NTM + t], __bfloat162float(B.Vb[swz(t * TA + r, c)]), att);
     const __nv_bfloat16 a = __float2bfloat16_rn(att);
     B.OPb[swz(r, c)] = a;
     if (st) st[S_ATT][(size_t)(row0 + r) * E + c] = row0 + r < S ? a : __float2bfloat16_rn(0.f);
@@ -800,7 +806,7 @@ inline void colsum_segments(SegArgs& a, const float* ws, int blocks, int n_group
 // B.DOb (bf16, zeros past hd and past S): the staged operands of the weight
 // products into `st` (rows past S as zeros), the column sums and dwh into
 // `cs`.  WH: the head's bf16 weights.  Ends synchronised.
-template <int TA>
+template <int TA, int NTM>
 __device__ __forceinline__ void tc_backward(const TcLayout& L, const float* const* leaf,
                                             const __nv_bfloat16* WH, int hd, float scale,
                                             const TcBufs& B, Ring& R, const WSeq& seq,
@@ -840,8 +846,11 @@ __device__ __forceinline__ void tc_backward(const TcLayout& L, const float* cons
     }
     mma_bf16(cs.wh, a, b[0], b[1]);
   }
-  if (j < hd)
-    for (int r = 0; r < TA; ++r) cs.bh += B.DOUT[r * MAX_HEAD + j];
+  if (j < hd) {  // the tile's sum first: a block's sum of ~400 rows one by one strays
+    float t = 0.f;  // by ~10x the plain version's pairwise error where it cancels
+    for (int r = 0; r < TA; ++r) t += B.DOUT[r * MAX_HEAD + j];
+    cs.bh += t;
+  }
   {
     uint32_t a2[2];
     ldsm_x2(a2, WH + (warp * 16 + (lane & 15)) * 8);
@@ -951,14 +960,14 @@ __device__ __forceinline__ void tc_backward(const TcLayout& L, const float* cons
       const int p = p0 + u * nwarps;
       if (lane == 0 && p < TA * nt) {
         const int r = p / nt;
-        B.DS[r * MAX_TOK + p - r * nt] = sc[u];
+        B.DS[r * NTM + p - r * nt] = sc[u];
       }
     }
   }
   __syncthreads();
   if (j < TA) {  // softmax backward: dss_t = a_t (das_t - sum_u a_u das_u)
-    const float* a = B.P + j * MAX_TOK;
-    float* d = B.DS + j * MAX_TOK;
+    const float* a = B.P + j * NTM;
+    float* d = B.DS + j * NTM;
     float wsum = a[0] * d[0];
     for (int t = 1; t < nt; ++t) wsum = wsum + a[t] * d[t];
     for (int t = 0; t < nt; ++t) d[t] = a[t] * (d[t] - wsum);
@@ -968,17 +977,17 @@ __device__ __forceinline__ void tc_backward(const TcLayout& L, const float* cons
     float dbq = 0.f, dbk = 0.f, dbv = 0.f;
     for (int r = rb; r < re; ++r) {
       const int row = row0 + r;
-      float d[MAX_TOK], a[MAX_TOK], kk[MAX_TOK];
+      float d[NTM], a[NTM], kk[NTM];
 #pragma unroll
-      for (int t = 0; t < MAX_TOK; ++t)
+      for (int t = 0; t < NTM; ++t)
         if (t < nt) {
-          d[t] = B.DS[r * MAX_TOK + t];
-          a[t] = B.P[r * MAX_TOK + t];
+          d[t] = B.DS[r * NTM + t];
+          a[t] = B.P[r * NTM + t];
           kk[t] = __bfloat162float(B.Kb[swz(t * TA + r, c)]);
         }
       float dq = d[0] * kk[0];
 #pragma unroll
-      for (int t = 1; t < MAX_TOK; ++t)
+      for (int t = 1; t < NTM; ++t)
         if (t < nt) dq = dq + d[t] * kk[t];
       dq = dq * scale;
       const __nv_bfloat16 dqb = __float2bfloat16_rn(dq);
@@ -988,7 +997,7 @@ __device__ __forceinline__ void tc_backward(const TcLayout& L, const float* cons
       const float qj = B.Q[r * FP + c];
       const float datt = DH[r * FP + c];
 #pragma unroll
-      for (int t = 0; t < MAX_TOK; ++t)
+      for (int t = 0; t < NTM; ++t)
         if (t < nt) {
           const __nv_bfloat16 dk = __float2bfloat16_rn(d[t] * qj * scale);
           const __nv_bfloat16 dv = __float2bfloat16_rn(a[t] * datt);
@@ -1088,10 +1097,13 @@ inline int smem_optin() {
 }
 
 // Fills `L`, the tile height and the shared-memory size of a stage-A kernel
-// for these groups (extra_row: bytes the kernel adds a tile row): the 16-row
-// tile where it fits a block's shared memory, else the 8-row one; false if
-// the shapes exceed the kernels' limits (those of make_layout, the embeds'
-// weights in two ring entries, the rows 256 bf16 wide).
+// for these groups (extra_row: bytes the kernel adds a tile row): up to
+// TOK_NARROW tokens the 16-row tile where it fits a block's shared memory,
+// else the 8-row one; past it the 8-row tile of MAX_TOK tokens (LN0's n in
+// a per-block scratch of MAX_TOK x 8 rows of E bf16 values in device memory,
+// after the kernel's workspace); false if the shapes exceed the
+// kernels' limits (those of make_layout, the embeds' weights in two ring
+// entries, the rows MAX_XW bf16 wide).
 inline bool stage_a_layout(int obs_dim, int n_groups, const int* group_k, const int* group_d,
                            size_t extra_row, TcLayout& L, int* ta, size_t* smem) {
   TokenLayout lay;
@@ -1099,11 +1111,16 @@ inline bool stage_a_layout(int obs_dim, int n_groups, const int* group_k, const 
       !make_layout(obs_dim, n_groups, group_k, group_d, lay) || !make_tc_layout(lay, L))
     return false;
   const size_t optin = (size_t)smem_optin();
+  if (lay.n_tokens > TOK_NARROW) {
+    *ta = 8;
+    *smem = tc_carve<8, false, MAX_TOK>(nullptr, lay.n_tokens, L.xw, nullptr) + 8 * extra_row;
+    return *smem <= optin;
+  }
   *ta = 16;
-  *smem = tc_carve<16, false>(nullptr, lay.n_tokens, L.xw, nullptr) + 16 * extra_row;
+  *smem = tc_carve<16, false, TOK_NARROW>(nullptr, lay.n_tokens, L.xw, nullptr) + 16 * extra_row;
   if (*smem > optin) {
     *ta = 8;
-    *smem = tc_carve<8, false>(nullptr, lay.n_tokens, L.xw, nullptr) + 8 * extra_row;
+    *smem = tc_carve<8, false, TOK_NARROW>(nullptr, lay.n_tokens, L.xw, nullptr) + 8 * extra_row;
   }
   return *smem <= optin;
 }

@@ -30,7 +30,9 @@
 // takes ~111 KB of shared memory at up to 6 tokens, so two blocks share an
 // SM and one computes while the other fills its slot.  Specs whose 16-row
 // tile does not allow two blocks an SM (7 or 8 tokens, wide embeds) take
-// 8-row tiles.  Rows past S are computed on zeros and never stored.
+// 8-row tiles; specs of 9 to 16 tokens an instance of the 8-row tile sized
+// for 16 (~118 KB at 16 tokens, one block an SM).  Rows past S are
+// computed on zeros and never stored.
 
 #include "encoder_bwd_tile.cuh"
 
@@ -51,13 +53,13 @@ struct FArgs {
   FNet net[2];
 };
 
-template <int TA>
+template <int TA, int NTM>
 __global__ void __launch_bounds__(NTA, 2) encoder_fwd_kernel(const __grid_constant__ FArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const TcLayout& L = a.L;
   const FNet& net = a.net[blockIdx.y];
   TcBufs B;
-  tc_carve<TA, true>(smem, L.lay.n_tokens, L.xw, &B);
+  tc_carve<TA, true, NTM>(smem, L.lay.n_tokens, L.xw, &B);
   Slot src = {reinterpret_cast<__nv_bfloat16*>(smem), 0};
   const int j = threadIdx.x;
   const int hd = net.head_dim;
@@ -65,16 +67,17 @@ __global__ void __launch_bounds__(NTA, 2) encoder_fwd_kernel(const __grid_consta
   const int row0 = blockIdx.x * TA;
   load_head(B.WH[0], net.leaf[base + 18], hd, j);
   tc_load_rows<TA>(L, B, a.x, a.S, row0, nullptr, 0, j);
-  tc_forward<TA, true>(L, net.leaf, a.scale, B, src, net.seq, nullptr, 0, row0, a.S, j);
+  tc_forward<TA, true, NTM>(L, net.leaf, a.scale, B, src, net.seq, nullptr, 0, row0, a.S, j);
   tc_head<TA>(B, B.WH[0], net.leaf[base + 19], hd, net.out + (size_t)row0 * hd, hd,
               a.S - row0, j);
 }
 
-// Sets, once a device, both instances' shared-memory attribute to the most a
+// Sets, once a device, every instance's shared-memory attribute to the most a
 // block may have, so that no later call lowers it below another spec's
-// carve; then picks the tile height by arithmetic: 16 rows where two such
-// blocks fit an SM's shared memory (their registers do, by the launch
-// bounds), else 8.  A call does no host work but its launch after the first.
+// carve; then picks the tile height by arithmetic: up to TOK_NARROW tokens
+// 16 rows where two such blocks fit an SM's shared memory (their registers
+// do, by the launch bounds), else 8; past it 8 rows of the MAX_TOK
+// instance.  A call does no host work but its launch after the first.
 constexpr int FWD_MAX_DEVICES = 64;
 
 cudaError_t fwd_tile_rows(const TcLayout& L, int* ta) {
@@ -92,18 +95,22 @@ cudaError_t fwd_tile_rows(const TcLayout& L, int* ta) {
                                       dev)) != cudaSuccess ||
         (err = cudaDeviceGetAttribute(&res, cudaDevAttrReservedSharedMemoryPerBlock, dev)) !=
             cudaSuccess ||
-        (err = cudaFuncSetAttribute(encoder_fwd_kernel<16>,
+        (err = cudaFuncSetAttribute(encoder_fwd_kernel<16, TOK_NARROW>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, optin)) !=
             cudaSuccess ||
-        (err = cudaFuncSetAttribute(encoder_fwd_kernel<8>,
+        (err = cudaFuncSetAttribute(encoder_fwd_kernel<8, TOK_NARROW>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, optin)) !=
+            cudaSuccess ||
+        (err = cudaFuncSetAttribute(encoder_fwd_kernel<8, MAX_TOK>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, optin)) !=
             cudaSuccess)
       return err;
     reserved[dev] = res;
     sm_bytes[dev] = per_sm;
   }
-  const size_t s16 = tc_carve<16, true>(nullptr, L.lay.n_tokens, L.xw, nullptr);
-  *ta = 2 * (s16 + reserved[dev]) <= (size_t)sm_bytes[dev] ? 16 : 8;
+  const size_t s16 = tc_carve<16, true, TOK_NARROW>(nullptr, L.lay.n_tokens, L.xw, nullptr);
+  *ta = L.lay.n_tokens <= TOK_NARROW && 2 * (s16 + reserved[dev]) <= (size_t)sm_bytes[dev] ? 16
+                                                                                          : 8;
   return cudaSuccess;
 }
 
@@ -146,11 +153,14 @@ extern "C" int mupe_encoder_forward(const float* x, int S, int obs_dim, int n_gr
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + ta - 1) / ta, n_nets);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = ta == 16 ? tc_carve<16, true>(nullptr, lay.n_tokens, a.L.xw, nullptr)
-                               : tc_carve<8, true>(nullptr, lay.n_tokens, a.L.xw, nullptr);
-  if (ta == 16)
-    encoder_fwd_kernel<16><<<grid, NTA, smem, s>>>(a);
+  if (lay.n_tokens > TOK_NARROW)
+    encoder_fwd_kernel<8, MAX_TOK><<<grid, NTA,
+        tc_carve<8, true, MAX_TOK>(nullptr, lay.n_tokens, a.L.xw, nullptr), s>>>(a);
+  else if (ta == 16)
+    encoder_fwd_kernel<16, TOK_NARROW><<<grid, NTA,
+        tc_carve<16, true, TOK_NARROW>(nullptr, lay.n_tokens, a.L.xw, nullptr), s>>>(a);
   else
-    encoder_fwd_kernel<8><<<grid, NTA, smem, s>>>(a);
+    encoder_fwd_kernel<8, TOK_NARROW><<<grid, NTA,
+        tc_carve<8, true, TOK_NARROW>(nullptr, lay.n_tokens, a.L.xw, nullptr), s>>>(a);
   return (int)cudaGetLastError();
 }

@@ -27,7 +27,9 @@
 // the CUDA cores' share (LayerNorm, softmax, the attention sums, staging):
 // a block holds one 16-row tile in ~225 KB of shared memory (the residuals,
 // the two weight slots), so one block of 8 warps runs per SM; where 16 rows
-// do not fit (7 or 8 tokens, or wide embeds), the tile has 8.  Design: a
+// do not fit (7 or 8 tokens, or wide embeds), the tile has 8; past 8 tokens
+// (up to 16) the 8-row tile keeps LN0's n in a per-block scratch in device
+// memory (32 KB a block, in L2), which brings it from ~236 KB to ~203 KB.  Design: a
 // persistent grid of one block per SM (shared by the networks); block b
 // walks the row tiles b, b + G, ... and keeps its column sums in registers,
 // written once to its two slices of a [2G, P] workspace that
@@ -51,6 +53,7 @@ struct ANet {
 
 struct AArgs {
   const float* x;
+  __nv_bfloat16* n0;  // past TOK_NARROW tokens: each block's scratch for LN0's n
   int S;
   int s_pad;
   int n_tiles;
@@ -59,14 +62,16 @@ struct AArgs {
   ANet net[2];
 };
 
-template <int TA>
+template <int TA, int NTM>
 __global__ void __launch_bounds__(NTA, 1)
     encoder_bwd_stage_a(const __grid_constant__ AArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const TcLayout& L = a.L;
   const ANet& net = a.net[blockIdx.y];
   TcBufs B;
-  tc_carve<TA, false>(smem, L.lay.n_tokens, L.xw, &B);
+  tc_carve<TA, false, NTM>(smem, L.lay.n_tokens, L.xw, &B);
+  if (NTM > TOK_NARROW)
+    B.N0b = a.n0 + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * NTM * TA * E;
   const int j = threadIdx.x;
   const int hd = net.head_dim;
   load_head(B.WH[0], net.wh, hd, j);
@@ -86,13 +91,20 @@ __global__ void __launch_bounds__(NTA, 1)
       B.DOb[idx] = __float2bfloat16_rn(d);
     }
     __syncthreads();
-    tc_forward<TA, false>(L, net.leaf, a.scale, B, R, net.seq, net.st, a.s_pad, row0, a.S, j);
-    tc_backward<TA>(L, net.leaf, B.WH[0], hd, a.scale, B, R, net.seq, net.st, a.s_pad, row0,
-                    a.S, cs, j);
+    tc_forward<TA, false, NTM>(L, net.leaf, a.scale, B, R, net.seq, net.st, a.s_pad, row0, a.S,
+                               j);
+    tc_backward<TA, NTM>(L, net.leaf, B.WH[0], hd, a.scale, B, R, net.seq, net.st, a.s_pad,
+                         row0, a.S, cs, j);
   }
   cp_async_wait<0>();
   colsums_store(cs, net.ws + (size_t)blockIdx.x * 2 * colsum_floats(L.lay.n_groups, hd),
                 L.lay.n_groups, hd, j);
+}
+
+// The stage-A instance for these tile rows and tokens.
+void (*stage_a_kernel(int ta, int n_tokens))(AArgs) {
+  if (n_tokens > TOK_NARROW) return encoder_bwd_stage_a<8, MAX_TOK>;
+  return ta == 16 ? encoder_bwd_stage_a<16, TOK_NARROW> : encoder_bwd_stage_a<8, TOK_NARROW>;
 }
 
 }  // namespace
@@ -108,8 +120,7 @@ extern "C" int mupe_encoder_bwd_blocks(int obs_dim, int n_groups, const int* gro
   if (n_nets < 1 || n_nets > 2 || s_pad < 0 || s_pad % 32 ||
       !stage_a_layout(obs_dim, n_groups, group_k, group_d, 0, L, &ta, &smem))
     return (int)cudaErrorInvalidValue;
-  return ta == 16 ? (int)stage_a_blocks(encoder_bwd_stage_a<16>, smem, ta, n_nets, s_pad, blocks)
-                  : (int)stage_a_blocks(encoder_bwd_stage_a<8>, smem, ta, n_nets, s_pad, blocks);
+  return (int)stage_a_blocks(stage_a_kernel(ta, L.lay.n_tokens), smem, ta, n_nets, s_pad, blocks);
 }
 
 // x: [S, obs_dim] f32 (s_pad >= S staged rows, a multiple of 32); leaves:
@@ -123,7 +134,9 @@ extern "C" int mupe_encoder_bwd_blocks(int obs_dim, int n_groups, const int* gro
 // s_pad, round16(d)]; grads: n_nets flat f32 gradient vectors of n_params[i]
 // floats, of which this fills every leaf but the weights of the staged
 // products; ws: f32 workspace of 2 * blocks * sum(colsum floats) floats
-// (two slices a block), blocks as mupe_encoder_bwd_blocks gave it.  Returns a cudaError_t.
+// (two slices a block), blocks as mupe_encoder_bwd_blocks gave it, then past
+// 8 tokens n_nets * blocks * 16 * 8 * 128 bf16 values of scratch.  Returns a
+// cudaError_t.
 extern "C" int mupe_encoder_bwd_operands(const float* x, int S, int s_pad, int obs_dim,
                                          int n_groups, const int* group_k, const int* group_d,
                                          int n_nets, const void* const* leaves, int n_leaves,
@@ -164,7 +177,8 @@ extern "C" int mupe_encoder_bwd_operands(const float* x, int S, int s_pad, int o
     colsum_segments(seg, net.ws, 2 * blocks, n_groups, head_dims[n], off, grads[n]);
     ws_off += (size_t)2 * blocks * colsum_floats(n_groups, head_dims[n]);
   }
-  auto kernel = ta == 16 ? encoder_bwd_stage_a<16> : encoder_bwd_stage_a<8>;
+  a.n0 = reinterpret_cast<__nv_bfloat16*>(ws + ws_off);
+  auto kernel = stage_a_kernel(ta, a.L.lay.n_tokens);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -80,6 +80,7 @@ struct FwdLossArgs {
 
 struct AgradArgs {
   FwdLossArgs f;
+  __nv_bfloat16* n0;  // past TOK_NARROW tokens: each block's scratch for LN0's n
   TcLayout L;
   WSeq seq;                  // the critic's forward, then the actor's forward and backward
   const __nv_bfloat16* wh_a;  // bf16 head weights [E][A], [E][1]
@@ -201,14 +202,15 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <int TA>
+template <int TA, int NTM>
 __global__ void __launch_bounds__(NTA, 1)
     pair_fwd_loss_agrad_kernel(const __grid_constant__ AgradArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const FwdLossArgs& f = a.f;
   const TcLayout& L = a.L;
   TcBufs B;
-  const size_t tc_bytes = tc_carve<TA, false>(smem, L.lay.n_tokens, L.xw, &B);
+  const size_t tc_bytes = tc_carve<TA, false, NTM>(smem, L.lay.n_tokens, L.xw, &B);
+  if (NTM > TOK_NARROW) B.N0b = a.n0 + (size_t)blockIdx.x * NTM * TA * E;
   float* VOUT = reinterpret_cast<float*>(smem + tc_bytes);
   float* LIN = VOUT + TA;  // [TA][LW]
   const int G = L.lay.n_groups;
@@ -227,9 +229,9 @@ __global__ void __launch_bounds__(NTA, 1)
     load_loss_rows(LIN, f.loss, f.S, row0, TA, NTA, j);
     __syncthreads();
     // the critic first (its value kept in VOUT), then the actor with its mean in DOUT
-    tc_forward<TA, false>(L, f.lc, f.scale, B, R, a.seq, nullptr, a.s_pad, row0, f.S, j);
+    tc_forward<TA, false, NTM>(L, f.lc, f.scale, B, R, a.seq, nullptr, a.s_pad, row0, f.S, j);
     tc_head<TA>(B, B.WH[1], f.lc[base + 19], 1, VOUT, 1, TA, j);
-    tc_forward<TA, false>(L, f.la, f.scale, B, R, a.seq, a.st, a.s_pad, row0, f.S, j);
+    tc_forward<TA, false, NTM>(L, f.la, f.scale, B, R, a.seq, a.st, a.s_pad, row0, f.S, j);
     tc_head<TA>(B, B.WH[0], f.la[base + 19], A, B.DOUT, MAX_HEAD, TA, j);
     __syncthreads();
     if (j < TA) {  // the mean in DOUT becomes the actor's cotangent dmu
@@ -243,7 +245,8 @@ __global__ void __launch_bounds__(NTA, 1)
       }
     }
     __syncthreads();
-    tc_backward<TA>(L, f.la, B.WH[0], A, f.scale, B, R, a.seq, a.st, a.s_pad, row0, f.S, cs, j);
+    tc_backward<TA, NTM>(L, f.la, B.WH[0], A, f.scale, B, R, a.seq, a.st, a.s_pad, row0, f.S, cs,
+                         j);
   }
   cp_async_wait<0>();
   colsums_store(cs, a.ws + (size_t)blockIdx.x * 2 * colsum_floats(G, A), G, A, j);
@@ -254,6 +257,13 @@ size_t fwd_loss_smem(const TokenLayout& lay) {
 }
 
 constexpr size_t AGRAD_ROW_SMEM = (size_t)(1 + LW) * 4;  // a tile row's VOUT, LIN
+
+// The agrad instance for these tile rows and tokens.
+void (*agrad_kernel(int ta, int n_tokens))(AgradArgs) {
+  if (n_tokens > TOK_NARROW) return pair_fwd_loss_agrad_kernel<8, MAX_TOK>;
+  return ta == 16 ? pair_fwd_loss_agrad_kernel<16, TOK_NARROW>
+                  : pair_fwd_loss_agrad_kernel<8, TOK_NARROW>;
+}
 
 // Fills everything but the outputs and the workspace; false on bad shapes.
 bool fill_args(FwdLossArgs& f, const float* x, int S, int obs_dim, int n_groups,
@@ -332,9 +342,7 @@ extern "C" int mupe_encoder_fwd_loss_agrad_blocks(int obs_dim, int n_groups, con
   if (s_pad < 0 || s_pad % 32 ||
       !stage_a_layout(obs_dim, n_groups, group_k, group_d, AGRAD_ROW_SMEM, L, &ta, &smem))
     return (int)cudaErrorInvalidValue;
-  return ta == 16
-             ? (int)stage_a_blocks(pair_fwd_loss_agrad_kernel<16>, smem, ta, 1, s_pad, blocks)
-             : (int)stage_a_blocks(pair_fwd_loss_agrad_kernel<8>, smem, ta, 1, s_pad, blocks);
+  return (int)stage_a_blocks(agrad_kernel(ta, L.lay.n_tokens), smem, ta, 1, s_pad, blocks);
 }
 
 // As mupe_encoder_fwd_loss, with outs: dv1 [S], dv2 [S], stats [S, 9 + A];
@@ -344,7 +352,8 @@ extern "C" int mupe_encoder_fwd_loss_agrad_blocks(int obs_dim, int n_groups, con
 // mupe_encoder_bwd_operands); grads, the actor's flat f32 gradient vector of
 // n_params floats, of which this fills every leaf but the weights of the
 // staged products; ws, an f32 workspace of 2 * blocks * colsum floats (two
-// slices a block), blocks as mupe_encoder_fwd_loss_agrad_blocks gave it.
+// slices a block), blocks as mupe_encoder_fwd_loss_agrad_blocks gave it,
+// then past 8 tokens blocks * 16 * 8 * 128 bf16 values of scratch.
 // Returns a cudaError_t.
 extern "C" int mupe_encoder_fwd_loss_agrad(const float* x, int S, int s_pad, int obs_dim,
                                            int n_groups, const int* group_k, const int* group_d,
@@ -380,7 +389,9 @@ extern "C" int mupe_encoder_fwd_loss_agrad(const float* x, int S, int s_pad, int
   a.n_tiles = s_pad / ta;
   SegArgs seg = {};
   colsum_segments(seg, ws, 2 * blocks, n_groups, action_dim, off, grads);
-  auto kernel = ta == 16 ? pair_fwd_loss_agrad_kernel<16> : pair_fwd_loss_agrad_kernel<8>;
+  a.n0 = reinterpret_cast<__nv_bfloat16*>(ws + (size_t)2 * blocks * colsum_floats(n_groups,
+                                                                                 action_dim));
+  auto kernel = agrad_kernel(ta, a.L.lay.n_tokens);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

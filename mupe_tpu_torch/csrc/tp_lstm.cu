@@ -6,131 +6,104 @@
 // hidden width lane-padded to 128).  It computes `_fwd_steps_t` +
 // `_head_t` (tp_lstm.py:377-419): bf16 matmul operands with f32 sums, the
 // bias added in f32 after both products, f32 gates and f32 c / h state.
-// The hidden width is the true 64; the input is [N, T, F] row-major.
+// The hidden width is the true 64; the input is [N, T, F] row-major.  The
+// recurrence is the warp tile of tp_tile.cuh in its forward-only mode, the
+// code that stage A of the backward (tp_lstm_bwd.cu) runs, so the backward
+// differentiates the h bits this kernel gives.
 //
 // What bounds it on an H100: the recurrence.  A window costs T * 4H * (F + H)
-// = 204,800 multiply-adds at T=10, F=16, H=64 and reads 640 bytes, so it is
-// arithmetic-bound, and its 10 steps are sequential.  Design: one block of
-// 256 threads (one per gate column) per tile of TB windows.  Each thread
-// keeps its column of the recurrent weight (64 values) in registers and
-// the input weight in shared memory; h (bf16, the next step's operand) and
-// the gate pre-activations live in shared memory, c in registers, so the
-// window's state never leaves the chip across the T steps.  Windows past N
-// in the last tile run on zeros and are never stored.
+// = 204,800 multiply-adds at T=10, F=16, H=64 and reads 640 bytes, so the
+// tensor cores' rate bounds it; in practice the gates' activations (five
+// transcendentals a (window, unit) pair a step, on the CUDA cores) and, at
+// the rollout's N = 4,096 (256 tiles, under two blocks an SM), the chain of T
+// dependent steps.  Design: a block of four warps a tile of 16 windows
+// (mma.sync m16n8k16; warp w computes hidden units 16 w .. 16 w + 15, and
+// the tile's h passes between the warps through shared memory once a step),
+// a persistent grid of blocks that convert the f32 weights to bf16 into
+// shared memory once; one launch a call, no host-side tensor work (x and the
+// leaves are read as f32 and rounded in the kernel).  Windows past N run on
+// zeros and are never stored.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tp_tile.cuh"
 
 namespace {
 
-constexpr int H = 64;
-constexpr int G4 = 4 * H;       // gate columns == threads per block
-constexpr int TB = 16;          // windows per block
-constexpr int MAX_F = 64;
-constexpr int MAX_T = 32;
-constexpr int MAX_O = 64;
-constexpr int PAIRS = TB * H / G4;  // (window, hidden) pairs per thread
-
-struct TPArgs {
-  const float* x;    // [N, T, F]
-  const float* wi;   // [F, 4H]
-  const float* wh;   // [H, 4H]
-  const float* b;    // [4H]
-  const float* wfc;  // [H, O]
-  const float* bfc;  // [O]
-  float* y;          // [N, O]
-  int N, T, F, O;
+struct TPFwdArgs {
+  const float* x;  // [N, T, F]
+  TPLeaves l;
+  float* y;        // [N, O]
+  int N, T, F, O, n_tiles;
 };
 
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+template <int FKT>
+__global__ void __launch_bounds__(TP_THREADS, 4) tp_lstm_fwd_kernel(const __grid_constant__ TPFwdArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  TPSmem s;
+  tp_carve<FKT, false>(smem, &s);
+  const int j = threadIdx.x;
+  tp_fill<FKT>(s, a.l, a.F, a.O, j);
+  __syncthreads();
+  const int warp = j >> 5;
+  const int lane = j & 31;
+  const int q = lane & 3;
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+    const TPRows r = {tile * TP_ROWS + (lane >> 2), tile * TP_ROWS + (lane >> 2) + 8,
+                      a.N, a.T, a.F, a.O};
+    tp_forward_steps<FKT>(s, a.x, r, nullptr, tile, warp, lane);
+    float z[2][4];
+    tp_head(z, s, a.T, a.O, warp, lane);
+#pragma unroll
+    for (int sub = 0; sub < 2; ++sub)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int o = warp * 16 + sub * 8 + 2 * q + (v & 1);
+        const int row = v < 2 ? r.ra : r.rb;
+        if (o < a.O && row < a.N) a.y[(size_t)row * a.O + o] = tanhf(z[sub][v] + s.bfc[o]);
+      }
+    __syncthreads();  // every warp has read h_T before the next tile writes it
+  }
 }
 
-__device__ __forceinline__ float sigmoidf_(float v) { return 1.0f / (1.0f + expf(-v)); }
+// Per device, set up once: each instance's shared-memory attribute and its
+// resident blocks an SM, so that a call does no host work but its launch.
+constexpr int TP_MAX_DEVICES = 64;
 
-__global__ void __launch_bounds__(G4, 2) tp_lstm_fwd_kernel(const __grid_constant__ TPArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Gs = reinterpret_cast<float*>(smem_raw);                        // [TB][4H]
-  __nv_bfloat16* Hb = reinterpret_cast<__nv_bfloat16*>(Gs + TB * G4);   // [TB][H]
-  __nv_bfloat16* Wi = Hb + TB * H;                                       // [F][4H]
-  __nv_bfloat16* Xs = Wi + a.F * G4;                                     // [TB][T*F]
+struct TPFwdPlan {
+  void (*kernel)(TPFwdArgs);
+  size_t smem;
+  int per_sm;
+};
 
-  const int g = threadIdx.x;
-  const int w0 = blockIdx.x * TB;
-  const int TF = a.T * a.F;
+template <int FKT>
+cudaError_t fwd_plan_of(TPFwdPlan& p) {
+  p.kernel = tp_lstm_fwd_kernel<FKT>;
+  p.smem = tp_carve<FKT, false>(nullptr, nullptr);
+  cudaError_t err =
+      cudaFuncSetAttribute(p.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.per_sm, p.kernel, TP_THREADS, p.smem);
+}
 
-  float whc[H];
-#pragma unroll
-  for (int k = 0; k < H; ++k) whc[k] = bf16r(__ldg(a.wh + k * G4 + g));
-  const float bg = __ldg(a.b + g);
-  for (int f = 0; f < a.F; ++f) Wi[f * G4 + g] = __float2bfloat16_rn(__ldg(a.wi + f * G4 + g));
-  for (int idx = g; idx < TB * TF; idx += G4) {
-    const int w = idx / TF;
-    const int c = idx - w * TF;
-    const int n = w0 + w;
-    Xs[idx] = __float2bfloat16_rn(n < a.N ? a.x[(size_t)n * TF + c] : 0.f);
+cudaError_t fwd_plan(int F, TPFwdPlan* plan, int* sms) {
+  static TPFwdPlan plans[TP_MAX_DEVICES][4];
+  static int sm_count[TP_MAX_DEVICES] = {};  // 0: the device not set up yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= TP_MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (sm_count[dev] == 0) {
+    int n = 0;
+    if ((err = fwd_plan_of<1>(plans[dev][0])) != cudaSuccess ||
+        (err = fwd_plan_of<2>(plans[dev][1])) != cudaSuccess ||
+        (err = fwd_plan_of<3>(plans[dev][2])) != cudaSuccess ||
+        (err = fwd_plan_of<4>(plans[dev][3])) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return err;
+    sm_count[dev] = n;
   }
-  for (int idx = g; idx < TB * H; idx += G4) Hb[idx] = __float2bfloat16_rn(0.f);
-  float c_st[PAIRS];
-#pragma unroll
-  for (int p = 0; p < PAIRS; ++p) c_st[p] = 0.f;
-  __syncthreads();
-
-  for (int t = 0; t < a.T; ++t) {
-    float ax[TB], ah[TB];
-#pragma unroll
-    for (int w = 0; w < TB; ++w) ax[w] = ah[w] = 0.f;
-    for (int f = 0; f < a.F; ++f) {
-      const float wif = __bfloat162float(Wi[f * G4 + g]);
-#pragma unroll
-      for (int w = 0; w < TB; ++w)
-        ax[w] = fmaf(__bfloat162float(Xs[w * TF + t * a.F + f]), wif, ax[w]);
-    }
-#pragma unroll
-    for (int k = 0; k < H; k += 8) {
-#pragma unroll
-      for (int w = 0; w < TB; ++w) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(Hb + w * H + k);
-        const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 hv = __bfloat1622float2(p[i]);
-          ah[w] = fmaf(hv.x, whc[k + 2 * i], ah[w]);
-          ah[w] = fmaf(hv.y, whc[k + 2 * i + 1], ah[w]);
-        }
-      }
-    }
-#pragma unroll
-    for (int w = 0; w < TB; ++w) Gs[w * G4 + g] = (ax[w] + ah[w]) + bg;
-    __syncthreads();
-#pragma unroll
-    for (int p = 0; p < PAIRS; ++p) {
-      const int idx = g + p * G4;
-      const int w = idx / H;
-      const int hc = idx - w * H;
-      const float* gw = Gs + w * G4;
-      const float gi = sigmoidf_(gw[hc]);
-      const float gf = sigmoidf_(gw[H + hc]);
-      const float gg = tanhf(gw[2 * H + hc]);
-      const float go = sigmoidf_(gw[3 * H + hc]);
-      c_st[p] = gf * c_st[p] + gi * gg;
-      Hb[w * H + hc] = __float2bfloat16_rn(go * tanhf(c_st[p]));
-    }
-    __syncthreads();
-  }
-
-  // head: tanh(bf16(h) @ bf16(wfc) + bfc)
-  for (int idx = g; idx < TB * a.O; idx += G4) {
-    const int w = idx / a.O;
-    const int o = idx - w * a.O;
-    const int n = w0 + w;
-    if (n >= a.N) continue;
-    float s = 0.f;
-    for (int k = 0; k < H; ++k)
-      s = fmaf(__bfloat162float(Hb[w * H + k]), bf16r(__ldg(a.wfc + k * a.O + o)), s);
-    a.y[(size_t)n * a.O + o] = tanhf(s + __ldg(a.bfc + o));
-  }
+  *plan = plans[dev][(F + 15) / 16 - 1];
+  *sms = sm_count[dev];
+  return plan->per_sm < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
 
 }  // namespace
@@ -140,15 +113,17 @@ __global__ void __launch_bounds__(G4, 2) tp_lstm_fwd_kernel(const __grid_constan
 extern "C" int mupe_tp_lstm_forward(const float* x, int N, int T, int F, const float* wi,
                                     const float* wh, const float* b, const float* wfc,
                                     const float* bfc, int O, float* y, void* stream) {
-  if (N < 0 || T < 1 || T > MAX_T || F < 1 || F > MAX_F || O < 1 || O > MAX_O)
+  if (N < 0 || T < 1 || T > TP_MAX_T || F < 1 || F > TP_MAX_F || O < 1 || O > TP_MAX_O)
     return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaSuccess;
-  TPArgs args = {x, wi, wh, b, wfc, bfc, y, N, T, F, O};
-  const size_t smem = (size_t)TB * G4 * sizeof(float) +
-                      (size_t)(TB * H + F * G4 + TB * T * F) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      tp_lstm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  TPFwdPlan plan;
+  int sms = 0;
+  cudaError_t err = fwd_plan(F, &plan, &sms);
   if (err != cudaSuccess) return (int)err;
-  tp_lstm_fwd_kernel<<<(N + TB - 1) / TB, G4, smem, static_cast<cudaStream_t>(stream)>>>(args);
+  const int n_tiles = (N + TP_ROWS - 1) / TP_ROWS;
+  int blocks = sms * plan.per_sm;
+  if (blocks > n_tiles) blocks = n_tiles;
+  TPFwdArgs args = {x, {wi, wh, b, wfc, bfc}, y, N, T, F, O, n_tiles};
+  plan.kernel<<<blocks, TP_THREADS, plan.smem, static_cast<cudaStream_t>(stream)>>>(args);
   return (int)cudaGetLastError();
 }

@@ -1,410 +1,324 @@
-// TP-net backward: the gradients of sum(y . dy) for the T-step LSTM(F -> 64)
-// + Dense(64 -> O) + tanh of csrc/tp_lstm.cu, summed over the windows, for
-// (wi [F, 4H], wh [H, 4H], b [4H], wfc [H, O], bfc [O]).  The cotangent for
-// the windows is not computed (they are data).
+// TP-net backward, stage A: the gradients of sum(y . dy) for the T-step
+// LSTM(F -> 64) + Dense(64 -> O) + tanh of csrc/tp_lstm.cu, summed over the
+// windows, for (wi [F, 4H], wh [H, 4H], b [4H], wfc [H, O], bfc [O]).  The
+// cotangent for the windows is not computed (they are data).
 //
 // Replaces the TPU kernels mupe_tpu/ops/tp_lstm.py `_tp_bwd_kernel_t`
 // (batch-in-lanes layout) and `_tp_bwd_kernel` (the same math with the
-// hidden width lane-padded to 128).  It computes `_tp_bwd_kernel_t`'s
-// recompute + BPTT (tp_lstm.py:428-505) on [N, T, F] row-major input at its
-// rounding points: dz is rounded to bf16 before dwfc and dh, each step's gate
-// cotangent is rounded to bf16 before dwh, dwi and dh, and db and dbfc add
-// the unrounded f32 values.
+// hidden width lane-padded to 128), with stage B (weight_grad.cu).  Per
+// tile of 16 windows it runs the forward of tp_tile.cuh (the forward
+// kernel's code, so the same h bits), keeping every step's c, then the head
+// and the BPTT of `_tp_bwd_kernel_t` (tp_lstm.py:428-505) at its rounding
+// points: dz is rounded to bf16 before dh and dwfc, each step's gate
+// cotangent dg is rounded to bf16 before dh, dwh and dwi, and db and dbfc
+// add the unrounded f32 values.  The BPTT recomputes each step's gates with
+// the forward's own code from x_t and the staged h_{t-1} (bit-identical),
+// forms dg in registers and computes dh = bf16(dg) bf16(wh)^T on the tensor
+// cores, dg's A fragments read back from the tile's shared copy.  The weight
+// products dwi = sum x_t^T dg_t, dwh = sum h_{t-1}^T dg_t and dwfc = h_T^T dz
+// are left to stage B: this kernel stages their bf16 operands (x_t, h_t,
+// dg_t, dz) in device memory, with c in f32 for its own BPTT.
 //
-// What bounds it on an H100: the recurrence's arithmetic.  A window costs
-// about 3x the forward's 204,800 multiply-adds and reads 700 bytes.  Design:
-// a persistent grid; each block of 256 threads (one per gate column) walks
-// tiles of TB windows (8; 4 for inputs wider than 16, whose dwi takes 64
-// registers a thread and whose tile would not fit shared memory at 8).  Per
-// tile it runs the forward, keeping h (bf16, the matmul operand) and c (f32)
-// of every step in shared memory, then walks the
-// steps backwards, recomputing each step's gate pre-activations from x_t and
-// h_{t-1} with the forward's own code (so the gates are bit-identical) rather
-// than storing them.  Thread g accumulates column g of dwh, dwi and db in
-// registers across all of its block's tiles, and the head's dwfc and dbfc in
-// shared memory; at the end the block writes its slice of a [G, P]
-// workspace, and a second kernel sums the slices in block order, so the
-// result does not depend on scheduling (no float atomics).  Windows past N
-// run on zeros with a zero cotangent and add exact zeros.
+// What bounds it on an H100: a window costs ~3x the forward's multiply-adds
+// (the forward, the recomputed gates, dh) on the tensor cores and writes
+// ~0.7 KB of staged bf16 operands a step (dg 512 B), so the bytes (~1.6 GB at
+// N = 241,664, T = 10, written here and read by stage B) and the gates'
+// transcendentals (twice the forward's) bound it.  Design: the forward
+// kernel's persistent grid of 4-warp blocks (a block a 16-window tile, warp
+// w its hidden units 16 w .. 16 w + 15, block b walking the tiles b, b + G,
+// ...); a BPTT step's gate cotangents pass between the warps through shared
+// memory (each warp's units of dh take every gate column), once a step; the
+// column sums db and dbfc gather in per-warp shared-memory rows (a lane
+// pair's rows summed by one shuffle), which the block sums in a fixed order
+// into its slice of a [G, 256 + O]
+// workspace, and `sum_segments_kernel` sums the slices in block order: two
+// launches give the same bits, without float atomics.  Windows past N run on
+// zeros with a zero cotangent: their dg and dz are zeros and add nothing.
 
-#include "common.cuh"
+#include "tp_tile.cuh"
 
 namespace {
 
-constexpr int H = 64;
-constexpr int G4 = 4 * H;         // gate columns == threads per block
-constexpr int NARROW_F = 16;      // inputs up to this wide take 8-window tiles
-constexpr int MAX_F = 64;
-constexpr int MAX_T = 32;
-constexpr int MAX_O = 64;
-constexpr int WH_LD = G4 + 2;     // padded bf16 row stride of wh in shared memory
-
 struct TPBwdArgs {
-  const float* x;    // [N, T, F]
-  const float* dy;   // [N, O]
-  const float* wi;   // [F, 4H]
-  const float* wh;   // [H, 4H]
-  const float* b;    // [4H]
-  const float* wfc;  // [H, O]
-  const float* bfc;  // [O]
-  float* ws;         // [G][P]
-  int N, T, F, O, n_tiles, P;
+  const float* x;   // [N, T, F]
+  const float* dy;  // [N, O]
+  TPLeaves l;
+  TPStage st;
+  float* ws;        // [G][TG + O] per-block slices: db, dbfc
+  int N, T, F, O, n_tiles;
 };
 
-__device__ __forceinline__ float sigmoidf_(float v) { return 1.0f / (1.0f + expf(-v)); }
-
-struct Smem {
-  float* Cs;    // [T+1][TB][H] cell state after each step
-  float* Gs;    // [TB][4H] gate pre-activations, then their cotangents
-  float* DH;    // [TB][H] cotangent of h
-  float* DZ;    // [TB][O]
-  float* DWFC;  // [H][O] block accumulator
-  float* DBFC;  // [O]
-  __nv_bfloat16* Wi;   // [F][4H]
-  __nv_bfloat16* Whs;  // [H][WH_LD]
-  __nv_bfloat16* DGb;  // [TB][4H]
-  __nv_bfloat16* Hs;   // [T+1][TB][H] h after each step
-  __nv_bfloat16* Xs;   // [TB][T*F]
-};
-
-__host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
-
-template <int TB>
-__host__ __device__ inline size_t carve(unsigned char* base, int T, int F, int O, Smem* s) {
-  size_t o = 0;
-  auto take = [&](size_t bytes) {
-    unsigned char* p = base + o;
-    o += align16(bytes);
-    return p;
-  };
-  unsigned char* cs = take((size_t)(T + 1) * TB * H * 4);
-  unsigned char* gs = take((size_t)TB * G4 * 4);
-  unsigned char* dh = take((size_t)TB * H * 4);
-  unsigned char* dz = take((size_t)TB * O * 4);
-  unsigned char* dwfc = take((size_t)H * O * 4);
-  unsigned char* dbfc = take((size_t)O * 4);
-  unsigned char* wi = take((size_t)F * G4 * 2);
-  unsigned char* whs = take((size_t)H * WH_LD * 2);
-  unsigned char* dgb = take((size_t)TB * G4 * 2);
-  unsigned char* hs = take((size_t)(T + 1) * TB * H * 2);
-  unsigned char* xs = take((size_t)TB * T * F * 2);
-  if (s) {
-    s->Cs = reinterpret_cast<float*>(cs);
-    s->Gs = reinterpret_cast<float*>(gs);
-    s->DH = reinterpret_cast<float*>(dh);
-    s->DZ = reinterpret_cast<float*>(dz);
-    s->DWFC = reinterpret_cast<float*>(dwfc);
-    s->DBFC = reinterpret_cast<float*>(dbfc);
-    s->Wi = reinterpret_cast<__nv_bfloat16*>(wi);
-    s->Whs = reinterpret_cast<__nv_bfloat16*>(whs);
-    s->DGb = reinterpret_cast<__nv_bfloat16*>(dgb);
-    s->Hs = reinterpret_cast<__nv_bfloat16*>(hs);
-    s->Xs = reinterpret_cast<__nv_bfloat16*>(xs);
-  }
-  return o;
-}
-
-// Gs[w][g] = (x_t W_i + h_{t-1} W_h)[w][g] + b[g] for the tile's windows:
-// bf16 operands, f32 sums, the bias added after both products.
-template <int TB>
-__device__ __forceinline__ void gate_preacts(const Smem& s, int t, int T, int F, int g,
-                                             float bg) {
-  const int TF = T * F;
-  float ax[TB], ah[TB];
-#pragma unroll
-  for (int w = 0; w < TB; ++w) ax[w] = ah[w] = 0.f;
-  for (int f = 0; f < F; ++f) {
-    const float wif = __bfloat162float(s.Wi[f * G4 + g]);
-#pragma unroll
-    for (int w = 0; w < TB; ++w)
-      ax[w] = fmaf(__bfloat162float(s.Xs[w * TF + t * F + f]), wif, ax[w]);
-  }
-  const __nv_bfloat16* hp = s.Hs + (size_t)t * TB * H;
-#pragma unroll
-  for (int k = 0; k < H; k += 8) {
-    float wk[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) wk[i] = __bfloat162float(s.Whs[(k + i) * WH_LD + g]);
-#pragma unroll
-    for (int w = 0; w < TB; ++w) {
-      float hv[8];
-      unpack8(*reinterpret_cast<const uint4*>(hp + w * H + k), hv);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) ah[w] = fmaf(hv[i], wk[i], ah[w]);
-    }
-  }
-#pragma unroll
-  for (int w = 0; w < TB; ++w) s.Gs[w * G4 + g] = (ax[w] + ah[w]) + bg;
-}
-
-// TB windows a tile, inputs up to MAXF wide (dwi's registers).
-template <int TB, int MAXF>
-__global__ void __launch_bounds__(G4, 1) tp_lstm_bwd_kernel(const __grid_constant__ TPBwdArgs a) {
-  constexpr int PAIRS = TB * H / G4;  // (window, hidden) pairs per thread
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem s;
-  carve<TB>(smem_raw, a.T, a.F, a.O, &s);
-  const int g = threadIdx.x;
-  const int T = a.T, F = a.F, O = a.O, TF = T * F;
-
-  for (int f = 0; f < F; ++f) s.Wi[f * G4 + g] = __float2bfloat16_rn(__ldg(a.wi + f * G4 + g));
-  for (int k = 0; k < H; ++k)
-    s.Whs[k * WH_LD + g] = __float2bfloat16_rn(__ldg(a.wh + k * G4 + g));
-  for (int idx = g; idx < H * O; idx += G4) s.DWFC[idx] = 0.f;
-  if (g < O) s.DBFC[g] = 0.f;
-  const float bg = __ldg(a.b + g);
-  float dwh[H], dwi[MAXF], db = 0.f;
-#pragma unroll
-  for (int k = 0; k < H; ++k) dwh[k] = 0.f;
-#pragma unroll
-  for (int f = 0; f < MAXF; ++f) dwi[f] = 0.f;
+template <int FKT>
+__global__ void __launch_bounds__(TP_THREADS, 3) tp_lstm_bwd_kernel(const __grid_constant__ TPBwdArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  TPSmem s;
+  tp_carve<FKT, true>(smem, &s);
+  const int j = threadIdx.x;
+  tp_fill<FKT>(s, a.l, a.F, a.O, j);
+  for (int i = j; i < TP_WARPS * 4 * TP_DBL; i += TP_THREADS) s.dbl[i] = 0.f;
+  for (int i = j; i < TP_WARPS * 4 * TP_DBFCL; i += TP_THREADS) s.dbfcl[i] = 0.f;
   __syncthreads();
+  const int warp = j >> 5;
+  const int lane = j & 31;
+  const int q = lane & 3;
+  const bool summer = lane < 16;  // rows lane / 4 and lane / 4 + 4 summed by the shuffle
+  float* dbl = s.dbl + (warp * 4 + (lane >> 2)) * TP_DBL;
+  float* dbfcl = s.dbfcl + (warp * 4 + (lane >> 2)) * TP_DBFCL;
+  const TPStage& st = a.st;
+  const int O = a.O;
+  const int n_ok = (O + 15) / 16;  // k-tiles of the head's outputs
 
   for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-    const int w0 = tile * TB;
-    for (int idx = g; idx < TB * TF; idx += G4) {
-      const int w = idx / TF;
-      const int c = idx - w * TF;
-      const int n = w0 + w;
-      s.Xs[idx] = __float2bfloat16_rn(n < a.N ? a.x[(size_t)n * TF + c] : 0.f);
-    }
-    for (int idx = g; idx < TB * H; idx += G4) {
-      s.Hs[idx] = __float2bfloat16_rn(0.f);
-      s.Cs[idx] = 0.f;
-    }
-    __syncthreads();
+    const TPRows r = {tile * TP_ROWS + (lane >> 2), tile * TP_ROWS + (lane >> 2) + 8,
+                      a.N, a.T, a.F, O};
+    tp_forward_steps<FKT>(s, a.x, r, &st, tile, warp, lane);
 
-    // forward, keeping h and c of every step
-    for (int t = 0; t < T; ++t) {
-      gate_preacts<TB>(s, t, T, F, g, bg);
-      __syncthreads();
+    // head, the warp's outputs: y = tanh(bf16(h_T) bf16(wfc) + bfc), dz =
+    // dy (1 - y^2); dbfc; dz staged and shared; then the warp's units of
+    // dh = bf16(dz) bf16(wfc)^T
+    {
+      float z[2][4];
+      tp_head(z, s, a.T, O, warp, lane);
 #pragma unroll
-      for (int p = 0; p < PAIRS; ++p) {
-        const int idx = g + p * G4;
-        const int w = idx / H;
-        const int hc = idx - w * H;
-        const float* gw = s.Gs + w * G4;
-        const float gi = sigmoidf_(gw[hc]);
-        const float gf = sigmoidf_(gw[H + hc]);
-        const float gg = tanhf(gw[2 * H + hc]);
-        const float go = sigmoidf_(gw[3 * H + hc]);
-        const float c = gf * s.Cs[(size_t)t * TB * H + idx] + gi * gg;
-        s.Cs[(size_t)(t + 1) * TB * H + idx] = c;
-        s.Hs[(size_t)(t + 1) * TB * H + idx] = __float2bfloat16_rn(go * tanhf(c));
-      }
-      __syncthreads();
-    }
-
-    // head: y = tanh(bf16(h_T) bf16(wfc) + bfc), dz = dy (1 - y^2)
-    const __nv_bfloat16* hT = s.Hs + (size_t)T * TB * H;
-    for (int idx = g; idx < TB * O; idx += G4) {
-      const int w = idx / O;
-      const int o = idx - w * O;
-      const int n = w0 + w;
-      float acc = 0.f;
-      for (int k = 0; k < H; ++k)
-        acc = fmaf(__bfloat162float(hT[w * H + k]), bf16r(__ldg(a.wfc + k * O + o)), acc);
-      const float y = tanhf(acc + __ldg(a.bfc + o));
-      const float dyv = n < a.N ? a.dy[(size_t)n * O + o] : 0.f;
-      s.DZ[w * O + o] = dyv * (1.0f - y * y);
-    }
-    __syncthreads();
-    for (int idx = g; idx < H * O; idx += G4) {  // dwfc += bf16(h_T)^T bf16(dz)
-      const int k = idx / O;
-      const int o = idx - k * O;
-      float acc = 0.f;
+      for (int sub = 0; sub < 2; ++sub) {
+        const int o0 = warp * 16 + sub * 8 + 2 * q;
+        float dz[4];
 #pragma unroll
-      for (int w = 0; w < TB; ++w)
-        acc = fmaf(__bfloat162float(hT[w * H + k]), bf16r(s.DZ[w * O + o]), acc);
-      s.DWFC[idx] += acc;
-    }
-    if (g < O) {
-      float acc = 0.f;
-#pragma unroll
-      for (int w = 0; w < TB; ++w) acc += s.DZ[w * O + g];
-      s.DBFC[g] += acc;
-    }
-    for (int idx = g; idx < TB * H; idx += G4) {  // dh = bf16(dz) bf16(wfc)^T
-      const int w = idx / H;
-      const int k = idx - w * H;
-      float acc = 0.f;
-      for (int o = 0; o < O; ++o)
-        acc = fmaf(bf16r(s.DZ[w * O + o]), bf16r(__ldg(a.wfc + k * O + o)), acc);
-      s.DH[idx] = acc;
-    }
-    __syncthreads();
-
-    // backpropagation through time
-    float dc[PAIRS];
-#pragma unroll
-    for (int p = 0; p < PAIRS; ++p) dc[p] = 0.f;
-    for (int t = T - 1; t >= 0; --t) {
-      gate_preacts<TB>(s, t, T, F, g, bg);
-      __syncthreads();
-#pragma unroll
-      for (int p = 0; p < PAIRS; ++p) {
-        const int idx = g + p * G4;
-        const int w = idx / H;
-        const int hc = idx - w * H;
-        float* gw = s.Gs + w * G4;
-        const float gi = sigmoidf_(gw[hc]);
-        const float gf = sigmoidf_(gw[H + hc]);
-        const float gg = tanhf(gw[2 * H + hc]);
-        const float go = sigmoidf_(gw[3 * H + hc]);
-        const float c_t = s.Cs[(size_t)(t + 1) * TB * H + idx];
-        const float c_prev = s.Cs[(size_t)t * TB * H + idx];
-        const float dh = s.DH[idx];
-        const float tc = tanhf(c_t);
-        const float d_o = dh * tc;
-        dc[p] = dc[p] + dh * go * (1.0f - tc * tc);
-        const float di = dc[p] * gg;
-        const float dgg = dc[p] * gi;
-        const float df = dc[p] * c_prev;
-        dc[p] = dc[p] * gf;
-        gw[hc] = di * gi * (1.0f - gi);
-        gw[H + hc] = df * gf * (1.0f - gf);
-        gw[2 * H + hc] = dgg * (1.0f - gg * gg);
-        gw[3 * H + hc] = d_o * go * (1.0f - go);
-      }
-      __syncthreads();
-      // column g: db (unrounded), then dwh and dwi from the bf16 cotangent
-      float dgv[TB];
-      float dsum = 0.f;
-#pragma unroll
-      for (int w = 0; w < TB; ++w) {
-        const float v = s.Gs[w * G4 + g];
-        dsum += v;
-        const __nv_bfloat16 vb = __float2bfloat16_rn(v);
-        s.DGb[w * G4 + g] = vb;
-        dgv[w] = __bfloat162float(vb);
-      }
-      db += dsum;
-      const __nv_bfloat16* hp = s.Hs + (size_t)t * TB * H;
-#pragma unroll
-      for (int k = 0; k < H; k += 8) {
-        float acc[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-#pragma unroll
-        for (int w = 0; w < TB; ++w) {
-          float hv[8];
-          unpack8(*reinterpret_cast<const uint4*>(hp + w * H + k), hv);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) acc[i] = fmaf(hv[i], dgv[w], acc[i]);
+        for (int v = 0; v < 4; ++v) {
+          const int o = o0 + (v & 1);
+          const int row = v < 2 ? r.ra : r.rb;
+          const float yv = tanhf(z[sub][v] + s.bfc[o]);
+          const float d = o < O && row < a.N ? a.dy[(size_t)row * O + o] : 0.f;
+          dz[v] = d * (1.0f - yv * yv);
         }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) dwh[k + i] += acc[i];
-      }
-#pragma unroll
-      for (int f = 0; f < MAXF; ++f) {
-        if (f < F) {
-          float acc = 0.f;
-#pragma unroll
-          for (int w = 0; w < TB; ++w)
-            acc = fmaf(__bfloat162float(s.Xs[w * TF + t * F + f]), dgv[w], acc);
-          dwi[f] += acc;
-        }
-      }
-      __syncthreads();
-      {  // dh[w][k] = sum_g bf16(dg)[w][g] bf16(wh)[k][g], PAIRS windows a thread
-        const int k = g & (H - 1);
-        const int w0 = (g / H) * PAIRS;
-        float acc[PAIRS];
-#pragma unroll
-        for (int p = 0; p < PAIRS; ++p) acc[p] = 0.f;
-        for (int c = 0; c < G4; c += 2) {
-          const float2 wv = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(s.Whs + k * WH_LD + c));
-#pragma unroll
-          for (int p = 0; p < PAIRS; ++p) {
-            const float2 d = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(s.DGb + (w0 + p) * G4 + c));
-            acc[p] = fmaf(d.x, wv.x, acc[p]);
-            acc[p] = fmaf(d.y, wv.y, acc[p]);
+        if (warp * 16 + sub * 8 < O) {
+          float s0 = dz[0] + dz[2], s1 = dz[1] + dz[3];
+          s0 += __shfl_xor_sync(0xffffffffu, s0, 16);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, 16);
+          if (summer) {
+            float2* p = reinterpret_cast<float2*>(dbfcl + sub * 8 + 2 * q);
+            const float2 old = *p;
+            *p = make_float2(old.x + s0, old.y + s1);
           }
         }
+        const uint32_t lo = pack_bf16(dz[0], dz[1]), hi = pack_bf16(dz[2], dz[3]);
+        *reinterpret_cast<uint32_t*>(s.DZ + swzw(lane >> 2, o0, TP_MAX_O)) = lo;
+        *reinterpret_cast<uint32_t*>(s.DZ + swzw((lane >> 2) + 8, o0, TP_MAX_O)) = hi;
+        if (warp * 16 + sub * 8 < st.op) {
+          *reinterpret_cast<uint32_t*>(st.dz + (size_t)r.ra * st.op + o0) = lo;
+          *reinterpret_cast<uint32_t*>(st.dz + (size_t)r.rb * st.op + o0) = hi;
+        }
+      }
+    }
+    __syncthreads();
+    float dh[2][4], dc[2][4];
 #pragma unroll
-        for (int p = 0; p < PAIRS; ++p) s.DH[(w0 + p) * H + k] = acc[p];
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) dh[u][v] = dc[u][v] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt)
+      if (kt < n_ok) {
+        uint32_t da[4], b[4];
+        ldsm_x4(da, s.DZ + swzw(lane & 15, kt * 16 + (lane >> 4) * 8, TP_MAX_O));
+        ldsm_x4(b, s.WFC + swzw(warp * 16 + (lane & 7) + (lane >> 4) * 8,
+                                kt * 16 + ((lane >> 3) & 1) * 8, TP_MAX_O));
+        mma_bf16(dh[0], da, b[0], b[1]);
+        mma_bf16(dh[1], da, b[2], b[3]);
+      }
+
+    // backpropagation through time, the warp's units
+    uint32_t xn[FKT][4];  // the next step's x (t - 1), loaded a step ahead
+    tp_x_frags<FKT>(xn, a.x, r, a.T - 1, q);
+    for (int t = a.T - 1; t >= 0; --t) {
+      uint32_t xf[FKT][4], hp[4][4];
+#pragma unroll
+      for (int kt = 0; kt < FKT; ++kt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) xf[kt][i] = xn[kt][i];
+      if (t > 0) tp_x_frags<FKT>(xn, a.x, r, t - 1, q);
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = (i & 1) ? r.rb : r.ra;
+          const int col = p * 16 + (i >> 1) * 8 + 2 * q;
+          hp[p][i] = t > 0 ? *reinterpret_cast<const uint32_t*>(
+                                 st.hs + ((size_t)(t - 1) * st.n_pad + row) * TH + col)
+                           : 0u;
+        }
+      float acc[4][2][4];
+      tp_gate_pass<FKT>(acc, xf, hp, s, warp, lane);
+      __nv_bfloat16* dgs = s.DG + (t & 1) * TP_ROWS * TG;
+#pragma unroll
+      for (int sub = 0; sub < 2; ++sub) {
+        float2 bg[4];
+        tp_bias(bg, s, warp, sub, q);
+        const int u = 2 * warp + sub;
+        const float4 ct = st.cs[(((size_t)tile * a.T + t) * 8 + u) * 32 + lane];
+        const float4 cp = t > 0 ? st.cs[(((size_t)tile * a.T + t - 1) * 8 + u) * 32 + lane]
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float c_t[4] = {ct.x, ct.y, ct.z, ct.w};
+        const float c_p[4] = {cp.x, cp.y, cp.z, cp.w};
+        float dg[4][4];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const Gates G = tp_gates(acc, bg, sub, v);
+          const float tc = tanhf(c_t[v]);
+          const float d_o = dh[sub][v] * tc;
+          dc[sub][v] = dc[sub][v] + dh[sub][v] * G.o * (1.0f - tc * tc);
+          const float di = dc[sub][v] * G.g;
+          const float dgg = dc[sub][v] * G.i;
+          const float df = dc[sub][v] * c_p[v];
+          dc[sub][v] = dc[sub][v] * G.f;
+          dg[0][v] = di * G.i * (1.0f - G.i);
+          dg[1][v] = df * G.f * (1.0f - G.f);
+          dg[2][v] = dgg * (1.0f - G.g * G.g);
+          dg[3][v] = d_o * G.o * (1.0f - G.o);
+        }
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float s0 = dg[g][0] + dg[g][2], s1 = dg[g][1] + dg[g][3];
+          s0 += __shfl_xor_sync(0xffffffffu, s0, 16);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, 16);
+          const int col = g * TH + u * 8 + 2 * q;
+          if (summer) {
+            float2* pp = reinterpret_cast<float2*>(dbl + g * 16 + sub * 8 + 2 * q);
+            const float2 old = *pp;
+            *pp = make_float2(old.x + s0, old.y + s1);
+          }
+          const uint32_t lo = pack_bf16(dg[g][0], dg[g][1]), hi = pack_bf16(dg[g][2], dg[g][3]);
+          *reinterpret_cast<uint32_t*>(dgs + swzw(lane >> 2, col, TG)) = lo;
+          *reinterpret_cast<uint32_t*>(dgs + swzw((lane >> 2) + 8, col, TG)) = hi;
+          *reinterpret_cast<uint32_t*>(st.dg + ((size_t)t * st.n_pad + r.ra) * TG + col) = lo;
+          *reinterpret_cast<uint32_t*>(st.dg + ((size_t)t * st.n_pad + r.rb) * TG + col) = hi;
+        }
       }
       __syncthreads();
+      // dh = bf16(dg) bf16(wh)^T for the warp's units, over every gate column
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) dh[u][v] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < TG / 16; ++kt) {
+        uint32_t da[4], b[4];
+        ldsm_x4(da, dgs + swzw(lane & 15, kt * 16 + (lane >> 4) * 8, TG));
+        ldsm_x4(b, s.W + swzw(16 * FKT + warp * 16 + (lane & 7) + (lane >> 4) * 8,
+                              kt * 16 + ((lane >> 3) & 1) * 8, TG));
+        mma_bf16(dh[0], da, b[0], b[1]);
+        mma_bf16(dh[1], da, b[2], b[3]);
+      }
     }
   }
 
-  // this block's slice, in the flat order (wi, wh, b, wfc, bfc)
-  float* ws = a.ws + (size_t)blockIdx.x * a.P;
-#pragma unroll
-  for (int f = 0; f < MAXF; ++f)
-    if (f < F) ws[f * G4 + g] = dwi[f];
-#pragma unroll
-  for (int k = 0; k < H; ++k) ws[F * G4 + k * G4 + g] = dwh[k];
-  ws[(F + H) * G4 + g] = db;
-  const int off_fc = (F + H + 1) * G4;
-  for (int idx = g; idx < H * O; idx += G4) ws[off_fc + idx] = s.DWFC[idx];
-  if (g < O) ws[off_fc + H * O + g] = s.DBFC[g];
+  // the block's slice: db, then dbfc, each summed over its warps' rows in order
+  __syncthreads();
+  float* ws = a.ws + (size_t)blockIdx.x * (TG + O);
+  for (int col = j; col < TG; col += TP_THREADS) {  // gate g, unit 16 w + k: warp w's g * 16 + k
+    const int w = (col % TH) / 16;
+    const float* p = s.dbl + w * 4 * TP_DBL + (col / TH) * 16 + col % 16;
+    ws[col] = ((p[0] + p[TP_DBL]) + p[2 * TP_DBL]) + p[3 * TP_DBL];
+  }
+  for (int o = j; o < O; o += TP_THREADS) {
+    const float* p = s.dbfcl + (o / 16) * 4 * TP_DBFCL + o % 16;
+    ws[TG + o] = ((p[0] + p[TP_DBFCL]) + p[2 * TP_DBFCL]) + p[3 * TP_DBFCL];
+  }
 }
 
-// The kernel for these shapes and its shared memory: 8-window tiles for
-// inputs up to 16 wide (the main path's), else 4.
-struct Plan {
+constexpr int TP_MAX_DEVICES = 64;
+
+struct TPBwdPlan {
   void (*kernel)(TPBwdArgs);
-  int tb;
   size_t smem;
+  int per_sm;
 };
 
-Plan plan_for(int T, int F, int O) {
-  if (F <= NARROW_F)
-    return {tp_lstm_bwd_kernel<8, NARROW_F>, 8, carve<8>(nullptr, T, F, O, nullptr)};
-  return {tp_lstm_bwd_kernel<4, MAX_F>, 4, carve<4>(nullptr, T, F, O, nullptr)};
+template <int FKT>
+cudaError_t bwd_plan_of(TPBwdPlan& p) {
+  p.kernel = tp_lstm_bwd_kernel<FKT>;
+  p.smem = tp_carve<FKT, true>(nullptr, nullptr);
+  cudaError_t err =
+      cudaFuncSetAttribute(p.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.per_sm, p.kernel, TP_THREADS, p.smem);
+}
+
+// The instance for F inputs and its grid for n_tiles warp tiles, set up once
+// a device.
+cudaError_t bwd_plan(int F, int n_tiles, TPBwdPlan* plan, int* blocks) {
+  static TPBwdPlan plans[TP_MAX_DEVICES][4];
+  static int sm_count[TP_MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= TP_MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (sm_count[dev] == 0) {
+    int n = 0;
+    if ((err = bwd_plan_of<1>(plans[dev][0])) != cudaSuccess ||
+        (err = bwd_plan_of<2>(plans[dev][1])) != cudaSuccess ||
+        (err = bwd_plan_of<3>(plans[dev][2])) != cudaSuccess ||
+        (err = bwd_plan_of<4>(plans[dev][3])) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return err;
+    sm_count[dev] = n;
+  }
+  *plan = plans[dev][(F + 15) / 16 - 1];
+  if (plan->per_sm < 1) return cudaErrorInvalidConfiguration;
+  int b = sm_count[dev] * plan->per_sm;
+  if (b > n_tiles) b = n_tiles;
+  *blocks = b < 1 ? 1 : b;
+  return cudaSuccess;
 }
 
 bool shapes_ok(int T, int F, int O) {
-  return T >= 1 && T <= MAX_T && F >= 1 && F <= MAX_F && O >= 1 && O <= MAX_O;
+  return T >= 1 && T <= TP_MAX_T && F >= 1 && F <= TP_MAX_F && O >= 1 && O <= TP_MAX_O;
 }
 
 }  // namespace
 
-// Writes to *blocks the number of blocks (= workspace slices) that
-// mupe_tp_lstm_backward wants for N windows.  Returns a cudaError_t.
-extern "C" int mupe_tp_lstm_backward_blocks(int N, int T, int F, int O, int* blocks) {
-  if (N < 0 || !shapes_ok(T, F, O)) return (int)cudaErrorInvalidValue;
-  const Plan plan = plan_for(T, F, O);
-  cudaError_t err = cudaFuncSetAttribute(
-      plan.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, plan.kernel, G4,
-                                                           plan.smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int n_tiles = (N + plan.tb - 1) / plan.tb;
-  int b = sms * per_sm;
-  if (b > n_tiles) b = n_tiles;
-  *blocks = b < 1 ? 1 : b;
-  return (int)cudaSuccess;
+// Writes to *blocks the number of blocks (= workspace slices of 256 + O
+// floats) that mupe_tp_lstm_bwd_operands wants for n_pad staged windows.
+// Returns a cudaError_t.
+extern "C" int mupe_tp_lstm_bwd_blocks(int n_pad, int T, int F, int O, int* blocks) {
+  if (n_pad < 0 || n_pad % 32 || !shapes_ok(T, F, O)) return (int)cudaErrorInvalidValue;
+  TPBwdPlan plan;
+  return (int)bwd_plan(F, n_pad / TP_ROWS, &plan, blocks);
 }
 
 // x [N, T, F], dy [N, O], wi [F, 4*64], wh [64, 4*64], b [4*64], wfc [64, O],
-// bfc [O]; grad: flat f32 [F*256 + 64*256 + 256 + 64*O + O] in the order
-// (wi, wh, b, wfc, bfc); ws: f32 [blocks * that size], blocks as
-// mupe_tp_lstm_backward_blocks gave it.  Returns a cudaError_t.
-extern "C" int mupe_tp_lstm_backward(const float* x, const float* dy, int N, int T, int F,
-                                     const float* wi, const float* wh, const float* b,
-                                     const float* wfc, const float* bfc, int O, float* grad,
-                                     float* ws, int blocks, void* stream) {
-  if (N < 0 || !shapes_ok(T, F, O) || blocks < 1) return (int)cudaErrorInvalidValue;
-  const Plan plan = plan_for(T, F, O);
-  const int P = (F + H + 1) * G4 + H * O + O;
-  TPBwdArgs args = {x, dy, wi, wh, b, wfc, bfc, ws, N, T, F, O, (N + plan.tb - 1) / plan.tb, P};
-  cudaError_t err = cudaFuncSetAttribute(
-      plan.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
+// bfc [O] (f32); n_pad >= N staged windows, a multiple of 32; the staging
+// (bf16): xs [T][n_pad][16 ceil(F / 16)], hs [T][n_pad][64] (h_1 .. h_T),
+// dg [T][n_pad][256], dz [n_pad][8 ceil(O / 8)]; cs: f32 scratch of
+// n_pad * T * 64 floats (16-byte aligned); db [256] and dbfc [O]: where the
+// bias gradients go (f32, overwritten); ws: f32 workspace of blocks * (256 +
+// O) floats, blocks as mupe_tp_lstm_bwd_blocks gave it.  Returns a
+// cudaError_t.
+extern "C" int mupe_tp_lstm_bwd_operands(const float* x, const float* dy, int N, int n_pad,
+                                         int T, int F, const float* wi, const float* wh,
+                                         const float* b, const float* wfc, const float* bfc,
+                                         int O, void* xs, void* hs, void* dg, void* dz, void* cs,
+                                         float* db, float* dbfc, float* ws, int blocks,
+                                         void* stream) {
+  if (N < 0 || n_pad < N || n_pad % 32 || !shapes_ok(T, F, O) || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  TPBwdPlan plan;
+  int want = 0;
+  cudaError_t err = bwd_plan(F, n_pad / TP_ROWS, &plan, &want);
   if (err != cudaSuccess) return (int)err;
+  if (blocks != want) return (int)cudaErrorInvalidValue;
+  TPBwdArgs args = {x, dy, {wi, wh, b, wfc, bfc},
+                    {static_cast<__nv_bfloat16*>(xs), static_cast<__nv_bfloat16*>(hs),
+                     static_cast<__nv_bfloat16*>(dg), static_cast<__nv_bfloat16*>(dz),
+                     static_cast<float4*>(cs), n_pad, (O + 7) / 8 * 8},
+                    ws, N, T, F, O, n_pad / TP_ROWS};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  plan.kernel<<<blocks, G4, plan.smem, s>>>(args);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (n_pad > 0) {
+    plan.kernel<<<blocks, TP_THREADS, plan.smem, s>>>(args);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
   SegArgs seg = {};
-  seg.seg[seg.n++] = {ws, grad, blocks, P, P};
+  seg.seg[seg.n++] = {ws, db, n_pad > 0 ? blocks : 0, TG + O, TG};
+  seg.seg[seg.n++] = {ws + TG, dbfc, n_pad > 0 ? blocks : 0, TG + O, O};
   return (int)sum_segments(seg, s);
 }

@@ -1,7 +1,7 @@
-// Stage B of the encoder backward: the `_mm_tn` weight products
-// dW = A^T D, summed over the staged rows, as one split-K GEMM launch for
-// every product of one or two networks, then a fixed-order sum of the
-// blocks' partial products.
+// Stage B of the encoder backward and of the TP-LSTM backward: the weight
+// products dW = A^T D, summed over the staged rows, as one split-K GEMM
+// launch for every product of one or two networks (or of the TP net), then
+// a fixed-order sum of the blocks' partial products.
 //
 // Replaces the TPU kernels mupe_tpu/ops/fused_encoder.py `_bwd_kernel`,
 // `_pair_bwd_kernel` and `_pair_fwd_loss_agrad_kernel` together with the
@@ -10,7 +10,12 @@
 // operands (stage A rounds and stages them) and f32 sums:
 //   wq: h_all[token 0]^T dq    wk: h_all^T dk (K = n_tok S)   wv: h_all^T dv
 //   wo: att^T dr1              w1: y1^T dpre1                 w2: f^T dr2
-//   each group's embed: its tokens' x slices^T de (K = k S, M = d padded to 16).
+//   each group's embed: its tokens' x slices^T de (K = k S, M = d padded to 16);
+// and with tp_lstm_bwd.cu, mupe_tpu/ops/tp_lstm.py `_tp_bwd_kernel_t` and
+// `_tp_bwd_kernel`: their weight products (:485-503), summed over the steps
+// and windows, D = the bf16 gate cotangents [T N][256] in two 128-column
+// halves (D's row stride and the output's given per product):
+//   wi: x_t^T dg_t (K = T N)   wh: h_{t-1}^T dg_t (K = (T - 1) N)   wfc: h_T^T dz.
 //
 // What bounds it on an H100: the bytes.  A product reads K x (M + 128) bf16
 // values and does K x M x 128 multiply-adds: 64 flops a byte at M = 128,
@@ -40,10 +45,12 @@ constexpr size_t WG_SMEM = (size_t)WG_STAGES * 2 * WG_KSTEP * E * 2;
 
 struct WgProd {
   const __nv_bfloat16* a;  // [k_rows][lda]
-  const __nv_bfloat16* d;  // [k_rows][E]
+  const __nv_bfloat16* d;  // [k_rows][ldd], its first n columns read
   float* part;             // [n_chunks][m][E] partial products
   int lda;                 // A's width: M padded to 16 (16, 32, ... 128)
   int m;                   // output rows kept (M)
+  int ldd;                 // D's row stride
+  int n;                   // D's columns (a multiple of 8, at most E; zeros past them)
   int k_rows;              // K, a multiple of WG_KSTEP
   int chunk;               // rows a block takes, a multiple of WG_KSTEP
   int first_block;
@@ -67,7 +74,8 @@ __device__ __forceinline__ void wg_load(const WgProd& p, int k, __nv_bfloat16* s
   for (int idx = tid; idx < WG_KSTEP * (E / 8); idx += WG_THREADS) {
     const int r = idx >> 4;
     const int c = (idx & 15) * 8;
-    cp_async16(sd + swz(r, c), p.d + (size_t)(k + r) * E + c, 16);
+    const bool in = c < p.n;
+    cp_async16(sd + swz(r, c), in ? p.d + (size_t)(k + r) * p.ldd + c : p.d, in ? 16 : 0);
   }
 }
 
@@ -149,7 +157,7 @@ __global__ void __launch_bounds__(WG_THREADS)
       for (int h = 0; h < 2; ++h) {
         const int row = m0 + mi * 16 + (lane >> 2) + 8 * h;
         const int col = n0 + nb * 8 + 2 * (lane & 3);
-        if (mi < n_mi && row < p.m)
+        if (mi < n_mi && row < p.m && col < p.n)
           *reinterpret_cast<float2*>(out + (size_t)row * E + col) =
               make_float2(acc[mi][nb][2 * h], acc[mi][nb][2 * h + 1]);
       }
@@ -158,14 +166,18 @@ __global__ void __launch_bounds__(WG_THREADS)
 }  // namespace
 
 // n_prod products; for product i: a[i] bf16 [k_rows[i]][lda[i]], d[i] bf16
-// [k_rows[i]][128], out[i] f32 [m[i]][128] (the leaf's gradient, overwritten
-// with sum_k a[k][:m]^T d[k]), K split into chunks of chunk[i] rows (k_rows
-// and chunk multiples of 32, lda a multiple of 16 and at most 128, m <= lda);
-// ws: f32 workspace of sum_i ceil(k_rows[i] / chunk[i]) * m[i] * 128 floats.
-// Products with k_rows = 0 get zeros.  Returns a cudaError_t.
+// [k_rows[i]][ldd[i]] of which the first n[i] columns are read, out[i] f32
+// [m[i]][min(n[i], ldo[i])] with row stride ldo[i] (the leaf's gradient, or
+// its column block, overwritten with sum_k a[k][:m]^T d[k][:n]), K split
+// into chunks of chunk[i] rows (k_rows and chunk multiples of 32, lda a
+// multiple of 16 and at most 128, m <= lda, n a multiple of 8 and at most
+// 128, ldd a multiple of 8 and at least n); ws: f32 workspace of
+// sum_i ceil(k_rows[i] / chunk[i]) * m[i] * 128 floats.  Products with
+// k_rows = 0 get zeros.  Returns a cudaError_t.
 extern "C" int mupe_weight_grads(int n_prod, const void* const* a, const void* const* d,
-                                 const int* lda, const int* m, const int* k_rows,
-                                 const int* chunk, float* const* out, float* ws, void* stream) {
+                                 const int* lda, const int* m, const int* ldd, const int* n,
+                                 const int* ldo, const int* k_rows, const int* chunk,
+                                 float* const* out, float* ws, void* stream) {
   if (n_prod < 1 || n_prod > WG_MAX_PROD) return (int)cudaErrorInvalidValue;
   WgArgs args = {};
   SegArgs seg = {};
@@ -173,15 +185,17 @@ extern "C" int mupe_weight_grads(int n_prod, const void* const* a, const void* c
   size_t ws_off = 0;
   for (int i = 0; i < n_prod; ++i) {
     if (lda[i] < 16 || lda[i] > E || lda[i] % 16 || m[i] < 1 || m[i] > lda[i] || k_rows[i] < 0 ||
-        k_rows[i] % WG_KSTEP || chunk[i] < WG_KSTEP || chunk[i] % WG_KSTEP)
+        k_rows[i] % WG_KSTEP || chunk[i] < WG_KSTEP || chunk[i] % WG_KSTEP || n[i] < 8 ||
+        n[i] > E || n[i] % 8 || ldd[i] < n[i] || ldd[i] % 8 || ldo[i] < 1)
       return (int)cudaErrorInvalidValue;
     const int n_chunks = (k_rows[i] + chunk[i] - 1) / chunk[i];
+    const int width = n[i] < ldo[i] ? n[i] : ldo[i];
     float* part = ws + ws_off;
     if (n_chunks > 0)
       args.p[args.n_prod++] = {static_cast<const __nv_bfloat16*>(a[i]),
                                static_cast<const __nv_bfloat16*>(d[i]), part, lda[i], m[i],
-                               k_rows[i], chunk[i], blocks};
-    seg.seg[seg.n++] = {part, out[i], n_chunks, m[i] * E, m[i] * E};
+                               ldd[i], n[i], k_rows[i], chunk[i], blocks};
+    seg.seg[seg.n++] = {part, out[i], n_chunks, m[i] * E, m[i] * width, width, E, ldo[i]};
     blocks += n_chunks;
     ws_off += (size_t)n_chunks * m[i] * E;
   }

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("fused_encoder.cu", "fused_encoder_bwd.cu", "fused_encoder_loss.cu", "weight_grad.cu",
            "tp_lstm.cu", "tp_lstm_bwd.cu", "fps.cu")
-HEADERS = ("common.cuh", "encoder_tile.cuh", "encoder_bwd_tile.cuh")
+HEADERS = ("common.cuh", "encoder_tile.cuh", "encoder_bwd_tile.cuh", "tp_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,10 +49,10 @@ C_FUNCTIONS = {
     "mupe_encoder_fwd_loss_agrad": (
         _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P,
     ),
-    "mupe_weight_grads": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    "mupe_tp_lstm_backward_blocks": (_I, _I, _I, _I, _P),
-    "mupe_tp_lstm_backward": (
-        _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P,
+    "mupe_weight_grads": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "mupe_tp_lstm_bwd_blocks": (_I, _I, _I, _I, _P),
+    "mupe_tp_lstm_bwd_operands": (
+        _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
     ),
     "mupe_fps": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
 }

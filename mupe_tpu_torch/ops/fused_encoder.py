@@ -33,13 +33,19 @@ from .tolerance import GradTol, KernelTol
 
 _LN_EPS = 1e-6  # flax LayerNorm default
 # The limits of every encoder kernel (forward, backward, forward + loss):
-# embed and feed-forward width 128, at most 8 tokens in at most 4 groups, 128
-# observation columns, a head of at most 8 outputs (`kernel_spec_ok`).
+# embed and feed-forward width 128, at most 16 tokens in at most 4 groups,
+# 160 observation columns, a group's weight stacked into the tile's two
+# weight slots of 128 rows (`_embed_slots`), a head of at most 8 outputs
+# (`kernel_spec_ok`).  Past _NARROW_TOKENS tokens the backward's tile keeps
+# LN0's n in a per-block scratch in device memory (_N0_SCRATCH bf16 values a
+# block and network, after its workspace).
 _KERNEL_WIDTH = 128
-_KERNEL_MAX_TOKENS = 8
+_KERNEL_MAX_TOKENS = 16
 _KERNEL_MAX_GROUPS = 4
-_KERNEL_MAX_OBS = 128
+_KERNEL_MAX_OBS = 160
 _KERNEL_MAX_HEAD = 8
+_NARROW_TOKENS = 8
+_N0_SCRATCH = _KERNEL_MAX_TOKENS * 8 * _KERNEL_WIDTH
 # Kernel vs `reference_apply` (see tolerance.py).  With the plain version in
 # f64 given (`tolerance.in_f64`), each limit is at least FLOOR_MULT times the
 # f32 plain version's own error against it (its floor).
@@ -434,23 +440,43 @@ def split_k(k_rows: int, blocks: int, step: int) -> Tuple[Tuple[int, int], ...]:
 
 
 # ---------------------------------------------------------------- kernel
+def _embed_slots(spec: EncoderSpec) -> int:
+    """Weight slots the tile's stacked embed weights take (`make_tc_layout`):
+    the groups' weights in order, each K padded to 16, a new slot where the
+    next would pass 128 rows."""
+    slots, rows = 1, 0
+    for _, d in spec.groups:
+        if rows + _kp(d) > _KERNEL_WIDTH:
+            slots, rows = slots + 1, 0
+        rows += _kp(d)
+    return slots
+
+
 def kernel_spec_ok(spec: EncoderSpec) -> bool:
     """Whether the encoder kernels (forward, backward, forward + loss) take
-    `spec`: embed and feed-forward width 128, 1-8 tokens in 1-4 groups, at
-    most 128 observation columns, a head of 1-8 outputs."""
+    `spec`: embed and feed-forward width 128, 1-16 tokens in 1-4 groups of
+    at most 128 features, at most 160 observation columns, the groups'
+    weights in two slots of 128 rows, a head of 1-8 outputs."""
     return (spec.embed_dim == _KERNEL_WIDTH and spec.ff_dim == _KERNEL_WIDTH
             and 1 <= len(spec.groups) <= _KERNEL_MAX_GROUPS
-            and all(k >= 1 and d >= 1 for k, d in spec.groups)
+            and all(k >= 1 and 1 <= d <= _KERNEL_WIDTH for k, d in spec.groups)
             and spec.n_tokens <= _KERNEL_MAX_TOKENS and spec.obs_dim <= _KERNEL_MAX_OBS
-            and 1 <= spec.head_dim <= _KERNEL_MAX_HEAD)
+            and _embed_slots(spec) <= 2 and 1 <= spec.head_dim <= _KERNEL_MAX_HEAD)
 
 
 def _check_spec(spec: EncoderSpec) -> None:
     if not kernel_spec_ok(spec):
         raise ValueError(
             f"spec exceeds the encoder kernels' limits (embed_dim = ff_dim = {_KERNEL_WIDTH}, "
-            f"at most {_KERNEL_MAX_TOKENS} tokens in {_KERNEL_MAX_GROUPS} groups, "
-            f"{_KERNEL_MAX_OBS} observation columns, a head of {_KERNEL_MAX_HEAD}): {spec}")
+            f"at most {_KERNEL_MAX_TOKENS} tokens in {_KERNEL_MAX_GROUPS} groups of at most "
+            f"{_KERNEL_WIDTH} features, {_KERNEL_MAX_OBS} observation columns, the groups' "
+            f"weights padded to 16 rows in two slots of {_KERNEL_WIDTH}, a head of "
+            f"{_KERNEL_MAX_HEAD}): {spec}")
+
+
+def _n0_scratch_floats(spec: EncoderSpec, blocks: int) -> int:
+    """f32 floats of a stage-A kernel's LN0 scratch, blocks per network."""
+    return blocks * _N0_SCRATCH // 2 if spec.n_tokens > _NARROW_TOKENS else 0
 
 
 def _check_kernel_args(x: torch.Tensor, nets) -> None:
@@ -637,7 +663,8 @@ def _launch_operands(x: torch.Tensor, nets, douts):
         build.check(lib.mupe_encoder_bwd_blocks(
             *_groups_args(spec0), len(nets), staged_rows(s), ctypes.byref(blocks)),
             "mupe_encoder_bwd_blocks")
-        ws = torch.empty(2 * blocks.value * sum(_colsum_floats(spec) for spec, _ in nets),
+        ws = torch.empty(2 * blocks.value * sum(_colsum_floats(spec) for spec, _ in nets)
+                         + len(nets) * _n0_scratch_floats(spec0, blocks.value),
                          device=x.device, dtype=torch.float32)
         err = lib.mupe_encoder_bwd_operands(
             x.data_ptr(), s, staged_rows(s), *_groups_args(spec0), len(nets),
@@ -680,7 +707,7 @@ def weight_grads(items) -> None:
             for i, g in reference_weight_grads(spec, staged).items():
                 views[i].copy_(g)
         return
-    prods = []  # (A, D, rows of the output, its device pointer, K)
+    prods = []
     for spec, staged, flat in items:
         if (flat.dtype != torch.float32 or not flat.is_contiguous()
                 or flat.numel() != n_params(spec)):
@@ -700,28 +727,51 @@ def weight_grads(items) -> None:
                     or a.shape[-1] % 16 or a.shape[-1] < m):
                 raise ValueError(f"staged operands of shapes {tuple(a.shape)}, "
                                  f"{tuple(d.shape)} do not match {shapes[leaf]}")
-            prods.append((a, d, m, flat.data_ptr() + 4 * offsets[leaf], k_rows))
-    chunks = [stage_b_chunk(k_rows) for *_, k_rows in prods]
-    dev = items[0][2].device
-    ws = torch.empty(sum(-(-k // c) * m * _KERNEL_WIDTH
-                         for (_, _, m, _, k), c in zip(prods, chunks)),
-                     device=dev, dtype=torch.float32)
-    lib = build.library()
-    with torch.cuda.device(dev):
-        err = lib.mupe_weight_grads(
-            len(prods), build.ptr_array([a.data_ptr() for a, *_ in prods]),
-            build.ptr_array([d.data_ptr() for _, d, *_ in prods]),
-            build.int_array([a.shape[-1] for a, *_ in prods]),
-            build.int_array([m for _, _, m, _, _ in prods]),
-            build.int_array([k for *_, k in prods]), build.int_array(chunks),
-            build.ptr_array([out for _, _, _, out, _ in prods]), ws.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    build.check(err, "mupe_weight_grads")
+            prods.append(WeightProduct(a.data_ptr(), d.data_ptr(), a.shape[-1], m,
+                                       spec.embed_dim, spec.embed_dim, spec.embed_dim, k_rows,
+                                       flat.data_ptr() + 4 * offsets[leaf]))
+    launch_weight_products(prods, items[0][2].device, stage_b_chunk)
     weight_grads.launches += 1
 
 
 weight_grads.launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightProduct:
+    """One product of the weight-gradient kernel: out[:m, :min(n, ldo)] (row
+    stride ldo) = A[:, :m]ᵀ D[:, :n] over k_rows staged rows; A bf16 [k_rows,
+    lda], D bf16 [k_rows, ldd]; device pointers."""
+    a: int
+    d: int
+    lda: int
+    m: int
+    ldd: int
+    n: int
+    ldo: int
+    k_rows: int
+    out: int
+
+
+def launch_weight_products(prods, dev, chunk_of) -> None:
+    """One launch of the split-K kernel of `csrc/weight_grad.cu` (+ its
+    fixed-order sum of the partial products) for every product of `prods`,
+    K split into chunks of chunk_of(k_rows) rows."""
+    chunks = [chunk_of(p.k_rows) for p in prods]
+    ws = torch.empty(sum(-(-p.k_rows // c) * p.m * _KERNEL_WIDTH for p, c in zip(prods, chunks)),
+                     device=dev, dtype=torch.float32)
+    field = lambda name: [getattr(p, name) for p in prods]  # noqa: E731
+    lib = build.library()
+    with torch.cuda.device(dev):
+        err = lib.mupe_weight_grads(
+            len(prods), build.ptr_array(field("a")), build.ptr_array(field("d")),
+            build.int_array(field("lda")), build.int_array(field("m")),
+            build.int_array(field("ldd")), build.int_array(field("n")),
+            build.int_array(field("ldo")), build.int_array(field("k_rows")),
+            build.int_array(chunks), build.ptr_array(field("out")), ws.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.check(err, "mupe_weight_grads")
 
 
 def encoder_backward(nets, x: torch.Tensor, douts) -> Tuple[Tuple[torch.Tensor, ...], ...]:
@@ -996,7 +1046,8 @@ def _launch_agrad_operands(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_o
         build.check(lib.mupe_encoder_fwd_loss_agrad_blocks(
             *_groups_args(spec_a), staged_rows(s), ctypes.byref(blocks)),
             "mupe_encoder_fwd_loss_agrad_blocks")
-        ws = torch.empty(2 * blocks.value * _colsum_floats(spec_a), device=x.device,
+        ws = torch.empty(2 * blocks.value * _colsum_floats(spec_a)
+                         + _n0_scratch_floats(spec_a, blocks.value), device=x.device,
                          dtype=torch.float32)
         err = lib.mupe_encoder_fwd_loss_agrad(
             x.data_ptr(), s, staged_rows(s), *_groups_args(spec_a),

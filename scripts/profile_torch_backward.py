@@ -2,13 +2,16 @@
 """Device time of each kernel of the encoder backward and of the agrad
 kernel's call, at the update's minibatch (S = 49,152 rows), on one GPU.
 
-    python3 scripts/profile_torch_backward.py [--calls 10]
+    python3 scripts/profile_torch_backward.py [--calls 10] [--tree DIR]
 
 `chip_smoke.py` times a call from its first event to its last, host work
 before the first launch included.  Here `torch.profiler` gives the device
 time of each kernel over `--calls` calls (stage A, stage B, the fixed-order
 sums, the bf16 weight copies), and CUDA events the time of 20 calls issued
-back to back, where the host's work overlaps the card's.  Needs a CUDA card.
+back to back, where the host's work overlaps the card's.  `--tree DIR`
+profiles the package of another checkout (an earlier commit, unpacked), so
+two trees can be compared in one call: run it for each, in turns.  Needs a
+CUDA card.
 """
 from __future__ import annotations
 
@@ -16,7 +19,6 @@ import argparse
 import sys
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
 def device_us(ev) -> float:
@@ -27,7 +29,9 @@ def device_us(ev) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--calls", type=int, default=10)
+    ap.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent))
     args = ap.parse_args()
+    sys.path.insert(0, args.tree)
     import torch
 
     if not torch.cuda.is_available():
@@ -38,7 +42,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    print(cs.card_line(), flush=True)
+    print(f"{cs.card_line()}; tree {args.tree}", flush=True)
     gen = torch.Generator().manual_seed(1)
     spec_a = fe.EncoderSpec(groups=cs.GROUPS, head_dim=4)
     spec_c = fe.EncoderSpec(groups=cs.GROUPS, head_dim=1)

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""How far the encoder kernels (forward, backward, in-kernel loss) stray
-from their plain versions over many random draws, on one GPU.
+"""How far the encoder kernels (forward, backward, in-kernel loss) and the
+TP-LSTM kernels (forward, backward) stray from their plain versions over
+many random draws, on one GPU.
 
     python3 scripts/torch_tolerance_survey.py [--seeds 12] [--loss-seeds 30]
-        [--wide-seeds 4] [--flips 2] [--out FILE]
+        [--wide-seeds 4] [--flips 2] [--tp-seeds 12] [--tp-wide-seeds 4]
+        [--out FILE]
 
 `chip_smoke.py` holds each kernel to its limit on one fixed draw; this
 script shows how much room those limits leave.  Every limit with a
@@ -25,9 +27,16 @@ f32 summation alone costs that output at that draw.  For each seed
 * the forward + loss kernels at S = 1, 7, 8, 15, 16, 17 and 49,152: the
   per-row outputs and the stats (column by column) against `loss_row_tols`,
   and the agrad kernel's head-bias gradient against the column sum of the
-  plain dmu (`DMU_SUM_TOL`; the fwdloss kernel's own dmu summed, for scale).
+  plain dmu (`DMU_SUM_TOL`; the fwdloss kernel's own dmu summed, for scale);
+* the TP forward and backward at N = 241,664 and 241,665 windows of the
+  main path's shape (16 inputs, 10 steps, 15 outputs; `--tp-seeds`) and at
+  N = 241,664 of F 34, T 20, O 30 (`--tp-wide-seeds`): the forward against
+  `tp_lstm.KERNEL_TOL`, the backward per gradient leaf against
+  `tp_lstm.BWD_KERNEL_TOL`, each with its f32 control, absolute and as a
+  multiple of the floor.
 
-`--out` writes every number as JSON.  Needs a CUDA card.
+A count of 0 skips its part.  `--out` writes every number as JSON.  Needs
+a CUDA card.
 """
 from __future__ import annotations
 
@@ -46,6 +55,8 @@ def main() -> int:
     ap.add_argument("--loss-seeds", type=int, default=30)
     ap.add_argument("--wide-seeds", type=int, default=4)
     ap.add_argument("--flips", type=int, default=0)
+    ap.add_argument("--tp-seeds", type=int, default=12)
+    ap.add_argument("--tp-wide-seeds", type=int, default=4)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     import torch
@@ -61,7 +72,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(cs.card_line(), flush=True)
     tol = fe.BWD_KERNEL_TOL
-    out = {"backward": [], "forward": [], "loss": [], "flips": []}
+    out = {"backward": [], "forward": [], "loss": [], "flips": [], "tp": []}
     groups_of = {"main": cs.GROUPS, "wide": cs.WIDE_GROUPS}
 
     def draw(seed, groups):
@@ -156,16 +167,17 @@ def main() -> int:
     f = out["forward"]
     bad = [(r["seed"], r["net"]) for r in f if not fe.KERNEL_TOL.holds(r["kernel"])]
     cpass = [(r["seed"], r["net"]) for r in f if fe.KERNEL_TOL.holds(r["control"])]
-    print(f"forward S = 49,152, {len(f)} (seed, network) draws: kernel largest max / mean error "
-          f"{max(r['kernel']['max_rel'] for r in f):.3e} / "
-          f"{max(r['kernel']['mean_rel'] for r in f):.3e}, as a share of their limits "
-          f"{max(r['kernel']['max_rel'] / r['kernel']['max_limit'] for r in f):.3f} / "
-          f"{max(r['kernel']['mean_rel'] / r['kernel']['mean_limit'] for r in f):.3f}; floor's "
-          f"largest max / mean {max(r['floor']['max_rel'] for r in f):.3e} / "
-          f"{max(r['floor']['mean_rel'] for r in f):.3e}; control least mean "
-          f"{min(r['control']['mean_rel'] for r in f):.3e} "
-          f"({min(r['control']['mean_rel'] / r['control']['mean_limit'] for r in f):.1f}x its "
-          f"limit); kernel past KERNEL_TOL: {bad}; control inside it: {cpass}")
+    if f:
+        print(f"forward S = 49,152, {len(f)} (seed, network) draws: kernel largest max / mean error "
+              f"{max(r['kernel']['max_rel'] for r in f):.3e} / "
+              f"{max(r['kernel']['mean_rel'] for r in f):.3e}, as a share of their limits "
+              f"{max(r['kernel']['max_rel'] / r['kernel']['max_limit'] for r in f):.3f} / "
+              f"{max(r['kernel']['mean_rel'] / r['kernel']['mean_limit'] for r in f):.3f}; floor's "
+              f"largest max / mean {max(r['floor']['max_rel'] for r in f):.3e} / "
+              f"{max(r['floor']['mean_rel'] for r in f):.3e}; control least mean "
+              f"{min(r['control']['mean_rel'] for r in f):.3e} "
+              f"({min(r['control']['mean_rel'] / r['control']['mean_limit'] for r in f):.1f}x its "
+              f"limit); kernel past KERNEL_TOL: {bad}; control inside it: {cpass}")
     for rec in out["flips"]:
         print(f"stage A vs plain, seed {rec['seed']} {rec['net']}: share of staged values that "
               f"differ: " + ", ".join(f"{k} {v:.2e}" for k, v in rec["staged"].items())
@@ -198,6 +210,12 @@ def main() -> int:
             rec["bias_vs_plain"] = fe.DMU_SUM_TOL.errors(out10[3][-1], ref[0].sum(0))
             rec["fwdloss_dmu_sum_vs_plain"] = fe.DMU_SUM_TOL.errors(out9[0].sum(0), ref[0].sum(0))
             out["loss"].append(rec)
+    tp_survey(args, out, dev)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(out))
+    if not out["loss"]:
+        return 0
     print(f"forward + loss kernels, {args.loss_seeds} seeds: (seed, S, outputs) past their "
           f"limits (`loss_row_tols`; dv1, dv2, then the stats columns), largest mean and max "
           f"error as a share of their limits")
@@ -226,10 +244,80 @@ def main() -> int:
         print(f"  {key}: largest mean error " + ", ".join(
             f"S={s}: {max(r[key]['mean_rel'] for r in out['loss'] if r['s'] == s):.2e}"
             for s in small + (49152,)))
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(out))
     return 0
+
+
+def tp_survey(args, out, dev) -> None:
+    """The TP-LSTM kernels over `--tp-seeds` draws of the main shape (N =
+    241,664 and 241,665) and `--tp-wide-seeds` of the wide one (N =
+    241,664), printed per leaf as the backward's table; records in out["tp"]."""
+    import torch
+
+    import chip_smoke as cs
+    from mupe_tpu_torch.ops import tp_lstm as tl
+    from mupe_tpu_torch.ops.tolerance import in_f64
+
+    shapes = {"main": (16, 10, 15), "wide": cs.WIDE_TP}
+    runs = [("main", seed, n) for seed in range(1, args.tp_seeds + 1)
+            for n in (cs.TP_WINDOWS, cs.TP_WINDOWS + 1)]
+    runs += [("wide", seed, cs.TP_WINDOWS) for seed in range(1, args.tp_wide_seeds + 1)]
+    ftol, btol = tl.KERNEL_TOL, tl.BWD_KERNEL_TOL
+    for kind, seed, n in runs:
+        f, t, o = shapes[kind]
+        spec = tl.TPLSTMSpec(input_dim=f, hidden=64, t_steps=t, out_dim=o)
+        gen = torch.Generator().manual_seed(seed + (1000 if kind == "wide" else 0))
+        lt = cs.random_leaves(spec.leaf_shapes(), gen, dev)
+        x = torch.randn((n, t, f), generator=gen).to(dev)
+        dy = torch.randn((n, o), generator=gen).to(dev)
+        y = tl.tp_forward(spec, lt, x)
+        ref, exact = tl.reference_forward(spec, lt, x), in_f64(tl.reference_forward, spec, lt, x)
+        rec = dict(kind=kind, seed=seed, n=n, fwd=ftol.errors(y, ref, exact),
+                   fwd_control=ftol.errors(tl.reference_forward(spec, lt, x, bf16=False), ref,
+                                           exact),
+                   fwd_floor=ftol.errors(ref, exact))
+        g = tl.tp_backward(spec, lt, x, dy)
+        ref = tl.reference_backward(spec, lt, x, dy)
+        exact = in_f64(tl.reference_backward, spec, lt, x, dy)
+        rec.update(bwd=btol.errors(g, ref, exact),
+                   bwd_control=btol.errors(tl.reference_backward(spec, lt, x, dy, bf16=False),
+                                           ref, exact),
+                   bwd_floor=[e["mean_rel"] for e in btol.errors(ref, exact)])
+        out["tp"].append(rec)
+        del x, dy, g, ref, exact
+    blind = {i % 5 for i in tl.BWD_CONTROL_BLIND}
+    names = ("wi", "wh", "b", "wfc", "bfc")
+    for kind in ("main", "wide"):
+        recs = [r for r in out["tp"] if r["kind"] == kind]
+        if not recs:
+            continue
+        print(f"TP ({kind}: F, T, O = {shapes[kind]}), {len(recs)} (seed, N) draws")
+        fbad = [(r["seed"], r["n"]) for r in recs if not ftol.holds(r["fwd"])]
+        fpass = [(r["seed"], r["n"]) for r in recs if ftol.holds(r["fwd_control"])]
+        print(f"  forward: kernel largest max / mean error "
+              f"{max(r['fwd']['max_rel'] for r in recs):.3e} / "
+              f"{max(r['fwd']['mean_rel'] for r in recs):.3e}, as a share of their limits "
+              f"{max(r['fwd']['max_rel'] / r['fwd']['max_limit'] for r in recs):.3f} / "
+              f"{max(r['fwd']['mean_rel'] / r['fwd']['mean_limit'] for r in recs):.3f}; "
+              f"mean / floor {max(r['fwd']['mean_rel'] / max(r['fwd_floor']['mean_rel'], 1e-30) for r in recs):.2f}x; "
+              f"control least mean {min(r['fwd_control']['mean_rel'] for r in recs):.3e} "
+              f"({min(r['fwd_control']['mean_rel'] / r['fwd_control']['mean_limit'] for r in recs):.1f}x "
+              f"its limit); kernel past KERNEL_TOL: {fbad}; control inside it: {fpass}")
+        worst = [max((r["bwd"][i]["mean_rel"], r["bwd"][i]["mean_rel"] / max(r["bwd_floor"][i], 1e-30))
+                     for r in recs) for i in range(5)]
+        least = [min((r["bwd_control"][i]["mean_rel"],
+                      r["bwd_control"][i]["mean_rel"] / max(r["bwd_floor"][i], 1e-30))
+                     for r in recs) for i in range(5)]
+        kmax = [max(r["bwd"][i]["max_rel"] for r in recs) for i in range(5)]
+        over = [(r["seed"], r["n"], btol.failing(r["bwd"])) for r in recs if btol.failing(r["bwd"])]
+        passes = [(r["seed"], r["n"], i) for r in recs for i in range(5)
+                  if i not in blind and i not in btol.failing(r["bwd_control"])]
+        print("  backward per leaf: kernel largest mean error (x floor), largest max error; "
+              "f32 control least mean error (x floor): " + "  ".join(
+                  f"{names[i]}: {worst[i][0]:.2e}({worst[i][1]:.2f}x), {kmax[i]:.2e}; "
+                  f"{least[i][0]:.2e}({least[i][1]:.1f}x)" for i in range(5)))
+        print(f"  kernel past BWD_KERNEL_TOL: {len(over)} of {len(recs)} {over}; f32 control "
+              f"inside it on a leaf it must fail: {len(passes)} of {len(recs) * (5 - len(blind))} "
+              f"{passes}")
 
 
 if __name__ == "__main__":

@@ -73,6 +73,25 @@ def test_pair_forward_matches_jax_reference(s):
     _close_scaled(tc, jc, TIGHT)
 
 
+def test_pair_forward_matches_jax_reference_at_16_tokens():
+    """16 tokens over 148 columns (6 pursuers, 10 cylinder tokens, 21
+    predicted steps): the kernels' 16-token instance on the card."""
+    groups = ((1, 83), (10, 5), (5, 3))
+    rng = np.random.default_rng(16)
+    spec_a = tfe.EncoderSpec(groups=groups, head_dim=4)
+    spec_c = tfe.EncoderSpec(groups=groups, head_dim=1)
+    assert spec_a.n_tokens == 16 and tfe.kernel_spec_ok(spec_a)
+    la, lc = _unit_leaves(rng, spec_a), _unit_leaves(rng, spec_c)
+    x = rng.normal(0, 2, (33, spec_a.obs_dim)).astype(np.float32)
+    ja, jc = jfe.fused_pair_encoder_head(
+        jfe.EncoderSpec(groups=groups, head_dim=4), jfe.EncoderSpec(groups=groups, head_dim=1),
+        tuple(map(jnp.asarray, la)), tuple(map(jnp.asarray, lc)), jnp.asarray(x))
+    ta, tc = tfe.encoder_pair_forward(spec_a, spec_c, _torch(la), _torch(lc), torch.as_tensor(x))
+    assert np.abs(np.asarray(ja)).max() > 0.3
+    _close_scaled(ta, ja, TIGHT)
+    _close_scaled(tc, jc, TIGHT)
+
+
 def test_single_forward_matches_jax_reference():
     rng = np.random.default_rng(7)
     spec = tfe.EncoderSpec(groups=GROUPS, head_dim=1)

@@ -38,6 +38,7 @@ torch.set_num_threads(1)
 NAMES = ["state_self", "cylinders", "state_others"]
 GROUPS = ((1, 35), (3, 5), (2, 3))
 WIDE_GROUPS = ((1, 50), (4, 5), (3, 3))  # 8 tokens, state_self 50 wide
+TOK16_GROUPS = ((1, 83), (10, 5), (5, 3))  # 16 tokens, 148 columns
 S, TILE = 80, 32
 PARITY_TOL = GradTol(max_rel=1e-2, mean_rel=2e-3, noise_floor=1e-5, noise_leaves=(-15,))
 
@@ -74,6 +75,11 @@ def wide_case():
     return _make_case(WIDE_GROUPS)
 
 
+@pytest.fixture(scope="module")
+def tok16_case():
+    return _make_case(TOK16_GROUPS)
+
+
 def _pad(a, rows):
     return jnp.concatenate([jnp.asarray(a), jnp.zeros((rows - a.shape[0],) + a.shape[1:])], 0)
 
@@ -85,11 +91,13 @@ def _hold(t_grads, j_grads, tol):
     assert tol.holds(errs), [(i, errs[i]) for i in tol.failing(errs)]
 
 
-@pytest.mark.parametrize("net", ["actor", "critic", "actor_8_tokens_wide"])
+@pytest.mark.parametrize("net", ["actor", "critic", "actor_8_tokens_wide", "actor_16_tokens"])
 def test_reference_backward_matches_jax_bwd_kernel(request, net):
     """Per network; the actor also on 8 tokens with a 50-wide group (the
-    backward kernel's 8-row tile on the card)."""
-    case = request.getfixturevalue("wide_case" if net.endswith("wide") else "case")
+    backward kernel's 8-row tile on the card) and on 16 tokens over 148
+    columns (its 16-token instance)."""
+    case = request.getfixturevalue({"wide": "wide_case", "tokens": "tok16_case"}.get(
+        net.split("_")[-1], "case"))
     spec, jspec, leaves, tleaves, d = (
         (case["ta"], case["ja"], case["la"], case["tla"], case["da"]) if net.startswith("actor")
         else (case["tc"], case["jc"], case["lc"], case["tlc"], case["dc"]))

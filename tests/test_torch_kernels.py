@@ -280,19 +280,25 @@ def test_encoder_kernel_matches_plain_version(cuda, s):
                   fe.KERNEL_TOL, exact_c)
 
 
-# Specs past the main path's: 7 tokens (num_agents=4), and 8 tokens with
+# Specs past the main path's: 7 tokens (num_agents=4), 8 tokens with
 # state_self 50 wide (num_agents=4, obs_max_cylinder=4,
-# future_prediction_step=10); their stage-A tile is 8 rows.
-WIDE_GROUPS = {"7 tokens": ((1, 35), (3, 5), (3, 3)), "8 tokens, wide": ((1, 50), (4, 5), (3, 3))}
+# future_prediction_step=10), 12 tokens (num_agents=4, obs_max_cylinder=8)
+# and 16 tokens over 148 columns (num_agents=6, obs_max_cylinder=10,
+# future_prediction_step=21); their stage-A tile is 8 rows, past 8 tokens
+# the kernels' 16-token instance.
+WIDE_GROUPS = {"7 tokens": ((1, 35), (3, 5), (3, 3)), "8 tokens, wide": ((1, 50), (4, 5), (3, 3)),
+               "12 tokens": ((1, 50), (8, 5), (3, 3)),
+               "16 tokens, wide": ((1, 83), (10, 5), (5, 3))}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("s", [1, 7, 8, 9, 17, 4099])
 @pytest.mark.parametrize("groups", list(WIDE_GROUPS), ids=list(WIDE_GROUPS))
 def test_wide_spec_kernels_match_plain_version(cuda, groups, s):
-    """The forward, the pair backward and the two loss kernels at 7 and 8
-    tokens and a 50-wide group, at the 8-row tile's edges: within their
-    limits of the plain versions, every row counted (dbh == S)."""
+    """The forward, the pair backward and the two loss kernels at 7, 8 (a
+    50-wide group), 12 and 16 tokens (148 columns), at the 8-row tile's
+    edges: within their limits of the plain versions, every row counted
+    (dbh == S)."""
     g = torch.Generator().manual_seed(s)
     spec_a = fe.EncoderSpec(groups=WIDE_GROUPS[groups], head_dim=4)
     spec_c = fe.EncoderSpec(groups=WIDE_GROUPS[groups], head_dim=1)
@@ -334,12 +340,18 @@ def test_wide_spec_kernels_match_plain_version(cuda, groups, s):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 15, 4096, 4097])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4096, 4097, 241664])
 def test_tp_kernel_matches_plain_version(cuda, n):
+    """At the warp tile's edges (16 windows), the rollout's and the update's
+    sizes; with the floor-relative limits; a second launch gives the same
+    bits."""
     spec, lt, xt = _tp_case(n, cuda)
     y = tl.tp_forward(spec, lt, xt)
+    again = tl.tp_forward(spec, lt, xt)
     torch.cuda.synchronize()
-    _close_scaled(y, tl.reference_forward(spec, lt, xt), tl.KERNEL_TOL)
+    _close_scaled(y, tl.reference_forward(spec, lt, xt), tl.KERNEL_TOL,
+                  in_f64(tl.reference_forward, spec, lt, xt))
+    assert torch.equal(y, again)
 
 
 def _bwd_close(outs, refs, tol, exact=None):
@@ -483,15 +495,34 @@ def test_weight_grads_rejects_bad_staging(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 15, 241664, 241665])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4096, 241664, 241665])
 def test_tp_backward_kernel_matches_plain_version(cuda, n):
     spec, lt, xt = _tp_case(n, cuda)
     dy = torch.randn((n, 15), generator=torch.Generator().manual_seed(n + 1)).to(cuda)
     grads = tl.tp_backward(spec, lt, xt, dy)
     again = tl.tp_backward(spec, lt, xt, dy)
     torch.cuda.synchronize()
-    _bwd_close(grads, tl.reference_backward(spec, lt, xt, dy), tl.BWD_KERNEL_TOL)
+    _bwd_close(grads, tl.reference_backward(spec, lt, xt, dy), tl.BWD_KERNEL_TOL,
+               in_f64(tl.reference_backward, spec, lt, xt, dy))
     assert all(torch.equal(u, v) for u, v in zip(grads, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,t,o", [(16, 10, 15), (34, 20, 30)])
+def test_tp_windows_past_n_add_exact_zeros(cuda, f, t, o):
+    """17 windows against 32 whose last 15 have a zero cotangent: the same
+    forward rows and the same gradient bits (the warp tile's padding windows
+    run on zeros and add nothing)."""
+    g = torch.Generator().manual_seed(f)
+    spec = tl.TPLSTMSpec(input_dim=f, hidden=64, t_steps=t, out_dim=o)
+    lt = _leaves(spec.leaf_shapes(), g, cuda)
+    x = torch.randn((32, t, f), generator=g).to(cuda)
+    dy = torch.randn((32, o), generator=g).to(cuda)
+    dy[17:] = 0.0
+    x17, dy17 = x[:17].contiguous(), dy[:17].contiguous()
+    assert torch.equal(tl.tp_forward(spec, lt, x)[:17], tl.tp_forward(spec, lt, x17))
+    assert all(torch.equal(u, v) for u, v in zip(tl.tp_backward(spec, lt, x, dy),
+                                                 tl.tp_backward(spec, lt, x17, dy17)))
 
 
 @pytest.mark.gpu
@@ -499,7 +530,8 @@ def test_forward_takes_specs_in_any_order(cuda):
     """A larger spec after a smaller one: the forward's shared-memory
     attribute, set once a device, never drops below a spec's carve."""
     order = [WIDE_GROUPS["8 tokens, wide"], WIDE_GROUPS["7 tokens"], GROUPS,
-             WIDE_GROUPS["8 tokens, wide"], GROUPS, WIDE_GROUPS["7 tokens"]]
+             WIDE_GROUPS["8 tokens, wide"], GROUPS, WIDE_GROUPS["7 tokens"],
+             WIDE_GROUPS["16 tokens, wide"], GROUPS, WIDE_GROUPS["16 tokens, wide"]]
     for i, groups in enumerate(order):
         g = torch.Generator().manual_seed(i)
         spec_a = fe.EncoderSpec(groups=groups, head_dim=4)
@@ -518,18 +550,20 @@ def test_forward_takes_specs_in_any_order(cuda):
 @pytest.mark.parametrize("f,t,o", [(19, 20, 18), (34, 20, 30), (64, 32, 64)])
 @pytest.mark.parametrize("n", [1, 15, 4097])
 def test_wide_tp_backward_kernel_matches_plain_version(cuda, n, f, t, o):
-    """The TP backward past the main path's inputs (F 16): the 4-window
-    tiles of inputs wider than 16, up to the kernels' limits."""
+    """The TP kernels past the main path's inputs (F 16): the warp tile's
+    instances of 2, 3 and 4 input k-tiles, up to the kernels' limits."""
     g = torch.Generator().manual_seed(n + f)
     spec = tl.TPLSTMSpec(input_dim=f, hidden=64, t_steps=t, out_dim=o)
     lt = _leaves(spec.leaf_shapes(), g, cuda)
     xt = torch.randn((n, t, f), generator=g).to(cuda)
     dy = torch.randn((n, o), generator=g).to(cuda)
-    _close_scaled(tl.tp_forward(spec, lt, xt), tl.reference_forward(spec, lt, xt), tl.KERNEL_TOL)
+    _close_scaled(tl.tp_forward(spec, lt, xt), tl.reference_forward(spec, lt, xt), tl.KERNEL_TOL,
+                  in_f64(tl.reference_forward, spec, lt, xt))
     grads = tl.tp_backward(spec, lt, xt, dy)
     again = tl.tp_backward(spec, lt, xt, dy)
     torch.cuda.synchronize()
-    _bwd_close(grads, tl.reference_backward(spec, lt, xt, dy), tl.BWD_KERNEL_TOL)
+    _bwd_close(grads, tl.reference_backward(spec, lt, xt, dy), tl.BWD_KERNEL_TOL,
+               in_f64(tl.reference_backward, spec, lt, xt, dy))
     assert all(torch.equal(u, v) for u, v in zip(grads, again))
 
 

@@ -34,6 +34,7 @@ torch.set_num_threads(1)
 NAMES = ["state_self", "cylinders", "state_others"]
 GROUPS = ((1, 35), (3, 5), (2, 3))
 WIDE_GROUPS = ((1, 50), (4, 5), (3, 3))  # 8 tokens, state_self 50 wide
+TOK16_GROUPS = ((1, 83), (10, 5), (5, 3))  # 16 tokens, 148 columns
 TILE = 32
 A = 4
 SIZES = [1, 7, 17, 80]
@@ -71,6 +72,11 @@ def wide_nets():
     return _make_nets(WIDE_GROUPS)
 
 
+@pytest.fixture(scope="module")
+def tok16_nets():
+    return _make_nets(TOK16_GROUPS)
+
+
 def _pad(a, rows):
     a = np.asarray(a, dtype=np.float32)
     return jnp.asarray(np.concatenate([a, np.zeros((rows - a.shape[0],) + a.shape[1:],
@@ -95,13 +101,14 @@ def _rows(s, seed, groups=GROUPS):
     return (2.0 * rng.normal(size=(s, sum(k * d for k, d in groups)))).astype(np.float32), rng
 
 
-@pytest.mark.parametrize("net", ["actor", "critic", "actor_8_tokens_wide"])
+@pytest.mark.parametrize("net", ["actor", "critic", "actor_8_tokens_wide", "actor_16_tokens"])
 @pytest.mark.parametrize("s", SIZES)
 def test_two_stages_match_jax_bwd_kernel(request, s, net):
-    """Per network; the actor also on 8 tokens with a 50-wide group."""
-    wide = net.endswith("wide")
-    nets = request.getfixturevalue("wide_nets" if wide else "nets")
-    x, rng = _rows(s, s, WIDE_GROUPS if wide else GROUPS)
+    """Per network; the actor also on 8 tokens with a 50-wide group and on
+    16 tokens over 148 columns."""
+    kind = {"wide": "wide", "tokens": "tok16"}.get(net.split("_")[-1], "main")
+    nets = request.getfixturevalue({"wide": "wide_nets", "tok16": "tok16_nets"}.get(kind, "nets"))
+    x, rng = _rows(s, s, {"wide": WIDE_GROUPS, "tok16": TOK16_GROUPS}.get(kind, GROUPS))
     hd = A if net.startswith("actor") else 1
     d = rng.normal(size=(s, hd)).astype(np.float32)
     jspec, leaves, tspec, tleaves = ((nets["ja"], nets["la"], nets["ta"], nets["tla"])
