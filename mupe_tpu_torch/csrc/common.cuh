@@ -1,10 +1,9 @@
-// Helpers shared by the kernels: the encoder tiles' building blocks (the
-// tiles themselves are in encoder_tile.cuh and encoder_bwd_tile.cuh) -- one
-// block of 128 threads per tile of rows, thread j owning feature column j,
-// activations in shared memory and bf16 where the reference rounds -- the
-// tensor-core primitives (mma.sync, ldmatrix, cp.async) of the backward's
-// two stages (also the TP-LSTM's, tp_tile.cuh), and the fixed-order sums of
-// the backward kernels' per-block gradient slices and partial products.
+// Helpers shared by the kernels: the encoder tile's building blocks (the
+// tile itself is in encoder_bwd_tile.cuh: LayerNorm, GELU, the token
+// layout, the gradient vector's leaf offsets), the tensor-core primitives
+// (mma.sync, ldmatrix, cp.async) of the encoder and TP-LSTM tiles
+// (tp_tile.cuh) and of the weight-gradient stage, and the fixed-order sums
+// of the backward kernels' per-block gradient slices and partial products.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -13,9 +12,7 @@
 
 namespace {
 
-constexpr int E = 128;         // embed width == feed-forward width
-constexpr int NTHREADS = 128;  // one thread per feature column
-constexpr int TR = 8;          // rows per tile
+constexpr int E = 128;  // embed width == feed-forward width
 constexpr int MAX_TOK = 16;
 constexpr int MAX_GROUPS = 4;
 constexpr int MAX_OBS = 160;
@@ -32,46 +29,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-__device__ __forceinline__ void unpack8(const uint4& raw, float (&a)[8]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(p[i]);
-    a[2 * i] = f.x;
-    a[2 * i + 1] = f.y;
-  }
-}
-
-// acc[w][m] = sum_k A[m0 + m][k] * bf16(W[w][k][j]) for TR rows, NW weight
-// matrices sharing the same A rows.  A: bf16 [*, E] in shared memory;
-// W: f32 [E, E] row-major (in, out) in global memory.
-template <int NW>
-__device__ __forceinline__ void mm_tile(const __nv_bfloat16* A, int m0,
-                                        const float* const (&W)[NW], int j,
-                                        float (&acc)[NW][TR]) {
-#pragma unroll
-  for (int w = 0; w < NW; ++w)
-#pragma unroll
-    for (int m = 0; m < TR; ++m) acc[w][m] = 0.f;
-  for (int k = 0; k < E; k += 8) {
-    float wv[NW][8];
-#pragma unroll
-    for (int w = 0; w < NW; ++w)
-#pragma unroll
-      for (int i = 0; i < 8; ++i) wv[w][i] = bf16r(__ldg(W[w] + (k + i) * E + j));
-#pragma unroll
-    for (int m = 0; m < TR; ++m) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(A + (m0 + m) * E + k);
-      float a[8];
-      unpack8(raw, a);
-#pragma unroll
-      for (int w = 0; w < NW; ++w)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[w][m] = fmaf(a[i], wv[w][i], acc[w][m]);
-    }
-  }
 }
 
 // LayerNorm of one 128-wide row held by a warp, 4 values per lane:
@@ -99,10 +56,10 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.0f + tanhf(inner));
 }
 
-// Token layout of the packed observation row, shared by both kernels.
+// Token layout of the packed observation row of the tile instances (at most
+// MAX_TOK tokens over MAX_OBS columns).
 struct TokenLayout {
   int obs_dim;
-  int obs_pad;
   int n_groups;
   int n_tokens;
   int tok_off[MAX_TOK];
@@ -115,7 +72,6 @@ inline bool make_layout(int obs_dim, int n_groups, const int* group_k, const int
                         TokenLayout& lay) {
   if (n_groups < 1 || n_groups > MAX_GROUPS || obs_dim < 1 || obs_dim > MAX_OBS) return false;
   lay.obs_dim = obs_dim;
-  lay.obs_pad = (obs_dim + 3) / 4 * 4;
   lay.n_groups = n_groups;
   int t = 0, off = 0;
   for (int g = 0; g < n_groups; ++g) {
@@ -134,11 +90,11 @@ inline bool make_layout(int obs_dim, int n_groups, const int* group_k, const int
 
 // Offsets of each leaf's gradient in a network's flat gradient vector
 // (canonical order) and its length P; false if the head is too wide.
-inline bool leaf_offsets(const TokenLayout& lay, const int* group_d, int hd, int* off, int* P) {
+inline bool leaf_offsets(int n_groups, const int* group_d, int hd, int* off, int* P) {
   if (hd < 1 || hd > MAX_HEAD) return false;
   int sizes[MAX_LEAVES];
   int n = 0;
-  for (int g = 0; g < lay.n_groups; ++g) {
+  for (int g = 0; g < n_groups; ++g) {
     sizes[n++] = group_d[g] * E;
     sizes[n++] = E;
   }

@@ -91,6 +91,7 @@ inline bool make_tc_layout(const TokenLayout& lay, TcLayout& L) {
   L.n_bins = 1;
   L.bin_rows[0] = L.bin_rows[1] = 0;
   for (int g = 0; g < lay.n_groups; ++g) {
+    if (L.g_kp[g] > E) return false;
     if (L.bin_rows[L.n_bins - 1] + L.g_kp[g] > E) {
       if (L.n_bins == MAX_BINS) return false;
       ++L.n_bins;
@@ -340,6 +341,7 @@ struct TcBufs {
   float* P;            // [TA][NTM] scores, then softmax weights
   float* DS;           // [TA][NTM]
   float* DOUT;         // [TA][MAX_HEAD] the head's cotangent, f32
+  float* ACC;          // streamed tiles: [TA][FP] att, then dq, summed a chunk at a time
 };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
@@ -408,6 +410,7 @@ __host__ __device__ inline size_t tc_carve(unsigned char* base, int n_tokens, in
     b->P = f32(pp);
     b->DS = f32(ds);
     b->DOUT = f32(dout);
+    b->ACC = nullptr;
   }
   return o;
 }
@@ -450,6 +453,114 @@ __device__ __forceinline__ void tc_load_rows(const TcLayout& L, const TcBufs& B,
   }
 }
 
+// LN0 over the rows of nc tokens from t0 (token-major rows tl * TA + r of
+// B.Hb, in place; two rows a warp at a time): with `h0`, token 0's f32
+// output into B.H0; with `sth`, h staged (rows past S as zeros); with
+// `keep_n`, LN0's n (bf16) into B.N0b and its inv into B.inv0.
+template <int TA>
+__device__ __forceinline__ void tc_ln0(const float* g0, const float* b0, const TcBufs& B, int t0,
+                                       int nc, int row0, int S, bool h0, __nv_bfloat16* sth,
+                                       size_t s_pad, bool keep_n, int j) {
+  const int warp = j >> 5;
+  const int lane = j & 31;
+  const int nwarps = NTA / 32;
+  const int ntr = nc * TA;
+  for (int rt0 = warp; rt0 < ntr; rt0 += 2 * nwarps) {
+    const bool two = rt0 + nwarps < ntr;
+    float v[2][4], n[2][4], inv[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c0 = swz(u == 0 || two ? rt0 + u * nwarps : rt0, lane * 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[u][i] = __bfloat162float(B.Hb[c0 + i]);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) ln_row_n(v[u], n[u], inv[u], g0, b0, lane);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (u == 1 && !two) break;
+      const int rt = rt0 + u * nwarps;
+      const int c0 = swz(rt, lane * 4);
+      const int t = t0 + rt / TA;
+      const int row = row0 + rt % TA;
+      __align__(8) __nv_bfloat16 h[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        h[i] = __float2bfloat16_rn(row < S ? v[u][i] : 0.f);
+        B.Hb[c0 + i] = __float2bfloat16_rn(v[u][i]);
+        if (keep_n) B.N0b[c0 + i] = __float2bfloat16_rn(n[u][i]);
+        if (h0 && rt < TA) B.H0[rt * FP + lane * 4 + i] = v[u][i];
+      }
+      if (sth)
+        *reinterpret_cast<uint2*>(sth + ((size_t)t * s_pad + row) * E + lane * 4) =
+            *reinterpret_cast<const uint2*>(h);
+      if (keep_n && lane == 0) B.inv0[rt] = inv[u];
+    }
+  }
+}
+
+// out[r * stride + t0 + tl] = (A_r . X_{tl, r}) * mul for the tile's TA rows
+// and nc tokens whose rows are token-major in X (row tl * TA + r): the
+// scores q . k_t * scale and the backward's das_t = datt . v_t; A: f32
+// [TA][FP], X: bf16 (swizzled); four (row, token) pairs a warp at a time.
+template <int TA>
+__device__ __forceinline__ void tc_row_dots(const float* A, const __nv_bfloat16* X, int nc,
+                                            float mul, float* out, int stride, int t0, int j) {
+  const int warp = j >> 5;
+  const int lane = j & 31;
+  const int nwarps = NTA / 32;
+  for (int p0 = warp; p0 < TA * nc; p0 += 4 * nwarps) {
+    float sc[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int p = min(p0 + u * nwarps, TA * nc - 1);
+      const int r = p / nc;
+      const int kc = swz((p - r * nc) * TA + r, lane * 4);
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s = fmaf(A[r * FP + lane * 4 + i], __bfloat162float(X[kc + i]), s);
+      sc[u] = s;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) sc[u] = warp_sum(sc[u]);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int p = p0 + u * nwarps;
+      if (lane == 0 && p < TA * nc) {
+        const int r = p / nc;
+        out[r * stride + t0 + p - r * nc] = sc[u] * mul;
+      }
+    }
+  }
+}
+
+// A row's softmax over its nt scores p, in place, in the reference's order.
+__device__ __forceinline__ void tc_softmax(float* p, int nt) {
+  float smax = p[0];
+  for (int t = 1; t < nt; ++t) smax = fmaxf(smax, p[t]);
+  float denom = 0.f;
+  for (int t = 0; t < nt; ++t) {
+    const float ex = expf(p[t] - smax);
+    p[t] = ex;
+    denom = t == 0 ? ex : denom + ex;
+  }
+  const float recip = 1.0f / denom;
+  for (int t = 0; t < nt; ++t) p[t] = p[t] * recip;
+}
+
+// A row's softmax backward, in place: d_t = a_t (d_t - sum_u a_u d_u).
+__device__ __forceinline__ void tc_softmax_bwd(const float* a, float* d, int nt) {
+  float wsum = a[0] * d[0];
+  for (int t = 1; t < nt; ++t) wsum = wsum + a[t] * d[t];
+  for (int t = 0; t < nt; ++t) d[t] = a[t] * (d[t] - wsum);
+}
+
+template <int TA, bool FWD, class Src>
+__device__ __forceinline__ void tc_forward_rows(const float* const* fixed, const TcBufs& B,
+                                                Src& src, const WSeq& seq,
+                                                __nv_bfloat16* const* st, int row0, int S,
+                                                int j);
+
 // `_forward_core` for the tile to LN2's output (B.Y2b), from the rows in
 // B.Xb (loaded and synchronised by the caller); leaf: the network's f32
 // leaves in canonical order; src: the weight slots (Ring or Slot) walking
@@ -469,16 +580,8 @@ __device__ __forceinline__ void tc_forward(const TcLayout& L, const float* const
   const float* bq = leaf[base + 3];
   const float* bk = leaf[base + 5];
   const float* bv = leaf[base + 7];
-  const float* bo = leaf[base + 9];
-  const float* g1 = leaf[base + 10];
-  const float* b1 = leaf[base + 11];
-  const float* bf1 = leaf[base + 13];
-  const float* bf2 = leaf[base + 15];
-  const float* g2 = leaf[base + 16];
-  const float* b2 = leaf[base + 17];
   const int warp = j >> 5;
   const int lane = j & 31;
-  const int nwarps = NTA / 32;
   const int c = j & (E - 1);               // the thread's column
   const int rb = (j >> 7) * (TA / 2);      // and its half of the rows
   const int re = rb + TA / 2;
@@ -506,40 +609,8 @@ __device__ __forceinline__ void tc_forward(const TcLayout& L, const float* const
   }
   __syncthreads();
 
-  // LN0 over every token row, in place, two rows a warp at a time; token 0's
-  // f32 output kept as h0
-  for (int rt0 = warp; rt0 < ntr; rt0 += 2 * nwarps) {
-    const bool two = rt0 + nwarps < ntr;
-    float v[2][4], n[2][4], inv[2];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int c0 = swz(u == 0 || two ? rt0 + u * nwarps : rt0, lane * 4);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[u][i] = __bfloat162float(B.Hb[c0 + i]);
-    }
-#pragma unroll
-    for (int u = 0; u < 2; ++u) ln_row_n(v[u], n[u], inv[u], g0, b0, lane);
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      if (u == 1 && !two) break;
-      const int rt = rt0 + u * nwarps;
-      const int c0 = swz(rt, lane * 4);
-      const int t = rt / TA;
-      const int row = row0 + rt - t * TA;
-      __align__(8) __nv_bfloat16 h[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        h[i] = __float2bfloat16_rn(row < S || !st ? v[u][i] : 0.f);
-        B.Hb[c0 + i] = __float2bfloat16_rn(v[u][i]);
-        if (!FWD) B.N0b[c0 + i] = __float2bfloat16_rn(n[u][i]);
-        if (rt < TA) B.H0[rt * FP + lane * 4 + i] = v[u][i];
-      }
-      if (st)
-        *reinterpret_cast<uint2*>(st[S_H] + ((size_t)t * s_pad + row) * E + lane * 4) =
-            *reinterpret_cast<const uint2*>(h);
-      if (!FWD && lane == 0) B.inv0[rt] = inv[u];
-    }
-  }
+  // LN0 over every token row, in place; token 0's f32 output kept as h0
+  tc_ln0<TA>(g0, b0, B, 0, nt, row0, S, true, st ? st[S_H] : nullptr, s_pad, !FWD, j);
 
   {  // q from the query token (its bf16 rounding is h_all's)
     const __nv_bfloat16* W = src.take(seq, j);
@@ -565,46 +636,10 @@ __device__ __forceinline__ void tc_forward(const TcLayout& L, const float* const
   if (!FWD) v_all();  // right after k; with FWD, v takes k's bytes after the scores
   __syncthreads();
 
-  // scores q . k_t * scale, four (row, token) pairs a warp at a time
-  for (int p0 = warp; p0 < TA * nt; p0 += 4 * nwarps) {
-    float sc[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int p = min(p0 + u * nwarps, TA * nt - 1);
-      const int r = p / nt;
-      const int kc = swz((p - r * nt) * TA + r, lane * 4);
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        s = fmaf(B.Q[r * FP + lane * 4 + i], __bfloat162float(B.Kb[kc + i]), s);
-      sc[u] = s;
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) sc[u] = warp_sum(sc[u]);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int p = p0 + u * nwarps;
-      if (lane == 0 && p < TA * nt) {
-        const int r = p / nt;
-        B.P[r * NTM + p - r * nt] = sc[u] * scale;
-      }
-    }
-  }
+  tc_row_dots<TA>(B.Q, B.Kb, nt, scale, B.P, NTM, 0, j);  // the scores q . k_t * scale
   __syncthreads();
 
-  if (j < TA) {  // softmax over the tokens, in the reference's order
-    float* p = B.P + j * NTM;
-    float smax = p[0];
-    for (int t = 1; t < nt; ++t) smax = fmaxf(smax, p[t]);
-    float e[NTM];
-    float denom = 0.f;
-    for (int t = 0; t < nt; ++t) {
-      e[t] = expf(p[t] - smax);
-      denom = t == 0 ? e[0] : denom + e[t];
-    }
-    const float recip = 1.0f / denom;
-    for (int t = 0; t < nt; ++t) p[t] = e[t] * recip;
-  }
+  if (j < TA) tc_softmax(B.P + j * NTM, nt);
   if (FWD) v_all();  // into k's bytes: the scores read them before the take's __syncthreads
   __syncthreads();
 
@@ -616,6 +651,32 @@ __device__ __forceinline__ void tc_forward(const TcLayout& L, const float* const
     B.OPb[swz(r, c)] = a;
     if (st) st[S_ATT][(size_t)(row0 + r) * E + c] = row0 + r < S ? a : __float2bfloat16_rn(0.f);
   }
+  tc_forward_rows<TA, FWD>(leaf + base, B, src, seq, st, row0, S, j);
+}
+
+// `_forward_core` from the attention output (bf16 in B.OPb, h0 in B.H0) to
+// LN2's output (B.Y2b): the part of a tile's forward that the tokens do not
+// enter; fixed: the network's leaves after the groups' pairs.  Ends
+// synchronised.
+template <int TA, bool FWD, class Src>
+__device__ __forceinline__ void tc_forward_rows(const float* const* fixed, const TcBufs& B,
+                                                Src& src, const WSeq& seq,
+                                                __nv_bfloat16* const* st, int row0, int S,
+                                                int j) {
+  const float* bo = fixed[9];
+  const float* g1 = fixed[10];
+  const float* b1 = fixed[11];
+  const float* bf1 = fixed[13];
+  const float* bf2 = fixed[15];
+  const float* g2 = fixed[16];
+  const float* b2 = fixed[17];
+  const int warp = j >> 5;
+  const int lane = j & 31;
+  const int nwarps = NTA / 32;
+  const int c = j & (E - 1);               // the thread's column
+  const int rb = (j >> 7) * (TA / 2);      // and its half of the rows
+  const int re = rb + TA / 2;
+  uint32_t fr[8][4];
 
   {  // out-projection + residual: r1 = h0 + o (into H0)
     const __nv_bfloat16* W = src.take(seq, j);
@@ -801,23 +862,97 @@ inline void colsum_segments(SegArgs& a, const float* ws, int blocks, int n_group
   a.seg[a.n++] = {ws + wh + E * hd, grad + off[base + 19], blocks, P, hd};
 }
 
-// `_backward_core` for the tile, without its weight products, from the
-// residuals of `tc_forward` and the head's cotangent in B.DOUT (f32) and
-// B.DOb (bf16, zeros past hd and past S): the staged operands of the weight
-// products into `st` (rows past S as zeros), the column sums and dwh into
-// `cs`.  WH: the head's bf16 weights.  Ends synchronised.
-template <int TA, int NTM>
-__device__ __forceinline__ void tc_backward(const TcLayout& L, const float* const* leaf,
-                                            const __nv_bfloat16* WH, int hd, float scale,
-                                            const TcBufs& B, Ring& R, const WSeq& seq,
-                                            __nv_bfloat16* const* st, size_t s_pad, int row0,
-                                            int S, ColSums& cs, int j) {
-  const TokenLayout& lay = L.lay;
-  const int nt = lay.n_tokens;
-  const int base = 2 * lay.n_groups;
-  const float* g0 = leaf[base + 0];
-  const float* g1 = leaf[base + 10];
-  const float* g2 = leaf[base + 16];
+// One token's part of the backward, after its bf16 dk and dv are in B.Kb and
+// B.Vb (rows tl * TA + r; fr, fv: wk's and wv's fragments): dh = dk wk^T + dv
+// wv^T (for token 0 plus (dh + T0a) + T0b: dr1 and dq wq^T) into DH, LN0's
+// scale and bias sums, LN0's backward (n and inv from B.N0b and B.inv0 at
+// the same rows), then de: group g's bias sum and de staged as token t.
+// Ends synchronised.
+template <int TA>
+__device__ __forceinline__ void tc_token_backward(const uint32_t (&fr)[8][4],
+                                                  const uint32_t (&fv)[8][4], const TcBufs& B,
+                                                  int tl, int t, int g, const float* T0a,
+                                                  const float* T0b, float* DH, const float* g0,
+                                                  __nv_bfloat16* const* st, size_t s_pad,
+                                                  int row0, int S, ColSums& cs, int j) {
+  const int warp = j >> 5;
+  const int lane = j & 31;
+  const int nwarps = NTA / 32;
+  const int c = j & (E - 1);               // the thread's column
+  const int rb = (j >> 7) * (TA / 2);      // and its half of the rows
+  const int re = rb + TA / 2;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  for (int nb = 0; nb < TA / 8; ++nb) {
+    float ak[4] = {0.f, 0.f, 0.f, 0.f};
+    float av[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      uint32_t bk2[2], bv2[2];
+      const int rr = tl * TA + nb * 8 + (lane & 7);
+      const int kc = ks * 16 + ((lane >> 3) & 1) * 8;
+      ldsm_x2(bk2, B.Kb + swz(rr, kc));
+      ldsm_x2(bv2, B.Vb + swz(rr, kc));
+      mma_step(ak, fr[ks], bk2[0], bk2[1]);
+      mma_step(av, fv[ks], bv2[0], bv2[1]);
+    }
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int r = nb * 8 + 2 * (lane & 3) + (v & 1);
+      const int m = frag_feature(warp, lane, v);
+      float dh = ak[v] + av[v];
+      if (t == 0) dh = (dh + T0a[r * FP + m]) + T0b[r * FP + m];
+      DH[r * FP + m] = dh;
+    }
+  }
+  __syncthreads();
+  for (int r = rb; r < re; ++r) {  // LN0 scale and bias gradients
+    const float dh = DH[r * FP + c];
+    cs.fixed[C_G0] += dh * __bfloat162float(B.N0b[swz(tl * TA + r, c)]);
+    cs.fixed[C_B0] += dh;
+  }
+  __syncthreads();
+  for (int r = warp; r < TA; r += nwarps) {  // de = LN0 backward
+    float dy[4], n[4];
+    const int nc = swz(tl * TA + r, lane * 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      dy[i] = DH[r * FP + lane * 4 + i];
+      n[i] = __bfloat162float(B.N0b[nc + i]);
+    }
+    ln_bwd_row(dy, n, B.inv0[tl * TA + r], g0, lane);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) DH[r * FP + lane * 4 + i] = dy[i];
+  }
+  __syncthreads();
+  {  // the token's embed bias gradient and its staged de
+    float db = 0.f;
+    for (int r = rb; r < re; ++r) {
+      const float de = DH[r * FP + c];
+      db += de;
+      const int row = row0 + r;
+      st[S_DE][((size_t)t * s_pad + row) * E + c] = row < S ? __float2bfloat16_rn(de) : zero;
+    }
+#pragma unroll
+    for (int gg = 0; gg < MAX_GROUPS; ++gg)
+      if (gg == g) cs.bg[gg] += db;
+  }
+  __syncthreads();
+}
+
+// `_backward_core` for the tile from the head to the attention output's
+// cotangent datt (into B.H0; dr1 f32 in B.G): the part of a tile's backward
+// that the tokens do not enter, from the residuals of `tc_forward_rows` and
+// the head's cotangent in B.DOUT (f32) and B.DOb (bf16, zeros past hd and
+// past S); fixed: the network's leaves after the groups' pairs.  Stages dr2,
+// dpre1 and dr1, adds its column sums and dwh into `cs`.  Ends synchronised.
+template <int TA>
+__device__ __forceinline__ void tc_backward_rows(const float* const* fixed,
+                                                 const __nv_bfloat16* WH, int hd,
+                                                 const TcBufs& B, Ring& R, const WSeq& seq,
+                                                 __nv_bfloat16* const* st, int row0, int S,
+                                                 ColSums& cs, int j) {
+  const float* g1 = fixed[10];
+  const float* g2 = fixed[16];
   const int warp = j >> 5;
   const int lane = j & 31;
   const int nwarps = NTA / 32;
@@ -941,37 +1076,38 @@ __device__ __forceinline__ void tc_backward(const TcLayout& L, const float* cons
            [&](int r, int m, float v) { DH[r * FP + m] = v; });
   }
   __syncthreads();
-  for (int p0 = warp; p0 < TA * nt; p0 += 4 * nwarps) {  // das_t = datt . v_t, 4 at a time
-    float sc[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int p = min(p0 + u * nwarps, TA * nt - 1);
-      const int r = p / nt;
-      const int vc = swz((p - r * nt) * TA + r, lane * 4);
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s += DH[r * FP + lane * 4 + i] * __bfloat162float(B.Vb[vc + i]);
-      sc[u] = s;
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) sc[u] = warp_sum(sc[u]);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int p = p0 + u * nwarps;
-      if (lane == 0 && p < TA * nt) {
-        const int r = p / nt;
-        B.DS[r * NTM + p - r * nt] = sc[u];
-      }
-    }
-  }
+}
+
+// `_backward_core` for the tile, without its weight products, from the
+// residuals of `tc_forward` and the head's cotangent in B.DOUT (f32) and
+// B.DOb (bf16, zeros past hd and past S): the staged operands of the weight
+// products into `st` (rows past S as zeros), the column sums and dwh into
+// `cs`.  WH: the head's bf16 weights.  Ends synchronised.
+template <int TA, int NTM>
+__device__ __forceinline__ void tc_backward(const TcLayout& L, const float* const* leaf,
+                                            const __nv_bfloat16* WH, int hd, float scale,
+                                            const TcBufs& B, Ring& R, const WSeq& seq,
+                                            __nv_bfloat16* const* st, size_t s_pad, int row0,
+                                            int S, ColSums& cs, int j) {
+  const TokenLayout& lay = L.lay;
+  const int nt = lay.n_tokens;
+  const int base = 2 * lay.n_groups;
+  const float* g0 = leaf[base + 0];
+  const int warp = j >> 5;
+  const int lane = j & 31;
+  const int c = j & (E - 1);               // the thread's column
+  const int rb = (j >> 7) * (TA / 2);      // and its half of the rows
+  const int re = rb + TA / 2;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  float* G = B.G;
+  float* G2 = B.G2;
+  float* DH = B.H0;
+  uint32_t fr[8][4];
+
+  tc_backward_rows<TA>(leaf + base, WH, hd, B, R, seq, st, row0, S, cs, j);
+  tc_row_dots<TA>(DH, B.Vb, nt, 1.0f, B.DS, NTM, 0, j);  // das_t = datt . v_t
   __syncthreads();
-  if (j < TA) {  // softmax backward: dss_t = a_t (das_t - sum_u a_u das_u)
-    const float* a = B.P + j * NTM;
-    float* d = B.DS + j * NTM;
-    float wsum = a[0] * d[0];
-    for (int t = 1; t < nt; ++t) wsum = wsum + a[t] * d[t];
-    for (int t = 0; t < nt; ++t) d[t] = a[t] * (d[t] - wsum);
-  }
+  if (j < TA) tc_softmax_bwd(B.P + j * NTM, B.DS + j * NTM, nt);
   __syncthreads();
   {  // dq, and the bf16 k / v cotangents in place of k and v (each thread its column)
     float dbq = 0.f, dbk = 0.f, dbv = 0.f;
@@ -1027,65 +1163,546 @@ __device__ __forceinline__ void tc_backward(const TcLayout& L, const float* cons
   frags_bwd(W, fr, warp, lane);
   W = R.take(seq, j);
   frags_bwd(W, fv, warp, lane);
-  for (int t = 0; t < nt; ++t) {
-    for (int nb = 0; nb < TA / 8; ++nb) {
-      float ak[4] = {0.f, 0.f, 0.f, 0.f};
-      float av[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int t = 0; t < nt; ++t)
+    tc_token_backward<TA>(fr, fv, B, t, t, lay.tok_group[t], G, G2, DH, g0, st, s_pad, row0, S,
+                          cs, j);
+}
+
+// ---------------------------------------------------------------- streamed tokens
+// Past the tile instances' limits (more than MAX_TOK tokens, more than
+// MAX_OBS columns, a group wider than 128 features, or embed weights that
+// need more than two ring entries) the kernels stream the tokens through a
+// tile of TS_ROWS rows in chunks of TS_CHUNK tokens.  `encoder_embed_kernel`
+// first writes every token's bf16 embed e (the reference rounds it there) to
+// device memory, [n_tok][s_pad][E] a network, its K (any group width) in
+// slabs of 128 on the tensor cores; the tile then reads e a chunk at a time
+// and recomputes LN0 from it in each pass over the chunks.  A row's scores
+// and softmax weights (and the backward's das / dss) sit in device memory,
+// [n_tok] f32 a row, so no shared-memory size depends on the tokens or the
+// columns.  The passes keep the reference's rounding points and its
+// summation orders: the softmax's max and denominator, att = sum_t a_t v_t,
+// wsum = sum_t a_t das_t and dq = sum_t dss_t k_t in token order, each
+// running sum carried across the chunks in f32.
+constexpr int TS_ROWS = 8;   // a streamed tile's rows
+constexpr int TS_CHUNK = 8;  // tokens a chunk
+constexpr int EMB_ROWS = 64;  // rows an embed block
+
+// The token groups of a streamed spec: group g has k[g] tokens of d[g]
+// features (K padded to kp[g], a multiple of 16), from column col[g] of the
+// observation row, tokens tok0[g] .. tok0[g] + k[g] - 1.
+struct GroupLayout {
+  int obs_dim;
+  int n_groups;
+  int n_tokens;
+  int k[MAX_GROUPS];
+  int d[MAX_GROUPS];
+  int kp[MAX_GROUPS];
+  int col[MAX_GROUPS];
+  int tok0[MAX_GROUPS];
+};
+
+inline bool make_group_layout(int obs_dim, int n_groups, const int* group_k, const int* group_d,
+                              GroupLayout& G) {
+  if (n_groups < 1 || n_groups > MAX_GROUPS) return false;
+  G.obs_dim = obs_dim;
+  G.n_groups = n_groups;
+  int t = 0, c = 0;
+  for (int g = 0; g < n_groups; ++g) {
+    if (group_k[g] < 1 || group_d[g] < 1) return false;
+    G.k[g] = group_k[g];
+    G.d[g] = group_d[g];
+    G.kp[g] = (group_d[g] + 15) / 16 * 16;
+    G.col[g] = c;
+    G.tok0[g] = t;
+    t += group_k[g];
+    c += group_k[g] * group_d[g];
+  }
+  G.n_tokens = t;
+  return c == obs_dim;
+}
+
+// Whether a spec runs the tile instances (else the streamed one).
+inline bool tile_layout(int obs_dim, int n_groups, const int* group_k, const int* group_d,
+                        TcLayout& L) {
+  TokenLayout lay;
+  return make_layout(obs_dim, n_groups, group_k, group_d, lay) && make_tc_layout(lay, L);
+}
+
+__host__ __device__ inline int token_group(const GroupLayout& G, int t) {
+  int g = 0;
+  while (g + 1 < G.n_groups && t >= G.tok0[g + 1]) ++g;
+  return g;
+}
+
+// Bytes of one network's streaming scratch: e [n_tok][s_pad][E] bf16, then
+// the rows' scores / softmax weights [s_pad][n_tok] f32 and, for a backward,
+// das / dss [s_pad][n_tok] f32.
+inline size_t stream_bytes(int n_tokens, size_t s_pad, bool bwd) {
+  return (size_t)n_tokens * s_pad * E * 2 + (size_t)(bwd ? 2 : 1) * s_pad * n_tokens * 4;
+}
+
+struct StreamNet {
+  __nv_bfloat16* e;
+  float* p;
+  float* ds;  // null for a forward
+};
+
+// A network's scratch at `offset` bytes into the call's.
+inline StreamNet stream_net(void* scratch, size_t offset, int n_tokens, size_t s_pad, bool bwd) {
+  unsigned char* b = static_cast<unsigned char*>(scratch) + offset;
+  StreamNet s;
+  s.e = reinterpret_cast<__nv_bfloat16*>(b);
+  s.p = reinterpret_cast<float*>(b + (size_t)n_tokens * s_pad * E * 2);
+  s.ds = bwd ? s.p + s_pad * n_tokens : nullptr;
+  return s;
+}
+
+struct EmbedNet {
+  const float* w[MAX_GROUPS];  // the groups' f32 embed weights [d][E] (16-byte aligned)
+  const float* b[MAX_GROUPS];  // and biases [E]
+  __nv_bfloat16* e;            // [n_tok][s_pad][E]
+  __nv_bfloat16* xs[MAX_GROUPS];  // with a backward: the groups' staged x slices [k][s_pad][kp]
+};
+
+struct EmbedArgs {
+  const float* x;  // [S, obs_dim]
+  int S;
+  int s_pad;
+  GroupLayout G;
+  EmbedNet net[2];
+};
+
+constexpr size_t EMB_SMEM = (size_t)(E + EMB_ROWS) * E * 2;
+
+// e = bf16(bf16(x_t) bf16(W_g) + b_g) for token blockIdx.y over EMB_ROWS rows
+// (rows past S computed on zeros, as the tile computes them), network
+// blockIdx.z: the tile's embed product (one k-step's sum a mma, added in
+// order) over K in slabs of 128 rows of W_g, each rounded to bf16 as it
+// fills shared memory; the slab's x columns staged too where xs is given.
+__global__ void __launch_bounds__(NTA) encoder_embed_kernel(const __grid_constant__ EmbedArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* W = reinterpret_cast<__nv_bfloat16*>(smem);  // [E][E] a slab, swizzled
+  __nv_bfloat16* X = W + E * E;  // [EMB_ROWS][E] the rows' slab, then the outputs
+  const EmbedNet& net = a.net[blockIdx.z];
+  const GroupLayout& G = a.G;
+  const int t = blockIdx.y;
+  const int g = token_group(G, t);
+  const int i = t - G.tok0[g];
+  const int d = G.d[g];
+  const int kp = G.kp[g];
+  const int col0 = G.col[g] + i * d;
+  const int row0 = blockIdx.x * EMB_ROWS;
+  const int j = threadIdx.x;
+  const int warp = j >> 5;
+  const int lane = j & 31;
+  __nv_bfloat16* xs = net.xs[g];
+  float acc[EMB_ROWS / 8][4];
 #pragma unroll
-      for (int ks = 0; ks < 8; ++ks) {
-        uint32_t bk2[2], bv2[2];
-        const int rr = t * TA + nb * 8 + (lane & 7);
-        const int kc = ks * 16 + ((lane >> 3) & 1) * 8;
-        ldsm_x2(bk2, B.Kb + swz(rr, kc));
-        ldsm_x2(bv2, B.Vb + swz(rr, kc));
-        mma_step(ak, fr[ks], bk2[0], bk2[1]);
-        mma_step(av, fv[ks], bv2[0], bv2[1]);
-      }
+  for (int nb = 0; nb < EMB_ROWS / 8; ++nb)
 #pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int r = nb * 8 + 2 * (lane & 3) + (v & 1);
-        const int m = frag_feature(warp, lane, v);
-        float dh = ak[v] + av[v];
-        if (t == 0) dh = (dh + G[r * FP + m]) + G2[r * FP + m];
-        DH[r * FP + m] = dh;
+    for (int v = 0; v < 4; ++v) acc[nb][v] = 0.f;
+  for (int k0 = 0; k0 < kp; k0 += E) {
+    const int kw = min(E, kp - k0);
+    __syncthreads();  // every warp has its fragments of the previous slab
+    for (int idx = j; idx < kw * (E / 8); idx += NTA) {
+      const int r = idx >> 4;
+      const int c = (idx & 15) * 8;
+      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+      if (k0 + r < d) {
+        const float* src = net.w[g] + (size_t)(k0 + r) * E + c;
+        lo = __ldg(reinterpret_cast<const float4*>(src));
+        hi = __ldg(reinterpret_cast<const float4*>(src + 4));
       }
+      __align__(16) __nv_bfloat162 h[4] = {
+          __floats2bfloat162_rn(lo.x, lo.y), __floats2bfloat162_rn(lo.z, lo.w),
+          __floats2bfloat162_rn(hi.x, hi.y), __floats2bfloat162_rn(hi.z, hi.w)};
+      *reinterpret_cast<uint4*>(W + swz(r, c)) = *reinterpret_cast<const uint4*>(h);
+    }
+    for (int idx = j; idx < EMB_ROWS * kw; idx += NTA) {
+      const int r = idx / kw;
+      const int c = idx - r * kw;
+      const int row = row0 + r;
+      const int k = k0 + c;
+      const float v = k < d && row < a.S ? a.x[(size_t)row * G.obs_dim + col0 + k] : 0.f;
+      const __nv_bfloat16 b = __float2bfloat16_rn(v);
+      X[swz(r, c)] = b;
+      if (xs && row < a.s_pad) xs[((size_t)i * a.s_pad + row) * kp + k] = b;
     }
     __syncthreads();
-    for (int r = rb; r < re; ++r) {  // LN0 scale and bias gradients
-      const float dh = DH[r * FP + c];
-      cs.fixed[C_G0] += dh * __bfloat162float(B.N0b[swz(t * TA + r, c)]);
-      cs.fixed[C_B0] += dh;
+    uint32_t fr[8][4];
+    frags_fwd(W, kw / 16, fr, warp, lane);
+#pragma unroll
+    for (int nb = 0; nb < EMB_ROWS / 8; ++nb)
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks)
+        if (ks < kw / 16) {
+          uint32_t b[2];
+          ldsm_x2(b, X + swz(nb * 8 + (lane & 7), ks * 16 + ((lane >> 3) & 1) * 8));
+          mma_step(acc[nb], fr[ks], b[0], b[1]);
+        }
+  }
+  __syncthreads();
+  const float* bg = net.b[g];
+#pragma unroll
+  for (int nb = 0; nb < EMB_ROWS / 8; ++nb)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int m = frag_feature(warp, lane, v);
+      X[swz(nb * 8 + 2 * (lane & 3) + (v & 1), m)] = __float2bfloat16_rn(acc[nb][v] + __ldg(bg + m));
     }
-    __syncthreads();
-    for (int r = warp; r < TA; r += nwarps) {  // de = LN0 backward
-      float dy[4], n[4];
-      const int nc = swz(t * TA + r, lane * 4);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        dy[i] = DH[r * FP + lane * 4 + i];
-        n[i] = __bfloat162float(B.N0b[nc + i]);
-      }
-      ln_bwd_row(dy, n, B.inv0[t * TA + r], g0, lane);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) DH[r * FP + lane * 4 + i] = dy[i];
+  __syncthreads();
+  for (int idx = j; idx < EMB_ROWS * (E / 8); idx += NTA) {
+    const int r = idx >> 4;
+    const int c = (idx & 15) * 8;
+    if (row0 + r < a.s_pad)
+      *reinterpret_cast<uint4*>(net.e + ((size_t)t * a.s_pad + row0 + r) * E + c) =
+          *reinterpret_cast<const uint4*>(X + swz(r, c));
+  }
+}
+
+// Fills the embed launch's arguments for network n from its f32 leaves
+// (canonical order) and its streaming scratch; xs: its staged x slices, or
+// null.  False if a weight is not 16-byte aligned.
+inline bool embed_net(EmbedArgs& a, int n, const float* const* leaf, __nv_bfloat16* e,
+                      __nv_bfloat16* const* xs) {
+  EmbedNet& net = a.net[n];
+  for (int g = 0; g < a.G.n_groups; ++g) {
+    net.w[g] = leaf[2 * g];
+    net.b[g] = leaf[2 * g + 1];
+    net.xs[g] = xs ? xs[g] : nullptr;
+    if (reinterpret_cast<uintptr_t>(net.w[g]) % 16) return false;
+  }
+  net.e = e;
+  return true;
+}
+
+inline cudaError_t launch_embed(const EmbedArgs& a, int n_nets, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(encoder_embed_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)EMB_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.s_pad + EMB_ROWS - 1) / EMB_ROWS, a.G.n_tokens, n_nets);
+  encoder_embed_kernel<<<grid, NTA, EMB_SMEM, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// A streamed tile's shared memory (TcBufs' names; the chunk's token rows
+// TS_CHUNK x TS_ROWS, no x rows); P and DS are set per tile to the rows'
+// scratch.  Returns the bytes.
+template <bool FWD>
+__host__ __device__ inline size_t ts_carve(unsigned char* base, TcBufs* b) {
+  constexpr int TA = TS_ROWS;
+  const size_t ntr = (size_t)TS_CHUNK * TA;
+  size_t o = 0;
+  auto take = [&](size_t bytes) {
+    unsigned char* p = base + o;
+    o += align16(bytes);
+    return p;
+  };
+  auto bf = [](unsigned char* p) { return reinterpret_cast<__nv_bfloat16*>(p); };
+  auto f32 = [](unsigned char* p) { return reinterpret_cast<float*>(p); };
+  take((size_t)(FWD ? 1 : 2) * E * E * 2);
+  const size_t h = ntr * E * 2, g = (size_t)2 * TA * FP * 4;
+  unsigned char* hb = take(h > g ? h : g);
+  unsigned char* n0b = FWD ? nullptr : take(ntr * E * 2);
+  unsigned char* kb = take(ntr * E * 2);
+  unsigned char* vb = FWD ? kb : take(ntr * E * 2);
+  unsigned char* opb = take((size_t)TA * E * 2);
+  unsigned char* y2b = take((size_t)TA * E * 2);
+  unsigned char* rb = FWD ? nullptr : take((size_t)TA * E * 2);
+  unsigned char* dob = FWD ? nullptr : take((size_t)TA * 8 * 2);
+  unsigned char* wh0 = take((size_t)E * 8 * 2);
+  unsigned char* wh1 = FWD ? nullptr : take((size_t)E * 8 * 2);
+  unsigned char* q = take((size_t)TA * FP * 4);
+  unsigned char* h0 = take((size_t)TA * FP * 4);
+  unsigned char* n1 = FWD ? nullptr : take((size_t)TA * FP * 4);
+  unsigned char* n2 = FWD ? nullptr : take((size_t)TA * FP * 4);
+  unsigned char* pre1 = FWD ? q : take((size_t)TA * FP * 4);
+  unsigned char* acc = take((size_t)TA * FP * 4);
+  unsigned char* inv0 = FWD ? nullptr : take(ntr * 4);
+  unsigned char* inv1 = FWD ? nullptr : take((size_t)TA * 4);
+  unsigned char* inv2 = FWD ? nullptr : take((size_t)TA * 4);
+  unsigned char* dout = FWD ? nullptr : take((size_t)TA * MAX_HEAD * 4);
+  if (b) {
+    b->Hb = bf(hb);
+    b->G = f32(hb);
+    b->G2 = b->G + TA * FP;
+    b->N0b = bf(n0b);
+    b->Kb = bf(kb);
+    b->Vb = bf(vb);
+    b->Xb = nullptr;
+    b->OPb = bf(opb);
+    b->Y2b = bf(y2b);
+    b->Rb = bf(rb);
+    b->DOb = bf(dob);
+    b->WH[0] = bf(wh0);
+    b->WH[1] = bf(wh1);
+    b->Q = f32(q);
+    b->H0 = f32(h0);
+    b->N1 = f32(n1);
+    b->N2 = f32(n2);
+    b->PRE1 = f32(pre1);
+    b->ACC = f32(acc);
+    b->inv0 = f32(inv0);
+    b->inv1 = f32(inv1);
+    b->inv2 = f32(inv2);
+    b->P = nullptr;
+    b->DS = nullptr;
+    b->DOUT = f32(dout);
+  }
+  return o;
+}
+
+// The weights a streamed tile loads, in order: the forward's wq, wk, wv, wo,
+// w1, w2 (its embeds are the embed kernel's), and with `bwd` the
+// backward's w2, w1, wo, then wv (das), wk (dq), wq (dq wq^T), wk and wv
+// (dh); from the f32 leaves (`leaf`, a forward's Slot) or the bf16 copies
+// (`wb`, the backward's Ring).
+inline void ts_seq_append(WSeq& s, const float* const* leaf, const __nv_bfloat16* const* wb,
+                          int n_groups, bool bwd) {
+  const int fwd_leaf[6] = {2, 4, 6, 8, 12, 14};
+  const int fwd_bw[6] = {B_Q, B_K, B_V, B_O, B_1, B_2};
+  const int back[8] = {B_2, B_1, B_O, B_V, B_K, B_Q, B_K, B_V};
+  for (int i = 0; i < 6; ++i) {
+    seq_part(s, leaf ? static_cast<const void*>(leaf[2 * n_groups + fwd_leaf[i]])
+                     : static_cast<const void*>(wb[fwd_bw[i]]), E, E);
+    seq_close(s);
+  }
+  for (int i = 0; bwd && i < 8; ++i) {
+    seq_part(s, wb[back[i]], E, E);
+    seq_close(s);
+  }
+}
+
+// The chunk's e rows (tokens t0 .. t0 + nc - 1, token-major rows tl * TS_ROWS
+// + r) into B.Hb.
+__device__ __forceinline__ void ts_load_chunk(const __nv_bfloat16* e, size_t s_pad, int t0, int nc,
+                                              int row0, const TcBufs& B, int j) {
+  for (int idx = j; idx < nc * TS_ROWS * (E / 8); idx += NTA) {
+    const int lr = idx >> 4;
+    const int c = (idx & 15) * 8;
+    const int t = t0 + lr / TS_ROWS;
+    const int r = lr % TS_ROWS;
+    *reinterpret_cast<uint4*>(B.Hb + swz(lr, c)) =
+        *reinterpret_cast<const uint4*>(e + ((size_t)t * s_pad + row0 + r) * E + c);
+  }
+}
+
+// A chunk's pass to LN0 from the embed scratch: load, LN0, synchronised.
+__device__ __forceinline__ void ts_chunk_ln0(const float* g0, const float* b0, const TcBufs& B,
+                                             const __nv_bfloat16* e, size_t s_pad, int t0, int nc,
+                                             int row0, int S, bool h0, __nv_bfloat16* sth,
+                                             bool keep_n, int j) {
+  ts_load_chunk(e, s_pad, t0, nc, row0, B, j);
+  __syncthreads();
+  tc_ln0<TS_ROWS>(g0, b0, B, t0, nc, row0, S, h0, sth, s_pad, keep_n, j);
+  __syncthreads();
+}
+
+// `_forward_core` for a streamed tile to LN2's output, from the network's
+// embeds `e` (the embed kernel's); B.P: the tile's [TS_ROWS][n_tok] scores.
+// With `st`, h_all, att, y1 and f staged.  Ends synchronised.
+template <bool FWD, class Src>
+__device__ __forceinline__ void ts_forward(const GroupLayout& G, const float* const* leaf,
+                                           float scale, const TcBufs& B, Src& src,
+                                           const WSeq& seq, const __nv_bfloat16* e,
+                                           __nv_bfloat16* const* st, size_t s_pad, int row0,
+                                           int S, int j) {
+  constexpr int TA = TS_ROWS;
+  const int nt = G.n_tokens;
+  const int base = 2 * G.n_groups;
+  const float* g0 = leaf[base + 0];
+  const float* b0 = leaf[base + 1];
+  const float* bq = leaf[base + 3];
+  const float* bk = leaf[base + 5];
+  const float* bv = leaf[base + 7];
+  const int warp = j >> 5;
+  const int lane = j & 31;
+  const int c = j & (E - 1);
+  const int rb = (j >> 7) * (TA / 2);
+  const int re = rb + TA / 2;
+  uint32_t fr[8][4];
+
+  // pass 1: q from token 0, then every token's score q . k_t * scale, k a
+  // chunk at a time (wk's fragments kept across the chunks)
+  for (int t0 = 0; t0 < nt; t0 += TS_CHUNK) {
+    const int nc = min(TS_CHUNK, nt - t0);
+    ts_chunk_ln0(g0, b0, B, e, s_pad, t0, nc, row0, S, t0 == 0, st ? st[S_H] : nullptr, false,
+                 j);
+    if (t0 == 0) {
+      const __nv_bfloat16* W = src.take(seq, j);
+      frags_fwd(W, 8, fr, warp, lane);
+      tc_run(fr, 8, B.Hb, E, 0, TA, warp, lane,
+             [&](int r, int m, float v) { B.Q[r * FP + m] = v + __ldg(bq + m); });
+      W = src.take(seq, j);
+      frags_fwd(W, 8, fr, warp, lane);
     }
+    tc_run(fr, 8, B.Hb, E, 0, nc * TA, warp, lane, [&](int r, int m, float v) {
+      B.Kb[swz(r, m)] = __float2bfloat16_rn(v + __ldg(bk + m));
+    });
     __syncthreads();
-    {  // the token's embed bias gradient and its staged de
-      const int g = lay.tok_group[t];
-      float db = 0.f;
-      for (int r = rb; r < re; ++r) {
-        const float de = DH[r * FP + c];
-        db += de;
-        const int row = row0 + r;
-        st[S_DE][((size_t)t * s_pad + row) * E + c] =
-            row < S ? __float2bfloat16_rn(de) : zero;
-      }
-#pragma unroll
-      for (int gg = 0; gg < MAX_GROUPS; ++gg)
-        if (gg == g) cs.bg[gg] += db;
+    tc_row_dots<TA>(B.Q, B.Kb, nc, scale, B.P, nt, t0, j);
+    __syncthreads();
+  }
+
+  if (j < TA) tc_softmax(B.P + j * nt, nt);
+
+  // pass 2: att = sum_t a_t v_t in token order, v a chunk at a time
+  {
+    const __nv_bfloat16* W = src.take(seq, j);
+    frags_fwd(W, 8, fr, warp, lane);
+  }
+  for (int t0 = 0; t0 < nt; t0 += TS_CHUNK) {
+    const int nc = min(TS_CHUNK, nt - t0);
+    ts_chunk_ln0(g0, b0, B, e, s_pad, t0, nc, row0, S, false, nullptr, false, j);
+    tc_run(fr, 8, B.Hb, E, 0, nc * TA, warp, lane, [&](int r, int m, float v) {
+      B.Vb[swz(r, m)] = __float2bfloat16_rn(v + __ldg(bv + m));
+    });
+    __syncthreads();
+    for (int r = rb; r < re; ++r) {
+      const float* pr = B.P + r * nt + t0;
+      float att = t0 == 0 ? pr[0] * __bfloat162float(B.Vb[swz(r, c)]) : B.ACC[r * FP + c];
+      for (int tl = t0 == 0 ? 1 : 0; tl < nc; ++tl)
+        att = fmaf(pr[tl], __bfloat162float(B.Vb[swz(tl * TA + r, c)]), att);
+      B.ACC[r * FP + c] = att;
     }
     __syncthreads();
   }
+  for (int r = rb; r < re; ++r) {  // the attention output, rounded
+    const __nv_bfloat16 a = __float2bfloat16_rn(B.ACC[r * FP + c]);
+    B.OPb[swz(r, c)] = a;
+    if (st) st[S_ATT][(size_t)(row0 + r) * E + c] = row0 + r < S ? a : __float2bfloat16_rn(0.f);
+  }
+  tc_forward_rows<TA, FWD>(leaf + base, B, src, seq, st, row0, S, j);
+}
+
+// `_backward_core` for a streamed tile, without its weight products, after
+// `ts_forward`: `tc_backward_rows`, then the attention's and LN0's backward
+// a chunk at a time (B.DS: the tile's [TS_ROWS][n_tok] das / dss): pass A
+// das_t = datt . v_t; the softmax backward; pass B dq = sum_t dss_t k_t;
+// dq wq^T; pass C dk_t, dv_t, dh_t = dk_t wk^T + dv_t wv^T (+ dr1 + dq wq^T
+// for token 0), LN0's backward, de staged.  Ends synchronised.
+__device__ __forceinline__ void ts_backward(const GroupLayout& G, const float* const* leaf,
+                                            const __nv_bfloat16* WH, int hd, float scale,
+                                            const TcBufs& B, Ring& R, const WSeq& seq,
+                                            const __nv_bfloat16* e, __nv_bfloat16* const* st,
+                                            size_t s_pad, int row0, int S, ColSums& cs, int j) {
+  constexpr int TA = TS_ROWS;
+  const int nt = G.n_tokens;
+  const int base = 2 * G.n_groups;
+  const float* g0 = leaf[base + 0];
+  const float* b0 = leaf[base + 1];
+  const float* bk = leaf[base + 5];
+  const float* bv = leaf[base + 7];
+  const int warp = j >> 5;
+  const int lane = j & 31;
+  const int c = j & (E - 1);
+  const int rb = (j >> 7) * (TA / 2);
+  const int re = rb + TA / 2;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  float* DATT = B.H0;  // datt, from tc_backward_rows
+  float* DR1 = B.N1;   // dr1 (tc_backward_rows leaves it in B.G, under the chunks' e)
+  float* DQW = B.N2;   // dq wq^T
+  float* DH = B.PRE1;  // a token's dh, then de
+  uint32_t fr[8][4];
+
+  tc_backward_rows<TA>(leaf + base, WH, hd, B, R, seq, st, row0, S, cs, j);
+  for (int idx = j; idx < TA * E; idx += NTA) DR1[(idx >> 7) * FP + (idx & (E - 1))] =
+      B.G[(idx >> 7) * FP + (idx & (E - 1))];
+
+  // pass A: das_t = datt . v_t, v recomputed a chunk at a time
+  {
+    const __nv_bfloat16* W = R.take(seq, j);
+    frags_fwd(W, 8, fr, warp, lane);
+  }
+  for (int t0 = 0; t0 < nt; t0 += TS_CHUNK) {
+    const int nc = min(TS_CHUNK, nt - t0);
+    ts_chunk_ln0(g0, b0, B, e, s_pad, t0, nc, row0, S, false, nullptr, false, j);
+    tc_run(fr, 8, B.Hb, E, 0, nc * TA, warp, lane, [&](int r, int m, float v) {
+      B.Vb[swz(r, m)] = __float2bfloat16_rn(v + __ldg(bv + m));
+    });
+    __syncthreads();
+    tc_row_dots<TA>(DATT, B.Vb, nc, 1.0f, B.DS, nt, t0, j);
+    __syncthreads();
+  }
+  if (j < TA) tc_softmax_bwd(B.P + j * nt, B.DS + j * nt, nt);
+
+  // pass B: dq = sum_t dss_t k_t in token order, k recomputed a chunk at a time
+  {
+    const __nv_bfloat16* W = R.take(seq, j);
+    frags_fwd(W, 8, fr, warp, lane);
+  }
+  for (int t0 = 0; t0 < nt; t0 += TS_CHUNK) {
+    const int nc = min(TS_CHUNK, nt - t0);
+    ts_chunk_ln0(g0, b0, B, e, s_pad, t0, nc, row0, S, false, nullptr, false, j);
+    tc_run(fr, 8, B.Hb, E, 0, nc * TA, warp, lane, [&](int r, int m, float v) {
+      B.Kb[swz(r, m)] = __float2bfloat16_rn(v + __ldg(bk + m));
+    });
+    __syncthreads();
+    for (int r = rb; r < re; ++r) {
+      const float* d = B.DS + r * nt + t0;
+      float dq = t0 == 0 ? d[0] * __bfloat162float(B.Kb[swz(r, c)]) : B.ACC[r * FP + c];
+      for (int tl = t0 == 0 ? 1 : 0; tl < nc; ++tl)
+        dq = dq + d[tl] * __bfloat162float(B.Kb[swz(tl * TA + r, c)]);
+      B.ACC[r * FP + c] = dq;
+    }
+    __syncthreads();
+  }
+  {
+    float dbq = 0.f;
+    for (int r = rb; r < re; ++r) {
+      const int row = row0 + r;
+      const float dq = B.ACC[r * FP + c] * scale;
+      const __nv_bfloat16 dqb = __float2bfloat16_rn(dq);
+      B.Rb[swz(r, c)] = dqb;
+      st[S_DQ][(size_t)row * E + c] = row < S ? dqb : zero;
+      dbq += dq;
+    }
+    cs.fixed[C_BQ] += dbq;
+  }
+  {  // dq wq^T, for token 0's dh
+    const __nv_bfloat16* W = R.take(seq, j);
+    frags_bwd(W, fr, warp, lane);
+    tc_run(fr, 8, B.Rb, E, 0, TA, warp, lane,
+           [&](int r, int m, float v) { DQW[r * FP + m] = v; });
+  }
+
+  // pass C: per chunk dk, dv (staged), then per token dh, LN0's backward, de
+  uint32_t fv[8][4];
+  {
+    const __nv_bfloat16* W = R.take(seq, j);
+    frags_bwd(W, fr, warp, lane);
+    W = R.take(seq, j);
+    frags_bwd(W, fv, warp, lane);
+  }
+  float dbk = 0.f, dbv = 0.f;
+  for (int t0 = 0; t0 < nt; t0 += TS_CHUNK) {
+    const int nc = min(TS_CHUNK, nt - t0);
+    ts_chunk_ln0(g0, b0, B, e, s_pad, t0, nc, row0, S, false, nullptr, true, j);
+    for (int r = rb; r < re; ++r) {
+      const int row = row0 + r;
+      const float qj = B.Q[r * FP + c];
+      const float datt = DATT[r * FP + c];
+      for (int tl = 0; tl < nc; ++tl) {
+        const int t = t0 + tl;
+        const __nv_bfloat16 dk = __float2bfloat16_rn(B.DS[r * nt + t] * qj * scale);
+        const __nv_bfloat16 dv = __float2bfloat16_rn(B.P[r * nt + t] * datt);
+        B.Kb[swz(tl * TA + r, c)] = dk;
+        B.Vb[swz(tl * TA + r, c)] = dv;
+        dbk += __bfloat162float(dk);
+        dbv += __bfloat162float(dv);
+        const size_t at = ((size_t)t * s_pad + row) * E + c;
+        st[S_DK][at] = row < S ? dk : zero;
+        st[S_DV][at] = row < S ? dv : zero;
+      }
+    }
+    __syncthreads();
+    for (int tl = 0; tl < nc; ++tl)
+      tc_token_backward<TA>(fr, fv, B, tl, t0 + tl, token_group(G, t0 + tl), DR1, DQW, DH, g0,
+                            st, s_pad, row0, S, cs, j);
+  }
+  cs.fixed[C_BK] += dbk;
+  cs.fixed[C_BV] += dbv;
 }
 
 inline int smem_optin() {

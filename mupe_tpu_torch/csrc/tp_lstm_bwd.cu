@@ -19,6 +19,10 @@
 // are left to stage B: this kernel stages their bf16 operands (x_t, h_t,
 // dg_t, dz) in device memory, with c in f32 for its own BPTT.
 //
+// Any F, T and O, as the forward kernel: up to 64 inputs and 64 outputs the
+// register instances, past them the generic one (F = 91, O = 120: ~129 KB
+// of shared memory; past ~290 inputs wi and wfc stay in device memory).
+//
 // What bounds it on an H100: a window costs ~3x the forward's multiply-adds
 // (the forward, the recomputed gates, dh) on the tensor cores and writes
 // ~0.7 KB of staged bf16 operands a step (dg 512 B), so the bytes (~1.6 GB at
@@ -46,42 +50,46 @@ struct TPBwdArgs {
   TPStage st;
   float* ws;        // [G][TG + O] per-block slices: db, dbfc
   int N, T, F, O, n_tiles;
+  int gw;           // the generic instance: wi and wfc read from device memory
 };
 
 template <int FKT>
 __global__ void __launch_bounds__(TP_THREADS, 3) tp_lstm_bwd_kernel(const __grid_constant__ TPBwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   TPSmem s;
-  tp_carve<FKT, true>(smem, &s);
+  const bool gw = FKT == 0 && a.gw;
+  tp_carve(smem, &s, FKT > 0 ? FKT : (a.F + 15) / 16, FKT > 0 ? TP_OPASS : tp_op(a.O), true,
+           gw);
   const int j = threadIdx.x;
-  tp_fill<FKT>(s, a.l, a.F, a.O, j);
+  tp_fill(s, a.l, a.F, a.O, gw, j);
   for (int i = j; i < TP_WARPS * 4 * TP_DBL; i += TP_THREADS) s.dbl[i] = 0.f;
-  for (int i = j; i < TP_WARPS * 4 * TP_DBFCL; i += TP_THREADS) s.dbfcl[i] = 0.f;
+  for (int i = j; i < TP_WARPS * 4 * s.dbfc_ld; i += TP_THREADS) s.dbfcl[i] = 0.f;
   __syncthreads();
   const int warp = j >> 5;
   const int lane = j & 31;
   const int q = lane & 3;
   const bool summer = lane < 16;  // rows lane / 4 and lane / 4 + 4 summed by the shuffle
   float* dbl = s.dbl + (warp * 4 + (lane >> 2)) * TP_DBL;
-  float* dbfcl = s.dbfcl + (warp * 4 + (lane >> 2)) * TP_DBFCL;
+  float* dbfcl = s.dbfcl + (warp * 4 + (lane >> 2)) * s.dbfc_ld;
   const TPStage& st = a.st;
   const int O = a.O;
   const int n_ok = (O + 15) / 16;  // k-tiles of the head's outputs
+  const int n_pass = FKT > 0 ? 1 : s.op / TP_OPASS;
 
   for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
     const TPRows r = {tile * TP_ROWS + (lane >> 2), tile * TP_ROWS + (lane >> 2) + 8,
                       a.N, a.T, a.F, O};
     tp_forward_steps<FKT>(s, a.x, r, &st, tile, warp, lane);
 
-    // head, the warp's outputs: y = tanh(bf16(h_T) bf16(wfc) + bfc), dz =
-    // dy (1 - y^2); dbfc; dz staged and shared; then the warp's units of
-    // dh = bf16(dz) bf16(wfc)^T
-    {
+    // head, the warp's outputs of each pass: y = tanh(bf16(h_T) bf16(wfc) +
+    // bfc), dz = dy (1 - y^2); dbfc; dz staged and shared; then the warp's
+    // units of dh = bf16(dz) bf16(wfc)^T
+    for (int p = 0; p < n_pass; ++p) {
       float z[2][4];
-      tp_head(z, s, a.T, O, warp, lane);
+      tp_head(z, s, a.T, O, p, warp, lane);
 #pragma unroll
       for (int sub = 0; sub < 2; ++sub) {
-        const int o0 = warp * 16 + sub * 8 + 2 * q;
+        const int o0 = p * TP_OPASS + warp * 16 + sub * 8 + 2 * q;
         float dz[4];
 #pragma unroll
         for (int v = 0; v < 4; ++v) {
@@ -91,20 +99,20 @@ __global__ void __launch_bounds__(TP_THREADS, 3) tp_lstm_bwd_kernel(const __grid
           const float d = o < O && row < a.N ? a.dy[(size_t)row * O + o] : 0.f;
           dz[v] = d * (1.0f - yv * yv);
         }
-        if (warp * 16 + sub * 8 < O) {
+        if (o0 - 2 * q < O) {
           float s0 = dz[0] + dz[2], s1 = dz[1] + dz[3];
           s0 += __shfl_xor_sync(0xffffffffu, s0, 16);
           s1 += __shfl_xor_sync(0xffffffffu, s1, 16);
           if (summer) {
-            float2* p = reinterpret_cast<float2*>(dbfcl + sub * 8 + 2 * q);
-            const float2 old = *p;
-            *p = make_float2(old.x + s0, old.y + s1);
+            float2* pp = reinterpret_cast<float2*>(dbfcl + p * 16 + sub * 8 + 2 * q);
+            const float2 old = *pp;
+            *pp = make_float2(old.x + s0, old.y + s1);
           }
         }
         const uint32_t lo = pack_bf16(dz[0], dz[1]), hi = pack_bf16(dz[2], dz[3]);
-        *reinterpret_cast<uint32_t*>(s.DZ + swzw(lane >> 2, o0, TP_MAX_O)) = lo;
-        *reinterpret_cast<uint32_t*>(s.DZ + swzw((lane >> 2) + 8, o0, TP_MAX_O)) = hi;
-        if (warp * 16 + sub * 8 < st.op) {
+        *reinterpret_cast<uint32_t*>(s.DZ + swzw(lane >> 2, o0, s.op)) = lo;
+        *reinterpret_cast<uint32_t*>(s.DZ + swzw((lane >> 2) + 8, o0, s.op)) = hi;
+        if (o0 - 2 * q < st.op) {
           *reinterpret_cast<uint32_t*>(st.dz + (size_t)r.ra * st.op + o0) = lo;
           *reinterpret_cast<uint32_t*>(st.dz + (size_t)r.rb * st.op + o0) = hi;
         }
@@ -116,27 +124,38 @@ __global__ void __launch_bounds__(TP_THREADS, 3) tp_lstm_bwd_kernel(const __grid
     for (int u = 0; u < 2; ++u)
 #pragma unroll
       for (int v = 0; v < 4; ++v) dh[u][v] = dc[u][v] = 0.f;
-#pragma unroll
-    for (int kt = 0; kt < 4; ++kt)
-      if (kt < n_ok) {
-        uint32_t da[4], b[4];
-        ldsm_x4(da, s.DZ + swzw(lane & 15, kt * 16 + (lane >> 4) * 8, TP_MAX_O));
+    auto dz_ktile = [&](int kt) {
+      uint32_t da[4], b[4];
+      ldsm_x4(da, s.DZ + swzw(lane & 15, kt * 16 + (lane >> 4) * 8, s.op));
+      if (s.gwfc)  // B[k = output][c = unit] = wfc[unit][output]
+        tp_b_global(b, s.gwfc, 1, O, O, TH, kt * 16, warp * 16, lane);
+      else
         ldsm_x4(b, s.WFC + swzw(warp * 16 + (lane & 7) + (lane >> 4) * 8,
-                                kt * 16 + ((lane >> 3) & 1) * 8, TP_MAX_O));
-        mma_bf16(dh[0], da, b[0], b[1]);
-        mma_bf16(dh[1], da, b[2], b[3]);
-      }
+                                kt * 16 + ((lane >> 3) & 1) * 8, s.op));
+      mma_bf16(dh[0], da, b[0], b[1]);
+      mma_bf16(dh[1], da, b[2], b[3]);
+    };
+    if constexpr (FKT > 0) {
+#pragma unroll
+      for (int kt = 0; kt < 4; ++kt)
+        if (kt < n_ok) dz_ktile(kt);
+    } else {
+      for (int kt = 0; kt < n_ok; ++kt) dz_ktile(kt);
+    }
 
     // backpropagation through time, the warp's units
-    uint32_t xn[FKT][4];  // the next step's x (t - 1), loaded a step ahead
-    tp_x_frags<FKT>(xn, a.x, r, a.T - 1, q);
+    constexpr int NX = FKT > 0 ? FKT : 1;
+    uint32_t xn[NX][4];  // the next step's x (t - 1), loaded a step ahead (FKT > 0)
+    if constexpr (FKT > 0) tp_x_frags<FKT>(xn, a.x, r, a.T - 1, q);
     for (int t = a.T - 1; t >= 0; --t) {
-      uint32_t xf[FKT][4], hp[4][4];
+      uint32_t xf[NX][4], hp[4][4];
+      if constexpr (FKT > 0) {
 #pragma unroll
-      for (int kt = 0; kt < FKT; ++kt)
+        for (int kt = 0; kt < FKT; ++kt)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) xf[kt][i] = xn[kt][i];
-      if (t > 0) tp_x_frags<FKT>(xn, a.x, r, t - 1, q);
+          for (int i = 0; i < 4; ++i) xf[kt][i] = xn[kt][i];
+        if (t > 0) tp_x_frags<FKT>(xn, a.x, r, t - 1, q);
+      }
 #pragma unroll
       for (int p = 0; p < 4; ++p)
 #pragma unroll
@@ -148,7 +167,10 @@ __global__ void __launch_bounds__(TP_THREADS, 3) tp_lstm_bwd_kernel(const __grid
                            : 0u;
         }
       float acc[4][2][4];
-      tp_gate_pass<FKT>(acc, xf, hp, s, warp, lane);
+      if constexpr (FKT > 0)
+        tp_gate_pass<FKT>(acc, xf, hp, s, warp, lane);
+      else
+        tp_gate_pass_rt(acc, a.x, r, t, hp, s, warp, nullptr, lane);
       __nv_bfloat16* dgs = s.DG + (t & 1) * TP_ROWS * TG;
 #pragma unroll
       for (int sub = 0; sub < 2; ++sub) {
@@ -204,7 +226,7 @@ __global__ void __launch_bounds__(TP_THREADS, 3) tp_lstm_bwd_kernel(const __grid
       for (int kt = 0; kt < TG / 16; ++kt) {
         uint32_t da[4], b[4];
         ldsm_x4(da, dgs + swzw(lane & 15, kt * 16 + (lane >> 4) * 8, TG));
-        ldsm_x4(b, s.W + swzw(16 * FKT + warp * 16 + (lane & 7) + (lane >> 4) * 8,
+        ldsm_x4(b, s.W + swzw(s.wh0 + warp * 16 + (lane & 7) + (lane >> 4) * 8,
                               kt * 16 + ((lane >> 3) & 1) * 8, TG));
         mma_bf16(dh[0], da, b[0], b[1]);
         mma_bf16(dh[1], da, b[2], b[3]);
@@ -220,9 +242,10 @@ __global__ void __launch_bounds__(TP_THREADS, 3) tp_lstm_bwd_kernel(const __grid
     const float* p = s.dbl + w * 4 * TP_DBL + (col / TH) * 16 + col % 16;
     ws[col] = ((p[0] + p[TP_DBL]) + p[2 * TP_DBL]) + p[3 * TP_DBL];
   }
-  for (int o = j; o < O; o += TP_THREADS) {
-    const float* p = s.dbfcl + (o / 16) * 4 * TP_DBFCL + o % 16;
-    ws[TG + o] = ((p[0] + p[TP_DBFCL]) + p[2 * TP_DBFCL]) + p[3 * TP_DBFCL];
+  const int ld = s.dbfc_ld;
+  for (int o = j; o < O; o += TP_THREADS) {  // pass p, warp w's output k: its row's p * 16 + k
+    const float* p = s.dbfcl + ((o % TP_OPASS) / 16) * 4 * ld + (o / TP_OPASS) * 16 + o % 16;
+    ws[TG + o] = ((p[0] + p[ld]) + p[2 * ld]) + p[3 * ld];
   }
 }
 
@@ -232,22 +255,32 @@ struct TPBwdPlan {
   void (*kernel)(TPBwdArgs);
   size_t smem;
   int per_sm;
+  int gw;
 };
 
 template <int FKT>
-cudaError_t bwd_plan_of(TPBwdPlan& p) {
+cudaError_t bwd_plan_of(TPBwdPlan& p, int F, int O) {
   p.kernel = tp_lstm_bwd_kernel<FKT>;
-  p.smem = tp_carve<FKT, true>(nullptr, nullptr);
-  cudaError_t err =
-      cudaFuncSetAttribute(p.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  const int nkt = FKT > 0 ? FKT : (F + 15) / 16, op = FKT > 0 ? TP_OPASS : tp_op(O);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+          cudaSuccess)
+    return err;
+  p.smem = tp_carve(nullptr, nullptr, nkt, op, true);
+  p.gw = FKT == 0 && p.smem > (size_t)optin;
+  if (p.gw) p.smem = tp_carve(nullptr, nullptr, nkt, op, true, true);
+  err = cudaFuncSetAttribute(p.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.per_sm, p.kernel, TP_THREADS, p.smem);
 }
 
-// The instance for F inputs and its grid for n_tiles warp tiles, set up once
-// a device.
-cudaError_t bwd_plan(int F, int n_tiles, TPBwdPlan* plan, int* blocks) {
-  static TPBwdPlan plans[TP_MAX_DEVICES][4];
+// The instance for F inputs and O outputs and its grid for n_tiles warp
+// tiles: the register instances set up once a device, the generic one (F >
+// 64 or O > 64) per call.
+cudaError_t bwd_plan(int F, int O, int n_tiles, TPBwdPlan* plan, int* blocks) {
+  static TPBwdPlan plans[TP_MAX_DEVICES][TP_MAX_FKT];
   static int sm_count[TP_MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -255,15 +288,19 @@ cudaError_t bwd_plan(int F, int n_tiles, TPBwdPlan* plan, int* blocks) {
   if (dev < 0 || dev >= TP_MAX_DEVICES) return cudaErrorInvalidDevice;
   if (sm_count[dev] == 0) {
     int n = 0;
-    if ((err = bwd_plan_of<1>(plans[dev][0])) != cudaSuccess ||
-        (err = bwd_plan_of<2>(plans[dev][1])) != cudaSuccess ||
-        (err = bwd_plan_of<3>(plans[dev][2])) != cudaSuccess ||
-        (err = bwd_plan_of<4>(plans[dev][3])) != cudaSuccess ||
+    if ((err = bwd_plan_of<1>(plans[dev][0], 0, 0)) != cudaSuccess ||
+        (err = bwd_plan_of<2>(plans[dev][1], 0, 0)) != cudaSuccess ||
+        (err = bwd_plan_of<3>(plans[dev][2], 0, 0)) != cudaSuccess ||
+        (err = bwd_plan_of<4>(plans[dev][3], 0, 0)) != cudaSuccess ||
         (err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
       return err;
     sm_count[dev] = n;
   }
-  *plan = plans[dev][(F + 15) / 16 - 1];
+  if (F <= 16 * TP_MAX_FKT && O <= TP_OPASS) {
+    *plan = plans[dev][(F + 15) / 16 - 1];
+  } else if ((err = bwd_plan_of<0>(*plan, F, O)) != cudaSuccess) {
+    return err;
+  }
   if (plan->per_sm < 1) return cudaErrorInvalidConfiguration;
   int b = sm_count[dev] * plan->per_sm;
   if (b > n_tiles) b = n_tiles;
@@ -271,9 +308,7 @@ cudaError_t bwd_plan(int F, int n_tiles, TPBwdPlan* plan, int* blocks) {
   return cudaSuccess;
 }
 
-bool shapes_ok(int T, int F, int O) {
-  return T >= 1 && T <= TP_MAX_T && F >= 1 && F <= TP_MAX_F && O >= 1 && O <= TP_MAX_O;
-}
+bool shapes_ok(int T, int F, int O) { return T >= 1 && F >= 1 && O >= 1; }
 
 }  // namespace
 
@@ -283,13 +318,13 @@ bool shapes_ok(int T, int F, int O) {
 extern "C" int mupe_tp_lstm_bwd_blocks(int n_pad, int T, int F, int O, int* blocks) {
   if (n_pad < 0 || n_pad % 32 || !shapes_ok(T, F, O)) return (int)cudaErrorInvalidValue;
   TPBwdPlan plan;
-  return (int)bwd_plan(F, n_pad / TP_ROWS, &plan, blocks);
+  return (int)bwd_plan(F, O, n_pad / TP_ROWS, &plan, blocks);
 }
 
 // x [N, T, F], dy [N, O], wi [F, 4*64], wh [64, 4*64], b [4*64], wfc [64, O],
 // bfc [O] (f32); n_pad >= N staged windows, a multiple of 32; the staging
 // (bf16): xs [T][n_pad][16 ceil(F / 16)], hs [T][n_pad][64] (h_1 .. h_T),
-// dg [T][n_pad][256], dz [n_pad][8 ceil(O / 8)]; cs: f32 scratch of
+// dg [T][n_pad][256], dz [n_pad][8 ceil(O / 8)] (any T, F, O); cs: f32 scratch of
 // n_pad * T * 64 floats (16-byte aligned); db [256] and dbfc [O]: where the
 // bias gradients go (f32, overwritten); ws: f32 workspace of blocks * (256 +
 // O) floats, blocks as mupe_tp_lstm_bwd_blocks gave it.  Returns a
@@ -304,14 +339,14 @@ extern "C" int mupe_tp_lstm_bwd_operands(const float* x, const float* dy, int N,
     return (int)cudaErrorInvalidValue;
   TPBwdPlan plan;
   int want = 0;
-  cudaError_t err = bwd_plan(F, n_pad / TP_ROWS, &plan, &want);
+  cudaError_t err = bwd_plan(F, O, n_pad / TP_ROWS, &plan, &want);
   if (err != cudaSuccess) return (int)err;
   if (blocks != want) return (int)cudaErrorInvalidValue;
   TPBwdArgs args = {x, dy, {wi, wh, b, wfc, bfc},
                     {static_cast<__nv_bfloat16*>(xs), static_cast<__nv_bfloat16*>(hs),
                      static_cast<__nv_bfloat16*>(dg), static_cast<__nv_bfloat16*>(dz),
                      static_cast<float4*>(cs), n_pad, (O + 7) / 8 * 8},
-                    ws, N, T, F, O, n_pad / TP_ROWS};
+                    ws, N, T, F, O, n_pad / TP_ROWS, plan.gw};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_pad > 0) {
     plan.kernel<<<blocks, TP_THREADS, plan.smem, s>>>(args);

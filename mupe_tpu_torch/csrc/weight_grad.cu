@@ -40,14 +40,15 @@ namespace {
 constexpr int WG_THREADS = 256;
 constexpr int WG_KSTEP = 32;  // staged rows per pipeline stage
 constexpr int WG_STAGES = 4;
-constexpr int WG_MAX_PROD = 2 * (MAX_GROUPS + 6);
+constexpr int WG_MAX_PROD = 32;  // a launch's products (the wrapper splits more)
 constexpr size_t WG_SMEM = (size_t)WG_STAGES * 2 * WG_KSTEP * E * 2;
 
 struct WgProd {
-  const __nv_bfloat16* a;  // [k_rows][lda]
+  const __nv_bfloat16* a;  // [k_rows][sa], its first lda columns read
   const __nv_bfloat16* d;  // [k_rows][ldd], its first n columns read
   float* part;             // [n_chunks][m][E] partial products
   int lda;                 // A's width: M padded to 16 (16, 32, ... 128)
+  int sa;                  // A's row stride
   int m;                   // output rows kept (M)
   int ldd;                 // D's row stride
   int n;                   // D's columns (a multiple of 8, at most E; zeros past them)
@@ -69,7 +70,7 @@ __device__ __forceinline__ void wg_load(const WgProd& p, int k, __nv_bfloat16* s
   for (int idx = tid; idx < WG_KSTEP * ca; idx += WG_THREADS) {
     const int r = idx / ca;
     const int c = (idx - r * ca) * 8;
-    cp_async16(sa + swz(r, c), p.a + (size_t)(k + r) * p.lda + c, 16);
+    cp_async16(sa + swz(r, c), p.a + (size_t)(k + r) * p.sa + c, 16);
   }
   for (int idx = tid; idx < WG_KSTEP * (E / 8); idx += WG_THREADS) {
     const int r = idx >> 4;
@@ -165,17 +166,20 @@ __global__ void __launch_bounds__(WG_THREADS)
 
 }  // namespace
 
-// n_prod products; for product i: a[i] bf16 [k_rows[i]][lda[i]], d[i] bf16
+// n_prod products; for product i: a[i] bf16 [k_rows[i]][sa[i]] of which the
+// first lda[i] columns are read, d[i] bf16
 // [k_rows[i]][ldd[i]] of which the first n[i] columns are read, out[i] f32
 // [m[i]][min(n[i], ldo[i])] with row stride ldo[i] (the leaf's gradient, or
 // its column block, overwritten with sum_k a[k][:m]^T d[k][:n]), K split
 // into chunks of chunk[i] rows (k_rows and chunk multiples of 32, lda a
-// multiple of 16 and at most 128, m <= lda, n a multiple of 8 and at most
-// 128, ldd a multiple of 8 and at least n); ws: f32 workspace of
+// multiple of 16 and at most 128, sa a multiple of 8 and at least lda, m <=
+// lda, n a multiple of 8 and at most 128, ldd a multiple of 8 and at least
+// n); ws: f32 workspace of
 // sum_i ceil(k_rows[i] / chunk[i]) * m[i] * 128 floats.  Products with
 // k_rows = 0 get zeros.  Returns a cudaError_t.
 extern "C" int mupe_weight_grads(int n_prod, const void* const* a, const void* const* d,
-                                 const int* lda, const int* m, const int* ldd, const int* n,
+                                 const int* lda, const int* sa, const int* m, const int* ldd,
+                                 const int* n,
                                  const int* ldo, const int* k_rows, const int* chunk,
                                  float* const* out, float* ws, void* stream) {
   if (n_prod < 1 || n_prod > WG_MAX_PROD) return (int)cudaErrorInvalidValue;
@@ -184,7 +188,8 @@ extern "C" int mupe_weight_grads(int n_prod, const void* const* a, const void* c
   int blocks = 0;
   size_t ws_off = 0;
   for (int i = 0; i < n_prod; ++i) {
-    if (lda[i] < 16 || lda[i] > E || lda[i] % 16 || m[i] < 1 || m[i] > lda[i] || k_rows[i] < 0 ||
+    if (lda[i] < 16 || lda[i] > E || lda[i] % 16 || sa[i] < lda[i] || sa[i] % 8 || m[i] < 1 ||
+        m[i] > lda[i] || k_rows[i] < 0 ||
         k_rows[i] % WG_KSTEP || chunk[i] < WG_KSTEP || chunk[i] % WG_KSTEP || n[i] < 8 ||
         n[i] > E || n[i] % 8 || ldd[i] < n[i] || ldd[i] % 8 || ldo[i] < 1)
       return (int)cudaErrorInvalidValue;
@@ -193,7 +198,7 @@ extern "C" int mupe_weight_grads(int n_prod, const void* const* a, const void* c
     float* part = ws + ws_off;
     if (n_chunks > 0)
       args.p[args.n_prod++] = {static_cast<const __nv_bfloat16*>(a[i]),
-                               static_cast<const __nv_bfloat16*>(d[i]), part, lda[i], m[i],
+                               static_cast<const __nv_bfloat16*>(d[i]), part, lda[i], sa[i], m[i],
                                ldd[i], n[i], k_rows[i], chunk[i], blocks};
     seg.seg[seg.n++] = {part, out[i], n_chunks, m[i] * E, m[i] * width, width, E, ldo[i]};
     blocks += n_chunks;

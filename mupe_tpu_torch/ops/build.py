@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("fused_encoder.cu", "fused_encoder_bwd.cu", "fused_encoder_loss.cu", "weight_grad.cu",
            "tp_lstm.cu", "tp_lstm_bwd.cu", "fps.cu")
-HEADERS = ("common.cuh", "encoder_tile.cuh", "encoder_bwd_tile.cuh", "tp_tile.cuh")
+HEADERS = ("common.cuh", "encoder_bwd_tile.cuh", "tp_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -34,22 +34,25 @@ _I = ctypes.c_int
 # argtypes of every exported C function (pointers as c_void_p: ctypes would
 # otherwise pass a Python int as a 32-bit int and cut the address)
 C_FUNCTIONS = {
+    "mupe_encoder_forward_scratch": (_I, _I, _P, _P, _I, _I, _P),
     "mupe_encoder_forward": (
-        _P, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _P,
+        _P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P,
     ),
     "mupe_tp_lstm_forward": (
         _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P,
     ),
     "mupe_encoder_bwd_blocks": (_I, _I, _P, _P, _I, _I, _P),
+    "mupe_encoder_bwd_scratch": (_I, _I, _P, _P, _I, _I, _P),
     "mupe_encoder_bwd_operands": (
-        _P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+        _P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
     ),
-    "mupe_encoder_fwd_loss": (_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P),
+    "mupe_encoder_fwd_loss_scratch": (_I, _I, _P, _P, _I, _I, _P),
+    "mupe_encoder_fwd_loss": (_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
     "mupe_encoder_fwd_loss_agrad_blocks": (_I, _I, _P, _P, _I, _P),
     "mupe_encoder_fwd_loss_agrad": (
-        _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P,
+        _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
     ),
-    "mupe_weight_grads": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "mupe_weight_grads": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "mupe_tp_lstm_bwd_blocks": (_I, _I, _I, _I, _P),
     "mupe_tp_lstm_bwd_operands": (
         _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,

@@ -32,20 +32,25 @@ from . import build
 from .tolerance import GradTol, KernelTol
 
 _LN_EPS = 1e-6  # flax LayerNorm default
-# The limits of every encoder kernel (forward, backward, forward + loss):
-# embed and feed-forward width 128, at most 16 tokens in at most 4 groups,
-# 160 observation columns, a group's weight stacked into the tile's two
-# weight slots of 128 rows (`_embed_slots`), a head of at most 8 outputs
-# (`kernel_spec_ok`).  Past _NARROW_TOKENS tokens the backward's tile keeps
-# LN0's n in a per-block scratch in device memory (_N0_SCRATCH bf16 values a
-# block and network, after its workspace).
+# The limits of every encoder kernel (forward, backward, forward + loss) are
+# the widths the policy fixes: embed and feed-forward width 128, 1-4 token
+# groups, a head of 1-8 outputs (`kernel_spec_ok`).  Tokens, columns and
+# group widths are not limited: specs of at most 16 tokens over 160 columns,
+# groups of at most 128 features whose weights stack into the tile's two
+# slots of 128 rows (`tile_spec_ok`), run the tile instances, which hold a
+# tile's rows and tokens in shared memory; past them the kernels stream the
+# tokens (an embed launch writes each token's bf16 embed to a scratch the
+# wrapper allocates, and the tile reads it a chunk of 8 tokens at a time).
+# Past _NARROW_TOKENS tokens the tile instances' backward keeps LN0's n in
+# a per-block scratch in device memory (_N0_SCRATCH bf16 values a block and
+# network, after its workspace).
 _KERNEL_WIDTH = 128
-_KERNEL_MAX_TOKENS = 16
 _KERNEL_MAX_GROUPS = 4
-_KERNEL_MAX_OBS = 160
 _KERNEL_MAX_HEAD = 8
+_TILE_MAX_TOKENS = 16
+_TILE_MAX_OBS = 160
 _NARROW_TOKENS = 8
-_N0_SCRATCH = _KERNEL_MAX_TOKENS * 8 * _KERNEL_WIDTH
+_N0_SCRATCH = _TILE_MAX_TOKENS * 8 * _KERNEL_WIDTH
 # Kernel vs `reference_apply` (see tolerance.py).  With the plain version in
 # f64 given (`tolerance.in_f64`), each limit is at least FLOOR_MULT times the
 # f32 plain version's own error against it (its floor).
@@ -92,9 +97,12 @@ LOSS_STATS_TOL = KernelTol(max_rel=1e-2, mean_rel=1e-4, floor_mult=FLOOR_MULT)
 # (the clamped log-ratio and dlog_std columns; the largest errors stayed under
 # a quarter of the max limits), past the 1e-4 limit in 12-16 of 180 cases at
 # S = 1 to 17 over 30 seeds on an H100 (scripts/torch_tolerance_survey.py),
-# for the fwdloss kernel (CUDA-core forward) and the agrad kernel
-# (tensor-core forward) alike.  A missed
-# rounding point is caught at S = 49,152, where the mean limits hold in full.
+# for both loss kernels (one forward, the same bits).  The streamed encoder
+# forward is held to the per-row limit below 300 rows too: at 28 tokens one
+# row's flip cascade took its mean error past 1e-4 in 1 of 120 draws of S = 1
+# to 17 where the floor was 0, and stayed within 0.10 of this limit (survey).
+# A missed rounding point is caught at S = 49,152, where the mean limits hold
+# in full.
 SMALL_S_ROWS = 300
 
 
@@ -454,29 +462,50 @@ def _embed_slots(spec: EncoderSpec) -> int:
 
 def kernel_spec_ok(spec: EncoderSpec) -> bool:
     """Whether the encoder kernels (forward, backward, forward + loss) take
-    `spec`: embed and feed-forward width 128, 1-16 tokens in 1-4 groups of
-    at most 128 features, at most 160 observation columns, the groups'
-    weights in two slots of 128 rows, a head of 1-8 outputs."""
+    `spec`: embed and feed-forward width 128, 1-4 groups of at least one
+    token and one feature, a head of 1-8 outputs.  Any number of tokens,
+    columns and features a group: past `tile_spec_ok` the kernels stream the
+    tokens."""
     return (spec.embed_dim == _KERNEL_WIDTH and spec.ff_dim == _KERNEL_WIDTH
             and 1 <= len(spec.groups) <= _KERNEL_MAX_GROUPS
-            and all(k >= 1 and 1 <= d <= _KERNEL_WIDTH for k, d in spec.groups)
-            and spec.n_tokens <= _KERNEL_MAX_TOKENS and spec.obs_dim <= _KERNEL_MAX_OBS
-            and _embed_slots(spec) <= 2 and 1 <= spec.head_dim <= _KERNEL_MAX_HEAD)
+            and all(k >= 1 and d >= 1 for k, d in spec.groups)
+            and 1 <= spec.head_dim <= _KERNEL_MAX_HEAD)
+
+
+def tile_spec_ok(spec: EncoderSpec) -> bool:
+    """Whether a spec that the kernels take runs their tile instances (the C
+    side's `tile_layout`): at most 16 tokens over 160 columns, groups of at
+    most 128 features whose weights, each padded to 16 rows, stack into two
+    slots of 128.  Past it the streamed instance runs."""
+    return (spec.n_tokens <= _TILE_MAX_TOKENS and spec.obs_dim <= _TILE_MAX_OBS
+            and all(d <= _KERNEL_WIDTH for _, d in spec.groups) and _embed_slots(spec) <= 2)
 
 
 def _check_spec(spec: EncoderSpec) -> None:
     if not kernel_spec_ok(spec):
         raise ValueError(
             f"spec exceeds the encoder kernels' limits (embed_dim = ff_dim = {_KERNEL_WIDTH}, "
-            f"at most {_KERNEL_MAX_TOKENS} tokens in {_KERNEL_MAX_GROUPS} groups of at most "
-            f"{_KERNEL_WIDTH} features, {_KERNEL_MAX_OBS} observation columns, the groups' "
-            f"weights padded to 16 rows in two slots of {_KERNEL_WIDTH}, a head of "
-            f"{_KERNEL_MAX_HEAD}): {spec}")
+            f"1-{_KERNEL_MAX_GROUPS} token groups, a head of 1-{_KERNEL_MAX_HEAD} "
+            f"outputs): {spec}")
 
 
 def _n0_scratch_floats(spec: EncoderSpec, blocks: int) -> int:
     """f32 floats of a stage-A kernel's LN0 scratch, blocks per network."""
-    return blocks * _N0_SCRATCH // 2 if spec.n_tokens > _NARROW_TOKENS else 0
+    return (blocks * _N0_SCRATCH // 2
+            if spec.n_tokens > _NARROW_TOKENS and tile_spec_ok(spec) else 0)
+
+
+def _stream_scratch(fn: str, x: torch.Tensor, *args) -> torch.Tensor:
+    """The streaming scratch that a C entry point wants (its `*_scratch`
+    helper): bytes on x's device, none for the tile instances."""
+    n = ctypes.c_longlong(0)
+    build.check(getattr(build.library(), fn)(*args, ctypes.byref(n)), fn)
+    return torch.empty(n.value, dtype=torch.uint8, device=x.device)
+
+
+def _ptr(t: torch.Tensor):
+    """A device pointer, or null for an empty tensor."""
+    return t.data_ptr() if t.numel() else None
 
 
 def _check_kernel_args(x: torch.Tensor, nets) -> None:
@@ -522,14 +551,15 @@ def _launch(x: torch.Tensor, nets) -> Tuple[torch.Tensor, ...]:
     ]
     leaf_ptrs = [leaf.data_ptr() for _, leaves in nets for leaf in leaves]
     lib = build.library()
+    s_pad = staged_rows(s)
     with torch.cuda.device(x.device):
+        scratch = _stream_scratch("mupe_encoder_forward_scratch", x, *_groups_args(spec0),
+                                  len(nets), s_pad)
         err = lib.mupe_encoder_forward(
-            x.data_ptr(), s, spec0.obs_dim, len(spec0.groups),
-            build.int_array([k for k, _ in spec0.groups]),
-            build.int_array([d for _, d in spec0.groups]),
+            x.data_ptr(), s, s_pad, *_groups_args(spec0),
             len(nets), build.ptr_array(leaf_ptrs), spec0.n_leaves,
             build.ptr_array([o.data_ptr() for o in outs]),
-            build.int_array([spec.head_dim for spec, _ in nets]),
+            build.int_array([spec.head_dim for spec, _ in nets]), _ptr(scratch),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     build.check(err, "mupe_encoder_forward")
@@ -666,6 +696,8 @@ def _launch_operands(x: torch.Tensor, nets, douts):
         ws = torch.empty(2 * blocks.value * sum(_colsum_floats(spec) for spec, _ in nets)
                          + len(nets) * _n0_scratch_floats(spec0, blocks.value),
                          device=x.device, dtype=torch.float32)
+        scratch = _stream_scratch("mupe_encoder_bwd_scratch", x, *_groups_args(spec0),
+                                  len(nets), staged_rows(s))
         err = lib.mupe_encoder_bwd_operands(
             x.data_ptr(), s, staged_rows(s), *_groups_args(spec0), len(nets),
             build.ptr_array([leaf.data_ptr() for _, leaves in nets for leaf in leaves]),
@@ -674,7 +706,7 @@ def _launch_operands(x: torch.Tensor, nets, douts):
             build.int_array([spec.head_dim for spec, _ in nets]),
             build.ptr_array([v.data_ptr() for _, views in stagings for v in views]),
             build.ptr_array([g.data_ptr() for g in grads]),
-            build.int_array(sizes), ws.data_ptr(), blocks.value,
+            build.int_array(sizes), ws.data_ptr(), blocks.value, _ptr(scratch),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     build.check(err, "mupe_encoder_bwd_operands")
@@ -727,9 +759,12 @@ def weight_grads(items) -> None:
                     or a.shape[-1] % 16 or a.shape[-1] < m):
                 raise ValueError(f"staged operands of shapes {tuple(a.shape)}, "
                                  f"{tuple(d.shape)} do not match {shapes[leaf]}")
-            prods.append(WeightProduct(a.data_ptr(), d.data_ptr(), a.shape[-1], m,
-                                       spec.embed_dim, spec.embed_dim, spec.embed_dim, k_rows,
-                                       flat.data_ptr() + 4 * offsets[leaf]))
+            for c in range(0, a.shape[-1], _KERNEL_WIDTH):  # A's columns, 128 a product
+                prods.append(WeightProduct(
+                    a.data_ptr() + 2 * c, d.data_ptr(), min(_KERNEL_WIDTH, a.shape[-1] - c),
+                    min(_KERNEL_WIDTH, m - c), spec.embed_dim, spec.embed_dim, spec.embed_dim,
+                    k_rows, flat.data_ptr() + 4 * (offsets[leaf] + c * spec.embed_dim),
+                    a.shape[-1]))
     launch_weight_products(prods, items[0][2].device, stage_b_chunk)
     weight_grads.launches += 1
 
@@ -741,7 +776,8 @@ weight_grads.launches = 0
 class WeightProduct:
     """One product of the weight-gradient kernel: out[:m, :min(n, ldo)] (row
     stride ldo) = A[:, :m]ᵀ D[:, :n] over k_rows staged rows; A bf16 [k_rows,
-    lda], D bf16 [k_rows, ldd]; device pointers."""
+    sa] of which the first lda (at most 128) columns are read (sa = lda
+    unless given), D bf16 [k_rows, ldd] (n at most 128); device pointers."""
     a: int
     d: int
     lda: int
@@ -751,12 +787,26 @@ class WeightProduct:
     ldo: int
     k_rows: int
     out: int
+    sa: int = 0
+
+    @property
+    def a_stride(self) -> int:
+        return self.sa or self.lda
+
+
+# products a launch of the weight-gradient kernel takes (WG_MAX_PROD)
+_WG_MAX_PROD = 32
 
 
 def launch_weight_products(prods, dev, chunk_of) -> None:
-    """One launch of the split-K kernel of `csrc/weight_grad.cu` (+ its
-    fixed-order sum of the partial products) for every product of `prods`,
-    K split into chunks of chunk_of(k_rows) rows."""
+    """Launches of the split-K kernel of `csrc/weight_grad.cu` (+ its
+    fixed-order sum of the partial products), one for every _WG_MAX_PROD
+    products of `prods`, K split into chunks of chunk_of(k_rows) rows."""
+    for i in range(0, len(prods), _WG_MAX_PROD):
+        _launch_weight_batch(prods[i : i + _WG_MAX_PROD], dev, chunk_of)
+
+
+def _launch_weight_batch(prods, dev, chunk_of) -> None:
     chunks = [chunk_of(p.k_rows) for p in prods]
     ws = torch.empty(sum(-(-p.k_rows // c) * p.m * _KERNEL_WIDTH for p, c in zip(prods, chunks)),
                      device=dev, dtype=torch.float32)
@@ -765,10 +815,11 @@ def launch_weight_products(prods, dev, chunk_of) -> None:
     with torch.cuda.device(dev):
         err = lib.mupe_weight_grads(
             len(prods), build.ptr_array(field("a")), build.ptr_array(field("d")),
-            build.int_array(field("lda")), build.int_array(field("m")),
-            build.int_array(field("ldd")), build.int_array(field("n")),
-            build.int_array(field("ldo")), build.int_array(field("k_rows")),
-            build.int_array(chunks), build.ptr_array(field("out")), ws.data_ptr(),
+            build.int_array(field("lda")), build.int_array(field("a_stride")),
+            build.int_array(field("m")), build.int_array(field("ldd")),
+            build.int_array(field("n")), build.int_array(field("ldo")),
+            build.int_array(field("k_rows")), build.int_array(chunks),
+            build.ptr_array(field("out")), ws.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(err, "mupe_weight_grads")
@@ -982,7 +1033,8 @@ def pair_forward_loss(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, a
     """Actor and critic forward + the PPO loss's per-row gradient math →
     (dmu [S, A], dv1 [S, 1], dv2 [S, 1], stats [S, 9 + A]).  On CPU tensors
     `reference_pair_fwd_loss`; on CUDA tensors one launch of
-    `pair_fwd_loss_kernel` (csrc/fused_encoder_loss.cu)."""
+    `pair_fwd_loss_kernel` (csrc/fused_encoder_loss.cu; the streamed specs
+    after their embed launch)."""
     if x.device.type == "cpu":
         return reference_pair_fwd_loss(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old,
                                        adv, v_old, ret)
@@ -993,13 +1045,13 @@ def pair_forward_loss(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, a
             for shape in ((s, a), (s, 1), (s, 1), (s, _N_STATS + a))]
     lib = build.library()
     with torch.cuda.device(x.device):
+        scratch = _stream_scratch("mupe_encoder_fwd_loss_scratch", x, *_groups_args(spec_a),
+                                  staged_rows(s), 0)
         err = lib.mupe_encoder_fwd_loss(
-            x.data_ptr(), s, spec_a.obs_dim, len(spec_a.groups),
-            build.int_array([k for k, _ in spec_a.groups]),
-            build.int_array([d for _, d in spec_a.groups]),
+            x.data_ptr(), s, staged_rows(s), *_groups_args(spec_a),
             build.ptr_array([leaf.data_ptr() for leaf in (*la, *lc)]), spec_a.n_leaves, a,
             build.ptr_array([t.data_ptr() for t in rows]), _loss_consts(loss),
-            build.ptr_array([o.data_ptr() for o in outs]),
+            build.ptr_array([o.data_ptr() for o in outs]), _ptr(scratch),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     build.check(err, "mupe_encoder_fwd_loss")
@@ -1049,6 +1101,8 @@ def _launch_agrad_operands(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_o
         ws = torch.empty(2 * blocks.value * _colsum_floats(spec_a)
                          + _n0_scratch_floats(spec_a, blocks.value), device=x.device,
                          dtype=torch.float32)
+        scratch = _stream_scratch("mupe_encoder_fwd_loss_scratch", x, *_groups_args(spec_a),
+                                  staged_rows(s), 1)
         err = lib.mupe_encoder_fwd_loss_agrad(
             x.data_ptr(), s, staged_rows(s), *_groups_args(spec_a),
             build.ptr_array([leaf.data_ptr() for leaf in (*la, *lc)]), spec_a.n_leaves, a,
@@ -1056,7 +1110,8 @@ def _launch_agrad_operands(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_o
             build.ptr_array([o.data_ptr() for o in outs]),
             build.ptr_array([p for _, ptrs in wbf for p in ptrs]),
             build.ptr_array([v.data_ptr() for v in views]), grads.data_ptr(), n_params(spec_a),
-            ws.data_ptr(), blocks.value, torch.cuda.current_stream(x.device).cuda_stream,
+            ws.data_ptr(), blocks.value, _ptr(scratch),
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     build.check(err, "mupe_encoder_fwd_loss_agrad")
     return outs, grads, staged

@@ -27,11 +27,13 @@ from . import fused_encoder as fe
 from .fused_encoder import FLOOR_MULT, _bf16, _f32
 from .tolerance import GradTol, KernelTol
 
-# The limits of both TP-LSTM kernels (`kernel_spec_ok`).
+# The limit of both TP-LSTM kernels (`kernel_spec_ok`): hidden width 64.
+# Any F, T and O: up to 64 inputs and 64 outputs the register instances of
+# `csrc/tp_tile.cuh`, past them its generic one (input k-tiles and output
+# passes looped).
 _KERNEL_HIDDEN = 64
-_KERNEL_MAX_F = 64
-_KERNEL_MAX_T = 32
-_KERNEL_MAX_O = 64
+_REGISTER_MAX_F = 64
+_REGISTER_MAX_O = 64
 # Kernel vs `reference_forward` and, per gradient leaf, the backward's two
 # stages vs `reference_backward` (see tolerance.py): with the plain version
 # in f64 given (`tolerance.in_f64`), each limit is at least FLOOR_MULT times
@@ -90,16 +92,22 @@ def reference_forward(
 
 def kernel_spec_ok(spec: TPLSTMSpec) -> bool:
     """Whether the TP-LSTM kernels (forward and backward) take `spec`: hidden
-    width 64, 1-64 inputs, 1-32 steps, 1-64 outputs."""
-    return (spec.hidden == _KERNEL_HIDDEN and 1 <= spec.input_dim <= _KERNEL_MAX_F
-            and 1 <= spec.t_steps <= _KERNEL_MAX_T and 1 <= spec.out_dim <= _KERNEL_MAX_O)
+    width 64, any number (at least 1) of inputs, steps and outputs."""
+    return (spec.hidden == _KERNEL_HIDDEN and spec.input_dim >= 1 and spec.t_steps >= 1
+            and spec.out_dim >= 1)
+
+
+def register_spec_ok(spec: TPLSTMSpec) -> bool:
+    """Whether a spec the kernels take runs their register instances (at
+    most 64 inputs and 64 outputs); past it the generic instance runs."""
+    return spec.input_dim <= _REGISTER_MAX_F and spec.out_dim <= _REGISTER_MAX_O
 
 
 def _check_spec(spec: TPLSTMSpec) -> None:
     if not kernel_spec_ok(spec):
         raise ValueError(
-            f"spec exceeds the TP-LSTM kernels' limits (hidden {_KERNEL_HIDDEN}, at most "
-            f"{_KERNEL_MAX_F} inputs, {_KERNEL_MAX_T} steps, {_KERNEL_MAX_O} outputs): {spec}")
+            f"spec exceeds the TP-LSTM kernels' limits (hidden {_KERNEL_HIDDEN}, at least "
+            f"one input, step and output): {spec}")
 
 
 def _check_kernel_args(spec: TPLSTMSpec, leaves, x: torch.Tensor) -> None:
@@ -217,6 +225,7 @@ def reference_backward(
 # chunk and adds the chunks' gradients in order.
 STAGE_ROWS = 32
 STAGING_CAP = 2 ** 31
+_TILE = 128  # the weight-gradient kernel's M and N
 
 
 def _fk(f: int) -> int:
@@ -404,17 +413,27 @@ def tp_weight_grads(spec: TPLSTMSpec, staged, flat: torch.Tensor) -> None:
         raise ValueError(f"staged dg of shape {tuple(staged['dg'].shape)}, want {(t, n_pad, g)}")
     xs, hs, dg, dz = (staged[k].data_ptr() for k in ("x", "h", "dg", "dz"))
     out = lambda i, col=0: flat.data_ptr() + 4 * (offs[i] + col)  # noqa: E731
-    half = g // 2
+    half, f, fk, o = g // 2, spec.input_dim, _fk(spec.input_dim), spec.out_dim
     prods = []
     for col in (0, half):
-        prods.append(fe.WeightProduct(xs, dg + 2 * col, _fk(spec.input_dim), spec.input_dim, g,
-                                      half, g, t * n_pad, out(0, col)))
+        for r in range(0, fk, _TILE):  # x's columns (dwi's rows), 128 a product
+            prods.append(fe.WeightProduct(xs + 2 * r, dg + 2 * col, min(_TILE, fk - r),
+                                          min(_TILE, f - r), g, half, g, t * n_pad,
+                                          out(0, r * g + col), fk))
         prods.append(fe.WeightProduct(hs, dg + 2 * (n_pad * g + col), hd, hd, g, half, g,
                                       (t - 1) * n_pad, out(1, col)))
-    op = _op(spec.out_dim)
-    prods.append(fe.WeightProduct(hs + 2 * (t - 1) * n_pad * hd, dz, hd, hd, op, op,
-                                  spec.out_dim, n_pad, out(3)))
+    op = _op(o)
+    # dwfc [H, O], dz's columns 128 a product: past one product, into a
+    # [H, op] buffer (a product writes whole column blocks) and copied out
+    wfc = flat if op <= _TILE else torch.empty((hd, op), device=flat.device, dtype=torch.float32)
+    at = out(3) if op <= _TILE else wfc.data_ptr()
+    for c in range(0, op, _TILE):
+        prods.append(fe.WeightProduct(hs + 2 * (t - 1) * n_pad * hd, dz + 2 * c, hd, hd, op,
+                                      min(_TILE, op - c), o if op <= _TILE else op, n_pad,
+                                      at + 4 * c))
     fe.launch_weight_products(prods, flat.device, stage_b_chunk)
+    if op > _TILE:
+        flat[offs[3] : offs[4]].view(hd, o).copy_(wfc[:, :o])
     tp_weight_grads.launches += 1
 
 

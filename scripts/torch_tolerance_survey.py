@@ -4,8 +4,8 @@ TP-LSTM kernels (forward, backward) stray from their plain versions over
 many random draws, on one GPU.
 
     python3 scripts/torch_tolerance_survey.py [--seeds 12] [--loss-seeds 30]
-        [--wide-seeds 4] [--flips 2] [--tp-seeds 12] [--tp-wide-seeds 4]
-        [--out FILE]
+        [--wide-seeds 4] [--limit-seeds 4] [--flips 2] [--tp-seeds 12]
+        [--tp-wide-seeds 4] [--tp-limit-seeds 4] [--out FILE]
 
 `chip_smoke.py` holds each kernel to its limit on one fixed draw; this
 script shows how much room those limits leave.  Every limit with a
@@ -14,13 +14,18 @@ plain version against the plain version in f64 (`tolerance.in_f64`), what
 f32 summation alone costs that output at that draw.  For each seed
 (weights, rows and cotangents drawn as chip_smoke.py draws them):
 
-* the pair backward at S = 49,152 and 49,153 of the main path's spec, and
-  at S = 49,152 of 8 tokens with a 50-wide group (`--wide-seeds`): per
-  gradient leaf the mean error of the kernel and of the f32 control (the
-  plain version without its bf16 rounding, which the limit must reject),
-  absolute and as a multiple of the floor, against `BWD_KERNEL_TOL`;
-* the pair forward at S = 49,152: the kernel and the control against
-  `KERNEL_TOL`;
+* the pair backward at S = 49,152 and 49,153 of the main path's spec, at
+  S = 49,152 of 8 tokens with a 50-wide group (`--wide-seeds`) and of 28
+  tokens over 261 columns with a 140-wide group (`--limit-seeds`; the
+  streamed instance): per gradient leaf the mean error of the kernel and
+  of the f32 control (the plain version without its bf16 rounding, which
+  the limit must reject), absolute and as a multiple of the floor, against
+  `BWD_KERNEL_TOL`;
+* the pair forward at S = 49,152 of the main spec and of the 28-token one:
+  the kernel and the control against `KERNEL_TOL`; and of the 28-token spec
+  at the 8-row tile's edges S = 1, 7, 8, 9, 17 (three draws a limit seed):
+  the kernel against `KERNEL_TOL` and against the small-S per-row limits
+  (`loss_row_tols`) that the streamed specs are held to there;
 * with `--flips N`, for the first N seeds, where the kernel's stage A parts
   from the plain one: per staged bf16 operand the share of values that
   differ, and the mean error of each leaf's column sums;
@@ -30,7 +35,9 @@ f32 summation alone costs that output at that draw.  For each seed
   plain dmu (`DMU_SUM_TOL`; the fwdloss kernel's own dmu summed, for scale);
 * the TP forward and backward at N = 241,664 and 241,665 windows of the
   main path's shape (16 inputs, 10 steps, 15 outputs; `--tp-seeds`) and at
-  N = 241,664 of F 34, T 20, O 30 (`--tp-wide-seeds`): the forward against
+  N = 241,664 of F 34, T 20, O 30 (`--tp-wide-seeds`) and at N = 98,304 of
+  F 91, T 40, O 120 (`--tp-limit-seeds`, the generic instance): the forward
+  against
   `tp_lstm.KERNEL_TOL`, the backward per gradient leaf against
   `tp_lstm.BWD_KERNEL_TOL`, each with its f32 control, absolute and as a
   multiple of the floor.
@@ -54,9 +61,11 @@ def main() -> int:
     ap.add_argument("--seeds", type=int, default=12)
     ap.add_argument("--loss-seeds", type=int, default=30)
     ap.add_argument("--wide-seeds", type=int, default=4)
+    ap.add_argument("--limit-seeds", type=int, default=4)
     ap.add_argument("--flips", type=int, default=0)
     ap.add_argument("--tp-seeds", type=int, default=12)
     ap.add_argument("--tp-wide-seeds", type=int, default=4)
+    ap.add_argument("--tp-limit-seeds", type=int, default=4)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     import torch
@@ -72,8 +81,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(cs.card_line(), flush=True)
     tol = fe.BWD_KERNEL_TOL
-    out = {"backward": [], "forward": [], "loss": [], "flips": [], "tp": []}
-    groups_of = {"main": cs.GROUPS, "wide": cs.WIDE_GROUPS}
+    out = {"backward": [], "forward": [], "forward_small": [], "loss": [], "flips": [],
+           "tp": []}
+    groups_of = {"main": cs.GROUPS, "wide": cs.WIDE_GROUPS, "limit": cs.LIMIT_GROUPS}
+    seed_base = {"main": 0, "wide": 1000, "limit": 2000}
 
     def draw(seed, groups):
         gen = torch.Generator().manual_seed(seed)
@@ -84,9 +95,9 @@ def main() -> int:
 
     runs = [("main", seed, s) for seed in range(1, args.seeds + 1) for s in (49152, 49153)]
     runs += [("wide", seed, 49152) for seed in range(1, args.wide_seeds + 1)]
+    runs += [("limit", seed, 49152) for seed in range(1, args.limit_seeds + 1)]
     for kind, seed, s in runs:
-        gen, spec_a, spec_c, la, lc = draw(seed + (1000 if kind == "wide" else 0),
-                                           groups_of[kind])
+        gen, spec_a, spec_c, la, lc = draw(seed + seed_base[kind], groups_of[kind])
         x = (2.0 * torch.randn((s, spec_a.obs_dim), generator=gen)).to(dev)
         da = torch.randn((s, 4), generator=gen).to(dev)
         dc = torch.randn((s, 1), generator=gen).to(dev)
@@ -100,17 +111,17 @@ def main() -> int:
                 kind=kind, seed=seed, s=s, net=net, kernel=tol.errors(g, ref, exact),
                 control=tol.errors(ctl, ref, exact),
                 floor=[e["mean_rel"] for e in tol.errors(ref, exact)]))
-        if kind == "main" and s == 49152:
+        if kind != "wide" and s == 49152:
             for net, spec, leaves, o in zip(("actor", "critic"), (spec_a, spec_c), (la, lc),
                                             fe.encoder_pair_forward(spec_a, spec_c, la, lc, x)):
                 ref = fe.reference_apply(spec, leaves, x)
                 exact = in_f64(fe.reference_apply, spec, leaves, x)
                 out["forward"].append(dict(
-                    seed=seed, net=net, kernel=fe.KERNEL_TOL.errors(o, ref, exact),
+                    kind=kind, seed=seed, net=net, kernel=fe.KERNEL_TOL.errors(o, ref, exact),
                     control=fe.KERNEL_TOL.errors(fe.reference_apply(spec, leaves, x, bf16=False),
                                                  ref, exact),
                     floor=fe.KERNEL_TOL.errors(ref, exact)))
-            if seed <= args.flips:
+            if kind == "main" and seed <= args.flips:
                 flats, stagings = fe._launch_operands(x, [(spec_a, la), (spec_c, lc)], [da, dc])
                 for net, spec, leaves, d, flat, st in (
                         ("actor", spec_a, la, da, flats[0], stagings[0]),
@@ -124,7 +135,7 @@ def main() -> int:
                         sums={i: fe.KERNEL_TOL.errors(views[i], v)["mean_rel"]
                               for i, v in ref_sums.items()}))
 
-    for kind in ("main", "wide"):
+    for kind in ("main", "wide", "limit"):
         recs = [r for r in out["backward"] if r["kind"] == kind]
         if not recs:
             continue
@@ -164,20 +175,9 @@ def main() -> int:
               f"{len(recs) * (n_leaves - len(blind))} (case, leaf) pairs: {passes}")
         print(f"  largest kernel / floor {kmax:.2f}, least control / floor {cmin:.2f}")
 
-    f = out["forward"]
-    bad = [(r["seed"], r["net"]) for r in f if not fe.KERNEL_TOL.holds(r["kernel"])]
-    cpass = [(r["seed"], r["net"]) for r in f if fe.KERNEL_TOL.holds(r["control"])]
-    if f:
-        print(f"forward S = 49,152, {len(f)} (seed, network) draws: kernel largest max / mean error "
-              f"{max(r['kernel']['max_rel'] for r in f):.3e} / "
-              f"{max(r['kernel']['mean_rel'] for r in f):.3e}, as a share of their limits "
-              f"{max(r['kernel']['max_rel'] / r['kernel']['max_limit'] for r in f):.3f} / "
-              f"{max(r['kernel']['mean_rel'] / r['kernel']['mean_limit'] for r in f):.3f}; floor's "
-              f"largest max / mean {max(r['floor']['max_rel'] for r in f):.3e} / "
-              f"{max(r['floor']['mean_rel'] for r in f):.3e}; control least mean "
-              f"{min(r['control']['mean_rel'] for r in f):.3e} "
-              f"({min(r['control']['mean_rel'] / r['control']['mean_limit'] for r in f):.1f}x its "
-              f"limit); kernel past KERNEL_TOL: {bad}; control inside it: {cpass}")
+    for kind in ("main", "limit"):
+        forward_summary(kind, [r for r in out["forward"] if r["kind"] == kind])
+    forward_small(args, out, dev, draw)
     for rec in out["flips"]:
         print(f"stage A vs plain, seed {rec['seed']} {rec['net']}: share of staged values that "
               f"differ: " + ", ".join(f"{k} {v:.2e}" for k, v in rec["staged"].items())
@@ -247,6 +247,64 @@ def main() -> int:
     return 0
 
 
+def forward_summary(kind, f) -> None:
+    """The pair forward at S = 49,152 of one spec: the kernel's and the f32
+    control's errors against KERNEL_TOL."""
+    from mupe_tpu_torch.ops import fused_encoder as fe
+
+    if not f:
+        return
+    bad = [(r["seed"], r["net"]) for r in f if not fe.KERNEL_TOL.holds(r["kernel"])]
+    cpass = [(r["seed"], r["net"]) for r in f if fe.KERNEL_TOL.holds(r["control"])]
+    print(f"forward ({kind}) S = 49,152, {len(f)} (seed, network) draws: kernel largest max / "
+          f"mean error {max(r['kernel']['max_rel'] for r in f):.3e} / "
+          f"{max(r['kernel']['mean_rel'] for r in f):.3e}, as a share of their limits "
+          f"{max(r['kernel']['max_rel'] / r['kernel']['max_limit'] for r in f):.3f} / "
+          f"{max(r['kernel']['mean_rel'] / r['kernel']['mean_limit'] for r in f):.3f}; floor's "
+          f"largest max / mean {max(r['floor']['max_rel'] for r in f):.3e} / "
+          f"{max(r['floor']['mean_rel'] for r in f):.3e}; control least mean "
+          f"{min(r['control']['mean_rel'] for r in f):.3e} "
+          f"({min(r['control']['mean_rel'] / r['control']['mean_limit'] for r in f):.1f}x its "
+          f"limit); kernel past KERNEL_TOL: {bad}; control inside it: {cpass}")
+
+
+def forward_small(args, out, dev, draw) -> None:
+    """The streamed pair forward (28 tokens) at the 8-row tile's edges, three
+    draws a limit seed: how often one row's flip cascade takes the mean error
+    past KERNEL_TOL, and whether the small-S per-row limits hold."""
+    import torch
+
+    import chip_smoke as cs
+    from mupe_tpu_torch.ops import fused_encoder as fe
+    from mupe_tpu_torch.ops.tolerance import in_f64
+
+    for seed in range(1, 3 * args.limit_seeds + 1):
+        gen, spec_a, spec_c, la, lc = draw(seed + 3000, cs.LIMIT_GROUPS)
+        for s in cs.TILE_EDGE_ROWS:
+            x = (2.0 * torch.randn((s, spec_a.obs_dim), generator=gen)).to(dev)
+            for net, spec, leaves, o in zip(("actor", "critic"), (spec_a, spec_c), (la, lc),
+                                            fe.encoder_pair_forward(spec_a, spec_c, la, lc, x)):
+                ref = fe.reference_apply(spec, leaves, x)
+                exact = in_f64(fe.reference_apply, spec, leaves, x)
+                out["forward_small"].append(dict(
+                    seed=seed, s=s, net=net, kernel=fe.KERNEL_TOL.errors(o, ref, exact),
+                    small=fe.loss_row_tols(s)[0].errors(o, ref, exact)))
+    f = out["forward_small"]
+    if not f:
+        return
+    bad = [(r["seed"], r["s"], r["net"], round(r["kernel"]["mean_rel"], 6)) for r in f
+           if not fe.KERNEL_TOL.holds(r["kernel"])]
+    small_tol = fe.loss_row_tols(1)[0]
+    sbad = [(r["seed"], r["s"], r["net"]) for r in f if not small_tol.holds(r["small"])]
+    print(f"forward (limit) S = {cs.TILE_EDGE_ROWS}, {len(f)} (seed, S, network) draws: kernel "
+          f"largest max / mean error {max(r['kernel']['max_rel'] for r in f):.3e} / "
+          f"{max(r['kernel']['mean_rel'] for r in f):.3e}; past KERNEL_TOL {len(bad)} {bad}; "
+          f"largest mean / the small-S per-row limit "
+          f"{max(r['small']['mean_rel'] / r['small']['mean_limit'] for r in f):.3f}, max "
+          f"{max(r['small']['max_rel'] / r['small']['max_limit'] for r in f):.3f}; past it "
+          f"{len(sbad)} {sbad}")
+
+
 def tp_survey(args, out, dev) -> None:
     """The TP-LSTM kernels over `--tp-seeds` draws of the main shape (N =
     241,664 and 241,665) and `--tp-wide-seeds` of the wide one (N =
@@ -257,15 +315,17 @@ def tp_survey(args, out, dev) -> None:
     from mupe_tpu_torch.ops import tp_lstm as tl
     from mupe_tpu_torch.ops.tolerance import in_f64
 
-    shapes = {"main": (16, 10, 15), "wide": cs.WIDE_TP}
+    shapes = {"main": (16, 10, 15), "wide": cs.WIDE_TP, "limit": cs.LIMIT_TP}
     runs = [("main", seed, n) for seed in range(1, args.tp_seeds + 1)
             for n in (cs.TP_WINDOWS, cs.TP_WINDOWS + 1)]
     runs += [("wide", seed, cs.TP_WINDOWS) for seed in range(1, args.tp_wide_seeds + 1)]
+    runs += [("limit", seed, cs.LIMIT_TP_WINDOWS) for seed in range(1, args.tp_limit_seeds + 1)]
+    seed_base = {"main": 0, "wide": 1000, "limit": 2000}
     ftol, btol = tl.KERNEL_TOL, tl.BWD_KERNEL_TOL
     for kind, seed, n in runs:
         f, t, o = shapes[kind]
         spec = tl.TPLSTMSpec(input_dim=f, hidden=64, t_steps=t, out_dim=o)
-        gen = torch.Generator().manual_seed(seed + (1000 if kind == "wide" else 0))
+        gen = torch.Generator().manual_seed(seed + seed_base[kind])
         lt = cs.random_leaves(spec.leaf_shapes(), gen, dev)
         x = torch.randn((n, t, f), generator=gen).to(dev)
         dy = torch.randn((n, o), generator=gen).to(dev)
@@ -286,7 +346,7 @@ def tp_survey(args, out, dev) -> None:
         del x, dy, g, ref, exact
     blind = {i % 5 for i in tl.BWD_CONTROL_BLIND}
     names = ("wi", "wh", "b", "wfc", "bfc")
-    for kind in ("main", "wide"):
+    for kind in ("main", "wide", "limit"):
         recs = [r for r in out["tp"] if r["kind"] == kind]
         if not recs:
             continue

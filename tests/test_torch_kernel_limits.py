@@ -1,24 +1,31 @@
-"""Every HideAndSeek configuration inside the stated limits gets kernels.
+"""Every HideAndSeek configuration gets kernels.
 
 The card runs the encoder and TP-LSTM kernels or raises; it never falls back
 to a plain version.  So every observation and TP shape that an env
 configuration can produce must pass the kernels' spec checks
 (`fused_encoder.kernel_spec_ok`, `tp_lstm.kernel_spec_ok`), which the
-wrappers raise through.  The shapes are derived as the policy derives them
-(`MAPPOPolicy.specs` over the env's `obs_groups`; the TP net's input, its
-window of `history_step` steps and its 3 * `future_prediction_step`
-outputs), over:
+wrappers raise through.  Those keep only the widths the policy fixes: embed
+and feed-forward width 128, 1-4 token groups and a head of 1-8 outputs for
+the encoder, hidden width 64 for the TP net; any number of tokens, columns,
+group width, TP inputs, steps and outputs passes (past the tile instances
+the kernels stream the tokens, past the register instances the TP tile
+loops its k-tiles and output passes).  The shapes are derived as the policy
+derives them (`MAPPOPolicy.specs` over the env's `obs_groups`; the TP net's
+input, its window of `history_step` steps and its 3 *
+`future_prediction_step` outputs), over:
 
-* num_agents 2-8, obs_max_cylinder 1-14 with 1 + obs_max_cylinder +
-  num_agents - 1 <= 16 tokens (the encoder kernels' limit);
-* future_prediction_step 1-21 (the TP kernels' 64 outputs), history_step
-  5-32;
-* use_obstacles_tp and use_tp_net on and off.
+* num_agents 2-12, obs_max_cylinder 1-24 (up to 36 tokens);
+* future_prediction_step 1-45 (`state_self` up to 155 wide, 135 TP
+  outputs), history_step 5-48;
+* use_obstacles_tp with max_cylinders up to 24 (TP input up to 118), and
+  use_tp_net on and off.
 
-Past 16 tokens the wrappers refuse with a message that names the limit.
-And the widest 8-token configuration and a 16-token one train end to end on
-the CPU (the plain versions), with the default update and with the agrad
-mode of the in-kernel loss.
+A spec of another embed width or a head of 9 is refused with a message that
+names the limit.  The widest 8-token configuration, a 16-token one and one
+past every limit of the tile instances (28 tokens over 261 columns,
+`state_self` 140 wide, TP input 91 over 40 steps, 120 outputs) train end to
+end on the CPU (the plain versions), with the default update and with the
+agrad mode of the in-kernel loss.
 """
 import itertools
 
@@ -31,9 +38,8 @@ from mupe_tpu_torch.learning import MAPPOCfg, MAPPOPolicy
 from mupe_tpu_torch.ops import fused_encoder as fe
 from mupe_tpu_torch.ops import tp_lstm as tl
 
-MAX_TOKENS = 16
-PREDICTED = range(1, 22)
-HISTORY = range(5, 33)
+PREDICTED = range(1, 46)
+HISTORY = range(5, 49)
 
 
 def _specs(env: HideAndSeek, use_tp_net: bool):
@@ -44,68 +50,91 @@ def _specs(env: HideAndSeek, use_tp_net: bool):
     return spec_a, spec_c
 
 
-@pytest.mark.parametrize("num_agents", [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("num_agents", [2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12])
 def test_every_configuration_inside_the_limits_passes_every_spec_check(num_agents):
     checked = 0
-    for n_cyl, use_tp in itertools.product(range(1, 15), (False, True)):
-        if 1 + n_cyl + num_agents - 1 > MAX_TOKENS:
-            continue
+    for n_cyl, use_tp in itertools.product(range(1, 25), (False, True)):
         for fps in PREDICTED if use_tp else (5,):
             env = HideAndSeek(HideAndSeekCfg(num_envs=1, num_agents=num_agents,
-                                             obs_max_cylinder=n_cyl, future_prediction_step=fps,
-                                             use_tp_net=use_tp), device="cpu")
+                                             obs_max_cylinder=n_cyl, max_cylinders=n_cyl,
+                                             future_prediction_step=fps, use_tp_net=use_tp),
+                              device="cpu")
             for spec in _specs(env, use_tp):
-                assert spec.n_tokens <= MAX_TOKENS
+                assert spec.n_tokens == num_agents + n_cyl
                 assert fe.kernel_spec_ok(spec), spec
                 checked += 1
-            for hist, obstacles in itertools.product(HISTORY, (False, True)):
-                cfg = HideAndSeekCfg(num_agents=num_agents, future_prediction_step=fps,
-                                     history_step=hist, use_obstacles_tp=obstacles)
-                tspec = tl.TPLSTMSpec(input_dim=cfg.tp_input_dim, hidden=64, t_steps=hist,
-                                      out_dim=3 * fps)
-                assert tl.kernel_spec_ok(tspec), tspec
-                checked += 1
+    for fps, hist, obstacles, n_cyl in itertools.product(PREDICTED, HISTORY, (False, True),
+                                                          (5, 24)):
+        cfg = HideAndSeekCfg(num_agents=num_agents, future_prediction_step=fps,
+                             history_step=hist, use_obstacles_tp=obstacles, max_cylinders=n_cyl)
+        tspec = tl.TPLSTMSpec(input_dim=cfg.tp_input_dim, hidden=64, t_steps=hist,
+                              out_dim=3 * fps)
+        assert tl.kernel_spec_ok(tspec), tspec
+        checked += 1
     assert checked > 0
 
 
 def test_more_than_eight_tokens_is_refused_naming_the_limit():
-    """The limit is 16 tokens: obs_max_cylinder=5 with 4 pursuers (1 + 5 +
-    3 = 9 tokens) passes, obs_max_cylinder=11 with 6 pursuers (1 + 11 + 5 =
-    17) is refused with a message that names the limit."""
+    """No token or column limit is left: 9 tokens (obs_max_cylinder=5 with 4
+    pursuers) and 17 (obs_max_cylinder=11 with 6 pursuers) pass, and so do
+    28 tokens, 64 tokens and 300 columns (the last three past the tile
+    instances); another embed width or a head of 9 is refused with a message
+    that names the limit."""
     env = HideAndSeek(HideAndSeekCfg(num_envs=1, num_agents=4, obs_max_cylinder=5), device="cpu")
     spec_a, spec_c = _specs(env, True)
     assert spec_a.n_tokens == 9 and fe.kernel_spec_ok(spec_a) and fe.kernel_spec_ok(spec_c)
+    assert fe.tile_spec_ok(spec_a)
     env = HideAndSeek(HideAndSeekCfg(num_envs=1, num_agents=6, obs_max_cylinder=11), device="cpu")
     spec_a, spec_c = _specs(env, True)
-    assert spec_a.n_tokens == 17 and not fe.kernel_spec_ok(spec_a)
-    with pytest.raises(ValueError, match="at most 16 tokens"):
-        fe._check_spec(spec_a)
+    assert spec_a.n_tokens == 17 and fe.kernel_spec_ok(spec_a) and fe.kernel_spec_ok(spec_c)
+    for groups in (((1, 140), (20, 5), (7, 3)), ((1, 35), (48, 5), (15, 3)), ((1, 300),)):
+        spec = fe.EncoderSpec(groups=groups, head_dim=4)
+        assert fe.kernel_spec_ok(spec) and not fe.tile_spec_ok(spec), spec
+        fe._check_spec(spec)
+    assert fe.EncoderSpec(groups=((1, 35), (48, 5), (15, 3)), head_dim=4).n_tokens == 64
+    for spec in (fe.EncoderSpec(groups=((1, 8),), head_dim=1, embed_dim=64),
+                 fe.EncoderSpec(groups=((1, 8),), head_dim=9)):
+        assert not fe.kernel_spec_ok(spec)
+        with pytest.raises(ValueError, match="embed_dim = ff_dim = 128, 1-4 token groups, a "
+                                             "head of 1-8 outputs"):
+            fe._check_spec(spec)
 
 
 @pytest.mark.parametrize("field,value", [("input_dim", 65), ("t_steps", 33), ("out_dim", 65),
                                          ("hidden", 32)])
 def test_tp_spec_check_names_each_limit(field, value):
+    """Inputs, steps and outputs past the register instances' 64 / 32 / 64
+    pass (the generic instance); the hidden width is the one limit, and each
+    of the others must be at least 1: refused naming it."""
     spec = tl.TPLSTMSpec(input_dim=64, hidden=64, t_steps=32, out_dim=64)
-    assert tl.kernel_spec_ok(spec)
-    bad = tl.TPLSTMSpec(**{**spec.__dict__, field: value})
+    assert tl.kernel_spec_ok(spec) and tl.register_spec_ok(spec)
+    past = tl.TPLSTMSpec(**{**spec.__dict__, field: value})
+    bad = past if field == "hidden" else tl.TPLSTMSpec(**{**spec.__dict__, field: 0})
+    if field != "hidden":
+        assert tl.kernel_spec_ok(past)
+        tl._check_spec(past)
     assert not tl.kernel_spec_ok(bad)
-    with pytest.raises(ValueError, match="at most 64 inputs, 32 steps, 64 outputs"):
+    with pytest.raises(ValueError, match="hidden 64, at least one input, step and output"):
         tl._check_spec(bad)
 
 
 def test_encoder_spec_check_edges():
-    assert fe.kernel_spec_ok(fe.EncoderSpec(groups=((1, 128),), head_dim=8))
-    assert fe.kernel_spec_ok(fe.EncoderSpec(groups=((1, 50), (4, 5), (3, 3)), head_dim=4))
-    assert fe.kernel_spec_ok(fe.EncoderSpec(groups=((2, 16), (2, 16), (2, 16), (2, 16)),
-                                            head_dim=1))
-    assert fe.kernel_spec_ok(fe.EncoderSpec(groups=((1, 83), (14, 5), (1, 3)), head_dim=4))
-    assert fe.kernel_spec_ok(fe.EncoderSpec(groups=((16, 10),), head_dim=1))  # 160 columns
-    assert fe.kernel_spec_ok(fe.EncoderSpec(groups=((1, 128), (1, 32)), head_dim=1))
+    """The tile instances' edges (`tile_spec_ok`) and past them the streamed
+    instance (`kernel_spec_ok` only); 5 groups, a head of 9 and another
+    embed width are refused."""
+    for groups, head in ((((1, 128),), 8), (((1, 50), (4, 5), (3, 3)), 4),
+                         (((2, 16), (2, 16), (2, 16), (2, 16)), 1),
+                         (((1, 83), (14, 5), (1, 3)), 4),
+                         (((16, 10),), 1),  # 160 columns
+                         (((1, 128), (1, 32)), 1)):
+        spec = fe.EncoderSpec(groups=groups, head_dim=head)
+        assert fe.kernel_spec_ok(spec) and fe.tile_spec_ok(spec), spec
     for spec in (fe.EncoderSpec(groups=((1, 129),), head_dim=1),       # a 129-wide group
                  fe.EncoderSpec(groups=((1, 128), (1, 33)), head_dim=1),  # 161 columns
-                 fe.EncoderSpec(groups=((1, 8),) * 5, head_dim=1),     # 5 groups
                  fe.EncoderSpec(groups=((17, 3),), head_dim=1),        # 17 tokens
-                 fe.EncoderSpec(groups=((1, 1), (1, 113), (1, 1)), head_dim=1),  # 3 weight slots
+                 fe.EncoderSpec(groups=((1, 1), (1, 113), (1, 1)), head_dim=1)):  # 3 slots
+        assert fe.kernel_spec_ok(spec) and not fe.tile_spec_ok(spec), spec
+    for spec in (fe.EncoderSpec(groups=((1, 8),) * 5, head_dim=1),     # 5 groups
                  fe.EncoderSpec(groups=((1, 8),), head_dim=9),         # a head of 9
                  fe.EncoderSpec(groups=((1, 8),), head_dim=1, embed_dim=64)):
         assert not fe.kernel_spec_ok(spec), spec
@@ -152,6 +181,33 @@ def test_a_sixteen_token_configuration_trains_on_the_cpu(tmp_path, extra):
     ts = policy.init({k: torch.zeros((1,) + s) for k, s in env.obs_groups().items()},
                      torch.Generator().manual_seed(0))
     assert ts.tp_net.spec.out_dim == 63 and tl.kernel_spec_ok(ts.tp_net.spec)
+    metrics = harness.train(argv, default_task="HideAndSeek", device="cpu")
+    assert all(torch.isfinite(torch.as_tensor(float(v))) for v in metrics.values())
+    assert "TP_loss" in metrics
+
+
+@pytest.mark.parametrize("extra", [[], ["algo.use_inkernel_loss=true", "algo.direct_mode=agrad"]],
+                         ids=["default", "agrad"])
+def test_a_configuration_past_every_tile_limit_trains_on_the_cpu(tmp_path, extra):
+    """chip_smoke.py phase 9's configuration: 8 pursuers, 20 cylinders all
+    observed, 40 predicted steps, a 40-step history, the obstacles in the TP
+    input (28 tokens over 261 columns, state_self 140 wide; TP input 91, 40
+    steps, 120 outputs): one training iteration through the entry point,
+    finite metrics."""
+    env_kw = {"num_agents": 8, "max_cylinders": 20, "obs_max_cylinder": 20,
+              "future_prediction_step": 40, "history_step": 40, "use_obstacles_tp": True}
+    argv = ["env.num_envs=2", *(f"env.{k}={str(v).lower()}" for k, v in env_kw.items()),
+            "algo.train_every=44", "algo.num_minibatches=2", "algo.ppo_epochs=1", "max_iters=1",
+            "log_interval=1", "save_interval=-1", f"run_dir={tmp_path}", "run_name=limit",
+            "seed=3", *extra]
+    env, policy, env_cfg, _ = harness.build("HideAndSeek", env_kw, device="cpu")
+    spec_a, _ = _specs(env, True)
+    assert spec_a.groups == ((1, 140), (20, 5), (7, 3)) and spec_a.obs_dim == 261
+    assert fe.kernel_spec_ok(spec_a) and not fe.tile_spec_ok(spec_a)
+    ts = policy.init({k: torch.zeros((1,) + s) for k, s in env.obs_groups().items()},
+                     torch.Generator().manual_seed(0))
+    assert ts.tp_net.spec == tl.TPLSTMSpec(input_dim=91, hidden=64, t_steps=40, out_dim=120)
+    assert not tl.register_spec_ok(ts.tp_net.spec)
     metrics = harness.train(argv, default_task="HideAndSeek", device="cpu")
     assert all(torch.isfinite(torch.as_tensor(float(v))) for v in metrics.values())
     assert "TP_loss" in metrics

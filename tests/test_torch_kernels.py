@@ -602,7 +602,7 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
         tl.tp_forward(spec, lt, xt.transpose(0, 1))
     with pytest.raises(ValueError):  # 15 input features for a 16-wide wi
         tl.tp_forward(spec, lt, xt[..., :15])
-    with pytest.raises(ValueError):  # past the kernels' 32 steps
+    with pytest.raises(ValueError):  # 33 steps for a spec of 10
         tl.tp_forward(spec, lt, torch.zeros((4, 33, 16), device=cuda))
 
 
