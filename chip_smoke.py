@@ -48,9 +48,14 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    streamed instance and the TP kernels' generic one, at 1024 arenas, 2
    iterations in each of the three update modes; the same checks.
 
-Phase 2 also holds the FPS kernel (the AEG buffer's downsampling) against
-its plain version at the AEG's pool, N = 9,096 tasks of D = 27, K = 5,000,
-and the in-kernel loss kernels (`pair_forward_loss`, `pair_forward_loss_agrad`)
+Phase 2 also holds the FPS kernel (the AEG buffer's downsampling, one
+thread-block cluster) index for index against its plain version at the AEG's
+pool, N = 9,096 tasks of D = 27, K = 5,000, at N = 9,097, at the cluster's
+block-split edges there, at phase 9's task width (D = 87), with
+duplicate rows in different blocks, with fewer valid points than K, past
+the resident capacity (N = 49,153, the streamed instance) and at its largest
+N (2^20), and times it at the AEG's pool and at N = 49,153; and the in-kernel
+loss kernels (`pair_forward_loss`, `pair_forward_loss_agrad`)
 at the update's minibatch, S = 49,152 and 49,153 rows, with a third of the
 rows saturated in one case, and at the backward tile's edges; the agrad
 kernel's gradients must be the same bits on a repeat launch and its
@@ -140,6 +145,8 @@ METRIC_KEYS = {"advantages_mean", "advantages_std", "TP_loss", "policy_loss",
                "explained_var", "approx_kl", "action_norm", "value_running_mean"}
 AEG_BUFFER = 5000                  # HideAndSeekEnvgenCfg.buffer_length
 FPS_N, FPS_D = AEG_BUFFER + NUM_ENVS, 27  # the FPS pool: buffer + eval tasks, task_dim
+FPS_D_LIMIT = 3 * 8 + 3 + 3 * 20   # phase 9's AEG task width (8 pursuers, 20 cylinders)
+FPS_STREAMED_N = 49_153            # past the resident instance's capacity at D = 27
 AEG_EPISODE = 16                   # cut from 800 so a 3-episode cycle closes in an iteration
 # H100 SXM dense peaks (NVIDIA's data sheet): bf16 tensor cores, f32 outside
 # the tensor cores, memory rate
@@ -723,48 +730,124 @@ def phase_tp_limit(dev) -> dict:
                                 limit_bound_ms=bb["bound_ms"])}
 
 
-def fps_pool(n: int, gen, dev, keep_last=None):
+def fps_pool(n: int, gen, dev, keep_last=None, d: int = FPS_D):
     """An AEG-like FPS pool: normalised tasks (uniform in [0, 1)); with
     `keep_last`, the last rows (the eval tasks) kept at random."""
-    pts = torch.rand((n, FPS_D), generator=gen)
+    pts = torch.rand((n, d), generator=gen)
     valid = torch.ones(n, dtype=torch.bool)
     if keep_last:
         valid[-keep_last:] = torch.rand(keep_last, generator=gen) < 0.6
     return pts.to(dev), valid.to(dev)
 
 
+def fps_tie_pool(n: int, gen, dev):
+    """Duplicate far rows in different blocks' ranges (at n/7, 3n/7 and
+    6n/7, and a second pair at n/5 and 4n/5): the lower index must win
+    each tie across blocks, then the copies' minima fall to 0."""
+    pts, valid = fps_pool(n, gen, dev)
+    pts[[n // 7, 3 * n // 7, 6 * n // 7]] = 2.0
+    pts[[n // 5, 4 * n // 5]] = -1.5
+    return pts, valid
+
+
+def fps_repeat_pool(n: int, gen, dev, distinct: int = 50):
+    """`distinct` rows repeated over the whole pool: ties in every round."""
+    base = torch.rand((distinct, FPS_D), generator=gen)
+    return base[torch.arange(n) % distinct].to(dev), torch.ones(n, dtype=torch.bool, device=dev)
+
+
+def fps_sparse_pool(n: int, gen, dev, n_valid: int):
+    """Fewer valid points than K, spread over the whole pool (every block's
+    range): once all are chosen, the lowest valid index repeats."""
+    pts, _ = fps_pool(n, gen, dev)
+    valid = torch.zeros(n, dtype=torch.bool)
+    valid[torch.randperm(n, generator=gen)[:n_valid]] = True
+    return pts, valid.to(dev)
+
+
+def fps_check(tag, pts, valid, k) -> None:
+    """The kernel against `reference_fps`: index for index, bit-identical on
+    a repeat, no invalid point chosen; fails the run otherwise."""
+    from mupe_tpu_torch.ops import fps
+
+    n, d = pts.shape
+    start = torch.argmax(valid.to(torch.uint8))
+    c, inst = fps.plan(n, d, pts.device)
+    idx = fps.farthest_point_sampling(pts, k, valid, start)
+    again = fps.farthest_point_sampling(pts, k, valid, start)
+    ref = fps.reference_fps(pts, k, valid, start)
+    torch.cuda.synchronize()
+    bad = int((~valid[idx.long()]).sum())
+    tag = f"farthest_point_sampling N={n} D={d} K={k} {tag} (cluster {c}, {inst})"
+    log(f"  {tag}: indices equal to the plain version: {torch.equal(idx, ref)}, repeat "
+        f"bit-identical: {torch.equal(idx, again)}, invalid chosen: {bad}")
+    if not (torch.equal(idx, ref) and torch.equal(idx, again) and bad == 0):
+        raise AssertionError(f"{tag}: the FPS kernel disagrees with its plain version")
+
+
+def fps_time(n, d, k, gen, dev, plain=False) -> dict:
+    """The kernel's time (and the plain version's) at a pool of n points."""
+    from mupe_tpu_torch.ops import fps
+
+    pts, valid = fps_pool(n, gen, dev, NUM_ENVS, d)
+    start = torch.argmax(valid.to(torch.uint8))
+    c, inst = fps.plan(n, d, dev)
+    ms = cuda_time_ms(lambda: fps.farthest_point_sampling(pts, k, valid, start), runs=5)
+    b = bound(3 * (k - 1) * n * d, nbytes(pts, valid) + 4 + 4 * k, PEAK_F32_FLOPS)
+    out = dict(cluster=c, instance=inst, ms=ms, us_per_round=ms * 1e3 / (k - 1), **b)
+    if plain:
+        out["plain_ms"] = cuda_time_ms(lambda: fps.reference_fps(pts, k, valid, start),
+                                       runs=2, warmup=1)
+    log(f"  farthest_point_sampling N={n} D={d} K={k}: cluster {c}, {inst}: kernel {ms:.4f} ms "
+        f"({out['us_per_round']:.4f} us a round)"
+        + (f", plain {out['plain_ms']:.4f} ms" if plain else "")
+        + f", bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return out
+
+
 def phase_fps_kernel(dev, gen) -> dict:
-    """The FPS kernel at the AEG's pool: index for index equal to its plain
-    version (the same f32 sums in the same order), bit-identical on a
-    repeat, no invalid point chosen."""
+    """The FPS kernel (one thread-block cluster) index for index equal to its
+    plain version (the same f32 sums in the same order), bit-identical on a
+    repeat, no invalid point chosen: at the AEG's pool, at the cluster's
+    block-split edges there, past the shared memory's capacity (the streamed
+    instance, and at the largest N the kernel takes), at phase 9's task
+    width, with ties across blocks and with fewer valid points than K; then
+    timed at the AEG's pool (the register instance) and past the old
+    49,152-row limit (streamed)."""
     from mupe_tpu_torch.ops import fps
 
     k = AEG_BUFFER
     for n, keep_last in ((FPS_N, NUM_ENVS), (FPS_N, None), (FPS_N + 1, NUM_ENVS + 1)):
         pts, valid = fps_pool(n, gen, dev, keep_last)
-        start = torch.argmax(valid.to(torch.uint8))
-        idx = fps.farthest_point_sampling(pts, k, valid, start)
-        again = fps.farthest_point_sampling(pts, k, valid, start)
-        ref = fps.reference_fps(pts, k, valid, start)
-        torch.cuda.synchronize()
-        bad = int((~valid[idx.long()]).sum())
-        tag = f"farthest_point_sampling N={n} D={FPS_D} K={k} " + (
-            f"last {keep_last} kept at random" if keep_last else "all valid")
-        log(f"  {tag}: indices equal to the plain version: {torch.equal(idx, ref)}, repeat "
-            f"bit-identical: {torch.equal(idx, again)}, invalid chosen: {bad}")
-        if not (torch.equal(idx, ref) and torch.equal(idx, again) and bad == 0):
-            raise AssertionError(f"{tag}: the FPS kernel disagrees with its plain version")
-    pts, valid = fps_pool(FPS_N, gen, dev, NUM_ENVS)
-    start = torch.argmax(valid.to(torch.uint8))
-    ms = cuda_time_ms(lambda: fps.farthest_point_sampling(pts, k, valid, start), runs=5)
-    plain = cuda_time_ms(lambda: fps.reference_fps(pts, k, valid, start), runs=2, warmup=1)
-    b = bound(3 * (k - 1) * FPS_N * FPS_D, nbytes(pts, valid) + 4 + 4 * k, PEAK_F32_FLOPS)
-    log(f"  farthest_point_sampling N={FPS_N}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        fps_check(f"last {keep_last} kept at random" if keep_last else "all valid", pts, valid, k)
+    c, inst = fps.plan(FPS_N, FPS_D, dev)
+    rows = -(-FPS_N // c)
+    for n in (c * rows - 1, c * rows, c * rows + 1):
+        pts, valid = fps_pool(n, gen, dev, NUM_ENVS)
+        fps_check(f"block-split edge ({rows} rows a block at N={FPS_N})", pts, valid, k)
+    pts, valid = fps_pool(FPS_N, gen, dev, NUM_ENVS, FPS_D_LIMIT)
+    fps_check("phase 9's task width", pts, valid, k)
+    for n in (FPS_N, FPS_STREAMED_N):
+        pts, valid = fps_tie_pool(n, gen, dev)
+        fps_check("duplicate far rows in different blocks", pts, valid, 500)
+    pts, valid = fps_repeat_pool(FPS_N, gen, dev)
+    fps_check("50 distinct rows repeated", pts, valid, 500)
+    pts, valid = fps_sparse_pool(FPS_N, gen, dev, 300)
+    fps_check("300 valid points", pts, valid, 500)
+    pts, valid = fps_pool(FPS_STREAMED_N, gen, dev, NUM_ENVS)
+    fps_check("past the old 49,152-row limit", pts, valid, 500)
+    pts, valid = fps_pool(fps.MAX_N, gen, dev, NUM_ENVS)
+    fps_check("the largest N the kernel takes", pts, valid, 32)
+    del pts, valid
+    res = fps_time(FPS_N, FPS_D, k, gen, dev, plain=True)
+    streamed = fps_time(FPS_STREAMED_N, FPS_D, k, gen, dev)
     return {"farthest_point_sampling": dict(
         route="cuda", source="mupe_tpu_torch/csrc/fps.cu",
-        replaces="mupe_tpu/ops/fps_pallas.py:25", max_abs_err=0.0,
-        ms=ms, plain_ms=plain, library_ms=None, **b)}
+        replaces="mupe_tpu/ops/fps_pallas.py:25", max_abs_err=0.0, library_ms=None, **res,
+        streamed_n=FPS_STREAMED_N, streamed_cluster=streamed["cluster"],
+        streamed_instance=streamed["instance"], streamed_ms=streamed["ms"],
+        streamed_us_per_round=streamed["us_per_round"],
+        streamed_bound_ms=streamed["bound_ms"])}
 
 
 def loss_inputs(spec_a, spec_c, la, lc, x, gen, saturate=False):
@@ -1597,6 +1680,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
     card = card_line()
     log(f"[0] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     phase_build()
@@ -1617,6 +1701,7 @@ def main() -> int:
                 if f"{name}:stage_b" in launches else {}))
         for name, info in kernels.items()
     ]}
+    log(f"wall time {time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {

@@ -57,7 +57,8 @@ C_FUNCTIONS = {
     "mupe_tp_lstm_bwd_operands": (
         _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
     ),
-    "mupe_fps": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "mupe_fps_clusters": (_I, _I, _I, _I, _P),
+    "mupe_fps": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 

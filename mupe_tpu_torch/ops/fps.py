@@ -5,24 +5,94 @@ distance to the nearest selected point and take the farthest, K times.
 Invalid points carry -inf and are never chosen while a valid one is left;
 ties go to the lowest index (argmax).  `farthest_point_sampling` runs the
 plain PyTorch version on CPU tensors and the hand-written kernel in
-`csrc/fps.cu` (all K rounds in one launch) on CUDA tensors.
+`csrc/fps.cu` (all K rounds in one launch of one thread-block cluster) on
+CUDA tensors.
 
-Both sum a squared distance column by column in a fixed order,
-d = (p0 - r0)^2, then d += (pj - rj)^2 for j = 1..D-1, each step rounded in
-f32 (the kernel with `__fsub_rn` / `__fmul_rn` / `__fadd_rn`), so their
-distances, and hence their indices, are the same bits.
+The kernel splits the rows over the C blocks of a cluster (16 where the
+card schedules such a cluster, else 8: `plan`).  `instance(n, d, c)` says
+which of its instances runs: "resident" holds each block's ceil(N / C)
+rows in its shared memory (padded to float4s, beside their running minima:
+`resident_bytes`) while that fits the 227 KB a block can take, and
+"registers" is that with each thread's two rows in its registers too
+(D <= 32, ceil(N / C) <= 1,024: the AEG's pool); "streamed" holds as many
+as fit in shared memory and reads the rest every round from a column-major
+device scratch [D + 1, N].  At D = 27 the resident instance takes N up to
+31,408 at C = 16 and 15,840 at C = 8.  `kernel_spec_ok` holds the kernel's
+limits: N up to 2^20, D up to 1,024, 1 <= K <= N.
 """
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from . import build
 
-# the kernel keeps the running min distance of every point in shared memory
-_KERNEL_MAX_N = 48 * 1024
-_KERNEL_MAX_D = 1024
+MAX_N = 1 << 20
+MAX_D = 1024
+CLUSTERS = (16, 8)        # blocks in the cluster, the first the card schedules
+SMEM_MAX = 232_448        # bytes of shared memory one block can take on an H100
+REG_QUADS, REG_THREADS = 8, 512  # the register instance: rows of <= 8 float4s, <= 512 threads
+INSTANCES = ("streamed", "resident", "registers")  # the kernel's codes for them
+
+
+def resident_bytes(n: int, d: int, c: int) -> int:
+    """Shared memory of a block that holds all its ceil(N / C) rows
+    (`csrc/fps.cu` `smem_floats`): two mbarriers, an inbox of 2 x C entries
+    (value, index, two pad words, the row padded to float4s), the start row,
+    2 x 32 warp winners, then the rows at a stride of 4 mod 8 floats and
+    their running minima."""
+    rows = -(-n // c)
+    d4 = -(-d // 4) * 4
+    stride = d4 if d4 % 8 else d4 + 4
+    return 4 * (4 + 2 * c * (4 + d4) + d4 + 128 + rows * (stride + 1))
+
+
+def instance(n: int, d: int, c: int) -> str:
+    """The kernel instance for N points of width D in a cluster of C blocks:
+    "registers" where every block's rows fit its shared memory, D <= 32 and
+    R = ceil(N / C) <= 1,024 (each thread's two rows then live in its
+    registers); "resident" where the rows fit the shared memory; "streamed"
+    (as many as fit there, the rest read every round from a device scratch)
+    past that."""
+    if resident_bytes(n, d, c) > SMEM_MAX:
+        return "streamed"
+    return "registers" if d <= 4 * REG_QUADS and -(-n // c) <= 2 * REG_THREADS else "resident"
+
+
+def kernel_spec_ok(n: int, d: int, k: int) -> bool:
+    """Whether the kernel takes N points of width D and K rounds."""
+    return 1 <= n <= MAX_N and 1 <= d <= MAX_D and 1 <= k <= n
+
+
+def _check_spec(n: int, d: int, k: int) -> None:
+    if not kernel_spec_ok(n, d, k):
+        raise ValueError(f"FPS kernel takes 1 <= N <= {MAX_N}, 1 <= D <= {MAX_D} and "
+                         f"1 <= k <= N, got N={n}, D={d}, k={k}")
+
+
+@functools.lru_cache(maxsize=256)
+def _clusters_fit(device: int, n: int, d: int, c: int) -> bool:
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        build.check(build.library().mupe_fps_clusters(
+            n, d, c, INSTANCES.index(instance(n, d, c)), ctypes.byref(count)),
+            "mupe_fps_clusters")
+    return count.value >= 1
+
+
+def plan(n: int, d: int, device) -> Tuple[int, str]:
+    """(C, instance) that the kernel runs for N points of width D on the
+    CUDA `device`: the first cluster size of `CLUSTERS` the card schedules."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    for c in CLUSTERS:
+        if _clusters_fit(index, n, d, c):
+            return c, instance(n, d, c)
+    raise RuntimeError(f"FPS kernel: the card schedules no cluster of {CLUSTERS[-1]} blocks "
+                       f"for N={n}, D={d}")
 
 
 def _start_tensor(start_index, device) -> torch.Tensor:
@@ -72,22 +142,22 @@ def _launch(points: torch.Tensor, k: int, valid: torch.Tensor, start: torch.Tens
         raise ValueError(f"points must be contiguous float32 [N, D], got {points.dtype} "
                          f"{tuple(points.shape)} contiguous={points.is_contiguous()}")
     n, d = points.shape
-    if not (1 <= n <= _KERNEL_MAX_N and 1 <= d <= _KERNEL_MAX_D):
-        raise ValueError(f"FPS kernel takes 1 <= N <= {_KERNEL_MAX_N}, 1 <= D <= "
-                         f"{_KERNEL_MAX_D}, got [{n}, {d}]")
-    if not 1 <= k <= n:
-        raise ValueError(f"FPS kernel needs 1 <= k <= N, got k={k}, N={n}")
+    _check_spec(n, d, k)
     if (valid.device != points.device or valid.dtype not in (torch.bool, torch.uint8)
             or tuple(valid.shape) != (n,) or not valid.is_contiguous()):
         raise ValueError(f"valid must be a contiguous bool/uint8 [{n}] on {points.device}, got "
                          f"{valid.dtype} {tuple(valid.shape)} on {valid.device}")
     start = start.to(torch.int32).contiguous()
     out = torch.empty((k,), dtype=torch.int32, device=points.device)
-    cols = torch.empty((d, n), dtype=torch.float32, device=points.device)  # kernel scratch
+    c, inst = plan(n, d, points.device)
+    cols = None  # the streamed instance's scratch: the points column-major, then the minima
+    if inst == "streamed":
+        cols = torch.empty((d + 1, n), dtype=torch.float32, device=points.device)
     lib = build.library()
     with torch.cuda.device(points.device):
         err = lib.mupe_fps(
-            points.data_ptr(), valid.data_ptr(), start.data_ptr(), n, d, k, cols.data_ptr(),
+            points.data_ptr(), valid.data_ptr(), start.data_ptr(), n, d, k, c,
+            INSTANCES.index(inst), None if cols is None else cols.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(points.device).cuda_stream,
         )
     build.check(err, "mupe_fps")

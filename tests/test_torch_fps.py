@@ -5,7 +5,9 @@ tensors) against `mupe_tpu.ops.fps.farthest_point_sampling` and against the
 Pallas kernel `_fps_kernel` run in interpret mode, on random-normal points:
 the indices must be equal, index for index.  The distance sums run in
 another order on the two sides, so equality holds where no two candidates
-are within a rounding error of each other, as with these draws.
+are within a rounding error of each other, as with these draws, or where
+they are exact copies of one row (the tie case), whose sums are the same
+bits in any one order: then the lower index must win on every side.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -36,14 +38,31 @@ def pallas_interpret(monkeypatch):
 
 
 def _case(name):
-    rng = np.random.default_rng({"plain": 3, "mask": 4, "start": 5}[name])
-    pts = rng.normal(size=(N, D)).astype(np.float32)
-    valid = rng.random(N) < 0.6 if name == "mask" else None
+    """Points, valid mask, start and K of a case: N = 128 random-normal
+    points for "plain", "mask" and "start"; "tie": N = 300 with the same far
+    row at 40, 170 and 290 and another at 90 and 250, so that the lower
+    index must win each tie (and the copies' minima then fall to 0);
+    "few_valid": N = 300 with 9 valid points spread over the range and K =
+    17, so the lowest valid index repeats once all are chosen."""
+    rng = np.random.default_rng({"plain": 3, "mask": 4, "start": 5, "tie": 6, "few_valid": 7}[name])
+    n = 300 if name in ("tie", "few_valid") else N
+    pts = rng.normal(size=(n, D)).astype(np.float32)
+    valid = None
+    if name == "mask":
+        valid = rng.random(n) < 0.6
+    if name == "tie":
+        pts[[40, 170, 290]] = 6.0
+        pts[[90, 250]] = -5.0
+    if name == "few_valid":
+        valid = np.zeros(n, dtype=bool)
+        valid[rng.choice(n, size=9, replace=False)] = True
     start = 37 if name == "start" else 0
+    if valid is not None:
+        start = int(np.argmax(valid))
     return pts, valid, start
 
 
-@pytest.mark.parametrize("name", ["plain", "mask", "start"])
+@pytest.mark.parametrize("name", ["plain", "mask", "start", "tie", "few_valid"])
 def test_plain_fps_matches_jax(name, pallas_interpret):
     pts, valid, start = _case(name)
     jvalid = None if valid is None else jnp.asarray(valid)
@@ -55,8 +74,14 @@ def test_plain_fps_matches_jax(name, pallas_interpret):
     assert got.dtype == torch.int32 and tuple(got.shape) == (K,)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), want_pallas)
+    idx = got.numpy()
     if valid is not None:
-        assert valid[got.numpy()].all()
+        assert valid[idx].all()
+    if name == "tie":  # the lower index of each pair of copies, never a second copy
+        assert 40 in idx and 90 in idx and not set(idx) & {170, 290, 250}
+    if name == "few_valid":
+        chosen = np.flatnonzero(valid)
+        assert sorted(idx[:9]) == sorted(chosen) and (idx[9:] == chosen.min()).all()
 
 
 def test_start_index_as_a_tensor():

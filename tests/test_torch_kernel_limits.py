@@ -21,7 +21,11 @@ input, its window of `history_step` steps and its 3 *
   use_tp_net on and off.
 
 A spec of another embed width or a head of 9 is refused with a message that
-names the limit.  The widest 8-token configuration, a 16-token one and one
+names the limit.  Every AEG pool (buffer_length + num_envs tasks of
+task_dim, downsampled to buffer_length by FPS) passes `fps.kernel_spec_ok`
+and runs the FPS instance that PERF.md states.
+
+The widest 8-token configuration, a 16-token one and one
 past every limit of the tile instances (28 tokens over 261 columns,
 `state_self` 140 wide, TP input 91 over 40 steps, 120 outputs) train end to
 end on the CPU (the plain versions), with the default update and with the
@@ -34,7 +38,9 @@ import torch
 
 from mupe_tpu_torch import harness
 from mupe_tpu_torch.envs import HideAndSeek, HideAndSeekCfg
+from mupe_tpu_torch.envs.hideandseek_envgen import HideAndSeekEnvgenCfg
 from mupe_tpu_torch.learning import MAPPOCfg, MAPPOPolicy
+from mupe_tpu_torch.ops import fps
 from mupe_tpu_torch.ops import fused_encoder as fe
 from mupe_tpu_torch.ops import tp_lstm as tl
 
@@ -211,3 +217,62 @@ def test_a_configuration_past_every_tile_limit_trains_on_the_cpu(tmp_path, extra
     metrics = harness.train(argv, default_task="HideAndSeek", device="cpu")
     assert all(torch.isfinite(torch.as_tensor(float(v))) for v in metrics.values())
     assert "TP_loss" in metrics
+
+
+AEG_NUM_ENVS = (1, 2, 1023, 1024, 4096, 45_000, 49_152, 65_535, 65_536)
+AEG_BUFFERS = (1, 2, 1000, 4999, 5000, 5001, 19_999, 20_000)
+
+
+def _fps_instance(n, d, c):
+    """The FPS instance as PERF.md states it: a block holds ceil(N / C) rows
+    of D padded to float4s (d4), at a stride of d4 (+ 4 where d4 is a
+    multiple of 8), each with its running min, beside 4 + 2 C (4 + d4) + d4
+    + 128 floats of exchange buffers; "resident" where that fits 232,448
+    bytes, "registers" where it fits, D <= 32 and ceil(N / C) <= 1,024,
+    else "streamed"."""
+    rows, d4 = -(-n // c), -(-d // 4) * 4
+    stride = d4 + 4 if d4 % 8 == 0 else d4
+    if 4 * (4 + 2 * c * (4 + d4) + d4 + 128 + rows * (stride + 1)) > 232_448:
+        return "streamed"
+    return "registers" if d <= 32 and rows <= 1024 else "resident"
+
+
+@pytest.mark.parametrize("num_agents", [2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12])
+def test_every_aeg_pool_passes_the_fps_spec_check(num_agents):
+    """The AEG downsamples buffer_length + num_envs tasks of task_dim = 3
+    num_agents + 3 + 3 max_cylinders (up to 111) to buffer_length
+    (`genbuffer.update_history`): num_envs 1-65,536 and buffer_length
+    1-20,000 at their edges, max_cylinders 0-24.  Each pool passes the
+    kernel's spec check (no row limit below 2^20 any more) and takes the
+    instance PERF.md states at either cluster size."""
+    checked = 0
+    for n_cyl in range(0, 25):
+        d = HideAndSeekEnvgenCfg(num_agents=num_agents, max_cylinders=n_cyl).task_dim
+        assert d == 3 * num_agents + 3 + 3 * n_cyl
+        for e, b in itertools.product(AEG_NUM_ENVS, AEG_BUFFERS):
+            assert fps.kernel_spec_ok(b + e, d, b), (b + e, d, b)
+            for c in fps.CLUSTERS:
+                assert fps.instance(b + e, d, c) == _fps_instance(b + e, d, c), (b + e, d, c)
+            checked += 1
+    assert checked == 25 * len(AEG_NUM_ENVS) * len(AEG_BUFFERS)
+
+
+def test_fps_instance_edges_and_limits():
+    """The instances' edges at the AEG's task width (D = 27) and phase 9's
+    (D = 87); the largest pool of the enumeration; past D = 1,024, K > N or
+    N > 2^20 the check refuses, naming the limit."""
+    for n, d, c, inst in ((9_096, 27, 16, "registers"), (16_384, 27, 16, "registers"),
+                          (16_385, 27, 16, "resident"), (31_408, 27, 16, "resident"),
+                          (31_409, 27, 16, "streamed"), (8_192, 27, 8, "registers"),
+                          (15_840, 27, 8, "resident"), (15_841, 27, 8, "streamed"),
+                          (49_153, 27, 16, "streamed"), (9_096, 87, 16, "resident"),
+                          (9_096, 87, 8, "streamed"), (9_096, 33, 16, "resident"),
+                          (85_536, 111, 16, "streamed"), (1 << 20, 1024, 16, "streamed")):
+        assert fps.instance(n, d, c) == inst == _fps_instance(n, d, c), (n, d, c)
+    assert fps.kernel_spec_ok(85_536, 111, 20_000) and fps.kernel_spec_ok(1 << 20, 1024, 1 << 20)
+    assert not hasattr(fps, "_KERNEL_MAX_N")
+    for n, d, k in ((100, 1025, 10), (100, 27, 101), ((1 << 20) + 1, 27, 10), (100, 27, 0),
+                    (100, 0, 10)):
+        assert not fps.kernel_spec_ok(n, d, k)
+        with pytest.raises(ValueError, match=r"1 <= N <= 1048576, 1 <= D <= 1024 and 1 <= k <= N"):
+            fps._check_spec(n, d, k)

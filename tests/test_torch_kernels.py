@@ -606,13 +606,77 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
         tl.tp_forward(spec, lt, torch.zeros((4, 33, 16), device=cuda))
 
 
+def _fps_named_case(name, device):
+    """chip_smoke's FPS cases past the AEG pool: the block-split edges of the
+    cluster at N = 9,096 ("edge-1", "edge", "edge+1": N = C r - 1, C r, C r
+    + 1 for its r rows a block), duplicate far rows in different blocks'
+    ranges ("tie" resident, "tie_streamed" at N = 49,153), 50 rows repeated
+    over the pool ("repeat"), 300 valid points spread over it ("sparse").
+    Returns (points, valid, k)."""
+    if name.startswith("edge"):
+        c, _ = fps.plan(9096, 27, device)
+        rows = -(-9096 // c)
+        n = c * rows + {"edge-1": -1, "edge": 0, "edge+1": 1}[name]
+        pts, valid = _fps_case(n, device, 27, 4096)
+        return pts, valid, 5000
+    n = 49153 if name == "tie_streamed" else 9096
+    g = torch.Generator().manual_seed(n + len(name))
+    pts = torch.rand((n, 27), generator=g)
+    valid = torch.ones(n, dtype=torch.bool)
+    if name.startswith("tie"):
+        pts[[n // 7, 3 * n // 7, 6 * n // 7]] = 2.0
+        pts[[n // 5, 4 * n // 5]] = -1.5
+    elif name == "repeat":
+        pts = torch.rand((50, 27), generator=g)[torch.arange(n) % 50]
+    elif name == "sparse":
+        valid = torch.zeros(n, dtype=torch.bool)
+        valid[torch.randperm(n, generator=g)[:300]] = True
+    return pts.to(device), valid.to(device), 500
+
+
+def _fps_holds(pts, valid, k):
+    """Index for index equal to `reference_fps` (the same f32 sums in the same
+    order), bit-identical on a repeat, no invalid point chosen."""
+    start = torch.argmax(valid.to(torch.uint8))
+    launches = fps.farthest_point_sampling.launches
+    idx = fps.farthest_point_sampling(pts, k, valid, start)
+    again = fps.farthest_point_sampling(pts, k, valid, start)
+    torch.cuda.synchronize()
+    assert fps.farthest_point_sampling.launches == launches + 2
+    assert idx.dtype == torch.int32 and tuple(idx.shape) == (k,)
+    assert torch.equal(idx, fps.reference_fps(pts, k, valid, start))
+    assert torch.equal(idx, again)
+    assert bool(valid[idx.long()].all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["edge-1", "edge", "edge+1", "tie", "tie_streamed", "repeat",
+                                  "sparse"])
+def test_fps_kernel_at_the_edges_and_ties(cuda, name):
+    _fps_holds(*_fps_named_case(name, cuda))
+
+
+@pytest.mark.gpu
+def test_fps_kernel_switches_instances(cuda):
+    """A streamed pool (N = 49,153), then a pool in registers (the AEG's),
+    then the streamed one again: each instance sets its own attributes."""
+    for n in (49153, 9096, 49153):
+        pts, valid = _fps_case(n, cuda, 27, 4096)
+        _fps_holds(pts, valid, 500)
+    assert fps.plan(49153, 27, cuda)[1] == "streamed"
+    assert fps.plan(9096, 27, cuda)[1] == "registers"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,d,k,keep_last", [(9096, 27, 5000, 4096), (9096, 27, 5000, None),
                                              (9097, 27, 5000, 4097), (1025, 5, 1025, None),
-                                             (1, 3, 1, None)])
+                                             (1, 3, 1, None), (9096, 87, 5000, 4096),
+                                             (49153, 27, 500, 4096), (17000, 33, 300, None)])
 def test_fps_kernel_matches_plain_version(cuda, n, d, k, keep_last):
     """Index for index equal to `reference_fps` (the same f32 sums in the same
-    order), bit-identical on a repeat, no invalid point chosen."""
+    order), bit-identical on a repeat, no invalid point chosen: at the AEG's
+    pool, phase 9's task width (D = 87), past the old 49,152-row limit and
+    in the resident instance past the register one (D = 33)."""
     pts, valid = _fps_case(n, cuda, d, keep_last)
     start = torch.argmax(valid.to(torch.uint8))
     launches = fps.farthest_point_sampling.launches
