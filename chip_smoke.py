@@ -47,6 +47,21 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    140 wide; TP input 91, 40 steps, output 120): the encoder kernels'
    streamed instance and the TP kernels' generic one, at 1024 arenas, 2
    iterations in each of the three update modes; the same checks.
+10. evaluation and the rest of the harness: README's composed recipe
+   (`train_generator`'s defaults with use_init_easy_cases, max_cylinders 6,
+   eval_spawn_ratio 0.3, eval_scenario_ratio 0.25, starve_cycles 8,
+   starve_ratio_unif 0.7, entropy_target 1.2) through `harness.train` at
+   4096 arenas for 5 iterations, cut as phase 5, with an evaluation episode
+   every iteration, the NaN guard and a profiler trace of iterations 1-3
+   (checks the eval rows, that the trace names the pair forward's kernel,
+   the FPS launches and the mixing fractions of its scene sampler); then
+   `harness.evaluate` from its checkpoint at 4096 arenas on the wall
+   scenario in eval mode, 800-step greedy episodes (every episode ends,
+   every stat finite, one pair forward and one TP forward a step; prints
+   the evaluation rate), and once over random cylinders with jitter (4096
+   distinct scenes); the card's evaluation against the CPU's (16 arenas,
+   32 steps, phase 3's limits); and the NaN guard restoring a poisoned
+   iteration's carry bit for bit, CUDA generator included.
 
 Phase 2 also holds the FPS kernel (the AEG buffer's downsampling, one
 thread-block cluster) index for index against its plain version at the AEG's
@@ -88,7 +103,9 @@ TP-LSTM kernels, which the tensor cores do at the bf16 rate; f32 for FPS)
 and its bytes (each input read once, each output written once) over the
 memory rate.  The line before the
 last is the kernels' JSON summary (launches counted over phase 4's run, FPS
-over phase 5's, the loss kernels over phase 6's run of their mode); the last
+over phase 5's, the loss kernels over phase 6's run of their mode; the pair
+forward's and the TP forward's `eval_launches` over one of phase 10's
+evaluations); the last
 line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -96,6 +113,7 @@ from __future__ import annotations
 import csv
 import json
 import math
+import mmap
 import statistics
 import subprocess
 import sys
@@ -148,6 +166,13 @@ FPS_N, FPS_D = AEG_BUFFER + NUM_ENVS, 27  # the FPS pool: buffer + eval tasks, t
 FPS_D_LIMIT = 3 * 8 + 3 + 3 * 20   # phase 9's AEG task width (8 pursuers, 20 cylinders)
 FPS_STREAMED_N = 49_153            # past the resident instance's capacity at D = 27
 AEG_EPISODE = 16                   # cut from 800 so a 3-episode cycle closes in an iteration
+EVAL_EPISODE = 800                 # HideAndSeekCfg.max_episode_length, the paper's episode
+# README's composed recipe (AEG + easy-case bootstrap + eval exposure + adaptive entropy)
+RECIPE = ("env.use_init_easy_cases=true", "env.max_cylinders=6", "env.eval_spawn_ratio=0.3",
+          "env.eval_scenario_ratio=0.25", "env.starve_cycles=8", "env.starve_ratio_unif=0.7",
+          "algo.entropy_target=1.2")
+RECIPE_ITERS = 5
+JITTER_EPISODE = 200               # the jittered evaluation's episodes, cut from 800
 # H100 SXM dense peaks (NVIDIA's data sheet): bf16 tensor cores, f32 outside
 # the tensor cores, memory rate
 PEAK_BF16_FLOPS = 989e12
@@ -1230,7 +1255,13 @@ def check_against_cpu(dev) -> None:
                          tree_to(state, dev))
     _, traj_c, _ = make_rollout(env_c, pol_c, deterministic=True)(carry_c, 8)
     _, traj_g, _ = make_rollout(env_g, pol_g, deterministic=True)(carry_g, 8)
-    traj_g = tree_to(traj_g, "cpu")
+    hold_rollout(tree_to(traj_g, "cpu"), traj_c)
+
+
+def hold_rollout(traj_g, traj_c) -> None:
+    """The card's trajectory against the CPU's: values and actions within
+    3e-2 of their scale, rewards, TP inputs and observations within 1e-2,
+    the same dones."""
     for key, rel in (("value", 3e-2), ("action", 3e-2)):
         err = (traj_g[key] - traj_c[key]).abs().max().item()
         scale = traj_c[key].abs().max().item()
@@ -1673,6 +1704,276 @@ def phase_config_train(dev, card: str, phase: int, label: str, env_kw: dict, mod
         check_update_against_cpu(dev, env_kw=env_kw, **algo)
 
 
+def phase_recipe(dev, card: str, run_dir: str) -> Path:
+    """README's composed recipe through `harness.train` with
+    `train_generator`'s defaults (task HideAndSeek_envgen) at NUM_ENVS
+    arenas, cut as phase 5 (16-step episodes and r_min = 0, so that cycles
+    close and downsample by FPS), with an evaluation episode every
+    iteration, the NaN guard and a profiler trace of iterations 1-3.
+    Checks the eval rows, the trace, the FPS launches and the mixing
+    fractions of the recipe's scene sampler; returns the checkpoint
+    directory."""
+    from mupe_tpu_torch import harness
+    from mupe_tpu_torch.ops import fps
+    from mupe_tpu_torch.ops import fused_encoder as fe
+    from mupe_tpu_torch.utils.config import parse_cli
+
+    prof = Path(run_dir) / "prof"
+    argv = [f"env.num_envs={NUM_ENVS}", *RECIPE, f"env.max_episode_length={AEG_EPISODE}",
+            "env.r_min=0.0", f"max_iters={RECIPE_ITERS}", "eval_interval=1", "guard_nan=true",
+            f"profile_dir={prof}", "log_interval=1", "save_interval=-1", f"run_dir={run_dir}",
+            "run_name=recipe", "seed=10"]
+    log(f"[10] composed recipe: harness.train task=HideAndSeek_envgen {' '.join(RECIPE)}, "
+        f"{NUM_ENVS} arenas; cuts: env.max_episode_length={AEG_EPISODE} env.r_min=0.0 "
+        f"max_iters={RECIPE_ITERS}; eval_interval=1 guard_nan=true profile_dir")
+    wrappers = {"encoder_pair_forward": fe.encoder_pair_forward,
+                "farthest_point_sampling": fps.farthest_point_sampling}
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = harness.train(argv, default_task="HideAndSeek_envgen", device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"  launches over {RECIPE_ITERS} iterations and their evaluation episodes: {launches}")
+    if (launches["farthest_point_sampling"] < 1
+            or launches["encoder_pair_forward"] < RECIPE_ITERS * (2 * STEPS + AEG_EPISODE)):
+        raise AssertionError(f"the recipe skipped a kernel: {launches}")
+    with open(Path(run_dir) / "recipe" / "metrics.csv") as f:
+        all_rows = list(csv.DictReader(f))
+    rows = [r for r in all_rows if r.get("eval/episode_count")]
+    per_iter = [NUM_ENVS * STEPS / float(r["rollout_fps"]) for r in all_rows if r.get("rollout_fps")]
+    log("  seconds by iteration (from the harness's rollout_fps; each includes the previous "
+        "iteration's evaluation episode, iteration 5 the trace's export): "
+        + ", ".join(f"{t:.3f}" for t in per_iter))
+    evals = [float(v) for r in rows for k, v in r.items() if k.startswith("eval/")]
+    if len(rows) != RECIPE_ITERS or not all(math.isfinite(v) for v in evals):
+        raise AssertionError(f"{len(rows)} eval rows, or a non-finite eval stat")
+    if "stats/nan_skipped" in metrics or not math.isfinite(metrics["policy_loss"]):
+        raise AssertionError("the guarded recipe skipped an iteration")
+    trace = prof / "trace.json"
+    with open(trace, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as m:
+        named = m.find(b"encoder_fwd_kernel") >= 0
+    if not named:
+        raise AssertionError(f"{trace} does not name the pair forward's kernel")
+    log(f"  eval rows {len(rows)}: eval/success {metrics['eval/success']:.4f}, eval/return "
+        f"{metrics['eval/return']:.4f}, eval/episode_count {metrics['eval/episode_count']:.0f}; "
+        f"trace {trace.name} ({trace.stat().st_size} bytes) names encoder_fwd_kernel")
+    rate = NUM_ENVS * STEPS * RECIPE_ITERS / seconds
+    log(f"  recipe training: {NUM_ENVS} x {STEPS} x {RECIPE_ITERS} env-steps in {seconds:.4f} s "
+        f"= {rate:.1f} env-steps/s (first iteration, evaluation episodes, guard and the "
+        f"profiled iterations included) on {card}")
+
+    sections, _ = parse_cli(argv)
+    env, _, _, _ = harness.build("HideAndSeek_envgen", dict(sections["env"], eval_mix_rotate=False),
+                                 None, device=dev)
+    d, _, _, cyl, _, _ = env._sample_scene(torch.Generator(device=dev).manual_seed(11))
+    on_spawn = ((d[:, None] - env._mix_spawn_d[None]).abs().amax(dim=(2, 3)) < 1e-5).any(1)
+    on_full = ((cyl[:, None] - env._mix_full_cyl[None]).abs().amax(dim=(2, 3)) < 1e-5).any(1)
+    spawn_frac, full_frac = float(on_spawn.float().mean()), float(on_full.float().mean())
+    log(f"  mixing at {NUM_ENVS} arenas, eval_mix_rotate=False: {spawn_frac:.4f} on a spawn "
+        f"table (want 1 - 0.7 x 0.75 = 0.475 +- 0.05), {full_frac:.4f} on a full scenario's "
+        f"cylinders (want 0.25 +- 0.05; full scenarios {env._mix_full_scenarios})")
+    if not (abs(spawn_frac - 0.475) <= 0.05 and abs(full_frac - 0.25) <= 0.05):
+        raise AssertionError("the recipe's mixing fractions are out of range")
+    return Path(run_dir) / "recipe" / "checkpoints"
+
+
+def phase_evaluate(dev, card: str, model_dir: Path) -> dict:
+    """`harness.evaluate` (`python -m mupe_tpu_torch.eval`) at NUM_ENVS arenas
+    on the wall scenario in eval mode, 800-step greedy episodes, from the
+    recipe's checkpoint: every episode ends (by truncation), every stat is
+    finite, one pair-forward launch a step and one TP forward a step plus
+    the first observation's.  Then eval mode over random cylinders with
+    jitter (episodes cut to JITTER_EPISODE steps): every trial a distinct
+    scene.  Returns the launch counts."""
+    from mupe_tpu_torch import harness
+    from mupe_tpu_torch.ops import fused_encoder as fe
+    from mupe_tpu_torch.ops import tp_lstm as tl
+    from mupe_tpu_torch.utils.config import parse_cli
+
+    argv = [f"env.num_envs={NUM_ENVS}", "env.use_random_cylinder=false", "env.scenario_flag=wall",
+            "env.use_eval=true", f"model_dir={model_dir}", "seed=0"]
+    log(f"[10] evaluation: harness.evaluate {' '.join(argv[:4])}, {EVAL_EPISODE}-step greedy "
+        f"episodes, the recipe's checkpoint")
+    wrappers = {"encoder_pair_forward": fe.encoder_pair_forward, "tp_forward": tl.tp_forward}
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = harness.evaluate(argv, device=dev)
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"  launches over one evaluation: {launches}")
+    if launches != {"encoder_pair_forward": EVAL_EPISODE, "tp_forward": EVAL_EPISODE + 1}:
+        raise AssertionError(f"launches {launches}: want one pair forward a step and one TP "
+                             f"forward a step plus the first observation's")
+    pcts = [f"first_capture_step_p{q}" for q in (25, 50, 75)]
+    if (result["episodes"] != NUM_ENVS or not all(k in result for k in pcts)
+            or not all(math.isfinite(v) for v in result.values())):
+        raise AssertionError(f"evaluation: episodes {result['episodes']}, or a stat missing or "
+                             f"non-finite")
+    rate = NUM_ENVS * EVAL_EPISODE / seconds
+    log(f"  evaluation: {NUM_ENVS} x {EVAL_EPISODE} greedy env-steps in {seconds:.4f} s = "
+        f"{rate:.1f} env-steps/s (checkpoint load, reset and first observation included; no "
+        f"trajectory stored) on {card}")
+
+    argv = [f"env.num_envs={NUM_ENVS}", "env.use_eval=true", "env.eval_jitter_xy=0.05",
+            "env.eval_jitter_rpy=0.1", f"env.max_episode_length={JITTER_EPISODE}",
+            f"model_dir={model_dir}", "seed=0"]
+    log(f"  jittered evaluation over random cylinders: {' '.join(argv[1:5])}")
+    result = harness.evaluate(argv, device=dev)
+    if result["episodes"] != NUM_ENVS or not all(math.isfinite(v) for v in result.values()):
+        raise AssertionError("jittered evaluation: an episode unfinished or a stat non-finite")
+    sections, _ = parse_cli(argv)
+    env, _, _, _ = harness.build("HideAndSeek", sections["env"], None, device=dev)
+    state = env.reset(torch.Generator(device=dev).manual_seed(0))
+    scenes = torch.cat([t.reshape(NUM_ENVS, -1) for t in (
+        state.drone.pos, state.drone.quat, state.target_pos, state.cylinders)], dim=1)
+    distinct = torch.unique(scenes, dim=0).shape[0]
+    log(f"  {distinct} distinct scenes of {NUM_ENVS} trials")
+    if distinct != NUM_ENVS:
+        raise AssertionError("jittered eval trials repeat a scene")
+    return launches
+
+
+def check_eval_against_cpu(dev) -> None:
+    """The card's evaluation (kernels) against the CPU's (plain versions):
+    the wall scenario in eval mode without jitter draws nothing, so both
+    start from the same scene; 16 arenas, a 32-step greedy episode, the
+    same weights with the heads at unit gain.  Teacher-forced: each step
+    the card acts on the CPU's observation and steps the CPU's state with
+    the CPU's action, so each of its outputs (action and value from the
+    pair kernel, reward, observation and TP input from the env step with
+    the TP kernel) is compared from identical inputs, to phase 3's limits
+    (`hold_rollout`), and the episode stats at the done step within 1e-2.
+    The drones reach the 1 m/s speed clamp within 32 steps, where the
+    speed penalty (-10 when speed > v_drone) falls on the last bit of the
+    clamped speed; a penalty may differ only there, and rewards and stats
+    are held without it.  `evaluate` free-running on both is run and its
+    largest stat difference printed."""
+    from mupe_tpu_torch import harness
+    from mupe_tpu_torch.envs import tree_to
+    from mupe_tpu_torch.learning import init_carry
+    from mupe_tpu_torch.utils.checkpoint import save_checkpoint
+    from mupe_tpu_torch.utils.config import parse_cli
+
+    steps = 32
+    log(f"[10] evaluation, card vs CPU: wall, use_eval, 16 arenas, a {steps}-step greedy "
+        f"episode, teacher-forced")
+    argv = ["env.num_envs=16", f"env.max_episode_length={steps}",
+            "env.use_random_cylinder=false", "env.scenario_flag=wall"]
+    env_kw = dict(parse_cli(argv)[0]["env"], use_eval=True)
+    (env_c, pol_c, _, _), (env_g, pol_g, _, _) = (
+        harness.build("HideAndSeek", env_kw, None, device=d) for d in ("cpu", dev))
+    template = {k: torch.zeros((1,) + s) for k, s in env_c.obs_groups().items()}
+    ts_c = pol_c.init(template, torch.Generator().manual_seed(8))
+    ts_g = pol_g.init(template, torch.Generator().manual_seed(8))  # the same weights
+    with torch.no_grad():  # heads at unit gain: O(1) actions that drive the drones
+        for t in (ts_c, ts_g):
+            t.actor.leaves[-2].mul_(100.0)
+            t.critic.leaves[-2].mul_(100.0)
+    carry = init_carry(env_c, pol_c, torch.Generator().manual_seed(9), ts_c)
+    gen_c, gen_g = torch.Generator().manual_seed(10), torch.Generator(device=dev).manual_seed(10)
+    state, obs = carry.env_state, carry.obs
+    cols = {d: {k: [] for k in ("value", "action", "reward", "done", "tp_input", "obs", "speed")}
+            for d in ("cpu", dev)}
+    for _ in range(steps):
+        a_c, _, v_c = pol_c.act(ts_c, obs, deterministic=True)
+        a_g, _, v_g = pol_g.act(ts_g, tree_to(obs, dev), deterministic=True)
+        next_state, tr_c = env_c.step(state, a_c, gen_c, ts_c.tp_net)
+        _, tr_g = env_g.step(tree_to(state, dev), a_c.to(dev), gen_g, ts_g.tp_net)
+        for d, a, v, tr in (("cpu", a_c, v_c, tr_c), (dev, a_g, v_g, tree_to(tr_g, "cpu"))):
+            speed = torch.linalg.vector_norm(tr.info["drone_state"][..., 7:10], dim=-1)
+            for k, x in (("value", v.cpu()), ("action", a.cpu()), ("reward", tr.reward),
+                         ("done", tr.done), ("tp_input", tr.info["tp_input"]), ("obs", tr.obs),
+                         ("speed", speed)):
+                cols[d][k].append(x)
+        state, obs = next_state, tr_c.obs
+    trajs = {d: {k: (torch.stack(v) if k != "obs" else
+                     {n: torch.stack([o[n] for o in v]) for n in v[0]})
+                 for k, v in c.items()} for d, c in cols.items()}
+    # the speed penalty -speed_coef * (speed > v_drone) is decided by the
+    # last bit where the dynamics clamp the speed to v_drone: it may differ
+    # there, and only there; the rewards are held without it
+    cfg = env_c.cfg
+    speed = {d: trajs[d].pop("speed") for d in trajs}                     # [T, E, n]
+    pen = {d: -cfg.speed_coef * (speed[d] > cfg.v_drone).float() for d in speed}
+    flip = pen[dev] != pen["cpu"]
+    at_clamp = ((speed["cpu"] - cfg.v_drone).abs() < 1e-6) & ((speed[dev] - cfg.v_drone).abs() < 1e-6)
+    log(f"  speed penalties that differ: {int(flip.sum())} of {flip.numel()}, all at the "
+        f"{cfg.v_drone} m/s clamp (|speed - v_drone| < 1e-6 on both): {bool(at_clamp[flip].all())}; "
+        f"{int(at_clamp.sum())} at the clamp")
+    if not bool(at_clamp[flip].all()):
+        raise AssertionError("a speed penalty differs away from the speed clamp")
+    for d in trajs:
+        trajs[d]["reward"] = trajs[d]["reward"] - pen[d][..., None]
+    hold_rollout(trajs[dev], trajs["cpu"])
+    done = tr_c.done.float()
+    if not bool(done.all()):
+        raise AssertionError("the episode did not end at its last step")
+    stats_g = dict(tree_to(tr_g.stats, "cpu"))
+    last = (pen[dev][-1] - pen["cpu"][-1]).mean(-1, keepdim=True)         # [E, 1]
+    stats_g["speed_reward"] = stats_g["speed_reward"] - last / steps   # normalised at done
+    stats_g["return"] = stats_g["return"] - last
+    errs = {k: abs(float(torch.mean(stats_g[k] * done)) - float(torch.mean(v * done)))
+            for k, v in tr_c.stats.items()}
+    worst = max(errs, key=errs.get)
+    log(f"  card vs CPU episode stats: largest error {errs[worst]:.3e} ({worst}; tol 1e-2)")
+    if not errs[worst] <= 1e-2:
+        raise AssertionError("card and CPU evaluations disagree on the episode stats")
+    with tempfile.TemporaryDirectory() as ckpt:
+        save_checkpoint(ckpt, 0, ts_c)
+        res = {d: harness.evaluate(argv + [f"model_dir={ckpt}"], device=d) for d in ("cpu", dev)}
+    free = {k: abs(res[dev][k] - v) for k, v in res["cpu"].items()}
+    worst = max(free, key=free.get)
+    log(f"  free-running evaluate, card vs CPU: largest stat difference {free[worst]:.3e} "
+        f"({worst}); episodes {res[dev]['episodes']:.0f} / {res['cpu']['episodes']:.0f}")
+    if set(res[dev]) != set(res["cpu"]) or res[dev]["episodes"] != res["cpu"]["episodes"]:
+        raise AssertionError("card and CPU evaluations report different results")
+
+
+def check_guard(dev) -> None:
+    """`guard_train_iter` on the card: an iteration at bench.py's
+    configuration whose loss is forced non-finite must leave the carry as
+    it was, bit for bit (parameters and Adam states written in place, the
+    env state, the observation, the CUDA generator's state), and flag
+    `nan_skipped`."""
+    from mupe_tpu_torch.learning import init_carry, make_train_iter
+    from mupe_tpu_torch.utils.checkpoint import to_plain
+    from mupe_tpu_torch.utils.debug import guard_train_iter
+
+    log(f"[10] NaN guard: one iteration at {NUM_ENVS} arenas with its policy_loss forced to NaN")
+    env, policy = make_slice(dev, NUM_ENVS, 800)
+    carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(12))
+    real = make_train_iter(env, policy)
+
+    def poisoned(c, *args, **kwargs):
+        c, metrics, stats = real(c, *args, **kwargs)
+        return c, {**metrics, "policy_loss": torch.full((), math.nan, device=dev)}, stats
+
+    before = to_plain(carry)
+    out, _, stats = guard_train_iter(poisoned)(carry)
+    restored = _equal_trees(to_plain(carry), before)
+    log(f"  nan_skipped {float(stats['nan_skipped']):.0f}; carry (generator state included) "
+        f"bit-identical after the restore: {restored}")
+    if not (out is carry and restored and float(stats["nan_skipped"]) == 1.0):
+        raise AssertionError("the guard did not restore the carry")
+
+
+def phase_eval(dev, card: str) -> dict:
+    """Phase 10: the composed recipe, evaluation at full width, the card's
+    evaluation against the CPU's, and the NaN guard.  Returns the
+    evaluation's launch counts."""
+    with tempfile.TemporaryDirectory() as run_dir:
+        model_dir = phase_recipe(dev, card, run_dir)
+        launches = phase_evaluate(dev, card, model_dir)
+    check_eval_against_cpu(dev)
+    check_guard(dev)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
@@ -1693,12 +1994,14 @@ def main() -> int:
     phase_config_train(dev, card, 8, "16-token", TOK16_ENV, (None, "fwdloss", "agrad"))
     phase_config_train(dev, card, 9, "past-the-tile-limits", LIMIT_ENV,
                        (None, "fwdloss", "agrad"))
+    eval_launches = phase_eval(dev, card)
     launches["encoder_backward:stage_b"] = launches["weight_grads"]
     launches["tp_backward:stage_b"] = launches["tp_weight_grads"]
     summary = {"kernels": [
         dict(name=name, launches=launches[name], **info,
              **({"stage_b_launches": launches[f"{name}:stage_b"]}
-                if f"{name}:stage_b" in launches else {}))
+                if f"{name}:stage_b" in launches else {}),
+             **({"eval_launches": eval_launches[name]} if name in eval_launches else {}))
         for name, info in kernels.items()
     ]}
     log(f"wall time {time.perf_counter() - t0:.1f} s")

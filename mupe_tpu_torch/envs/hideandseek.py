@@ -1,14 +1,12 @@
 """HideAndSeek: 3-pursuer vs 1-evader pursuit-evasion in a cylinder arena.
 
-Counterpart of mupe_tpu/envs/hideandseek.py for the training configuration
-of the main path: random cylinders with path-feasible re-draws, uniform
-spawns, the scripted evader, LoS-blocked detection, the TP-net prediction in
-the observation, the cooperative capture reward with its penalties,
-per-episode stat normalization, the evader-speed curriculum and auto-reset.
-
-Not ported yet (each raises NotImplementedError): fixed scenarios
-(`use_random_cylinder=False`), eval mode, eval spawn/scenario mixing and
-curriculum-bounded spawns.
+Counterpart of mupe_tpu/envs/hideandseek.py: random cylinders with
+path-feasible re-draws, uniform or curriculum-bounded spawns, the fixed
+evaluation scenarios (with optional jitter), eval spawn/scenario mixing in
+training resets, the scripted evader, LoS-blocked detection, the TP-net
+prediction in the observation, the cooperative capture reward with its
+penalties, per-episode stat normalization, the evader-speed curriculum and
+auto-reset.
 
 Randomness comes from an explicit `torch.Generator` on the env's device.
 The env is never differentiated: reset, observe and step run without
@@ -20,6 +18,7 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..controllers import PIDRateState
@@ -34,10 +33,12 @@ from .placement import (
     feasible_layout,
     largest_feasible_prefix,
     make_grid,
+    outside_circle_mask,
     sample_cylinders,
+    sample_spawns_cl,
 )
 from .prey import prey_force, prey_velocity
-from .scenarios import INVALID_Z
+from .scenarios import EVAL_SCENARIOS, INVALID_Z, scenario_cylinders, scenario_spawns
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,16 +186,6 @@ class HideAndSeek:
     def __init__(
         self, cfg: HideAndSeekCfg = HideAndSeekCfg(), device: torch.device | str = "cuda"
     ):
-        deferred = {
-            "use_random_cylinder=False (fixed scenarios)": not cfg.use_random_cylinder,
-            "use_eval": cfg.use_eval,
-            "use_cl_spawn": cfg.use_cl_spawn,
-            "eval_spawn_ratio > 0": cfg.eval_spawn_ratio > 0.0,
-            "eval_scenario_ratio > 0": cfg.eval_scenario_ratio > 0.0,
-        }
-        for what, on in deferred.items():
-            if on:
-                raise NotImplementedError(f"HideAndSeekCfg {what} is not ported yet")
         self.cfg = cfg
         self.device = torch.device(device)
         self.params = make_params(cfg.drone_model, self.device)
@@ -203,16 +194,64 @@ class HideAndSeek:
         self.action_dim = 4
         self.grid = make_grid(cfg.arena_size, cfg.cylinder_size)
         self._offdiag = ~torch.eye(cfg.num_agents, dtype=torch.bool, device=self.device)
+        if cfg.num_agents > 4 and (cfg.use_eval or not cfg.use_random_cylinder):
+            # the fixed spawn tables (reference hideandseek.py:632-682) only
+            # define 4 pursuer slots; silently broadcasting would alias spawns
+            raise ValueError(
+                "fixed eval/scenario spawn tables support at most 4 agents; "
+                f"got num_agents={cfg.num_agents}")
+
+        def dev(a):
+            return torch.as_tensor(a, device=self.device)
+
+        if not cfg.use_random_cylinder:
+            cyl, _ = scenario_cylinders(cfg.scenario_flag, cfg.num_cylinders,
+                                        cfg.cylinder_size, cfg.max_height)
+            d, t = scenario_spawns(cfg.scenario_flag, cfg.num_agents)
+            self._scenario_cyl, self._spawn_drone, self._spawn_target = dev(cyl), dev(d), dev(t)
+        if cfg.eval_spawn_ratio > 0.0 or cfg.eval_scenario_ratio > 0.0:
+            if cfg.num_agents > 4:
+                raise ValueError("eval spawn/scenario mixing needs the 4-slot fixed "
+                                 f"spawn tables; got num_agents={cfg.num_agents}")
+            mix_scen = (tuple(cfg.eval_mix_scenarios) if cfg.eval_mix_scenarios is not None
+                        else EVAL_SCENARIOS)
+            for f in mix_scen:
+                if f not in EVAL_SCENARIOS:
+                    raise ValueError(f"unknown eval scenario {f!r}")
+            # spawn tables: every scenario (spawns need no cylinder capacity)
+            spawns = [scenario_spawns(f, cfg.num_agents) for f in mix_scen]
+            self._mix_spawn_d = dev(np.stack([d for d, _ in spawns]))  # [S, n, 3]
+            self._mix_spawn_t = dev(np.stack([t for _, t in spawns]))  # [S, 1, 3]
+            # full-scenario tables: only the layouts that fit num_cylinders
+            # (passage and random need 6 active; the default capacity is 5)
+            full = []
+            for f in mix_scen:
+                try:
+                    c, _ = scenario_cylinders(f, cfg.num_cylinders, cfg.cylinder_size,
+                                              cfg.max_height)
+                except ValueError:
+                    continue
+                full.append((f, c) + scenario_spawns(f, cfg.num_agents))
+            self._mix_full_scenarios = tuple(f for f, *_ in full)
+            self._mix_full_cyl = dev(np.stack([c for _, c, _, _ in full]))  # [S', C, 3]
+            self._mix_full_d = dev(np.stack([d for _, _, d, _ in full]))    # [S', n, 3]
+            self._mix_full_t = dev(np.stack([t for _, _, _, t in full]))    # [S', 1, 3]
 
     @property
     def num_envs(self) -> int:
         return self.cfg.num_envs
 
     def _uniform(self, gen, shape, lo, hi) -> torch.Tensor:
+        """U(lo, hi) of `shape`; every uniform draw of the scene goes through
+        here (tests inject the JAX package's draws by replacing it)."""
         lo = torch.as_tensor(lo, dtype=torch.float32, device=self.device)
         hi = torch.as_tensor(hi, dtype=torch.float32, device=self.device)
         u = torch.rand(shape, generator=gen, device=self.device)
         return lo + (hi - lo) * u
+
+    def _randint(self, gen, hi: int, shape) -> torch.Tensor:
+        """Integers uniform in [0, hi) (the mixing tables' choice)."""
+        return torch.randint(0, hi, shape, generator=gen, device=self.device)
 
     def obs_groups(self) -> Dict[str, Tuple[int, int]]:
         """(tokens, features) of each observation group of one agent."""
@@ -224,24 +263,115 @@ class HideAndSeek:
         }
 
     # ------------------------------------------------------------- sampling
+    @staticmethod
+    def _rot_xy(p: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+        """Yaw-rotate [..., 3] points about the arena centre (z kept)."""
+        c, s = torch.cos(theta), torch.sin(theta)
+        x, y, z = p[..., 0], p[..., 1], p[..., 2]
+        return torch.stack([c * x - s * y, s * x + c * y, z], dim=-1)
+
     def _sample_scene(self, gen: torch.Generator):
-        """Spawn poses + a path-feasible cylinder layout for all envs."""
+        """Spawn poses + cylinder layout for all envs
+        (mupe_tpu/envs/hideandseek.py:316-529, the same branches in the same
+        order).  Training draws uniform spawns (or curriculum-bounded ones)
+        and a path-feasible random layout; eval mode puts the drones on
+        fixed spawns, over random cylinders or a fixed scenario.  The default
+        configuration draws exactly what it drew before the other branches
+        existed; mixing, jitter and curriculum spawns add their own draws."""
         cfg = self.cfg
         e, n = cfg.num_envs, cfg.num_agents
         a = cfg.arena_size / math.sqrt(2.0)
         h2 = cfg.max_height / 2
-        drone_xy = self._uniform(gen, (e, n, 2), [0.1, -a + 0.1], [a - 0.1, a - 0.1])
-        target_xy = self._uniform(gen, (e, 1, 2), [-a + 0.1, -a + 0.1], [-0.1, a - 0.1])
-        drone_z = self._uniform(gen, (e, n, 1), h2 - 0.1, h2 + 0.1)
-        target_z = self._uniform(gen, (e, 1, 1), h2 - 0.1, h2 + 0.1)
-        drone_pos = torch.cat([drone_xy, drone_z], dim=-1)
-        target_pos = torch.cat([target_xy, target_z], dim=-1)
-        rpy = self._uniform(
-            gen, (e, n, 3), [-0.2 * math.pi, -0.2 * math.pi, 0.0],
-            [0.2 * math.pi, 0.2 * math.pi, 0.2 * math.pi],
-        )
+        train_mode = cfg.use_random_cylinder and not cfg.use_eval
+        if cfg.use_cl_spawn and train_mode:
+            # curriculum-bounded grid spawns (placement.py:560-646)
+            g = self.grid.num_grid
+            base = outside_circle_mask(g, self.device)[None].expand(e, g, g)
+            drone_pos, target_pos = sample_spawns_cl(
+                gen, base, n, self.grid, cfg.max_height,
+                cl_bound=cfg.cl_bound, height_bound=cfg.height_bound)
+        elif train_mode:
+            drone_xy = self._uniform(gen, (e, n, 2), [0.1, -a + 0.1], [a - 0.1, a - 0.1])
+            target_xy = self._uniform(gen, (e, 1, 2), [-a + 0.1, -a + 0.1], [-0.1, a - 0.1])
+            drone_z = self._uniform(gen, (e, n, 1), h2 - 0.1, h2 + 0.1)
+            target_z = self._uniform(gen, (e, 1, 1), h2 - 0.1, h2 + 0.1)
+            drone_pos = torch.cat([drone_xy, drone_z], dim=-1)
+            target_pos = torch.cat([target_xy, target_z], dim=-1)
+        elif cfg.use_random_cylinder:  # eval: fixed spawns (hideandseek.py:618-627)
+            fixed_d = torch.tensor([[0.6, 0.0], [0.8, 0.0], [0.8, -0.2], [0.8, 0.2]],
+                                   device=self.device)[:n]
+            drone_z = self._uniform(gen, (e, n, 1), h2 - 0.1, h2 + 0.1)
+            target_z = self._uniform(gen, (e, 1, 1), h2 - 0.1, h2 + 0.1)
+            drone_pos = torch.cat([fixed_d.expand(e, n, 2), drone_z], dim=-1)
+            target_pos = torch.cat(
+                [torch.tensor([[-0.8, 0.0]], device=self.device).expand(e, 1, 2), target_z],
+                dim=-1)
+        else:  # fixed scenario
+            drone_pos = self._spawn_drone.repeat(e, 1, 1)
+            target_pos = self._spawn_target.repeat(e, 1, 1)
+            if cfg.eval_jitter_xy > 0.0 or cfg.eval_jitter_z > 0.0:
+                amp = torch.tensor([cfg.eval_jitter_xy, cfg.eval_jitter_xy, cfg.eval_jitter_z],
+                                   device=self.device)
+                drone_pos = drone_pos + amp * self._uniform(gen, (e, n, 3), -1.0, 1.0)
+                target_pos = target_pos + amp * self._uniform(gen, (e, 1, 3), -1.0, 1.0)
+
+        mixing = train_mode and (cfg.eval_spawn_ratio > 0.0 or cfg.eval_scenario_ratio > 0.0)
+
+        def mix_theta():
+            if cfg.eval_mix_rotate:
+                return self._uniform(gen, (e, 1), 0.0, 2.0 * math.pi)
+            return torch.zeros((e, 1), device=self.device)
+
+        if mixing and cfg.eval_spawn_ratio > 0.0:
+            # fixed eval spawn tables (a random scenario per env), BEFORE the
+            # cylinder draw so layouts avoid the new spawns and the
+            # feasibility re-draw sees the real geometry
+            which = self._randint(gen, self._mix_spawn_d.shape[0], (e,))
+            theta = mix_theta()
+            m = self._uniform(gen, (e, 1, 1), 0.0, 1.0) < cfg.eval_spawn_ratio
+            drone_pos = torch.where(m, self._rot_xy(self._mix_spawn_d[which], theta), drone_pos)
+            target_pos = torch.where(m, self._rot_xy(self._mix_spawn_t[which], theta), target_pos)
+
+        if not cfg.use_eval:
+            rpy = self._uniform(
+                gen, (e, n, 3), [-0.2 * math.pi, -0.2 * math.pi, 0.0],
+                [0.2 * math.pi, 0.2 * math.pi, 0.2 * math.pi],
+            )
+        elif cfg.eval_jitter_rpy > 0.0:
+            j = cfg.eval_jitter_rpy * math.pi
+            rpy = self._uniform(gen, (e, n, 3), -j, j)
+        else:
+            rpy = torch.zeros((e, n, 3), device=self.device)
         quat = euler_to_quaternion(rpy)
 
+        if cfg.use_random_cylinder:
+            cylinders, fallback, degraded = self._random_cylinders(
+                gen, drone_pos[..., :2], target_pos[..., :2])
+        else:
+            cylinders = self._scenario_cyl.repeat(e, 1, 1)
+            fallback = torch.zeros((e,), device=self.device)
+            degraded = torch.zeros((e,), device=self.device)
+
+        if mixing and cfg.eval_scenario_ratio > 0.0:
+            # complete fixed scenario instances: layout + matching spawn
+            # table, rotated together; they override the spawn mix and the
+            # drawn cylinders (feasible by construction)
+            which2 = self._randint(gen, self._mix_full_d.shape[0], (e,))
+            theta2 = mix_theta()
+            m2 = self._uniform(gen, (e, 1, 1), 0.0, 1.0) < cfg.eval_scenario_ratio
+            drone_pos = torch.where(m2, self._rot_xy(self._mix_full_d[which2], theta2), drone_pos)
+            target_pos = torch.where(m2, self._rot_xy(self._mix_full_t[which2], theta2),
+                                     target_pos)
+            cylinders = torch.where(m2, self._rot_xy(self._mix_full_cyl[which2], theta2),
+                                    cylinders)
+            fallback = torch.where(m2[:, 0, 0], 0.0, fallback)
+            degraded = torch.where(m2[:, 0, 0], 0.0, degraded)
+        return drone_pos, quat, target_pos, cylinders, fallback, degraded
+
+    def _random_cylinders(self, gen: torch.Generator, drone_xy, target_xy):
+        """A path-feasible random layout per env: (cylinders [E, C, 3],
+        fallback [E], degraded [E])."""
+        cfg = self.cfg
         idx = torch.arange(cfg.num_cylinders, device=self.device)[None, :]
 
         def draw():
@@ -267,8 +397,7 @@ class HideAndSeek:
         fallback = ((~ok) & (active[:, 0] == 0) & (wanted[:, 0] > 0)).float()
         degraded = ((~ok) & (active[:, 0] < wanted[:, 0])).float()
         z = torch.where(idx < active, 0.5 * cfg.max_height, INVALID_Z)[..., None]
-        cylinders = torch.cat([xy, z], dim=-1)
-        return drone_pos, quat, target_pos, cylinders, fallback, degraded
+        return torch.cat([xy, z], dim=-1), fallback, degraded
 
     def _fresh(self, gen: torch.Generator, v_prey, update_epoch) -> HideAndSeekState:
         cfg = self.cfg

@@ -117,6 +117,48 @@ def sample_cylinders(
     return xy, active
 
 
+@functools.lru_cache(maxsize=None)
+def _outside_window_np(num_grid: int, cl_bound: int) -> np.ndarray:
+    c = num_grid // 2
+    i, j = np.meshgrid(np.arange(num_grid), np.arange(num_grid), indexing="ij")
+    inside = (
+        (i >= c - cl_bound) & (i < c + cl_bound)
+        & (j >= c - cl_bound) & (j < c + cl_bound)
+    )
+    return ~inside
+
+
+def outside_window_mask(num_grid: int, cl_bound: int, device=None) -> torch.Tensor:
+    """Cells outside the centred curriculum window of half-width `cl_bound`
+    (placement.py:616-621: `grid_idx ~ randint(c − cl_bound, c + cl_bound)`).
+    `cl_bound = num_grid // 2` disables the restriction."""
+    return torch.as_tensor(_outside_window_np(num_grid, cl_bound), device=device)
+
+
+def sample_spawns_cl(
+    gen: torch.Generator,
+    occupied: torch.Tensor,  # bool [..., G, G] already-occupied cells
+    num_drones: int,
+    grid: Grid,
+    max_height: float,
+    cl_bound: int = 6,
+    height_bound: float = 0.5,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Curriculum-bounded drone + target spawns (placement.py:560-646
+    `generate_drone_target_large_after_cylinder`): distinct cells uniform
+    over the free cells of the centred window of half-width `cl_bound`, z
+    uniform in (H/2 − hb·H + 0.02, H/2 + hb·H − 0.02).  Returns
+    (drone_pos [..., n, 3], target_pos [..., 1, 3])."""
+    dev = occupied.device
+    occ = occupied | outside_window_mask(grid.num_grid, cl_bound, dev)
+    xy = sample_free_cells(gen, occ, num_drones + 1, grid)
+    lo = 0.5 * max_height - height_bound * max_height + 0.02
+    hi = 0.5 * max_height + height_bound * max_height - 0.02
+    u = torch.rand(tuple(occupied.shape[:-2]) + (num_drones + 1, 1), generator=gen, device=dev)
+    pos = torch.cat([xy, lo + (hi - lo) * u], dim=-1)
+    return pos[..., :num_drones, :], pos[..., num_drones:, :]
+
+
 def flood_fill_reachable(
     free: torch.Tensor,    # bool [..., G, G] traversable cells
     start: torch.Tensor,   # int [..., 2] start cell

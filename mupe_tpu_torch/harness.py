@@ -1,19 +1,25 @@
-"""Experiment harness: build env + policy from config, run the training loop
-(counterpart of mupe_tpu/harness.py).
+"""Experiment harness: build env + policy from config, run the training loop,
+evaluate a policy (counterpart of mupe_tpu/harness.py).
 
 `train` publishes the JAX package's headline metrics under the same names
 (`rollout_fps`, `rollout_fps_med`, `rollout_fps_avg`, `env_frames`, the
-update's metrics and `stats/<episode stat>`), writes them to a CSV (and
-wandb, if enabled), and saves the learner state and the full carry.
+update's metrics, `stats/<episode stat>` and, with `eval_interval`,
+`eval/<episode stat>`), writes them to a CSV (and wandb, if enabled), and
+saves the learner state and the full carry; `guard_nan` skips iterations
+whose loss went non-finite and `profile_dir` traces iterations 1-3.
+`evaluate` runs one greedy episode, by default on the fixed evaluation
+scenario.
 
 Not ported yet (each raises NotImplementedError): algorithms other than
-MAPPO (`train_rma` among them), the Hover task, in-training evaluation and
-its video (`eval_interval > 0`, `video`), the NaN guard (`guard_nan`) and the
-profiler hook (`profile_dir`); `evaluate` and `train_deploy`'s own script.
+MAPPO (`train_rma` among them), the Hover task, and evaluation videos
+(`video`: `utils/render.py` draws with matplotlib, which the port does not
+depend on).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import time
 from collections import deque
 from pathlib import Path
@@ -26,7 +32,11 @@ from .envs import ENV_REGISTRY
 from .learning import MAPPOCfg, MAPPOPolicy, init_carry, make_train_iter
 from .utils.checkpoint import load_checkpoint, save_checkpoint
 from .utils.config import RunCfg, apply_overrides, parse_cli
+from .utils.debug import guard_train_iter, profile_trace
 from .utils.logging import RunLogger, config_dict
+
+_NO_VIDEO = ("video (evaluation GIFs) is not ported: utils/render.py draws with matplotlib, "
+             "which the port does not depend on")
 
 
 def build(
@@ -57,20 +67,6 @@ def build(
     return env, policy, env_cfg, algo_cfg
 
 
-def _check_ported(run_cfg: RunCfg) -> None:
-    """Raise for the run options not ported yet (`build` raises for the
-    algorithm and the task)."""
-    deferred = {
-        "eval_interval > 0 (in-training evaluation)": run_cfg.eval_interval > 0,
-        "video (evaluation video)": bool(run_cfg.video),
-        "guard_nan": run_cfg.guard_nan,
-        "profile_dir": bool(run_cfg.profile_dir),
-    }
-    for what, on in deferred.items():
-        if on:
-            raise NotImplementedError(f"train: {what} is not ported yet")
-
-
 def train(
     argv: Sequence[str],
     default_task: str = "HideAndSeek",
@@ -80,12 +76,16 @@ def train(
     """The training loop (mupe_tpu/harness.py:75-241): `max_iters` or
     `total_frames`, a log row every `log_interval` iterations, a checkpoint
     every `save_interval` and at the end, `model_dir` warm start and
-    `resume_dir` exact resume.  `deploy_stage=True` threads the iteration
-    into the env's `update_epoch`, so the smoothness reward ramps.  Returns
-    the last log row's values and `total_time_s`."""
+    `resume_dir` exact resume; an evaluation episode every `eval_interval`
+    iterations (`_make_eval_prog`), the NaN guard (`guard_nan`) and a
+    profiler trace of iterations 1-3 into `profile_dir`.  `deploy_stage=True`
+    threads the iteration into the env's `update_epoch`, so the smoothness
+    reward ramps.  Returns the last log row's values (with the last
+    evaluation's) and `total_time_s`."""
     sections, top = parse_cli(argv)
     run_cfg = apply_overrides(RunCfg(task=default_task), top)
-    _check_ported(run_cfg)
+    if run_cfg.video:
+        raise NotImplementedError(f"train: {_NO_VIDEO}")
     env, policy, env_cfg, algo_cfg = build(
         run_cfg.task, sections.get("env"), sections.get("algo"), run_cfg.algo, device)
     if deploy_stage:
@@ -109,6 +109,12 @@ def train(
         # buffer and curriculum scalars, last observation, generator)
         carry = load_checkpoint(run_cfg.resume_dir, target=carry)
     train_iter = make_train_iter(env, policy)
+    if run_cfg.guard_nan:
+        # skip updates whose loss went non-finite instead of corrupting the
+        # run: a copy of the carry and one scalar host sync an iteration
+        train_iter = guard_train_iter(train_iter)
+    eval_prog = (_make_eval_prog(env, policy, run_cfg.seed) if run_cfg.eval_interval > 0
+                 else None)
 
     frames_per_iter = env.num_envs * algo_cfg.train_every
     if run_cfg.max_iters > 0:
@@ -122,7 +128,13 @@ def train(
     t_block = t_start
     # the median over the last 15 log points is stable under timing noise
     fps_window: deque = deque(maxlen=15)
+    prof = contextlib.ExitStack()
     for i in range(num_iters):
+        if run_cfg.profile_dir:
+            if i == 1:
+                prof.enter_context(profile_trace(run_cfg.profile_dir))
+            elif i == 4:
+                prof.close()
         if deploy_stage:
             carry.env_state.update_epoch = torch.tensor(
                 float(i), device=carry.env_state.update_epoch.device)
@@ -142,11 +154,101 @@ def train(
                        env_frames=env_frames)
             logger.log(row, step=env_frames)
             last_metrics = {k: float(v) for k, v in row.items()}
+        if eval_prog is not None and (i + 1) % run_cfg.eval_interval == 0:
+            ev_row = {f"eval/{k}": float(v) for k, v in eval_prog(carry.ts, i).items()}
+            logger.log(ev_row, step=env_frames)
+            last_metrics.update(ev_row)
         if run_cfg.save_interval > 0 and (i + 1) % run_cfg.save_interval == 0:
             save_checkpoint(ckpt_dir, i + 1, carry.ts)
             save_checkpoint(ckpt_dir / "full", i + 1, carry)
+    prof.close()
     save_checkpoint(ckpt_dir, num_iters, carry.ts)
     save_checkpoint(ckpt_dir / "full", num_iters, carry)
     logger.close()
     last_metrics["total_time_s"] = time.time() - t_start
     return last_metrics
+
+
+@torch.no_grad()
+def _greedy_episode(env, policy: MAPPOPolicy, ts, env_state, obs, gen: torch.Generator):
+    """`max_episode_length` greedy steps (`deterministic=True`) from
+    `env_state` and its observation `obs`.  Returns (stat keys, the
+    done-masked sum of each stat [K], the number of finished episodes, and
+    each step's first_capture_step where an episode finished, NaN elsewhere
+    [T, E]).  The sums accumulate step by step: no trajectory is kept."""
+    tp_net = ts.tp_net if policy.cfg.use_tp_net and getattr(env, "provides_tp", False) else None
+    keys, sums, n_done, capture = None, 0.0, 0.0, []
+    for _ in range(env.cfg.max_episode_length):
+        action, _, _ = policy.act(ts, obs, deterministic=True)
+        env_state, tr = env.step(env_state, action, gen, tp_net)
+        done = tr.done.float()                                      # [E, 1]
+        keys = list(tr.stats)
+        stats = torch.cat([tr.stats[k] for k in keys], dim=1)       # [E, K]
+        sums = sums + torch.sum(stats * done, dim=0)
+        n_done = n_done + torch.sum(done)
+        capture.append(torch.where(tr.done, tr.stats["first_capture_step"], math.nan)[:, 0])
+        obs = tr.obs
+    return keys, sums, n_done, torch.stack(capture)
+
+
+def _make_eval_prog(env, policy: MAPPOPolicy, seed: int):
+    """One-episode greedy evaluation (mupe_tpu/harness.py:244-322):
+    `prog(ts, i)` resets the training env's configuration afresh from a
+    generator of its own, seeded from `seed + 7919` and the iteration `i`
+    (JAX: `fold_in(PRNGKey(seed + 7919), i)`), acts greedily for
+    `max_episode_length` steps and returns the done-masked mean of every
+    stat (NaN where no episode finished) and `episode_count`.  It neither
+    reads nor advances the training carry or its generator."""
+
+    def prog(ts, i: int) -> Dict[str, torch.Tensor]:
+        gen = torch.Generator(device=env.device).manual_seed((seed + 7919) * 2**32 + i)
+        env_state = env.reset(gen)
+        obs, _ = env.observe_full(env_state, ts.tp_net)
+        keys, sums, n_done, _ = _greedy_episode(env, policy, ts, env_state, obs, gen)
+        means = torch.where(n_done > 0, sums / torch.clamp(n_done, min=1.0), math.nan)
+        out = dict(zip(keys, means.unbind()))
+        out["episode_count"] = n_done
+        return out
+
+    return prog
+
+
+def evaluate(argv: Sequence[str], device: torch.device | str = "cuda") -> Dict[str, float]:
+    """Deterministic evaluation (mupe_tpu/harness.py:577-663, reference
+    scripts/eval.py): `env.use_eval` defaults to true; the learner is warm
+    started from `model_dir`; one episode of `max_episode_length` greedy
+    steps; per-episode stats, `episodes`, and the 25th, 50th and 75th
+    percentiles of first_capture_step over the finished episodes.  Prints
+    one `key: value` line per result, sorted, as the JAX package does.
+    The first observation is taken with the loaded learner's TP net (JAX's
+    `evaluate` takes it with the freshly initialised one)."""
+    sections, top = parse_cli(argv)
+    run_cfg = apply_overrides(RunCfg(task="HideAndSeek"), top)
+    if run_cfg.video:
+        raise NotImplementedError(f"evaluate: {_NO_VIDEO}")
+    env_over = dict(sections.get("env", {}))
+    env_over.setdefault("use_eval", True)
+    env, policy, _, _ = build(run_cfg.task, env_over, sections.get("algo"), run_cfg.algo, device)
+    ts = None
+    if run_cfg.model_dir:
+        template = {k: torch.zeros((1,) + s) for k, s in env.obs_groups().items()}
+        ts = load_checkpoint(run_cfg.model_dir, target=policy.init(
+            template, torch.Generator().manual_seed(run_cfg.seed)))
+    gen = torch.Generator(device=device).manual_seed(run_cfg.seed)
+    carry = init_carry(env, policy, gen, ts=ts)
+    keys, sums, n_done, capture = _greedy_episode(
+        env, policy, carry.ts, carry.env_state, carry.obs, gen)
+    n = float(n_done)
+    if n == 0:
+        # the stats would read as real 0.0s: say so
+        print("WARNING: no episode finished within max_episode_length; "
+              "episode stats are undefined (reported as nan)")
+    result = {k: (float(v) / n if n else math.nan) for k, v in zip(keys, sums.tolist())}
+    result["episodes"] = n
+    if n:
+        caps = capture[~torch.isnan(capture)].cpu().numpy()
+        for q in (25, 50, 75):
+            result[f"first_capture_step_p{q}"] = float(np.percentile(caps, q))
+    for k in sorted(result):
+        print(f"{k}: {result[k]:.4f}")
+    return result

@@ -141,9 +141,9 @@ class RunCfg:
     wandb_project: str = "mupe_tpu"
     wandb_entity: Optional[str] = None
     # eval-video sink (reference eval.py:245-251 wandb.Video): GIF path;
-    # empty disables rendering
+    # empty disables rendering (not ported: `train` and `evaluate` raise)
     video: str = ""
     video_env_index: int = 0
-    # observability / failure detection (not ported yet: `train` raises)
+    # observability / failure detection
     guard_nan: bool = False   # skip non-finite updates (1 sync/iter)
     profile_dir: str = ""     # profiler trace of iters 1-3 → this dir

@@ -124,8 +124,7 @@ def test_train_runs_the_inkernel_loss_update(tmp_path, default_keys, mode):
     assert algo["use_inkernel_loss"] is True and algo["direct_mode"] == mode
 
 
-@pytest.mark.parametrize("arg", ["algo=ppo", "task=Hover", "eval_interval=1", "video=ev.gif",
-                                 "guard_nan=true", "profile_dir=prof"])
+@pytest.mark.parametrize("arg", ["algo=ppo", "task=Hover", "video=ev.gif"])
 def test_options_not_ported_yet_raise(tmp_path, arg):
     with pytest.raises(NotImplementedError):
         _run(tmp_path, "x", "max_iters=1", arg)

@@ -152,16 +152,6 @@ def test_reset_and_observation_shapes():
     assert (s.history == s.history[:, :1]).all()  # primed with the first frame
 
 
-@pytest.mark.parametrize("field", ["use_random_cylinder", "use_eval", "use_cl_spawn",
-                                   "eval_spawn_ratio", "eval_scenario_ratio"])
-def test_deferred_config_paths_raise(field):
-    value = {"use_random_cylinder": False, "eval_spawn_ratio": 0.2,
-             "eval_scenario_ratio": 0.2}.get(field, True)
-    with pytest.raises(NotImplementedError):
-        HideAndSeek(dataclasses.replace(HideAndSeekCfg(num_envs=2), **{field: value}),
-                    device="cpu")
-
-
 def test_configs_match_jax():
     """Same fields and defaults as the JAX configs (MAPPOCfg without its
     TPU launch knobs, with `direct_mode`, the port's counterpart of the JAX
