@@ -62,6 +62,22 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    distinct scenes); the card's evaluation against the CPU's (16 arenas,
    32 steps, phase 3's limits); and the NaN guard restoring a poisoned
    iteration's carry bit for bit, CUDA generator included.
+11. Hover and MAPPO's flat observations (no kernel: the flat MLPs are plain
+   torch on the card, as the JAX package's flat path is plain XLA): (a)
+   the card's env step, actor mean and critic value against the CPU's,
+   teacher-forced (each step the card steps the CPU's state with the CPU's
+   action and draws) at 16 arenas x 32 steps with two auto-resets, with
+   every sim2real option on and with domain randomization + payload; the
+   pos_error / head_error <= 0.02 bonus flips are counted, each must sit
+   at its threshold; (b) one `train_op` on the card against the CPU from the
+   same weights, trajectory and permutations; (c) training the drive
+   recipe's configuration (`HoverCfg(num_envs=1024, max_episode_length=300)`,
+   `MAPPOCfg(train_every=32, num_minibatches=8)`, hidden (256, 256, 256),
+   bf16) for about HOVER_SECONDS: the iteration count, env-steps/s, and the
+   mean pos_error (the arenas' distance to the target at an iteration's
+   end) of the first and last 10 iterations (the last must sit below the
+   first; every value finite), and the episode-end pos_error stat of the
+   iterations that ended episodes.
 
 Phase 2 also holds the FPS kernel (the AEG buffer's downsampling, one
 thread-block cluster) index for index against its plain version at the AEG's
@@ -173,6 +189,15 @@ RECIPE = ("env.use_init_easy_cases=true", "env.max_cylinders=6", "env.eval_spawn
           "algo.entropy_target=1.2")
 RECIPE_ITERS = 5
 JITTER_EPISODE = 200               # the jittered evaluation's episodes, cut from 800
+# phase 11: the drive recipe's Hover configuration and its card-vs-CPU checks
+HOVER_ENVS, HOVER_EPISODE, HOVER_STEPS, HOVER_MINIBATCHES = 1024, 300, 32, 8
+HOVER_SECONDS = 90.0               # phase 11's training, about
+HOVER_SIM2REAL = dict(obs_noise=True, latency=True, payload=True, obs_omega=True, obs_motor=True,
+                      action_noise=True)
+HOVER_DR = dict(dr_mass_scale=(0.8, 1.2), dr_inertia_scale=(0.7, 1.3), dr_t2w_scale=(0.8, 1.2),
+                dr_f2m_scale=(0.8, 1.2), dr_drag_scale=(0.5, 1.5),
+                dr_rotor_offset_scale=(-0.1, 0.1), dr_tau_up=(0.01, 0.05),
+                dr_tau_down=(0.01, 0.05), payload=True)
 # H100 SXM dense peaks (NVIDIA's data sheet): bf16 tensor cores, f32 outside
 # the tensor cores, memory rate
 PEAK_BF16_FLOPS = 989e12
@@ -1974,6 +1999,232 @@ def phase_eval(dev, card: str) -> dict:
     return launches
 
 
+def _flat_part(obs):
+    """The flat policy observation of a Hover observation (its "observation"
+    branch under domain randomization)."""
+    return obs["observation"] if isinstance(obs, dict) else obs
+
+
+def _flat_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_leaves(v, f"{prefix}{k}/"))
+        return out
+    return {prefix.rstrip("/"): tree}
+
+
+def check_hover_against_cpu(dev, label: str, env_kw: dict) -> None:
+    """The card's Hover step and flat policy against the CPU's,
+    teacher-forced: 16 arenas x 32 steps (episodes of 12, so two
+    auto-resets), from one set of weights (heads at unit gain).  Each step
+    the card copies the CPU's state, acts on the CPU's observation (actor
+    mean, critic value: bf16 trunks, within 3e-2 of their scale, phase 3's
+    limit) and steps with the CPU's action and the CPU's draws (noise,
+    resets): observations, reward and every stat within 1e-4 of their scale
+    (max(1, largest magnitude); the port's CPU free run against JAX's is
+    held so).  A pos_bonus or head_bonus that differs is a flip at the 0.02
+    threshold: counted and printed, each must sit within 1e-4 of it, and
+    the flipped arenas' reward, return and bonuses are left out."""
+    from mupe_tpu_torch.core import quat_axis
+    from mupe_tpu_torch.envs import Hover, HoverCfg, tree_to
+    from mupe_tpu_torch.learning import MAPPOCfg, MAPPOPolicy
+
+    cfg = dict(num_envs=16, max_episode_length=12, **env_kw)
+    env_c, env_g = Hover(HoverCfg(**cfg), device="cpu"), Hover(HoverCfg(**cfg), device=dev)
+    pols = {d: MAPPOPolicy(MAPPOCfg(), 1, 4, obs_is_dict=False, device=d) for d in ("cpu", dev)}
+    state = env_c.reset(torch.Generator().manual_seed(21))
+    obs = _flat_part(env_c.observe(state))
+    ts_c = pols["cpu"].init(obs, torch.Generator().manual_seed(22))
+    with torch.no_grad():  # heads at unit gain: O(1) actions that move the drone
+        ts_c.actor.leaves[-2].mul_(100.0)
+        ts_c.critic.leaves[-2].mul_(100.0)
+    ts_g = pols[dev].init(obs.to(dev), actor_leaves=ts_c.actor.leaves, log_std=ts_c.log_std,
+                          critic_leaves=ts_c.critic.leaves)
+    draws, real_u, real_n = [], env_c._uniform, env_c._normal
+
+    def record(fn):
+        def draw(*args):
+            v = fn(*args)
+            draws.append(v)
+            return v
+        return draw
+
+    env_c._uniform, env_c._normal = record(real_u), record(real_n)
+    env_g._uniform = lambda gen, shape, lo, hi: draws.pop(0).to(dev)
+    env_g._normal = lambda gen, shape: draws.pop(0).to(dev)
+    gen_c, gen_g = torch.Generator().manual_seed(23), torch.Generator(device=dev)
+    errs, scales, flips, at_threshold, resets = {}, {}, 0, True, 0
+
+    def hold(name, got, want, keep=None):
+        got = got.detach().cpu().float()
+        want = want.detach().float()
+        if keep is not None:
+            got, want = got[keep], want[keep]
+        if want.numel():
+            errs[name] = max(errs.get(name, 0.0), float((got - want).abs().max()))
+            scales[name] = max(scales.get(name, 0.0), float(want.abs().max()))
+
+    target = env_c._target_pos
+    for _ in range(32):
+        a_c, _, v_c = pols["cpu"].act(ts_c, obs, deterministic=True)
+        a_g, _, v_g = pols[dev].act(ts_g, obs.to(dev), deterministic=True)
+        hold("actor mean", a_g, a_c)
+        hold("critic value", v_g, v_c)
+        state_g = tree_to(state, dev)
+        state, tr_c = env_c.step(state, a_c, gen_c)
+        _, tr_g = env_g.step(state_g, a_c.to(dev), gen_g)
+        if draws:
+            raise AssertionError("the card's step took fewer draws than the CPU's")
+        resets += int(bool(tr_c.done.all()))
+        flip = ((tr_g.stats["pos_bonus"].cpu() != tr_c.stats["pos_bonus"])
+                | (tr_g.stats["head_bonus"].cpu() != tr_c.stats["head_bonus"]))[:, 0]
+        if bool(flip.any()):
+            d = tr_c.info["drone_state"][:, 0]
+            pos_err = torch.linalg.vector_norm(target - d[:, :3], dim=-1)
+            head_err = torch.linalg.vector_norm(
+                env_c._target_heading - quat_axis(d[:, 3:7], 0), dim=-1)
+            near = ((pos_err - 0.02).abs() < 1e-4) | ((head_err - 0.02).abs() < 1e-4)
+            at_threshold = at_threshold and bool(near[flip].all())
+            flips += int(flip.sum())
+        keep = ~flip
+        obs_g = _flat_leaves({"obs": tr_g.obs})
+        for k, v in _flat_leaves({"obs": tr_c.obs}).items():
+            hold(k, obs_g[k], v)
+        for k, v in tr_c.stats.items():
+            gated = k in ("return", "pos_bonus", "head_bonus")
+            hold(f"stats/{k}", tr_g.stats[k], v, keep if gated else None)
+        hold("reward", tr_g.reward, tr_c.reward, keep)
+        obs = _flat_part(tr_c.obs)
+    log(f"  {label}: card vs CPU, teacher-forced, 16 arenas x 32 steps ({resets} auto-resets); "
+        f"bonus flips at the 0.02 thresholds: {flips} of {16 * 32} (all at a threshold: "
+        f"{at_threshold})")
+    bad = []
+    for name in errs:
+        rel = 3e-2 if name in ("actor mean", "critic value") else 1e-4
+        limit = rel * (scales[name] if rel == 3e-2 else max(1.0, scales[name]))
+        if not errs[name] <= limit:
+            bad.append(name)
+    log("    max_abs_err (scale): " + "; ".join(
+        f"{n} {errs[n]:.3e} ({scales[n]:.3e})" for n in errs))
+    if bad or not at_threshold or resets != 2:
+        raise AssertionError(f"card and CPU Hover disagree on {bad} (flips at the threshold: "
+                             f"{at_threshold}, resets {resets})")
+
+
+def check_hover_update_against_cpu(dev) -> None:
+    """One flat `train_op` on the card against the CPU: 16 arenas x 16 steps
+    of a CPU rollout (the sim2real options on), the recipe's hidden widths in
+    bf16, 1 epoch of 2 minibatches from the same weights and permutation.
+    Metrics within 1e-2 relative (+1e-4), parameters within 3e-3 (two Adam
+    steps of about lr = 5e-4; phase 4's bounds for the dict path)."""
+    from mupe_tpu_torch.envs import Hover, HoverCfg, tree_to
+    from mupe_tpu_torch.learning import MAPPOCfg, MAPPOPolicy, init_carry, make_rollout
+
+    env = Hover(HoverCfg(num_envs=16, max_episode_length=12, **HOVER_SIM2REAL), device="cpu")
+    cfg = MAPPOCfg(train_every=16, num_minibatches=2, ppo_epochs=1)
+    pols = {d: MAPPOPolicy(cfg, 1, 4, obs_is_dict=False, device=d) for d in ("cpu", dev)}
+    carry = init_carry(env, pols["cpu"], torch.Generator().manual_seed(31))
+    with torch.no_grad():
+        carry.ts.actor.leaves[-2].mul_(100.0)
+        carry.ts.critic.leaves[-2].mul_(100.0)
+    ts_g = pols[dev].init(carry.obs.to(dev), actor_leaves=carry.ts.actor.leaves,
+                          log_std=carry.ts.log_std, critic_leaves=carry.ts.critic.leaves)
+    carry, traj, _ = make_rollout(env, pols["cpu"])(carry)
+    ts_c = pols["cpu"].init(carry.obs, actor_leaves=carry.ts.actor.leaves,
+                            log_std=carry.ts.log_std, critic_leaves=carry.ts.critic.leaves)
+    perms = torch.randperm(16 * 16, generator=torch.Generator().manual_seed(32))[None]
+    out = {}
+    for d, ts in (("cpu", ts_c), (dev, ts_g)):
+        new, metrics = pols[d].train_op(ts, tree_to(traj, d), carry.obs.to(d), perms=perms)
+        out[d] = (new, {k: float(v) for k, v in metrics.items()})
+    (new_c, m_c), (new_g, m_g) = out["cpu"], out[dev]
+    worst = max((abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1e-5), k) for k in m_c)
+    log(f"  flat update, card vs CPU: worst metric relative difference {worst[0]:.3e} ({worst[1]})")
+    for k, v in m_c.items():
+        if not abs(m_g[k] - v) <= 1e-2 * abs(v) + 1e-4:
+            raise AssertionError(f"card and CPU flat updates disagree on {k}: {m_g[k]} vs {v}")
+    errs = {n: float((getattr(new_g, n).flat.detach().cpu() - getattr(new_c, n).flat.detach())
+                     .abs().max()) for n in ("actor", "critic")}
+    errs["log_std"] = float((new_g.log_std.cpu() - new_c.log_std).abs().max())
+    log("  flat update, card vs CPU parameters: " + ", ".join(
+        f"{k} max_abs_err={v:.3e}" for k, v in errs.items()) + " (tol 3e-3)")
+    if not max(errs.values()) <= 3e-3:
+        raise AssertionError("card and CPU flat updates disagree on the parameters")
+
+
+def phase_hover(dev, card: str) -> dict:
+    """Phase 11: Hover + flat MAPPO.  Returns the drive's numbers."""
+    from mupe_tpu_torch.envs import Hover, HoverCfg
+    from mupe_tpu_torch.envs.hover import STAT_KEYS
+    from mupe_tpu_torch.learning import MAPPOCfg, MAPPOPolicy, init_carry, make_train_iter
+
+    log("[11] Hover + MAPPO's flat observations (no kernel on this path)")
+    check_hover_against_cpu(dev, "every sim2real option", HOVER_SIM2REAL)
+    check_hover_against_cpu(dev, "domain randomization + payload", HOVER_DR)
+    check_hover_update_against_cpu(dev)
+
+    env = Hover(HoverCfg(num_envs=HOVER_ENVS, max_episode_length=HOVER_EPISODE), device=dev)
+    policy = MAPPOPolicy(MAPPOCfg(train_every=HOVER_STEPS, num_minibatches=HOVER_MINIBATCHES,
+                                  hidden_units=(256, 256, 256), compute_dtype="bfloat16"),
+                         1, 4, obs_is_dict=False, device=dev)
+    log(f"  the drive recipe: HoverCfg(num_envs={HOVER_ENVS}, max_episode_length={HOVER_EPISODE}), "
+        f"MAPPOCfg(train_every={HOVER_STEPS}, num_minibatches={HOVER_MINIBATCHES}), hidden "
+        f"(256, 256, 256), bf16, about {HOVER_SECONDS:.0f} s")
+    carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(42))
+    train_iter = make_train_iter(env, policy)
+    # each iteration's pos_error: the arenas' mean distance to the target at
+    # its end; 10 consecutive iterations (320 steps) sample the 300-step
+    # episode's phases about evenly.  The episode-end stat (the recipe's) is
+    # kept where episodes ended (one iteration in 9.4).
+    pos_errors, ended, iters = [], [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        carry, metrics, ep_stats = train_iter(carry)
+        iters += 1
+        st = carry.env_state
+        pos_errors.append(float(torch.linalg.vector_norm(st.target_pos - st.drone.pos,
+                                                         dim=-1).mean()))  # one host read
+        if float(ep_stats["episode_count"]) > 0:
+            if set(ep_stats) != set(STAT_KEYS) | {"episode_count"}:
+                raise AssertionError(f"Hover ep_stats keys {sorted(ep_stats)}")
+            if not (_all_finite(ep_stats) and _all_finite(metrics)):
+                raise AssertionError("non-finite Hover metric or stat")
+            ended.append(float(ep_stats["pos_error"]))
+        if time.perf_counter() - t0 >= HOVER_SECONDS and iters >= 20:
+            break
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    split, last_t = {}, [time.perf_counter()]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split[name] = split.get(name, 0.0) + now - last_t[0]
+        last_t[0] = now
+
+    carry, metrics, _ = train_iter(carry, mark=mark)
+    log("  one more iteration, phases synchronised: " + ", ".join(
+        f"{k} {v * 1e3:.2f} ms" for k, v in split.items()))
+    if not (_all_finite(metrics) and all(bool(torch.isfinite(p).all()) for p in
+                                         (carry.ts.actor.flat, carry.ts.critic.flat))):
+        raise AssertionError("non-finite Hover parameter or metric after training")
+    rate = HOVER_ENVS * HOVER_STEPS * iters / seconds
+    first, last = statistics.mean(pos_errors[:10]), statistics.mean(pos_errors[-10:])
+    log(f"  Hover training: {iters} iterations in {seconds:.3f} s = {rate:.1f} env-steps/s "
+        f"on {card}")
+    log(f"  pos_error (mean distance to the target at an iteration's end): first 10 "
+        f"iterations {first:.4f}, last 10 {last:.4f}; by iteration: "
+        + " ".join(f"{v:.3f}" for v in pos_errors))
+    log(f"  episode-end pos_error ({len(ended)} iterations ended episodes): "
+        + " ".join(f"{v:.4f}" for v in ended))
+    log("  metrics: " + ", ".join(f"{k}={float(v):.5g}" for k, v in sorted(metrics.items())))
+    if not last < first:
+        raise AssertionError(f"Hover's pos_error did not fall ({first} -> {last})")
+    return dict(iterations=iters, seconds=seconds, rate=rate, first=first, last=last)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
@@ -1995,6 +2246,7 @@ def main() -> int:
     phase_config_train(dev, card, 9, "past-the-tile-limits", LIMIT_ENV,
                        (None, "fwdloss", "agrad"))
     eval_launches = phase_eval(dev, card)
+    phase_hover(dev, card)
     launches["encoder_backward:stage_b"] = launches["weight_grads"]
     launches["tp_backward:stage_b"] = launches["tp_weight_grads"]
     summary = {"kernels": [

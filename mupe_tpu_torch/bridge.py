@@ -1,8 +1,10 @@
 """Convert the JAX package's parameters and env state into the port's tensors.
 
 Inputs are nested dicts of numpy arrays: a flax parameter tree as
-`jax.device_get` returns it, and an env state turned into a dict (for
-example `dataclasses.asdict` of a fetched `HideAndSeekState`).  The port
+`jax.device_get` returns it (the entity-encoder Actor / Critic, the flat
+ones, the TP net), optimizer moments unravelled into such trees, a value
+normaliser, and an env state turned into a dict (for example
+`dataclasses.asdict` of a fetched `HideAndSeekState` or `HoverState`).  The port
 itself never imports JAX; the caller does the fetch.
 """
 from __future__ import annotations
@@ -13,13 +15,14 @@ import numpy as np
 import torch
 
 from .controllers import PIDRateState
-from .dynamics import DroneState
+from .dynamics import DroneState, QuadrotorParams
 from .envs.genbuffer import GenBufferState
 from .envs.hideandseek import HideAndSeekState
+from .envs.hover import HoverState
 from .learning.mappo import MAPPOPolicy, MAPPOState
 from .learning.modules.networks import entity_group_order
 from .learning.optim import AdamState
-from .learning.valuenorm import ValueNorm1
+from .learning.valuenorm import ValueNorm1, ValueNorm2
 
 _GATES = ("i", "f", "g", "o")
 
@@ -69,6 +72,29 @@ def encoder_leaves(params: Mapping, device="cpu") -> Tuple[torch.Tensor, ...]:
     return tuple(_t(l, device) for l in leaves)
 
 
+def flat_leaves(params: Mapping, device="cpu") -> Tuple[torch.Tensor, ...]:
+    """Flax flat Actor / Critic tree (`FlatEncoder` + head) → the leaves of
+    `FlatHeadNet`: the input LayerNorm's scale and bias, (kernel, bias, ln
+    scale, ln bias) per MLP layer, the head's kernel and bias."""
+    p = params["params"]
+    enc = p["FlatEncoder_0"]
+    mlp = enc["MLP_0"]
+    leaves = [enc["LayerNorm_0"]["scale"], enc["LayerNorm_0"]["bias"]]
+    for i in range(sum(k.startswith("Dense_") for k in mlp)):
+        leaves += [mlp[f"Dense_{i}"]["kernel"], mlp[f"Dense_{i}"]["bias"],
+                   mlp[f"LayerNorm_{i}"]["scale"], mlp[f"LayerNorm_{i}"]["bias"]]
+    head = p["DiagGaussianHead_0"]["Dense_0"] if "DiagGaussianHead_0" in p else p["Dense_0"]
+    leaves += [head["kernel"], head["bias"]]
+    return tuple(_t(l, device) for l in leaves)
+
+
+def _network_leaves(params: Mapping, device="cpu") -> Tuple[torch.Tensor, ...]:
+    """Either network kind's leaves, by the tree's encoder."""
+    if "FlatEncoder_0" in params["params"]:
+        return flat_leaves(params, device)
+    return encoder_leaves(params, device)
+
+
 def actor_log_std(params: Mapping, device="cpu") -> torch.Tensor:
     return _t(params["params"]["DiagGaussianHead_0"]["log_std"], device)
 
@@ -96,12 +122,12 @@ def policy_state(
     tp_params: Mapping | None = None,
 ) -> MAPPOState:
     """A `MAPPOState` holding the converted JAX parameters; `obs_example`
-    (a port observation) gives the token groups."""
+    (a port observation) gives the token groups, or the flat width."""
     return policy.init(
         obs_example,
-        actor_leaves=encoder_leaves(actor_params),
+        actor_leaves=_network_leaves(actor_params),
         log_std=actor_log_std(actor_params),
-        critic_leaves=encoder_leaves(critic_params),
+        critic_leaves=_network_leaves(critic_params),
         tp_leaves=tp_leaves(tp_params) if tp_params is not None else None,
     )
 
@@ -117,13 +143,23 @@ def value_norm(d: Mapping[str, Any], device="cpu") -> ValueNorm1:
     )
 
 
+def value_norm2(d: Mapping[str, Any], device="cpu") -> ValueNorm2:
+    """JAX `ValueNorm2` (as a dict of numpy arrays) → the port's."""
+    return ValueNorm2(
+        running_mean=_t(d["running_mean"], device),
+        running_var=_t(d["running_var"], device),
+        count=_t(d["count"], device),
+        subtract_mean=bool(d.get("subtract_mean", True)),
+    )
+
+
 def _group_tensors(tree: Mapping, device) -> list:
-    """A parameter-shaped tree → the port's parameter group: [flat encoder
-    leaves, log_std] (actor), [flat encoder leaves] (critic) or the TP net's
+    """A parameter-shaped tree → the port's parameter group: [flat network
+    leaves, log_std] (actor), [flat network leaves] (critic) or the TP net's
     five leaves."""
     p = tree["params"]
-    if any(k.startswith("PartialAttentionEncoder") for k in p):
-        group = [torch.cat([l.reshape(-1) for l in encoder_leaves(tree, device)])]
+    if "FlatEncoder_0" in p or any(k.startswith("PartialAttentionEncoder") for k in p):
+        group = [torch.cat([l.reshape(-1) for l in _network_leaves(tree, device)])]
         if "DiagGaussianHead_0" in p:
             group.append(actor_log_std(tree, device))
         return group
@@ -138,7 +174,7 @@ def adam_state(mu_tree: Mapping, nu_tree: Mapping, count, device="cpu") -> AdamS
     return AdamState(
         mu=_group_tensors(mu_tree, device),
         nu=_group_tensors(nu_tree, device),
-        count=torch.as_tensor(np.asarray(count), dtype=torch.int32).to(device),
+        count=torch.as_tensor(np.array(count), dtype=torch.int32).to(device),
     )
 
 
@@ -164,6 +200,38 @@ def env_state(d: Mapping[str, Any], device="cpu") -> HideAndSeekState:
         tp_pred=_t(d["tp_pred"], device),
         gen=None if d.get("gen") is None else GenBufferState(
             **{k: _t(v, device) for k, v in d["gen"].items()}),
+    )
+
+
+def _quadrotor_params(d: Mapping[str, Any], device) -> QuadrotorParams:
+    arrays = ("mass", "inertia", "kf", "km", "directions", "tau_up", "tau_down", "rotor_pos",
+              "drag_coef")
+    return QuadrotorParams(
+        **{k: _t(d[k], device) for k in arrays},
+        target_clip=float(d["target_clip"]), max_thrust_ratio=float(d["max_thrust_ratio"]),
+        fixed_yaw=bool(d["fixed_yaw"]), num_rotors=int(d["num_rotors"]),
+    )
+
+
+def hover_state(d: Mapping[str, Any], device="cpu") -> HoverState:
+    """JAX `HoverState` (as a dict of numpy arrays) → the port's state, the
+    per-env randomized parameters included.  The PRNG key has no
+    counterpart here."""
+    dr, pid = d["drone"], d["pid"]
+    dyn, intr, obs_h = (d.get(k) for k in ("dyn_params", "intrinsics", "obs_h"))
+    return HoverState(
+        drone=DroneState(**{k: _t(dr[k], device)
+                            for k in ("pos", "quat", "vel", "angvel", "throttle")}),
+        pid=PIDRateState(integ=_t(pid["integ"], device),
+                         last_body_rate=_t(pid["last_body_rate"], device)),
+        progress=_t(np.asarray(d["progress"]).astype(np.int32), device),
+        stats={k: _t(v, device) for k, v in d["stats"].items()},
+        **{k: _t(d[k], device) for k in (
+            "prev_action", "target_pos", "target_heading", "last_linear_v", "last_angular_v",
+            "last_linear_a", "last_angular_a", "payload_mass", "payload_z", "obs_buf")},
+        dyn_params=None if dyn is None else _quadrotor_params(dyn, device),
+        intrinsics=None if intr is None else _t(intr, device),
+        obs_h=None if obs_h is None else _t(obs_h, device),
     )
 
 

@@ -1,7 +1,9 @@
-"""Quadrotor physical parameters (counterpart of mupe_tpu/dynamics/params.py).
-
-The port carries the Crazyflie, the drone of the main path; other models of
-the JAX package's drone zoo raise.
+"""Quadrotor physical parameters and the drone zoo (counterpart of
+mupe_tpu/dynamics/params.py): every model of the JAX package's zoo, the
+Crazyflie (the main path's), its deployment copy, Hummingbird, Iris, and the
+multirotors of 6 and 12 rotors (Firefly, Neo11, OMAV).  `QuadrotorParams`
+leaves may carry leading [num_envs, 1] dimensions (domain randomization,
+`dynamics/randomization.py`).
 """
 from __future__ import annotations
 
@@ -11,8 +13,10 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-# reference: robots/assets/usd/crazyflie.yaml (calibrated sim-to-real params)
+# the drone zoo: physical constants of the reference asset YAMLs
+# (robots/assets/usd/*.yaml); kf_i = max_rot_vel_i^2 * force_constant_i, km_i likewise
 DRONE_ZOO: Dict[str, Dict[str, Any]] = {
+    # reference: robots/assets/usd/crazyflie.yaml (calibrated sim-to-real params)
     "crazyflie": dict(
         mass=0.0321,
         inertia=(1.4e-5, 1.4e-5, 2.17e-5),
@@ -28,6 +32,116 @@ DRONE_ZOO: Dict[str, Dict[str, Any]] = {
         max_thrust_ratio=0.9,
         fixed_yaw=False,
         num_rotors=4,
+    ),
+    # reference: robots/assets/usd/crazyflie_deploy.yaml (deployment stage)
+    "crazyflie_deploy": dict(
+        mass=0.0321,
+        inertia=(1.4e-5, 1.4e-5, 2.17e-5),
+        arm_length=0.043,
+        rotor_angles=(0.78539816, 2.35619449, 3.92699082, 5.49778714),
+        directions=(-1.0, 1.0, -1.0, 1.0),
+        force_constants=2.350347298350041e-08,
+        moment_constants=7.24e-10,
+        max_rotation_velocities=2315.0,
+        time_constant=0.025,
+        drag_coef=0.0,
+        target_clip=1.0,
+        max_thrust_ratio=0.9,
+        fixed_yaw=False,
+        num_rotors=4,
+    ),
+    # reference: robots/assets/usd/hummingbird.yaml
+    "hummingbird": dict(
+        mass=0.716,
+        inertia=(0.007, 0.007, 0.012),
+        arm_length=0.17,
+        rotor_angles=(0.0, 1.57079632679, 3.14159265359, -1.57079632679),
+        directions=(-1.0, 1.0, -1.0, 1.0),
+        force_constants=8.54858e-06,
+        moment_constants=1.3677728816219314e-07,
+        max_rotation_velocities=838.0,
+        time_constant=0.025,
+        drag_coef=0.2,
+        target_clip=1.0,
+        max_thrust_ratio=1.0,
+        fixed_yaw=False,
+        num_rotors=4,
+    ),
+    # reference: robots/assets/usd/firefly.yaml (hexarotor)
+    "firefly": dict(
+        mass=1.56779,
+        inertia=(0.0347563, 0.0458929, 0.0977),
+        arm_length=0.215,
+        rotor_angles=(
+            0.52359877559, 1.57079632679, 2.61799387799,
+            -2.61799387799, -1.57079632679, -0.52359877559,
+        ),
+        directions=(1.0, -1.0, 1.0, -1.0, 1.0, -1.0),
+        force_constants=8.54858e-06,
+        moment_constants=1.3677728816219314e-07,
+        max_rotation_velocities=838.0,
+        time_constant=0.025,
+        drag_coef=0.3,
+        target_clip=1.0,
+        max_thrust_ratio=1.0,
+        fixed_yaw=False,
+        num_rotors=6,
+    ),
+    # reference: robots/assets/usd/iris.yaml
+    "iris": dict(
+        mass=1.52,
+        inertia=(0.0347563, 0.0458929, 0.0977),
+        arm_length=0.255539,
+        rotor_angles=(-0.533708, 2.565218, 0.533708, -2.565218),
+        directions=(1.0, 1.0, -1.0, -1.0),
+        force_constants=8.54858e-06,
+        moment_constants=1.3677728816219314e-07,
+        max_rotation_velocities=838.0,
+        time_constant=0.025,
+        drag_coef=0.2,
+        target_clip=1.0,
+        max_thrust_ratio=1.0,
+        fixed_yaw=False,
+        num_rotors=4,
+    ),
+    # reference: robots/assets/usd/neo11.yaml (hexarotor)
+    "neo11": dict(
+        mass=3.42,
+        inertia=(0.0608, 0.0688, 0.1489),
+        arm_length=0.2895,
+        rotor_angles=(
+            0.52359877559, 1.57079632679, 2.61799387799,
+            -2.61799387799, -1.57079632679, -0.52359877559,
+        ),
+        directions=(1.0, -1.0, 1.0, -1.0, 1.0, -1.0),
+        force_constants=1.269e-05,
+        moment_constants=2.12608256333624e-07,
+        max_rotation_velocities=1047.2,
+        time_constant=0.025,
+        drag_coef=0.3,
+        target_clip=1.0,
+        max_thrust_ratio=1.0,
+        fixed_yaw=False,
+        num_rotors=6,
+    ),
+    # reference: robots/assets/usd/omav.yaml (12-rotor omnidirectional; modeled
+    # here as a planar 12-rotor ring — tilt actuation is out of scope, as the
+    # reference never trains it)
+    "omav": dict(
+        mass=4.04,
+        inertia=(0.3, 0.3, 0.5),
+        arm_length=0.3,
+        rotor_angles=tuple(np.linspace(0.0, 2.0 * np.pi, 12, endpoint=False).tolist()),
+        directions=(1.0, -1.0, -1.0, 1.0, 1.0, -1.0, -1.0, 1.0, -1.0, 1.0, 1.0, -1.0),
+        force_constants=7.2e-06,
+        moment_constants=1.0799999999999999e-07,
+        max_rotation_velocities=1700.0,
+        time_constant=0.025,
+        drag_coef=0.3,
+        target_clip=1.0,
+        max_thrust_ratio=1.0,
+        fixed_yaw=False,
+        num_rotors=12,
     ),
 }
 
@@ -65,9 +179,7 @@ def make_params(
 ) -> QuadrotorParams:
     """Build `QuadrotorParams` for a drone-zoo model (float32)."""
     if model not in DRONE_ZOO:
-        raise NotImplementedError(
-            f"drone model {model!r} is not ported; available: {sorted(DRONE_ZOO)}"
-        )
+        raise KeyError(f"unknown drone model {model!r}; the zoo has {sorted(DRONE_ZOO)}")
     cfg = DRONE_ZOO[model]
     r = cfg["num_rotors"]
     angles = np.asarray(cfg["rotor_angles"], dtype=np.float64)

@@ -51,9 +51,10 @@ class DroneState:
 def hover_state(
     params: QuadrotorParams, pos: torch.Tensor, quat: torch.Tensor
 ) -> DroneState:
-    """A zero-velocity state at hover throttle."""
+    """A zero-velocity state at hover throttle (`params` may be per-env
+    randomized ones, [E, 1]-leading leaves)."""
     batch = tuple(pos.shape[:-1])
-    throttle = params.hover_throttle.to(pos.dtype).expand(batch + (params.num_rotors,))
+    throttle = params.hover_throttle[..., None].to(pos.dtype).expand(batch + (params.num_rotors,))
     return DroneState(
         pos=pos,
         quat=quat,

@@ -8,12 +8,15 @@ update's metrics, `stats/<episode stat>` and, with `eval_interval`,
 saves the learner state and the full carry; `guard_nan` skips iterations
 whose loss went non-finite and `profile_dir` traces iterations 1-3.
 `evaluate` runs one greedy episode, by default on the fixed evaluation
-scenario.
+scenario (HideAndSeek's: it forces `use_eval`, which only HideAndSeek's
+configurations have, as in the JAX package).  Tasks: HideAndSeek and its
+AEG and sim-free variants, and Hover on flat observations.
 
 Not ported yet (each raises NotImplementedError): algorithms other than
-MAPPO (`train_rma` among them), the Hover task, and evaluation videos
-(`video`: `utils/render.py` draws with matplotlib, which the port does not
-depend on).
+MAPPO (`train_rma` among them), so Hover's dict observations (domain
+randomization, the observation history: ppo_adapt's inputs) and its depth
+camera, and evaluation videos (`video`: `utils/render.py` draws with
+matplotlib, which the port does not depend on).
 """
 from __future__ import annotations
 
@@ -47,9 +50,11 @@ def build(
     device: torch.device | str = "cuda",
 ):
     """(env, policy, env_cfg, algo_cfg) for a registered task (the env class
-    and its `cfg_cls`) and MAPPO.  The policy's TP-net settings follow the
-    env's first, so `algo.*` overrides still win
-    (mupe_tpu/learning/registry.py `_mk_cfg`)."""
+    and its `cfg_cls`) and MAPPO.  For an env that provides the TP net's
+    input, the policy's TP-net settings follow the env's first, so `algo.*`
+    overrides still win; the observation is a dict for such an env or where
+    the env's configuration says so (mupe_tpu/learning/registry.py `_mk_cfg`,
+    `_obs_is_dict`)."""
     if algo.lower() != "mappo":
         raise NotImplementedError(f"algo {algo!r} is not ported yet (MAPPO only)")
     if task not in ENV_REGISTRY:
@@ -57,13 +62,19 @@ def build(
     env_cls = ENV_REGISTRY[task]
     env_cfg = apply_overrides(env_cls.cfg_cls(), env_overrides or {})
     env = env_cls(env_cfg, device=device)
-    algo_cfg = dataclasses.replace(
-        MAPPOCfg(), use_tp_net=env_cfg.use_tp_net,
-        future_prediction_step=env_cfg.future_prediction_step, window_step=env_cfg.window_step)
+    provides_tp = getattr(env, "provides_tp", False)
+    algo_cfg = MAPPOCfg()
+    if provides_tp:
+        algo_cfg = dataclasses.replace(
+            algo_cfg, use_tp_net=env_cfg.use_tp_net,
+            future_prediction_step=env_cfg.future_prediction_step,
+            window_step=env_cfg.window_step)
     algo_cfg = apply_overrides(algo_cfg, algo_overrides or {})
-    policy = MAPPOPolicy(algo_cfg, n_agents=env.num_agents, action_dim=env.action_dim,
-                         obs_is_dict=True, tp_input_dim=env_cfg.tp_input_dim, device=device,
-                         tp_history_step=env_cfg.history_step)
+    policy = MAPPOPolicy(
+        algo_cfg, n_agents=env.num_agents, action_dim=env.action_dim,
+        obs_is_dict=provides_tp or bool(getattr(env_cfg, "obs_is_dict", False)),
+        tp_input_dim=getattr(env_cfg, "tp_input_dim", None) if provides_tp else None,
+        device=device, tp_history_step=getattr(env_cfg, "history_step", 10))
     return env, policy, env_cfg, algo_cfg
 
 
@@ -175,20 +186,23 @@ def _greedy_episode(env, policy: MAPPOPolicy, ts, env_state, obs, gen: torch.Gen
     `env_state` and its observation `obs`.  Returns (stat keys, the
     done-masked sum of each stat [K], the number of finished episodes, and
     each step's first_capture_step where an episode finished, NaN elsewhere
-    [T, E]).  The sums accumulate step by step: no trajectory is kept."""
-    tp_net = ts.tp_net if policy.cfg.use_tp_net and getattr(env, "provides_tp", False) else None
+    [T, E], or None for an env without that stat).  The sums accumulate step
+    by step: no trajectory is kept."""
+    provides_tp = getattr(env, "provides_tp", False)
+    step_args = (ts.tp_net if policy.cfg.use_tp_net else None,) if provides_tp else ()
     keys, sums, n_done, capture = None, 0.0, 0.0, []
     for _ in range(env.cfg.max_episode_length):
         action, _, _ = policy.act(ts, obs, deterministic=True)
-        env_state, tr = env.step(env_state, action, gen, tp_net)
+        env_state, tr = env.step(env_state, action, gen, *step_args)
         done = tr.done.float()                                      # [E, 1]
-        keys = list(tr.stats)
+        keys = keys or list(tr.stats)  # one order for every step
         stats = torch.cat([tr.stats[k] for k in keys], dim=1)       # [E, K]
         sums = sums + torch.sum(stats * done, dim=0)
         n_done = n_done + torch.sum(done)
-        capture.append(torch.where(tr.done, tr.stats["first_capture_step"], math.nan)[:, 0])
+        if "first_capture_step" in tr.stats:
+            capture.append(torch.where(tr.done, tr.stats["first_capture_step"], math.nan)[:, 0])
         obs = tr.obs
-    return keys, sums, n_done, torch.stack(capture)
+    return keys, sums, n_done, torch.stack(capture) if capture else None
 
 
 def _make_eval_prog(env, policy: MAPPOPolicy, seed: int):
@@ -203,7 +217,10 @@ def _make_eval_prog(env, policy: MAPPOPolicy, seed: int):
     def prog(ts, i: int) -> Dict[str, torch.Tensor]:
         gen = torch.Generator(device=env.device).manual_seed((seed + 7919) * 2**32 + i)
         env_state = env.reset(gen)
-        obs, _ = env.observe_full(env_state, ts.tp_net)
+        if getattr(env, "provides_tp", False):
+            obs, _ = env.observe_full(env_state, ts.tp_net)
+        else:
+            obs = env.observe(env_state)
         keys, sums, n_done, _ = _greedy_episode(env, policy, ts, env_state, obs, gen)
         means = torch.where(n_done > 0, sums / torch.clamp(n_done, min=1.0), math.nan)
         out = dict(zip(keys, means.unbind()))

@@ -1,15 +1,22 @@
 """MAPPO (counterpart of mupe_tpu/learning/mappo.py): acting and the update.
 
-The actor and the critic are PartialAttentionEncoder networks with linear
-heads over dict observations, held as canonical parameter leaves
-(mupe_tpu_torch/ops/fused_encoder.py); `act` runs both in one
-`encoder_pair_forward` launch and `value_op` runs the critic through
-`encoder_forward`.  `train_op` is the update of the JAX package's packed
-path: GAE, `ValueNorm1`, the TP net's supervised step and the joint PPO
-minibatches of `_update_joint_flat`, whose gradients come from the backward
-kernels through the autograd Functions under the forward wrappers, or, with
-`use_inkernel_loss`, of `_update_joint_direct`, whose loss gradients come out
-of the forward kernel itself (`pair_ppo_grads_fwdloss` / `pair_ppo_grads`).
+Over dict observations of entity groups the actor and the critic are
+PartialAttentionEncoder networks with linear heads, held as canonical
+parameter leaves (mupe_tpu_torch/ops/fused_encoder.py); `act` runs both in
+one `encoder_pair_forward` launch and `value_op` runs the critic through
+`encoder_forward`.  `train_op` is then the update of the JAX package's
+packed path: GAE, `ValueNorm1`, the TP net's supervised step and the joint
+PPO minibatches of `_update_joint_flat`, whose gradients come from the
+backward kernels through the autograd Functions under the forward wrappers,
+or, with `use_inkernel_loss`, of `_update_joint_direct`, whose loss
+gradients come out of the forward kernel itself (`pair_ppo_grads_fwdloss` /
+`pair_ppo_grads`).
+
+Over flat observations ([..., n, D], Hover's) the actor and the critic are
+`FlatHeadNet`s (LayerNorm + MLP in `compute_dtype`, float32 heads) in plain
+torch, as in the JAX package, whose flat path runs no kernel; `train_op`
+takes JAX's non-joint branch: per minibatch `_update_actor`, then
+`_update_critic`, each with its own loss, clip and Adam step.
 """
 from __future__ import annotations
 
@@ -42,7 +49,13 @@ from ..ops.fused_encoder import (
     split_flat,
 )
 from .modules.distributions import Gaussian
-from .modules.networks import entity_group_order, lecun_normal, orthogonal
+from .modules.networks import (
+    FlatHeadNet,
+    entity_group_order,
+    init_flat_leaves,
+    lecun_normal,
+    orthogonal,
+)
 from .gae import compute_gae
 from .optim import AdamState, adam_updates, clip_by_global_norm, global_norm
 from .tp_net import TPNet
@@ -102,6 +115,9 @@ class MAPPOCfg:
 
 
 DIRECT_MODES = ("fwdloss", "agrad")
+# dict-observation branches that are not entity groups: Hover's with domain
+# randomization (intrinsics) or an observation history; ppo_adapt's inputs
+_NON_ENTITY_KEYS = ("observation", "intrinsics", "observation_h", "depth")
 
 
 class EncoderHead(nn.Module):
@@ -155,11 +171,13 @@ def init_encoder_leaves(spec: EncoderSpec, head: str, generator=None):
 class MAPPOState:
     """All learnable state: parameters, optimizer states, the value
     normaliser and (with `entropy_target`) the adaptive entropy coefficient.
-    `train_op` updates it in place (the tensors' storage is reused)."""
+    `train_op` updates it in place (the tensors' storage is reused).  The
+    networks are `EncoderHead`s over dict observations, `FlatHeadNet`s over
+    flat ones."""
 
-    actor: EncoderHead
+    actor: EncoderHead | FlatHeadNet
     log_std: torch.Tensor          # [A]
-    critic: EncoderHead
+    critic: EncoderHead | FlatHeadNet
     tp_net: Optional[TPNet] = None
     actor_opt: Optional[AdamState] = None   # over [actor.flat, log_std]
     critic_opt: Optional[AdamState] = None  # over [critic.flat]
@@ -274,7 +292,6 @@ class MAPPOPolicy:
         tp_history_step: int = 10,
     ):
         unsupported = {
-            "obs_is_dict=False": not obs_is_dict,
             "share_actor=False": not cfg.share_actor,
             f"critic_input={cfg.critic_input!r}": cfg.critic_input != "obs",
             f"attn_encoder={cfg.attn_encoder!r}":
@@ -290,6 +307,8 @@ class MAPPOPolicy:
         self.cfg = cfg
         self.n_agents = n_agents
         self.action_dim = action_dim
+        self.obs_is_dict = obs_is_dict
+        self.compute_dtype = getattr(torch, cfg.compute_dtype)
         self.tp_input_dim = tp_input_dim
         self.tp_history_step = tp_history_step
         self.device = torch.device(device)
@@ -297,6 +316,12 @@ class MAPPOPolicy:
     def specs(self, obs: Dict[str, torch.Tensor]):
         """(group names, actor spec, critic spec) for a dict observation
         with leaves [..., k, d]."""
+        other = [k for k in obs if k in _NON_ENTITY_KEYS]
+        if other:
+            raise NotImplementedError(
+                f"MAPPO cannot train dict observations with the branches {other} (Hover "
+                "with dr_* ranges or obs_history_len): they are ppo_adapt's inputs, not "
+                "ported yet (ROADMAP A3b); the JAX package's MAPPO fails on them too")
         names = entity_group_order(obs.keys())
         groups = tuple((obs[n].shape[-2], obs[n].shape[-1]) for n in names)
         return (names, EncoderSpec(groups=groups, head_dim=self.action_dim),
@@ -304,7 +329,7 @@ class MAPPOPolicy:
 
     def init(
         self,
-        obs_example: Dict[str, torch.Tensor],
+        obs_example,
         generator: Optional[torch.Generator] = None,
         actor_leaves=None,
         log_std=None,
@@ -312,12 +337,24 @@ class MAPPOPolicy:
         tp_leaves=None,
     ) -> MAPPOState:
         """Parameters from given leaves (e.g. converted by `bridge`) or, for
-        any not given, initialised from `generator` (a CPU generator)."""
-        _, spec_a, spec_c = self.specs(obs_example)
-        if actor_leaves is None:
-            actor_leaves = init_encoder_leaves(spec_a, "actor", generator)
-        if critic_leaves is None:
-            critic_leaves = init_encoder_leaves(spec_c, "critic", generator)
+        any not given, initialised from `generator` (a CPU generator).
+        `obs_example` is a dict of entity groups, or a flat [..., n, D]
+        observation."""
+        if self.obs_is_dict:
+            _, spec_a, spec_c = self.specs(obs_example)
+            if actor_leaves is None:
+                actor_leaves = init_encoder_leaves(spec_a, "actor", generator)
+            if critic_leaves is None:
+                critic_leaves = init_encoder_leaves(spec_c, "critic", generator)
+            actor, critic = EncoderHead(spec_a, actor_leaves), EncoderHead(spec_c, critic_leaves)
+        else:
+            d, hidden, dt = obs_example.shape[-1], self.cfg.hidden_units, self.compute_dtype
+            if actor_leaves is None:
+                actor_leaves = init_flat_leaves(d, hidden, self.action_dim, "actor", generator)
+            if critic_leaves is None:
+                critic_leaves = init_flat_leaves(d, hidden, 1, "critic", generator)
+            actor = FlatHeadNet(d, hidden, self.action_dim, dt, actor_leaves)
+            critic = FlatHeadNet(d, hidden, 1, dt, critic_leaves)
         if log_std is None:
             log_std = torch.zeros(self.action_dim)
         tp_net = None
@@ -327,9 +364,9 @@ class MAPPOPolicy:
                 history_step=self.tp_history_step, leaves=tp_leaves, generator=generator, device=self.device,
             )
         ts = MAPPOState(
-            actor=EncoderHead(spec_a, actor_leaves).to(self.device),
+            actor=actor.to(self.device),
             log_std=torch.as_tensor(log_std, dtype=torch.float32).to(self.device),
-            critic=EncoderHead(spec_c, critic_leaves).to(self.device),
+            critic=critic.to(self.device),
             tp_net=tp_net,
             value_norm=ValueNorm1.create((1,), beta=self.cfg.value_norm_beta, device=self.device),
         )
@@ -342,8 +379,11 @@ class MAPPOPolicy:
         return ts
 
     @torch.no_grad()
-    def value_op(self, ts: MAPPOState, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """V(s) per agent → [..., n, 1] (the critic alone, `encoder_forward`)."""
+    def value_op(self, ts: MAPPOState, obs) -> torch.Tensor:
+        """V(s) per agent → [..., n, 1] (the critic alone: `encoder_forward`,
+        or the flat critic)."""
+        if not self.obs_is_dict:
+            return ts.critic(obs)
         names, _, spec_c = self.specs(obs)
         x, lead = pack_obs(spec_c, obs, names)
         return encoder_forward(spec_c, list(ts.critic.leaves), x).reshape(lead + (1,))
@@ -352,20 +392,25 @@ class MAPPOPolicy:
     def act(
         self,
         ts: MAPPOState,
-        obs: Dict[str, torch.Tensor],
+        obs,
         generator: Optional[torch.Generator] = None,
         deterministic: bool = False,
         noise: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Sample actions → (action, logp [..., n, 1], value [..., n, 1]).
-        Actor and critic run in one `encoder_pair_forward` launch.  `noise`
-        (standard normal, the action's shape) replaces the generator's draw."""
-        names, spec_a, spec_c = self.specs(obs)
-        x, lead = pack_obs(spec_a, obs, names)
-        mean, value = encoder_pair_forward(
-            spec_a, spec_c, list(ts.actor.leaves), list(ts.critic.leaves), x
-        )
-        mean = mean.reshape(lead + (self.action_dim,))
+        Over dict observations actor and critic run in one
+        `encoder_pair_forward` launch.  `noise` (standard normal, the
+        action's shape) replaces the generator's draw."""
+        if self.obs_is_dict:
+            names, spec_a, spec_c = self.specs(obs)
+            x, lead = pack_obs(spec_a, obs, names)
+            mean, value = encoder_pair_forward(
+                spec_a, spec_c, list(ts.actor.leaves), list(ts.critic.leaves), x
+            )
+            mean = mean.reshape(lead + (self.action_dim,))
+        else:
+            mean, value = ts.actor(obs), ts.critic(obs)
+            lead = tuple(obs.shape[:-1])
         dist = Gaussian(mean=mean, log_std=ts.log_std.expand(mean.shape))
         action = dist.mode if deterministic else dist.sample(generator, noise)
         return action, dist.log_prob(action)[..., None], value.reshape(lead + (1,))
@@ -405,8 +450,9 @@ class MAPPOPolicy:
         value, flat GAE + advantage normalisation + `ValueNorm1`, the TP
         net's supervised step, then `ppo_epochs` x `num_minibatches` joint
         actor+critic steps (`_update_joint_flat`, or `_update_joint_direct`
-        with `use_inkernel_loss`).  Minibatches are drawn from `perms`
-        ([ppo_epochs, T*E] permutations, e.g. the JAX package's) or from
+        with `use_inkernel_loss`), or over flat observations an actor step
+        and a critic step (`_update_actor_critic`).  Minibatches are drawn
+        from `perms` ([ppo_epochs, T*E] permutations, e.g. the JAX package's) or from
         `generator`.  Metrics stay device tensors (no host sync).  `mark`,
         if given, is called with "prep", "tp" and "ppo" as each phase ends
         (a timer may synchronise there)."""
@@ -426,9 +472,29 @@ class MAPPOPolicy:
                 advantages = (advantages - adv_mean) / (adv_std + 1e-8)
             ts.value_norm = ts.value_norm.update(returns[..., None])
             returns = ts.value_norm.normalize(returns)
-            meta = compute_pack_meta(last_obs, self.n_agents, self.action_dim)
-            packed = pack_rows(meta, traj["obs"], traj["action"], traj["logp"],
-                               traj["value"], advantages, returns)
+            if self.obs_is_dict:
+                meta = compute_pack_meta(last_obs, self.n_agents, self.action_dim)
+                packed = pack_rows(meta, traj["obs"], traj["action"], traj["logp"],
+                                   traj["value"], advantages, returns)
+
+                def minibatch(idx):
+                    return unpack_rows(meta, packed[idx])
+
+                update = (self._update_joint_direct if cfg.use_inkernel_loss
+                          else self._update_joint_flat)
+            else:
+                # the JAX package's non-joint layout: [T*E, n, ...] per field
+                fields = {"obs": traj["obs"], "action": traj["action"], "logp": traj["logp"],
+                          "value": traj["value"],
+                          "advantages": advantages.reshape(t_len, e, n_ag, 1),
+                          "returns": returns.reshape(t_len, e, n_ag, 1)}
+                fields = {k: v.reshape((t_len * e,) + tuple(v.shape[2:]))
+                          for k, v in fields.items()}
+
+                def minibatch(idx):
+                    return {k: v[idx] for k, v in fields.items()}
+
+                update = self._update_actor_critic
         mark = mark or (lambda name: None)
         mark("prep")
         metrics: Dict[str, torch.Tensor] = {"advantages_mean": adv_mean,
@@ -439,19 +505,18 @@ class MAPPOPolicy:
 
         b = t_len * e
         mb_size = b // cfg.num_minibatches
-        stop = (torch.zeros((), dtype=torch.bool, device=packed.device)
+        dev = advantages.device
+        stop = (torch.zeros((), dtype=torch.bool, device=dev)
                 if cfg.target_kl is not None else None)
         infos: Dict[str, List[torch.Tensor]] = {}
-        update = self._update_joint_direct if cfg.use_inkernel_loss else self._update_joint_flat
         for epoch in range(cfg.ppo_epochs):
             if perms is not None:
-                perm = perms[epoch].to(packed.device)
+                perm = perms[epoch].to(dev)
             else:
-                perm = torch.randperm(b, generator=generator, device=packed.device)
+                perm = torch.randperm(b, generator=generator, device=dev)
             mb_idx = perm[: mb_size * cfg.num_minibatches].reshape(cfg.num_minibatches, mb_size)
             for idx in mb_idx:
-                mb = unpack_rows(meta, packed[idx])
-                info = update(ts, mb, stop)
+                info = update(ts, minibatch(idx), stop)
                 if stop is not None:
                     stop = torch.logical_or(stop, info["approx_kl"] > cfg.target_kl)
                     info["kl_stop"] = stop.to(torch.float32)
@@ -504,20 +569,32 @@ class MAPPOPolicy:
                      values=values.detach())
         return [ga_enc, ga_ls], [gc], terms
 
-    def _step(self, ts: MAPPOState, ga, gc, stop) -> None:
+    def _actor_step(self, ts: MAPPOState, ga, stop) -> None:
         """Clip + Adam for the actor (log_std in its global norm, then its
-        floor) and the critic, written into `ts` (held where `stop` is set)."""
+        floor), written into `ts` (held where `stop` is set)."""
         cfg = self.cfg
         with torch.no_grad():
-            upd_a, opt_a = adam_updates(clip_by_global_norm(ga, cfg.max_grad_norm),
-                                        ts.actor_opt, cfg.actor_lr)
-            new_a = [p + u for p, u in zip(ts.actor_params(), upd_a)]
-            new_a[1] = self._apply_log_std_floor(new_a[1])
-            upd_c, opt_c = adam_updates(clip_by_global_norm(gc, cfg.max_grad_norm),
-                                        ts.critic_opt, cfg.critic_lr)
-            new_c = [p + u for p, u in zip(ts.critic_params(), upd_c)]
-            self._write(ts.actor_params(), new_a, ts.actor_opt, opt_a, stop)
-            self._write(ts.critic_params(), new_c, ts.critic_opt, opt_c, stop)
+            upd, opt = adam_updates(clip_by_global_norm(ga, cfg.max_grad_norm),
+                                    ts.actor_opt, cfg.actor_lr)
+            new = [p + u for p, u in zip(ts.actor_params(), upd)]
+            new[1] = self._apply_log_std_floor(new[1])
+            self._write(ts.actor_params(), new, ts.actor_opt, opt, stop)
+
+    def _critic_step(self, ts: MAPPOState, gc, stop) -> None:
+        """Clip + Adam for the critic, AdamW's decoupled decay on every leaf
+        where `weight_decay > 0` (the JAX critic's `optax.adamw`), written
+        into `ts` (held where `stop` is set)."""
+        cfg = self.cfg
+        with torch.no_grad():
+            params = ts.critic_params()
+            upd, opt = adam_updates(clip_by_global_norm(gc, cfg.max_grad_norm), ts.critic_opt,
+                                    cfg.critic_lr, weight_decay=cfg.weight_decay, params=params)
+            self._write(params, [p + u for p, u in zip(params, upd)], ts.critic_opt, opt, stop)
+
+    def _step(self, ts: MAPPOState, ga, gc, stop) -> None:
+        """`_actor_step` and `_critic_step`: the joint updates' optimizers."""
+        self._actor_step(ts, ga, stop)
+        self._critic_step(ts, gc, stop)
 
     def _update_joint_flat(
         self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None
@@ -582,6 +659,59 @@ class MAPPOPolicy:
         }
         self._step(ts, ga, gc, stop)
         return info
+
+    def _update_actor(self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None):
+        """The flat actor's step (mappo.py:809-853): PPO-clip on [m, n, 1]
+        samples with `entropy_loss = -mean(entropy)`, then clip + Adam."""
+        cfg = self.cfg
+        with torch.enable_grad():
+            mean = ts.actor(mb["obs"])
+            log_std = ts.log_std.detach().requires_grad_(True)
+            dist = Gaussian(mean=mean, log_std=log_std.expand(mean.shape))
+            logp_new = dist.log_prob(mb["action"])[..., None]
+            entropy = dist.entropy()[..., None]
+            ratio = torch.exp(torch.clamp(logp_new - mb["logp"], -20.0, 20.0))
+            adv = mb["advantages"]
+            surr1 = ratio * adv
+            surr2 = torch.clamp(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param) * adv
+            policy_loss = -torch.mean(torch.minimum(surr1, surr2) * self.action_dim)
+            entropy_loss = -torch.mean(entropy)
+            total = policy_loss + entropy_loss * self._entropy_coef(ts)
+            ga = list(torch.autograd.grad(total, [ts.actor.flat, log_std]))
+        self._actor_step(ts, ga, stop)
+        with torch.no_grad():
+            w = ratio.detach().reshape(-1)
+            return {
+                "policy_loss": policy_loss.detach(),
+                "actor_grad_norm": global_norm(ga),
+                "entropy": -entropy_loss.detach(),
+                "ESS": torch.square(torch.sum(w)) / (torch.sum(torch.square(w)) * w.shape[0]),
+                "approx_kl": torch.mean(w - 1.0 - torch.log(w)),
+            }
+
+    def _update_critic(self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None):
+        """The flat critic's step (mappo.py:1160-1196): the max of the two
+        Huber means (plain and clipped values), then clip + Adam(W)."""
+        cfg = self.cfg
+        b_values, b_returns = mb["value"], mb["returns"]
+        with torch.enable_grad():
+            values = ts.critic(mb["obs"])
+            clipped = b_values + torch.clamp(values - b_values, -cfg.clip_param, cfg.clip_param)
+            loss = torch.maximum(_huber(values, b_returns, cfg.huber_delta),
+                                 _huber(clipped, b_returns, cfg.huber_delta))
+            gc = list(torch.autograd.grad(loss, [ts.critic.flat]))
+        self._critic_step(ts, gc, stop)
+        with torch.no_grad():
+            values = values.detach()
+            explained_var = 1.0 - torch.mean(torch.square(values - b_returns)) / (
+                torch.var(b_returns, correction=0) + 1e-8)
+            return {"value_loss": loss.detach(), "critic_grad_norm": global_norm(gc),
+                    "explained_var": explained_var}
+
+    def _update_actor_critic(self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None):
+        """One minibatch of the flat path: `_update_actor`, then
+        `_update_critic` (the JAX package's non-joint branch)."""
+        return {**self._update_actor(ts, mb, stop), **self._update_critic(ts, mb, stop)}
 
     def _update_tp(self, ts: MAPPOState, traj: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """The TP net's supervised epochs (mappo.py:1197-1270): every window

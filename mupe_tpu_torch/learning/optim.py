@@ -1,8 +1,9 @@
 """The update's optimizers, written out as optax has them.
 
 The JAX package steps the actor and the critic with
-`optax.flatten(chain(clip_by_global_norm(max_norm), adam(lr)))` and the TP
-net with plain `adam(lr)` (mupe_tpu/learning/mappo.py:346-360).  Here a
+`optax.flatten(chain(clip_by_global_norm(max_norm), adam(lr)))`, the critic
+with `adamw(lr, weight_decay)` in place of `adam(lr)` where `weight_decay >
+0`, and the TP net with plain `adam(lr)` (mupe_tpu/learning/mappo.py:346-360).  Here a
 parameter group is a list of tensors (the actor's flat encoder vector and its
 log_std; the critic's flat vector; the TP net's five leaves): the clip's
 global norm runs over the whole group, Adam is elementwise, so flattening
@@ -57,14 +58,21 @@ def adam_updates(
     b1: float = 0.9,
     b2: float = 0.999,
     eps: float = 1e-8,
+    weight_decay: float = 0.0,
+    params: Sequence[torch.Tensor] | None = None,
 ) -> Tuple[List[torch.Tensor], AdamState]:
     """optax.adam(lr)'s update: (updates to add to the parameters, new
-    state), in optax's order of operations."""
+    state), in optax's order of operations.  With `weight_decay > 0` it is
+    optax.adamw's: `scale_by_adam`, then `add_decayed_weights` (+ wd · p, on
+    every leaf of `params`), then `scale_by_learning_rate`."""
     mu = [(1 - b1) * g + b1 * m for g, m in zip(grads, state.mu)]
     nu = [(1 - b2) * (g * g) + b2 * v for g, v in zip(grads, state.nu)]
     count = state.count + 1
     c = count.to(torch.float32)
     bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=c.device), c)
     bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=c.device), c)
-    updates = [(-lr) * ((m / bc1) / (torch.sqrt(v / bc2) + eps)) for m, v in zip(mu, nu)]
+    direction = [(m / bc1) / (torch.sqrt(v / bc2) + eps) for m, v in zip(mu, nu)]
+    if weight_decay > 0.0:
+        direction = [d + weight_decay * p for d, p in zip(direction, params)]
+    updates = [(-lr) * d for d in direction]
     return updates, AdamState(mu=mu, nu=nu, count=count)

@@ -1,8 +1,11 @@
 """Rollout: the policy acting in the arenas
 (counterpart of `init_carry` and `rollout_prog` in mupe_tpu/learning/rollout.py).
 
-Each step runs `policy.act` (actor + critic, one encoder kernel launch) and
-`env.step` (which runs the TP-LSTM kernel for the next observation).  The
+Each step runs `policy.act` (actor + critic, one encoder kernel launch over
+dict observations) and `env.step` (which, for an env that provides the TP
+net's input, runs the TP-LSTM kernel for the next observation).  Envs
+without it (Hover) step without the TP net and are observed through
+`env.observe`, as the JAX package dispatches on `provides_tp`.  The
 trajectory is returned time-major, as the JAX package's `rollout_prog`
 returns it; `make_train_iter` feeds it to `MAPPOPolicy.train_op`.
 """
@@ -22,8 +25,8 @@ class IterCarry:
 
     ts: MAPPOState
     env_state: Any
-    obs: Dict[str, torch.Tensor]
-    state: Any  # centralized-critic input (the env's critic_state)
+    obs: Any    # a dict of entity groups, or a flat [E, n, D] tensor
+    state: Any  # centralized-critic input (the env's critic_state), or None
     generator: torch.Generator
 
 
@@ -39,15 +42,23 @@ def init_carry(
     `generator` lives on the env's device and drives the env resets and the
     action noise.  Parameters not given as `ts` are initialised from a CPU
     generator seeded from it.  TP parameters come first because the TP
-    prediction is part of the observation."""
+    prediction is part of the observation; an env without the TP input
+    gives the parameters' shapes by its first observation."""
+    provides_tp = getattr(env, "provides_tp", False)
     if ts is None:
         seed = int(torch.randint(0, 2**62, (1,), generator=generator,
                                  device=generator.device).item())
-        template = {k: torch.zeros((1,) + shape) for k, shape in env.obs_groups().items()}
-        ts = policy.init(template, torch.Generator().manual_seed(seed))
+        if provides_tp:
+            template = {k: torch.zeros((1,) + shape) for k, shape in env.obs_groups().items()}
+            ts = policy.init(template, torch.Generator().manual_seed(seed))
     if env_state is None:
         env_state = env.reset(generator)
-    obs, state = env.observe_full(env_state, ts.tp_net)
+    if provides_tp:
+        obs, state = env.observe_full(env_state, ts.tp_net)
+    else:
+        obs, state = env.observe(env_state), None
+        if ts is None:
+            ts = policy.init(obs, torch.Generator().manual_seed(seed))
     return IterCarry(ts=ts, env_state=env_state, obs=obs, state=state, generator=generator)
 
 
@@ -56,11 +67,13 @@ def make_rollout(
 ) -> Callable[..., Tuple[IterCarry, Dict[str, Any], Dict[str, torch.Tensor]]]:
     """Build `rollout(carry, steps=cfg.train_every) -> (carry, traj, ep_stats)`.
 
-    traj holds [T, E, ...] tensors: value, reward, done, obs (dict), action,
-    logp, and with the TP net tp_input, tp_gt, tp_done.  ep_stats is the
+    traj holds [T, E, ...] tensors: value, reward, done, obs (a dict, or a
+    tensor for flat observations), action, logp, and with the TP net
+    tp_input, tp_gt, tp_done.  ep_stats is the
     mean of every stat over the transitions that ended an episode, plus
     episode_count."""
-    uses_tp = policy.cfg.use_tp_net and getattr(env, "provides_tp", False)
+    provides_tp = getattr(env, "provides_tp", False)
+    uses_tp = policy.cfg.use_tp_net and provides_tp
 
     @torch.no_grad()
     def rollout(carry: IterCarry, steps: Optional[int] = None):
@@ -74,9 +87,10 @@ def make_rollout(
             cols.update(tp_input=[], tp_gt=[], tp_done=[])
         stat_keys = None
         stat_sums = n_done = 0.0
+        step_args = (tp_net,) if provides_tp else ()
         for _ in range(steps):
             action, logp, value = policy.act(ts, obs, gen, deterministic=deterministic)
-            env_state, tr = env.step(env_state, action, gen, tp_net)
+            env_state, tr = env.step(env_state, action, gen, *step_args)
             cols["obs"].append(obs)
             cols["action"].append(action)
             cols["logp"].append(logp)
@@ -89,14 +103,17 @@ def make_rollout(
                 cols["tp_done"].append(tr.info["tp_done"])
             # episode stats: sums over the transitions that ended an episode
             done = tr.done.float()                                  # [E, 1]
-            stat_keys = list(tr.stats)
+            stat_keys = stat_keys or list(tr.stats)  # one order for every step
             stats = torch.cat([tr.stats[k] for k in stat_keys], dim=1)  # [E, K]
             stat_sums = stat_sums + torch.sum(stats * done, dim=0)
             n_done = n_done + torch.sum(done)
             obs = tr.obs
-            last_state = tr.info["state"]
+            last_state = tr.info.get("state")
         traj = {k: torch.stack(v) for k, v in cols.items() if k != "obs"}
-        traj["obs"] = {k: torch.stack([o[k] for o in cols["obs"]]) for k in cols["obs"][0]}
+        if isinstance(obs, dict):
+            traj["obs"] = {k: torch.stack([o[k] for o in cols["obs"]]) for k in cols["obs"][0]}
+        else:
+            traj["obs"] = torch.stack(cols["obs"])
         denom = torch.clamp(n_done, min=1.0)
         ep_stats = dict(zip(stat_keys, (stat_sums / denom).unbind()))
         ep_stats["episode_count"] = n_done

@@ -1,9 +1,11 @@
-"""The value normaliser of the update (counterpart of `ValueNorm1`,
-mupe_tpu/learning/valuenorm.py:14-57): a debiased EMA of the returns' first
-two moments.  Methods return new states, as the JAX package's do."""
+"""The value normalisers (counterparts of mupe_tpu/learning/valuenorm.py):
+`ValueNorm1`, the update's debiased EMA of the returns' first two moments,
+and `ValueNorm2`, Welford's running moments.  Methods return new states, as
+the JAX package's do."""
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -48,3 +50,46 @@ class ValueNorm1:
     def denormalize(self, x: torch.Tensor) -> torch.Tensor:
         mean, var = self._mean_var()
         return x * torch.sqrt(var) + mean
+
+
+@dataclasses.dataclass
+class ValueNorm2:
+    """Welford running-moment normaliser (reference valuenorm.py:106-162)."""
+
+    running_mean: torch.Tensor  # [1]
+    running_var: torch.Tensor   # [1]
+    count: torch.Tensor         # []
+    subtract_mean: bool = True
+
+    @classmethod
+    def create(cls, shape=(1,), subtract_mean: bool = True, device="cpu") -> "ValueNorm2":
+        return cls(torch.zeros(shape, device=device), torch.ones(shape, device=device),
+                   torch.zeros((), device=device), subtract_mean=subtract_mean)
+
+    def update(self, batch: torch.Tensor) -> "ValueNorm2":
+        """Merge a batch's mean and (unbiased) variance into the moments."""
+        ndim = self.running_mean.dim()
+        dims = tuple(range(batch.dim() - ndim))
+        batch_mean = torch.mean(batch, dim=dims)
+        batch_var = torch.var(batch, dim=dims, correction=1)
+        batch_count = torch.tensor(float(math.prod(batch.shape[: batch.dim() - ndim])),
+                                   device=batch.device)
+        delta = batch_mean - self.running_mean
+        total = self.count + batch_count
+        new_mean = self.running_mean + delta * batch_count / total
+        m_a = self.running_var * self.count
+        m_b = batch_var * batch_count
+        m2 = m_a + m_b + torch.square(delta) * self.count * batch_count / total
+        return dataclasses.replace(self, running_mean=new_mean, running_var=m2 / total,
+                                   count=total)
+
+    def normalize(self, x: torch.Tensor) -> torch.Tensor:
+        eps = torch.finfo(torch.float32).eps
+        if self.subtract_mean:
+            return (x - self.running_mean) / torch.sqrt(self.running_var + eps)
+        return x / torch.sqrt(self.running_var + eps)
+
+    def denormalize(self, x: torch.Tensor) -> torch.Tensor:
+        if self.subtract_mean:
+            return x * torch.sqrt(self.running_var) + self.running_mean
+        return x * torch.sqrt(self.running_var)

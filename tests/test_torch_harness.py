@@ -124,10 +124,18 @@ def test_train_runs_the_inkernel_loss_update(tmp_path, default_keys, mode):
     assert algo["use_inkernel_loss"] is True and algo["direct_mode"] == mode
 
 
-@pytest.mark.parametrize("arg", ["algo=ppo", "task=Hover", "video=ev.gif"])
+# Hover trains on flat observations now; its depth camera is not ported yet
+NOT_PORTED = {"algo=ppo": ("algo=ppo",), "task=Hover": ("task=Hover", "env.obs_depth=true"),
+              "video=ev.gif": ("video=ev.gif",)}
+
+
+@pytest.mark.parametrize("arg", list(NOT_PORTED))
 def test_options_not_ported_yet_raise(tmp_path, arg):
     with pytest.raises(NotImplementedError):
-        _run(tmp_path, "x", "max_iters=1", arg)
+        if arg.startswith("task="):
+            train([*NOT_PORTED[arg], "max_iters=1", f"run_dir={tmp_path}"], device="cpu")
+        else:
+            _run(tmp_path, "x", "max_iters=1", *NOT_PORTED[arg])
 
 
 def test_config_helpers_match_jax():

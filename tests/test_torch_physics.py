@@ -118,13 +118,17 @@ def test_pid_rate_transform_matches_jax():
 
 
 def test_make_params_matches_jax_and_rejects_other_drones():
-    jp, tp = jmake_params("crazyflie"), make_params("crazyflie")
-    for f in ("mass", "inertia", "kf", "km", "directions", "tau_up", "tau_down",
-              "rotor_pos", "drag_coef"):
-        _close(getattr(tp, f), getattr(jp, f))
-    _close(tp.hover_throttle, jp.hover_throttle)
-    with pytest.raises(NotImplementedError):
-        make_params("hummingbird")
+    """Every model of the zoo matches JAX's; a name outside it is refused by
+    both (tests/test_torch_hover.py holds the zoo bit for bit)."""
+    for model in ("crazyflie", "hummingbird", "firefly"):
+        jp, tp = jmake_params(model), make_params(model)
+        for f in ("mass", "inertia", "kf", "km", "directions", "tau_up", "tau_down",
+                  "rotor_pos", "drag_coef"):
+            _close(getattr(tp, f), getattr(jp, f))
+        _close(tp.hover_throttle, jp.hover_throttle)
+    for make in (make_params, jmake_params):
+        with pytest.raises(KeyError):
+            make("no_such_drone")
 
 
 def test_dynamics_trajectory_with_downwash_matches_jax():
