@@ -78,6 +78,23 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    end) of the first and last 10 iterations (the last must sit below the
    first; every value finite), and the episode-end pos_error stat of the
    iterations that ended episodes.
+12. MAPPO's options and the PPO family: (a) rows 2 and 5 (`encoder_forward`,
+   `encoder_backward`) against their plain versions with the f32 controls
+   and timed, at a per-agent actor's 16,384 rows, the critic's 49,152 and
+   the state critic's 16,384 (HideAndSeek's state widths, a head of 3);
+   (b) at bench.py's width, `share_actor=False`: 1 warm-up + 2 timed
+   iterations (env-steps/s; launches a iteration of rows 2, 3, 5 and 6, each
+   agent's actor and the critic one launch each), one `train_op` card vs
+   CPU; the relation encoders and `algo=transformer`, 2 iterations each,
+   finite; `critic_input="state"` on HideAndSeek refused with a ValueError,
+   as the JAX package fails; the state critic at policy level over
+   HideAndSeek's real observations and a well-formed state (its cylinders
+   cut to [E, k, 5]): act card vs CPU on 4,096 arenas, one `train_op` on the
+   card (its launches counted) and one card vs CPU on 64 arenas x 64 steps;
+   (c) Hover at the drive recipe's width (1,024 x 32): ppo, ppo with the
+   privileged branches, ppo_tconv and ppo_rnn, 3 iterations each, finite,
+   and one act and one `train_op` each card vs CPU, teacher-forced at 16
+   arenas; ppo_sdf at policy level, 4,096 rows x 64 points, card vs CPU.
 
 Phase 2 also holds the FPS kernel (the AEG buffer's downsampling, one
 thread-block cluster) index for index against its plain version at the AEG's
@@ -121,12 +138,15 @@ memory rate.  The line before the
 last is the kernels' JSON summary (launches counted over phase 4's run, FPS
 over phase 5's, the loss kernels over phase 6's run of their mode; the pair
 forward's and the TP forward's `eval_launches` over one of phase 10's
-evaluations); the last
+evaluations; the forward's and the backward's
+`share_actor_false_launches_per_iteration` over phase 12's run and their
+`option_specs` times); the last
 line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import csv
+import dataclasses
 import json
 import math
 import mmap
@@ -2225,6 +2245,468 @@ def phase_hover(dev, card: str) -> dict:
     return dict(iterations=iters, seconds=seconds, rate=rate, first=first, last=last)
 
 
+# phase 12: MAPPO's options and the PPO family
+OPT_ROWS = NUM_ENVS * STEPS // 16           # one agent's rows of a 49,152-row minibatch
+OPT_TIMED = 2                               # share_actor=False: 1 warm-up + 2 timed
+OPT_ITERS = 2                               # the relation encoders, the transformer
+FAMILY_ITERS = 3                            # Hover's PPO family
+SDF_ENVS, SDF_STEPS, SDF_POINTS = 512, 8, 64  # ppo_sdf: 4,096 rows x 64 points
+
+
+def well_formed_state(state):
+    """HideAndSeek's critic state with its per-drone cylinders [E, n, k, 5]
+    cut to the first drone's [E, k, 5]: HideAndSeek's widths in groups of
+    one rank (the env's own state is refused, as the JAX package fails on
+    it)."""
+    return {"state_drones": state["state_drones"], "cylinders": state["cylinders"][:, 0]}
+
+
+class WellFormedStateEnv:
+    """HideAndSeek whose critic state is `well_formed_state`'s."""
+
+    def __init__(self, env):
+        self.env = env
+
+    def __getattr__(self, name):
+        return getattr(self.env, name)
+
+    def observe_full(self, state, tp_net):
+        obs, st = self.env.observe_full(state, tp_net)
+        return obs, well_formed_state(st)
+
+    def step(self, state, action, gen, *args):
+        state, tr = self.env.step(state, action, gen, *args)
+        tr.info["state"] = well_formed_state(tr.info["state"])
+        return state, tr
+
+
+def state_groups() -> tuple:
+    """(state_drones, cylinders) widths of HideAndSeek's default
+    configuration (bench.py's, TP net on): its critic state's groups."""
+    from mupe_tpu_torch.envs import HideAndSeek, HideAndSeekCfg
+    from mupe_tpu_torch.learning.tp_net import TPNet
+
+    env = HideAndSeek(HideAndSeekCfg(num_envs=2), device="cpu")
+    tp = TPNet(env.cfg.tp_input_dim, 3 * env.cfg.future_prediction_step,
+               generator=torch.Generator().manual_seed(0), device="cpu")
+    _, st = env.observe_full(env.reset(torch.Generator().manual_seed(0)), tp)
+    st = well_formed_state(st)
+    return tuple((st[k].shape[-2], st[k].shape[-1]) for k in ("state_drones", "cylinders"))
+
+
+def phase_option_kernels(dev) -> dict:
+    """Rows 2 (`encoder_forward`) and 5 (`encoder_backward`) at phase 12's
+    specs, each against its plain version (phase 2's limits and f32
+    controls), timed by CUDA events beside the bound."""
+    from mupe_tpu_torch.ops import fused_encoder as fe
+
+    gen = torch.Generator().manual_seed(12)
+    cases = {"per-agent actor": (fe.EncoderSpec(groups=GROUPS, head_dim=4), OPT_ROWS),
+             "critic": (fe.EncoderSpec(groups=GROUPS, head_dim=1), MB_ROWS),
+             "state critic": (fe.EncoderSpec(groups=state_groups(), head_dim=3), OPT_ROWS)}
+    log("[12] rows 2 and 5 at the options' specs vs their plain versions: "
+        + "; ".join(f"{k} S={s} groups {sp.groups} head {sp.head_dim}"
+                    for k, (sp, s) in cases.items()))
+    out = {"encoder_forward": {}, "encoder_backward": {}}
+    errs = {"encoder_forward": [], "encoder_backward": []}
+    for what, (spec, s) in cases.items():
+        leaves = random_leaves(fe.leaf_shapes(spec), gen, dev)
+        x = (2.0 * torch.randn((s, spec.obs_dim), generator=gen)).to(dev)
+        dout = torch.randn((s, spec.head_dim), generator=gen).to(dev)
+        y = fe.encoder_forward(spec, leaves, x)
+        (grads,) = fe.encoder_backward([(spec, leaves)], x, [dout])
+        torch.cuda.synchronize()
+        exact = in_f64(fe.reference_apply, spec, leaves, x)
+        errs["encoder_forward"].append(compare(f"encoder_forward {what} S={s}", y,
+                                               fe.reference_apply(spec, leaves, x),
+                                               fe.KERNEL_TOL, exact))
+        control(f"{what} S={s}", lambda **k: fe.reference_apply(spec, leaves, x, **k),
+                fe.KERNEL_TOL, exact)
+        exact_b = in_f64(fe.reference_backward, spec, leaves, x, dout)
+        errs["encoder_backward"].append(bwd_compare(
+            f"encoder_backward {what} S={s}", grads,
+            fe.reference_backward(spec, leaves, x, dout), fe.BWD_KERNEL_TOL, exact_b))
+        bwd_control(f"{what} backward S={s}",
+                    lambda **k: fe.reference_backward(spec, leaves, x, dout, **k),
+                    fe.BWD_KERNEL_TOL, fe.BWD_CONTROL_BLIND, exact_b)
+        times = {
+            "encoder_forward": (
+                cuda_time_ms(lambda: fe.encoder_forward(spec, leaves, x), runs=10),
+                cuda_time_ms(lambda: fe.reference_apply(spec, leaves, x), runs=10),
+                bound(encoder_flops(spec, s), nbytes(x, *leaves) + s * spec.head_dim * 4)),
+            "encoder_backward": (
+                cuda_time_ms(lambda: fe.encoder_backward([(spec, leaves)], x, [dout]), runs=10),
+                cuda_time_ms(lambda: fe.reference_backward(spec, leaves, x, dout), runs=5),
+                bound(encoder_bwd_flops(spec, s), nbytes(x, dout) + 2 * nbytes(*leaves)))}
+        for name, (ms, plain, b) in times.items():
+            log(f"  {name} {what} S={s}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+            out[name][what] = dict(rows=s, head=spec.head_dim, ms=ms, plain_ms=plain,
+                                   bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+    return {name: dict(option_specs=v, option_max_abs_err=max(errs[name]))
+            for name, v in out.items()}
+
+
+def _net_leaves(net):
+    """A network's leaves, or one list an agent for per-agent actors."""
+    from mupe_tpu_torch.learning.mappo import AgentStack
+
+    if isinstance(net, AgentStack):
+        return [list(n.leaves) for n in net.nets]
+    return list(net.leaves)
+
+
+def clone_state(policy, ts, obs, state=None):
+    """A learner state of `policy` (on its device) holding `ts`'s values."""
+    return policy.init(obs, actor_leaves=_net_leaves(ts.actor), log_std=ts.log_std,
+                       critic_leaves=_net_leaves(ts.critic),
+                       tp_leaves=None if getattr(ts, "tp_net", None) is None
+                       else list(ts.tp_net.leaves()),
+                       **({} if state is None else {"state_example": state}))
+
+
+def _unit_heads(ts) -> None:
+    """Heads at unit gain (x100), so every term of the loss moves."""
+    from mupe_tpu_torch.learning.mappo import AgentStack
+
+    with torch.no_grad():
+        for net in (ts.actor, ts.critic):
+            for n in (net.nets if isinstance(net, AgentStack) else [net]):
+                n.leaves[-2].mul_(100.0)
+
+
+def hold_update(tag, new, metrics, rel=5e-3, param_atol=3e-3, flat_tol=1e-5) -> None:
+    """The card's update (`new[dev]`, `metrics[dev]`) against the CPU's:
+    metrics within `rel` relative (1e-2 for the gradient norms) + `flat_tol`,
+    parameters within `param_atol`."""
+    from mupe_tpu_torch.learning.mappo import net_flats
+
+    (dev_c, (ts_c, m_c)), (dev_g, (ts_g, m_g)) = sorted(
+        zip(new, zip(new.values(), metrics.values())), key=lambda kv: kv[0] != "cpu")
+    worst = max((abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1e-5), k) for k in m_c)
+    log(f"  {tag} card vs CPU update metrics: worst relative difference {worst[0]:.3e} "
+        f"({worst[1]})")
+    for k, v in m_c.items():
+        r = 1e-2 if k.endswith("grad_norm") else rel
+        if not abs(m_g[k] - v) <= r * abs(v) + flat_tol:
+            raise AssertionError(f"{tag}: card and CPU updates disagree on {k}: {m_g[k]} vs {v}")
+    pairs = {"actor": list(zip(net_flats(ts_g.actor), net_flats(ts_c.actor)))
+             + [(ts_g.log_std, ts_c.log_std)],
+             "critic": list(zip(net_flats(ts_g.critic), net_flats(ts_c.critic)))}
+    errs = {n: max(float((g.detach().cpu() - c.detach()).abs().max()) for g, c in p)
+            for n, p in pairs.items()}
+    log(f"  {tag} card vs CPU parameters: " + ", ".join(
+        f"{k} max_abs_err={v:.3e}" for k, v in errs.items()) + f" (tol {param_atol:g})")
+    if not max(errs.values()) <= param_atol:
+        raise AssertionError(f"{tag}: card and CPU updates disagree on the parameters")
+
+
+def check_option_update_against_cpu(dev, **algo) -> None:
+    """One `train_op` of a MAPPO option on the card against the CPU from the
+    same batch, parameters and permutation: 16 arenas x 8 steps of a CPU
+    rollout (phase 4's), heads at unit gain, 2 minibatches, 1 epoch; phase
+    4's tolerances (metrics 5e-3 relative, gradient norms 1e-2, parameters
+    3e-3)."""
+    from mupe_tpu_torch.envs import HideAndSeek, HideAndSeekCfg, tree_to
+    from mupe_tpu_torch.learning import MAPPOCfg, MAPPOPolicy, init_carry, make_rollout
+
+    env = HideAndSeek(HideAndSeekCfg(num_envs=16, max_episode_length=800), device="cpu")
+    cfg = MAPPOCfg(train_every=8, num_minibatches=2, ppo_epochs=1, use_tp_net=True, **algo)
+    pols = {d: MAPPOPolicy(cfg, 3, 4, obs_is_dict=True, tp_input_dim=env.cfg.tp_input_dim,
+                           device=d) for d in ("cpu", dev)}
+    carry = init_carry(env, pols["cpu"], torch.Generator().manual_seed(9))
+    _unit_heads(carry.ts)
+    ts_g = clone_state(pols[dev], carry.ts, tree_to(carry.obs, dev))
+    carry, traj, _ = make_rollout(env, pols["cpu"])(carry)
+    ts_c = clone_state(pols["cpu"], carry.ts, carry.obs)
+    ts_g = clone_state(pols[dev], ts_c, tree_to(carry.obs, dev))
+    perms = torch.randperm(16 * 8, generator=torch.Generator().manual_seed(10))[None]
+    new, metrics = {}, {}
+    for d, ts in (("cpu", ts_c), (dev, ts_g)):
+        new[d], m = pols[d].train_op(ts, tree_to(traj, d), tree_to(carry.obs, d), perms=perms)
+        metrics[d] = {k: float(v) for k, v in m.items()}
+    hold_update(f"MAPPO {algo}", new, metrics)
+
+
+def _count(wrappers):
+    return {name: fn.launches for name, fn in wrappers.items()}
+
+
+def _train_finite(tag, train_iter, carry, iters):
+    """`iters` iterations; every metric and parameter finite."""
+    for _ in range(iters):
+        carry, metrics, ep_stats = train_iter(carry)
+    torch.cuda.synchronize()
+    _check_finite(tag, carry, metrics, ep_stats, iters)
+    return carry
+
+
+def _check_finite(tag, carry, metrics, ep_stats, iters) -> None:
+    from mupe_tpu_torch.learning.mappo import net_flats
+
+    params = net_flats(carry.ts.actor) + net_flats(carry.ts.critic) + [carry.ts.log_std]
+    if not (_all_finite(metrics) and _all_finite(ep_stats)
+            and all(bool(torch.isfinite(p).all()) for p in params)):
+        raise AssertionError(f"{tag}: non-finite metric or parameter after training")
+    log(f"  {tag}: {iters} iterations, finite; " + ", ".join(
+        f"{k}={float(v):.5g}" for k, v in sorted(metrics.items())))
+
+
+def phase_options(dev, card: str) -> dict:
+    """Phase 12, HideAndSeek at bench.py's width: per-agent actors (timed,
+    launches counted), the relation encoders and the transformer (finite),
+    the state critic's refusal, and the state critic at policy level.
+    Returns the kernels' launches per iteration of the share_actor=False
+    run."""
+    from mupe_tpu_torch import harness
+    from mupe_tpu_torch.envs import HideAndSeek, HideAndSeekCfg, tree_to
+    from mupe_tpu_torch.learning import init_carry, make_rollout, make_train_iter
+    from mupe_tpu_torch.ops import fused_encoder as fe
+    from mupe_tpu_torch.ops import tp_lstm as tl
+
+    wrappers = {"encoder_forward": fe.encoder_forward,
+                "encoder_pair_forward": fe.encoder_pair_forward,
+                "encoder_backward": fe.encoder_backward, "weight_grads": fe.weight_grads,
+                "tp_forward": tl.tp_forward, "tp_backward": tl.tp_backward}
+    log(f"[12] MAPPO share_actor=False: make_train_iter, HideAndSeek {NUM_ENVS} arenas x "
+        f"{STEPS} steps, bench.py's MAPPOCfg (TP net on), 1 warm-up + {OPT_TIMED} timed")
+    env, policy = make_slice(dev, NUM_ENVS, 800, share_actor=False)
+    carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(12))
+    train_iter = make_train_iter(env, policy)
+    for fn in wrappers.values():
+        fn.launches = 0
+    carry, *_ = train_iter(carry)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(OPT_TIMED):
+        carry, metrics, ep_stats = train_iter(carry)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    per_iter = {k: v / (OPT_TIMED + 1) for k, v in _count(wrappers).items()}
+    log(f"  launches per iteration: {per_iter}")
+    n = 3
+    want = {"encoder_forward": STEPS * (n + 1) + 1 + 4 * 16 * (n + 1),
+            "encoder_backward": 4 * 16 * (n + 1), "encoder_pair_forward": 0}
+    if (any(per_iter[k] != v for k, v in want.items()) or per_iter["tp_forward"] < STEPS + 1
+            or per_iter["tp_backward"] < 1 or per_iter["weight_grads"] != per_iter[
+                "encoder_backward"]):
+        raise AssertionError(f"share_actor=False skipped a kernel or took another: {per_iter}, "
+                             f"want {want}")
+    _check_finite("share_actor=False", carry, metrics, ep_stats, OPT_TIMED + 1)
+    rate = NUM_ENVS * STEPS * OPT_TIMED / seconds
+    log(f"  share_actor=False training: {NUM_ENVS} x {STEPS} x {OPT_TIMED} env-steps in "
+        f"{seconds:.4f} s = {rate:.1f} env-steps/s ({seconds / OPT_TIMED * 1e3:.2f} ms per "
+        f"iteration) on {card}")
+    check_option_update_against_cpu(dev, share_actor=False)
+
+    for encoder in ("RelationEncoder", "PartialRelationEncoder"):
+        env_r, pol_r = make_slice(dev, NUM_ENVS, 800, attn_encoder=encoder)
+        carry_r = init_carry(env_r, pol_r, torch.Generator(device=dev).manual_seed(13))
+        _train_finite(f"attn_encoder={encoder}", make_train_iter(env_r, pol_r), carry_r,
+                      OPT_ITERS)
+    env_t, pol_t, _, _ = harness.build("HideAndSeek", {"num_envs": NUM_ENVS,
+                                                       "max_episode_length": 800},
+                                       {"train_every": STEPS}, algo="transformer", device=dev)
+    carry_t = init_carry(env_t, pol_t, torch.Generator(device=dev).manual_seed(14))
+    _train_finite("algo=transformer", make_train_iter(env_t, pol_t), carry_t, OPT_ITERS)
+
+    # the state critic on HideAndSeek is refused, as the JAX package fails on it
+    env_s, pol_s = make_slice(dev, 16, 800, critic_input="state")
+    try:
+        init_carry(env_s, pol_s, torch.Generator(device=dev).manual_seed(15))
+    except ValueError as e:
+        if "state_drones" not in str(e):
+            raise
+        log(f"  critic_input='state' on HideAndSeek refused: {e}")
+    else:
+        raise AssertionError("critic_input='state' on HideAndSeek was not refused")
+
+    # the state critic at policy level, over a well-formed state of
+    # HideAndSeek's widths from real observations
+    log(f"  critic_input='state' at policy level: {NUM_ENVS} arenas x {STEPS} steps of "
+        f"HideAndSeek, its critic state's cylinders cut to [E, k, 5]")
+    env_p, pol_p = make_slice(dev, NUM_ENVS, 800, critic_input="state")
+    wenv = WellFormedStateEnv(env_p)
+    carry_p = init_carry(wenv, pol_p, torch.Generator(device=dev).manual_seed(16))
+    carry_p, traj, _ = make_rollout(wenv, pol_p)(carry_p)
+    # act, card vs CPU, on every arena of one step
+    pol_c = type(pol_p)(pol_p.cfg, 3, 4, obs_is_dict=True, tp_input_dim=env_p.cfg.tp_input_dim,
+                        device="cpu")
+    obs0 = {k: v[0] for k, v in traj["obs"].items()}
+    st0 = {k: v[0] for k, v in traj["state"].items()}
+    ts_c = clone_state(pol_c, carry_p.ts, tree_to(obs0, "cpu"), tree_to(st0, "cpu"))
+    noise = torch.randn((NUM_ENVS, 3, 4), generator=torch.Generator().manual_seed(17))
+    out = {"cpu": pol_c.act(ts_c, tree_to(obs0, "cpu"), noise=noise, state=tree_to(st0, "cpu")),
+           dev: pol_p.act(carry_p.ts, obs0, noise=noise.to(dev), state=st0)}
+    for i, what in enumerate(("action", "logp", "value")):
+        err = float((out[dev][i].cpu() - out["cpu"][i]).abs().max())
+        scale = float(out["cpu"][i].abs().max())
+        log(f"  state critic act {what}: card vs CPU max_abs_err={err:.3e} (scale {scale:.3e}, "
+            f"tol 3e-2 of it: phase 11's bf16 limit)")
+        if not err <= 3e-2 * scale:
+            raise AssertionError(f"state critic act: card and CPU disagree on {what}")
+    # train_op on the card over the whole batch (bench.py's minibatches)
+    for fn in wrappers.values():
+        fn.launches = 0
+    new_p, m_p = pol_p.train_op(carry_p.ts, traj, carry_p.obs, last_state=carry_p.state)
+    torch.cuda.synchronize()
+    took = _count(wrappers)
+    log(f"  state critic train_op on the card ({NUM_ENVS} x {STEPS}): launches {took}")
+    if took["encoder_forward"] < 1 + 2 * 4 * 16 or took["encoder_backward"] != 2 * 4 * 16:
+        raise AssertionError(f"the state critic's update skipped a kernel: {took}")
+    if not _all_finite(m_p):
+        raise AssertionError("state critic: non-finite metric")
+    # and card vs CPU on the first 64 arenas of that batch (2 minibatches)
+    cut = min(64, NUM_ENVS)
+    cfg = dataclasses.replace(pol_p.cfg, num_minibatches=2, ppo_epochs=1)
+    pols = {d: type(pol_p)(cfg, 3, 4, obs_is_dict=True, tp_input_dim=env_p.cfg.tp_input_dim,
+                           device=d) for d in ("cpu", dev)}
+    sub = {k: (tree_to({kk: vv[:, :cut] for kk, vv in v.items()}, "cpu") if isinstance(v, dict)
+               else v[:, :cut].cpu()) for k, v in traj.items() if k != "tp_input"}
+    sub.pop("tp_gt"), sub.pop("tp_done")
+    last = {k: v[:cut].cpu() for k, v in carry_p.obs.items()}
+    last_st = {k: v[:cut].cpu() for k, v in carry_p.state.items()}
+    # heads at unit gain, and the subset's actions drawn again under them, so
+    # the batch is on-policy (as phase 4's rollout after scaling its heads)
+    _unit_heads(ts_c)
+    noise = torch.randn((STEPS, cut, 3, 4), generator=torch.Generator().manual_seed(19))
+    sub["action"], sub["logp"], sub["value"] = pol_c.act(ts_c, sub["obs"], noise=noise,
+                                                         state=sub["state"])
+    perms = torch.randperm(STEPS * cut, generator=torch.Generator().manual_seed(18))[None]
+    new, metrics = {}, {}
+    for d in ("cpu", dev):
+        ts = clone_state(pols[d], ts_c, tree_to(last, d), tree_to(last_st, d))
+        new[d], m = pols[d].train_op(ts, tree_to(sub, d), tree_to(last, d), perms=perms,
+                                     last_state=tree_to(last_st, d))
+        metrics[d] = {k: float(v) for k, v in m.items()}
+    hold_update("state critic", new, metrics)
+    return dict(launches_per_iteration=per_iter, rate=rate)
+
+
+def _hover_cpu_check(tag, dev, algo, env_kw, algo_kw) -> None:
+    """One `act` and one `train_op` of a PPO-family algorithm on the card
+    against the CPU, teacher-forced: a CPU rollout of 16 arenas x 32 steps,
+    then both devices from its trajectory and the same parameters and
+    permutations.  Float32 networks on both: act within 1e-4 of its scale,
+    phase 11's update bounds (metrics 1e-2 relative + 1e-4, parameters
+    3e-3)."""
+    from mupe_tpu_torch import harness
+    from mupe_tpu_torch.envs import tree_to
+    from mupe_tpu_torch.learning import (
+        init_carry, init_rnn_carry, make_rnn_rollout, make_rollout)
+    from mupe_tpu_torch.learning.registry import is_recurrent
+
+    env_kw = dict(env_kw, num_envs=16, max_episode_length=HOVER_EPISODE)
+    algo_kw = dict(algo_kw, train_every=HOVER_STEPS, num_minibatches=2, ppo_epochs=1)
+    env, pol_c, _, _ = harness.build("Hover", env_kw, algo_kw, algo=algo, device="cpu")
+    _, pol_g, _, _ = harness.build("Hover", env_kw, algo_kw, algo=algo, device=dev)
+    rec = is_recurrent(pol_c)
+    gen = torch.Generator().manual_seed(40)
+    carry = (init_rnn_carry if rec else init_carry)(env, pol_c, gen)
+    _unit_heads(carry.ts)
+    carry, traj, _ = (make_rnn_rollout if rec else make_rollout)(env, pol_c)(carry)
+    ts, obs = carry.ts, traj["obs"]
+    first = {k: v[0] for k, v in obs.items()} if isinstance(obs, dict) else obs[0]
+    noise = torch.randn((16, 1, 4), generator=torch.Generator().manual_seed(41))
+    ts_g = pol_g.init(tree_to(first, dev), actor_leaves=list(ts.actor.leaves),
+                      log_std=ts.log_std, critic_leaves=list(ts.critic.leaves))
+    if rec:
+        args = (traj["actor_rnn"][1], traj["critic_rnn"][1], traj["is_init"][1])
+        first = obs[1]
+        out = {"cpu": pol_c.act(ts, first, *args, noise=noise),
+               dev: pol_g.act(ts_g, first.to(dev), *(a.to(dev) for a in args),
+                              noise=noise.to(dev))}
+    else:
+        out = {"cpu": pol_c.act(ts, first, noise=noise),
+               dev: pol_g.act(ts_g, tree_to(first, dev), noise=noise.to(dev))}
+    for i, (g, c) in enumerate(zip(out[dev], out["cpu"])):
+        err, scale = float((g.cpu() - c).abs().max()), float(c.abs().max())
+        if not err <= 1e-4 * max(scale, 1.0):
+            raise AssertionError(f"{tag} act output {i}: card and CPU disagree ({err} of {scale})")
+    log(f"  {tag} act card vs CPU: max_abs_err " + ", ".join(
+        f"{float((g.cpu() - c).abs().max()):.3e}" for g, c in zip(out[dev], out["cpu"])))
+    n_rows = (HOVER_STEPS // min(getattr(pol_c.cfg, "train_seq_len", HOVER_STEPS),
+                                 HOVER_STEPS)) * 16 if rec else HOVER_STEPS * 16
+    perms = torch.randperm(n_rows, generator=torch.Generator().manual_seed(42))[None]
+    new, metrics = {}, {}
+    for d, pol, t in (("cpu", pol_c, ts), (dev, pol_g, ts_g)):
+        t = pol.init(tree_to(first, d), actor_leaves=list(ts.actor.leaves), log_std=ts.log_std,
+                     critic_leaves=list(ts.critic.leaves))
+        if rec:
+            new[d], m = pol.train_op(t, tree_to(traj, d), perms=perms)
+        else:
+            new[d], m = pol.train_op(t, tree_to(traj, d), tree_to(carry.obs, d), perms=perms)
+        metrics[d] = {k: float(v) for k, v in m.items()}
+    hold_update(tag, new, metrics, rel=1e-2, flat_tol=1e-4)
+
+
+def phase_family(dev, card: str) -> None:
+    """Phase 12, the PPO family: Hover at the drive recipe's width (1,024
+    arenas x 32 steps) for ppo, ppo with the privileged branches (HOVER_DR),
+    ppo_tconv and ppo_rnn, 3 iterations each through `harness.build`, and
+    each one's act and update card vs CPU; ppo_sdf at policy level."""
+    from mupe_tpu_torch import harness
+    from mupe_tpu_torch.envs import tree_to
+    from mupe_tpu_torch.learning import (
+        init_carry, init_rnn_carry, make_rnn_train_iter, make_train_iter)
+    from mupe_tpu_torch.learning.ppo import PPOSDFNavPolicy
+    from mupe_tpu_torch.learning.registry import is_recurrent
+    from mupe_tpu_torch.learning import MAPPOCfg
+
+    cases = {"ppo": ("ppo", {}, {}),
+             "ppo + privileged branches": ("ppo", HOVER_DR,
+                                           {"priv_actor": True, "priv_critic": True}),
+             "ppo_tconv": ("ppo_tconv", {"obs_history_len": 32}, {}),
+             "ppo_rnn": ("ppo_rnn", {}, {"train_seq_len": 16})}
+    log(f"[12] the PPO family on Hover: {HOVER_ENVS} arenas x {HOVER_STEPS} steps, "
+        f"{FAMILY_ITERS} iterations each, on {card}")
+    for tag, (algo, env_kw, algo_kw) in cases.items():
+        env, pol, _, _ = harness.build(
+            "Hover", dict(env_kw, num_envs=HOVER_ENVS, max_episode_length=HOVER_EPISODE),
+            dict(algo_kw, train_every=HOVER_STEPS, num_minibatches=HOVER_MINIBATCHES),
+            algo=algo, device=dev)
+        rec = is_recurrent(pol)
+        carry = (init_rnn_carry if rec else init_carry)(
+            env, pol, torch.Generator(device=dev).manual_seed(30))
+        it = (make_rnn_train_iter if rec else make_train_iter)(env, pol)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _train_finite(tag, it, carry, FAMILY_ITERS)
+        seconds = time.perf_counter() - t0
+        log(f"  {tag}: {HOVER_ENVS * HOVER_STEPS * FAMILY_ITERS / seconds:.1f} env-steps/s "
+            f"over {FAMILY_ITERS} iterations (the first's warm-up included) on {card}")
+        _hover_cpu_check(tag, dev, algo, env_kw, algo_kw)
+
+    log(f"  ppo_sdf at policy level: {SDF_ENVS * SDF_STEPS} rows x {SDF_POINTS} points, "
+        f"act and train_op card vs CPU")
+    g = torch.Generator().manual_seed(50)
+    obs = {"observation": torch.randn((SDF_STEPS, SDF_ENVS, 1, 20), generator=g),
+           "sdf_points": torch.randn((SDF_STEPS, SDF_ENVS, 1, SDF_POINTS, 3), generator=g)}
+    last = {k: v[0] for k, v in obs.items()}
+    cfg = MAPPOCfg(gamma=0.99, train_every=SDF_STEPS, num_minibatches=2, ppo_epochs=1)
+    pols = {d: PPOSDFNavPolicy(cfg, device=d) for d in ("cpu", dev)}
+    ts_c = pols["cpu"].init(last, torch.Generator().manual_seed(51))
+    _unit_heads(ts_c)
+    noise = torch.randn((SDF_STEPS, SDF_ENVS, 1, 4), generator=g)
+    act_c = pols["cpu"].act(ts_c, obs, noise=noise)
+    ts_g = clone_state(pols[dev], ts_c, tree_to(last, dev))
+    act_g = pols[dev].act(ts_g, tree_to(obs, dev), noise=noise.to(dev))
+    errs = [float((a.cpu() - b).abs().max()) for a, b in zip(act_g, act_c)]
+    log("  ppo_sdf act card vs CPU: max_abs_err " + ", ".join(f"{e:.3e}" for e in errs))
+    if not all(e <= 1e-4 * max(float(b.abs().max()), 1.0) for e, b in zip(errs, act_c)):
+        raise AssertionError("ppo_sdf act: card and CPU disagree")
+    traj = {"obs": obs, "action": act_c[0], "logp": act_c[1], "value": act_c[2],
+            "reward": torch.randn((SDF_STEPS, SDF_ENVS, 1, 1), generator=g),
+            "done": torch.rand((SDF_STEPS, SDF_ENVS, 1), generator=g) < 0.1}
+    perms = torch.randperm(SDF_STEPS * SDF_ENVS, generator=torch.Generator().manual_seed(52))[None]
+    new, metrics = {}, {}
+    for d in ("cpu", dev):
+        ts = clone_state(pols[d], ts_c, tree_to(last, d))
+        new[d], m = pols[d].train_op(ts, tree_to(traj, d), tree_to(last, d), perms=perms)
+        metrics[d] = {k: float(v) for k, v in m.items()}
+    hold_update("ppo_sdf", new, metrics, rel=1e-2, flat_tol=1e-4)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
@@ -2247,6 +2729,15 @@ def main() -> int:
                        (None, "fwdloss", "agrad"))
     eval_launches = phase_eval(dev, card)
     phase_hover(dev, card)
+    t12 = time.perf_counter()
+    option_kernels = phase_option_kernels(dev)
+    options = phase_options(dev, card)
+    phase_family(dev, card)
+    log(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s; share_actor=False training "
+        f"{options['rate']:.1f} env-steps/s on {card}")
+    for name, extra in option_kernels.items():
+        kernels[name].update(extra, share_actor_false_launches_per_iteration=options[
+            "launches_per_iteration"][name])
     launches["encoder_backward:stage_b"] = launches["weight_grads"]
     launches["tp_backward:stage_b"] = launches["tp_weight_grads"]
     summary = {"kernels": [

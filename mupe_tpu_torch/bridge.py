@@ -2,7 +2,11 @@
 
 Inputs are nested dicts of numpy arrays: a flax parameter tree as
 `jax.device_get` returns it (the entity-encoder Actor / Critic, the flat
-ones, the TP net), optimizer moments unravelled into such trees, a value
+ones, the TP net; any `LeafNet` of the port, whose leaves name their flax
+paths: the relation encoders, the PPO family's networks with their `Conv`,
+`GRUCell`, `MultiHeadDotProductAttention` and `LayerNorm` leaves; per-agent
+actors stacked on a leading agent axis), optimizer moments unravelled into
+such trees, a value
 normaliser, and an env state turned into a dict (for example
 `dataclasses.asdict` of a fetched `HideAndSeekState` or `HoverState`).  The port
 itself never imports JAX; the caller does the fetch.
@@ -19,7 +23,7 @@ from .dynamics import DroneState, QuadrotorParams
 from .envs.genbuffer import GenBufferState
 from .envs.hideandseek import HideAndSeekState
 from .envs.hover import HoverState
-from .learning.mappo import MAPPOPolicy, MAPPOState
+from .learning.mappo import AgentStack, MAPPOPolicy, MAPPOState
 from .learning.modules.networks import entity_group_order
 from .learning.optim import AdamState
 from .learning.valuenorm import ValueNorm1, ValueNorm2
@@ -114,22 +118,74 @@ def tp_leaves(params: Mapping, device="cpu") -> Tuple[torch.Tensor, ...]:
     return tuple(_t(a, device) for a in (wi, wh, b, p["fc"]["kernel"], p["fc"]["bias"]))
 
 
+def _path(tree: Mapping, path: str):
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
+
+
+def named_leaves(params: Mapping, net, agent=None, device="cpu") -> Tuple[torch.Tensor, ...]:
+    """A flax tree → the leaves of the port's `LeafNet` `net`, each found
+    by its flax path and reshaped to the port's layout (flax's attention
+    kernels [in, heads, head] and [heads, head, out] row-major, which keeps
+    the heads' split as column blocks; a Conv's [k, in, out] unchanged).
+    `agent` picks one agent's parameters from a stacked tree."""
+    p = params["params"]
+    out = []
+    for leaf in net.leaf_specs():
+        a = np.asarray(_path(p, leaf.path))
+        out.append(_t(np.reshape(a if agent is None else a[agent], leaf.shape), device))
+    return tuple(out)
+
+
+def _stacked(tree, agent: int):
+    if isinstance(tree, Mapping):
+        return {k: _stacked(v, agent) for k, v in tree.items()}
+    return np.asarray(tree)[agent]
+
+
+def leaves_of(net, params: Mapping, agent=None) -> Tuple[torch.Tensor, ...]:
+    """`net`'s leaves from a flax tree: by path for a `LeafNet`, by the
+    tree's encoder for an `EncoderHead` / `FlatHeadNet`."""
+    if hasattr(net, "leaf_specs"):
+        return named_leaves(params, net, agent)
+    return _network_leaves(params if agent is None else _stacked(params, agent))
+
+
 def policy_state(
     policy: MAPPOPolicy,
     obs_example: Mapping[str, torch.Tensor],
     actor_params: Mapping,
     critic_params: Mapping,
     tp_params: Mapping | None = None,
+    state_example=None,
 ) -> MAPPOState:
     """A `MAPPOState` holding the converted JAX parameters; `obs_example`
-    (a port observation) gives the token groups, or the flat width."""
+    (a port observation) gives the token groups, or the flat width, and
+    `state_example` the centralized critic's.  Per-agent actors
+    (`share_actor=False`) take the JAX package's stacked tree."""
+    shapes = policy.init(obs_example, state_example=state_example,
+                         generator=torch.Generator().manual_seed(0))
+    if isinstance(shapes.actor, AgentStack):
+        actor = [leaves_of(net, actor_params, i) for i, net in enumerate(shapes.actor.nets)]
+    else:
+        actor = leaves_of(shapes.actor, actor_params)
     return policy.init(
         obs_example,
-        actor_leaves=_network_leaves(actor_params),
+        actor_leaves=actor,
         log_std=actor_log_std(actor_params),
-        critic_leaves=_network_leaves(critic_params),
+        critic_leaves=leaves_of(shapes.critic, critic_params),
         tp_leaves=tp_leaves(tp_params) if tp_params is not None else None,
+        state_example=state_example,
     )
+
+
+def rnn_policy_state(policy, obs_example, actor_params: Mapping, critic_params: Mapping):
+    """A `PPORNNState` holding the converted JAX parameters."""
+    shapes = policy.init(obs_example, generator=torch.Generator().manual_seed(0))
+    return policy.init(obs_example, actor_leaves=named_leaves(actor_params, shapes.actor),
+                       log_std=actor_log_std(actor_params),
+                       critic_leaves=named_leaves(critic_params, shapes.critic))
 
 
 def value_norm(d: Mapping[str, Any], device="cpu") -> ValueNorm1:

@@ -10,12 +10,16 @@ whose loss went non-finite and `profile_dir` traces iterations 1-3.
 `evaluate` runs one greedy episode, by default on the fixed evaluation
 scenario (HideAndSeek's: it forces `use_eval`, which only HideAndSeek's
 configurations have, as in the JAX package).  Tasks: HideAndSeek and its
-AEG and sim-free variants, and Hover on flat observations.
+AEG and sim-free variants, and Hover.  Algorithms (`algo=`, through
+`learning/registry.py`): mappo (every option: per-agent actors, the
+centralized critic, the relation encoders), ppo (with the privileged
+branches over Hover's domain-randomized dict observations), ppo_tconv,
+ppo_sdf, transformer and the recurrent ppo_rnn, whose carry threads the GRU
+states (`init_rnn_carry`, `make_rnn_train_iter`).
 
-Not ported yet (each raises NotImplementedError): algorithms other than
-MAPPO (`train_rma` among them), so Hover's dict observations (domain
-randomization, the observation history: ppo_adapt's inputs) and its depth
-camera, and evaluation videos (`video`: `utils/render.py` draws with
+Not ported yet (each raises NotImplementedError): `algo=ppo_adapt`
+(`train_rma`, ROADMAP A3b), `algo=ppo_vision` and Hover's depth camera
+(A3c), and evaluation videos (`video`: `utils/render.py` draws with
 matplotlib, which the port does not depend on).
 """
 from __future__ import annotations
@@ -32,7 +36,9 @@ import numpy as np
 import torch
 
 from .envs import ENV_REGISTRY
-from .learning import MAPPOCfg, MAPPOPolicy, init_carry, make_train_iter
+from .learning import init_carry, make_train_iter
+from .learning.registry import is_recurrent, make_policy
+from .learning.rollout import init_rnn_carry, make_rnn_train_iter, obs_template
 from .utils.checkpoint import load_checkpoint, save_checkpoint
 from .utils.config import RunCfg, apply_overrides, parse_cli
 from .utils.debug import guard_train_iter, profile_trace
@@ -50,32 +56,20 @@ def build(
     device: torch.device | str = "cuda",
 ):
     """(env, policy, env_cfg, algo_cfg) for a registered task (the env class
-    and its `cfg_cls`) and MAPPO.  For an env that provides the TP net's
-    input, the policy's TP-net settings follow the env's first, so `algo.*`
-    overrides still win; the observation is a dict for such an env or where
-    the env's configuration says so (mupe_tpu/learning/registry.py `_mk_cfg`,
-    `_obs_is_dict`)."""
-    if algo.lower() != "mappo":
-        raise NotImplementedError(f"algo {algo!r} is not ported yet (MAPPO only)")
+    and its `cfg_cls`) and algorithm (mupe_tpu/harness.py:40-57): the
+    policy comes from the registry (`make_policy`), whose cfg threads an
+    env's TP-net settings in before the `algo.*` overrides.  The TP net's
+    prediction in the observation is MAPPO's alone, so for any other
+    algorithm the env's `use_tp_net` is turned off."""
     if task not in ENV_REGISTRY:
         raise NotImplementedError(f"task {task!r} is not ported yet; have {sorted(ENV_REGISTRY)}")
     env_cls = ENV_REGISTRY[task]
     env_cfg = apply_overrides(env_cls.cfg_cls(), env_overrides or {})
+    if algo.lower() != "mappo" and hasattr(env_cfg, "use_tp_net"):
+        env_cfg = dataclasses.replace(env_cfg, use_tp_net=False)
     env = env_cls(env_cfg, device=device)
-    provides_tp = getattr(env, "provides_tp", False)
-    algo_cfg = MAPPOCfg()
-    if provides_tp:
-        algo_cfg = dataclasses.replace(
-            algo_cfg, use_tp_net=env_cfg.use_tp_net,
-            future_prediction_step=env_cfg.future_prediction_step,
-            window_step=env_cfg.window_step)
-    algo_cfg = apply_overrides(algo_cfg, algo_overrides or {})
-    policy = MAPPOPolicy(
-        algo_cfg, n_agents=env.num_agents, action_dim=env.action_dim,
-        obs_is_dict=provides_tp or bool(getattr(env_cfg, "obs_is_dict", False)),
-        tp_input_dim=getattr(env_cfg, "tp_input_dim", None) if provides_tp else None,
-        device=device, tp_history_step=getattr(env_cfg, "history_step", 10))
-    return env, policy, env_cfg, algo_cfg
+    policy = make_policy(algo, env, algo_overrides, device)
+    return env, policy, env_cfg, policy.cfg
 
 
 def train(
@@ -111,21 +105,23 @@ def train(
         config=config_dict(run_cfg, env_cfg, algo_cfg),
     )
     gen = torch.Generator(device=device).manual_seed(run_cfg.seed)
-    carry = init_carry(env, policy, gen)
+    recurrent = is_recurrent(policy)
+    carry = (init_rnn_carry if recurrent else init_carry)(env, policy, gen)
     if run_cfg.model_dir:
         # warm start: the learner state only
         carry.ts = load_checkpoint(run_cfg.model_dir, target=carry.ts)
     if run_cfg.resume_dir:
         # exact resume: the full carry (learner, env state with the AEG
-        # buffer and curriculum scalars, last observation, generator)
+        # buffer and curriculum scalars, last observation, the GRU states,
+        # generator)
         carry = load_checkpoint(run_cfg.resume_dir, target=carry)
-    train_iter = make_train_iter(env, policy)
+    train_iter = (make_rnn_train_iter if recurrent else make_train_iter)(env, policy)
     if run_cfg.guard_nan:
         # skip updates whose loss went non-finite instead of corrupting the
         # run: a copy of the carry and one scalar host sync an iteration
         train_iter = guard_train_iter(train_iter)
-    eval_prog = (_make_eval_prog(env, policy, run_cfg.seed) if run_cfg.eval_interval > 0
-                 else None)
+    eval_prog = (_make_eval_prog(env, policy, run_cfg.seed, recurrent)
+                 if run_cfg.eval_interval > 0 else None)
 
     frames_per_iter = env.num_envs * algo_cfg.train_every
     if run_cfg.max_iters > 0:
@@ -181,19 +177,35 @@ def train(
 
 
 @torch.no_grad()
-def _greedy_episode(env, policy: MAPPOPolicy, ts, env_state, obs, gen: torch.Generator):
+def _greedy_episode(env, policy, ts, env_state, obs, gen: torch.Generator, state=None,
+                    recurrent: bool = False):
     """`max_episode_length` greedy steps (`deterministic=True`) from
-    `env_state` and its observation `obs`.  Returns (stat keys, the
+    `env_state` and its observation `obs` (and the critic state `state`,
+    which the centralized critic reads); a recurrent policy threads GRU
+    states from zeros, `is_init` set at the start and after each episode's
+    end (the JAX package's eval semantics).  Returns (stat keys, the
     done-masked sum of each stat [K], the number of finished episodes, and
     each step's first_capture_step where an episode finished, NaN elsewhere
     [T, E], or None for an env without that stat).  The sums accumulate step
     by step: no trajectory is kept."""
     provides_tp = getattr(env, "provides_tp", False)
     step_args = (ts.tp_net if policy.cfg.use_tp_net else None,) if provides_tp else ()
+    state_kw = {"state": state} if policy.cfg.critic_input == "state" else {}
+    if recurrent:
+        a_rnn = c_rnn = policy.zero_state(obs.shape[:-1])
+        is_init = torch.ones(obs.shape[:-1] + (1,), dtype=torch.bool, device=obs.device)
     keys, sums, n_done, capture = None, 0.0, 0.0, []
     for _ in range(env.cfg.max_episode_length):
-        action, _, _ = policy.act(ts, obs, deterministic=True)
+        if recurrent:
+            action, _, _, a_rnn, c_rnn = policy.act(ts, obs, a_rnn, c_rnn, is_init,
+                                                    deterministic=True)
+        else:
+            action, _, _ = policy.act(ts, obs, deterministic=True, **state_kw)
         env_state, tr = env.step(env_state, action, gen, *step_args)
+        if recurrent:
+            is_init = tr.done[:, :, None].expand(is_init.shape).to(torch.bool)
+        if state_kw:
+            state_kw["state"] = tr.info.get("state")
         done = tr.done.float()                                      # [E, 1]
         keys = keys or list(tr.stats)  # one order for every step
         stats = torch.cat([tr.stats[k] for k in keys], dim=1)       # [E, K]
@@ -205,23 +217,25 @@ def _greedy_episode(env, policy: MAPPOPolicy, ts, env_state, obs, gen: torch.Gen
     return keys, sums, n_done, torch.stack(capture) if capture else None
 
 
-def _make_eval_prog(env, policy: MAPPOPolicy, seed: int):
+def _make_eval_prog(env, policy, seed: int, recurrent: bool = False):
     """One-episode greedy evaluation (mupe_tpu/harness.py:244-322):
     `prog(ts, i)` resets the training env's configuration afresh from a
     generator of its own, seeded from `seed + 7919` and the iteration `i`
     (JAX: `fold_in(PRNGKey(seed + 7919), i)`), acts greedily for
     `max_episode_length` steps and returns the done-masked mean of every
     stat (NaN where no episode finished) and `episode_count`.  It neither
-    reads nor advances the training carry or its generator."""
+    reads nor advances the training carry or its generator.  `recurrent`
+    threads GRU states from zeros (mupe_tpu/harness.py:244-323)."""
 
     def prog(ts, i: int) -> Dict[str, torch.Tensor]:
         gen = torch.Generator(device=env.device).manual_seed((seed + 7919) * 2**32 + i)
         env_state = env.reset(gen)
         if getattr(env, "provides_tp", False):
-            obs, _ = env.observe_full(env_state, ts.tp_net)
+            obs, state = env.observe_full(env_state, getattr(ts, "tp_net", None))
         else:
-            obs = env.observe(env_state)
-        keys, sums, n_done, _ = _greedy_episode(env, policy, ts, env_state, obs, gen)
+            obs, state = env.observe(env_state), None
+        keys, sums, n_done, _ = _greedy_episode(env, policy, ts, env_state, obs, gen, state,
+                                                recurrent)
         means = torch.where(n_done > 0, sums / torch.clamp(n_done, min=1.0), math.nan)
         out = dict(zip(keys, means.unbind()))
         out["episode_count"] = n_done
@@ -246,15 +260,18 @@ def evaluate(argv: Sequence[str], device: torch.device | str = "cuda") -> Dict[s
     env_over = dict(sections.get("env", {}))
     env_over.setdefault("use_eval", True)
     env, policy, _, _ = build(run_cfg.task, env_over, sections.get("algo"), run_cfg.algo, device)
+    if is_recurrent(policy):
+        raise ValueError(f"evaluate takes non-recurrent policies, as the JAX package's does "
+                         f"(its init_carry cannot build algo={run_cfg.algo!r}); evaluate a "
+                         "recurrent policy in training with eval_interval")
     ts = None
     if run_cfg.model_dir:
-        template = {k: torch.zeros((1,) + s) for k, s in env.obs_groups().items()}
         ts = load_checkpoint(run_cfg.model_dir, target=policy.init(
-            template, torch.Generator().manual_seed(run_cfg.seed)))
+            obs_template(env), torch.Generator().manual_seed(run_cfg.seed)))
     gen = torch.Generator(device=device).manual_seed(run_cfg.seed)
     carry = init_carry(env, policy, gen, ts=ts)
     keys, sums, n_done, capture = _greedy_episode(
-        env, policy, carry.ts, carry.env_state, carry.obs, gen)
+        env, policy, carry.ts, carry.env_state, carry.obs, gen, carry.state)
     n = float(n_done)
     if n == 0:
         # the stats would read as real 0.0s: say so

@@ -1,7 +1,16 @@
 from .gae import compute_gae
 from .mappo import MAPPOCfg, MAPPOPolicy, MAPPOState, PackMeta, compute_pack_meta
 from .optim import AdamState
-from .rollout import IterCarry, init_carry, make_rollout, make_train_iter
+from .rollout import (
+    IterCarry,
+    RNNIterCarry,
+    init_carry,
+    init_rnn_carry,
+    make_rnn_rollout,
+    make_rnn_train_iter,
+    make_rollout,
+    make_train_iter,
+)
 from .valuenorm import ValueNorm1, ValueNorm2
 from .tp_net import TPNet, denormalize_predictions, normalize_groundtruth
 
@@ -16,6 +25,10 @@ __all__ = [
     "ValueNorm1",
     "ValueNorm2",
     "IterCarry",
+    "RNNIterCarry",
+    "init_rnn_carry",
+    "make_rnn_rollout",
+    "make_rnn_train_iter",
     "init_carry",
     "make_rollout",
     "make_train_iter",

@@ -17,6 +17,18 @@ Over flat observations ([..., n, D], Hover's) the actor and the critic are
 torch, as in the JAX package, whose flat path runs no kernel; `train_op`
 takes JAX's non-joint branch: per minibatch `_update_actor`, then
 `_update_critic`, each with its own loss, clip and Adam step.
+
+The non-joint branch also takes every configuration where JAX's `use_joint`
+is false (mappo.py:728-749): per-agent actors (`share_actor=False`, an
+`AgentStack` of one network an agent, whose parameters form one optimizer
+group: one clip over all of them), the centralized critic
+(`critic_input="state"`: one network of `n_agents` outputs over the env's
+critic state), the relation encoders (`RelationHeadNet`, plain torch, as
+plain XLA in the JAX package) and injected networks (`actor_module` /
+`critic_module`: the PPO family's).  A `PartialAttentionEncoder` network
+there is an `EncoderHead` and runs the encoder kernels (`encoder_forward`,
+its backward under autograd) on CUDA tensors, one launch a network: an
+agent's actor on that agent's rows, the critic, the state critic.
 """
 from __future__ import annotations
 
@@ -51,6 +63,7 @@ from ..ops.fused_encoder import (
 from .modules.distributions import Gaussian
 from .modules.networks import (
     FlatHeadNet,
+    RelationHeadNet,
     entity_group_order,
     init_flat_leaves,
     lecun_normal,
@@ -115,6 +128,8 @@ class MAPPOCfg:
 
 
 DIRECT_MODES = ("fwdloss", "agrad")
+ENCODERS = ("PartialAttentionEncoder", "RelationEncoder", "PartialRelationEncoder")
+CRITIC_INPUTS = ("obs", "state")
 # dict-observation branches that are not entity groups: Hover's with domain
 # randomization (intrinsics) or an observation history; ppo_adapt's inputs
 _NON_ENTITY_KEYS = ("observation", "intrinsics", "observation_h", "depth")
@@ -142,6 +157,49 @@ class EncoderHead(nn.Module):
     @property
     def leaves(self) -> List[torch.Tensor]:
         return list(split_flat(self.spec, self.flat))
+
+    def forward(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """[..., k, d] groups → [..., head_dim]: one `encoder_forward`
+        launch on CUDA tensors (the plain version on CPU ones)."""
+        names = entity_group_order(obs.keys())
+        x, lead = pack_obs(self.spec, obs, names)
+        return encoder_forward(self.spec, self.leaves, x).reshape(lead + (self.spec.head_dim,))
+
+
+def tree_map(fn, tree):
+    """`fn` on every tensor of a tensor or a (nested) dict of them."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def agent_slice(obs, i: int, axis: int):
+    """Agent i's observation: index `axis` of every leaf."""
+    return tree_map(lambda x: x.select(x.dim() + axis, i), obs)
+
+
+class AgentStack(nn.Module):
+    """Per-agent networks (`share_actor=False`, the JAX package's stacked
+    parameters vmapped over the agent axis, mappo.py:539-547): network i
+    reads agent i's observation (axis -3 of dict leaves [..., n, k, d], -2
+    of flat ones [..., n, D]); the outputs stack on axis -2."""
+
+    def __init__(self, nets: Sequence[nn.Module], agent_axis: int):
+        super().__init__()
+        self.nets = nn.ModuleList(nets)
+        self.agent_axis = agent_axis
+
+    def flats(self) -> List[torch.Tensor]:
+        return [net.flat for net in self.nets]
+
+    def forward(self, obs) -> torch.Tensor:
+        return torch.stack([net(agent_slice(obs, i, self.agent_axis))
+                            for i, net in enumerate(self.nets)], dim=-2)
+
+
+def net_flats(net: nn.Module) -> List[torch.Tensor]:
+    """A network's flat parameter vectors: one, or one an agent."""
+    return net.flats() if isinstance(net, AgentStack) else [net.flat]
 
 
 def init_encoder_leaves(spec: EncoderSpec, head: str, generator=None):
@@ -173,23 +231,24 @@ class MAPPOState:
     normaliser and (with `entropy_target`) the adaptive entropy coefficient.
     `train_op` updates it in place (the tensors' storage is reused).  The
     networks are `EncoderHead`s over dict observations, `FlatHeadNet`s over
-    flat ones."""
+    flat ones, `RelationHeadNet`s, the PPO family's `LeafNet`s, or (per-agent
+    actors) an `AgentStack` of them."""
 
-    actor: EncoderHead | FlatHeadNet
-    log_std: torch.Tensor          # [A]
-    critic: EncoderHead | FlatHeadNet
+    actor: nn.Module
+    log_std: torch.Tensor          # [A], or [n, A] for per-agent actors
+    critic: nn.Module
     tp_net: Optional[TPNet] = None
-    actor_opt: Optional[AdamState] = None   # over [actor.flat, log_std]
+    actor_opt: Optional[AdamState] = None   # over [actor flat(s), log_std]
     critic_opt: Optional[AdamState] = None  # over [critic.flat]
     tp_opt: Optional[AdamState] = None      # over the TP net's five leaves
     value_norm: Optional[ValueNorm1] = None
     entropy_coef: Optional[torch.Tensor] = None
 
     def actor_params(self) -> List[torch.Tensor]:
-        return [self.actor.flat, self.log_std]
+        return [*net_flats(self.actor), self.log_std]
 
     def critic_params(self) -> List[torch.Tensor]:
-        return [self.critic.flat]
+        return net_flats(self.critic)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,7 +338,13 @@ def _huber(pred, target, delta):
 
 
 class MAPPOPolicy:
-    """Static algorithm object; methods are functions of a `MAPPOState`."""
+    """Static algorithm object; methods are functions of a `MAPPOState`.
+
+    `actor_module` / `critic_module` inject the networks (the JAX package's
+    `MAPPOPolicy(actor_module=, critic_module=)`, mappo.py:298-335): each a
+    callable `(example observation, leaves=None, generator=None) -> LeafNet`
+    whose actor returns the Gaussian's mean (its log_std is the state's) and
+    whose critic returns values [..., n, 1]."""
 
     def __init__(
         self,
@@ -290,16 +355,13 @@ class MAPPOPolicy:
         tp_input_dim: Optional[int] = None,
         device: torch.device | str = "cuda",
         tp_history_step: int = 10,
+        actor_module: Optional[Callable[..., nn.Module]] = None,
+        critic_module: Optional[Callable[..., nn.Module]] = None,
     ):
-        unsupported = {
-            "share_actor=False": not cfg.share_actor,
-            f"critic_input={cfg.critic_input!r}": cfg.critic_input != "obs",
-            f"attn_encoder={cfg.attn_encoder!r}":
-                cfg.attn_encoder != "PartialAttentionEncoder",
-        }
-        for what, on in unsupported.items():
-            if on:
-                raise NotImplementedError(f"MAPPO {what} is not ported yet")
+        if cfg.critic_input not in CRITIC_INPUTS:
+            raise ValueError(f"critic_input {cfg.critic_input!r} is not one of {CRITIC_INPUTS}")
+        if cfg.attn_encoder not in ENCODERS:
+            raise KeyError(f"attn_encoder {cfg.attn_encoder!r} is not one of {ENCODERS}")
         if cfg.use_tp_net and tp_input_dim is None:
             raise ValueError("use_tp_net needs tp_input_dim")
         if cfg.direct_mode not in DIRECT_MODES:
@@ -312,20 +374,83 @@ class MAPPOPolicy:
         self.tp_input_dim = tp_input_dim
         self.tp_history_step = tp_history_step
         self.device = torch.device(device)
+        self.actor_module, self.critic_module = actor_module, critic_module
+        self._default_modules = actor_module is None and critic_module is None
+        # the agent axis of per-agent observations (mappo.py:544)
+        self.agent_axis = -3 if obs_is_dict else -2
 
     def specs(self, obs: Dict[str, torch.Tensor]):
         """(group names, actor spec, critic spec) for a dict observation
         with leaves [..., k, d]."""
-        other = [k for k in obs if k in _NON_ENTITY_KEYS]
-        if other:
-            raise NotImplementedError(
-                f"MAPPO cannot train dict observations with the branches {other} (Hover "
-                "with dr_* ranges or obs_history_len): they are ppo_adapt's inputs, not "
-                "ported yet (ROADMAP A3b); the JAX package's MAPPO fails on them too")
+        self._check_entity_groups(obs)
         names = entity_group_order(obs.keys())
         groups = tuple((obs[n].shape[-2], obs[n].shape[-1]) for n in names)
         return (names, EncoderSpec(groups=groups, head_dim=self.action_dim),
                 EncoderSpec(groups=groups, head_dim=1))
+
+    @staticmethod
+    def _check_entity_groups(obs) -> None:
+        other = [k for k in obs if k in _NON_ENTITY_KEYS]
+        if other:
+            raise NotImplementedError(
+                f"MAPPO's default networks cannot train dict observations with the branches "
+                f"{other} (Hover with dr_* ranges or obs_history_len): they are ppo_adapt's "
+                "inputs, not ported yet (ROADMAP A3b, its rest); the JAX package's MAPPO fails "
+                "on them too (algo=ppo with priv_actor / priv_critic, or algo=ppo_tconv, "
+                "trains them)")
+
+    def joint(self, obs) -> bool:
+        """Whether the joint actor+critic update and the pair forward apply:
+        the JAX package's `_fused_ok` with a per-agent critic, its
+        `use_joint` (mappo.py:442-451, 728-730)."""
+        return (self.cfg.share_actor and self.obs_is_dict and isinstance(obs, dict)
+                and self.cfg.attn_encoder == "PartialAttentionEncoder"
+                and self._default_modules and self.cfg.critic_input == "obs")
+
+    def _check_state(self, state) -> None:
+        """The centralized critic's input must be a well-formed state: a
+        dict of entity groups that share their rank (tokens on axis -2)."""
+        if len({v.dim() for v in state.values()}) > 1:
+            shapes = {k: tuple(v.shape) for k, v in state.items()}
+            raise ValueError(
+                f"critic_input='state' needs state groups of one rank, got {shapes}: their "
+                "tokens cannot be concatenated (the JAX package's SplitEmbedding fails on this "
+                "state at init_carry too; HideAndSeek's per-drone cylinders are [E, n, k, 5])")
+
+    def _make_net(self, role: str, example, leaves, generator) -> nn.Module:
+        """One network of `role` ("actor" or "critic") for `example` (an
+        observation, an agent's observation, or the critic state)."""
+        module = self.actor_module if role == "actor" else self.critic_module
+        if module is not None:
+            return module(example, leaves=leaves, generator=generator)
+        state = role == "critic" and self.cfg.critic_input == "state"
+        out = self.action_dim if role == "actor" else (self.n_agents if state else 1)
+        if state or self.obs_is_dict:
+            if not state:
+                self._check_entity_groups(example)
+            names = entity_group_order(example.keys())
+            if self.cfg.attn_encoder == "PartialAttentionEncoder":
+                spec = EncoderSpec(groups=tuple((example[n].shape[-2], example[n].shape[-1])
+                                                for n in names), head_dim=out)
+                if leaves is None:
+                    leaves = init_encoder_leaves(spec, role, generator)
+                return EncoderHead(spec, leaves)
+            groups = {n: (example[n].shape[-2], example[n].shape[-1]) for n in names}
+            return RelationHeadNet(self.cfg.attn_encoder, groups, out, role, self.compute_dtype,
+                                   leaves, generator)
+        d, hidden = example.shape[-1], self.cfg.hidden_units
+        if leaves is None:
+            leaves = init_flat_leaves(d, hidden, out, role, generator)
+        return FlatHeadNet(d, hidden, out, self.compute_dtype, leaves)
+
+    def init_tp(self, generator: Optional[torch.Generator] = None, tp_leaves=None):
+        """The TP net alone (needed before the first observation, of which
+        its prediction is a part), or None without it."""
+        if not self.cfg.use_tp_net:
+            return None
+        return TPNet(self.tp_input_dim, 3 * self.cfg.future_prediction_step,
+                     history_step=self.tp_history_step, leaves=tp_leaves, generator=generator,
+                     device=self.device)
 
     def init(
         self,
@@ -335,58 +460,61 @@ class MAPPOPolicy:
         log_std=None,
         critic_leaves=None,
         tp_leaves=None,
+        state_example=None,
     ) -> MAPPOState:
         """Parameters from given leaves (e.g. converted by `bridge`) or, for
         any not given, initialised from `generator` (a CPU generator).
         `obs_example` is a dict of entity groups, or a flat [..., n, D]
-        observation."""
-        if self.obs_is_dict:
-            _, spec_a, spec_c = self.specs(obs_example)
-            if actor_leaves is None:
-                actor_leaves = init_encoder_leaves(spec_a, "actor", generator)
-            if critic_leaves is None:
-                critic_leaves = init_encoder_leaves(spec_c, "critic", generator)
-            actor, critic = EncoderHead(spec_a, actor_leaves), EncoderHead(spec_c, critic_leaves)
+        observation; per-agent actors take one leaf list an agent
+        (`actor_leaves[i]`) and a log_std [n, A].  The centralized critic
+        (`critic_input="state"`) is built over `state_example`, which must be
+        given and well formed."""
+        cfg = self.cfg
+        if cfg.critic_input == "state":
+            if state_example is None:
+                raise ValueError("critic_input='state' needs the env's critic state "
+                                 "(state_example); this env provides none")
+            self._check_state(state_example)
+        if cfg.share_actor:
+            actor = self._make_net("actor", obs_example, actor_leaves, generator)
+            ls_shape = (self.action_dim,)
         else:
-            d, hidden, dt = obs_example.shape[-1], self.cfg.hidden_units, self.compute_dtype
-            if actor_leaves is None:
-                actor_leaves = init_flat_leaves(d, hidden, self.action_dim, "actor", generator)
-            if critic_leaves is None:
-                critic_leaves = init_flat_leaves(d, hidden, 1, "critic", generator)
-            actor = FlatHeadNet(d, hidden, self.action_dim, dt, actor_leaves)
-            critic = FlatHeadNet(d, hidden, 1, dt, critic_leaves)
+            # every agent's network from the same shapes (mappo.py:379-382)
+            one = agent_slice(obs_example, 0, self.agent_axis)
+            actor = AgentStack([self._make_net("actor", one, None if actor_leaves is None
+                                               else actor_leaves[i], generator)
+                                for i in range(self.n_agents)], self.agent_axis)
+            ls_shape = (self.n_agents, self.action_dim)
+        critic = self._make_net("critic", state_example if cfg.critic_input == "state"
+                                else obs_example, critic_leaves, generator)
         if log_std is None:
-            log_std = torch.zeros(self.action_dim)
-        tp_net = None
-        if self.cfg.use_tp_net:
-            tp_net = TPNet(
-                self.tp_input_dim, 3 * self.cfg.future_prediction_step,
-                history_step=self.tp_history_step, leaves=tp_leaves, generator=generator, device=self.device,
-            )
+            log_std = torch.zeros(ls_shape)
         ts = MAPPOState(
             actor=actor.to(self.device),
-            log_std=torch.as_tensor(log_std, dtype=torch.float32).to(self.device),
+            log_std=torch.as_tensor(log_std, dtype=torch.float32).clone().to(self.device),
             critic=critic.to(self.device),
-            tp_net=tp_net,
-            value_norm=ValueNorm1.create((1,), beta=self.cfg.value_norm_beta, device=self.device),
+            tp_net=self.init_tp(generator, tp_leaves),
+            value_norm=ValueNorm1.create((1,), beta=cfg.value_norm_beta, device=self.device),
         )
         ts.actor_opt = AdamState.zeros_like(ts.actor_params())
         ts.critic_opt = AdamState.zeros_like(ts.critic_params())
-        if tp_net is not None:
-            ts.tp_opt = AdamState.zeros_like(list(tp_net.leaves()))
-        if self.cfg.entropy_target is not None:
-            ts.entropy_coef = torch.tensor(self.cfg.entropy_coef, device=self.device)
+        if ts.tp_net is not None:
+            ts.tp_opt = AdamState.zeros_like(list(ts.tp_net.leaves()))
+        if cfg.entropy_target is not None:
+            ts.entropy_coef = torch.tensor(cfg.entropy_coef, device=self.device)
         return ts
 
+    def _values(self, ts: MAPPOState, obs, state=None) -> torch.Tensor:
+        """V per agent → [..., n, 1], differentiable in the critic."""
+        if self.cfg.critic_input == "state":
+            return ts.critic(state)[..., None]
+        return ts.critic(obs)
+
     @torch.no_grad()
-    def value_op(self, ts: MAPPOState, obs) -> torch.Tensor:
+    def value_op(self, ts: MAPPOState, obs, state=None) -> torch.Tensor:
         """V(s) per agent → [..., n, 1] (the critic alone: `encoder_forward`,
-        or the flat critic)."""
-        if not self.obs_is_dict:
-            return ts.critic(obs)
-        names, _, spec_c = self.specs(obs)
-        x, lead = pack_obs(spec_c, obs, names)
-        return encoder_forward(spec_c, list(ts.critic.leaves), x).reshape(lead + (1,))
+        or the flat critic; over `state` for the centralized critic)."""
+        return self._values(ts, obs, state)
 
     @torch.no_grad()
     def act(
@@ -396,24 +524,26 @@ class MAPPOPolicy:
         generator: Optional[torch.Generator] = None,
         deterministic: bool = False,
         noise: Optional[torch.Tensor] = None,
+        state=None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Sample actions → (action, logp [..., n, 1], value [..., n, 1]).
-        Over dict observations actor and critic run in one
+        Where the joint update applies, actor and critic run in one
         `encoder_pair_forward` launch.  `noise` (standard normal, the
-        action's shape) replaces the generator's draw."""
-        if self.obs_is_dict:
+        action's shape) replaces the generator's draw; `state` is the
+        centralized critic's input."""
+        if self.joint(obs):
             names, spec_a, spec_c = self.specs(obs)
             x, lead = pack_obs(spec_a, obs, names)
             mean, value = encoder_pair_forward(
                 spec_a, spec_c, list(ts.actor.leaves), list(ts.critic.leaves), x
             )
             mean = mean.reshape(lead + (self.action_dim,))
+            value = value.reshape(lead + (1,))
         else:
-            mean, value = ts.actor(obs), ts.critic(obs)
-            lead = tuple(obs.shape[:-1])
+            mean, value = ts.actor(obs), self._values(ts, obs, state)
         dist = Gaussian(mean=mean, log_std=ts.log_std.expand(mean.shape))
         action = dist.mode if deterministic else dist.sample(generator, noise)
-        return action, dist.log_prob(action)[..., None], value.reshape(lead + (1,))
+        return action, dist.log_prob(action)[..., None], value
 
     # ------------------------------------------------------------------ train
     def _entropy_coef(self, ts: MAPPOState):
@@ -445,13 +575,16 @@ class MAPPOPolicy:
         generator: Optional[torch.Generator] = None,
         perms: Optional[torch.Tensor] = None,
         mark: Optional[Callable[[str], None]] = None,
+        last_state=None,
     ) -> Tuple[MAPPOState, Dict[str, torch.Tensor]]:
         """The update (mappo.py:593-806) on a rollout's trajectory: bootstrap
         value, flat GAE + advantage normalisation + `ValueNorm1`, the TP
         net's supervised step, then `ppo_epochs` x `num_minibatches` joint
         actor+critic steps (`_update_joint_flat`, or `_update_joint_direct`
-        with `use_inkernel_loss`), or over flat observations an actor step
-        and a critic step (`_update_actor_critic`).  Minibatches are drawn
+        with `use_inkernel_loss`), or where the joint update does not apply
+        an actor step and a critic step (`_update_actor_critic`), whose
+        minibatches also gather `traj["state"]` for the centralized critic
+        (`last_state` is its bootstrap input).  Minibatches are drawn
         from `perms` ([ppo_epochs, T*E] permutations, e.g. the JAX package's) or from
         `generator`.  Metrics stay device tensors (no host sync).  `mark`,
         if given, is called with "prep", "tp" and "ppo" as each phase ends
@@ -459,7 +592,7 @@ class MAPPOPolicy:
         cfg = self.cfg
         t_len, e, n_ag = traj["reward"].shape[:3]
         with torch.no_grad():
-            next_value = self.value_op(ts, last_obs)
+            next_value = self.value_op(ts, last_obs, last_state)
             values = ts.value_norm.denormalize(traj["value"].reshape(t_len, e * n_ag))
             next_value = ts.value_norm.denormalize(next_value.reshape(e * n_ag))
             reward = traj["reward"].reshape(t_len, e * n_ag)
@@ -472,7 +605,7 @@ class MAPPOPolicy:
                 advantages = (advantages - adv_mean) / (adv_std + 1e-8)
             ts.value_norm = ts.value_norm.update(returns[..., None])
             returns = ts.value_norm.normalize(returns)
-            if self.obs_is_dict:
+            if self.joint(last_obs):
                 meta = compute_pack_meta(last_obs, self.n_agents, self.action_dim)
                 packed = pack_rows(meta, traj["obs"], traj["action"], traj["logp"],
                                    traj["value"], advantages, returns)
@@ -483,16 +616,18 @@ class MAPPOPolicy:
                 update = (self._update_joint_direct if cfg.use_inkernel_loss
                           else self._update_joint_flat)
             else:
-                # the JAX package's non-joint layout: [T*E, n, ...] per field
+                # the JAX package's non-joint layout: [T*E, ...] per field,
+                # dict observations and states gathered leaf by leaf
                 fields = {"obs": traj["obs"], "action": traj["action"], "logp": traj["logp"],
                           "value": traj["value"],
                           "advantages": advantages.reshape(t_len, e, n_ag, 1),
                           "returns": returns.reshape(t_len, e, n_ag, 1)}
-                fields = {k: v.reshape((t_len * e,) + tuple(v.shape[2:]))
-                          for k, v in fields.items()}
+                if cfg.critic_input == "state":
+                    fields["state"] = traj["state"]
+                fields = tree_map(lambda v: v.reshape((t_len * e,) + tuple(v.shape[2:])), fields)
 
                 def minibatch(idx):
-                    return {k: v[idx] for k, v in fields.items()}
+                    return tree_map(lambda v: v[idx], fields)
 
                 update = self._update_actor_critic
         mark = mark or (lambda name: None)
@@ -577,7 +712,7 @@ class MAPPOPolicy:
             upd, opt = adam_updates(clip_by_global_norm(ga, cfg.max_grad_norm),
                                     ts.actor_opt, cfg.actor_lr)
             new = [p + u for p, u in zip(ts.actor_params(), upd)]
-            new[1] = self._apply_log_std_floor(new[1])
+            new[-1] = self._apply_log_std_floor(new[-1])
             self._write(ts.actor_params(), new, ts.actor_opt, opt, stop)
 
     def _critic_step(self, ts: MAPPOState, gc, stop) -> None:
@@ -661,8 +796,9 @@ class MAPPOPolicy:
         return info
 
     def _update_actor(self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None):
-        """The flat actor's step (mappo.py:809-853): PPO-clip on [m, n, 1]
-        samples with `entropy_loss = -mean(entropy)`, then clip + Adam."""
+        """The actor's step (mappo.py:809-853): PPO-clip on [m, n, 1]
+        samples with `entropy_loss = -mean(entropy)`, then clip + Adam over
+        every actor parameter (all agents' and log_std: one clip)."""
         cfg = self.cfg
         with torch.enable_grad():
             mean = ts.actor(mb["obs"])
@@ -677,7 +813,7 @@ class MAPPOPolicy:
             policy_loss = -torch.mean(torch.minimum(surr1, surr2) * self.action_dim)
             entropy_loss = -torch.mean(entropy)
             total = policy_loss + entropy_loss * self._entropy_coef(ts)
-            ga = list(torch.autograd.grad(total, [ts.actor.flat, log_std]))
+            ga = list(torch.autograd.grad(total, [*net_flats(ts.actor), log_std]))
         self._actor_step(ts, ga, stop)
         with torch.no_grad():
             w = ratio.detach().reshape(-1)
@@ -690,16 +826,16 @@ class MAPPOPolicy:
             }
 
     def _update_critic(self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None):
-        """The flat critic's step (mappo.py:1160-1196): the max of the two
-        Huber means (plain and clipped values), then clip + Adam(W)."""
+        """The critic's step (mappo.py:1160-1196): the max of the two Huber
+        means (plain and clipped values), then clip + Adam(W)."""
         cfg = self.cfg
         b_values, b_returns = mb["value"], mb["returns"]
         with torch.enable_grad():
-            values = ts.critic(mb["obs"])
+            values = self._values(ts, mb["obs"], mb.get("state"))
             clipped = b_values + torch.clamp(values - b_values, -cfg.clip_param, cfg.clip_param)
             loss = torch.maximum(_huber(values, b_returns, cfg.huber_delta),
                                  _huber(clipped, b_returns, cfg.huber_delta))
-            gc = list(torch.autograd.grad(loss, [ts.critic.flat]))
+            gc = list(torch.autograd.grad(loss, net_flats(ts.critic)))
         self._critic_step(ts, gc, stop)
         with torch.no_grad():
             values = values.detach()
@@ -709,8 +845,8 @@ class MAPPOPolicy:
                     "explained_var": explained_var}
 
     def _update_actor_critic(self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None):
-        """One minibatch of the flat path: `_update_actor`, then
-        `_update_critic` (the JAX package's non-joint branch)."""
+        """One minibatch of the non-joint branch: `_update_actor`, then
+        `_update_critic`."""
         return {**self._update_actor(ts, mb, stop), **self._update_critic(ts, mb, stop)}
 
     def _update_tp(self, ts: MAPPOState, traj: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -40,3 +40,27 @@ class Gaussian(NamedTuple):
     def entropy(self) -> torch.Tensor:
         per_dim = self.log_std + 0.5 * (1.0 + math.log(2.0 * math.pi))
         return torch.sum(per_dim.expand(self.mean.shape), dim=-1)
+
+
+class DiagGaussianHead:
+    """Linear mean + state-independent log_std (JAX `DiagGaussianHead`,
+    distributions.py:50-73): the mean's Dense is xavier-uniform with gain
+    0.01 and a zero bias, log_std starts at zero.  The Dense's two leaves
+    belong to the owning network's flat vector (under
+    `DiagGaussianHead_0/Dense_0`); log_std is held apart, in the policy's
+    state (`MAPPOPolicy.init` starts it at zero)."""
+
+    PATH = "DiagGaussianHead_0"
+
+    @staticmethod
+    def leaf_specs(in_dim: int, action_dim: int):
+        from .networks import dense_leaves
+
+        return dense_leaves(f"{DiagGaussianHead.PATH}/Dense_0", in_dim, action_dim, "actor_head")
+
+    @staticmethod
+    def mean(p, feats: torch.Tensor) -> torch.Tensor:
+        """The mean from `p` (a `LeafNet.params()` dict), in float32."""
+        from .networks import apply_dense
+
+        return apply_dense(p, f"{DiagGaussianHead.PATH}/Dense_0", feats.float())

@@ -9,11 +9,17 @@ Dense layers, ELU and LayerNorm outputs in the compute dtype and the
 LayerNorm statistics in float32, as flax's `dtype=` has them.  Their
 parameters are one flat float32 vector per network (the layout
 `optax.flatten` gives the JAX optimizer) whose views are the leaves.
+
+`LeafNet` generalises that layout: each leaf names its flax path (`Leaf`),
+which the bridge reads and `init_leaf` initialises as flax does; `HeadNet`
+puts a float32 head (the actor's `DiagGaussianHead` Dense or the critic's
+value) on a body.  The relation encoders (`RelationEncoder`, and its
+partial form) and the PPO family's networks (`learning/ppo/`) are built so.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -153,3 +159,235 @@ def init_flat_leaves(in_dim: int, hidden_units: Sequence[int], out_dim: int, hea
     else:
         wh = 0.01 * orthogonal(e, out_dim, generator)
     return leaves + [wh, torch.zeros(out_dim)]
+
+
+# ------------------------------------------------------------------ named leaves
+class Leaf(NamedTuple):
+    """One parameter of a `LeafNet`: its flax path under "params" ("/"
+    joined, the bridge's key), its shape in the port's layout ([in, out]
+    weights; flax's attention kernels [in, heads, head] / [heads, head, out]
+    flattened to [in, out] / [in, out] row-major, so the head split is kept
+    as column blocks) and how it is initialised."""
+
+    path: str
+    shape: Tuple[int, ...]
+    init: str = "lecun"  # lecun | zeros | ones | orthogonal | actor_head | critic_head
+
+
+def init_leaf(leaf: Leaf, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's default initialisers: lecun-normal kernels (fan-in over every
+    axis but the last, as for a Conv), zero biases, unit LayerNorm scales,
+    orthogonal recurrent kernels; the actor head xavier-uniform with gain
+    0.01 (`DiagGaussianHead`), the critic head orthogonal(0.01)."""
+    shape = leaf.shape
+    if leaf.init == "zeros":
+        return torch.zeros(shape)
+    if leaf.init == "ones":
+        return torch.ones(shape)
+    fan_in, fan_out = math.prod(shape[:-1]), shape[-1]
+    if leaf.init == "lecun":
+        return lecun_normal((fan_in, fan_out), generator).reshape(shape)
+    if leaf.init == "orthogonal":
+        return orthogonal(fan_in, fan_out, generator).reshape(shape)
+    if leaf.init == "actor_head":
+        bound = 0.01 * math.sqrt(6.0 / (fan_in + fan_out))
+        return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+    if leaf.init == "critic_head":
+        return 0.01 * orthogonal(fan_in, fan_out, generator).reshape(shape)
+    raise ValueError(f"unknown initialiser {leaf.init!r}")
+
+
+def dense_leaves(path: str, d_in: int, d_out: int, init: str = "lecun",
+                 bias: bool = True) -> List[Leaf]:
+    return [Leaf(f"{path}/kernel", (d_in, d_out), init)] + (
+        [Leaf(f"{path}/bias", (d_out,), "zeros")] if bias else [])
+
+
+def ln_leaves(path: str, d: int) -> List[Leaf]:
+    return [Leaf(f"{path}/scale", (d,), "ones"), Leaf(f"{path}/bias", (d,), "zeros")]
+
+
+def mlp_leaves(path: str, d_in: int, units: Sequence[int]) -> List[Leaf]:
+    """A flax `MLP` (Dense -> ELU -> LayerNorm a width) under `path`."""
+    leaves = []
+    for i, u in enumerate(units):
+        leaves += dense_leaves(f"{path}/Dense_{i}", d_in, u) + ln_leaves(f"{path}/LayerNorm_{i}", u)
+        d_in = u
+    return leaves
+
+
+def apply_dense(p, path: str, x: torch.Tensor, dtype: torch.dtype = torch.float32):
+    bias = p.get(f"{path}/bias")
+    if bias is None:
+        return torch.matmul(x.to(dtype), p[f"{path}/kernel"].to(dtype))
+    return dense(x, p[f"{path}/kernel"], bias, dtype)
+
+
+def apply_ln(p, path: str, x: torch.Tensor, dtype: torch.dtype = torch.float32):
+    return layer_norm(x, p[f"{path}/scale"], p[f"{path}/bias"], dtype)
+
+
+def apply_mlp(p, path: str, x: torch.Tensor, n_layers: int,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    for i in range(n_layers):
+        x = apply_ln(p, f"{path}/LayerNorm_{i}", F.elu(apply_dense(p, f"{path}/Dense_{i}", x, dtype)),
+                     dtype)
+    return x
+
+
+class LeafNet(nn.Module):
+    """A network whose parameters are one flat float32 vector (`flat`, the
+    layout `optax.flatten` gives the JAX optimizer) whose views are its
+    leaves, in `leaf_specs` order; `params()` maps each leaf's flax path to
+    its view.  Subclasses set their sizes, then call `_make_flat`."""
+
+    def leaf_specs(self) -> List[Leaf]:
+        raise NotImplementedError
+
+    def leaf_shapes(self) -> List[Tuple[int, ...]]:
+        return [l.shape for l in self.leaf_specs()]
+
+    def _make_flat(self, leaves=None, generator: Optional[torch.Generator] = None) -> None:
+        specs = self.leaf_specs()
+        if leaves is None:
+            leaves = [init_leaf(l, generator) for l in specs]
+        got = [tuple(l.shape) for l in leaves]
+        if got != [l.shape for l in specs]:
+            raise ValueError(f"{type(self).__name__}: leaf shapes {got} != "
+                             f"{[l.shape for l in specs]}")
+        self.flat = nn.Parameter(torch.cat(
+            [torch.as_tensor(l, dtype=torch.float32).reshape(-1) for l in leaves]))
+
+    @property
+    def leaves(self) -> List[torch.Tensor]:
+        shapes = self.leaf_shapes()
+        sizes = [math.prod(s) for s in shapes]
+        return [v.view(s) for v, s in zip(torch.split(self.flat, sizes), shapes)]
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return {l.path: v for l, v in zip(self.leaf_specs(), self.leaves)}
+
+
+def _feat(obs, key: str):
+    """obs[key] for a dict observation, else the observation itself (the
+    PPO family's `obs["observation"] if isinstance(obs, dict) else obs`)."""
+    return obs[key] if isinstance(obs, dict) else obs
+
+
+# ------------------------------------------------------------------ relation encoders
+def split_embedding_leaves(path: str, groups: Dict[str, Tuple[int, int]], embed: int):
+    leaves = []
+    for name in entity_group_order(groups):
+        leaves += dense_leaves(f"{path}/embed_{name}", groups[name][1], embed)
+    return leaves + ln_leaves(f"{path}/LayerNorm_0", embed)
+
+
+def apply_split_embedding(p, path: str, obs: Dict[str, torch.Tensor], dtype) -> torch.Tensor:
+    """flax `SplitEmbedding`: a Dense per group in canonical order,
+    concatenated along the token axis, then LayerNorm."""
+    x = torch.cat([apply_dense(p, f"{path}/embed_{name}", obs[name], dtype)
+                   for name in entity_group_order(obs.keys())], dim=-2)
+    return apply_ln(p, f"{path}/LayerNorm_0", x, dtype)
+
+
+RELATION_EMBED, RELATION_F_UNITS = 72, (256, 128)
+
+
+class RelationEncoder(nn.Module):
+    """f(sum_ij g(a_i + a_j)) over all entity pairs (JAX `RelationEncoder`,
+    networks.py:130-145), or with `partial` f(sum_j g(a_0 + a_j)), j != 0
+    (`PartialRelationEncoder`, :148-163); `+` is concatenation.  Dense
+    layers, ELU and LayerNorm outputs in `dtype`; the pair sum accumulates
+    in float32 and rounds to `dtype`, as `jnp.sum` does.  Stateless: the
+    leaves come from the owning `LeafNet`'s `params()`."""
+
+    def __init__(self, partial: bool, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.partial, self.dtype = partial, dtype
+        self.name = "PartialRelationEncoder_0" if partial else "RelationEncoder_0"
+
+    def leaf_specs(self, groups: Dict[str, Tuple[int, int]]) -> List[Leaf]:
+        n = self.name
+        g0 = RELATION_F_UNITS[0]
+        return (split_embedding_leaves(f"{n}/SplitEmbedding_0", groups, RELATION_EMBED)
+                + mlp_leaves(f"{n}/MLP_0", 2 * RELATION_EMBED, (g0,))
+                + ln_leaves(f"{n}/LayerNorm_0", g0)
+                + mlp_leaves(f"{n}/MLP_1", g0, RELATION_F_UNITS))
+
+    def forward(self, p, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        n, dt = self.name, self.dtype
+        a = apply_split_embedding(p, f"{n}/SplitEmbedding_0", obs, dt)
+        k = a.shape[-2]
+        if self.partial:
+            aj = a[..., 1:, :]
+            aij = torch.cat([a[..., :1, :].expand(aj.shape), aj], dim=-1)
+            dims = (-2,)
+        else:
+            ai = a[..., :, None, :].expand(a.shape[:-1] + (k, a.shape[-1]))
+            aij = torch.cat([ai, ai.transpose(-2, -3)], dim=-1)
+            dims = (-3, -2)
+        g = apply_ln(p, f"{n}/LayerNorm_0", apply_mlp(p, f"{n}/MLP_0", aij, 1, dt), dt)
+        pooled = torch.sum(g.float(), dim=dims).to(dt)
+        return apply_mlp(p, f"{n}/MLP_1", pooled, len(RELATION_F_UNITS), dt)
+
+
+def head_leaves(role: str, d_in: int, out_dim: int) -> List[Leaf]:
+    """The actor's `DiagGaussianHead` Dense or the critic's value Dense."""
+    from .distributions import DiagGaussianHead
+
+    if role == "actor":
+        return DiagGaussianHead.leaf_specs(d_in, out_dim)
+    return dense_leaves("Dense_0", d_in, out_dim, "critic_head")
+
+
+def apply_head(p, role: str, feats: torch.Tensor) -> torch.Tensor:
+    """The head of `role` on `feats`, in float32."""
+    from .distributions import DiagGaussianHead
+
+    if role == "actor":
+        return DiagGaussianHead.mean(p, feats)
+    return apply_dense(p, "Dense_0", feats.float())
+
+
+class HeadNet(LeafNet):
+    """A body (the subclass's `body_specs` / `body`) and a float32 linear
+    head on its features: the actor's Gaussian mean
+    (`DiagGaussianHead_0/Dense_0`, xavier-uniform with gain 0.01; `role`
+    "actor") or the critic's values (`Dense_0`, orthogonal(0.01); "critic").
+    Subclasses set their own fields, then call `_setup`."""
+
+    def _setup(self, example, out_dim: int, role: str, leaves=None, generator=None) -> None:
+        self.out_dim, self.role = out_dim, role
+        self._body_specs, self.feat_dim = self.body_specs(example)
+        self._make_flat(leaves, generator)
+
+    def body_specs(self, example) -> Tuple[List[Leaf], int]:
+        raise NotImplementedError
+
+    def body(self, p, obs) -> torch.Tensor:
+        raise NotImplementedError
+
+    def leaf_specs(self) -> List[Leaf]:
+        return self._body_specs + head_leaves(self.role, self.feat_dim, self.out_dim)
+
+    def forward(self, obs) -> torch.Tensor:
+        p = self.params()
+        return apply_head(p, self.role, self.body(p, obs))
+
+
+class RelationHeadNet(HeadNet):
+    """A relation encoder over dict observations, then the float32 head:
+    the JAX Actor / Critic with `attn_encoder="RelationEncoder"` /
+    `"PartialRelationEncoder"`."""
+
+    def __init__(self, attn_encoder: str, groups: Dict[str, Tuple[int, int]], out_dim: int,
+                 role: str, dtype: torch.dtype, leaves=None, generator=None):
+        super().__init__()
+        self.encoder = RelationEncoder(attn_encoder == "PartialRelationEncoder", dtype)
+        self._setup(dict(groups), out_dim, role, leaves, generator)
+
+    def body_specs(self, groups):
+        return self.encoder.leaf_specs(groups), RELATION_F_UNITS[-1]
+
+    def body(self, p, obs):
+        return self.encoder(p, obs)

@@ -124,8 +124,10 @@ def test_train_runs_the_inkernel_loss_update(tmp_path, default_keys, mode):
     assert algo["use_inkernel_loss"] is True and algo["direct_mode"] == mode
 
 
-# Hover trains on flat observations now; its depth camera is not ported yet
-NOT_PORTED = {"algo=ppo": ("algo=ppo",), "task=Hover": ("task=Hover", "env.obs_depth=true"),
+# algo=ppo trains now; ppo_adapt (with train_rma) and Hover's depth camera
+# are not ported yet
+NOT_PORTED = {"algo=ppo_adapt": ("algo=ppo_adapt",),
+              "task=Hover": ("task=Hover", "env.obs_depth=true"),
               "video=ev.gif": ("video=ev.gif",)}
 
 
