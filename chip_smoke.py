@@ -73,9 +73,10 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    same weights, trajectory and permutations; (c) training the drive
    recipe's configuration (`HoverCfg(num_envs=1024, max_episode_length=300)`,
    `MAPPOCfg(train_every=32, num_minibatches=8)`, hidden (256, 256, 256),
-   bf16) for about HOVER_SECONDS: the iteration count, env-steps/s, and the
-   mean pos_error (the arenas' distance to the target at an iteration's
-   end) of the first and last 10 iterations (the last must sit below the
+   bf16) for about HOVER_SECONDS and at least HOVER_MIN_ITERS iterations:
+   the iteration count, env-steps/s, and the mean pos_error (the arenas'
+   distance to the target at an iteration's end) of the first and last 10
+   iterations (the last must sit below the
    first; every value finite), and the episode-end pos_error stat of the
    iterations that ended episodes.
 12. MAPPO's options and the PPO family: (a) rows 2 and 5 (`encoder_forward`,
@@ -92,9 +93,27 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    cut to [E, k, 5]): act card vs CPU on 4,096 arenas, one `train_op` on the
    card (its launches counted) and one card vs CPU on 64 arenas x 64 steps;
    (c) Hover at the drive recipe's width (1,024 x 32): ppo, ppo with the
-   privileged branches, ppo_tconv and ppo_rnn, 3 iterations each, finite,
+   privileged branches, ppo_tconv and ppo_rnn, 2 iterations each, finite,
    and one act and one `train_op` each card vs CPU, teacher-forced at 16
    arenas; ppo_sdf at policy level, 4,096 rows x 64 points, card vs CPU.
+13. the rest of the registry (no kernel: JAX's ppo_adapt and ppo_vision
+   reach no `pallas_call`; the phase checks that every kernel's count stays
+   0): ppo_vision on Hover's depth camera (32 x 24) at Hover's default 4,096
+   arenas x 32 steps, 8 minibatches, with the conv backbone and with
+   MobileNetV3-Small, 1 warm-up + 2 timed iterations each (env-steps/s,
+   finite), and one act and one `train_op` each card vs CPU at 16 arenas
+   (phase 11's bounds); MobileNetV3-Small's forward + backward on one
+   update minibatch timed and profiled; MobileNetV3-Large forward + backward on one update
+   minibatch (16,384 frames), card vs CPU within 2x the CPU float32's own
+   error against the card's float64, timed; Hover's depth frame at 4,096 arenas and `depth_image` with
+   the wall, the ceiling, 6 cylinders and the target at 4,096 cameras of 64
+   x 48 (timed), card vs CPU, at most 1e-4 of the pixels (grazing rays)
+   past 1e-5; RMA through `train` (`task=Hover algo=ppo_adapt max_iters=8`
+   on the card: the last row phase 3, every logged value finite,
+   env-steps/s a phase) and `update_adaptation` card vs CPU for each of
+   its six losses on one phase-2 batch of 4,096 x 32 rows; the trajectory
+   ring buffer (L = 128, E = 4,096, extended past its seam, 4,096 windows of
+   16 steps) identical card vs CPU.
 
 Phase 2 also holds the FPS kernel (the AEG buffer's downsampling, one
 thread-block cluster) index for index against its plain version at the AEG's
@@ -212,6 +231,10 @@ JITTER_EPISODE = 200               # the jittered evaluation's episodes, cut fro
 # phase 11: the drive recipe's Hover configuration and its card-vs-CPU checks
 HOVER_ENVS, HOVER_EPISODE, HOVER_STEPS, HOVER_MINIBATCHES = 1024, 300, 32, 8
 HOVER_SECONDS = 90.0               # phase 11's training, about
+# and at least this many iterations, whatever the host's speed: the seeded
+# drive's first-10 vs last-10 pos_error check fails up to 46 iterations (the
+# episodes' rising distance outweighs what was learned) and holds from 47
+HOVER_MIN_ITERS = 90
 HOVER_SIM2REAL = dict(obs_noise=True, latency=True, payload=True, obs_omega=True, obs_motor=True,
                       action_noise=True)
 HOVER_DR = dict(dr_mass_scale=(0.8, 1.2), dr_inertia_scale=(0.7, 1.3), dr_t2w_scale=(0.8, 1.2),
@@ -2190,7 +2213,8 @@ def phase_hover(dev, card: str) -> dict:
                          1, 4, obs_is_dict=False, device=dev)
     log(f"  the drive recipe: HoverCfg(num_envs={HOVER_ENVS}, max_episode_length={HOVER_EPISODE}), "
         f"MAPPOCfg(train_every={HOVER_STEPS}, num_minibatches={HOVER_MINIBATCHES}), hidden "
-        f"(256, 256, 256), bf16, about {HOVER_SECONDS:.0f} s")
+        f"(256, 256, 256), bf16, about {HOVER_SECONDS:.0f} s and at least {HOVER_MIN_ITERS} "
+        "iterations")
     carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(42))
     train_iter = make_train_iter(env, policy)
     # each iteration's pos_error: the arenas' mean distance to the target at
@@ -2212,7 +2236,7 @@ def phase_hover(dev, card: str) -> dict:
             if not (_all_finite(ep_stats) and _all_finite(metrics)):
                 raise AssertionError("non-finite Hover metric or stat")
             ended.append(float(ep_stats["pos_error"]))
-        if time.perf_counter() - t0 >= HOVER_SECONDS and iters >= 20:
+        if time.perf_counter() - t0 >= HOVER_SECONDS and iters >= HOVER_MIN_ITERS:
             break
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -2249,7 +2273,7 @@ def phase_hover(dev, card: str) -> dict:
 OPT_ROWS = NUM_ENVS * STEPS // 16           # one agent's rows of a 49,152-row minibatch
 OPT_TIMED = 2                               # share_actor=False: 1 warm-up + 2 timed
 OPT_ITERS = 2                               # the relation encoders, the transformer
-FAMILY_ITERS = 3                            # Hover's PPO family
+FAMILY_ITERS = 2                            # Hover's PPO family (cut from 3 for phase 13)
 SDF_ENVS, SDF_STEPS, SDF_POINTS = 512, 8, 64  # ppo_sdf: 4,096 rows x 64 points
 
 
@@ -2643,7 +2667,7 @@ def _hover_cpu_check(tag, dev, algo, env_kw, algo_kw) -> None:
 def phase_family(dev, card: str) -> None:
     """Phase 12, the PPO family: Hover at the drive recipe's width (1,024
     arenas x 32 steps) for ppo, ppo with the privileged branches (HOVER_DR),
-    ppo_tconv and ppo_rnn, 3 iterations each through `harness.build`, and
+    ppo_tconv and ppo_rnn, 2 iterations each through `harness.build`, and
     each one's act and update card vs CPU; ppo_sdf at policy level."""
     from mupe_tpu_torch import harness
     from mupe_tpu_torch.envs import tree_to
@@ -2707,6 +2731,322 @@ def phase_family(dev, card: str) -> None:
     hold_update("ppo_sdf", new, metrics, rel=1e-2, flat_tol=1e-4)
 
 
+# phase 13: ppo_vision, the depth camera, RMA and the ring buffer at Hover's
+# default width (4,096 arenas, the drive recipe's 32 steps and 8 minibatches)
+VISION_ENVS = 4096
+VISION_TIMED = 2                              # 1 warm-up + 2 timed iterations
+VISION_MB_FRAMES = VISION_ENVS * HOVER_STEPS // HOVER_MINIBATCHES  # 16,384
+DEPTH_BIG = (64, 48)                          # DepthCameraCfg's own default size
+DEPTH_TOL, DEPTH_OVER_SHARE = 1e-5, 1e-4      # frame / metres; share of pixels past it
+RMA_ITERS = 8                                 # phases of 4, 2 and 2 iterations
+BUFFER_L, BUFFER_WINDOWS, BUFFER_SEQ = 128, 4096, 16
+
+
+def _kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port, by name (each counts its launches)."""
+    from mupe_tpu_torch.ops import fps, fused_encoder as fe, tp_lstm as tl
+
+    return {f"{m.__name__.rsplit('.', 1)[-1]}.{n}": getattr(m, n) for m in (fe, tl, fps)
+            for n in dir(m) if callable(getattr(m, n)) and hasattr(getattr(m, n), "launches")}
+
+
+def _vision_train(dev, card: str, kind: str) -> float:
+    """ppo_vision with backbone `kind` on Hover's depth camera at 4,096 x 32:
+    1 warm-up + 2 timed iterations, every metric and parameter finite."""
+    from mupe_tpu_torch import harness
+    from mupe_tpu_torch.learning import init_carry, make_train_iter
+
+    env, pol, _, _ = harness.build(
+        "Hover", dict(num_envs=VISION_ENVS, max_episode_length=HOVER_EPISODE, obs_depth=True),
+        dict(train_every=HOVER_STEPS, num_minibatches=HOVER_MINIBATCHES, vision_encoder=kind),
+        algo="ppo_vision", device=dev)
+    carry = init_carry(env, pol, torch.Generator(device=dev).manual_seed(60))
+    it = make_train_iter(env, pol)
+    carry = _train_finite(f"ppo_vision {kind} warm-up", it, carry, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _train_finite(f"ppo_vision {kind}", it, carry, VISION_TIMED)
+    seconds = time.perf_counter() - t0
+    rate = VISION_ENVS * HOVER_STEPS * VISION_TIMED / seconds
+    log(f"  ppo_vision {kind}: {rate:.1f} env-steps/s over {VISION_TIMED} timed iterations "
+        f"({seconds / VISION_TIMED:.3f} s an iteration) on {card}")
+    return rate
+
+
+def _mobilenet_small_minibatch(dev, card: str) -> None:
+    """Where MobileNetV3-Small's update goes: one network's forward +
+    backward on an update minibatch (16,384 frames of 24 x 32), its time
+    (CUDA events) and the three kernels of most device time (profiler)."""
+    from mupe_tpu_torch.learning.modules import mobilenet, networks
+
+    mod = mobilenet.MobileNetV3("enc", "small")
+    gen = torch.Generator().manual_seed(67)
+    p = {l.path: networks.init_leaf(l, gen).to(dev).requires_grad_(True)
+         for l in mod.leaf_specs(1)}
+    x = torch.rand((VISION_MB_FRAMES, 24, 32, 1), generator=gen).to(dev)
+
+    def step():
+        out = mod(p, x)
+        return torch.autograd.grad(torch.sum(out * out), list(p.values()))
+
+    ms = cuda_time_ms(step, runs=3, warmup=1)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in rows) / 1e3
+    top = sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)[:3]
+    log(f"  mobilenet_v3_small forward + backward on {VISION_MB_FRAMES} frames: {ms:.3f} ms "
+        f"on {card}, device {total:.3f} ms; most device time: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top))
+
+
+def _mobilenet_large_check(dev, card: str) -> None:
+    """MobileNetV3-Large forward and backward on one update minibatch of
+    Hover's frames (16,384 of 24 x 32), card vs CPU, timed on the card.  Its
+    batch-statistics norms over 16,384 x H x W values make float32's own
+    rounding large (the gradients' float32 sat up to 8% of their scale from
+    float64 on either device), so each tensor's floor is the CPU's float32
+    error against the card's float64, and the card's float32 is held within
+    2x that floor (+ 1e-6 of the scale) of the CPU's."""
+    from mupe_tpu_torch.learning.modules import mobilenet, networks
+
+    mod = mobilenet.MobileNetV3("enc", "large")
+    specs = mod.leaf_specs(1)
+    gen = torch.Generator().manual_seed(61)
+    leaves = [networks.init_leaf(l, gen) for l in specs]
+    x = torch.rand((VISION_MB_FRAMES, 24, 32, 1), generator=gen)
+    cot = torch.randn((VISION_MB_FRAMES, mod.out_dim), generator=gen)
+
+    def run(d, dtype=torch.float32, inputs=None):
+        p, xd = inputs or ({l.path: v.to(d, dtype).requires_grad_(True)
+                            for l, v in zip(specs, leaves)}, x.to(d, dtype).requires_grad_(True))
+        out = mod(p, xd)
+        return [out, *torch.autograd.grad(torch.sum(out * cot.to(d, dtype)), [xd, *p.values()])]
+
+    got = [t.detach().cpu() for t in run(dev)]
+    inputs = ({l.path: v.to(dev).requires_grad_(True) for l, v in zip(specs, leaves)},
+              x.to(dev).requires_grad_(True))
+    ms = cuda_time_ms(lambda: run(dev, inputs=inputs), runs=3, warmup=1)
+    ref = [t.detach().cpu() for t in run(dev, torch.float64)]
+    t0 = time.perf_counter()
+    want = run("cpu")
+    cpu_s = time.perf_counter() - t0
+    ratio, floor_share = 0.0, 0.0
+    net_scale = max(float(r.abs().max()) for r in ref[2:])
+    for i, (g, r, c) in enumerate(zip(got, ref, want)):
+        g, c = g.double(), c.detach().double()
+        scale = float(r.abs().max())
+        floor = float((c - r).abs().max())
+        err = float((g - c).abs().max())
+        ratio = max(ratio, err / max(floor, 1e-30))
+        if scale >= 1e-6 * net_scale:  # not a gradient of rounding noise
+            floor_share = max(floor_share, floor / scale)
+        if not err <= 2 * floor + 1e-6 * scale:
+            raise AssertionError(f"mobilenet_v3_large tensor {i}: card and CPU disagree ({err}; "
+                                 f"the CPU's float32 error {floor}, scale {scale})")
+    log(f"  mobilenet_v3_large forward + backward on {VISION_MB_FRAMES} frames of 24 x 32: "
+        f"{ms:.3f} ms on {card} (CPU {cpu_s:.1f} s); card vs CPU at most {ratio:.3f}x the CPU "
+        f"float32's own error against float64 (tol 2x), which reached {floor_share:.3e} of a "
+        f"tensor's scale")
+
+
+def _depth_checks(dev, card: str) -> None:
+    """Hover's depth frame at 4,096 arenas card vs CPU (from the same states,
+    after steps), and the full scene (arena wall, ceiling, 6 cylinders, the
+    target) at 4,096 cameras of 64 x 48, timed; pixels past DEPTH_TOL counted
+    and bounded (grazing rays)."""
+    from mupe_tpu_torch.envs import Hover, HoverCfg, tree_to
+    from mupe_tpu_torch.sensors import depth
+
+    env_c = Hover(HoverCfg(num_envs=VISION_ENVS, obs_depth=True), device="cpu")
+    env_g = Hover(HoverCfg(num_envs=VISION_ENVS, obs_depth=True), device=dev)
+    gen = torch.Generator().manual_seed(62)
+    state = env_c.reset(gen)
+    for _ in range(5):
+        state, _ = env_c.step(state, torch.rand((VISION_ENVS, 1, 4), generator=gen) * 2 - 1, gen)
+    want = env_c.observe(state)["depth"]
+    got = env_g.observe(tree_to(state, dev))["depth"].cpu()
+    over = int(((got - want).abs() > DEPTH_TOL).sum())
+    log(f"  Hover's depth frame {tuple(want.shape)} card vs CPU: max_abs_err "
+        f"{float((got - want).abs().max()):.3e}, {over} of {want.numel()} pixels past "
+        f"{DEPTH_TOL:g} (bound {DEPTH_OVER_SHARE:g} of them)")
+    if over > DEPTH_OVER_SHARE * want.numel():
+        raise AssertionError(f"Hover's depth frame: {over} pixels past {DEPTH_TOL}")
+    w, h = DEPTH_BIG
+    cfg = depth.DepthCameraCfg(width=w, height=h, max_range=10.0)
+    pos = torch.stack([torch.rand(VISION_ENVS, generator=gen) * 4 - 2,
+                       torch.rand(VISION_ENVS, generator=gen) * 4 - 2,
+                       torch.rand(VISION_ENVS, generator=gen) * 2 + 0.3], dim=-1)
+    quat = torch.nn.functional.normalize(torch.randn((VISION_ENVS, 4), generator=gen), dim=-1)
+    cyl = torch.rand((VISION_ENVS, 6, 3), generator=gen) * 6 - 3
+    cyl[..., 2] = torch.where(torch.rand((VISION_ENVS, 6), generator=gen) < 0.3, -1.0, 0.0)
+    tgt = torch.rand((VISION_ENVS, 3), generator=gen) * 4 - 2
+
+    def scene(d):
+        return depth.depth_image(cfg, pos.to(d), quat.to(d), cylinders=cyl.to(d),
+                                 arena_size=4.0, max_height=3.0, target_pos=tgt.to(d),
+                                 target_radius=0.25)
+
+    want, got = scene("cpu"), scene(dev).cpu()
+    ms = cuda_time_ms(lambda: scene(dev), runs=5)
+    over = int(((got - want).abs() > DEPTH_TOL * want.abs()).sum())
+    log(f"  depth_image, wall + ceiling + 6 cylinders + target, {VISION_ENVS} cameras of "
+        f"{w} x {h}: {ms:.3f} ms on {card}; card vs CPU {over} of {want.numel()} pixels past "
+        f"{DEPTH_TOL:g} relative (bound {DEPTH_OVER_SHARE:g} of them)")
+    if over > DEPTH_OVER_SHARE * want.numel():
+        raise AssertionError(f"depth_image: {over} pixels past {DEPTH_TOL} relative")
+
+
+def _rma_train(dev, card: str, run_dir: str) -> None:
+    """`python -m mupe_tpu_torch.train task=Hover algo=ppo_adapt max_iters=8`
+    (its `train`, on the card): the last row phase 3, every logged value
+    finite; env-steps/s of each phase (the median of its iterations)."""
+    from mupe_tpu_torch.harness import train
+
+    argv = ["task=Hover", "algo=ppo_adapt", f"max_iters={RMA_ITERS}",
+            f"algo.train_every={HOVER_STEPS}", f"algo.num_minibatches={HOVER_MINIBATCHES}",
+            "log_interval=1", f"run_dir={run_dir}", "run_name=rma"]
+    last = train(argv)
+    with open(Path(run_dir) / "rma" / "metrics.csv") as f:
+        rows = list(csv.DictReader(f))
+    if last["rma_phase"] != 3.0 or [float(r["rma_phase"]) for r in rows] != [1.0] * 4 + [
+            2.0] * 2 + [3.0] * 2:
+        raise AssertionError(f"RMA's phases: {[r['rma_phase'] for r in rows]}")
+    bad = [(i, k) for i, r in enumerate(rows) for k, v in r.items()
+           if v != "" and not math.isfinite(float(v))]
+    if bad:
+        raise AssertionError(f"RMA: non-finite logged values {bad}")
+    for phase in (1, 2, 3):
+        fps_ = [float(r["rollout_fps"]) for r in rows if float(r["rma_phase"]) == phase]
+        log(f"  RMA phase {phase}: {statistics.median(fps_):.1f} env-steps/s (median of "
+            f"{len(fps_)} iterations: {', '.join(f'{v:.1f}' for v in fps_)}) on {card}")
+    log(f"  RMA last row: " + ", ".join(f"{k}={v:.5g}" for k, v in sorted(last.items())
+                                         if not k.startswith("stats/")))
+
+
+def _adaptation_checks(dev) -> None:
+    """`update_adaptation` card vs CPU for each of the six losses on one
+    phase-2 batch (4,096 arenas x 32 steps of the phase-2 policy's rollout on
+    the card), from the same parameters: the loss(es) within 1e-4 relative,
+    the new parameters within 2 adaptation_lr (a gradient within rounding of
+    zero takes Adam's first step either way) + 1e-5 of their scale."""
+    from mupe_tpu_torch import harness
+    from mupe_tpu_torch.envs import tree_to
+    from mupe_tpu_torch.learning import init_carry, make_rollout
+    from mupe_tpu_torch.learning.optim import AdamState
+    from mupe_tpu_torch.learning.ppo.ppo_adapt import ADAPTATION_LOSSES, LOG_STD_PATH
+
+    env_kw = dict(harness.RMA_HOVER_DR, obs_history_len=harness.RMA_HOVER_HISTORY,
+                  num_envs=VISION_ENVS, max_episode_length=HOVER_EPISODE)
+    algo_kw = dict(train_every=HOVER_STEPS, phase="adaptation")
+    env, pol, _, _ = harness.build("Hover", env_kw, algo_kw, algo="ppo_adapt", device=dev)
+    carry = init_carry(env, pol, torch.Generator(device=dev).manual_seed(63))
+    _, traj, _ = make_rollout(env, pol)(carry)
+    obs = {k: v.reshape((-1,) + tuple(v.shape[3:])) for k, v in traj["obs"].items()}
+    n = obs["observation"].shape[0]
+    first = {k: v[:1, None] for k, v in obs.items()}
+    gen = torch.Generator().manual_seed(64)
+    p1 = harness.make_policy("ppo_adapt", env, {}, "cpu").init(tree_to(first, "cpu"), gen)
+    frozen = {k: v.detach() for k, v in p1.actor.params().items()}
+    frozen[LOG_STD_PATH] = torch.tensor([0.1, -0.2, 0.3, -0.4])
+    critic = {k: v.detach() for k, v in p1.critic.params().items()}
+    adapt = pol.adaptation_params(carry.ts).detach().cpu()
+    for variant in ADAPTATION_LOSSES:
+        out = {}
+        for d in ("cpu", dev):
+            pd = harness.make_policy("ppo_adapt", env, {"phase": "adaptation",
+                                                        "adaptation_loss": variant}, d)
+            disc, disc_opt = pd.init_discriminator(torch.Generator().manual_seed(65))
+            a = adapt.to(d)
+            args = [tree_to(x, d) for x in (frozen, obs, critic)]
+            out[d] = pd.update_adaptation(
+                a, AdamState.zeros_like([a]), args[0], args[1]["observation_h"],
+                args[1]["intrinsics"], obs=args[1]["observation"], actor_params=args[0],
+                critic_params=args[2], disc=disc, disc_opt=disc_opt)
+        c, g = out["cpu"], out[dev]
+        losses = [(float(g[i]), float(c[i])) for i in ((2, 5) if len(c) == 6 else (2,))]
+        for lg, lc in losses:
+            if not abs(lg - lc) <= 1e-4 * abs(lc) + 1e-7:
+                raise AssertionError(f"update_adaptation {variant}: loss {lg} vs {lc}")
+        params = [(g[0], c[0])] + ([(g[3], c[3])] if len(c) == 6 else [])
+        errs = []
+        for pg, pc in params:
+            err = float((pg.cpu() - pc).abs().max())
+            errs.append(err)
+            if not err <= 2 * pol.adapt_cfg.adaptation_lr + 1e-5 * float(pc.abs().max()):
+                raise AssertionError(f"update_adaptation {variant}: parameters {err}")
+        log(f"  update_adaptation {variant} on {n} rows card vs CPU: loss(es) "
+            + ", ".join(f"{lg:.6g} vs {lc:.6g}" for lg, lc in losses)
+            + "; parameters max_abs_err " + ", ".join(f"{e:.3e}" for e in errs))
+
+
+def _buffer_check(dev, card: str) -> None:
+    """TrajRingBuffer at the rollout's shape (L = 128, E = 4,096, Hover's
+    observation): five extends of 32 steps (160: past the seam), then 4,096
+    windows of 16 steps with the same injected draws, card vs CPU exactly."""
+    from mupe_tpu_torch.envs import tree_to
+    from mupe_tpu_torch.learning import mybuffer
+
+    gen = torch.Generator().manual_seed(66)
+    obs_dim = 23                               # HoverCfg().obs_dim
+    example = {"obs": torch.zeros((VISION_ENVS, 1, obs_dim)),
+               "done": torch.zeros((VISION_ENVS, 1), dtype=torch.bool)}
+    bufs = {d: mybuffer.TrajRingBuffer.create(tree_to(example, d), BUFFER_L)
+            for d in ("cpu", dev)}
+    for _ in range(5):
+        chunk = {"obs": torch.randn((HOVER_STEPS, VISION_ENVS, 1, obs_dim), generator=gen),
+                 "done": torch.rand((HOVER_STEPS, VISION_ENVS, 1), generator=gen) < 0.01}
+        bufs = {d: mybuffer.extend(b, tree_to(chunk, d)) for d, b in bufs.items()}
+    env_idx = torch.randint(0, VISION_ENVS, (BUFFER_WINDOWS,), generator=gen)
+    t0 = torch.randint(0, BUFFER_L - BUFFER_SEQ, (BUFFER_WINDOWS,), generator=gen)
+    out = {d: mybuffer.sample(b, BUFFER_WINDOWS, BUFFER_SEQ, env_idx=env_idx.to(d),
+                              t0=t0.to(d)) for d, b in bufs.items()}
+    ms = cuda_time_ms(lambda: mybuffer.sample(bufs[dev], BUFFER_WINDOWS, BUFFER_SEQ,
+                                              env_idx=env_idx.to(dev), t0=t0.to(dev)), runs=5)
+    (bc, vc), (bg, vg) = out["cpu"], out[dev]
+    if not (int(bufs[dev].cursor) == int(bufs["cpu"].cursor) == 5 * HOVER_STEPS % BUFFER_L
+            and bool(vg.all()) and torch.equal(vg.cpu(), vc)
+            and all(torch.equal(bg[k].cpu(), bc[k]) for k in bc)):
+        raise AssertionError("TrajRingBuffer: card and CPU differ")
+    log(f"  TrajRingBuffer L={BUFFER_L} E={VISION_ENVS}: {5 * HOVER_STEPS} steps extended, "
+        f"{BUFFER_WINDOWS} windows of {BUFFER_SEQ} steps identical card vs CPU; sample "
+        f"{ms:.4f} ms on {card}")
+
+
+def phase_vision_rma(dev, card: str) -> None:
+    """Phase 13: ppo_vision (conv and MobileNetV3-Small) on Hover's depth
+    camera at 4,096 x 32, each with one act and one update card vs CPU;
+    MobileNetV3-Large forward + backward card vs CPU; the depth frame and
+    the full scene card vs CPU; RMA's three phases through `train` and
+    `update_adaptation`'s six losses card vs CPU; the ring buffer.  None of
+    these paths launches a kernel of the port: the counts stay 0."""
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    log(f"[13] ppo_vision on Hover's depth camera (32 x 24): {VISION_ENVS} arenas x "
+        f"{HOVER_STEPS} steps, {HOVER_MINIBATCHES} minibatches, on {card}")
+    for kind in ("conv", "mobilenet_v3_small"):
+        _vision_train(dev, card, kind)
+        _hover_cpu_check(f"ppo_vision {kind}", dev, "ppo_vision", {"obs_depth": True},
+                         {"vision_encoder": kind})
+    _mobilenet_small_minibatch(dev, card)
+    _mobilenet_large_check(dev, card)
+    _depth_checks(dev, card)
+    log(f"[13] RMA (algo=ppo_adapt) on Hover: {VISION_ENVS} arenas x {HOVER_STEPS} steps, "
+        f"{RMA_ITERS} iterations")
+    with tempfile.TemporaryDirectory() as run_dir:
+        _rma_train(dev, card, run_dir)
+    _adaptation_checks(dev)
+    _buffer_check(dev, card)
+    launched = {k: v for k, v in _count(wrappers).items() if v}
+    if launched:
+        raise AssertionError(f"phase 13's paths launched kernels: {launched}")
+    log(f"  phase 13 launched none of the port's {len(wrappers)} kernel wrappers")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
@@ -2735,6 +3075,9 @@ def main() -> int:
     phase_family(dev, card)
     log(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s; share_actor=False training "
         f"{options['rate']:.1f} env-steps/s on {card}")
+    t13 = time.perf_counter()
+    phase_vision_rma(dev, card)
+    log(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s on {card}")
     for name, extra in option_kernels.items():
         kernels[name].update(extra, share_actor_false_launches_per_iteration=options[
             "launches_per_iteration"][name])

@@ -100,7 +100,11 @@ def _network_leaves(params: Mapping, device="cpu") -> Tuple[torch.Tensor, ...]:
 
 
 def actor_log_std(params: Mapping, device="cpu") -> torch.Tensor:
-    return _t(params["params"]["DiagGaussianHead_0"]["log_std"], device)
+    """The `DiagGaussianHead`'s log_std, at the tree's root or inside
+    ppo_adapt's actor body (`_AdaptActor_0`)."""
+    p = params["params"]
+    p = p.get("_AdaptActor_0", p)
+    return _t(p["DiagGaussianHead_0"]["log_std"], device)
 
 
 def tp_leaves(params: Mapping, device="cpu") -> Tuple[torch.Tensor, ...]:
@@ -128,13 +132,18 @@ def named_leaves(params: Mapping, net, agent=None, device="cpu") -> Tuple[torch.
     """A flax tree → the leaves of the port's `LeafNet` `net`, each found
     by its flax path and reshaped to the port's layout (flax's attention
     kernels [in, heads, head] and [heads, head, out] row-major, which keeps
-    the heads' split as column blocks; a Conv's [k, in, out] unchanged).
+    the heads' split as column blocks; a 1-d Conv's [k, in, out] unchanged;
+    a 2-d Conv's [kh, kw, in, out], depthwise [kh, kw, 1, C], transposed
+    to torch's [out, in, kh, kw] by the leaf's `perm`).
     `agent` picks one agent's parameters from a stacked tree."""
     p = params["params"]
     out = []
     for leaf in net.leaf_specs():
         a = np.asarray(_path(p, leaf.path))
-        out.append(_t(np.reshape(a if agent is None else a[agent], leaf.shape), device))
+        a = a if agent is None else a[agent]
+        if leaf.perm is not None:
+            a = np.transpose(a, leaf.perm)
+        out.append(_t(np.reshape(a, leaf.shape), device))
     return tuple(out)
 
 

@@ -5,8 +5,9 @@ omni_drones/envs/single/hover.py): the same observation layout, reward
 terms, CTBR telemetry stats and randomized initial pose, with the sim2real
 options (multiplicative action and observation noise, a 2-step observation
 latency, a point-mass payload), domain randomization of the dynamics
-(`dr_*` ranges, with the privileged `intrinsics` branch) and the sliding
-observation-history window.
+(`dr_*` ranges, with the privileged `intrinsics` branch), the sliding
+observation-history window and the onboard depth camera (`obs_depth`: a
+ray-cast frame of the ground and the target sphere).
 
 Randomness comes from an explicit `torch.Generator` on the env's device;
 every draw goes through `_uniform` / `_normal`, which the parity tests
@@ -28,7 +29,8 @@ from ..dynamics import DroneState, RigidBodyCfg, hover_state, make_params
 from ..dynamics import step as dynamics_step
 from ..dynamics.randomization import RandomizationCfg, intrinsics_vector, randomize_params
 from ..transforms.ctbr import hover_prev_action_init, pid_rate_transform
-from ..transforms.obs import history_init, history_push
+from ..sensors.depth import DepthCameraCfg, depth_image, pinhole_rays
+from ..transforms.obs import depth_image_norm, history_init, history_push
 from .base import Transition, register_env, where_done
 
 
@@ -66,7 +68,7 @@ class HoverCfg:
     dr_tau_up: Optional[Tuple[float, float]] = None
     dr_tau_down: Optional[Tuple[float, float]] = None
     obs_history_len: int = 0
-    # the depth camera (sensors/depth.py) is not ported: obs_depth raises
+    # onboard depth camera observation ("depth", [E, 1, H, W, 1] in [0, 1])
     obs_depth: bool = False
     depth_width: int = 32
     depth_height: int = 24
@@ -148,9 +150,6 @@ class Hover:
     cfg_cls = HoverCfg
 
     def __init__(self, cfg: HoverCfg = HoverCfg(), device: torch.device | str = "cuda"):
-        if cfg.obs_depth:
-            raise NotImplementedError(
-                "Hover obs_depth is not ported yet: it needs sensors/depth.py (ROADMAP A3c)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.params = make_params(cfg.drone_model, self.device)
@@ -160,6 +159,8 @@ class Hover:
         self._target_pos = torch.tensor([0.0, 0.0, 1.0], device=self.device)
         self._target_heading = torch.tensor([1.0, 0.0, 0.0], device=self.device)
         self._no_z = torch.tensor([1.0, 1.0, 0.0], device=self.device)
+        self._rays = torch.from_numpy(pinhole_rays(DepthCameraCfg(
+            width=cfg.depth_width, height=cfg.depth_height))).to(self.device)
 
     @property
     def num_envs(self) -> int:
@@ -270,13 +271,27 @@ class Hover:
             obs["intrinsics"] = state.intrinsics
         if self.cfg.obs_history_len > 0:
             obs["observation_h"] = state.obs_h
+        if self.cfg.obs_depth:
+            obs["depth"] = self._depth_obs(state)
         return obs
+
+    def _depth_obs(self, state: HoverState) -> torch.Tensor:
+        """The onboard depth frame [E, 1, H, W, 1] in [0, 1]: the ground and
+        the target (a sphere of radius 0.25) ray-cast from the drone's pose,
+        then `depth_image_norm`."""
+        cam = DepthCameraCfg(width=self.cfg.depth_width, height=self.cfg.depth_height,
+                             max_range=self.cfg.depth_max_range)
+        d = state.drone
+        depth = depth_image(cam, d.pos, d.quat, target_pos=state.target_pos, target_radius=0.25,
+                            rays=self._rays)
+        return depth_image_norm(depth, cam.min_range, cam.max_range)[..., None]
 
     @torch.no_grad()
     def observe(self, state: HoverState):
         """A flat [E, 1, obs_dim] tensor; a dict with the privileged
-        `intrinsics` branch and / or the `observation_h` window when domain
-        randomization / the history are on (the layout ppo_adapt consumes)."""
+        `intrinsics` branch, the `observation_h` window and / or the `depth`
+        frame when domain randomization, the history or the camera are on
+        (the layouts ppo_adapt and ppo_vision consume)."""
         flat = self._flat_obs(state)
         return self._dict_obs(state, flat) if self.cfg.obs_is_dict else flat
 

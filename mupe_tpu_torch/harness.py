@@ -14,13 +14,15 @@ AEG and sim-free variants, and Hover.  Algorithms (`algo=`, through
 `learning/registry.py`): mappo (every option: per-agent actors, the
 centralized critic, the relation encoders), ppo (with the privileged
 branches over Hover's domain-randomized dict observations), ppo_tconv,
-ppo_sdf, transformer and the recurrent ppo_rnn, whose carry threads the GRU
-states (`init_rnn_carry`, `make_rnn_train_iter`).
+ppo_sdf, transformer, the recurrent ppo_rnn, whose carry threads the GRU
+states (`init_rnn_carry`, `make_rnn_train_iter`), ppo_vision over Hover's
+depth camera (`env.obs_depth=true`; `algo.vision_encoder=conv |
+mobilenet_v3_small | mobilenet_v3_large`), and ppo_adapt, whose three RMA
+phases `train_rma` runs back to back.
 
-Not ported yet (each raises NotImplementedError): `algo=ppo_adapt`
-(`train_rma`, ROADMAP A3b), `algo=ppo_vision` and Hover's depth camera
-(A3c), and evaluation videos (`video`: `utils/render.py` draws with
-matplotlib, which the port does not depend on).
+Not ported (raises NotImplementedError): evaluation videos (`video`:
+`utils/render.py` draws with matplotlib, which the port does not depend
+on).
 """
 from __future__ import annotations
 
@@ -37,8 +39,11 @@ import torch
 
 from .envs import ENV_REGISTRY
 from .learning import init_carry, make_train_iter
+from .learning.optim import AdamState
+from .learning.ppo.ppo_adapt import LOG_STD_PATH
 from .learning.registry import is_recurrent, make_policy
-from .learning.rollout import init_rnn_carry, make_rnn_train_iter, obs_template
+from .learning.rollout import (init_rnn_carry, make_rnn_train_iter, make_rollout,
+                               obs_template)
 from .utils.checkpoint import load_checkpoint, save_checkpoint
 from .utils.config import RunCfg, apply_overrides, parse_cli
 from .utils.debug import guard_train_iter, profile_trace
@@ -91,6 +96,8 @@ def train(
     run_cfg = apply_overrides(RunCfg(task=default_task), top)
     if run_cfg.video:
         raise NotImplementedError(f"train: {_NO_VIDEO}")
+    if run_cfg.algo == "ppo_adapt":
+        return train_rma(run_cfg, sections, device)
     env, policy, env_cfg, algo_cfg = build(
         run_cfg.task, sections.get("env"), sections.get("algo"), run_cfg.algo, device)
     if deploy_stage:
@@ -174,6 +181,150 @@ def train(
     logger.close()
     last_metrics["total_time_s"] = time.time() - t_start
     return last_metrics
+
+
+# Hover's randomization ranges (reference cfg/task/Hover.yaml) and history,
+# which train_rma sets where the run gives no dr_* key / no history length
+RMA_HOVER_DR = dict(dr_mass_scale=(0.8, 1.2), dr_t2w_scale=(0.9, 1.1), dr_drag_scale=(0.5, 1.5))
+RMA_HOVER_HISTORY = 32
+RMA_PHASES = {"encoder": 1, "adaptation": 2, "finetune": 3}
+
+
+def rma_phase_lengths(total_iters: int):
+    """(n1, n2, n3): half the iterations for the encoder phase, a quarter
+    for the adaptation phase, the rest (at least one each) for finetuning."""
+    n1 = max(1, total_iters // 2)
+    n2 = max(1, total_iters // 4)
+    return n1, n2, max(1, total_iters - n1 - n2)
+
+
+def _init_generator(gen: torch.Generator) -> torch.Generator:
+    """A CPU generator for parameter initialisation, seeded from `gen`."""
+    seed = int(torch.randint(0, 2**62, (1,), generator=gen, device=gen.device).item())
+    return torch.Generator().manual_seed(seed)
+
+
+def train_rma(run_cfg: RunCfg, sections: Dict[str, Dict[str, Any]],
+              device: torch.device | str = "cuda") -> Dict[str, float]:
+    """RMA's three phases for `algo=ppo_adapt`, back to back
+    (mupe_tpu/harness.py:325-531):
+
+      1. encoder: PPO with the privileged context z = E(intrinsics);
+      2. adaptation: the policy frozen; each iteration rolls out with the
+         phase-2 policy (acting from z^ = A(history)) and takes one
+         `update_adaptation` step over all T * E * n rows, supervised by
+         the phase-1 actor's encoder;
+      3. finetune: acting from z^, PPO trains the adaptation module with the
+         actor body, from fresh optimiser states.
+
+    Phase 2 starts from a fresh adaptation module beside the phase-1 actor
+    body (`_AdaptActor_0`, log_std), the phase-1 critic (its own encoder
+    included) and value normaliser.  Log rows carry `rma_phase`; the learner
+    and the full carry are saved at the end.  `model_dir` and `resume_dir`
+    load the phase-1 learner / carry, and phase 1 starts over."""
+    env_over = dict(sections.get("env") or {})
+    algo_over = dict(sections.get("algo") or {})
+    if run_cfg.task == "Hover":
+        if not any(k.startswith("dr_") for k in env_over):
+            for k, v in RMA_HOVER_DR.items():
+                env_over.setdefault(k, v)
+        env_over.setdefault("obs_history_len", RMA_HOVER_HISTORY)
+    env, policy1, env_cfg, algo_cfg = build(run_cfg.task, env_over, algo_over, "ppo_adapt",
+                                            device)
+    run_name = run_cfg.run_name or time.strftime("%Y%m%d-%H%M%S")
+    ckpt_dir = Path(run_cfg.run_dir) / run_name / "checkpoints"
+    logger = RunLogger(
+        run_cfg.run_dir, run_name, wandb_mode=run_cfg.wandb_mode,
+        wandb_project=run_cfg.wandb_project, wandb_entity=run_cfg.wandb_entity,
+        config=config_dict(run_cfg, env_cfg, algo_cfg),
+    )
+    frames_per_iter = env.num_envs * algo_cfg.train_every
+    if run_cfg.max_iters > 0:
+        total_iters = run_cfg.max_iters
+    else:
+        total_iters = max(4, run_cfg.total_frames // frames_per_iter)
+    n1, n2, n3 = rma_phase_lengths(total_iters)
+    env_frames, last = 0, {}
+
+    def run_phase(carry, n_iters: int, phase: str, step):
+        """`n_iters` of `step(carry) -> (carry, metrics, ep_stats)`, a log
+        row every `log_interval` iterations and at the phase's end."""
+        nonlocal env_frames, last
+        t_block = time.time()
+        for i in range(n_iters):
+            carry, metrics, ep_stats = step(carry)
+            env_frames += frames_per_iter
+            if (i + 1) % run_cfg.log_interval == 0 or i == n_iters - 1:
+                row = {**{k: float(v) for k, v in metrics.items()},
+                       **{f"stats/{k}": float(v) for k, v in ep_stats.items()}}
+                now = time.time()
+                row.update(rollout_fps=frames_per_iter * min(run_cfg.log_interval, i + 1)
+                           / max(now - t_block, 1e-9),
+                           env_frames=env_frames, rma_phase=RMA_PHASES[phase])
+                t_block = now
+                logger.log(row, step=env_frames)
+                last = {k: float(v) for k, v in row.items()}
+        return carry
+
+    # ---- phase 1: encoder
+    gen = torch.Generator(device=device).manual_seed(run_cfg.seed)
+    carry = init_carry(env, policy1, gen)
+    if run_cfg.model_dir:
+        carry.ts = load_checkpoint(run_cfg.model_dir, target=carry.ts)
+    if run_cfg.resume_dir:
+        carry = load_checkpoint(run_cfg.resume_dir, target=carry)
+    carry = run_phase(carry, n1, "encoder", make_train_iter(env, policy1))
+    ts1 = carry.ts
+
+    # ---- phase 2: adaptation
+    policy2 = make_policy("ppo_adapt", env, {**algo_over, "phase": "adaptation"}, device)
+    fresh = policy2.init(carry.obs, _init_generator(carry.generator))
+    p1 = ts1.actor.params()
+    actor_leaves = [p1[path].detach() if path in p1 else v
+                    for path, v in fresh.actor.params().items()]
+    ts2 = policy2.init(carry.obs, actor_leaves=actor_leaves, log_std=ts1.log_std.detach(),
+                       critic_leaves=[l.detach() for l in ts1.critic.leaves])
+    ts2.value_norm = ts1.value_norm
+    target_encoder = {k: v.detach() for k, v in p1.items()}
+    actor_body = {**target_encoder, LOG_STD_PATH: ts1.log_std.detach()}
+    critic_body = {k: v.detach() for k, v in ts1.critic.params().items()}
+    carry.ts = ts2
+    adaptation = policy2.adaptation_params(ts2)
+    adapt_opt = AdamState.zeros_like([adaptation.detach()])
+    gan = policy2.adapt_cfg.adaptation_loss in ("gan", "lsgan")
+    disc, disc_opt = (policy2.init_discriminator(_init_generator(carry.generator)) if gan
+                      else (None, None))
+    rollout = make_rollout(env, policy2)
+
+    def adapt_iter(carry):
+        nonlocal adapt_opt, disc, disc_opt
+        carry, traj, ep_stats = rollout(carry)
+        obs = {k: v.reshape((-1,) + tuple(v.shape[3:])) for k, v in traj["obs"].items()}
+        out = policy2.update_adaptation(
+            adaptation.detach(), adapt_opt, target_encoder, obs["observation_h"],
+            obs["intrinsics"], obs=obs["observation"], actor_params=actor_body,
+            critic_params=critic_body, disc=disc, disc_opt=disc_opt)
+        with torch.no_grad():
+            adaptation.copy_(out[0])
+        adapt_opt = out[1]
+        metrics = {"adaptation_loss": out[2]}
+        if gan:
+            disc, disc_opt = out[3], out[4]
+            metrics["disc_loss"] = out[5]
+        return carry, metrics, ep_stats
+
+    carry = run_phase(carry, n2, "adaptation", adapt_iter)
+
+    # ---- phase 3: finetune, from the phase-2 parameters and fresh optimisers
+    policy3 = make_policy("ppo_adapt", env, {**algo_over, "phase": "finetune"}, device)
+    carry.ts.actor_opt = AdamState.zeros_like(carry.ts.actor_params())
+    carry.ts.critic_opt = AdamState.zeros_like(carry.ts.critic_params())
+    carry = run_phase(carry, n3, "finetune", make_train_iter(env, policy3))
+
+    save_checkpoint(ckpt_dir, total_iters, carry.ts)
+    save_checkpoint(ckpt_dir / "full", total_iters, carry)
+    logger.close()
+    return last
 
 
 @torch.no_grad()

@@ -12,6 +12,8 @@ from .rollout import (
     make_train_iter,
 )
 from .valuenorm import ValueNorm1, ValueNorm2
+from .mybuffer import TrajRingBuffer
+from .ppo import PPOAdaptCfg, PPOAdaptivePolicy
 from .tp_net import TPNet, denormalize_predictions, normalize_groundtruth
 
 __all__ = [
@@ -35,4 +37,7 @@ __all__ = [
     "TPNet",
     "denormalize_predictions",
     "normalize_groundtruth",
+    "TrajRingBuffer",
+    "PPOAdaptCfg",
+    "PPOAdaptivePolicy",
 ]

@@ -392,12 +392,12 @@ class MAPPOPolicy:
     def _check_entity_groups(obs) -> None:
         other = [k for k in obs if k in _NON_ENTITY_KEYS]
         if other:
-            raise NotImplementedError(
+            raise ValueError(
                 f"MAPPO's default networks cannot train dict observations with the branches "
-                f"{other} (Hover with dr_* ranges or obs_history_len): they are ppo_adapt's "
-                "inputs, not ported yet (ROADMAP A3b, its rest); the JAX package's MAPPO fails "
-                "on them too (algo=ppo with priv_actor / priv_critic, or algo=ppo_tconv, "
-                "trains them)")
+                f"{other} (Hover with dr_* ranges, obs_history_len or obs_depth), and the JAX "
+                "package's MAPPO fails on them too: train them with algo=ppo_adapt (intrinsics "
+                "and observation_h), algo=ppo_vision (depth), algo=ppo with priv_actor / "
+                "priv_critic, or algo=ppo_tconv")
 
     def joint(self, obs) -> bool:
         """Whether the joint actor+critic update and the pair forward apply:

@@ -167,23 +167,36 @@ class Leaf(NamedTuple):
     joined, the bridge's key), its shape in the port's layout ([in, out]
     weights; flax's attention kernels [in, heads, head] / [heads, head, out]
     flattened to [in, out] / [in, out] row-major, so the head split is kept
-    as column blocks) and how it is initialised."""
+    as column blocks), how it is initialised, and `perm`, where the port's
+    layout is a transpose of flax's (`port = flax.permute(perm)`: a 2-d
+    convolution's [kh, kw, in, out] kernel held as torch's [out, in, kh,
+    kw])."""
 
     path: str
     shape: Tuple[int, ...]
-    init: str = "lecun"  # lecun | zeros | ones | orthogonal | actor_head | critic_head
+    init: str = "lecun"  # lecun | zeros | ones | orthogonal | actor_head | critic_head | normal:σ
+    perm: Optional[Tuple[int, ...]] = None
 
 
 def init_leaf(leaf: Leaf, generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """flax's default initialisers: lecun-normal kernels (fan-in over every
-    axis but the last, as for a Conv), zero biases, unit LayerNorm scales,
-    orthogonal recurrent kernels; the actor head xavier-uniform with gain
-    0.01 (`DiagGaussianHead`), the critic head orthogonal(0.01)."""
+    axis but the last of flax's layout, as for a Conv), zero biases, unit
+    LayerNorm scales, orthogonal recurrent kernels; the actor head
+    xavier-uniform with gain 0.01 (`DiagGaussianHead`), the critic head
+    orthogonal(0.01); "normal:σ" σ times a standard normal (`LFF`'s B)."""
+    if leaf.perm is not None:
+        flax_shape = [0] * len(leaf.shape)
+        for i, axis in enumerate(leaf.perm):
+            flax_shape[axis] = leaf.shape[i]
+        return init_leaf(leaf._replace(shape=tuple(flax_shape), perm=None),
+                         generator).permute(leaf.perm).contiguous()
     shape = leaf.shape
     if leaf.init == "zeros":
         return torch.zeros(shape)
     if leaf.init == "ones":
         return torch.ones(shape)
+    if leaf.init.startswith("normal:"):
+        return float(leaf.init[len("normal:"):]) * torch.randn(shape, generator=generator)
     fan_in, fan_out = math.prod(shape[:-1]), shape[-1]
     if leaf.init == "lecun":
         return lecun_normal((fan_in, fan_out), generator).reshape(shape)
@@ -235,6 +248,12 @@ def apply_mlp(p, path: str, x: torch.Tensor, n_layers: int,
     return x
 
 
+def leaf_views(specs: Sequence[Leaf], flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Each leaf's view of the flat vector `flat`, keyed by its path."""
+    sizes = [math.prod(l.shape) for l in specs]
+    return {l.path: v.view(l.shape) for l, v in zip(specs, torch.split(flat, sizes))}
+
+
 class LeafNet(nn.Module):
     """A network whose parameters are one flat float32 vector (`flat`, the
     layout `optax.flatten` gives the JAX optimizer) whose views are its
@@ -260,12 +279,10 @@ class LeafNet(nn.Module):
 
     @property
     def leaves(self) -> List[torch.Tensor]:
-        shapes = self.leaf_shapes()
-        sizes = [math.prod(s) for s in shapes]
-        return [v.view(s) for v, s in zip(torch.split(self.flat, sizes), shapes)]
+        return list(leaf_views(self.leaf_specs(), self.flat).values())
 
     def params(self) -> Dict[str, torch.Tensor]:
-        return {l.path: v for l, v in zip(self.leaf_specs(), self.leaves)}
+        return leaf_views(self.leaf_specs(), self.flat)
 
 
 def _feat(obs, key: str):
@@ -388,6 +405,170 @@ class RelationHeadNet(HeadNet):
 
     def body_specs(self, groups):
         return self.encoder.leaf_specs(groups), RELATION_F_UNITS[-1]
+
+    def body(self, p, obs):
+        return self.encoder(p, obs)
+
+
+# ------------------------------------------------------------------ Fourier features
+class LFF(nn.Module):
+    """Learnable Fourier features (JAX `LFF`): B [in, fourier_dim] starts at
+    sigma times a standard normal; x -> Dense([sin(2π x B), cos(2π x B), x])
+    (x left out without `cat_input`).  Stateless: the leaves come from the
+    owning `LeafNet`, under `path`."""
+
+    def __init__(self, path: str = "LFF_0", fourier_dim: int = 256, embed_dim: int = 72,
+                 sigma: float = 0.01, cat_input: bool = True):
+        super().__init__()
+        self.path, self.fourier_dim, self.embed_dim = path, fourier_dim, embed_dim
+        self.sigma, self.cat_input = sigma, cat_input
+
+    def leaf_specs(self, d_in: int) -> List[Leaf]:
+        width = 2 * self.fourier_dim + (d_in if self.cat_input else 0)
+        return ([Leaf(f"{self.path}/B", (d_in, self.fourier_dim), f"normal:{self.sigma}")]
+                + dense_leaves(f"{self.path}/Dense_0", width, self.embed_dim))
+
+    def forward(self, p, x: torch.Tensor) -> torch.Tensor:
+        proj = torch.matmul(x, p[f"{self.path}/B"]) * (2.0 * math.pi)
+        feats = [torch.sin(proj), torch.cos(proj)] + ([x] if self.cat_input else [])
+        return apply_dense(p, f"{self.path}/Dense_0", torch.cat(feats, dim=-1))
+
+
+# ------------------------------------------------------------------ vision
+# flax's Conv kernel [kh, kw, in, out] (depthwise: [kh, kw, 1, C]) as torch's
+# [out, in, kh, kw]
+CONV_PERM = (3, 2, 0, 1)
+
+
+def conv_leaves(path: str, c_in: int, c_out: int, k: int, bias: bool = True,
+                groups: int = 1) -> List[Leaf]:
+    """A flax `nn.Conv(c_out, (k, k), feature_group_count=groups)`."""
+    return [Leaf(f"{path}/kernel", (c_out, c_in // groups, k, k), "lecun", CONV_PERM)] + (
+        [Leaf(f"{path}/bias", (c_out,), "zeros")] if bias else [])
+
+
+def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """TensorFlow's (and flax's default) "SAME" padding of one axis: out =
+    ceil(size / stride); the total pad's odd unit goes at the end."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def apply_conv(p, path: str, x: torch.Tensor, stride: int = 1, groups: int = 1) -> torch.Tensor:
+    """flax `Conv(padding="SAME")` on NCHW `x`, float32."""
+    kernel = p[f"{path}/kernel"]
+    k = kernel.shape[-1]
+    top, bottom = same_pads(x.shape[-2], k, stride)
+    left, right = same_pads(x.shape[-1], k, stride)
+    x = F.pad(x, (left, right, top, bottom))
+    return F.conv2d(x, kernel, p.get(f"{path}/bias"), stride=stride, groups=groups)
+
+
+def frames_nchw(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """[..., H, W, C] frames -> ([N, C, H, W], the leading shape)."""
+    lead = tuple(x.shape[:-3])
+    return x.reshape((-1,) + tuple(x.shape[-3:])).permute(0, 3, 1, 2), lead
+
+
+class ConvVisionEncoder(nn.Module):
+    """JAX `ConvVisionEncoder`: three 3x3 stride-2 "SAME" convolutions (16,
+    32, 64 channels, ReLU), a global average pool and Dense(128), over
+    [..., H, W, C] frames; float32.  Stateless, its leaves under `path`."""
+
+    FEATURES = (16, 32, 64)
+
+    def __init__(self, path: str, out_dim: int = 128):
+        super().__init__()
+        self.path, self.out_dim = path, out_dim
+
+    def leaf_specs(self, c_in: int) -> List[Leaf]:
+        leaves, c = [], c_in
+        for i, feat in enumerate(self.FEATURES):
+            leaves += conv_leaves(f"{self.path}/Conv_{i}", c, feat, 3)
+            c = feat
+        return leaves + dense_leaves(f"{self.path}/Dense_0", c, self.out_dim)
+
+    def forward(self, p, x: torch.Tensor) -> torch.Tensor:
+        h, lead = frames_nchw(x)
+        for i in range(len(self.FEATURES)):
+            h = F.relu(apply_conv(p, f"{self.path}/Conv_{i}", h, stride=2))
+        h = apply_dense(p, f"{self.path}/Dense_0", torch.mean(h, dim=(-2, -1)))
+        return h.reshape(lead + (self.out_dim,))
+
+
+VISION_ENCODERS = ("conv", "mobilenet_v3_small", "mobilenet_v3_large")
+
+
+def make_vision_encoder(kind: str, path: str) -> nn.Module:
+    """The vision backbone `kind` under `path` (JAX `make_vision_encoder`)."""
+    if kind == "conv":
+        return ConvVisionEncoder(path)
+    if kind in ("mobilenet_v3_small", "mobilenet_v3_large"):
+        from .mobilenet import MobileNetV3
+
+        return MobileNetV3(path, variant=kind.rsplit("_", 1)[1])
+    raise ValueError(f"unknown vision encoder {kind!r}; have {VISION_ENCODERS}")
+
+
+class MixedObsEncoder(nn.Module):
+    """JAX `MixedObsEncoder`: a vision backbone on each key of
+    `vision_keys` (`vision_<key>`), `MLP((256, 256))` on every other key,
+    concatenated and projected by `MLP((256,))`; float32.  The keys go in
+    sorted order: the JAX package's programs are jitted, and jit hands a
+    dict to the module with its keys sorted whatever order the env built it
+    in.  Stateless, its leaves under `path`."""
+
+    STATE_HIDDEN, OUT_DIM = (256, 256), 256
+
+    def __init__(self, path: str = "MixedObsEncoder_0", vision_keys: Sequence[str] = ("depth",),
+                 vision_encoder: str = "conv"):
+        super().__init__()
+        self.path, self.vision_keys, self.kind = path, tuple(vision_keys), vision_encoder
+
+    def _branches(self, keys):
+        """(key, vision backbone or None, MLP path) in the order flax names them."""
+        out, mlps = [], 0
+        for key in sorted(keys):
+            if key in self.vision_keys:
+                out.append((key, make_vision_encoder(self.kind, f"{self.path}/vision_{key}"), None))
+            else:
+                out.append((key, None, f"{self.path}/MLP_{mlps}"))
+                mlps += 1
+        return out, f"{self.path}/MLP_{mlps}"
+
+    def leaf_specs(self, example: Dict[str, torch.Tensor]) -> List[Leaf]:
+        branches, out_path = self._branches(example)
+        leaves, width = [], 0
+        for key, enc, mlp in branches:
+            if enc is not None:
+                leaves += enc.leaf_specs(example[key].shape[-1])
+                width += enc.out_dim
+            else:
+                leaves += mlp_leaves(mlp, example[key].shape[-1], self.STATE_HIDDEN)
+                width += self.STATE_HIDDEN[-1]
+        return leaves + mlp_leaves(out_path, width, (self.OUT_DIM,))
+
+    def forward(self, p, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        branches, out_path = self._branches(obs)
+        feats = [enc(p, obs[key]) if enc is not None
+                 else apply_mlp(p, mlp, obs[key], len(self.STATE_HIDDEN))
+                 for key, enc, mlp in branches]
+        return apply_mlp(p, out_path, torch.cat(feats, dim=-1), 1)
+
+
+class VisionNet(HeadNet):
+    """`MixedObsEncoder` and a head: JAX `VisionActor` / `VisionCritic`
+    (ppo_vision's networks over a dict with a "depth" frame)."""
+
+    def __init__(self, example, out_dim: int, role: str, vision_encoder: str = "conv",
+                 leaves=None, generator=None):
+        super().__init__()
+        self.encoder = MixedObsEncoder(vision_encoder=vision_encoder)
+        self._setup(example, out_dim, role, leaves, generator)
+
+    def body_specs(self, obs):
+        return self.encoder.leaf_specs(obs), MixedObsEncoder.OUT_DIM
 
     def body(self, p, obs):
         return self.encoder(p, obs)

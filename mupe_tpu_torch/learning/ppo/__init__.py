@@ -3,6 +3,7 @@ from .ppo_tconv import PPOTConvPolicy, TConvEncoder
 from .ppo_sdf_nav import PPOSDFNavPolicy, PointNetEncoder
 from .transformer import TransformerEncoder, TransformerPPOPolicy
 from .ppo_rnn import PPORNNCfg, PPORNNPolicy
+from .ppo_adapt import AdaptationModule, PPOAdaptCfg, PPOAdaptivePolicy
 
 __all__ = [
     "PPOCfg",
@@ -15,4 +16,7 @@ __all__ = [
     "TransformerEncoder",
     "PPORNNPolicy",
     "PPORNNCfg",
+    "AdaptationModule",
+    "PPOAdaptCfg",
+    "PPOAdaptivePolicy",
 ]

@@ -9,22 +9,30 @@ drives.  What each algorithm needs of the env's observation:
                env provides its input)
   ppo          flat, or a dict with "intrinsics" when the privileged
                branches are on (Hover with env.dr_* ranges)
+  ppo_adapt    a dict with "observation", "intrinsics" and "observation_h"
+               (Hover with env.dr_* ranges and env.obs_history_len > 0;
+               `harness.train_rma` trains its three phases)
   ppo_rnn      flat (recurrent: the rollout threads the hidden states)
   ppo_tconv    a dict with "observation_h" (env.obs_history_len > 0)
   ppo_sdf      a dict with "sdf_points" (no env of the repo emits them)
   transformer  entity dicts (a token per entity)
-
-`ppo_adapt` and `ppo_vision` are registered under the JAX package's names
-and raise NotImplementedError until their ROADMAP items land.
+  ppo_vision   a dict with a "depth" frame [..., H, W, C] beside flat
+               branches (Hover with env.obs_depth=true); `vision_encoder`
+               (conv, mobilenet_v3_small, mobilenet_v3_large) is popped from
+               the overrides before the cfg is built
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict
 
 from ..utils.config import apply_overrides
 from .mappo import MAPPOCfg, MAPPOPolicy
+from .modules.networks import VisionNet
 from .ppo import (
+    PPOAdaptCfg,
+    PPOAdaptivePolicy,
     PPOCfg,
     PPOPolicy,
     PPORNNCfg,
@@ -79,9 +87,13 @@ def _make_ppo(env, overrides, device):
 
 @register_algo("ppo_adapt")
 def _make_ppo_adapt(env, overrides, device):
-    raise NotImplementedError(
-        "algo 'ppo_adapt' (PPOAdaptivePolicy, train_rma and learning/mybuffer.py) is not "
-        "ported yet: ROADMAP A3b, its rest")
+    cfg = _mk_cfg(PPOAdaptCfg, env, overrides)
+    if not _obs_is_dict(env):
+        raise ValueError(
+            "ppo_adapt needs dict observations with 'intrinsics' and 'observation_h' — enable "
+            "env.dr_* ranges and env.obs_history_len (see envs/hover.py HoverCfg)")
+    return PPOAdaptivePolicy(cfg, n_agents=env.num_agents, action_dim=env.action_dim,
+                             device=device)
 
 
 @register_algo("ppo_rnn")
@@ -106,9 +118,20 @@ def _make_ppo_sdf(env, overrides, device):
 
 @register_algo("ppo_vision")
 def _make_ppo_vision(env, overrides, device):
-    raise NotImplementedError(
-        "algo 'ppo_vision' (the vision and mixed encoders, modules/mobilenet.py, "
-        "sensors/depth.py and Hover's obs_depth) is not ported yet: ROADMAP A3c")
+    """`VisionNet` actor and critic (`MixedObsEncoder`: the backbone on the
+    depth frame, an MLP on each flat branch) in MAPPO's non-joint update."""
+    overrides = dict(overrides)
+    vision_encoder = overrides.pop("vision_encoder", "conv")
+    cfg = dataclasses.replace(_mk_cfg(MAPPOCfg, env, overrides), use_tp_net=False)
+    if not _obs_is_dict(env):
+        raise ValueError(
+            "ppo_vision needs dict observations with a 'depth' frame — set env.obs_depth=true "
+            "(see envs/hover.py HoverCfg)")
+    net = functools.partial(VisionNet, vision_encoder=vision_encoder)
+    return MAPPOPolicy(cfg, n_agents=env.num_agents, action_dim=env.action_dim, obs_is_dict=True,
+                       device=device,
+                       actor_module=functools.partial(net, out_dim=env.action_dim, role="actor"),
+                       critic_module=functools.partial(net, out_dim=1, role="critic"))
 
 
 @register_algo("transformer")

@@ -1,8 +1,9 @@
 """The port's algorithm registry and `harness.train` over every ported
 algorithm and MAPPO option, on the CPU (`device="cpu"`): the registry's
 names are the JAX package's `ALGOS`; an unknown name raises KeyError, and
-`ppo_adapt` / `ppo_vision` raise NotImplementedError naming their ROADMAP
-items; 1-2 iterations of each algorithm train with finite metrics (the
+`ppo_adapt` / `ppo_vision` build and act on Hover's dict observations (their
+training is tests/test_torch_rma.py's and tests/test_torch_vision.py's);
+1-2 iterations of each algorithm train with finite metrics (the
 port's `train` alone: JAX's `train` of the same algorithms is
 tests/test_harness_algos.py's); the recurrent carry (GRU states, `is_init`)
 survives `resume_dir` exactly; and, on a card only (marker `gpu`), the
@@ -17,6 +18,7 @@ import torch
 from mupe_tpu.learning.registry import ALGOS as JALGOS
 from mupe_tpu_torch import harness
 from mupe_tpu_torch.envs import Hover, HoverCfg
+from mupe_tpu_torch.learning import init_carry
 from mupe_tpu_torch.learning.registry import ALGOS, make_policy
 from mupe_tpu_torch.ops import fused_encoder as fe
 from mupe_tpu_torch.ops.tolerance import in_f64
@@ -52,13 +54,19 @@ def test_registry_names_are_the_jax_packages():
         make_policy("nope", env)
 
 
-@pytest.mark.parametrize("algo, item", [("ppo_adapt", "A3b"), ("ppo_vision", "A3c")])
-def test_unported_algorithms_raise_naming_their_roadmap_item(tmp_path, algo, item):
-    env = Hover(HoverCfg(num_envs=2), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        make_policy(algo, env)
-    with pytest.raises(NotImplementedError, match=item):
-        _train(tmp_path, algo, *HOVER, f"algo={algo}")
+@pytest.mark.parametrize("algo, env_kw", [
+    ("ppo_adapt", dict(dr_mass_scale=(0.8, 1.2), obs_history_len=8)),
+    ("ppo_vision", dict(obs_depth=True, depth_width=16, depth_height=12))])
+def test_adapt_and_vision_build_on_hover(algo, env_kw):
+    """Both build on Hover's dict observations and act; on its flat
+    observation each is refused with the JAX package's ValueError."""
+    with pytest.raises(ValueError, match="dict observations"):
+        make_policy(algo, Hover(HoverCfg(num_envs=2), device="cpu"), device="cpu")
+    env = Hover(HoverCfg(num_envs=2, **env_kw), device="cpu")
+    policy = make_policy(algo, env, device="cpu")
+    carry = init_carry(env, policy, torch.Generator().manual_seed(0))
+    action, logp, value = policy.act(carry.ts, carry.obs, carry.generator)
+    assert action.shape == (2, 1, 4) and logp.shape == value.shape == (2, 1, 1)
 
 
 @pytest.mark.parametrize("case", list(CASES))

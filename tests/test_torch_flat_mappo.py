@@ -495,8 +495,9 @@ def test_bridge_converts_flat_networks_and_their_adam_states():
                          ids=["domain_randomization", "history"])
 def test_mappo_refuses_hovers_dict_observations(env_kw):
     """Hover's dict observations (the privileged intrinsics, the history)
-    are ppo_adapt's: JAX's MAPPO fails on them, the port's raises naming
-    it, through `harness.build` + `init_carry` as through the policy."""
+    are ppo_adapt's: JAX's MAPPO fails on them, the port's raises a
+    ValueError naming it, through `harness.build` + `init_carry` as through
+    the policy."""
     jenv = JHover(JEnvCfg(num_envs=4, **env_kw))
     jpol = JPolicy(JCfg(train_every=4, num_minibatches=2), 1, A, obs_is_dict=True)
     with pytest.raises(TypeError):
@@ -505,7 +506,7 @@ def test_mappo_refuses_hovers_dict_observations(env_kw):
         "Hover", {k: str(list(v)) if isinstance(v, tuple) else str(v) for k, v in env_kw.items()},
         device="cpu")
     assert policy.obs_is_dict and env.cfg.obs_is_dict
-    with pytest.raises(NotImplementedError, match="ppo_adapt"):
+    with pytest.raises(ValueError, match="ppo_adapt"):
         init_carry(env, policy, torch.Generator())
 
 

@@ -1,7 +1,8 @@
 """The port's training entry point (`mupe_tpu_torch.harness.train`) on the
 CPU with the AEG task: logs and checkpoints, exact resume, warm start, a
-checkpoint of the wrong kind refused, the deploy-stage ramp and the options that are not ported yet; and the config
-helpers against the JAX package's.
+checkpoint of the wrong kind refused, the deploy-stage ramp, the option
+that is not ported (`video`) and the configurations refused where the JAX
+package fails; and the config helpers against the JAX package's.
 
 Exact resume: 2 iterations, save, load the full carry, 1 more iteration,
 against 3 straight iterations; parameters, Adam states, the value
@@ -124,20 +125,32 @@ def test_train_runs_the_inkernel_loss_update(tmp_path, default_keys, mode):
     assert algo["use_inkernel_loss"] is True and algo["direct_mode"] == mode
 
 
-# algo=ppo trains now; ppo_adapt (with train_rma) and Hover's depth camera
-# are not ported yet
-NOT_PORTED = {"algo=ppo_adapt": ("algo=ppo_adapt",),
-              "task=Hover": ("task=Hover", "env.obs_depth=true"),
-              "video=ev.gif": ("video=ev.gif",)}
+# ppo_adapt and Hover's depth camera train now (tests/test_torch_rma.py,
+# tests/test_torch_vision.py); evaluation videos are not ported
+NOT_PORTED = {"video=ev.gif": ("video=ev.gif",)}
 
 
 @pytest.mark.parametrize("arg", list(NOT_PORTED))
 def test_options_not_ported_yet_raise(tmp_path, arg):
     with pytest.raises(NotImplementedError):
-        if arg.startswith("task="):
-            train([*NOT_PORTED[arg], "max_iters=1", f"run_dir={tmp_path}"], device="cpu")
+        _run(tmp_path, "x", "max_iters=1", *NOT_PORTED[arg])
+
+
+# configurations the JAX package cannot train either: ppo_adapt on
+# HideAndSeek (no intrinsics: JAX's init_carry fails with KeyError), and
+# MAPPO's default networks on Hover's depth dict (JAX's MAPPO fails on it)
+REFUSED = {"algo=ppo_adapt": ((), ("algo=ppo_adapt",), KeyError, "intrinsics"),
+           "task=Hover": (("task=Hover", "env.obs_depth=true"), (), ValueError, "ppo_vision")}
+
+
+@pytest.mark.parametrize("arg", list(REFUSED))
+def test_configurations_jax_cannot_train_are_refused(tmp_path, arg):
+    task, rest, exc, match = REFUSED[arg]
+    with pytest.raises(exc, match=match):
+        if task:
+            train([*task, "env.num_envs=4", "max_iters=1", f"run_dir={tmp_path}"], device="cpu")
         else:
-            _run(tmp_path, "x", "max_iters=1", *NOT_PORTED[arg])
+            _run(tmp_path, "x", "max_iters=1", *rest)
 
 
 def test_config_helpers_match_jax():

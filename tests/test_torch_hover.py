@@ -394,9 +394,27 @@ def test_cli_ranges_parse_as_in_jax():
     assert got.dr_mass_scale == (0.8, 1.2) and got.obs_is_dict
 
 
-def test_obs_depth_raises_until_the_depth_sensor_is_ported():
-    with pytest.raises(NotImplementedError, match="depth"):
-        Hover(HoverCfg(num_envs=2, obs_depth=True), device="cpu")
+def test_obs_depth_frame_matches_jax():
+    """The depth camera's frame [E, 1, 24, 32, 1] in [0, 1] (Hover's default
+    size; the ground and the target sphere): exactly JAX's at reset and, on
+    each teacher-forced step through an auto-reset, exactly JAX's frame of
+    JAX's state after the step (its eager `observe`; no ray of these scenes
+    grazes the sphere), while the port's own step emits it within the
+    teacher-forced bound of the step's other quantities."""
+    jenv, tenv = _envs(obs_depth=True)
+    js, ts = _reset_both(jenv, tenv)
+    got, want = tenv.observe(ts), jenv.observe(js)
+    assert list(got) == list(want) == ["observation", "depth"]
+    assert got["depth"].shape == (E, 1, 24, 32, 1)
+    np.testing.assert_array_equal(got["depth"].numpy(), np.asarray(want["depth"]))
+    for t, (ttr, jtr, _, js) in enumerate(_run(jenv, tenv, teacher_forced=True)):
+        frame = tenv.observe(bridge.hover_state(to_np(js)))["depth"]
+        np.testing.assert_array_equal(frame.numpy(), np.asarray(jenv.observe(js)["depth"]),
+                                      err_msg=f"step {t}")
+        d = ttr.obs["depth"].numpy()
+        np.testing.assert_allclose(d, np.asarray(jtr.obs["depth"]), rtol=0, atol=1e-5,
+                                   err_msg=f"step {t}")
+        assert d.min() >= 0.0 and d.max() <= 1.0 and d.max() > 0.0
 
 
 def test_hover_is_registered_and_defaults_to_the_card():
