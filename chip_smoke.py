@@ -114,6 +114,21 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    its six losses on one phase-2 batch of 4,096 x 32 rows; the trajectory
    ring buffer (L = 128, E = 4,096, extended past its seam, 4,096 windows of
    16 steps) identical card vs CPU.
+14. data parallelism over the arena axis (`mupe_tpu_torch/parallel`), in
+   worker processes (`chip_smoke.py --dp-worker ...`; this process holds no
+   process group) at bench.py's width (4,096 arenas x 64 steps, TP net):
+   world size 1 over NCCL through `harness.train`, 2 iterations, the
+   learner's bits equal to the run without a group; two ranks sharing the
+   card over gloo (CUDA tensors, 2,048 arenas each), one iteration on the
+   default path and in each `direct_mode`, the ranks' learners
+   bit-identical (an all-gathered digest), the joined trajectory, the
+   first gradients and the learner held against the one rank's same
+   iteration; AEG at 2 ranks (phase 5's cuts) through one closed cycle,
+   the buffer's bits equal on the ranks, each rank an FPS launch; Hover's
+   flat MAPPO at 2 ranks through `harness.train`; and, information only
+   (not a scaling measurement: the ranks share one card), the world-1 and
+   2-rank rates and the cost of drawing the action noise at the global
+   arena count.
 
 Phase 2 also holds the FPS kernel (the AEG buffer's downsampling, one
 thread-block cluster) index for index against its plain version at the AEG's
@@ -169,6 +184,7 @@ import dataclasses
 import json
 import math
 import mmap
+import os
 import statistics
 import subprocess
 import sys
@@ -3047,6 +3063,306 @@ def phase_vision_rma(dev, card: str) -> None:
     log(f"  phase 13 launched none of the port's {len(wrappers)} kernel wrappers")
 
 
+# phase 14: data parallelism over the arena axis (torch.distributed)
+DP_WORKER_FLAG = "--dp-worker"
+DP_TIMEOUT = 420                   # seconds a phase-14 worker may take
+DP_MODES = (None, "fwdloss", "agrad")
+DP_TRAJ_KEYS = ("action", "logp", "value", "reward", "done")
+DP_SEED = 7
+DP_TRAJ_REL = 1e-5                 # of a field's scale, ranks' rows against the one rank's
+DP_GRAD_REL = 1e-4                 # the first steps' gradients, of each one's scale
+# after the iteration's 64 Adam steps (16 minibatches x 4 epochs): a gradient
+# that is rounding noise turns Adam's step of about lr = 5e-4 either way
+DP_PARAM_ATOL = 2 * 64 * 5e-4
+
+
+def _dp_argv(run_dir: str, name: str, iters: int) -> list:
+    return [f"env.num_envs={NUM_ENVS}", f"algo.train_every={STEPS}", f"max_iters={iters}",
+            "log_interval=1", "save_interval=-1", f"run_dir={run_dir}", f"run_name={name}",
+            f"seed={DP_SEED}"]
+
+
+def _dp_learner(ts) -> dict:
+    """The learner's parameters and optimizer state on the CPU."""
+    out = {"actor": ts.actor.flat.detach().cpu(), "critic": ts.critic.flat.detach().cpu(),
+           "log_std": ts.log_std.detach().cpu()}
+    out.update({f"tp{i}": l.detach().cpu() for i, l in enumerate(ts.tp_net.leaves())})
+    for name in ("actor_opt", "critic_opt", "tp_opt"):
+        out.update({f"{name}{i}": t.detach().cpu() for i, t in
+                    enumerate(getattr(ts, name).tensors())})
+    out["value_norm"] = torch.cat([ts.value_norm.running_mean, ts.value_norm.running_mean_sq,
+                                   ts.value_norm.debiasing_term.reshape(1)]).cpu()
+    return out
+
+
+def _dp_digest(tensors: dict) -> torch.Tensor:
+    """64 bits of a SHA-256 of the tensors' bytes, as an int64 [1]."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].reshape(-1).contiguous().view(torch.uint8).numpy().tobytes())
+    return torch.tensor([int.from_bytes(h.digest()[:8], "little", signed=True)])
+
+
+def _dp_same_on_ranks(what: str, tensors: dict) -> None:
+    """Raise unless every rank holds the same bits (an all-gathered digest)."""
+    from mupe_tpu_torch.parallel import dist
+
+    digests = dist.all_gather_envs(_dp_digest(tensors))
+    if not bool((digests == digests[0]).all()):
+        raise AssertionError(f"{what}: the ranks' bits differ ({digests.tolist()})")
+
+
+def _dp_iteration(dev, mode, shard_note: str) -> tuple:
+    """One training iteration of bench.py's configuration from seed DP_SEED
+    through `harness.build` (this rank's arenas of the group): (the
+    trajectory's small fields on the CPU, the learner, the carry, the
+    iteration, the seconds it took)."""
+    import mupe_tpu_torch.learning.mappo as tmappo
+    from mupe_tpu_torch import harness
+    from mupe_tpu_torch.learning import init_carry
+    from mupe_tpu_torch.learning.rollout import make_rollout
+
+    algo = {"train_every": STEPS}
+    if mode is not None:
+        algo.update(use_inkernel_loss=True, direct_mode=mode)
+    env, policy, _, _ = harness.build("HideAndSeek", {"num_envs": NUM_ENVS}, algo, device=dev)
+    carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(DP_SEED))
+    rollout = make_rollout(env, policy)
+
+    def iteration(carry):
+        carry, traj, _ = rollout(carry)
+        ts, metrics = policy.train_op(carry.ts, traj, carry.obs, carry.generator,
+                                      shard=env.shard)
+        return carry, traj, metrics
+
+    # the gradients of the first optimizer steps: the TP step, the first
+    # minibatch's actor and critic
+    first, real = [], tmappo.adam_updates
+
+    def recording(grads, state, lr, **kw):
+        if len(first) < 3:
+            first.append([g.detach().cpu() for g in grads])
+        return real(grads, state, lr, **kw)
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    tmappo.adam_updates = recording
+    try:
+        carry, traj, metrics = iteration(carry)
+    finally:
+        tmappo.adam_updates = real
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    if not all(math.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError(f"{shard_note} mode {mode}: non-finite metrics")
+    small = {k: traj[k].detach().float().cpu() for k in DP_TRAJ_KEYS}
+    learner = _dp_learner(carry.ts)
+    learner.update({f"grad{i}_{j}": g for i, gs in enumerate(first) for j, g in enumerate(gs)})
+    return small, learner, carry, iteration, seconds
+
+
+def dp_worker(argv) -> int:
+    """A rank of phase 14 (`chip_smoke.py --dp-worker ROLE RANK WORLD
+    BACKEND INIT_METHOD OUT_DIR`): "one" runs world size 1, without and
+    then with a process group; "two" is one of two ranks sharing the card."""
+    from mupe_tpu_torch import harness
+    from mupe_tpu_torch.ops import fps
+    from mupe_tpu_torch.parallel import dist
+    from mupe_tpu_torch.utils.checkpoint import load_checkpoint
+
+    role, rank, world, backend, init_method, out_dir = argv
+    rank, world, out = int(rank), int(world), Path(out_dir)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    report = {"role": role, "rank": rank}
+    if role == "one":
+        # check 1: harness.train without a group, then with an NCCL group of one
+        learners = {}
+        for name in ("nogroup", "group"):
+            if name == "group":
+                dist.init_distributed(backend=backend, init_method=init_method,
+                                      world_size=world, rank=rank)
+                report["backend"] = torch.distributed.get_backend()
+            m = harness.train(_dp_argv(str(out / "runs"), name, 2), default_task="HideAndSeek",
+                              device=dev)
+            report[f"{name}_rate"] = m["rollout_fps"]
+            learners[name] = load_checkpoint(out / "runs" / name / "checkpoints")
+        same = _equal_trees(learners["nogroup"], learners["group"])
+        report["harness_bits_equal"] = same
+        if not same:
+            raise AssertionError("world size 1: the learner with a group differs from without")
+    else:
+        dist.init_distributed(backend=backend, init_method=init_method, world_size=world,
+                              rank=rank)
+    note = f"{role} rank {rank}/{world}"
+    for mode in DP_MODES:
+        for fn in _kernel_wrappers().values():
+            fn.launches = 0
+        small, learner, carry, iteration, seconds = _dp_iteration(dev, mode, note)
+        report[f"launches_{mode}"] = {k: v for k, v in _count(_kernel_wrappers()).items() if v}
+        if role == "two":
+            _dp_same_on_ranks(f"{note} learner, mode {mode}", learner)
+        torch.save({"traj": small, "learner": learner}, out / f"{role}_{rank}_{mode}.pt")
+        if mode is None:
+            # a second, warm iteration: the rate (information only)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            iteration(carry)
+            torch.cuda.synchronize(dev)
+            report["iteration_s"] = time.perf_counter() - t0
+            report["iteration_s_all"] = dist.all_gather_envs(
+                torch.tensor([report["iteration_s"]], dtype=torch.float64)).tolist()
+    if role == "two":
+        # check 3: AEG through one closed cycle (phase 5's cuts), each rank its arenas
+        fps.farthest_point_sampling.launches = 0
+        algo = {"train_every": STEPS}
+        env_kw = {"num_envs": NUM_ENVS, "max_episode_length": AEG_EPISODE,
+                  "buffer_length": AEG_BUFFER, "use_init_easy_cases": True, "r_min": 0.0}
+        env, policy, _, _ = harness.build("HideAndSeek_envgen", env_kw, algo, device=dev)
+        from mupe_tpu_torch.learning import init_carry, make_train_iter
+
+        carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(DP_SEED))
+        carry, metrics, ep = make_train_iter(env, policy)(carry)
+        gb = carry.env_state.gen
+        report["aeg_fps_launches"] = fps.farthest_point_sampling.launches
+        report["aeg_history_len"] = int(gb.history_len)
+        if fps.farthest_point_sampling.launches < 1 or int(gb.history_len) != AEG_BUFFER:
+            raise AssertionError(f"{note}: AEG closed no cycle on the FPS path "
+                                 f"({report['aeg_fps_launches']} launches)")
+        _dp_same_on_ranks(f"{note} GenBuffer", {f.name: getattr(gb, f.name).cpu() for f in
+                                                dataclasses.fields(gb)})
+        # check 4: Hover's flat MAPPO through harness.train
+        m = harness.train([f"env.num_envs={HOVER_ENVS}", "env.max_episode_length=300",
+                           f"algo.train_every={HOVER_STEPS}",
+                           f"algo.num_minibatches={HOVER_MINIBATCHES}", "max_iters=2",
+                           "log_interval=1", "save_interval=-1",
+                           f"run_dir={out / 'runs'}", "run_name=hover"],
+                          default_task="Hover", device=dev)
+        losses = torch.tensor([m["policy_loss"], m["value_loss"]], dtype=torch.float64)
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"{note}: Hover's losses {losses.tolist()}")
+        _dp_same_on_ranks(f"{note} Hover's losses", {"losses": losses})
+        report["hover_losses"] = losses.tolist()
+        report["hover_rate"] = m["rollout_fps"]
+    (out / f"report_{role}_{rank}.json").write_text(json.dumps(report))
+    dist.destroy()
+    return 0
+
+
+def _dp_launch(role: str, world: int, backend: str, out: Path) -> list:
+    """Run `world` phase-14 workers of `role`; every wait bounded, every
+    child killed on the way out.  Returns their reports."""
+    store = out / f"store_{role}"
+    threads = os.cpu_count() or 1  # shared by the ranks: no oversubscription
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), DP_WORKER_FLAG,
+                               role, str(r), str(world), backend, f"file://{store}", str(out)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=dict(os.environ, LOCAL_RANK="0",
+                                       OMP_NUM_THREADS=str(max(1, threads // world))))
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"[14] {role} rank {r} exited {p.returncode}:\n{text[-6000:]}")
+    return [json.loads((out / f"report_{role}_{r}.json").read_text()) for r in range(world)]
+
+
+def _dp_draw_cost(dev, card: str) -> None:
+    """The cost of drawing at the global arena count: the action noise of a
+    rollout step (4,096 x 3 x 4 normals) made whole and sliced to one of 2
+    ranks' 2,048 arenas, against the local draw alone (CUDA events, medians
+    of 200 calls; information)."""
+    from mupe_tpu_torch.parallel import dist
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shard = dist.EnvShard.of(NUM_ENVS, 0, 2)
+    shape = (shard.size, 3, 4)
+    whole = cuda_time_ms(lambda: shard.draw(
+        lambda s: torch.randn(s, generator=gen, device=dev), shape), runs=200, warmup=10)
+    local = cuda_time_ms(lambda: torch.randn(shape, generator=gen, device=dev), runs=200,
+                         warmup=10)
+    log(f"  [5] the action noise of a step for rank 0 of 2: drawn at {NUM_ENVS} arenas and "
+        f"sliced {whole:.4f} ms, drawn at {shard.size} {local:.4f} ms on {card}")
+
+
+def phase_parallel(dev, card: str) -> None:
+    """Phase 14: data parallelism over the arena axis at bench.py's width
+    (4,096 arenas x 64 steps, TP net), in worker processes (this process
+    holds no process group).  1: world size 1 over NCCL through
+    `harness.train`, 2 iterations, the learner's bits equal to the same run
+    without a group; 2: two ranks sharing the card over gloo (CUDA tensors,
+    2,048 arenas each), one iteration on the default path and in each
+    `direct_mode`, the ranks' learners bit-identical (an all-gathered
+    digest), the joined trajectory and the learner held against the one
+    rank's same iteration; 3: AEG at 2 ranks (phase 5's cuts) through one
+    closed cycle, the buffer's bits equal on the ranks, each rank an FPS
+    launch; 4: Hover's flat MAPPO at 2 ranks through `harness.train`; 5:
+    the rates, information only (not a scaling measurement: both ranks
+    share one card)."""
+    t0 = time.perf_counter()
+    log(f"[14] data parallelism: bench.py's configuration ({NUM_ENVS} arenas x {STEPS} steps, "
+        f"TP net) at world size 1 over NCCL, and at 2 ranks sharing the card over gloo")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        (one,) = _dp_launch("one", 1, "nccl", out)
+        log(f"  [1] world size 1: harness.train with an NCCL group ({one['backend']}) = without "
+            f"a group, bit for bit: {one['harness_bits_equal']}")
+        two = _dp_launch("two", 2, "gloo", out)
+        for mode in DP_MODES:
+            ref = torch.load(out / f"one_0_{mode}.pt", weights_only=True)
+            parts = [torch.load(out / f"two_{r}_{mode}.pt", weights_only=True) for r in range(2)]
+            worst = 0.0
+            for k in DP_TRAJ_KEYS:
+                joined = torch.cat([p["traj"][k] for p in parts], dim=1)
+                want = ref["traj"][k]
+                err = float((joined - want).abs().max()) / max(1.0, float(want.abs().max()))
+                worst = max(worst, err)
+                if joined.shape != want.shape or err > DP_TRAJ_REL:
+                    raise AssertionError(f"[14] mode {mode}: trajectory field {k} of the 2 "
+                                         f"ranks off the one rank's by {err:.3e} of its scale")
+            got, want = parts[0]["learner"], ref["learner"]
+            gerr = max(float((got[k] - want[k]).abs().max()) / float(want[k].abs().max())
+                       for k in want if k.startswith("grad"))
+            perr = max(float((got[k] - want[k]).abs().max())
+                       for k in ("actor", "critic", "log_std", "tp0", "tp1", "tp2", "tp3", "tp4"))
+            if gerr > DP_GRAD_REL or perr > DP_PARAM_ATOL:
+                raise AssertionError(f"[14] mode {mode}: the 2 ranks' first gradients are "
+                                     f"{gerr:.3e} of their scale off the one rank's (limit "
+                                     f"{DP_GRAD_REL}), their parameters {perr:.3e} (limit "
+                                     f"{DP_PARAM_ATOL})")
+            log(f"  [2] mode {mode or 'default'}: ranks bit-identical; trajectory within "
+                f"{worst:.3e} of each field's scale of the one rank's (limit {DP_TRAJ_REL}); "
+                f"the first TP, actor and critic gradients within {gerr:.3e} of their scale "
+                f"(limit {DP_GRAD_REL}), the parameters after the iteration within {perr:.3e} "
+                f"(limit {DP_PARAM_ATOL}); launches a rank {two[0][f'launches_{mode}']}, "
+                f"one rank {one[f'launches_{mode}']}")
+        log(f"  [3] AEG at 2 ranks: one closed cycle, FPS launches per rank "
+            f"{[r['aeg_fps_launches'] for r in two]}, history {two[0]['aeg_history_len']}, "
+            "buffers bit-identical")
+        log(f"  [4] Hover's flat MAPPO at 2 ranks through harness.train: losses "
+            f"{two[0]['hover_losses']} on both ranks")
+        frames = NUM_ENVS * STEPS
+        agg = frames / max(two[0]["iteration_s_all"])
+        log(f"  [5] not a scaling measurement: world size 1 (harness, 2nd iteration) "
+            f"{one['group_rate']:.1f} env-steps/s ({one['nogroup_rate']:.1f} without a group); "
+            f"one warm iteration {frames / one['iteration_s']:.1f} at world size 1 and "
+            f"{agg:.1f} aggregate for 2 ranks sharing the card "
+            f"(iteration {max(two[0]['iteration_s_all']) * 1e3:.1f} ms) on {card}")
+    _dp_draw_cost(dev, card)
+    log(f"[14] phase 14 took {time.perf_counter() - t0:.1f} s on {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
@@ -3078,6 +3394,7 @@ def main() -> int:
     t13 = time.perf_counter()
     phase_vision_rma(dev, card)
     log(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s on {card}")
+    phase_parallel(dev, card)
     for name, extra in option_kernels.items():
         kernels[name].update(extra, share_actor_false_launches_per_iteration=options[
             "launches_per_iteration"][name])
@@ -3100,4 +3417,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == DP_WORKER_FLAG:
+        sys.exit(dp_worker(sys.argv[2:]))
     sys.exit(main())

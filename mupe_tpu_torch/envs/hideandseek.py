@@ -26,6 +26,7 @@ from ..core import euler_to_quaternion
 from ..dynamics import DroneState, RigidBodyCfg, hover_state, make_params
 from ..dynamics import step as dynamics_step
 from ..learning.tp_net import denormalize_predictions, normalize_groundtruth
+from ..parallel import dist
 from ..transforms.ctbr import hover_prev_action_init, pid_rate_transform
 from .base import Transition, register_env, where_done
 from .geometry import k_nearest_cylinders, line_blocked_by_cylinder
@@ -184,8 +185,12 @@ class HideAndSeek:
     cfg_cls = HideAndSeekCfg
 
     def __init__(
-        self, cfg: HideAndSeekCfg = HideAndSeekCfg(), device: torch.device | str = "cuda"
+        self, cfg: HideAndSeekCfg = HideAndSeekCfg(), device: torch.device | str = "cuda",
+        shard: Optional[dist.EnvShard] = None,
     ):
+        # `cfg` is the global configuration; the env holds `shard`'s arenas
+        # (all of them by default) and `self.cfg.num_envs` counts those
+        cfg, self.shard = dist.local_cfg(cfg, shard)
         self.cfg = cfg
         self.device = torch.device(device)
         self.params = make_params(cfg.drone_model, self.device)
@@ -246,12 +251,13 @@ class HideAndSeek:
         here (tests inject the JAX package's draws by replacing it)."""
         lo = torch.as_tensor(lo, dtype=torch.float32, device=self.device)
         hi = torch.as_tensor(hi, dtype=torch.float32, device=self.device)
-        u = torch.rand(shape, generator=gen, device=self.device)
+        u = self.shard.draw(lambda s: torch.rand(s, generator=gen, device=self.device), shape)
         return lo + (hi - lo) * u
 
     def _randint(self, gen, hi: int, shape) -> torch.Tensor:
         """Integers uniform in [0, hi) (the mixing tables' choice)."""
-        return torch.randint(0, hi, shape, generator=gen, device=self.device)
+        return self.shard.draw(
+            lambda s: torch.randint(0, hi, s, generator=gen, device=self.device), shape)
 
     def obs_groups(self) -> Dict[str, Tuple[int, int]]:
         """(tokens, features) of each observation group of one agent."""
@@ -289,7 +295,7 @@ class HideAndSeek:
             base = outside_circle_mask(g, self.device)[None].expand(e, g, g)
             drone_pos, target_pos = sample_spawns_cl(
                 gen, base, n, self.grid, cfg.max_height,
-                cl_bound=cfg.cl_bound, height_bound=cfg.height_bound)
+                cl_bound=cfg.cl_bound, height_bound=cfg.height_bound, shard=self.shard)
         elif train_mode:
             drone_xy = self._uniform(gen, (e, n, 2), [0.1, -a + 0.1], [a - 0.1, a - 0.1])
             target_xy = self._uniform(gen, (e, 1, 2), [-a + 0.1, -a + 0.1], [-0.1, a - 0.1])
@@ -377,7 +383,7 @@ class HideAndSeek:
         def draw():
             xy, active = sample_cylinders(
                 gen, drone_xy, target_xy, self.grid, cfg.num_cylinders,
-                cfg.min_cylinders, cfg.max_cylinders, cfg.fixed_cylinders,
+                cfg.min_cylinders, cfg.max_cylinders, cfg.fixed_cylinders, self.shard,
             )
             ok = feasible_layout(drone_xy, target_xy, xy, idx < active, self.grid)
             return xy, active, ok
@@ -688,25 +694,21 @@ class HideAndSeek:
         for k in _EP_NORMALIZED:
             st[k] = st[k] / div
 
-        # evader speed curriculum
-        any_done = torch.any(done_env)
-        mean_success = torch.mean(st["success"])
-        v_prey = torch.where(
-            any_done & (mean_success >= 0.98),
-            torch.clamp(state.v_prey + 0.05, max=1.3),
-            state.v_prey,
-        )
-
         # TP bookkeeping: append the new frame to the history window
-        mid = dataclasses.replace(mid, stats=st, v_prey=v_prey)
+        mid = dataclasses.replace(mid, stats=st)
         frame = self._tp_frame(mid, broadcast_detect)
         mid.history = torch.cat([state.history[:, 1:], frame[:, None, :]], dim=1)
 
         # auto-reset.  Episodes are synchronized, so a reset happens once per
         # max_episode_length steps; the gate reads done_env on the host
-        # (one device→host sync per step) and skips the scene resample
-        # otherwise.
-        if bool(any_done):
+        # (one device→host sync per step; with ranks, the flag of every
+        # rank's arenas, so all draw the fresh scene together) and skips
+        # the scene resample otherwise.
+        if dist.any_across(done_env):
+            # evader speed curriculum: the mean success over every arena
+            mean_success = dist.global_sum(st["success"]) / self.shard.total
+            mid.v_prey = torch.where(mean_success >= 0.98,
+                                     torch.clamp(state.v_prey + 0.05, max=1.3), state.v_prey)
             new_state = self._auto_reset(mid, st, done_env, gen)
             detection = self._detection(new_state)
         else:

@@ -15,6 +15,12 @@ Episodes are synchronized, and `HideAndSeek.step` reads its reset gate on
 the host once a step; where the JAX package takes `lax.cond` on `any_done`,
 `cycle_done` and `resample_needed`, the port branches on the host as well
 (one more scalar read per reset, none per step).
+
+Across ranks (`mupe_tpu_torch/parallel`) the buffer is replicated: every
+rank holds the global task set and weights, the per-arena success is
+all-gathered at a reset, `update_history` (with its FPS launch) runs on the
+same pool on every rank, tasks are drawn at the global count, and each rank
+places its own arenas' tasks.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from ..native import generate_easy_tasks
+from ..parallel import dist
 from .base import register_env
 from .genbuffer import GenBufferState, insert_weights, sample_nearby, update_history
 from .hideandseek import HideAndSeek, HideAndSeekCfg, HideAndSeekState
@@ -77,8 +84,9 @@ class HideAndSeekEnvgen(HideAndSeek):
     def __init__(
         self, cfg: HideAndSeekEnvgenCfg = HideAndSeekEnvgenCfg(),
         device: torch.device | str = "cuda",
+        shard: Optional[dist.EnvShard] = None,
     ):
-        super().__init__(cfg, device=device)
+        super().__init__(cfg, device=device, shard=shard)
         self._extra_stats = envgen_extra_stats(cfg.num_cylinders)
         # the host-side BFS bootstrap runs once, here
         self._easy_tasks = self._easy_history() if cfg.use_init_easy_cases else None
@@ -101,9 +109,10 @@ class HideAndSeekEnvgen(HideAndSeek):
         )
 
     def _uniform_tasks(self, gen: torch.Generator) -> torch.Tensor:
-        """Uniform task sampling through the base scene sampler."""
+        """Uniform task sampling through the base scene sampler, for every
+        arena (the ranks' rows gathered)."""
         drone_pos, _, target_pos, cylinders, _, _ = self._sample_scene(gen)
-        return self._scene_to_tasks(drone_pos, target_pos, cylinders)
+        return dist.all_gather_envs(self._scene_to_tasks(drone_pos, target_pos, cylinders))
 
     def _easy_history(self, seed: int = 0) -> torch.Tensor:
         """Bootstrap tasks: the evader on a random free cell, the pursuers on
@@ -140,12 +149,13 @@ class HideAndSeekEnvgen(HideAndSeek):
         tasks: Optional[torch.Tensor] = None,
     ) -> HideAndSeekState:
         """A fresh state placed on uniform tasks, with a new task buffer.
-        `fresh` and `tasks` may be given instead of drawn from `gen`."""
+        `fresh` and `tasks` (every arena's) may be given instead of drawn
+        from `gen`."""
         cfg: HideAndSeekEnvgenCfg = self.cfg
         state = super().reset(gen) if fresh is None else fresh
         if tasks is None:
             tasks = self._uniform_tasks(gen)
-        gb = GenBufferState.create(cfg.buffer_length, cfg.num_envs, cfg.task_dim,
+        gb = GenBufferState.create(cfg.buffer_length, self.shard.total, cfg.task_dim,
                                    cfg.ratio_unif, device=self.device)
         gb.eval_tasks = tasks
         if cfg.use_init_easy_cases:
@@ -156,9 +166,10 @@ class HideAndSeekEnvgen(HideAndSeek):
         return self._apply_tasks(state, tasks)
 
     def _apply_tasks(self, state: HideAndSeekState, tasks: torch.Tensor) -> HideAndSeekState:
-        """Place drones, target and cylinders at `tasks` (positions only) and
-        re-prime the TP history for them."""
-        drone_pos, target_pos, cylinders = self._tasks_to_scene(tasks)
+        """Place drones, target and cylinders at this rank's rows of
+        `tasks` (every arena's; positions only) and re-prime the TP history
+        for them."""
+        drone_pos, target_pos, cylinders = self._tasks_to_scene(self.shard.rows(tasks))
         state = dataclasses.replace(
             state,
             drone=dataclasses.replace(state.drone, pos=drone_pos),
@@ -182,21 +193,24 @@ class HideAndSeekEnvgen(HideAndSeek):
     ) -> HideAndSeekState:
         """The base reset plus one AEG step (hideandseek_envgen.py:205-327).
         `fresh`, `unif` (uniform tasks) and `nearby` (buffer tasks) may be
-        given instead of drawn from `gen`."""
+        given instead of drawn from `gen` (`unif` and `nearby` for every
+        arena).  Across ranks the flags, the success and the task draws are
+        global, so every rank's buffer takes the same step."""
         cfg: HideAndSeekEnvgenCfg = self.cfg
         if not (cfg.use_particle_generator and cfg.use_random_cylinder):
             return super()._auto_reset(mid, st, done_env, gen, fresh)
         gb: GenBufferState = mid.gen
-        e = cfg.num_envs
+        e = self.shard.total
         dev = self.device
-        any_done = bool(done_env.any())
+        any_done = dist.any_across(done_env)
 
         # success > threshold ⇒ pure uniform
         if any_done:
+            success = dist.all_gather_envs(st["success"][:, 0])   # [E], every arena's
             gb = dataclasses.replace(gb, ratio_unif=torch.where(
-                torch.mean(st["success"]) > cfg.success_threshold,
+                torch.mean(success) > cfg.success_threshold,
                 torch.ones_like(gb.ratio_unif), gb.ratio_unif))
-            gb = insert_weights(gb, st["success"][:, 0])
+            gb = insert_weights(gb, success)
             gb = dataclasses.replace(gb, update_iter=gb.update_iter + 1)
         update_iter = int(gb.update_iter)
 
@@ -252,7 +266,7 @@ class HideAndSeekEnvgen(HideAndSeek):
         # AEG bookkeeping stats
         stats = dict(new_state.stats)
         active = torch.sum(tasks[..., 3 * cfg.num_agents + 5 :: 3] > 0.0, dim=-1)
-        ones = torch.ones((e, 1), device=dev)
+        ones = torch.ones((cfg.num_envs, 1), device=dev)
         w = gb.weight_sum / torch.clamp(gb.weight_count, min=1)
         for i in range(cfg.num_cylinders + 1):
             mask_i = active == i

@@ -28,6 +28,7 @@ from ..core import euler_to_quaternion
 from ..dynamics import DroneState, RigidBodyCfg, hover_state, make_params
 from ..dynamics import step as dynamics_step
 from ..dynamics.randomization import RandomizationCfg, intrinsics_vector, randomize_params
+from ..parallel import dist
 from ..transforms.ctbr import hover_prev_action_init, pid_rate_transform
 from ..sensors.depth import DepthCameraCfg, depth_image, pinhole_rays
 from ..transforms.obs import depth_image_norm, history_init, history_push
@@ -149,7 +150,11 @@ class Hover:
     provides_tp = False
     cfg_cls = HoverCfg
 
-    def __init__(self, cfg: HoverCfg = HoverCfg(), device: torch.device | str = "cuda"):
+    def __init__(self, cfg: HoverCfg = HoverCfg(), device: torch.device | str = "cuda",
+                 shard: Optional[dist.EnvShard] = None):
+        # `cfg` is the global configuration; the env holds `shard`'s arenas
+        # (all of them by default) and `self.cfg.num_envs` counts those
+        cfg, self.shard = dist.local_cfg(cfg, shard)
         self.cfg = cfg
         self.device = torch.device(device)
         self.params = make_params(cfg.drone_model, self.device)
@@ -168,14 +173,17 @@ class Hover:
 
     # ------------------------------------------------------------- draws
     def _uniform(self, gen, shape, lo, hi) -> torch.Tensor:
-        """U(lo, hi) of `shape`; every uniform draw goes through here."""
+        """U(lo, hi) of `shape`; every uniform draw goes through here (at
+        the global arena count, this shard's rows kept)."""
         lo = torch.as_tensor(lo, dtype=torch.float32, device=self.device)
         hi = torch.as_tensor(hi, dtype=torch.float32, device=self.device)
-        return lo + (hi - lo) * torch.rand(tuple(shape), generator=gen, device=self.device)
+        return lo + (hi - lo) * self.shard.draw(
+            lambda s: torch.rand(s, generator=gen, device=self.device), shape)
 
     def _normal(self, gen, shape) -> torch.Tensor:
         """Standard normal noise of `shape` (action and observation noise)."""
-        return torch.randn(tuple(shape), generator=gen, device=self.device)
+        return self.shard.draw(lambda s: torch.randn(s, generator=gen, device=self.device),
+                               shape)
 
     # ------------------------------------------------------------- reset
     def _sample_dr(self, gen):
@@ -406,8 +414,9 @@ class Hover:
         )
         # auto-reset: done envs get a fresh state (stats zeroed); the
         # transition keeps the finished episode's stats.  One host read: the
-        # fresh state is drawn only on the (synchronized) reset step.
-        if bool(done_env.any()):
+        # fresh state is drawn only on the (synchronized) reset step, and
+        # with ranks on the flag of every rank's arenas (all draw alike).
+        if dist.any_across(done_env):
             new_state = self._auto_reset(new_state, done_env, gen)
 
         inst_obs = self._observe_now(new_state)

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.dist import EnvShard
+
 
 class Grid(NamedTuple):
     """The arena occupancy grid: cells of 2·cylinder_size, centred on the
@@ -70,17 +72,27 @@ def occupancy_from_points(points_xy: torch.Tensor, grid: Grid) -> torch.Tensor:
     return occ.reshape(tuple(occ.shape[:-1]) + (grid.num_grid, grid.num_grid))
 
 
+def _draw(shard: Optional[EnvShard], sample, shape) -> torch.Tensor:
+    """`sample(shape)`, or with a shard at the global arena count (axis 0)
+    with this rank's rows kept."""
+    return sample(tuple(shape)) if shard is None else shard.draw(sample, shape)
+
+
 def sample_free_cells(
     gen: torch.Generator,
     occupied: torch.Tensor,  # bool [..., G, G]
     num_samples: int,
     grid: Grid,
+    shard: Optional[EnvShard] = None,
 ) -> torch.Tensor:
     """Uniformly draw `num_samples` distinct free cells per env by
-    Gumbel-top-k.  Returns XY coordinates [..., num_samples, 2]."""
+    Gumbel-top-k.  Returns XY coordinates [..., num_samples, 2].  With a
+    `shard`, `occupied`'s leading axis holds this rank's arenas and the draw
+    is made at the global count."""
     g2 = grid.num_grid * grid.num_grid
     occ_flat = occupied.reshape(tuple(occupied.shape[:-2]) + (g2,))
-    u = torch.rand(occ_flat.shape, generator=gen, device=occupied.device)
+    u = _draw(shard, lambda s: torch.rand(s, generator=gen, device=occupied.device),
+              occ_flat.shape)
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     gumbel = -torch.log(-torch.log(u))
     scores = torch.where(occ_flat, torch.full_like(gumbel, -float("inf")), gumbel)
@@ -98,10 +110,12 @@ def sample_cylinders(
     min_active: int,
     max_active: int,
     fixed_active: Optional[int] = None,
+    shard: Optional[EnvShard] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cylinders uniform over the cells free of the arena rim, the drones
     and the target; the active count uniform in [min_active, max_active]
-    (or fixed).  Returns (xy [E, C, 2], active_count [E, 1])."""
+    (or fixed).  Returns (xy [E, C, 2], active_count [E, 1]); a `shard`
+    draws at the global arena count."""
     e = drone_xy.shape[0]
     dev = drone_xy.device
     occ = (
@@ -109,11 +123,12 @@ def sample_cylinders(
         | occupancy_from_points(drone_xy, grid)
         | occupancy_from_points(target_xy, grid)
     )
-    xy = sample_free_cells(gen, occ, num_cylinders, grid)
+    xy = sample_free_cells(gen, occ, num_cylinders, grid, shard)
     if fixed_active is not None:
         active = torch.full((e, 1), fixed_active, dtype=torch.int64, device=dev)
     else:
-        active = torch.randint(min_active, max_active + 1, (e, 1), generator=gen, device=dev)
+        active = _draw(shard, lambda s: torch.randint(min_active, max_active + 1, s,
+                                                      generator=gen, device=dev), (e, 1))
     return xy, active
 
 
@@ -143,18 +158,21 @@ def sample_spawns_cl(
     max_height: float,
     cl_bound: int = 6,
     height_bound: float = 0.5,
+    shard: Optional[EnvShard] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Curriculum-bounded drone + target spawns (placement.py:560-646
     `generate_drone_target_large_after_cylinder`): distinct cells uniform
     over the free cells of the centred window of half-width `cl_bound`, z
     uniform in (H/2 − hb·H + 0.02, H/2 + hb·H − 0.02).  Returns
-    (drone_pos [..., n, 3], target_pos [..., 1, 3])."""
+    (drone_pos [..., n, 3], target_pos [..., 1, 3]); a `shard` draws at the
+    global arena count."""
     dev = occupied.device
     occ = occupied | outside_window_mask(grid.num_grid, cl_bound, dev)
-    xy = sample_free_cells(gen, occ, num_drones + 1, grid)
+    xy = sample_free_cells(gen, occ, num_drones + 1, grid, shard)
     lo = 0.5 * max_height - height_bound * max_height + 0.02
     hi = 0.5 * max_height + height_bound * max_height - 0.02
-    u = torch.rand(tuple(occupied.shape[:-2]) + (num_drones + 1, 1), generator=gen, device=dev)
+    u = _draw(shard, lambda s: torch.rand(s, generator=gen, device=dev),
+              tuple(occupied.shape[:-2]) + (num_drones + 1, 1))
     pos = torch.cat([xy, lo + (hi - lo) * u], dim=-1)
     return pos[..., :num_drones, :], pos[..., num_drones:, :]
 

@@ -20,6 +20,14 @@ depth camera (`env.obs_depth=true`; `algo.vision_encoder=conv |
 mobilenet_v3_small | mobilenet_v3_large`), and ppo_adapt, whose three RMA
 phases `train_rma` runs back to back.
 
+Across ranks (`torchrun --nproc_per_node=N -m mupe_tpu_torch.train ...`,
+`mupe_tpu_torch/parallel`), `train` joins the process group first and each
+rank holds E / N arenas on `cuda:LOCAL_RANK`; R ranks compute the one-rank
+iteration and the learner is replicated.  Rank 0 logs, profiles and writes
+the checkpoints, the full carry gathered into the one-rank format, so
+`resume_dir` resumes at any world size that divides E.  The PPO family and
+ppo_adapt are refused there (NotImplementedError).
+
 Not ported (raises NotImplementedError): evaluation videos (`video`:
 `utils/render.py` draws with matplotlib, which the port does not depend
 on).
@@ -44,6 +52,7 @@ from .learning.ppo.ppo_adapt import LOG_STD_PATH
 from .learning.registry import is_recurrent, make_policy
 from .learning.rollout import (init_rnn_carry, make_rnn_train_iter, make_rollout,
                                obs_template)
+from .parallel import dist
 from .utils.checkpoint import load_checkpoint, save_checkpoint
 from .utils.config import RunCfg, apply_overrides, parse_cli
 from .utils.debug import guard_train_iter, profile_trace
@@ -51,6 +60,8 @@ from .utils.logging import RunLogger, config_dict
 
 _NO_VIDEO = ("video (evaluation GIFs) is not ported: utils/render.py draws with matplotlib, "
              "which the port does not depend on")
+_ONE_RANK_ALGOS = ("the PPO family (algo != mappo) and ppo_adapt train on one rank only; "
+                   "data parallelism over ranks covers MAPPO")
 
 
 def build(
@@ -65,14 +76,16 @@ def build(
     policy comes from the registry (`make_policy`), whose cfg threads an
     env's TP-net settings in before the `algo.*` overrides.  The TP net's
     prediction in the observation is MAPPO's alone, so for any other
-    algorithm the env's `use_tp_net` is turned off."""
+    algorithm the env's `use_tp_net` is turned off.  The env holds this
+    rank's arenas of the process group (all of them without one; a
+    ValueError unless the world size divides `num_envs`)."""
     if task not in ENV_REGISTRY:
         raise NotImplementedError(f"task {task!r} is not ported yet; have {sorted(ENV_REGISTRY)}")
     env_cls = ENV_REGISTRY[task]
     env_cfg = apply_overrides(env_cls.cfg_cls(), env_overrides or {})
     if algo.lower() != "mappo" and hasattr(env_cfg, "use_tp_net"):
         env_cfg = dataclasses.replace(env_cfg, use_tp_net=False)
-    env = env_cls(env_cfg, device=device)
+    env = env_cls(env_cfg, device=device, shard=dist.EnvShard.of(env_cfg.num_envs))
     policy = make_policy(algo, env, algo_overrides, device)
     return env, policy, env_cfg, policy.cfg
 
@@ -91,26 +104,47 @@ def train(
     profiler trace of iterations 1-3 into `profile_dir`.  `deploy_stage=True`
     threads the iteration into the env's `update_epoch`, so the smoothness
     reward ramps.  Returns the last log row's values (with the last
-    evaluation's) and `total_time_s`."""
+    evaluation's) and `total_time_s`.
+
+    It joins the process group first (`dist.init_distributed`, a no-op in
+    a single process; a group it forms it leaves at the end); each rank
+    then runs on `dist.local_device(device)` with its share of the arenas,
+    and only rank 0 writes the log, the profile and the checkpoints."""
+    owns_group = not dist.is_initialized() and dist.init_distributed()
+    try:
+        return _train(argv, default_task, deploy_stage, device)
+    finally:
+        if owns_group:
+            dist.destroy()
+
+
+def _train(argv, default_task, deploy_stage, device) -> Dict[str, float]:
     sections, top = parse_cli(argv)
     run_cfg = apply_overrides(RunCfg(task=default_task), top)
     if run_cfg.video:
         raise NotImplementedError(f"train: {_NO_VIDEO}")
+    if dist.world_size() > 1 and run_cfg.algo.lower() != "mappo":
+        raise NotImplementedError(f"train: algo={run_cfg.algo!r} at world size "
+                                  f"{dist.world_size()}: {_ONE_RANK_ALGOS}")
+    device = dist.local_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
     if run_cfg.algo == "ppo_adapt":
         return train_rma(run_cfg, sections, device)
     env, policy, env_cfg, algo_cfg = build(
         run_cfg.task, sections.get("env"), sections.get("algo"), run_cfg.algo, device)
     if deploy_stage:
         env_cfg = dataclasses.replace(env_cfg, use_deployment=True)
-        env = type(env)(env_cfg, device=device)
+        env = type(env)(env_cfg, device=device, shard=env.shard)
 
-    run_name = run_cfg.run_name or time.strftime("%Y%m%d-%H%M%S")
+    is_main = dist.rank() == 0
+    run_name = _resolve_run_name(run_cfg)
     ckpt_dir = Path(run_cfg.run_dir) / run_name / "checkpoints"
     logger = RunLogger(
         run_cfg.run_dir, run_name, wandb_mode=run_cfg.wandb_mode,
         wandb_project=run_cfg.wandb_project, wandb_entity=run_cfg.wandb_entity,
         config=config_dict(run_cfg, env_cfg, algo_cfg),
-    )
+    ) if is_main else None
     gen = torch.Generator(device=device).manual_seed(run_cfg.seed)
     recurrent = is_recurrent(policy)
     carry = (init_rnn_carry if recurrent else init_carry)(env, policy, gen)
@@ -120,8 +154,9 @@ def train(
     if run_cfg.resume_dir:
         # exact resume: the full carry (learner, env state with the AEG
         # buffer and curriculum scalars, last observation, the GRU states,
-        # generator)
-        carry = load_checkpoint(run_cfg.resume_dir, target=carry)
+        # generator), written in the one-rank format: each rank keeps its
+        # arenas
+        carry = dist.shard_carry(load_checkpoint(run_cfg.resume_dir, target=carry), env.shard)
     train_iter = (make_rnn_train_iter if recurrent else make_train_iter)(env, policy)
     if run_cfg.guard_nan:
         # skip updates whose loss went non-finite instead of corrupting the
@@ -130,11 +165,17 @@ def train(
     eval_prog = (_make_eval_prog(env, policy, run_cfg.seed, recurrent)
                  if run_cfg.eval_interval > 0 else None)
 
-    frames_per_iter = env.num_envs * algo_cfg.train_every
+    frames_per_iter = env.shard.total * algo_cfg.train_every  # every rank's arenas
     if run_cfg.max_iters > 0:
         num_iters = run_cfg.max_iters
     else:
         num_iters = max(1, run_cfg.total_frames // frames_per_iter)
+
+    def save(step: int) -> None:
+        full = dist.gather_carry(carry, env.shard)  # every rank takes part
+        if is_main:
+            save_checkpoint(ckpt_dir, step, carry.ts)
+            save_checkpoint(ckpt_dir / "full", step, full)
 
     env_frames = 0
     last_metrics: Dict[str, float] = {}
@@ -144,7 +185,7 @@ def train(
     fps_window: deque = deque(maxlen=15)
     prof = contextlib.ExitStack()
     for i in range(num_iters):
-        if run_cfg.profile_dir:
+        if run_cfg.profile_dir and is_main:
             if i == 1:
                 prof.enter_context(profile_trace(run_cfg.profile_dir))
             elif i == 4:
@@ -166,21 +207,35 @@ def train(
             row.update(rollout_fps=fps, rollout_fps_med=float(np.median(fps_window)),
                        rollout_fps_avg=env_frames / max(now - t_start, 1e-9),
                        env_frames=env_frames)
-            logger.log(row, step=env_frames)
+            if is_main:
+                logger.log(row, step=env_frames)
             last_metrics = {k: float(v) for k, v in row.items()}
         if eval_prog is not None and (i + 1) % run_cfg.eval_interval == 0:
+            # every rank evaluates its arenas with the replicated learner
             ev_row = {f"eval/{k}": float(v) for k, v in eval_prog(carry.ts, i).items()}
-            logger.log(ev_row, step=env_frames)
+            if is_main:
+                logger.log(ev_row, step=env_frames)
             last_metrics.update(ev_row)
         if run_cfg.save_interval > 0 and (i + 1) % run_cfg.save_interval == 0:
-            save_checkpoint(ckpt_dir, i + 1, carry.ts)
-            save_checkpoint(ckpt_dir / "full", i + 1, carry)
+            save(i + 1)
     prof.close()
-    save_checkpoint(ckpt_dir, num_iters, carry.ts)
-    save_checkpoint(ckpt_dir / "full", num_iters, carry)
-    logger.close()
+    save(num_iters)
+    if is_main:
+        logger.close()
     last_metrics["total_time_s"] = time.time() - t_start
     return last_metrics
+
+
+def _resolve_run_name(run_cfg: RunCfg) -> str:
+    """The run's name, agreed across ranks: rank 0's timestamp, broadcast
+    so that every rank names the same run directory
+    (mupe_tpu/harness.py:60-72)."""
+    if run_cfg.run_name is not None:
+        return run_cfg.run_name
+    device = (dist.local_device() if dist.is_initialized()
+              and torch.distributed.get_backend() == "nccl" else "cpu")
+    stamp = dist.broadcast(torch.tensor([int(time.time())], dtype=torch.int64, device=device))
+    return time.strftime("%Y%m%d-%H%M%S", time.localtime(int(stamp.item())))
 
 
 # Hover's randomization ranges (reference cfg/task/Hover.yaml) and history,
@@ -376,7 +431,8 @@ def _make_eval_prog(env, policy, seed: int, recurrent: bool = False):
     `max_episode_length` steps and returns the done-masked mean of every
     stat (NaN where no episode finished) and `episode_count`.  It neither
     reads nor advances the training carry or its generator.  `recurrent`
-    threads GRU states from zeros (mupe_tpu/harness.py:244-323)."""
+    threads GRU states from zeros (mupe_tpu/harness.py:244-323).  Across
+    ranks each evaluates its arenas and the sums are every rank's."""
 
     def prog(ts, i: int) -> Dict[str, torch.Tensor]:
         gen = torch.Generator(device=env.device).manual_seed((seed + 7919) * 2**32 + i)
@@ -387,6 +443,8 @@ def _make_eval_prog(env, policy, seed: int, recurrent: bool = False):
             obs, state = env.observe(env_state), None
         keys, sums, n_done, _ = _greedy_episode(env, policy, ts, env_state, obs, gen, state,
                                                 recurrent)
+        both = dist.all_reduce_sum(torch.cat([sums, n_done.reshape(1)]))  # every rank's
+        sums, n_done = both[:-1], both[-1]
         means = torch.where(n_done > 0, sums / torch.clamp(n_done, min=1.0), math.nan)
         out = dict(zip(keys, means.unbind()))
         out["episode_count"] = n_done

@@ -29,6 +29,16 @@ plain XLA in the JAX package) and injected networks (`actor_module` /
 there is an `EncoderHead` and runs the encoder kernels (`encoder_forward`,
 its backward under autograd) on CUDA tensors, one launch a network: an
 agent's actor on that agent's rows, the critic, the state critic.
+
+Across ranks (`train_op(..., shard=)`, `mupe_tpu_torch/parallel`) every
+rank holds its arenas' rows of the trajectory and computes the one-rank
+update: the advantage statistics and the value normaliser's moments are
+global, a minibatch is the rows of the global permutation this rank owns,
+every mean divides by the global count, the clipped Huber's branch and the
+metrics come from sums over the ranks, and each step's gradients are summed
+over the ranks before the clip and Adam, so every rank applies the same
+bits.  A rank that owns no row of a minibatch joins its collectives with
+zeros and launches no kernel.
 """
 from __future__ import annotations
 
@@ -60,6 +70,7 @@ from ..ops.fused_encoder import (
     pair_ppo_grads_fwdloss,
     split_flat,
 )
+from ..parallel import dist
 from .modules.distributions import Gaussian
 from .modules.networks import (
     FlatHeadNet,
@@ -329,12 +340,43 @@ def unpack_rows(meta: PackMeta, rows: torch.Tensor) -> Dict[str, torch.Tensor]:
     }
 
 
-def _huber(pred, target, delta):
-    """mean of optax.huber_loss."""
+def _huber_terms(pred, target, delta):
+    """optax.huber_loss, elementwise."""
     abs_err = torch.abs(pred - target)
     quadratic = torch.minimum(abs_err, torch.full_like(abs_err, delta))
     linear = abs_err - quadratic
-    return torch.mean(0.5 * quadratic ** 2 + delta * linear)
+    return 0.5 * quadratic ** 2 + delta * linear
+
+
+def _huber(pred, target, delta):
+    """mean of optax.huber_loss."""
+    return torch.mean(_huber_terms(pred, target, delta))
+
+
+def _huber_sum(pred, target, delta):
+    """sum of optax.huber_loss."""
+    return torch.sum(_huber_terms(pred, target, delta))
+
+
+def _max_branch(h1, h2, g1, g2):
+    """max(H1, H2) of two batch means whose values over every rank are g1,
+    g2: the branch the global values choose, differentiable in this rank's
+    share (an even split on a tie, as `torch.maximum`'s gradient)."""
+    return torch.where(g1 > g2, h1, torch.where(g2 > g1, h2, 0.5 * (h1 + h2)))
+
+
+def local_minibatches(mb_idx: torch.Tensor, e_local: int, shard) -> List[torch.Tensor]:
+    """This rank's rows of each minibatch of global row indices [M, B]
+    (row t*E + e of the [T*E] global layout), as indices into its own
+    [T*E_local] rows (t*E_local + e - offset), in the permutation's order.
+    One host read an epoch."""
+    if shard is None or shard.full:
+        return list(mb_idx)
+    env = mb_idx % shard.total
+    own = (env >= shard.offset) & (env < shard.offset + shard.size)
+    local = (mb_idx // shard.total) * e_local + (env - shard.offset)
+    counts = torch.sum(own, dim=1).tolist()
+    return list(torch.split(local[own], counts))
 
 
 class MAPPOPolicy:
@@ -576,6 +618,7 @@ class MAPPOPolicy:
         perms: Optional[torch.Tensor] = None,
         mark: Optional[Callable[[str], None]] = None,
         last_state=None,
+        shard=None,
     ) -> Tuple[MAPPOState, Dict[str, torch.Tensor]]:
         """The update (mappo.py:593-806) on a rollout's trajectory: bootstrap
         value, flat GAE + advantage normalisation + `ValueNorm1`, the TP
@@ -588,9 +631,12 @@ class MAPPOPolicy:
         from `perms` ([ppo_epochs, T*E] permutations, e.g. the JAX package's) or from
         `generator`.  Metrics stay device tensors (no host sync).  `mark`,
         if given, is called with "prep", "tp" and "ppo" as each phase ends
-        (a timer may synchronise there)."""
+        (a timer may synchronise there).  `shard` (an `EnvShard`) says which
+        arenas of the global rollout `traj` holds; the update is then the
+        one-rank update of every rank's rows (the module's docstring)."""
         cfg = self.cfg
         t_len, e, n_ag = traj["reward"].shape[:3]
+        e_total = e if shard is None else shard.total
         with torch.no_grad():
             next_value = self.value_op(ts, last_obs, last_state)
             values = ts.value_norm.denormalize(traj["value"].reshape(t_len, e * n_ag))
@@ -599,8 +645,10 @@ class MAPPOPolicy:
             done = traj["done"][:, :, None, 0].expand(t_len, e, n_ag).reshape(t_len, e * n_ag)
             advantages, returns = compute_gae(reward, done, values, next_value,
                                               cfg.gamma, cfg.gae_lambda)
-            adv_mean = torch.mean(advantages)
-            adv_std = torch.std(advantages, correction=0)
+            # two passes over every rank's advantages
+            count = t_len * e_total * n_ag
+            adv_mean = dist.global_sum(advantages) / count
+            adv_std = torch.sqrt(dist.global_sum(torch.square(advantages - adv_mean)) / count)
             if cfg.normalize_advantages:
                 advantages = (advantages - adv_mean) / (adv_std + 1e-8)
             ts.value_norm = ts.value_norm.update(returns[..., None])
@@ -638,7 +686,7 @@ class MAPPOPolicy:
             metrics.update(self._update_tp(ts, traj))
         mark("tp")
 
-        b = t_len * e
+        b = t_len * e_total
         mb_size = b // cfg.num_minibatches
         dev = advantages.device
         stop = (torch.zeros((), dtype=torch.bool, device=dev)
@@ -650,8 +698,8 @@ class MAPPOPolicy:
             else:
                 perm = torch.randperm(b, generator=generator, device=dev)
             mb_idx = perm[: mb_size * cfg.num_minibatches].reshape(cfg.num_minibatches, mb_size)
-            for idx in mb_idx:
-                info = update(ts, minibatch(idx), stop)
+            for idx in local_minibatches(mb_idx, e, shard):
+                info = update(ts, minibatch(idx), stop, mb_rows=mb_size)
                 if stop is not None:
                     stop = torch.logical_or(stop, info["approx_kl"] > cfg.target_kl)
                     info["kl_stop"] = stop.to(torch.float32)
@@ -667,42 +715,75 @@ class MAPPOPolicy:
                     ts.entropy_coef * torch.exp(cfg.entropy_adapt_speed * err),
                     cfg.entropy_coef_min, cfg.entropy_coef_max)
                 metrics["entropy_coef"] = ts.entropy_coef
-            metrics["action_norm"] = torch.mean(torch.linalg.vector_norm(traj["action"], dim=-1))
+            metrics["action_norm"] = dist.global_sum(
+                torch.linalg.vector_norm(traj["action"], dim=-1)) / count
             metrics["value_running_mean"] = torch.mean(ts.value_norm.running_mean)
         mark("ppo")
         return ts, metrics
 
-    def _joint_grads(self, ts: MAPPOState, mb: Dict[str, torch.Tensor]):
+    def _count(self, mb: Dict[str, torch.Tensor], mb_rows: Optional[int]) -> int:
+        """The minibatch's sample count over every rank (agents included):
+        the means' normaliser.  `mb_rows` is the global minibatch's rows,
+        or None for this minibatch alone."""
+        if mb_rows is None:
+            return int(mb["logp"].numel())
+        return mb_rows * self.n_agents
+
+    def _joint_grads(self, ts: MAPPOState, mb: Dict[str, torch.Tensor],
+                     mb_rows: Optional[int] = None):
         """The joint loss of `_update_joint_flat` (mappo.py:974-1012) and its
         gradients: the pair forward (one kernel launch), the PPO-clip +
         clipped-Huber loss on flat [s] vectors in plain torch, and the pair
-        backward (one kernel launch, through the autograd Function).
-        Returns ([d actor.flat, d log_std], [d critic.flat], the loss terms)."""
+        backward (one kernel launch, through the autograd Function).  Every
+        mean divides by the global count, the Huber branch is chosen from
+        the sums over the ranks, and the gradients are summed over the ranks;
+        the entropy bonus's gradient (-entropy_coef on log_std, whatever the
+        rows) is added after the sum.  Returns ([d actor.flat, d log_std],
+        [d critic.flat], the loss terms over every rank)."""
         cfg = self.cfg
         act, logp_old, adv = mb["action"], mb["logp"], mb["advantages"]
         b_values, b_returns = mb["value"], mb["returns"]
-        with torch.enable_grad():
-            mean, values = encoder_pair_forward(ts.actor.spec, ts.critic.spec, ts.actor.leaves,
-                                                ts.critic.leaves, mb["obs_rows"])
-            values = values[:, 0]
-            log_std = ts.log_std.detach().requires_grad_(True)
-            z = (act - mean) * torch.exp(-log_std)
-            logp_new = torch.sum(-0.5 * torch.square(z) - log_std - _LOG_SQRT_2PI, dim=-1)
-            entropy = _gaussian_entropy(log_std)
-            ratio = torch.exp(torch.clamp(logp_new - logp_old, -20.0, 20.0))
-            surr1 = ratio * adv
-            surr2 = torch.clamp(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param) * adv
-            policy_loss = -torch.mean(torch.minimum(surr1, surr2) * self.action_dim)
-            clipped = b_values + torch.clamp(values - b_values, -cfg.clip_param, cfg.clip_param)
-            value_loss = torch.maximum(_huber(values, b_returns, cfg.huber_delta),
-                                       _huber(clipped, b_returns, cfg.huber_delta))
-            total = policy_loss - entropy * self._entropy_coef(ts) + value_loss
-            ga_enc, ga_ls, gc = torch.autograd.grad(
-                total, [ts.actor.flat, log_std, ts.critic.flat])
-        terms = dict(policy_loss=policy_loss.detach(), entropy=entropy.detach(),
-                     value_loss=value_loss.detach(), ratio=ratio.detach(),
-                     values=values.detach())
-        return [ga_enc, ga_ls], [gc], terms
+        count = self._count(mb, mb_rows)
+        params = [ts.actor.flat, ts.log_std, ts.critic.flat]
+        if logp_old.shape[0] == 0:
+            # no row of this minibatch here: zeros into every collective
+            grads = [torch.zeros_like(p) for p in params]
+            local = torch.zeros(9, device=ts.log_std.device)
+            glob = dist.all_reduce_sum(local)
+        else:
+            with torch.enable_grad():
+                mean, values = encoder_pair_forward(ts.actor.spec, ts.critic.spec,
+                                                    ts.actor.leaves, ts.critic.leaves,
+                                                    mb["obs_rows"])
+                values = values[:, 0]
+                log_std = ts.log_std.detach().requires_grad_(True)
+                z = (act - mean) * torch.exp(-log_std)
+                logp_new = torch.sum(-0.5 * torch.square(z) - log_std - _LOG_SQRT_2PI, dim=-1)
+                ratio = torch.exp(torch.clamp(logp_new - logp_old, -20.0, 20.0))
+                surr1 = ratio * adv
+                surr2 = torch.clamp(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param) * adv
+                policy_loss = -torch.sum(torch.minimum(surr1, surr2) * self.action_dim) / count
+                clipped = b_values + torch.clamp(values - b_values, -cfg.clip_param,
+                                                 cfg.clip_param)
+                h1 = _huber_sum(values, b_returns, cfg.huber_delta) / count
+                h2 = _huber_sum(clipped, b_returns, cfg.huber_delta) / count
+                with torch.no_grad():
+                    r, v = ratio.detach(), values.detach()
+                    local = torch.stack([
+                        policy_loss.detach(), h1.detach(), h2.detach(), torch.sum(r),
+                        torch.sum(torch.square(r)), torch.sum(r - 1.0 - torch.log(r)),
+                        torch.sum(torch.square(v - b_returns)), torch.sum(b_returns),
+                        torch.sum(torch.square(b_returns))])
+                    glob = dist.all_reduce_sum(local)
+                total = policy_loss + _max_branch(h1, h2, glob[1], glob[2])
+                grads = list(torch.autograd.grad(total, [ts.actor.flat, log_std,
+                                                         ts.critic.flat]))
+        grads = dist.all_reduce_tensors(grads)
+        with torch.no_grad():
+            grads[1] = grads[1] - self._entropy_coef(ts)   # d(-coef * entropy) / d log_std
+        terms = dict(policy_loss=glob[0], entropy=_gaussian_entropy(ts.log_std.detach()),
+                     value_loss=torch.maximum(glob[1], glob[2]), sums=glob[3:], count=count)
+        return grads[:2], grads[2:], terms
 
     def _actor_step(self, ts: MAPPOState, ga, stop) -> None:
         """Clip + Adam for the actor (log_std in its global norm, then its
@@ -732,122 +813,160 @@ class MAPPOPolicy:
         self._critic_step(ts, gc, stop)
 
     def _update_joint_flat(
-        self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None
+        self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None,
+        mb_rows: Optional[int] = None,
     ) -> Dict[str, torch.Tensor]:
         """One minibatch (mappo.py:949-1045): `_joint_grads`, then clip +
         Adam for the actor (log_std in its global norm) and the critic;
-        returns the info metrics."""
-        ga, gc, terms = self._joint_grads(ts, mb)
+        returns the info metrics, from sums over every rank."""
+        ga, gc, terms = self._joint_grads(ts, mb, mb_rows)
         self._step(ts, ga, gc, stop)
         with torch.no_grad():
-            ratio, values, b_returns = terms["ratio"], terms["values"], mb["returns"]
-            explained_var = 1.0 - torch.mean(torch.square(values - b_returns)) / (
-                torch.var(b_returns, correction=0) + 1e-8)
+            n = terms["count"]
+            ratio, ratio2, kl, sqerr, ret, ret2 = terms["sums"].unbind()
+            ret_var = ret2 / n - torch.square(ret / n)
             return {
                 "policy_loss": terms["policy_loss"],
                 "actor_grad_norm": global_norm(ga),
                 "entropy": terms["entropy"],
-                "ESS": torch.square(torch.sum(ratio))
-                / (torch.sum(torch.square(ratio)) * ratio.shape[0]),
+                "ESS": torch.square(ratio) / (ratio2 * n),
                 "value_loss": terms["value_loss"],
                 "critic_grad_norm": global_norm(gc),
-                "explained_var": explained_var,
-                "approx_kl": torch.mean(ratio - 1.0 - torch.log(ratio)),
+                "explained_var": 1.0 - (sqerr / n) / (ret_var + 1e-8),
+                "approx_kl": kl / n,
             }
 
     @torch.no_grad()
     def _update_joint_direct(
-        self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None
+        self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None,
+        mb_rows: Optional[int] = None,
     ) -> Dict[str, torch.Tensor]:
         """One minibatch with the loss's gradients from the forward kernel
         (mappo.py:1048-1157): `pair_ppo_grads_fwdloss` ("fwdloss") or
         `pair_ppo_grads` ("agrad") give the encoder gradients, the policy
-        term of dlog_std and the stats' column sums; the entropy bonus adds
+        term of dlog_std and the stats' column sums (summed over the ranks
+        inside, before the value branch; the kernels' means divide by the
+        global count, `PPOLossCfg.n_rows`); the entropy bonus adds
         -entropy_coef to dlog_std (the Gaussian's entropy does not depend on
-        the state).  Then `_step`; the metrics come from the sums."""
+        the state).  The encoder gradients are summed over the ranks, then
+        `_step`; the metrics come from the sums."""
         cfg = self.cfg
         a_dim = self.action_dim
         x = mb["obs_rows"]
         s = x.shape[0]
+        n = self._count(mb, mb_rows)
         loss = PPOLossCfg(clip_param=cfg.clip_param, huber_delta=cfg.huber_delta,
-                          action_dim=a_dim, n_rows=s)
+                          action_dim=a_dim, n_rows=n)
         grads_fn = pair_ppo_grads if cfg.direct_mode == "agrad" else pair_ppo_grads_fwdloss
         dla, dls, dlc, sums = grads_fn(
             ts.actor.spec, ts.critic.spec, loss, ts.actor.leaves, ts.critic.leaves,
             ts.log_std, x, mb["action"].reshape(s, a_dim), mb["logp"].reshape(s, 1),
             mb["advantages"].reshape(s, 1), mb["value"].reshape(s, 1),
             mb["returns"].reshape(s, 1))
-        ga = [torch.cat([g.reshape(-1) for g in dla]), dls - self._entropy_coef(ts)]
-        gc = [torch.cat([g.reshape(-1) for g in dlc])]
-        inv_s = 1.0 / s
+        ga_enc, gc_enc = dist.all_reduce_tensors([torch.cat([g.reshape(-1) for g in dla]),
+                                           torch.cat([g.reshape(-1) for g in dlc])])
+        ga = [ga_enc, dls - self._entropy_coef(ts)]
+        gc = [gc_enc]
+        inv_s = 1.0 / n
         ret_var = sums[_SUM_RET2] * inv_s - torch.square(sums[_SUM_RET] * inv_s)
         info = {
             "policy_loss": -(a_dim * inv_s) * sums[_SUM_MIN12],
             "actor_grad_norm": global_norm(ga),
             "entropy": _gaussian_entropy(ts.log_std),
-            "ESS": torch.square(sums[_SUM_RATIO]) / (sums[_SUM_RATIO2] * s),
+            "ESS": torch.square(sums[_SUM_RATIO]) / (sums[_SUM_RATIO2] * n),
             "value_loss": torch.maximum(sums[_SUM_H1] * inv_s, sums[_SUM_H2] * inv_s),
             "critic_grad_norm": global_norm(gc),
             "explained_var": 1.0 - (sums[_SUM_SQERR] * inv_s) / (ret_var + 1e-8),
             # the k3 estimator from the sums
-            "approx_kl": (sums[_SUM_RATIO] - s - sums[_SUM_LOGR]) * inv_s,
+            "approx_kl": (sums[_SUM_RATIO] - n - sums[_SUM_LOGR]) * inv_s,
         }
         self._step(ts, ga, gc, stop)
         return info
 
-    def _update_actor(self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None):
+    def _update_actor(self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None,
+                      mb_rows: Optional[int] = None):
         """The actor's step (mappo.py:809-853): PPO-clip on [m, n, 1]
         samples with `entropy_loss = -mean(entropy)`, then clip + Adam over
-        every actor parameter (all agents' and log_std: one clip)."""
+        every actor parameter (all agents' and log_std: one clip).  Means
+        divide by the global count; the gradients and the metrics' sums are
+        summed over the ranks in one collective."""
         cfg = self.cfg
-        with torch.enable_grad():
-            mean = ts.actor(mb["obs"])
-            log_std = ts.log_std.detach().requires_grad_(True)
-            dist = Gaussian(mean=mean, log_std=log_std.expand(mean.shape))
-            logp_new = dist.log_prob(mb["action"])[..., None]
-            entropy = dist.entropy()[..., None]
-            ratio = torch.exp(torch.clamp(logp_new - mb["logp"], -20.0, 20.0))
-            adv = mb["advantages"]
-            surr1 = ratio * adv
-            surr2 = torch.clamp(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param) * adv
-            policy_loss = -torch.mean(torch.minimum(surr1, surr2) * self.action_dim)
-            entropy_loss = -torch.mean(entropy)
-            total = policy_loss + entropy_loss * self._entropy_coef(ts)
-            ga = list(torch.autograd.grad(total, [*net_flats(ts.actor), log_std]))
+        n = self._count(mb, mb_rows)
+        params = ts.actor_params()
+        if mb["logp"].shape[0] == 0:
+            ga = [torch.zeros_like(p) for p in params]
+            local = torch.zeros(5, device=ts.log_std.device)
+        else:
+            with torch.enable_grad():
+                mean = ts.actor(mb["obs"])
+                log_std = ts.log_std.detach().requires_grad_(True)
+                dist_ = Gaussian(mean=mean, log_std=log_std.expand(mean.shape))
+                logp_new = dist_.log_prob(mb["action"])[..., None]
+                entropy = dist_.entropy()[..., None]
+                ratio = torch.exp(torch.clamp(logp_new - mb["logp"], -20.0, 20.0))
+                adv = mb["advantages"]
+                surr1 = ratio * adv
+                surr2 = torch.clamp(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param) * adv
+                policy_loss = -torch.sum(torch.minimum(surr1, surr2) * self.action_dim) / n
+                entropy_loss = -torch.sum(entropy) / n
+                total = policy_loss + entropy_loss * self._entropy_coef(ts)
+                ga = list(torch.autograd.grad(total, [*net_flats(ts.actor), log_std]))
+            with torch.no_grad():
+                w = ratio.detach().reshape(-1)
+                local = torch.stack([policy_loss.detach(), entropy_loss.detach(), torch.sum(w),
+                                     torch.sum(torch.square(w)),
+                                     torch.sum(w - 1.0 - torch.log(w))])
+        *ga, glob = dist.all_reduce_tensors([*ga, local])
         self._actor_step(ts, ga, stop)
         with torch.no_grad():
-            w = ratio.detach().reshape(-1)
             return {
-                "policy_loss": policy_loss.detach(),
+                "policy_loss": glob[0],
                 "actor_grad_norm": global_norm(ga),
-                "entropy": -entropy_loss.detach(),
-                "ESS": torch.square(torch.sum(w)) / (torch.sum(torch.square(w)) * w.shape[0]),
-                "approx_kl": torch.mean(w - 1.0 - torch.log(w)),
+                "entropy": -glob[1],
+                "ESS": torch.square(glob[2]) / (glob[3] * n),
+                "approx_kl": glob[4] / n,
             }
 
-    def _update_critic(self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None):
+    def _update_critic(self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None,
+                       mb_rows: Optional[int] = None):
         """The critic's step (mappo.py:1160-1196): the max of the two Huber
-        means (plain and clipped values), then clip + Adam(W)."""
+        means (plain and clipped values), its branch chosen from the sums
+        over the ranks, then clip + Adam(W) on the gradients summed over the
+        ranks."""
         cfg = self.cfg
+        n = self._count(mb, mb_rows)
         b_values, b_returns = mb["value"], mb["returns"]
-        with torch.enable_grad():
-            values = self._values(ts, mb["obs"], mb.get("state"))
-            clipped = b_values + torch.clamp(values - b_values, -cfg.clip_param, cfg.clip_param)
-            loss = torch.maximum(_huber(values, b_returns, cfg.huber_delta),
-                                 _huber(clipped, b_returns, cfg.huber_delta))
-            gc = list(torch.autograd.grad(loss, net_flats(ts.critic)))
+        if b_values.shape[0] == 0:
+            gc = [torch.zeros_like(p) for p in ts.critic_params()]
+            glob = dist.all_reduce_sum(torch.zeros(5, device=ts.log_std.device))
+        else:
+            with torch.enable_grad():
+                values = self._values(ts, mb["obs"], mb.get("state"))
+                clipped = b_values + torch.clamp(values - b_values, -cfg.clip_param,
+                                                 cfg.clip_param)
+                h1 = _huber_sum(values, b_returns, cfg.huber_delta) / n
+                h2 = _huber_sum(clipped, b_returns, cfg.huber_delta) / n
+                with torch.no_grad():
+                    v = values.detach()
+                    glob = dist.all_reduce_sum(torch.stack([
+                        h1.detach(), h2.detach(), torch.sum(torch.square(v - b_returns)),
+                        torch.sum(b_returns), torch.sum(torch.square(b_returns))]))
+                loss = _max_branch(h1, h2, glob[0], glob[1])
+                gc = list(torch.autograd.grad(loss, net_flats(ts.critic)))
+        gc = dist.all_reduce_tensors(gc)
         self._critic_step(ts, gc, stop)
         with torch.no_grad():
-            values = values.detach()
-            explained_var = 1.0 - torch.mean(torch.square(values - b_returns)) / (
-                torch.var(b_returns, correction=0) + 1e-8)
-            return {"value_loss": loss.detach(), "critic_grad_norm": global_norm(gc),
-                    "explained_var": explained_var}
+            h1, h2, sqerr, ret, ret2 = glob.unbind()
+            ret_var = ret2 / n - torch.square(ret / n)
+            return {"value_loss": torch.maximum(h1, h2), "critic_grad_norm": global_norm(gc),
+                    "explained_var": 1.0 - (sqerr / n) / (ret_var + 1e-8)}
 
-    def _update_actor_critic(self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None):
+    def _update_actor_critic(self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None,
+                             mb_rows: Optional[int] = None):
         """One minibatch of the non-joint branch: `_update_actor`, then
         `_update_critic`."""
-        return {**self._update_actor(ts, mb, stop), **self._update_critic(ts, mb, stop)}
+        return {**self._update_actor(ts, mb, stop, mb_rows),
+                **self._update_critic(ts, mb, stop, mb_rows)}
 
     def _update_tp(self, ts: MAPPOState, traj: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """The TP net's supervised epochs (mappo.py:1197-1270): every window
@@ -871,13 +990,16 @@ class MAPPOPolicy:
         valid = valid.to(torch.float32)[..., None]           # [W, E, 1]
         flat_in = inputs.reshape((-1,) + tuple(inputs.shape[2:]))
         net = ts.tp_net
+        # the valid windows of every rank: the loss's normaliser
+        denom = dist.global_sum(valid) * targets.shape[-1] + 1e-8
         losses = []
         for _ in range(cfg.tp_epochs):
             with torch.enable_grad():
                 pred = net(flat_in).reshape(targets.shape)
                 se = torch.square(pred - targets) * valid
-                loss = torch.sum(se) / (torch.sum(valid) * targets.shape[-1] + 1e-8)
+                loss = torch.sum(se) / denom
                 grads = torch.autograd.grad(loss, list(net.leaves()))
+            *grads, loss = dist.all_reduce_tensors([*grads, loss.detach()])
             with torch.no_grad():
                 upd, opt = adam_updates(grads, ts.tp_opt, cfg.tp_lr)
                 new = [p + u for p, u in zip(net.leaves(), upd)]

@@ -11,6 +11,11 @@ returns it; `make_train_iter` feeds it to `MAPPOPolicy.train_op`.  With the
 centralized critic (`critic_input="state"`) `act` reads the env's critic
 state and the trajectory keeps it.
 
+Across ranks (`mupe_tpu_torch/parallel`) the env holds this rank's arenas
+and draws at the global count; the rollout draws the action noise the same
+way (`EnvShard.draw`), sums the episode stats over every rank, and hands
+`train_op` the shard, so R ranks compute the one-rank iteration.
+
 Recurrent policies (ppo_rnn) have their own carry, `RNNIterCarry`, and
 iteration, `make_rnn_train_iter` (mupe_tpu/learning/rollout.py:261-376):
 the GRU states and the `is_init` flags ride along, each step's pre-step
@@ -24,6 +29,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..parallel import dist
 from .mappo import MAPPOPolicy, MAPPOState
 
 
@@ -107,8 +113,11 @@ class EpisodeStats:
         self.n_done = self.n_done + torch.sum(done)
 
     def result(self) -> Dict[str, torch.Tensor]:
-        out = dict(zip(self.keys, (self.sums / torch.clamp(self.n_done, min=1.0)).unbind()))
-        out["episode_count"] = self.n_done
+        """The means and the count over every rank's arenas."""
+        both = dist.all_reduce_sum(torch.cat([self.sums, self.n_done.reshape(1)]))
+        sums, n_done = both[:-1], both[-1]
+        out = dict(zip(self.keys, (sums / torch.clamp(n_done, min=1.0)).unbind()))
+        out["episode_count"] = n_done
         return out
 
 
@@ -141,8 +150,15 @@ def make_rollout(
             cols.update(tp_input=[], tp_gt=[], tp_done=[])
         stats = EpisodeStats()
         step_args = (tp_net,) if provides_tp else ()
+        shard = getattr(env, "shard", None)
+        # with ranks, the action noise is drawn at the global arena count
+        sharded = shard is not None and not shard.full and not deterministic
+        noise_shape = (shard.size, policy.n_agents, policy.action_dim) if sharded else None
         for _ in range(steps):
             state_kw = {"state": last_state} if by_state else {}
+            if sharded:
+                state_kw["noise"] = shard.draw(
+                    lambda s: torch.randn(s, generator=gen, device=gen.device), noise_shape)
             action, logp, value = policy.act(ts, obs, gen, deterministic=deterministic,
                                              **state_kw)
             env_state, tr = env.step(env_state, action, gen, *step_args)
@@ -189,7 +205,7 @@ def make_train_iter(
         if mark is not None:
             mark("rollout")
         ts, metrics = policy.train_op(carry.ts, traj, carry.obs, carry.generator, perms, mark,
-                                      last_state=carry.state)
+                                      last_state=carry.state, shard=getattr(env, "shard", None))
         return dataclasses.replace(carry, ts=ts), metrics, ep_stats
 
     return train_iter

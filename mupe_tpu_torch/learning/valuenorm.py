@@ -1,13 +1,16 @@
 """The value normalisers (counterparts of mupe_tpu/learning/valuenorm.py):
 `ValueNorm1`, the update's debiased EMA of the returns' first two moments,
 and `ValueNorm2`, Welford's running moments.  Methods return new states, as
-the JAX package's do."""
+the JAX package's do.  Across ranks (`mupe_tpu_torch/parallel`) a batch's
+moments and count are every rank's, so the normaliser stays replicated."""
 from __future__ import annotations
 
 import dataclasses
 import math
 
 import torch
+
+from ..parallel import dist
 
 
 @dataclasses.dataclass
@@ -33,8 +36,11 @@ class ValueNorm1:
     def update(self, batch: torch.Tensor) -> "ValueNorm1":
         ndim = self.running_mean.dim()
         dims = tuple(range(batch.dim() - ndim))
-        batch_mean = torch.mean(batch, dim=dims)
-        batch_sq = torch.mean(torch.square(batch), dim=dims)
+        count = float(math.prod(batch.shape[: batch.dim() - ndim]))
+        local = torch.stack([torch.sum(batch, dim=dims), torch.sum(torch.square(batch), dim=dims),
+                             torch.full(self.running_mean.shape, count, device=batch.device)])
+        sums, sq, counts = dist.all_reduce_sum(local).unbind()
+        batch_mean, batch_sq = sums / counts, sq / counts
         w = self.beta
         return dataclasses.replace(
             self,
@@ -67,13 +73,17 @@ class ValueNorm2:
                    torch.zeros((), device=device), subtract_mean=subtract_mean)
 
     def update(self, batch: torch.Tensor) -> "ValueNorm2":
-        """Merge a batch's mean and (unbiased) variance into the moments."""
+        """Merge a batch's mean and (unbiased) variance into the moments
+        (over every rank's batch: two passes)."""
         ndim = self.running_mean.dim()
         dims = tuple(range(batch.dim() - ndim))
-        batch_mean = torch.mean(batch, dim=dims)
-        batch_var = torch.var(batch, dim=dims, correction=1)
-        batch_count = torch.tensor(float(math.prod(batch.shape[: batch.dim() - ndim])),
-                                   device=batch.device)
+        count = float(math.prod(batch.shape[: batch.dim() - ndim]))
+        sums, counts = dist.all_reduce_sum(torch.stack([
+            torch.sum(batch, dim=dims),
+            torch.full(self.running_mean.shape, count, device=batch.device)])).unbind()
+        batch_mean = sums / counts
+        batch_var = dist.global_sum(torch.square(batch - batch_mean), dims) / (counts - 1.0)
+        batch_count = counts.reshape(-1)[0]
         delta = batch_mean - self.running_mean
         total = self.count + batch_count
         new_mean = self.running_mean + delta * batch_count / total

@@ -28,6 +28,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from ..parallel import dist
 from . import build
 from .tolerance import GradTol, KernelTol
 
@@ -907,7 +908,9 @@ class PPOLossCfg:
     clip_param: float
     huber_delta: float
     action_dim: int
-    n_rows: int  # S: the means' normaliser
+    # the means' normaliser: the minibatch's row count, which across ranks
+    # is every rank's (at least this rank's S rows)
+    n_rows: int
 
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -1000,7 +1003,9 @@ def reference_pair_fwd_loss_agrad(spec_a, spec_c, loss, la, lc, log_std, x, act,
 
 def _loss_rows(loss: PPOLossCfg, x, act, logp_old, adv, v_old, ret, log_std):
     """The row inputs as the kernels take them (contiguous f32 on x's
-    device: act [S, A], the others [S, 1], log_std [A]); raises otherwise."""
+    device: act [S, A], the others [S, 1], log_std [A]); raises otherwise,
+    and where `loss.n_rows`, the means' normaliser (every rank's rows of
+    the minibatch), is below S."""
     s, a = x.shape[0], loss.action_dim
     rows = []
     for name, t, shape in (("act", act, (s, a)), ("logp_old", logp_old, (s, 1)),
@@ -1010,8 +1015,9 @@ def _loss_rows(loss: PPOLossCfg, x, act, logp_old, adv, v_old, ret, log_std):
             raise ValueError(f"{name} must be float32 {shape} on {x.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
         rows.append(t.contiguous())
-    if loss.n_rows != s:
-        raise ValueError(f"loss.n_rows {loss.n_rows} != S {s}")
+    if loss.n_rows < s:
+        raise ValueError(f"loss.n_rows {loss.n_rows} < S {s}: the means' normaliser counts "
+                         "at least this rank's rows")
     return rows
 
 
@@ -1128,6 +1134,15 @@ def _value_branch(loss: PPOLossCfg, sums, dv1, dv2):
     return torch.where(h1 >= h2, dv1, dv2)
 
 
+def _no_rows(spec_a, spec_c, loss, x):
+    """A rank that owns no row of the minibatch: zero gradients, and zero
+    column sums into the ranks' sum; no kernel launches."""
+    sums = dist.all_reduce_sum(torch.zeros(_N_STATS + loss.action_dim, device=x.device))
+    zeros = [torch.zeros(sh, device=x.device) for sh in leaf_shapes(spec_a)]
+    zeros_c = [torch.zeros(sh, device=x.device) for sh in leaf_shapes(spec_c)]
+    return zeros, sums[_SUM_DLS : _SUM_DLS + loss.action_dim], zeros_c, sums
+
+
 def pair_ppo_grads_fwdloss(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, adv, v_old,
                            ret):
     """The PPO gradients in two launches (`fused_pair_ppo_grads_fwdloss`,
@@ -1135,10 +1150,15 @@ def pair_ppo_grads_fwdloss(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_o
     chosen from the stats' sums, then one pair launch of `encoder_backward`
     for the actor (dout = dmu) and the critic (dout = dv).  Returns (the
     actor's gradients, the policy term of dlog_std [A], the critic's
-    gradients, the stats' column sums [9 + A])."""
+    gradients, the stats' column sums [9 + A]).  Across ranks the column
+    sums are summed over the ranks before the branch and dlog_std (the
+    gradients are this rank's rows' share); a rank with no rows launches
+    nothing."""
+    if x.shape[0] == 0:
+        return _no_rows(spec_a, spec_c, loss, x)
     dmu, dv1, dv2, stats = pair_forward_loss(spec_a, spec_c, loss, la, lc, log_std, x, act,
                                              logp_old, adv, v_old, ret)
-    sums = stats.sum(0)
+    sums = dist.all_reduce_sum(stats.sum(0))
     dv = _value_branch(loss, sums, dv1, dv2)
     dla, dlc = encoder_backward([(spec_a, la), (spec_c, lc)], x, [dmu, dv])
     return dla, sums[_SUM_DLS : _SUM_DLS + loss.action_dim], dlc, sums
@@ -1148,10 +1168,13 @@ def pair_ppo_grads(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, adv,
     """The PPO gradients in two launches without recomputing the actor
     (`fused_pair_ppo_grads`, fused_encoder.py:901-975): `pair_forward_loss_agrad`,
     then the critic's backward (one-network `encoder_backward`) with the
-    chosen branch's dv.  Returns as `pair_ppo_grads_fwdloss`."""
+    chosen branch's dv.  Returns as `pair_ppo_grads_fwdloss`, and sums over
+    the ranks as it does."""
+    if x.shape[0] == 0:
+        return _no_rows(spec_a, spec_c, loss, x)
     dv1, dv2, stats, dla = pair_forward_loss_agrad(spec_a, spec_c, loss, la, lc, log_std, x, act,
                                                    logp_old, adv, v_old, ret)
-    sums = stats.sum(0)
+    sums = dist.all_reduce_sum(stats.sum(0))
     dv = _value_branch(loss, sums, dv1, dv2)
     (dlc,) = encoder_backward([(spec_c, lc)], x, [dv])
     return dla, sums[_SUM_DLS : _SUM_DLS + loss.action_dim], dlc, sums
