@@ -129,6 +129,19 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    (not a scaling measurement: the ranks share one card), the world-1 and
    2-rank rates and the cost of drawing the action noise at the global
    arena count.
+15. the PPO family across ranks, in worker processes (`--dp-worker
+   fam1|fam2`): world size 1 over NCCL through `harness.train` for ppo_rnn
+   and transformer at 4,096 arenas (2 iterations of 16 steps), the learner's
+   bits equal to the run without a group; two ranks sharing the card over
+   gloo, one iteration each of ppo, privileged ppo, ppo_tconv, ppo_rnn,
+   transformer and ppo_vision (conv) at 1,024 x 32 and ppo_vision with
+   MobileNetV3-Small at 256 arenas, held as in phase 14, no kernel launched;
+   the Lee (Firefly, Hummingbird, the Crazyflie at its hover state),
+   attitude, rate and DSL PID controllers, Dragon (300 steps with gimbal and
+   joint commands) and the transport group (the demo's 900-tick ramp) at
+   4,096 arenas, each held against the CPU's first 64 arenas and to the JAX
+   tests' physical checks, with env-steps/s; every
+   `mupe_tpu_torch.examples` module run on the card, exit 0.
 
 Phase 2 also holds the FPS kernel (the AEG buffer's downsampling, one
 thread-block cluster) index for index against its plain version at the AEG's
@@ -3175,6 +3188,8 @@ def dp_worker(argv) -> int:
 
     role, rank, world, backend, init_method, out_dir = argv
     rank, world, out = int(rank), int(world), Path(out_dir)
+    if role.startswith("fam"):
+        return _fam_worker(role, rank, world, backend, init_method, out)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     report = {"role": role, "rank": rank}
@@ -3363,6 +3378,494 @@ def phase_parallel(dev, card: str) -> None:
     log(f"[14] phase 14 took {time.perf_counter() - t0:.1f} s on {card}")
 
 
+# phase 15: the PPO family across ranks (A4b); the controllers, Dragon and the
+# transport group (A5); the examples
+FAM_ENVS, FAM_MOBILENET_ENVS = HOVER_ENVS, 256  # phase 12's 1,024 x 32; MobileNet at 256
+FAM_CASES = {  # name: (algo, task, env overrides, algo overrides, arenas, steps)
+    "ppo": ("ppo", "Hover", {}, {}, FAM_ENVS, HOVER_STEPS),
+    "ppo_priv": ("ppo", "Hover", HOVER_DR, {"priv_actor": True, "priv_critic": True},
+                 FAM_ENVS, HOVER_STEPS),
+    "ppo_tconv": ("ppo_tconv", "Hover", {"obs_history_len": 32}, {}, FAM_ENVS, HOVER_STEPS),
+    "ppo_rnn": ("ppo_rnn", "Hover", {}, {"train_seq_len": 16}, FAM_ENVS, HOVER_STEPS),
+    "transformer": ("transformer", "HideAndSeek", {}, {}, FAM_ENVS, HOVER_STEPS),
+    "ppo_vision": ("ppo_vision", "Hover", {"obs_depth": True}, {}, FAM_ENVS, HOVER_STEPS),
+    # 16 steps and 2 PPO epochs, cut from 32 and 4: gloo stages each of its
+    # batch statistics' collectives through host memory (29-35 s an iteration
+    # a rank at 32 steps and 4 epochs), and its gradients are noisy in f32
+    # (PERF.md section 7), so Adam parts the learners by about lr a step
+    "ppo_vision_mobilenet": ("ppo_vision", "Hover", {"obs_depth": True},
+                             {"vision_encoder": "mobilenet_v3_small", "ppo_epochs": 2},
+                             FAM_MOBILENET_ENVS, 16),
+}
+FAM_WORLD1 = {"ppo_rnn": ["task=Hover", "algo=ppo_rnn", "algo.train_seq_len=16"],
+              "transformer": ["task=HideAndSeek", "algo=transformer"]}
+FAM_WORLD1_STEPS = 8      # cut from 32 / 64 steps an iteration for the script's time
+# HideAndSeek's capture and collision rewards are discrete: where cuBLAS's
+# rounding, which depends on the batch, moves a drone across a threshold
+# (a few 1e-7 of the scale), a reward flips, and the update learns from
+# other data (measured: 1.3% of the entries, the learner 0.13 off).  So its
+# trajectory is held at the first step and by the share of entries past
+# DP_TRAJ_REL over the rollout, and its update replays the one rank's
+# rollout (each rank its rows), under phase 14's bounds
+FAM_FLIP_SHARE = 0.05
+A5_ENVS, A5_CPU_ENVS, A5_SEED = NUM_ENVS, 64, 15
+A5_TRAJ_ATOL = 1e-3       # metres, the card's first 64 arenas against the CPU's
+EXAMPLES_TIMEOUT = 300
+
+
+def _fam_iteration(dev, case: str, replay: "Path | None" = None,
+                   keep: "Path | None" = None) -> tuple:
+    """One iteration of `FAM_CASES[case]` from seed DP_SEED through
+    `harness.build` on this rank's arenas: (the trajectory's small fields
+    on the CPU, the learner and the first two optimizer steps' gradients on
+    the CPU).  `keep` saves the rollout (the trajectory, the last
+    observation, the generator's state) for a `replay`, whose rows of it
+    this rank's update then takes in place of its own rollout's."""
+    import mupe_tpu_torch.learning.mappo as tmappo
+    import mupe_tpu_torch.learning.ppo.ppo_rnn as tppo_rnn
+    from mupe_tpu_torch import harness
+    from mupe_tpu_torch.learning import init_carry, init_rnn_carry
+    from mupe_tpu_torch.learning.registry import is_recurrent
+    from mupe_tpu_torch.learning.rollout import make_rnn_rollout, make_rollout
+    from mupe_tpu_torch.utils.checkpoint import to_plain
+
+    algo, task, env_kw, algo_kw, n_envs, steps = FAM_CASES[case]
+    env_kw = dict(env_kw, num_envs=n_envs)
+    if task == "Hover":
+        env_kw["max_episode_length"] = HOVER_EPISODE
+    env, pol, _, _ = harness.build(task, env_kw, dict(algo_kw, train_every=steps,
+                                                      num_minibatches=HOVER_MINIBATCHES),
+                                   algo=algo, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(DP_SEED)
+    rec = is_recurrent(pol)
+    carry = (init_rnn_carry if rec else init_carry)(env, pol, gen)
+    carry, traj, _ = (make_rnn_rollout if rec else make_rollout)(env, pol)(carry)
+    small = {k: traj[k].detach().float().cpu() for k in DP_TRAJ_KEYS}
+    if keep is not None:
+        torch.save({"traj": traj, "obs": carry.obs, "gen": gen.get_state()}, keep)
+    if replay is not None:
+        saved = torch.load(replay, weights_only=True)
+
+        def rows(x, axis):
+            if isinstance(x, dict):
+                return {k: rows(v, axis) for k, v in x.items()}
+            return env.shard.rows(x.to(dev), axis).contiguous()
+
+        traj, carry.obs = rows(saved["traj"], 1), rows(saved["obs"], 0)
+        gen.set_state(saved["gen"])
+    first, real = [], tmappo.adam_updates
+
+    def recording(grads, state, lr, **kw):
+        if len(first) < 2:
+            first.append([g.detach().cpu() for g in grads])
+        return real(grads, state, lr, **kw)
+
+    tmappo.adam_updates = tppo_rnn.adam_updates = recording
+    try:
+        if rec:
+            ts, metrics = pol.train_op(carry.ts, traj, gen, shard=env.shard)
+        else:
+            ts, metrics = pol.train_op(carry.ts, traj, carry.obs, gen, last_state=carry.state,
+                                       shard=env.shard)
+    finally:
+        tmappo.adam_updates = tppo_rnn.adam_updates = real
+    if not all(math.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError(f"{case}: non-finite metrics")
+    learner = {}
+
+    def walk(x, path):
+        if isinstance(x, torch.Tensor):
+            if x.is_floating_point():
+                learner[path] = x.detach().cpu()
+        elif isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(x, list):
+            for i, v in enumerate(x):
+                walk(v, f"{path}/{i}")
+
+    walk(to_plain(ts), "ts")
+    learner.update({f"grad{i}_{j}": g for i, gs in enumerate(first) for j, g in enumerate(gs)})
+    return small, learner
+
+
+def _fam_worker(role: str, rank: int, world: int, backend: str, init_method: str,
+                out: Path) -> int:
+    """A rank of phase 15 (`--dp-worker fam1|fam2 ...`): "fam1" runs world
+    size 1, `harness.train` of ppo_rnn and transformer without and with an
+    NCCL group of one, then each case's one-rank iteration; "fam2" is one of
+    two ranks sharing the card, each case's iteration on its arenas."""
+    from mupe_tpu_torch import harness
+    from mupe_tpu_torch.parallel import dist
+    from mupe_tpu_torch.utils.checkpoint import load_checkpoint
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    report = {"role": role, "rank": rank, "launches": {}, "seconds": {}}
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    if role == "fam1":
+        # without a group, then with an NCCL group of one
+        learners = {}
+        for name in ("nogroup", "group"):
+            if name == "group":
+                dist.init_distributed(backend=backend, init_method=init_method,
+                                      world_size=world, rank=rank)
+                report["backend"] = torch.distributed.get_backend()
+            for algo, argv in FAM_WORLD1.items():
+                run = f"{algo}_{name}"
+                t0 = time.perf_counter()
+                m = harness.train([*argv, f"env.num_envs={NUM_ENVS}",
+                                   f"algo.train_every={FAM_WORLD1_STEPS}", "max_iters=2",
+                                   "log_interval=1", "save_interval=-1",
+                                   f"run_dir={out / 'runs'}", f"run_name={run}",
+                                   f"seed={DP_SEED}"], device=dev)
+                report["seconds"][run] = time.perf_counter() - t0
+                report[f"{run}_rate"] = m["rollout_fps"]
+                learners[run] = load_checkpoint(out / "runs" / run / "checkpoints")
+        for algo in FAM_WORLD1:
+            report[f"{algo}_bits_equal"] = _equal_trees(learners[f"{algo}_nogroup"],
+                                                        learners[f"{algo}_group"])
+            if not report[f"{algo}_bits_equal"]:
+                raise AssertionError(f"world size 1, {algo}: the learner with a group differs "
+                                     "from without")
+    else:
+        dist.init_distributed(backend=backend, init_method=init_method, world_size=world,
+                              rank=rank)
+    for case in FAM_CASES:
+        t0 = time.perf_counter()
+        saved = out / f"rollout_{case}.pt" if FAM_CASES[case][1] == "HideAndSeek" else None
+        small, learner = _fam_iteration(dev, case, replay=saved if role == "fam2" else None,
+                                        keep=saved if role == "fam1" else None)
+        torch.cuda.synchronize(dev)
+        report["seconds"][case] = time.perf_counter() - t0
+        if role == "fam2":
+            _dp_same_on_ranks(f"{role} rank {rank} {case} learner", learner)
+        torch.save({"traj": small, "learner": learner}, out / f"{role}_{rank}_{case}.pt")
+    report["launches"] = {k: v for k, v in _count(wrappers).items() if v}
+    (out / f"report_{role}_{rank}.json").write_text(json.dumps(report))
+    dist.destroy()
+    return 0
+
+
+def phase_family_ranks(card: str) -> None:
+    """Phase 15, part 1: the PPO family across ranks, in worker processes.
+    World size 1 over NCCL: `harness.train` of ppo_rnn and transformer at
+    4,096 arenas, 2 iterations, the learner's bits equal to the same run
+    without a group.  Two ranks sharing the card over gloo: one iteration
+    of each of FAM_CASES (phase 12's 1,024 x 32; MobileNet at 256 arenas),
+    the ranks' learners bit-identical, the joined trajectory, the first
+    gradients and the learner held against the one rank's iteration under
+    phase 14's bounds.  No kernel launches on these paths."""
+    t0 = time.perf_counter()
+    log(f"[15] the PPO family across ranks: {', '.join(FAM_CASES)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        (one,) = _dp_launch("fam1", 1, "nccl", out)
+        for algo in FAM_WORLD1:
+            log(f"  [1] world size 1, {algo} through harness.train ({NUM_ENVS} arenas x "
+                f"{FAM_WORLD1_STEPS} steps, 2 iterations): with an NCCL group ({one['backend']}) "
+                f"= without, bit for bit: {one[f'{algo}_bits_equal']}; "
+                f"{one[f'{algo}_group_rate']:.1f} env-steps/s with, "
+                f"{one[f'{algo}_nogroup_rate']:.1f} without (2nd iteration) on {card}")
+        two = _dp_launch("fam2", 2, "gloo", out)
+        failures = []
+        for case in FAM_CASES:
+            ref = torch.load(out / f"fam1_0_{case}.pt", weights_only=True)
+            parts = [torch.load(out / f"fam2_{r}_{case}.pt", weights_only=True)
+                     for r in range(2)]
+            worst, flips = 0.0, 0.0
+            discrete = FAM_CASES[case][1] == "HideAndSeek"
+            for k in DP_TRAJ_KEYS:
+                joined = torch.cat([p["traj"][k] for p in parts], dim=1)
+                want = ref["traj"][k]
+                if joined.shape != want.shape:
+                    raise AssertionError(f"[15] {case}: trajectory field {k} of shape "
+                                         f"{tuple(joined.shape)}, want {tuple(want.shape)}")
+                off = (joined - want).abs() / max(1.0, float(want.abs().max()))
+                first = float(off[0].max())
+                share = float((off > DP_TRAJ_REL).float().mean())
+                err = first if discrete else float(off.max())
+                worst, flips = max(worst, err), max(flips, share)
+                if err > DP_TRAJ_REL or (discrete and share > FAM_FLIP_SHARE):
+                    failures.append(f"{case}: trajectory field {k} of the 2 ranks off the one "
+                                    f"rank's by {err:.3e} of its scale ({share:.2%} of its "
+                                    f"entries past {DP_TRAJ_REL})")
+            got, want = parts[0]["learner"], ref["learner"]
+            gerr = max(float((got[k] - want[k]).abs().max()) / max(float(want[k].abs().max()),
+                                                                   1e-30)
+                       for k in want if k.startswith("grad"))
+            perr = max(float((got[k] - want[k]).abs().max()) if got[k].numel() else 0.0
+                       for k in want if k.startswith("ts/"))
+            if gerr > DP_GRAD_REL or perr > DP_PARAM_ATOL:
+                failures.append(f"{case}: the 2 ranks' first gradients are {gerr:.3e} of their "
+                                f"scale off the one rank's (limit {DP_GRAD_REL}), the learner "
+                                f"{perr:.3e} (limit {DP_PARAM_ATOL})")
+            n_envs, steps = FAM_CASES[case][4:]
+            held = (f"the first step within {worst:.3e} of each field's scale, {flips:.3%} of "
+                    f"the entries past {DP_TRAJ_REL} (limit {FAM_FLIP_SHARE:.0%}), the update on "
+                    f"the one rank's rollout" if discrete
+                    else f"trajectory within {worst:.3e} of each field's scale")
+            log(f"  [2] {case} ({n_envs} arenas x {steps} steps): ranks bit-identical; "
+                f"{held} (limit {DP_TRAJ_REL}), "
+                f"the first gradients within {gerr:.3e} (limit {DP_GRAD_REL}), the learner "
+                f"within {perr:.3e} (limit {DP_PARAM_ATOL}); an iteration "
+                f"{two[0]['seconds'][case]:.2f} s a rank at 2, {one['seconds'][case]:.2f} s at 1")
+        launched = {r["role"] + str(r["rank"]): r["launches"] for r in [one, *two] if r["launches"]}
+        if launched:
+            failures.append(f"the PPO family launched kernels: {launched}")
+        if failures:
+            raise AssertionError("[15] " + "; ".join(failures))
+        log("  [3] every kernel count stayed 0 on these paths")
+    log(f"[15] part 1 took {time.perf_counter() - t0:.1f} s on {card}")
+
+
+def _a5_rate(run, steps: int, envs: int, dev) -> tuple:
+    """(run()'s result, env-steps/s on the card)."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    result = run()
+    torch.cuda.synchronize(dev)
+    return result, envs * steps / (time.perf_counter() - t0)
+
+
+def _a5_hold(tag: str, card_val: torch.Tensor, cpu_val: torch.Tensor) -> float:
+    """The card's first A5_CPU_ENVS arenas against the CPU's run, in metres."""
+    err = float((card_val[:A5_CPU_ENVS].cpu() - cpu_val).abs().max())
+    if not math.isfinite(err) or err > A5_TRAJ_ATOL:
+        raise AssertionError(f"[15] {tag}: card vs CPU {err:.3e} m (limit {A5_TRAJ_ATOL})")
+    return err
+
+
+def phase_a5(dev, card: str) -> None:
+    """Phase 15, part 2: the Lee, attitude, rate and DSL PID controllers,
+    Dragon and the transport group at 4,096 arenas from seeded draws, each
+    held against the port's CPU run of the first 64 arenas (A5_TRAJ_ATOL)
+    and to the JAX tests' physical checks; env-steps/s of each."""
+    from mupe_tpu_torch import controllers as tc
+    from mupe_tpu_torch.core import quat_rotate, quaternion_to_euler
+    from mupe_tpu_torch.dynamics import dragon as dg
+    from mupe_tpu_torch.dynamics import hover_state, make_params, step
+    from mupe_tpu_torch.dynamics import transport as tr
+
+    t_start = time.perf_counter()
+    g = torch.Generator().manual_seed(A5_SEED)
+    e = A5_ENVS
+    spawn = torch.randn((e, 1, 3), generator=g) * 0.3 + torch.tensor([0.0, 0.0, 2.0])
+    offset = torch.randn((e, 1, 3), generator=g) * 0.3
+    level = torch.tensor([1.0, 0.0, 0.0, 0.0]).expand(e, 1, 4).contiguous()
+    log(f"[15] controllers, Dragon and the transport group at {e} arenas, the first "
+        f"{A5_CPU_ENVS} held against the CPU within {A5_TRAJ_ATOL} m, on {card}")
+
+    # Lee position control, 1,000 steps: the Firefly and the Hummingbird hover
+    # at the spawn point from 0.05 m (sd) away; the Crazyflie at its exact
+    # hover state (its Lee loop, the JAX package's gains, diverges from any
+    # offset at dt 0.01 in both packages: a 1 mm offset falls 2 m in 1 s)
+    for model, start in (("firefly", offset / 6.0), ("hummingbird", offset / 6.0),
+                         ("crazyflie", torch.zeros_like(offset))):
+        def lee(d, n, model=model, start=start):
+            params, mixer = make_params(model, d), tc.make_mixer(model, d)
+            s = hover_state(params, (spawn + start)[:n].to(d), level[:n].to(d))
+            target = spawn[:n].to(d)
+            for _ in range(1000):
+                cmds = tc.lee_position_control(mixer, s.pos, s.quat, s.vel, s.angvel, target)
+                s, _ = step(params, s, cmds, 0.01)
+            return s.pos
+        pos, rate = _a5_rate(lambda: lee(dev, e), 1000, e, dev)
+        err = float((pos - spawn.to(dev)).norm(dim=-1).max())
+        hold = _a5_hold(f"Lee {model}", pos, lee("cpu", A5_CPU_ENVS))
+        if not err < (0.1 if model != "crazyflie" else 1e-5):
+            raise AssertionError(f"[15] Lee {model}: {err:.3e} m from its target after 10 s")
+        log(f"  Lee position control, {model}, 1,000 steps from "
+            f"{'0.05 m (sd) away' if model != 'crazyflie' else 'its hover state'}: within "
+            f"{err:.2e} m of the target; card vs CPU {hold:.2e} m; {rate:.1f} drone-steps/s")
+
+    # attitude control over the demo's setpoints, weight-matching thrust, from
+    # 50 m, on the Hummingbird and the Firefly: the Crazyflie's loop at
+    # dt 0.01 is chaotic (1e-6 rad/s moves it 14 m in 5 s; the demo's own
+    # thrust, m^2 g, hides that on the ground)
+    setpoints = [(0.0, 0.0), (0.15, 0.0), (0.0, 0.15), (-0.15, -0.15), (0.0, 0.0)]
+    for model in ("hummingbird", "firefly"):
+        def attitude(d, n, model=model):
+            params, mixer = make_params(model, d), tc.make_mixer(model, d)
+            s = hover_state(params, (spawn[:n] + torch.tensor([0.0, 0.0, 48.0])).to(d),
+                            level[:n].to(d))
+            thrust = params.gravity.expand(n, 1, 1)
+            zero = torch.zeros((n, 1, 1), device=d)
+            errs = []
+            for roll, pitch in setpoints:
+                r = torch.full((n, 1, 1), roll, device=d)
+                p = torch.full((n, 1, 1), pitch, device=d)
+                for _ in range(100):
+                    cmds = tc.attitude_control(mixer, s.quat, s.angvel, thrust, zero, r, p)
+                    s, _ = step(params, s, cmds, 0.01)
+                rp = quaternion_to_euler(s.quat)[..., :2]
+                errs.append(float((rp - torch.tensor([roll, pitch], device=d)).norm(dim=-1).max()))
+            return s.pos, errs
+        (pos, errs), rate = _a5_rate(lambda: attitude(dev, e), 500, e, dev)
+        hold = _a5_hold(f"attitude {model}", pos, attitude("cpu", A5_CPU_ENVS)[0])
+        if not max(errs) < 0.01:
+            raise AssertionError(f"[15] attitude {model}: roll/pitch errors {errs}")
+        log(f"  attitude control, {model}, the demo's 5 setpoints x 100 steps: roll/pitch within "
+            f"{max(errs):.2e} rad after each; card vs CPU {hold:.2e} m; {rate:.1f} drone-steps/s")
+
+    # rate control: 45 deg/s of roll, 100 steps, from 50 m
+    def rates(d, n):
+        params, mixer = make_params("crazyflie", d), tc.make_mixer("crazyflie", d)
+        s = hover_state(params, (spawn[:n] + torch.tensor([0.0, 0.0, 48.0])).to(d),
+                        level[:n].to(d))
+        target = torch.tensor([math.radians(45.0), 0.0, 0.0], device=d).expand(n, 1, 3)
+        for _ in range(100):
+            cmds = tc.rate_control(mixer, s.quat, s.angvel, target, params.gravity.expand(n, 1, 1))
+            s, _ = step(params, s, cmds, 0.01)
+        return s.body_rate, s.pos
+    (body, pos), rate = _a5_rate(lambda: rates(dev, e), 100, e, dev)
+    hold = _a5_hold("rate", pos, rates("cpu", A5_CPU_ENVS)[1])
+    rerr = float((body[..., 0] - math.radians(45.0)).abs().max()) / math.radians(45.0)
+    if not rerr < 0.05:
+        raise AssertionError(f"[15] rate control: roll rate {rerr:.3f} off its target")
+    log(f"  rate control, 45 deg/s roll, 100 steps: within {rerr:.2e} of the target; card vs "
+        f"CPU {hold:.2e} m; {rate:.1f} drone-steps/s")
+
+    # DSL PID, 500 steps from 0.05 m (sd) off the spawn point.  Its gains (the
+    # reference's PyBullet Crazyflie's motor model) do not hold this model's
+    # Crazyflie (nor do the JAX package's: its test asks for finite commands):
+    # the flight leaves, so every 100 steps each tick is held instead, the
+    # card's commands against the CPU's from the card's state
+    params = make_params("crazyflie", dev)
+    target = spawn.to(dev)
+    s = hover_state(params, (spawn + offset / 6.0).to(dev), level.to(dev))
+    pid = tc.DSLPIDState.zeros((e, 1), device=dev)
+    zero3, zero1 = torch.zeros((e, 1, 3), device=dev), torch.zeros((e, 1, 1), device=dev)
+    n, worst = A5_CPU_ENVS, 0.0
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for i in range(500):
+        cmds, new_pid = tc.dsl_pid_control(s.pos, s.quat, s.vel, target, zero3, zero1, pid, 0.01)
+        if i % 100 == 0:
+            ref, _ = tc.dsl_pid_control(
+                s.pos[:n].cpu(), s.quat[:n].cpu(), s.vel[:n].cpu(), target[:n].cpu(),
+                zero3[:n].cpu(), zero1[:n].cpu(),
+                tc.DSLPIDState(*(x[:n].cpu() for x in (pid.integral_pos_error,
+                                                       pid.integral_rpy_error, pid.last_rpy))),
+                0.01)
+            worst = max(worst, float((cmds[:n].cpu() - ref).abs().max())
+                        / max(1.0, float(ref.abs().max())))
+        pid = new_pid
+        s, _ = step(params, s, cmds, 0.01)
+    torch.cuda.synchronize(dev)
+    rate = e * 500 / (time.perf_counter() - t0)
+    if not (worst <= 1e-5 and bool(torch.isfinite(s.pos).all())):
+        raise AssertionError(f"[15] DSL PID: a tick card vs CPU {worst:.3e} of its scale")
+    log(f"  DSL PID, 500 steps: finite; each 100th tick card vs CPU within {worst:.2e} of the "
+        f"commands' scale; {rate:.1f} drone-steps/s (5 host syncs included)")
+
+    # Dragon: hover thrust, every joint driven about z, the gimbals out and back
+    cfg = dg.DragonCfg()
+    hover_cmd = 2.0 * (cfg.link_mass * 9.81 / (2.0 * cfg.kf)) - 1.0
+    gimbal = 0.1 * (2.0 * torch.rand((e, 2 * cfg.num_links), generator=g) - 1.0)
+    base = torch.zeros((e, cfg.action_dim))
+    base[:, :cfg.num_rotors] = hover_cmd
+    base[:, cfg.num_rotors + 2 * cfg.num_links + 1::2] = 0.6
+    origin = spawn[:, 0] * torch.tensor([1.0, 1.0, 0.0]) + torch.tensor([0.0, 0.0, 2.0])
+
+    def dragon(d, n):
+        actions = []
+        for sign in (1.0, -1.0, 0.0):
+            a = base[:n].clone()
+            a[:, cfg.num_rotors:cfg.num_rotors + 2 * cfg.num_links] = sign * gimbal[:n]
+            actions.append(a.to(d))
+        s = dg.dragon_init(cfg, origin[:n].to(d))
+        for i in range(300):
+            s = dg.dragon_step(cfg, s, actions[i // 100], 0.01)
+        return s
+    st, rate = _a5_rate(lambda: dragon(dev, e), 300, e, dev)
+    hold = _a5_hold("Dragon", st.pos, dragon("cpu", A5_CPU_ENVS).pos)
+    gaps = (st.pos[:, 1:] - st.pos[:, :-1]).norm(dim=-1)
+    gap_err = float((gaps - cfg.link_spacing).abs().max())
+    end_to_end = float((st.pos[:, -1] - st.pos[:, 0]).norm(dim=-1).max())
+    drop = float((st.pos[..., 2] - origin[:, None, 2].to(dev)).abs().max())
+    sv = dg.dragon_state_vector(cfg, st)
+    if not (gap_err < 0.1 and end_to_end < cfg.link_spacing * (cfg.num_links - 1) - 0.05
+            and drop < 0.5 and bool(torch.isfinite(sv).all()) and sv.shape[-1] == cfg.state_dim):
+        raise AssertionError(f"[15] Dragon: gaps off by {gap_err:.3f}, end to end "
+                             f"{end_to_end:.3f}, altitude {drop:.3f}")
+    log(f"  Dragon, 300 steps (4 substeps each): the chain holds (gaps within {gap_err:.3f} m of "
+        f"{cfg.link_spacing}), bent (end to end at most {end_to_end:.3f} m), altitude within "
+        f"{drop:.3f} m; card vs CPU {hold:.2e} m; {rate:.1f} arena-steps/s")
+
+    # transport: the demo's 900-tick ramp, 3 m across and 0.7 m up
+    tcfg = tr.TransportCfg()
+    group = spawn[:, 0] * torch.tensor([3.0, 3.0, 0.0]) + torch.tensor([0.0, 0.0, 1.5])
+
+    def transport(d, n):
+        params, mixer = tr.make_transport_params(tcfg, d), tc.make_mixer(tcfg.drone_model, d)
+        s = tr.transport_init(tcfg, params, group[:n].to(d))
+        start = s.drones.pos
+        goal = start + torch.tensor([3.0, 0.0, 0.7], device=d)
+        for k in range(900):
+            frac = min(k / 600.0, 1.0)
+            cmds = tc.lee_position_control(mixer, s.drones.pos, s.drones.quat, s.drones.vel,
+                                           s.drones.angvel, start + frac * (goal - start))
+            s = tr.transport_step(tcfg, params, s, cmds, dt=0.016)
+        return s, goal
+    (st, goal), rate = _a5_rate(lambda: transport(dev, e), 900, e, dev)
+    cpu_st, _ = transport("cpu", A5_CPU_ENVS)
+    hold = max(_a5_hold("transport drones", st.drones.pos, cpu_st.drones.pos),
+               _a5_hold("transport payload", st.payload_pos, cpu_st.payload_pos))
+    anchors = st.payload_pos[:, None] + quat_rotate(st.payload_quat[:, None],
+                                                    tcfg.anchor_body.to(dev)[None])
+    rods = float(((st.drones.pos - anchors).norm(dim=-1) - tcfg.bar_length).abs().max())
+    below = bool((st.drones.pos[..., 2].min(dim=-1).values > st.payload_pos[:, 2]).all())
+    err = float((st.drones.pos - goal).norm(dim=-1).mean())
+    if not (rods < 0.1 and below and bool(torch.isfinite(st.drones.pos).all())):
+        raise AssertionError(f"[15] transport: rods off by {rods:.3f}, payload below: {below}")
+    log(f"  transport, the demo's 900 ticks (4 substeps each): rods within {rods:.3f} m of "
+        f"{tcfg.bar_length}, the payload below the drones, mean drone target error {err:.3f} m; "
+        f"card vs CPU {hold:.2e} m; {rate:.1f} arena-steps/s")
+    log(f"[15] part 2 took {time.perf_counter() - t_start:.1f} s on {card}")
+
+
+def phase_examples(card: str) -> None:
+    """Phase 15, part 3: every `mupe_tpu_torch.examples` module run as
+    `python -m` would run it, on the card (its default), in one child
+    process that must exit 0."""
+    from mupe_tpu_torch.examples import EXAMPLES
+
+    t0 = time.perf_counter()
+    code = ("import runpy, sys\n"
+            f"for name in {list(EXAMPLES)!r}:\n"
+            "    print('== ' + name, flush=True)\n"
+            "    sys.argv = [name]\n"
+            "    runpy.run_module('mupe_tpu_torch.examples.' + name, run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=EXAMPLES_TIMEOUT, cwd=str(Path(__file__).resolve().parent))
+    if proc.returncode != 0:
+        raise AssertionError(f"[15] the examples exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    blocks, name = {}, None
+    for line in proc.stdout.splitlines():
+        if line.startswith("== ") and line[3:] in EXAMPLES:
+            name = line[3:]
+            blocks[name] = []
+        elif name is not None and line.strip():
+            blocks[name].append(line)
+    if sorted(blocks) != sorted(EXAMPLES) or not all(blocks.values()):
+        raise AssertionError(f"[15] the examples printed {sorted(blocks)}")
+    for name in EXAMPLES:
+        log(f"  python -m mupe_tpu_torch.examples.{name}: exit 0; last line: {blocks[name][-1]}")
+    log(f"[15] part 3, the examples on the card: {time.perf_counter() - t0:.1f} s on {card}")
+
+
+def phase_15(dev, card: str) -> None:
+    t0 = time.perf_counter()
+    phase_family_ranks(card)
+    phase_a5(dev, card)
+    phase_examples(card)
+    log(f"[15] phase 15 took {time.perf_counter() - t0:.1f} s on {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
@@ -3395,6 +3898,7 @@ def main() -> int:
     phase_vision_rma(dev, card)
     log(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s on {card}")
     phase_parallel(dev, card)
+    phase_15(dev, card)
     for name, extra in option_kernels.items():
         kernels[name].update(extra, share_actor_false_launches_per_iteration=options[
             "launches_per_iteration"][name])

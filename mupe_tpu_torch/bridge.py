@@ -7,8 +7,10 @@ paths: the relation encoders, the PPO family's networks with their `Conv`,
 `GRUCell`, `MultiHeadDotProductAttention` and `LayerNorm` leaves; per-agent
 actors stacked on a leading agent axis), optimizer moments unravelled into
 such trees, a value
-normaliser, and an env state turned into a dict (for example
-`dataclasses.asdict` of a fetched `HideAndSeekState` or `HoverState`).  The port
+normaliser, an env state turned into a dict (for example
+`dataclasses.asdict` of a fetched `HideAndSeekState` or `HoverState`), and
+the controllers' and the other dynamics' states (a Lee `MixerParams`'s
+`_asdict()`, a `DSLPIDState`, a `DragonLinkState`, a `TransportState`).  The port
 itself never imports JAX; the caller does the fetch.
 """
 from __future__ import annotations
@@ -18,8 +20,9 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from .controllers import PIDRateState
-from .dynamics import DroneState, QuadrotorParams
+from .controllers import DSLPIDState, MixerParams, PIDRateState
+from .dynamics import DragonLinkState, DroneState, QuadrotorParams
+from .dynamics.transport import TransportState
 from .envs.genbuffer import GenBufferState
 from .envs.hideandseek import HideAndSeekState
 from .envs.hover import HoverState
@@ -303,3 +306,34 @@ def hover_state(d: Mapping[str, Any], device="cpu") -> HoverState:
 def tensors(d: Mapping[str, Any], device="cpu") -> Dict[str, torch.Tensor]:
     """A flat dict of numpy arrays (an observation, stats) → tensors."""
     return {k: _t(v, device) for k, v in d.items()}
+
+
+def _drone_state(d: Mapping[str, Any], device) -> DroneState:
+    return DroneState(**{k: _t(d[k], device) for k in ("pos", "quat", "vel", "angvel", "throttle")})
+
+
+def mixer_params(d: Mapping[str, Any], device="cpu") -> MixerParams:
+    """JAX Lee `MixerParams` (its `_asdict()`, numpy arrays) → the port's."""
+    return MixerParams(mass=float(d["mass"]), **{
+        k: _t(d[k], device) for k in ("mixer", "max_thrusts", "inertia", "pos_gain", "vel_gain",
+                                      "att_gain", "rate_gain")})
+
+
+def dsl_pid_state(d: Mapping[str, Any], device="cpu") -> DSLPIDState:
+    """JAX `DSLPIDState` (as a dict of numpy arrays) → the port's."""
+    return DSLPIDState(**{k: _t(d[k], device) for k in (
+        "integral_pos_error", "integral_rpy_error", "last_rpy")})
+
+
+def dragon_state(d: Mapping[str, Any], device="cpu") -> DragonLinkState:
+    """JAX `DragonLinkState` (as a dict of numpy arrays) → the port's."""
+    return DragonLinkState(**{k: _t(d[k], device) for k in (
+        "pos", "quat", "vel", "angvel", "throttle", "gimbal")})
+
+
+def transport_state(d: Mapping[str, Any], device="cpu") -> TransportState:
+    """JAX `TransportState` (as a dict of numpy arrays, the drones' state a
+    nested dict) → the port's."""
+    return TransportState(drones=_drone_state(d["drones"], device), **{
+        k: _t(d[k], device) for k in ("payload_pos", "payload_quat", "payload_vel",
+                                      "payload_omega")})

@@ -7,13 +7,12 @@ and integrator state carried in an explicit `PIDRateState`.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 from typing import Tuple
 
 import torch
 
-from ..core import quat_rotate_inverse
+from ..core import const, quat_rotate_inverse
 
 PID_KP = (250.0, 250.0, 120.0)
 PID_KI = (500.0, 500.0, 16.7)
@@ -21,16 +20,6 @@ PID_KD = (2.5, 2.5, 0.0)
 PID_KFF = (0.0, 0.0, 0.0)
 I_LIMIT = (33.3, 33.3, 166.7)
 OUT_LIMIT = 2.0**15 - 1.0
-
-
-@functools.lru_cache(maxsize=None)
-def _gains(device: torch.device, dtype: torch.dtype):
-    """(kp, ki, kd, kff, i_limit) on `device`, made once: building them per
-    step would copy from host memory, which waits for the device."""
-    return tuple(
-        torch.tensor(v, dtype=dtype, device=device)
-        for v in (PID_KP, PID_KI, PID_KD, PID_KFF, I_LIMIT)
-    )
 
 
 @dataclasses.dataclass
@@ -58,7 +47,9 @@ def pid_rate_control(
 ) -> Tuple[torch.Tensor, torch.Tensor, PIDRateState]:
     """One PID tick → (rotor_cmds (...,4) in [-1,1], ctbr (...,4), new state).
     `target_thrust` is in PWM units [0, 2^16]."""
-    kp, ki, kd, kff, ilimit = _gains(quat.device, quat.dtype)
+    # made once a device: building them per step would copy from host memory
+    kp, ki, kd, kff, ilimit = (const(v, quat.device, quat.dtype)
+                               for v in (PID_KP, PID_KI, PID_KD, PID_KFF, I_LIMIT))
 
     body_rate = quat_rotate_inverse(quat, angvel_w) * (180.0 / math.pi)
     rate_error = target_rate_deg - body_rate

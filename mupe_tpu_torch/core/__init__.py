@@ -1,5 +1,6 @@
-from .math import cpos, normalize, off_diag
+from .math import const, cpos, normalize, off_diag, symexp, symlog
 from .quat import (
+    axis_angle_to_quaternion,
     euler_to_quaternion,
     quat_axis,
     quat_conjugate,
@@ -8,12 +9,18 @@ from .quat import (
     quat_normalize,
     quat_rotate,
     quat_rotate_inverse,
+    quaternion_to_euler,
+    quaternion_to_rotation_matrix,
 )
 
 __all__ = [
+    "const",
     "cpos",
     "normalize",
     "off_diag",
+    "symexp",
+    "symlog",
+    "axis_angle_to_quaternion",
     "euler_to_quaternion",
     "quat_axis",
     "quat_conjugate",
@@ -22,4 +29,6 @@ __all__ = [
     "quat_normalize",
     "quat_rotate",
     "quat_rotate_inverse",
+    "quaternion_to_euler",
+    "quaternion_to_rotation_matrix",
 ]

@@ -24,7 +24,9 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    """(w, -x, -y, -z): the bits of q * (1, -1, -1, -1), made on the device
+    (no host tensor a call)."""
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def _rotate_parts(q: torch.Tensor, v: torch.Tensor):
@@ -71,6 +73,40 @@ def euler_to_quaternion(rpy: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def quaternion_to_euler(q: torch.Tensor) -> torch.Tensor:
+    """wxyz quaternion → roll-pitch-yaw; the pitch is the arcsine of its
+    argument clipped to [-1, 1]."""
+    w, x, y, z = q.unbind(-1)
+    roll = torch.atan2(2.0 * (w * x + y * z), 1.0 - 2.0 * (x * x + y * y))
+    pitch = torch.asin(torch.clamp(2.0 * (w * y - z * x), -1.0, 1.0))
+    yaw = torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+    return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def quaternion_to_rotation_matrix(q: torch.Tensor) -> torch.Tensor:
+    """wxyz quaternion → (..., 3, 3) rotation matrix."""
+    w, x, y, z = q.unbind(-1)
+    tx, ty, tz = 2.0 * x, 2.0 * y, 2.0 * z
+    twx, twy, twz = tx * w, ty * w, tz * w
+    txx, txy, txz = tx * x, ty * x, tz * x
+    tyy, tyz, tzz = ty * y, tz * y, tz * z
+    m = torch.stack(
+        [
+            1.0 - (tyy + tzz), txy - twz, txz + twy,
+            txy + twz, 1.0 - (txx + tzz), tyz - twx,
+            txz - twy, tyz + twx, 1.0 - (txx + tyy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def axis_angle_to_quaternion(angle: torch.Tensor, axis: torch.Tensor) -> torch.Tensor:
+    """`angle` (..., 1) about `axis` (..., 3) → wxyz quaternion."""
+    axis = axis / torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
+    return torch.cat([torch.cos(angle / 2.0), torch.sin(angle / 2.0) * axis], dim=-1)
 
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:

@@ -1,3 +1,10 @@
+from .dragon import (
+    DragonCfg,
+    DragonLinkState,
+    dragon_init,
+    dragon_state_vector,
+    dragon_step,
+)
 from .params import DRONE_ZOO, QuadrotorParams, RigidBodyCfg, make_params
 from .quadrotor import (
     DroneState,
@@ -10,6 +17,11 @@ from .quadrotor import (
 )
 
 __all__ = [
+    "DragonCfg",
+    "DragonLinkState",
+    "dragon_init",
+    "dragon_state_vector",
+    "dragon_step",
     "DRONE_ZOO",
     "QuadrotorParams",
     "RigidBodyCfg",

@@ -168,14 +168,20 @@ def step(
     dt: float,
     cfg: RigidBodyCfg = RigidBodyCfg(),
     enable_downwash: bool = True,
+    ext_force_w: Optional[torch.Tensor] = None,
 ) -> Tuple[DroneState, torch.Tensor]:
-    """One quadrotor tick → (new_state, ‖throttle_t − throttle_{t−1}‖)."""
+    """One quadrotor tick → (new_state, ‖throttle_t − throttle_{t−1}‖).
+    `ext_force_w` (..., 3) is an external world-frame force at the centre of
+    mass, added after the drag (an assembly's constraint forces: the
+    transport group's rods)."""
     new_throttle, thrusts, moments = rotor_response(params, state.throttle, rotor_cmds, dt)
     force_b, torque_b = body_wrench(params, thrusts, moments)
     force_w = quat_rotate(state.quat, force_b)
     if enable_downwash and state.pos.shape[-2] > 1:
         force_w = force_w + downwash_forces(state.pos, force_w)
     force_w = force_w + (params.drag_coef * params.mass)[..., None] * state.vel
+    if ext_force_w is not None:
+        force_w = force_w + ext_force_w
     new_state = integrate(params, state, force_w, torque_b, dt, cfg, new_throttle=new_throttle)
     throttle_diff = torch.linalg.vector_norm(new_throttle - state.throttle, dim=-1)
     return new_state, throttle_diff

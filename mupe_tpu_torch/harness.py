@@ -25,8 +25,9 @@ Across ranks (`torchrun --nproc_per_node=N -m mupe_tpu_torch.train ...`,
 rank holds E / N arenas on `cuda:LOCAL_RANK`; R ranks compute the one-rank
 iteration and the learner is replicated.  Rank 0 logs, profiles and writes
 the checkpoints, the full carry gathered into the one-rank format, so
-`resume_dir` resumes at any world size that divides E.  The PPO family and
-ppo_adapt are refused there (NotImplementedError).
+`resume_dir` resumes at any world size that divides E.  Every algorithm
+but ppo_adapt trains there (the JAX package's `train_rma` runs on one
+device); ppo_adapt is refused (NotImplementedError).
 
 Not ported (raises NotImplementedError): evaluation videos (`video`:
 `utils/render.py` draws with matplotlib, which the port does not depend
@@ -60,8 +61,8 @@ from .utils.logging import RunLogger, config_dict
 
 _NO_VIDEO = ("video (evaluation GIFs) is not ported: utils/render.py draws with matplotlib, "
              "which the port does not depend on")
-_ONE_RANK_ALGOS = ("the PPO family (algo != mappo) and ppo_adapt train on one rank only; "
-                   "data parallelism over ranks covers MAPPO")
+_ONE_RANK_RMA = ("ppo_adapt trains on one rank only: the JAX package's train_rma runs its "
+                 "three RMA phases without a mesh, on one device (mupe_tpu/harness.py)")
 
 
 def build(
@@ -123,9 +124,9 @@ def _train(argv, default_task, deploy_stage, device) -> Dict[str, float]:
     run_cfg = apply_overrides(RunCfg(task=default_task), top)
     if run_cfg.video:
         raise NotImplementedError(f"train: {_NO_VIDEO}")
-    if dist.world_size() > 1 and run_cfg.algo.lower() != "mappo":
+    if dist.world_size() > 1 and run_cfg.algo.lower() == "ppo_adapt":
         raise NotImplementedError(f"train: algo={run_cfg.algo!r} at world size "
-                                  f"{dist.world_size()}: {_ONE_RANK_ALGOS}")
+                                  f"{dist.world_size()}: {_ONE_RANK_RMA}")
     device = dist.local_device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)

@@ -365,6 +365,13 @@ def _max_branch(h1, h2, g1, g2):
     return torch.where(g1 > g2, h1, torch.where(g2 > g1, h2, 0.5 * (h1 + h2)))
 
 
+def _syncs_batch_stats(net) -> bool:
+    """Whether `net`'s forward and backward hold collectives (MobileNet's
+    batch statistics across ranks): then a rank without rows of a
+    minibatch runs them on its empty rows, where it would join with zeros."""
+    return bool(getattr(net, "batch_stats", False))
+
+
 def local_minibatches(mb_idx: torch.Tensor, e_local: int, shard) -> List[torch.Tensor]:
     """This rank's rows of each minibatch of global row indices [M, B]
     (row t*E + e of the [T*E] global layout), as indices into its own
@@ -893,7 +900,7 @@ class MAPPOPolicy:
         cfg = self.cfg
         n = self._count(mb, mb_rows)
         params = ts.actor_params()
-        if mb["logp"].shape[0] == 0:
+        if mb["logp"].shape[0] == 0 and not _syncs_batch_stats(ts.actor):
             ga = [torch.zeros_like(p) for p in params]
             local = torch.zeros(5, device=ts.log_std.device)
         else:
@@ -936,7 +943,7 @@ class MAPPOPolicy:
         cfg = self.cfg
         n = self._count(mb, mb_rows)
         b_values, b_returns = mb["value"], mb["returns"]
-        if b_values.shape[0] == 0:
+        if b_values.shape[0] == 0 and not _syncs_batch_stats(ts.critic):
             gc = [torch.zeros_like(p) for p in ts.critic_params()]
             glob = dist.all_reduce_sum(torch.zeros(5, device=ts.log_std.device))
         else:

@@ -13,7 +13,8 @@ at stride 2 the odd unit goes at the end), as flax's does.
 `_BatchStatsNorm` normalises by the current call's batch statistics over
 N, H and W with the biased variance and eps 1e-3, and keeps no running
 state: the statistics depend on which frames share a call, so the update
-evaluates each minibatch in one call, as the JAX package does.
+evaluates each minibatch in one call, as the JAX package does.  Across
+ranks the call's batch is every rank's frames (`dist.all_reduce_sum_grad`).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ...parallel import dist
 from .networks import Leaf, apply_conv, apply_dense, conv_leaves, dense_leaves, frames_nchw
 
 BN_EPS = 1e-3  # torchvision MobileNetV3's BatchNorm eps
@@ -47,9 +49,22 @@ def _make_divisible(v: float, divisor: int = 8) -> int:
 
 def _batch_stats_norm(p, path: str, x: torch.Tensor) -> torch.Tensor:
     """JAX `_BatchStatsNorm` on NCHW `x`: (x - mean) / sqrt(var + 1e-3) over
-    N, H, W (biased variance), then the learned scale and bias."""
-    mean = torch.mean(x, dim=(0, 2, 3), keepdim=True)
-    var = torch.mean(torch.square(x - mean), dim=(0, 2, 3), keepdim=True)
+    N, H, W (biased variance), then the learned scale and bias.  Across
+    ranks the batch is every rank's frames, as the JAX partitioner holds it
+    globally: the mean from the summed sums and counts, then the variance
+    from a second pass, both differentiated across the ranks; every rank
+    calls it, a rank without frames with an empty batch."""
+    if dist.world_size() > 1:
+        both = dist.all_reduce_sum_grad(torch.cat([
+            torch.sum(x, dim=(0, 2, 3)),
+            x.new_full((1,), x.numel() // x.shape[1])]))
+        count = both[-1].detach()
+        mean = (both[:-1] / count)[None, :, None, None]
+        var = (dist.all_reduce_sum_grad(torch.sum(torch.square(x - mean), dim=(0, 2, 3)))
+               / count)[None, :, None, None]
+    else:
+        mean = torch.mean(x, dim=(0, 2, 3), keepdim=True)
+        var = torch.mean(torch.square(x - mean), dim=(0, 2, 3), keepdim=True)
     y = (x - mean) / torch.sqrt(var + BN_EPS)
     return y * p[f"{path}/scale"][:, None, None] + p[f"{path}/bias"][:, None, None]
 

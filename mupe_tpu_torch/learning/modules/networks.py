@@ -567,6 +567,12 @@ class VisionNet(HeadNet):
         self.encoder = MixedObsEncoder(vision_encoder=vision_encoder)
         self._setup(example, out_dim, role, leaves, generator)
 
+    @property
+    def batch_stats(self) -> bool:
+        """MobileNet normalises by the batch's statistics, across ranks
+        every rank's (its forward and backward hold collectives)."""
+        return self.encoder.kind.startswith("mobilenet")
+
     def body_specs(self, obs):
         return self.encoder.leaf_specs(obs), MixedObsEncoder.OUT_DIM
 

@@ -10,7 +10,8 @@ states (re-zeroed where `is_init` holds), `ppo_epochs` x `num_minibatches`
 steps of clip + Adam for each network (the actor's PPO-clip with a fixed
 entropy bonus, the critic's clipped Huber); no adaptive entropy, no
 target_kl, no log_std floor, no weight decay.  Metrics: `policy_loss` and
-`value_loss`.
+`value_loss`.  Across ranks (`train_op(..., shard=)`) R ranks compute the
+one-rank update, as MAPPO's does (mupe_tpu_torch/parallel/dist.py).
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..gae import compute_gae
-from ..mappo import MAPPOCfg, _huber
+from ...parallel import dist
+from ..mappo import MAPPOCfg, _huber_sum, _max_branch, local_minibatches
 from ..modules.distributions import Gaussian
 from ..modules.networks import LeafNet, apply_head, apply_mlp, head_leaves, mlp_leaves
 from ..modules.rnn import masked_gru, masked_gru_leaves
@@ -139,13 +141,21 @@ class PPORNNPolicy:
 
     def train_op(self, ts: PPORNNState, batch: Dict[str, Any],
                  generator: Optional[torch.Generator] = None,
-                 perms: Optional[torch.Tensor] = None) -> Tuple[PPORNNState, Dict[str, torch.Tensor]]:
+                 perms: Optional[torch.Tensor] = None,
+                 shard=None) -> Tuple[PPORNNState, Dict[str, torch.Tensor]]:
         """The update on a recurrent rollout (`batch`: the fields of JAX's
         `RNNRollout`, time-major).  Minibatches of chunks are drawn from
         `perms` ([ppo_epochs, chunks] permutations, e.g. the JAX package's)
-        or from `generator`."""
+        or from `generator`.  `shard` (an `EnvShard`) says which arenas of
+        the global rollout `batch` holds: chunks are laid out chunk-major
+        over the global arenas (chunk c of arena e is row c * E + e, as
+        JAX's `chunk` lays them out), the permutation runs over every
+        rank's chunks and each rank takes its own; the advantages' moments
+        and the losses are global means (the max of the two global Huber
+        means), the gradients summed over the ranks."""
         cfg = self.cfg
         t_len, e = batch["reward"].shape[:2]
+        e_total = e if shard is None else shard.total
         with torch.no_grad():
             next_value, _ = ts.critic(batch["last_obs"], batch["last_critic_rnn"],
                                       batch["last_is_init"])
@@ -154,7 +164,10 @@ class PPORNNPolicy:
                                    vn.denormalize(batch["value"]), vn.denormalize(next_value),
                                    cfg.gamma, cfg.gae_lambda)
             if cfg.normalize_advantages:
-                adv = (adv - torch.mean(adv)) / (torch.std(adv, correction=0) + 1e-8)
+                count = adv.numel() // e * e_total
+                mean = dist.global_sum(adv) / count
+                std = torch.sqrt(dist.global_sum(torch.square(adv - mean)) / count)
+                adv = (adv - mean) / (std + 1e-8)
             ts.value_norm = vn.update(ret)
             ret = ts.value_norm.normalize(ret)
         seq = min(cfg.train_seq_len, t_len)
@@ -167,35 +180,56 @@ class PPORNNPolicy:
         data = {k: chunk(batch[k]) for k in ("obs", "action", "logp", "value", "is_init")}
         data.update(adv=chunk(adv), ret=chunk(ret), actor_rnn0=chunk(batch["actor_rnn"])[:, 0],
                     critic_rnn0=chunk(batch["critic_rnn"])[:, 0])
-        b = n_chunk * e
+        b = n_chunk * e_total
         mb = max(1, b // cfg.num_minibatches)
+        # the samples of a global minibatch: the means' normaliser
+        n = mb * seq * self.n_agents
         dev = adv.device
         infos: Dict[str, List[torch.Tensor]] = {"policy_loss": [], "value_loss": []}
         for epoch in range(cfg.ppo_epochs):
             perm = (perms[epoch].to(dev) if perms is not None
                     else torch.randperm(b, generator=generator, device=dev))
-            for idx in perm[: mb * cfg.num_minibatches].reshape(cfg.num_minibatches, mb):
+            mb_idx = perm[: mb * cfg.num_minibatches].reshape(cfg.num_minibatches, mb)
+            for idx in local_minibatches(mb_idx, e, shard):
                 m = {k: v[idx] for k, v in data.items()}
-                with torch.enable_grad():
-                    log_std = ts.log_std.detach().requires_grad_(True)
-                    mean = _unroll(ts.actor, m["obs"], m["actor_rnn0"], m["is_init"])
-                    dist = Gaussian(mean, log_std.expand(mean.shape))
-                    ratio = torch.exp(torch.clamp(dist.log_prob(m["action"])[..., None] - m["logp"],
-                                                  -20.0, 20.0))
-                    surr1 = ratio * m["adv"]
-                    surr2 = torch.clamp(ratio, 1 - cfg.clip_param, 1 + cfg.clip_param) * m["adv"]
-                    pl = -torch.mean(torch.minimum(surr1, surr2) * self.action_dim)
-                    loss = pl + cfg.entropy_coef * -torch.mean(dist.entropy())
-                    ga = list(torch.autograd.grad(loss, [ts.actor.flat, log_std]))
+                ga, gc, glob = self._grads(ts, m, n)
                 self._step(ts.actor_params(), ga, ts.actor_opt, cfg.actor_lr)
-                with torch.enable_grad():
-                    vs = _unroll(ts.critic, m["obs"], m["critic_rnn0"], m["is_init"])
-                    clipped = m["value"] + torch.clamp(vs - m["value"], -cfg.clip_param,
-                                                       cfg.clip_param)
-                    vl = torch.maximum(_huber(vs, m["ret"], cfg.huber_delta),
-                                       _huber(clipped, m["ret"], cfg.huber_delta))
-                    gc = list(torch.autograd.grad(vl, [ts.critic.flat]))
                 self._step(ts.critic_params(), gc, ts.critic_opt, cfg.critic_lr)
-                infos["policy_loss"].append(pl.detach())
-                infos["value_loss"].append(vl.detach())
+                infos["policy_loss"].append(glob[0])
+                infos["value_loss"].append(torch.maximum(glob[1], glob[2]))
         return ts, {k: torch.mean(torch.stack(v)) for k, v in infos.items()}
+
+    def _grads(self, ts: PPORNNState, m: Dict[str, torch.Tensor], n: int):
+        """A minibatch's gradients, summed over the ranks: (actor [flat,
+        log_std], critic [flat], the policy loss and the two Huber means
+        over every rank).  Every mean divides by `n`, the global minibatch's
+        samples; the value loss takes the branch the global means choose.  A
+        rank without rows of the minibatch joins with zeros."""
+        cfg = self.cfg
+        if m["logp"].shape[0] == 0:
+            grads = [torch.zeros_like(p) for p in ts.actor_params() + ts.critic_params()]
+            local = torch.zeros(3, device=ts.log_std.device)
+            glob = dist.all_reduce_sum(local)
+        else:
+            with torch.enable_grad():
+                log_std = ts.log_std.detach().requires_grad_(True)
+                mean = _unroll(ts.actor, m["obs"], m["actor_rnn0"], m["is_init"])
+                dist_ = Gaussian(mean, log_std.expand(mean.shape))
+                ratio = torch.exp(torch.clamp(dist_.log_prob(m["action"])[..., None] - m["logp"],
+                                              -20.0, 20.0))
+                surr1 = ratio * m["adv"]
+                surr2 = torch.clamp(ratio, 1 - cfg.clip_param, 1 + cfg.clip_param) * m["adv"]
+                pl = -torch.sum(torch.minimum(surr1, surr2) * self.action_dim) / n
+                loss = pl + cfg.entropy_coef * (-torch.sum(dist_.entropy()) / n)
+                ga = list(torch.autograd.grad(loss, [ts.actor.flat, log_std]))
+                vs = _unroll(ts.critic, m["obs"], m["critic_rnn0"], m["is_init"])
+                clipped = m["value"] + torch.clamp(vs - m["value"], -cfg.clip_param,
+                                                   cfg.clip_param)
+                h1 = _huber_sum(vs, m["ret"], cfg.huber_delta) / n
+                h2 = _huber_sum(clipped, m["ret"], cfg.huber_delta) / n
+                glob = dist.all_reduce_sum(torch.stack([pl.detach(), h1.detach(), h2.detach()]))
+                gc = list(torch.autograd.grad(_max_branch(h1, h2, glob[1], glob[2]),
+                                              [ts.critic.flat]))
+            grads = ga + gc
+        grads = dist.all_reduce_tensors(grads)
+        return grads[:2], grads[2:], glob

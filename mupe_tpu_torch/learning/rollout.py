@@ -250,7 +250,9 @@ def make_rnn_rollout(env, policy, deterministic: bool = False):
     (mupe_tpu/learning/rollout.py:274-306): `train_every` steps threading
     the GRU states; `batch` holds JAX's `RNNRollout` fields, each step's
     pre-step states and `is_init` among them, for the update's BPTT chunks;
-    the next step's `is_init` is the step's `done`."""
+    the next step's `is_init` is the step's `done`.  Across ranks the
+    action noise is drawn at the global arena count, as `make_rollout`
+    draws it."""
 
     @torch.no_grad()
     def rollout(carry: RNNIterCarry):
@@ -259,9 +261,16 @@ def make_rnn_rollout(env, policy, deterministic: bool = False):
         cols: Dict[str, list] = {k: [] for k in ("obs", "action", "logp", "value", "reward",
                                                  "done", "is_init", "actor_rnn", "critic_rnn")}
         stats = EpisodeStats()
+        shard = getattr(env, "shard", None)
+        # with ranks, the action noise is drawn at the global arena count
+        sharded = shard is not None and not shard.full and not deterministic
+        noise_shape = (shard.size, policy.n_agents, policy.action_dim) if sharded else None
         for _ in range(policy.cfg.train_every):
+            noise = (shard.draw(lambda s: torch.randn(s, generator=gen, device=gen.device),
+                                noise_shape) if sharded else None)
             action, logp, value, new_a, new_c = policy.act(ts, obs, a_rnn, c_rnn, is_init, gen,
-                                                           deterministic=deterministic)
+                                                           deterministic=deterministic,
+                                                           noise=noise)
             env_state, tr = env.step(env_state, action, gen)
             for k, v in (("obs", obs), ("action", action), ("logp", logp), ("value", value),
                          ("reward", tr.reward), ("done", tr.done), ("is_init", is_init),
@@ -290,7 +299,8 @@ def make_rnn_train_iter(env, policy, deterministic: bool = False):
         carry, batch, ep_stats = rollout(carry)
         if mark is not None:
             mark("rollout")
-        ts, metrics = policy.train_op(carry.ts, batch, carry.generator, perms)
+        ts, metrics = policy.train_op(carry.ts, batch, carry.generator, perms,
+                                      shard=getattr(env, "shard", None))
         if mark is not None:
             mark("update")
         return dataclasses.replace(carry, ts=ts), metrics, ep_stats

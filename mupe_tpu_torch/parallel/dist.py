@@ -189,6 +189,29 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     return _in_place(x, lambda y: tdist.all_reduce(y, op=tdist.ReduceOp.SUM))
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the ranks, whose gradient is the sum over the ranks of
+    each rank's gradient: every rank's share of a loss differentiated
+    through statistics of every rank's rows (SyncBatchNorm's seam)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _in_place(x, lambda y: tdist.all_reduce(y, op=tdist.ReduceOp.SUM))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _in_place(grad, lambda y: tdist.all_reduce(y, op=tdist.ReduceOp.SUM))
+
+
+def all_reduce_sum_grad(x: torch.Tensor) -> torch.Tensor:
+    """`all_reduce_sum`, differentiable: its backward is a collective too,
+    so every rank must run the backward of each call (`x` itself without a
+    group)."""
+    if not is_initialized():
+        return x
+    return _AllReduceSum.apply(x)
+
+
 def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
     """The elementwise maximum of `x` over the ranks."""
     if not is_initialized():

@@ -31,9 +31,10 @@ that import only the port, the one-rank references run here).
   generator's state and the env state equal (within 1e-6), the parameters
   and the value normaliser within the one-iteration bound, the Adam counts
   equal (the moments follow the gradients, which part after the first
-  step, as above); and the refusals across ranks (algo=ppo,
-  algo=ppo_adapt: NotImplementedError; 15 arenas over 2 ranks:
-  ValueError).
+  step, as above); algo=ppo trains at 2 ranks, with identical finite
+  losses on both; and the refusals across ranks (algo=ppo_adapt:
+  NotImplementedError naming the JAX package's one-device train_rma; 15
+  arenas over 2 ranks: ValueError).
 """
 import math
 
@@ -168,9 +169,13 @@ def _assert_equal_trees(a, b, path=""):
 
 
 def test_refused_across_ranks(runs):
-    for r in runs["ranks"]:
-        assert list(r["harness"]["refused"]) == ["NotImplementedError", "NotImplementedError",
-                                                 "ValueError", "ValueError"]
+    a, b = (r["harness"] for r in runs["ranks"])
+    for r in (a, b):
+        assert list(r["refused"]) == ["trained", "NotImplementedError", "ValueError",
+                                      "ValueError"]
+        assert "train_rma" in str(r["refused_messages"][1])
+    for k in ("algo=ppo/policy_loss", "algo=ppo/value_loss"):
+        assert math.isfinite(float(a[k])) and float(a[k]) == float(b[k]), k
 
 
 def test_gathered_checkpoint_resumes_at_one_rank(runs):

@@ -21,7 +21,13 @@ port's `to_plain` trees, keyed by path) and returns flat arrays:
 * `trap`: one rank's arenas end an episode and the other's do not
   (HideAndSeek and Hover);
 * `harness`: `harness.train` on Hover with the argv of the JAX package's
-  two-process test, and the configurations refused across ranks.
+  two-process test, algo=ppo through it, and the configurations refused
+  across ranks;
+* `family:<case>`: one iteration of a PPO-family algorithm (`FAMILY`) from
+  a seed through `harness.build` (a rollout with a reset in it, then
+  `train_op`; ppo_rnn's chunk permutations injected from the input);
+* `sdf`: ppo_sdf's `train_op` on a synthetic global trajectory with
+  `sdf_points`, this rank holding its arenas' rows.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import mupe_tpu_torch.learning.mappo as tmappo  # noqa: E402
+import mupe_tpu_torch.learning.ppo.ppo_rnn as tppo_rnn  # noqa: E402
 from mupe_tpu_torch.envs import (HideAndSeek, HideAndSeekCfg, HideAndSeekEnvgen,  # noqa: E402
                                  HideAndSeekEnvgenCfg, Hover, HoverCfg)
 from mupe_tpu_torch.learning import MAPPOCfg, MAPPOPolicy, init_carry  # noqa: E402
@@ -114,7 +121,7 @@ def rows(tree: Any, shard: dist.EnvShard, axis: int) -> Any:
 @contextlib.contextmanager
 def recorded_grads():
     """The gradients every optimizer step of `mupe_tpu_torch.learning.mappo`
-    is given, in call order."""
+    and of ppo_rnn is given, in call order."""
     seen: List[List[torch.Tensor]] = []
     real = tmappo.adam_updates
 
@@ -122,11 +129,11 @@ def recorded_grads():
         seen.append([g.detach().clone() for g in grads])
         return real(grads, state, lr, **kw)
 
-    tmappo.adam_updates = recording
+    tmappo.adam_updates = tppo_rnn.adam_updates = recording
     try:
         yield seen
     finally:
-        tmappo.adam_updates = real
+        tmappo.adam_updates = tppo_rnn.adam_updates = real
 
 
 def _grads_out(seen, out):
@@ -262,8 +269,8 @@ HARNESS_ARGV = ["env.num_envs=16", "env.max_episode_length=16", "max_iters=2", "
 def job_harness(inp, name, shard_of) -> Dict[str, np.ndarray]:
     """`harness.train` on Hover (run directory `harness/run_dir` of the
     input) for 2 iterations, again for 1 from its checkpoint of iteration 1,
-    then the refusals across ranks: algo=ppo and algo=ppo_adapt, and 15
-    arenas."""
+    then algo=ppo (which trains across ranks) and the refusals across
+    ranks: algo=ppo_adapt and 15 arenas."""
     from mupe_tpu_torch.harness import train
 
     run_dir = str(inp[f"{name}/run_dir"])
@@ -276,25 +283,130 @@ def job_harness(inp, name, shard_of) -> Dict[str, np.ndarray]:
                      f"resume_dir={run_dir}/shared/checkpoints/full/step_1"],
                     default_task="Hover", device="cpu")
     _metrics_out(resumed, "resumed", out)
-    refused = []
+    refused, messages = [], []
     for extra in (["algo=ppo"], ["algo=ppo_adapt"], ["env.num_envs=15"]):
         try:
-            train([*HARNESS_ARGV, *extra, f"run_dir={run_dir}", "run_name=refused"],
-                  default_task="Hover", device="cpu")
-            refused.append("none")
+            m = train([*HARNESS_ARGV, *extra, f"run_dir={run_dir}", "run_name=refused"],
+                      default_task="Hover", device="cpu")
+            _metrics_out(m, extra[0], out)
+            refused.append("trained")
+            messages.append("")
         except (NotImplementedError, ValueError) as e:
             refused.append(type(e).__name__)
+            messages.append(str(e))
     try:
         dist.local_env_slice(15)
         refused.append("none")
     except ValueError as e:
         refused.append(type(e).__name__)
     out["refused"] = np.asarray(refused)
+    out["refused_messages"] = np.asarray(messages)
     return out
 
 
+# the PPO family: (algo, task, env overrides, algo overrides) over FAMILY_ENV
+# and FAMILY_ALGO; 6-step episodes reset inside the 8-step rollout
+FAMILY_ENV = dict(num_envs=8, max_episode_length=6)
+FAMILY_ALGO = dict(train_every=8, num_minibatches=2, ppo_epochs=1)
+HOVER_DEPTH = dict(obs_depth=True, depth_width=16, depth_height=12)
+FAMILY = {
+    "ppo": ("ppo", "Hover", {}, {}),
+    "ppo_priv": ("ppo", "Hover", dict(dr_mass_scale=(0.8, 1.2), dr_t2w_scale=(0.9, 1.1)),
+                 dict(priv_actor=True, priv_critic=True)),
+    "ppo_tconv": ("ppo_tconv", "Hover", dict(obs_history_len=16), {}),
+    "ppo_rnn": ("ppo_rnn", "Hover", {}, dict(train_seq_len=4)),
+    "transformer": ("transformer", "HideAndSeek", {}, {}),
+    "ppo_vision": ("ppo_vision", "Hover", HOVER_DEPTH, {}),
+    "ppo_vision_mobilenet": ("ppo_vision", "Hover", HOVER_DEPTH,
+                             dict(vision_encoder="mobilenet_v3_small")),
+}
+FAMILY_TRAJ_KEYS = ("action", "logp", "value", "reward", "done")
+FAMILY_SEED = 13
+
+
+def job_family(inp, name, shard_of) -> Dict[str, np.ndarray]:
+    """One iteration of `FAMILY[case]` from seed 13 on this rank's arenas:
+    the rollout's trajectory, the generator's state after the rollout and
+    after the update, the gradients of every optimizer step, the learner
+    and the metrics.  ppo_rnn takes its chunk permutations from
+    `name/perms` where the input has them."""
+    from mupe_tpu_torch import harness
+    from mupe_tpu_torch.learning.registry import is_recurrent
+    from mupe_tpu_torch.learning.rollout import init_rnn_carry, make_rnn_rollout
+
+    algo, task, env_kw, algo_kw = FAMILY[name.split(":")[1]]
+    env, policy, _, _ = harness.build(task, {**FAMILY_ENV, **env_kw},
+                                      {**FAMILY_ALGO, **algo_kw}, algo, device="cpu")
+    assert env.shard == shard_of(FAMILY_ENV["num_envs"])
+    gen = torch.Generator().manual_seed(FAMILY_SEED)
+    recurrent = is_recurrent(policy)
+    if recurrent:
+        carry = init_rnn_carry(env, policy, gen)
+        carry, traj, ep_stats = make_rnn_rollout(env, policy)(carry)
+    else:
+        carry = init_carry(env, policy, gen)
+        carry, traj, ep_stats = make_rollout(env, policy)(carry)
+    out: Dict[str, np.ndarray] = {}
+    for k in FAMILY_TRAJ_KEYS:
+        out[f"traj/{k}"] = traj[k].float().numpy()
+    flatten(gen.get_state(), "gen_rollout", out)
+    with recorded_grads() as seen:
+        if recurrent:
+            perms = inp.get(f"{name}/perms")
+            ts, metrics = policy.train_op(carry.ts, traj, gen,
+                                          None if perms is None else torch.as_tensor(perms),
+                                          shard=env.shard)
+        else:
+            ts, metrics = policy.train_op(carry.ts, traj, carry.obs, gen,
+                                          last_state=carry.state, shard=env.shard)
+    flatten(ts, "ts", out)
+    flatten(gen.get_state(), "gen", out)
+    _metrics_out(metrics, "metrics", out)
+    _metrics_out(ep_stats, "ep_stats", out)
+    return _grads_out(seen, out)
+
+
+SDF_T, SDF_E = 8, 8
+
+
+def job_sdf(inp, name, shard_of) -> Dict[str, np.ndarray]:
+    """ppo_sdf (no env emits `sdf_points`): `train_op` of a fresh
+    `PPOSDFNavPolicy` on a synthetic global trajectory from
+    `np.random.default_rng(17)`, this rank holding its arenas' rows, with
+    the minibatch permutation from `name/perms`."""
+    from mupe_tpu_torch.learning.ppo import PPOSDFNavPolicy
+
+    rng = np.random.default_rng(17)
+    t, e = SDF_T, SDF_E
+
+    def obs(lead):
+        return {"observation": torch.as_tensor(rng.normal(size=lead + (1, 20)),
+                                               dtype=torch.float32),
+                "sdf_points": torch.as_tensor(rng.normal(size=lead + (1, 16, 3)),
+                                              dtype=torch.float32)}
+
+    traj = {"obs": obs((t, e)),
+            "action": torch.as_tensor(rng.normal(size=(t, e, 1, 4)), dtype=torch.float32),
+            "logp": torch.as_tensor(rng.normal(-4.0, 0.5, (t, e, 1, 1)), dtype=torch.float32),
+            "value": torch.as_tensor(rng.normal(size=(t, e, 1, 1)), dtype=torch.float32),
+            "reward": torch.as_tensor(rng.normal(size=(t, e, 1, 1)), dtype=torch.float32),
+            "done": torch.as_tensor(rng.uniform(size=(t, e, 1)) < 0.1, dtype=torch.float32)}
+    last_obs = obs((e,))
+    policy = PPOSDFNavPolicy(tmappo.MAPPOCfg(gamma=0.99, train_every=t, num_minibatches=2,
+                                             ppo_epochs=1, use_tp_net=False), device="cpu")
+    ts = policy.init(last_obs, torch.Generator().manual_seed(0))
+    shard = shard_of(e)
+    out: Dict[str, np.ndarray] = {}
+    with recorded_grads() as seen:
+        ts, metrics = policy.train_op(ts, rows(traj, shard, 1), rows(last_obs, shard, 0),
+                                      perms=torch.as_tensor(inp[f"{name}/perms"]), shard=shard)
+    flatten(ts, "ts", out)
+    _metrics_out(metrics, "metrics", out)
+    return _grads_out(seen, out)
+
+
 JOBS = {"update": job_update, "iteration": job_iteration, "aeg": job_aeg, "trap": job_trap,
-        "harness": job_harness}
+        "harness": job_harness, "family": job_family, "sdf": job_sdf}
 
 
 def run_jobs(jobs, inp: Dict[str, np.ndarray], rank: int = 0, world: int = 1):
