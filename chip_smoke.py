@@ -142,6 +142,23 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    4,096 arenas, each held against the CPU's first 64 arenas and to the JAX
    tests' physical checks, with env-steps/s; every
    `mupe_tpu_torch.examples` module run on the card, exit 0.
+16. evaluation videos (`utils/render.py`: numpy frames, its own GIF89a;
+   host work, no kernel): phase 10's `harness.evaluate` again, its argv
+   plus `video=` of arena VIDEO_ARENA (4,096 arenas x 800 steps): the stats
+   equal phase 10's bit for bit, the pair-forward and TP-forward launches
+   equal phase 10's (800 and 801), and the GIF decodes (`gif_decode`: the
+   card's machine has no PIL) to 400 frames equal to the renderer's frames
+   of the collected arrays; prints the rate with the video against phase
+   10's, the device-to-host copy's time, the render and encode times (per
+   frame and in all) and the GIF's size; the card's frame dict against
+   the CPU's (16 arenas x 32 steps; the pursuers within 1e-2, the evader's
+   y within two of its steps); `harness.train` at phase 10's cut with
+   eval_interval=1 video=1 (2 iterations: eval_1.gif, eval_2.gif); two
+   ranks sharing the card over gloo (`--dp-worker video`, 512 arenas each,
+   the arena on rank 1, learning rate 0): rank 0 writes the GIF, rank 1
+   none, its frames equal the one-rank run's; `python -m
+   mupe_tpu_torch.examples.demo_hideandseek_rollout --gif` in a child
+   process (exit 0, 100 frames).
 
 Phase 2 also holds the FPS kernel (the AEG buffer's downsampling, one
 thread-block cluster) index for index against its plain version at the AEG's
@@ -1884,7 +1901,8 @@ def phase_evaluate(dev, card: str, model_dir: Path) -> dict:
     finite, one pair-forward launch a step and one TP forward a step plus
     the first observation's.  Then eval mode over random cylinders with
     jitter (episodes cut to JITTER_EPISODE steps): every trial a distinct
-    scene.  Returns the launch counts."""
+    scene.  Returns the first evaluation's launch counts, result, rate and
+    argv."""
     from mupe_tpu_torch import harness
     from mupe_tpu_torch.ops import fused_encoder as fe
     from mupe_tpu_torch.ops import tp_lstm as tl
@@ -1915,6 +1933,7 @@ def phase_evaluate(dev, card: str, model_dir: Path) -> dict:
     log(f"  evaluation: {NUM_ENVS} x {EVAL_EPISODE} greedy env-steps in {seconds:.4f} s = "
         f"{rate:.1f} env-steps/s (checkpoint load, reset and first observation included; no "
         f"trajectory stored) on {card}")
+    first = dict(launches=launches, result=result, rate=rate, argv=argv)
 
     argv = [f"env.num_envs={NUM_ENVS}", "env.use_eval=true", "env.eval_jitter_xy=0.05",
             "env.eval_jitter_rpy=0.1", f"env.max_episode_length={JITTER_EPISODE}",
@@ -1932,7 +1951,7 @@ def phase_evaluate(dev, card: str, model_dir: Path) -> dict:
     log(f"  {distinct} distinct scenes of {NUM_ENVS} trials")
     if distinct != NUM_ENVS:
         raise AssertionError("jittered eval trials repeat a scene")
-    return launches
+    return first
 
 
 def check_eval_against_cpu(dev) -> None:
@@ -2059,16 +2078,15 @@ def check_guard(dev) -> None:
         raise AssertionError("the guard did not restore the carry")
 
 
-def phase_eval(dev, card: str) -> dict:
-    """Phase 10: the composed recipe, evaluation at full width, the card's
-    evaluation against the CPU's, and the NaN guard.  Returns the
-    evaluation's launch counts."""
-    with tempfile.TemporaryDirectory() as run_dir:
-        model_dir = phase_recipe(dev, card, run_dir)
-        launches = phase_evaluate(dev, card, model_dir)
+def phase_eval(dev, card: str, run_dir: str) -> dict:
+    """Phase 10: the composed recipe (its run in `run_dir`), evaluation at
+    full width, the card's evaluation against the CPU's, and the NaN guard.
+    Returns the evaluation's launch counts, result, rate and argv."""
+    model_dir = phase_recipe(dev, card, run_dir)
+    first = phase_evaluate(dev, card, model_dir)
     check_eval_against_cpu(dev)
     check_guard(dev)
-    return launches
+    return first
 
 
 def _flat_part(obs):
@@ -3190,6 +3208,8 @@ def dp_worker(argv) -> int:
     rank, world, out = int(rank), int(world), Path(out_dir)
     if role.startswith("fam"):
         return _fam_worker(role, rank, world, backend, init_method, out)
+    if role == "video":
+        return _video_worker(rank, world, backend, init_method, out)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     report = {"role": role, "rank": rank}
@@ -3267,9 +3287,9 @@ def dp_worker(argv) -> int:
     return 0
 
 
-def _dp_launch(role: str, world: int, backend: str, out: Path) -> list:
-    """Run `world` phase-14 workers of `role`; every wait bounded, every
-    child killed on the way out.  Returns their reports."""
+def _dp_launch(role: str, world: int, backend: str, out: Path, phase: int = 14) -> list:
+    """Run `world` workers of `role` (phase 14's, 15's or 16's); every wait
+    bounded, every child killed on the way out.  Returns their reports."""
     store = out / f"store_{role}"
     threads = os.cpu_count() or 1  # shared by the ranks: no oversubscription
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), DP_WORKER_FLAG,
@@ -3289,7 +3309,8 @@ def _dp_launch(role: str, world: int, backend: str, out: Path) -> list:
                 p.wait(timeout=30)
     for r, (p, text) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
-            raise AssertionError(f"[14] {role} rank {r} exited {p.returncode}:\n{text[-6000:]}")
+            raise AssertionError(f"[{phase}] {role} rank {r} exited {p.returncode}:\n"
+                                 f"{text[-6000:]}")
     return [json.loads((out / f"report_{role}_{r}.json").read_text()) for r in range(world)]
 
 
@@ -3562,14 +3583,14 @@ def phase_family_ranks(card: str) -> None:
     log(f"[15] the PPO family across ranks: {', '.join(FAM_CASES)}")
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
-        (one,) = _dp_launch("fam1", 1, "nccl", out)
+        (one,) = _dp_launch("fam1", 1, "nccl", out, phase=15)
         for algo in FAM_WORLD1:
             log(f"  [1] world size 1, {algo} through harness.train ({NUM_ENVS} arenas x "
                 f"{FAM_WORLD1_STEPS} steps, 2 iterations): with an NCCL group ({one['backend']}) "
                 f"= without, bit for bit: {one[f'{algo}_bits_equal']}; "
                 f"{one[f'{algo}_group_rate']:.1f} env-steps/s with, "
                 f"{one[f'{algo}_nogroup_rate']:.1f} without (2nd iteration) on {card}")
-        two = _dp_launch("fam2", 2, "gloo", out)
+        two = _dp_launch("fam2", 2, "gloo", out, phase=15)
         failures = []
         for case in FAM_CASES:
             ref = torch.load(out / f"fam1_0_{case}.pt", weights_only=True)
@@ -3865,6 +3886,344 @@ def phase_15(dev, card: str) -> None:
     phase_examples(card)
     log(f"[15] phase 15 took {time.perf_counter() - t0:.1f} s on {card}")
 
+# phase 16: evaluation videos (`utils/render.py`, `video` in evaluate and train)
+VIDEO_ARENA = 1234               # the arena phase 16's full-width evaluation draws
+VIDEO_CPU_ENVS, VIDEO_CPU_STEPS = 16, 32
+VIDEO_RANK_ENVS, VIDEO_RANK_ARENA = 1024, 700   # 512 arenas a rank: the arena on rank 1
+VIDEO_RANK_EPISODE = 16
+DEMO_TIMEOUT = 180
+
+
+def gif_decode(data: bytes):
+    """A GIF89a's colour table and its frames composited as palette
+    indices [H, W] (disposal "do not dispose"), by a decoder of its own:
+    the card's machine has no PIL."""
+    w, h, packed = data[6] | data[7] << 8, data[8] | data[9] << 8, data[10]
+    size = 2 << (packed & 7)
+    table = torch.frombuffer(bytearray(data[13:13 + 3 * size]), dtype=torch.uint8).reshape(size, 3)
+    pos, canvas, frames = 13 + 3 * size, bytearray(w * h), []
+    while data[pos] != 0x3B:
+        kind = data[pos]
+        if kind == 0x21:
+            pos += 2
+        else:
+            x, y, fw, fh = (data[pos + 1 + 2 * i] | data[pos + 2 + 2 * i] << 8 for i in range(4))
+            min_size, pos = data[pos + 10], pos + 11
+        chunks = []
+        while data[pos]:
+            chunks.append(data[pos + 1:pos + 1 + data[pos]])
+            pos += 1 + data[pos]
+        pos += 1
+        if kind == 0x2C:
+            pix = _lzw_decode(b"".join(chunks), min_size)
+            if len(pix) != fw * fh:
+                raise AssertionError(f"a GIF frame of {len(pix)} pixels in a {fw} x {fh} box")
+            for r in range(fh):
+                canvas[(y + r) * w + x:(y + r) * w + x + fw] = pix[r * fw:(r + 1) * fw]
+            frames.append(torch.frombuffer(bytearray(canvas), dtype=torch.uint8).reshape(h, w))
+    return table, frames
+
+
+def _lzw_decode(data: bytes, min_size: int) -> bytes:
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    out, table, width, prev = bytearray(), [], min_size + 1, None
+    acc = nbits = pos = 0
+    while True:
+        while nbits < width:
+            acc |= data[pos] << nbits
+            pos, nbits = pos + 1, nbits + 8
+        code, acc, nbits = acc & ((1 << width) - 1), acc >> width, nbits - width
+        if code == clear:
+            table = [bytes([i]) for i in range(clear)] + [b"", b""]
+            width, prev = min_size + 1, None
+            continue
+        if code == end:
+            return bytes(out)
+        if prev is None:
+            entry = table[code]
+        else:
+            entry = table[code] if code < len(table) else prev + prev[:1]
+            if len(table) < 4096:
+                table.append(prev + entry[:1])
+                if len(table) == 1 << width and width < 12:
+                    width += 1
+        out += entry
+        prev = entry
+
+
+def _video_frames(info: dict, every: int = 2) -> list:
+    """`render_trajectory`'s frames of a collected arena as palette
+    indices (`render_trajectory` is the palette's colours of these)."""
+    from mupe_tpu_torch.utils import render
+
+    return list(render.index_trajectory(
+        info["drone_pos"][:, 0], info["target_pos"][:, 0, 0], info["cylinders"][:, 0],
+        captured=info["capture"][:, 0, 0] if "capture" in info else None,
+        predicted=info["tp_pred"][:, 0] if "tp_pred" in info else None, every=every))
+
+
+def _hold_gif(tag: str, data: bytes, want: list) -> None:
+    """The GIF decodes to the frames `want` (palette indices) over the
+    renderer's palette."""
+    from mupe_tpu_torch.utils import render
+
+    table, frames = gif_decode(data)
+    pal = torch.from_numpy(render.PALETTE)
+    if not torch.equal(table[:len(pal)], pal):
+        raise AssertionError(f"[16] {tag}: the GIF's colour table is not the renderer's palette")
+    bad = sum(not torch.equal(f, torch.from_numpy(w)) for f, w in zip(frames, want))
+    if len(frames) != len(want) or bad:
+        raise AssertionError(f"[16] {tag}: {len(frames)} GIF frames for {len(want)}, {bad} differ")
+
+
+class _Recorder:
+    """Wraps the harness's `episode_video` and `_frames_to_host` for a run:
+    the info each video drew, the paths and the seconds of each (the copy
+    timed from a synchronised device)."""
+
+    def __init__(self):
+        from mupe_tpu_torch import harness
+
+        self.harness, self.infos, self.paths, self.copy_s, self.video_s = harness, [], [], [], []
+        self.real = (harness.episode_video, harness._frames_to_host)
+
+    def __enter__(self):
+        real_video, real_host = self.real
+
+        def video(info, cfg, path, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = real_video(info, cfg, path, *args, **kwargs)
+            self.video_s.append(time.perf_counter() - t0)
+            self.infos.append(info)
+            self.paths.append(path)
+            return out
+
+        def to_host(frames, owner):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_host(frames, owner)
+            self.copy_s.append(time.perf_counter() - t0)
+            return out
+
+        self.harness.episode_video, self.harness._frames_to_host = video, to_host
+        return self
+
+    def __exit__(self, *exc):
+        self.harness.episode_video, self.harness._frames_to_host = self.real
+
+
+def _video_full_width(dev, card: str, first: dict, tmp: Path) -> None:
+    """Phase 10's evaluation again (its argv, 4,096 arenas x 800 steps on
+    the wall scenario) with `video` of arena VIDEO_ARENA: the stats equal
+    phase 10's bit for bit, the launches too, and the GIF holds the 400
+    frames the renderer draws from the collected arrays.  Prints the
+    rates, the copy, render and encode times and the GIF's size."""
+    from mupe_tpu_torch import harness
+    from mupe_tpu_torch.ops import fused_encoder as fe
+    from mupe_tpu_torch.ops import tp_lstm as tl
+    from mupe_tpu_torch.utils import render
+
+    path = tmp / "ev.gif"
+    argv = first["argv"] + [f"video={path}", f"video_env_index={VIDEO_ARENA}"]
+    log(f"[16] evaluation with a video: phase 10's harness.evaluate (wall, use_eval, {NUM_ENVS} "
+        f"x {EVAL_EPISODE}) + video=ev.gif video_env_index={VIDEO_ARENA}")
+    wrappers = {"encoder_pair_forward": fe.encoder_pair_forward, "tp_forward": tl.tp_forward}
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Recorder() as rec:
+        result = harness.evaluate(argv, device=dev)
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    if result != first["result"]:
+        diff = {k: (v, first["result"].get(k)) for k, v in result.items()
+                if v != first["result"].get(k)}
+        raise AssertionError(f"[16] the evaluation with a video differs from phase 10's: {diff}")
+    if launches != first["launches"]:
+        raise AssertionError(f"[16] launches {launches} with a video, {first['launches']} "
+                             f"without: rendering launched a kernel")
+    (info,) = rec.infos
+    t1 = time.perf_counter()
+    frames = _video_frames(info)
+    t_render = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    encoded = render.encode_gif(frames)
+    t_encode = time.perf_counter() - t1
+    data = path.read_bytes()
+    if encoded != data:
+        raise AssertionError("[16] encoding the same frames again gives another file")
+    _hold_gif("the full-width evaluation", data, frames)
+    n = len(frames)
+    if n != EVAL_EPISODE // 2:
+        raise AssertionError(f"[16] {n} frames for an {EVAL_EPISODE}-step episode")
+    rate = NUM_ENVS * EVAL_EPISODE / seconds
+    log(f"  stats equal phase 10's bit for bit ({len(result)} values); launches {launches}, "
+        f"phase 10's {first['launches']}: rendering launched no kernel")
+    log(f"  the GIF decodes to {n} frames equal to render_trajectory of the collected arrays "
+        f"({len(data)} bytes, {len(data) / n:.1f} a frame)")
+    log(f"  evaluation with the video {rate:.1f} env-steps/s (the whole call, the video "
+        f"written: {seconds:.4f} s), phase 10's without {first['rate']:.1f}; the device-to-host "
+        f"copy of the arena's {EVAL_EPISODE} steps {rec.copy_s[0] * 1e3:.3f} ms; episode_video "
+        f"{rec.video_s[0]:.4f} s; again, apart: render {t_render:.4f} s ({t_render / n * 1e3:.3f} "
+        f"ms a frame), encode {t_encode:.4f} s ({t_encode / n * 1e3:.3f} ms a frame) on {card}")
+
+
+def _hold_frame_dicts(tag: str, got: dict, want: dict, step: float, atol: float = 1e-2) -> str:
+    """One arena's frames from two runs of the same free-running episode:
+    the pursuers and the evader's x, z within `atol`, the evader's y within
+    two of its steps (it starts on the wall scene's mirror axis, where the
+    sign of a rounding-level force component picks its y step), the
+    cylinders and captures equal, the TP prediction within `atol` at the
+    first step and finite."""
+    import numpy as np
+
+    if set(got) != set(want) or any(got[k].shape != want[k].shape for k in got):
+        raise AssertionError(f"[16] {tag}: keys or shapes differ")
+    xz = [0, 2]
+    errs = {"drone_pos": abs(got["drone_pos"] - want["drone_pos"]).max(),
+            "target_xz": abs(got["target_pos"][..., xz] - want["target_pos"][..., xz]).max(),
+            "tp_pred_0": abs(got["tp_pred"][0] - want["tp_pred"][0]).max()}
+    y = abs(got["target_pos"][..., 1] - want["target_pos"][..., 1]).max()
+    same = all((got[k] == want[k]).all() for k in ("cylinders", "capture"))
+    finite = all(np.isfinite(v).all() for v in got.values())
+    if max(errs.values()) > atol or y > 2 * step or not same or not finite:
+        raise AssertionError(f"[16] {tag}: {errs}, target y {y:.3e} (limit {2 * step:.3e}), "
+                             f"cylinders and captures equal: {same}")
+    return (", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (limit {atol}); target y "
+            f"{y:.3e} (limit {2 * step:.3f}); cylinders and captures equal")
+
+
+def _video_cpu(dev, first: dict, tmp: Path) -> None:
+    """The card's frame dict against the CPU's: phase 10's checkpoint on
+    the wall scenario at VIDEO_CPU_ENVS arenas x VIDEO_CPU_STEPS steps."""
+    from mupe_tpu_torch import harness
+
+    argv = [a for a in first["argv"] if not a.startswith(("env.num_envs=", "env.max_episode"))]
+    argv += [f"env.num_envs={VIDEO_CPU_ENVS}", f"env.max_episode_length={VIDEO_CPU_STEPS}",
+             f"video_env_index={VIDEO_CPU_ENVS - 3}"]
+    infos = {}
+    for d in ("cpu", dev):
+        with _Recorder() as rec:
+            harness.evaluate(argv + [f"video={tmp}/cpu_{d}.gif"], device=d)
+        infos[d] = rec.infos[0]
+    cfg = harness.ENV_REGISTRY["HideAndSeek"].cfg_cls()
+    held = _hold_frame_dicts("card vs CPU", infos[dev], infos["cpu"],
+                             cfg.v_prey * cfg.v_drone * cfg.dt)
+    log(f"[16] the card's frame dict against the CPU's, {VIDEO_CPU_ENVS} arenas x "
+        f"{VIDEO_CPU_STEPS} steps, arena {VIDEO_CPU_ENVS - 3}: {held}")
+
+
+def _video_train(dev, card: str, tmp: Path) -> None:
+    """`harness.train` at phase 10's cut, 2 iterations, eval_interval=1
+    video=1: eval_1.gif and eval_2.gif in the run directory, each the
+    renderer's frames of its collected arena."""
+    from mupe_tpu_torch import harness
+
+    argv = [f"env.num_envs={NUM_ENVS}", *RECIPE, f"env.max_episode_length={AEG_EPISODE}",
+            "env.r_min=0.0", "max_iters=2", "eval_interval=1", "video=1",
+            f"video_env_index={VIDEO_ARENA}", "log_interval=1", "save_interval=-1",
+            f"run_dir={tmp}", "run_name=train", "seed=10"]
+    t0 = time.perf_counter()
+    with _Recorder() as rec:
+        metrics = harness.train(argv, default_task="HideAndSeek_envgen", device=dev)
+    seconds = time.perf_counter() - t0
+    names = sorted(p.name for p in (tmp / "train").glob("*.gif"))
+    if names != ["eval_1.gif", "eval_2.gif"] or not math.isfinite(metrics["eval/return"]):
+        raise AssertionError(f"[16] train with a video wrote {names}")
+    for info, gif in zip(rec.infos, rec.paths):
+        _hold_gif(f"train's {Path(gif).name}", Path(gif).read_bytes(), _video_frames(info))
+    log(f"[16] harness.train at phase 10's cut, 2 iterations, eval_interval=1 video=1: {names}, "
+        f"{AEG_EPISODE // 2} frames each, equal to the renderer's; {seconds:.1f} s on {card}")
+
+
+def _video_rank_argv(run_dir: Path, name: str) -> list:
+    """One iteration at learning rate 0 (the learner stays the one-rank
+    run's) with an evaluation video of arena VIDEO_RANK_ARENA."""
+    return [f"env.num_envs={VIDEO_RANK_ENVS}", f"env.max_episode_length={VIDEO_RANK_EPISODE}",
+            f"algo.train_every={VIDEO_RANK_EPISODE}", "max_iters=1", "eval_interval=1",
+            "video=1", f"video_env_index={VIDEO_RANK_ARENA}", "algo.actor_lr=0",
+            "algo.critic_lr=0", "algo.tp_lr=0", "log_interval=1", "save_interval=-1",
+            f"run_dir={run_dir}", f"run_name={name}", f"seed={DP_SEED}"]
+
+
+def _video_worker(rank: int, world: int, backend: str, init_method: str, out: Path) -> int:
+    """A rank of phase 16's two (`--dp-worker video ...`): `harness.train`
+    (`_video_rank_argv`) with a gloo group; reports the GIFs it wrote."""
+    from mupe_tpu_torch import harness
+    from mupe_tpu_torch.parallel import dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_distributed(backend=backend, init_method=init_method, world_size=world, rank=rank)
+    with _Recorder() as rec:
+        harness.train(_video_rank_argv(out / "runs", "ranks"), device=dev)
+    (out / f"report_video_{rank}.json").write_text(json.dumps({"written": rec.paths}))
+    dist.destroy()
+    return 0
+
+
+def _video_ranks(dev, card: str, tmp: Path) -> None:
+    """Two ranks sharing the card over gloo, arena VIDEO_RANK_ARENA on rank
+    1: rank 0 writes eval_1.gif, rank 1 nothing, and its frames equal the
+    one-rank run's (this process, no group)."""
+    from mupe_tpu_torch import harness
+
+    t0 = time.perf_counter()
+    ranks = _dp_launch("video", 2, "gloo", tmp, phase=16)
+    written = [r["written"] for r in ranks]
+    if [len(w) for w in written] != [1, 0]:
+        raise AssertionError(f"[16] the 2 ranks wrote {written}")
+    harness.train(_video_rank_argv(tmp / "runs", "one"), device=dev)
+    two = gif_decode((tmp / "runs" / "ranks" / "eval_1.gif").read_bytes())[1]
+    one = gif_decode((tmp / "runs" / "one" / "eval_1.gif").read_bytes())[1]
+    bad = sum(not torch.equal(a, b) for a, b in zip(two, one))
+    if len(two) != len(one) or len(one) != VIDEO_RANK_EPISODE // 2 or bad:
+        raise AssertionError(f"[16] 2 ranks' GIF: {len(two)} frames, the one rank's {len(one)}, "
+                             f"{bad} differ")
+    log(f"[16] 2 ranks sharing the card over gloo, {VIDEO_RANK_ENVS} arenas, arena "
+        f"{VIDEO_RANK_ARENA} on rank 1: rank 0 wrote {Path(written[0][0]).name}, rank 1 none; its "
+        f"{len(two)} frames equal the one-rank run's; {time.perf_counter() - t0:.1f} s on {card}")
+
+
+def _video_demo(card: str, tmp: Path) -> None:
+    """`python -m mupe_tpu_torch.examples.demo_hideandseek_rollout --gif`
+    in a child process (its working directory `tmp`): exit 0, `gif:`
+    printed, 100 frames."""
+    t0 = time.perf_counter()
+    repo = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-m", "mupe_tpu_torch.examples.demo_hideandseek_rollout",
+                           "--gif"], capture_output=True, text=True, timeout=DEMO_TIMEOUT,
+                          cwd=str(tmp), env=env)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines or not lines[-1].startswith("gif: "):
+        raise AssertionError(f"[16] the demo exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    _, frames = gif_decode((tmp / lines[-1][5:]).read_bytes())
+    if len(frames) != 100:
+        raise AssertionError(f"[16] the demo's GIF holds {len(frames)} frames")
+    stats = "; ".join(" ".join(ln.split()) for ln in lines[1:-1])
+    log(f"[16] python -m mupe_tpu_torch.examples.demo_hideandseek_rollout --gif: exit 0, "
+        f"{lines[-1]} ({len(frames)} frames); {stats}; {time.perf_counter() - t0:.1f} s on {card}")
+
+
+def phase_video(dev, card: str, first: dict) -> None:
+    """Phase 16: evaluation videos.  Phase 10's evaluation again with a
+    video; the card's frame dict against the CPU's; `train` with
+    eval_interval=1 video=1; two ranks with the arena on rank 1; the demo
+    with --gif."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _video_full_width(dev, card, first, tmp)
+        _video_cpu(dev, first, tmp)
+        _video_train(dev, card, tmp)
+        _video_ranks(dev, card, tmp)
+        _video_demo(card, tmp)
+    log(f"[16] phase 16 took {time.perf_counter() - t0:.1f} s on {card}")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3886,7 +4245,10 @@ def main() -> int:
     phase_config_train(dev, card, 8, "16-token", TOK16_ENV, (None, "fwdloss", "agrad"))
     phase_config_train(dev, card, 9, "past-the-tile-limits", LIMIT_ENV,
                        (None, "fwdloss", "agrad"))
-    eval_launches = phase_eval(dev, card)
+    # phase 10's run directory: phase 16 evaluates its checkpoint again
+    eval_dir = tempfile.TemporaryDirectory()
+    first_eval = phase_eval(dev, card, eval_dir.name)
+    eval_launches = first_eval["launches"]
     phase_hover(dev, card)
     t12 = time.perf_counter()
     option_kernels = phase_option_kernels(dev)
@@ -3899,6 +4261,8 @@ def main() -> int:
     log(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s on {card}")
     phase_parallel(dev, card)
     phase_15(dev, card)
+    with eval_dir:
+        phase_video(dev, card, first_eval)
     for name, extra in option_kernels.items():
         kernels[name].update(extra, share_actor_false_launches_per_iteration=options[
             "launches_per_iteration"][name])

@@ -9,8 +9,11 @@ saves the learner state and the full carry; `guard_nan` skips iterations
 whose loss went non-finite and `profile_dir` traces iterations 1-3.
 `evaluate` runs one greedy episode, by default on the fixed evaluation
 scenario (HideAndSeek's: it forces `use_eval`, which only HideAndSeek's
-configurations have, as in the JAX package).  Tasks: HideAndSeek and its
-AEG and sim-free variants, and Hover.  Algorithms (`algo=`, through
+configurations have, as in the JAX package).  With `video`, both write a
+GIF of arena `video_env_index` (`utils/render.py`, numpy alone): the
+episode keeps that arena's render info in device buffers, copied to the
+host once at its end.  Tasks: HideAndSeek and its AEG and sim-free
+variants, and Hover.  Algorithms (`algo=`, through
 `learning/registry.py`): mappo (every option: per-agent actors, the
 centralized critic, the relation encoders), ppo (with the privileged
 branches over Hover's domain-randomized dict observations), ppo_tconv,
@@ -27,11 +30,8 @@ iteration and the learner is replicated.  Rank 0 logs, profiles and writes
 the checkpoints, the full carry gathered into the one-rank format, so
 `resume_dir` resumes at any world size that divides E.  Every algorithm
 but ppo_adapt trains there (the JAX package's `train_rma` runs on one
-device); ppo_adapt is refused (NotImplementedError).
-
-Not ported (raises NotImplementedError): evaluation videos (`video`:
-`utils/render.py` draws with matplotlib, which the port does not depend
-on).
+device); ppo_adapt is refused (NotImplementedError).  The rank that holds
+arena `video_env_index` sends its frames to rank 0, which writes the GIF.
 """
 from __future__ import annotations
 
@@ -58,9 +58,11 @@ from .utils.checkpoint import load_checkpoint, save_checkpoint
 from .utils.config import RunCfg, apply_overrides, parse_cli
 from .utils.debug import guard_train_iter, profile_trace
 from .utils.logging import RunLogger, config_dict
+from .utils.render import episode_video
 
-_NO_VIDEO = ("video (evaluation GIFs) is not ported: utils/render.py draws with matplotlib, "
-             "which the port does not depend on")
+# the per-step info an evaluation video draws besides the pursuers'
+# positions (mupe_tpu/harness.py:594)
+RENDER_KEYS = ("target_pos", "cylinders", "capture", "tp_pred")
 _ONE_RANK_RMA = ("ppo_adapt trains on one rank only: the JAX package's train_rma runs its "
                  "three RMA phases without a mesh, on one device (mupe_tpu/harness.py)")
 
@@ -105,7 +107,12 @@ def train(
     profiler trace of iterations 1-3 into `profile_dir`.  `deploy_stage=True`
     threads the iteration into the env's `update_epoch`, so the smoothness
     reward ramps.  Returns the last log row's values (with the last
-    evaluation's) and `total_time_s`.
+    evaluation's) and `total_time_s`.  With `video` set and `eval_interval`
+    > 0, each evaluation writes `eval_<i + 1>.gif` of arena
+    `video_env_index` into the run directory (rank 0 writes it); a task
+    without render info (Hover) fails with KeyError 'target_pos' at its
+    first evaluation, after the first iteration, as the JAX package's
+    `episode_video` does.
 
     It joins the process group first (`dist.init_distributed`, a no-op in
     a single process; a group it forms it leaves at the end); each rank
@@ -122,8 +129,6 @@ def train(
 def _train(argv, default_task, deploy_stage, device) -> Dict[str, float]:
     sections, top = parse_cli(argv)
     run_cfg = apply_overrides(RunCfg(task=default_task), top)
-    if run_cfg.video:
-        raise NotImplementedError(f"train: {_NO_VIDEO}")
     if dist.world_size() > 1 and run_cfg.algo.lower() == "ppo_adapt":
         raise NotImplementedError(f"train: algo={run_cfg.algo!r} at world size "
                                   f"{dist.world_size()}: {_ONE_RANK_RMA}")
@@ -163,8 +168,10 @@ def _train(argv, default_task, deploy_stage, device) -> Dict[str, float]:
         # skip updates whose loss went non-finite instead of corrupting the
         # run: a copy of the carry and one scalar host sync an iteration
         train_iter = guard_train_iter(train_iter)
-    eval_prog = (_make_eval_prog(env, policy, run_cfg.seed, recurrent)
-                 if run_cfg.eval_interval > 0 else None)
+    eval_prog = (_make_eval_prog(
+        env, policy, run_cfg.seed, recurrent,
+        video_dir=Path(run_cfg.run_dir) / run_name if run_cfg.video else None,
+        video_index=run_cfg.video_env_index) if run_cfg.eval_interval > 0 else None)
 
     frames_per_iter = env.shard.total * algo_cfg.train_every  # every rank's arenas
     if run_cfg.max_iters > 0:
@@ -383,9 +390,36 @@ def train_rma(run_cfg: RunCfg, sections: Dict[str, Dict[str, Any]],
     return last
 
 
+def _video_arena(index: int, shard: dist.EnvShard) -> tuple:
+    """(the rank that holds global arena `index`, its row there); an
+    IndexError past the arenas, as the JAX package's indexing of its
+    frames (a negative index counts from the end, as there)."""
+    if not -shard.total <= index < shard.total:
+        raise IndexError(f"video_env_index {index} is out of bounds for {shard.total} arenas")
+    index %= shard.total
+    return index // shard.size, index % shard.size
+
+
+def _frames_to_host(frames: Dict[str, torch.Tensor], owner: int):
+    """The collected arena's frames {key: [T, ...]} as the JAX package's
+    host frames at one arena, {key: [T, 1, ...]} (`episode_video`'s
+    input, `env_index=0`), on rank 0 (None on the others): rank `owner`'s
+    buffers in one broadcast across ranks, then one device-to-host copy."""
+    flat = dist.broadcast(torch.cat([v.reshape(v.shape[0], -1) for v in frames.values()], 1),
+                          src=owner)
+    if dist.rank() != 0:
+        return None
+    host, out, col = flat.cpu().numpy(), {}, 0
+    for k, v in frames.items():
+        width = math.prod(v.shape[1:])
+        out[k] = host[:, col:col + width].reshape((v.shape[0], 1) + tuple(v.shape[1:]))
+        col += width
+    return out
+
+
 @torch.no_grad()
 def _greedy_episode(env, policy, ts, env_state, obs, gen: torch.Generator, state=None,
-                    recurrent: bool = False):
+                    recurrent: bool = False, video_index: Optional[int] = None):
     """`max_episode_length` greedy steps (`deterministic=True`) from
     `env_state` and its observation `obs` (and the critic state `state`,
     which the centralized critic reads); a recurrent policy threads GRU
@@ -393,16 +427,21 @@ def _greedy_episode(env, policy, ts, env_state, obs, gen: torch.Generator, state
     end (the JAX package's eval semantics).  Returns (stat keys, the
     done-masked sum of each stat [K], the number of finished episodes, and
     each step's first_capture_step where an episode finished, NaN elsewhere
-    [T, E], or None for an env without that stat).  The sums accumulate step
-    by step: no trajectory is kept."""
+    [T, E], or None for an env without that stat; the frames).  The sums
+    accumulate step by step: no trajectory is kept.  With `video_index`
+    (this rank's row of an arena), each step writes that arena's
+    `drone_pos` (the drone state's first 3 columns) and those of
+    RENDER_KEYS the env provides into device buffers [T, ...] (the frames,
+    else None): no host sync, and nothing drawn from `gen`."""
     provides_tp = getattr(env, "provides_tp", False)
     step_args = (ts.tp_net if policy.cfg.use_tp_net else None,) if provides_tp else ()
     state_kw = {"state": state} if policy.cfg.critic_input == "state" else {}
     if recurrent:
         a_rnn = c_rnn = policy.zero_state(obs.shape[:-1])
         is_init = torch.ones(obs.shape[:-1] + (1,), dtype=torch.bool, device=obs.device)
-    keys, sums, n_done, capture = None, 0.0, 0.0, []
-    for _ in range(env.cfg.max_episode_length):
+    keys, sums, n_done, capture, frames = None, 0.0, 0.0, [], None
+    length = env.cfg.max_episode_length
+    for t in range(length):
         if recurrent:
             action, _, _, a_rnn, c_rnn = policy.act(ts, obs, a_rnn, c_rnn, is_init,
                                                     deterministic=True)
@@ -420,11 +459,19 @@ def _greedy_episode(env, policy, ts, env_state, obs, gen: torch.Generator, state
         n_done = n_done + torch.sum(done)
         if "first_capture_step" in tr.stats:
             capture.append(torch.where(tr.done, tr.stats["first_capture_step"], math.nan)[:, 0])
+        if video_index is not None:
+            frame = {"drone_pos": tr.info["drone_state"][video_index, :, :3],
+                     **{k: tr.info[k][video_index] for k in RENDER_KEYS if k in tr.info}}
+            if frames is None:
+                frames = {k: v.new_empty((length,) + v.shape) for k, v in frame.items()}
+            for k, v in frame.items():
+                frames[k][t] = v
         obs = tr.obs
-    return keys, sums, n_done, torch.stack(capture) if capture else None
+    return keys, sums, n_done, torch.stack(capture) if capture else None, frames
 
 
-def _make_eval_prog(env, policy, seed: int, recurrent: bool = False):
+def _make_eval_prog(env, policy, seed: int, recurrent: bool = False,
+                    video_dir: Optional[Path] = None, video_index: int = 0):
     """One-episode greedy evaluation (mupe_tpu/harness.py:244-322):
     `prog(ts, i)` resets the training env's configuration afresh from a
     generator of its own, seeded from `seed + 7919` and the iteration `i`
@@ -433,7 +480,12 @@ def _make_eval_prog(env, policy, seed: int, recurrent: bool = False):
     stat (NaN where no episode finished) and `episode_count`.  It neither
     reads nor advances the training carry or its generator.  `recurrent`
     threads GRU states from zeros (mupe_tpu/harness.py:244-323).  Across
-    ranks each evaluates its arenas and the sums are every rank's."""
+    ranks each evaluates its arenas and the sums are every rank's.  With
+    `video_dir`, it also writes `video_dir/eval_<i + 1>.gif` of arena
+    `video_index` (mupe_tpu/harness.py:218-230): the rank that holds it sends its frames,
+    rank 0 writes.  An env without render info raises KeyError
+    'target_pos' on every rank, as JAX's `episode_video` does."""
+    owner, row = _video_arena(video_index, env.shard) if video_dir is not None else (0, None)
 
     def prog(ts, i: int) -> Dict[str, torch.Tensor]:
         gen = torch.Generator(device=env.device).manual_seed((seed + 7919) * 2**32 + i)
@@ -442,13 +494,19 @@ def _make_eval_prog(env, policy, seed: int, recurrent: bool = False):
             obs, state = env.observe_full(env_state, getattr(ts, "tp_net", None))
         else:
             obs, state = env.observe(env_state), None
-        keys, sums, n_done, _ = _greedy_episode(env, policy, ts, env_state, obs, gen, state,
-                                                recurrent)
+        keys, sums, n_done, _, frames = _greedy_episode(env, policy, ts, env_state, obs, gen,
+                                                        state, recurrent, row)
         both = dist.all_reduce_sum(torch.cat([sums, n_done.reshape(1)]))  # every rank's
         sums, n_done = both[:-1], both[-1]
         means = torch.where(n_done > 0, sums / torch.clamp(n_done, min=1.0), math.nan)
         out = dict(zip(keys, means.unbind()))
         out["episode_count"] = n_done
+        if frames is not None:
+            if "target_pos" not in frames:
+                raise KeyError("target_pos")
+            host = _frames_to_host(frames, owner)
+            if host is not None:
+                episode_video(host, env.cfg, str(video_dir / f"eval_{i + 1}.gif"))
         return out
 
     return prog
@@ -462,11 +520,13 @@ def evaluate(argv: Sequence[str], device: torch.device | str = "cuda") -> Dict[s
     percentiles of first_capture_step over the finished episodes.  Prints
     one `key: value` line per result, sorted, as the JAX package does.
     The first observation is taken with the loaded learner's TP net (JAX's
-    `evaluate` takes it with the freshly initialised one)."""
+    `evaluate` takes it with the freshly initialised one).  With `video`,
+    the GIF of arena `video_env_index` (every 2nd step) is written there
+    and `video: <path>` printed before the results; a task without render
+    info prints that it skipped the video.  The episode is the same with
+    and without."""
     sections, top = parse_cli(argv)
     run_cfg = apply_overrides(RunCfg(task="HideAndSeek"), top)
-    if run_cfg.video:
-        raise NotImplementedError(f"evaluate: {_NO_VIDEO}")
     env_over = dict(sections.get("env", {}))
     env_over.setdefault("use_eval", True)
     env, policy, _, _ = build(run_cfg.task, env_over, sections.get("algo"), run_cfg.algo, device)
@@ -478,10 +538,18 @@ def evaluate(argv: Sequence[str], device: torch.device | str = "cuda") -> Dict[s
     if run_cfg.model_dir:
         ts = load_checkpoint(run_cfg.model_dir, target=policy.init(
             obs_template(env), torch.Generator().manual_seed(run_cfg.seed)))
+    owner, row = (_video_arena(run_cfg.video_env_index, env.shard) if run_cfg.video
+                  else (0, None))
     gen = torch.Generator(device=device).manual_seed(run_cfg.seed)
     carry = init_carry(env, policy, gen, ts=ts)
-    keys, sums, n_done, capture = _greedy_episode(
-        env, policy, carry.ts, carry.env_state, carry.obs, gen, carry.state)
+    keys, sums, n_done, capture, frames = _greedy_episode(
+        env, policy, carry.ts, carry.env_state, carry.obs, gen, carry.state, video_index=row)
+    if frames is not None:
+        if "target_pos" in frames:
+            episode_video(_frames_to_host(frames, owner), env.cfg, run_cfg.video)
+            print(f"video: {run_cfg.video}")
+        else:
+            print("video: task provides no render info; skipped")
     n = float(n_done)
     if n == 0:
         # the stats would read as real 0.0s: say so

@@ -140,10 +140,11 @@ class RunCfg:
     wandb_mode: str = "disabled"     # disabled | online | offline
     wandb_project: str = "mupe_tpu"
     wandb_entity: Optional[str] = None
-    # eval-video sink (reference eval.py:245-251 wandb.Video): GIF path;
-    # empty disables rendering (not ported: `train` and `evaluate` raise)
+    # eval-video sink (reference eval.py:245-251 wandb.Video): GIF path
+    # (`evaluate`; any non-empty value for `train`, which writes
+    # eval_<i>.gif in the run directory); empty disables rendering
     video: str = ""
-    video_env_index: int = 0
+    video_env_index: int = 0  # the arena drawn
     # observability / failure detection
     guard_nan: bool = False   # skip non-finite updates (1 sync/iter)
     profile_dir: str = ""     # profiler trace of iters 1-3 → this dir

@@ -68,9 +68,10 @@ def _trees_equal(a, b) -> bool:
     return True
 
 
-@pytest.fixture(scope="module")
-def eval_pair(tmp_path_factory):
-    """(JAX result, port result) of one evaluation from the same parameters."""
+def evaluate_both(ckpt, extra=()):
+    """(JAX result, port result) of one evaluation from the same
+    parameters (the port's from a checkpoint written to `ckpt`), with the
+    arguments `extra` on both sides."""
     jcfg = JEnvCfg(num_envs=E, max_episode_length=T, use_random_cylinder=False, use_eval=True)
     jenv = KernelTPEnv(jcfg)
     jpol = jharness.make_policy("mappo", jenv, {"use_fused_act": True})
@@ -91,16 +92,21 @@ def eval_pair(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(jharness.TASK_CFGS, "HideAndSeek", (KernelTPEnv, JEnvCfg))
         mp.setattr(jharness, "init_carry", given_params)
-        want = jharness.evaluate(EVAL_ARGV + ["algo.use_fused_act=true"])
+        want = jharness.evaluate(EVAL_ARGV + ["algo.use_fused_act=true", *extra])
 
     tpol = MAPPOPolicy(MAPPOCfg(use_tp_net=True), n_agents=3, action_dim=4, obs_is_dict=True,
                        tp_input_dim=16, device="cpu")
     ts = bridge.policy_state(tpol, bridge.tensors(to_np(jcarry.obs)), jax.device_get(actor),
                              jax.device_get(critic), jax.device_get(tp))
-    ckpt = tmp_path_factory.mktemp("eval") / "checkpoints"
     save_checkpoint(ckpt, 0, ts)
-    got = evaluate(EVAL_ARGV + [f"model_dir={ckpt}"], device="cpu")
+    got = evaluate(EVAL_ARGV + [f"model_dir={ckpt}", *extra], device="cpu")
     return want, got
+
+
+@pytest.fixture(scope="module")
+def eval_pair(tmp_path_factory):
+    """(JAX result, port result) of one evaluation from the same parameters."""
+    return evaluate_both(tmp_path_factory.mktemp("eval") / "checkpoints")
 
 
 def test_evaluate_matches_jax(eval_pair):
@@ -126,9 +132,12 @@ def test_evaluate_prints_the_jax_lines(eval_pair, capsys):
     assert "episodes: 2.0000" in lines
 
 
-def test_evaluate_video_raises_and_entry_points_default_to_the_card(tmp_path):
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        evaluate(EVAL_ARGV + ["video=ev.gif"], device="cpu")
+def test_evaluate_video_raises_and_entry_points_default_to_the_card(tmp_path, capsys):
+    """`video` writes the GIF (it raised NotImplementedError before the
+    renderer was ported; tests/test_torch_video.py holds the rest)."""
+    evaluate(EVAL_ARGV + [f"video={tmp_path}/ev.gif"], device="cpu")
+    assert f"video: {tmp_path}/ev.gif" in capsys.readouterr().out
+    assert (tmp_path / "ev.gif").read_bytes()[:6] == b"GIF89a"
     for fn in (evaluate, train, build):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 

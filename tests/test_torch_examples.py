@@ -19,7 +19,14 @@ trains from random draws the two packages make with different generators, so its
 numbers are not comparable: it runs at the JAX demo's size (256 arenas, 16
 steps, 4 minibatches) for 5 of its 30 iterations (the first printed row;
 30 take 80 s on one CPU thread) and its table is held to the JAX demo's
-layout with finite values.
+layout with finite values.  demo_hideandseek_rollout starts from the
+scene the JAX demo's env draws for PRNGKey(0), handed to its `main`
+(`bridge.env_state`); its 200 steps end every episode at the last step
+only, so the one reset draws after every printed number and every frame:
+no fresh scene needs injecting.  Its five stats are held as the other
+demos' lines (measured: every line equal), and `--gif`'s file holds 100
+frames (every 2nd of 200 steps) decoded by tests/test_torch_render.py's
+decoder.
 """
 import contextlib
 import importlib
@@ -37,7 +44,10 @@ from mupe_tpu_torch import examples
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
-DETERMINISTIC = [e for e in examples.EXAMPLES if e != "demo_vision_policy"]
+# held by their own tests below: trained from random draws / started from
+# JAX's scene
+OWN_TESTS = ("demo_vision_policy", "demo_hideandseek_rollout")
+DETERMINISTIC = [e for e in examples.EXAMPLES if e not in OWN_TESTS]
 NUMBER = re.compile(r"[-+]?\d+\.\d+|[-+]?\d+")
 # the lines held number by number, where the rest of a demo is chaotic
 CHAOTIC_AFTER = {"demo_attitude_tracking": 2}
@@ -94,6 +104,25 @@ def test_vision_policy_example_trains():
     assert row[0] == "5" and len(row) in (5, 4)  # "(none)" where no episode ended
     values = [float(v) for v in row[1:] if v != "(none)"]
     assert all(math.isfinite(v) for v in values)
+
+
+def test_hideandseek_rollout_prints_what_the_jax_demo_prints(tmp_path):
+    from mupe_tpu.envs.hideandseek import HideAndSeek as JHideAndSeek
+    from mupe_tpu.envs.hideandseek import HideAndSeekCfg as JHideAndSeekCfg
+    from mupe_tpu_torch import bridge
+    from mupe_tpu_torch.examples import demo_hideandseek_rollout
+    from test_torch_hideandseek import to_np
+    from test_torch_render import decode_gif
+
+    want = _printed(_jax_demo("demo_hideandseek_rollout").main)
+    jenv = JHideAndSeek(JHideAndSeekCfg(num_envs=4, max_episode_length=200, use_tp_net=False))
+    state = bridge.env_state(to_np(jenv.reset(jax.random.PRNGKey(0))))
+    path = tmp_path / "demo.gif"
+    got = _printed(demo_hideandseek_rollout.main, device="cpu", gif=str(path), state=state)
+    assert len(got) == len(want) + 1 == 7 and got[-1] == f"gif: {path}"
+    for g, w in zip(got, want):
+        _same_line(g, w)
+    assert len(decode_gif(path.read_bytes())["frames"]) == 100
 
 
 def test_examples_default_to_the_card():

@@ -1,8 +1,8 @@
 """The port's training entry point (`mupe_tpu_torch.harness.train`) on the
 CPU with the AEG task: logs and checkpoints, exact resume, warm start, a
-checkpoint of the wrong kind refused, the deploy-stage ramp, the option
-that is not ported (`video`) and the configurations refused where the JAX
-package fails; and the config helpers against the JAX package's.
+checkpoint of the wrong kind refused, the deploy-stage ramp and the
+configurations refused where the JAX package fails; and the config helpers
+against the JAX package's.  (`video` is tests/test_torch_video.py's.)
 
 Exact resume: 2 iterations, save, load the full carry, 1 more iteration,
 against 3 straight iterations; parameters, Adam states, the value
@@ -123,17 +123,6 @@ def test_train_runs_the_inkernel_loss_update(tmp_path, default_keys, mode):
     with open(tmp_path / mode / "config.json") as f:
         algo = json.load(f)["MAPPOCfg"]
     assert algo["use_inkernel_loss"] is True and algo["direct_mode"] == mode
-
-
-# ppo_adapt and Hover's depth camera train now (tests/test_torch_rma.py,
-# tests/test_torch_vision.py); evaluation videos are not ported
-NOT_PORTED = {"video=ev.gif": ("video=ev.gif",)}
-
-
-@pytest.mark.parametrize("arg", list(NOT_PORTED))
-def test_options_not_ported_yet_raise(tmp_path, arg):
-    with pytest.raises(NotImplementedError):
-        _run(tmp_path, "x", "max_iters=1", *NOT_PORTED[arg])
 
 
 # configurations the JAX package cannot train either: ppo_adapt on

@@ -27,7 +27,10 @@ port's `to_plain` trees, keyed by path) and returns flat arrays:
   a seed through `harness.build` (a rollout with a reset in it, then
   `train_op`; ppo_rnn's chunk permutations injected from the input);
 * `sdf`: ppo_sdf's `train_op` on a synthetic global trajectory with
-  `sdf_points`, this rank holding its arenas' rows.
+  `sdf_points`, this rank holding its arenas' rows;
+* `video`: `harness.train` on HideAndSeek with an evaluation video of
+  arena `video/index` each iteration (run directory `video/run_dir`); the
+  number of GIFs this rank wrote.
 """
 from __future__ import annotations
 
@@ -405,8 +408,36 @@ def job_sdf(inp, name, shard_of) -> Dict[str, np.ndarray]:
     return _grads_out(seen, out)
 
 
+VIDEO_ARGV = ["env.num_envs=8", "env.max_episode_length=8", "algo.train_every=8",
+              "algo.num_minibatches=2", "algo.ppo_epochs=1", "max_iters=2", "log_interval=1",
+              "eval_interval=1", "video=1", "save_interval=-1"]
+
+
+def job_video(inp, name, shard_of) -> Dict[str, np.ndarray]:
+    """`harness.train` (VIDEO_ARGV and the input's `extra` arguments) with
+    an evaluation video of arena `index` after each of its 2 iterations:
+    the GIFs this rank wrote (rank 0 writes them all)."""
+    from mupe_tpu_torch import harness
+
+    written = []
+    real = harness.episode_video
+
+    def recording(info, cfg, path, *args, **kwargs):
+        written.append(path)
+        return real(info, cfg, path, *args, **kwargs)
+
+    harness.episode_video = recording
+    try:
+        harness.train([*VIDEO_ARGV, *[str(a) for a in inp[f"{name}/extra"]],
+                       f"video_env_index={int(inp[f'{name}/index'])}",
+                       f"run_dir={inp[f'{name}/run_dir']}", "run_name=video"], device="cpu")
+    finally:
+        harness.episode_video = real
+    return {"written": np.asarray(written, dtype=str)}
+
+
 JOBS = {"update": job_update, "iteration": job_iteration, "aeg": job_aeg, "trap": job_trap,
-        "harness": job_harness, "family": job_family, "sdf": job_sdf}
+        "harness": job_harness, "family": job_family, "sdf": job_sdf, "video": job_video}
 
 
 def run_jobs(jobs, inp: Dict[str, np.ndarray], rank: int = 0, world: int = 1):
