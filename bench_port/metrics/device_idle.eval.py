@@ -1,0 +1,7 @@
+"""The device's idle share in evaluation: one less the device's busy time
+in the traced greedy steps over the wall time of as many steps untraced."""
+
+
+def read(record):
+    wall = record["untraced_wall_s"]
+    return 100.0 * max(0.0, 1.0 - record["busy_s"] / wall) if wall > 0 else None

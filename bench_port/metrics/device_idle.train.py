@@ -1,0 +1,9 @@
+"""The device's idle share in training: one less the device's busy time
+in the traced iterations (the union of its operations) over the wall time
+of as many iterations untraced (the profiler slows the host, which bounds
+the step)."""
+
+
+def read(record):
+    wall = record["untraced_wall_s"]
+    return 100.0 * max(0.0, 1.0 - record["busy_s"] / wall) if wall > 0 else None
