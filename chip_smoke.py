@@ -226,9 +226,21 @@ import torch
 
 # outside a checkout of the repo this fails here, before any output
 from mupe_tpu_torch.ops.tolerance import in_f64
+from mupe_tpu_torch.utils import trace
 
 NUM_ENVS = 4096
 STEPS = 64
+# each kernel wrapper's launches: the program's kernel spans that count
+# them (the encoder backward's, of one network or two, summed)
+KERNEL_SPANS = {"encoder_forward": ("kernel.encoder_fwd",),
+                "encoder_pair_forward": ("kernel.pair_fwd",),
+                "encoder_backward": ("kernel.encoder_bwd", "kernel.pair_bwd"),
+                "weight_grads": ("kernel.weight_grad",),
+                "pair_forward_loss": ("kernel.pair_fwd_loss",),
+                "pair_forward_loss_agrad": ("kernel.pair_fwd_loss_agrad",),
+                "tp_forward": ("kernel.tp_fwd",), "tp_backward": ("kernel.tp_bwd",),
+                "tp_weight_grads": ("kernel.tp_weight_grad",),
+                "farthest_point_sampling": ("kernel.fps",)}
 WARMUP_ROLLOUTS = 2
 TIMED_ROLLOUTS = 3
 TIMING_RUNS = 20
@@ -1399,8 +1411,6 @@ def hold_rollout(traj_g, traj_c) -> None:
 def phase_slice(dev, card: str) -> None:
     from mupe_tpu_torch.envs.hideandseek import STAT_KEYS
     from mupe_tpu_torch.learning import init_carry, make_rollout
-    from mupe_tpu_torch.ops import fused_encoder as fe
-    from mupe_tpu_torch.ops import tp_lstm as tl
 
     log(f"[3] slice: HideAndSeek {NUM_ENVS} arenas x {STEPS} steps, MAPPO act + TP net")
     env, policy = make_slice(dev, NUM_ENVS, 800)
@@ -1410,10 +1420,7 @@ def phase_slice(dev, card: str) -> None:
     log(f"  init_carry (reset + scene sampling + first observation): "
         f"{time.perf_counter() - t0:.3f} s")
     rollout = make_rollout(env, policy)
-    wrappers = {"encoder_pair_forward": fe.encoder_pair_forward,
-                "encoder_forward": fe.encoder_forward, "tp_forward": tl.tp_forward}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = Launches("encoder_pair_forward", "encoder_forward", "tp_forward")
     for _ in range(WARMUP_ROLLOUTS):
         carry, traj, ep_stats = rollout(carry)
     torch.cuda.synchronize()
@@ -1424,7 +1431,7 @@ def phase_slice(dev, card: str) -> None:
     seconds = time.perf_counter() - t0
     value = policy.value_op(carry.ts, carry.obs)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = wrappers.read()
     log(f"  launches over {WARMUP_ROLLOUTS + TIMED_ROLLOUTS} rollouts + value_op: {launches}")
     rollouts = WARMUP_ROLLOUTS + TIMED_ROLLOUTS
     if (launches["encoder_pair_forward"] < STEPS * rollouts
@@ -1481,7 +1488,6 @@ def check_update_against_cpu(dev, env_kw=None, **algo) -> None:
     minibatch and the other one never."""
     from mupe_tpu_torch.envs import HideAndSeek, HideAndSeekCfg, tree_to
     from mupe_tpu_torch.learning import MAPPOCfg, MAPPOPolicy, init_carry, make_rollout
-    from mupe_tpu_torch.ops import fused_encoder as fe
 
     env_kw = env_kw or {}
     env_c = HideAndSeek(HideAndSeekCfg(num_envs=16, max_episode_length=800, **env_kw),
@@ -1502,12 +1508,12 @@ def check_update_against_cpu(dev, env_kw=None, **algo) -> None:
     carry, traj, _ = make_rollout(env_c, pols["cpu"])(carry)
     perms = torch.randperm(16 * steps, generator=torch.Generator().manual_seed(10))[None]
     out = {}
-    loss_kernels = {"fwdloss": fe.pair_forward_loss, "agrad": fe.pair_forward_loss_agrad}
-    before = {m: fn.launches for m, fn in loss_kernels.items()}
+    loss_kernels = {"fwdloss": "pair_forward_loss", "agrad": "pair_forward_loss_agrad"}
+    counter = Launches(*loss_kernels.values())
     for d, pol in pols.items():
         state, metrics = pol.train_op(ts[d], tree_to(traj, d), tree_to(carry.obs, d), perms=perms)
         out[d] = (state, {k: float(v) for k, v in metrics.items()})
-    took = {m: fn.launches - before[m] for m, fn in loss_kernels.items()}
+    took = {m: counter.read()[name] for m, name in loss_kernels.items()}
     want = {m: cfg.num_minibatches if cfg.use_inkernel_loss and m == cfg.direct_mode else 0
             for m in loss_kernels}
     if took != want:
@@ -1568,22 +1574,16 @@ def check_train_outputs(carry, metrics, ep_stats) -> None:
 
 def phase_train(dev, card: str):
     from mupe_tpu_torch.learning import init_carry, make_train_iter
-    from mupe_tpu_torch.ops import fused_encoder as fe
-    from mupe_tpu_torch.ops import tp_lstm as tl
 
     log(f"[4] training: make_train_iter, HideAndSeek {NUM_ENVS} arenas x {STEPS} steps, "
         f"bench.py's MAPPOCfg (16 minibatches, 4 PPO epochs, TP net)")
     env, policy = make_slice(dev, NUM_ENVS, 800)
     carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(2))
     train_iter = make_train_iter(env, policy)
-    wrappers = {"encoder_pair_forward": fe.encoder_pair_forward,
-                "encoder_forward": fe.encoder_forward, "tp_forward": tl.tp_forward,
-                "encoder_backward": fe.encoder_backward, "weight_grads": fe.weight_grads,
-                "tp_backward": tl.tp_backward, "tp_weight_grads": tl.tp_weight_grads}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = Launches("encoder_pair_forward", "encoder_forward", "tp_forward",
+                        "encoder_backward", "weight_grads", "tp_backward", "tp_weight_grads")
     carry, metrics, ep_stats, seconds, split = run_train_iters(train_iter, carry)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = wrappers.read()
     iters = WARMUP_ITERS + TIMED_ITERS + 1
     log(f"  launches over {iters} iterations: {launches} (weight_grads: the encoder "
         f"backward's stage B, one launch a backward; tp_weight_grads the TP backward's, one a "
@@ -1650,9 +1650,6 @@ def phase_aeg(dev, card: str) -> dict:
     from mupe_tpu_torch import harness
     from mupe_tpu_torch.envs.hideandseek_envgen import envgen_extra_stats
     from mupe_tpu_torch.learning import init_carry
-    from mupe_tpu_torch.ops import fps
-    from mupe_tpu_torch.ops import fused_encoder as fe
-    from mupe_tpu_torch.ops import tp_lstm as tl
     from mupe_tpu_torch.utils.checkpoint import load_checkpoint, to_plain
     from mupe_tpu_torch.utils.config import parse_cli
 
@@ -1660,21 +1657,18 @@ def phase_aeg(dev, card: str) -> dict:
     log(f"[5] AEG training: harness.train task=HideAndSeek_envgen, {NUM_ENVS} arenas x {STEPS} "
         f"steps, buffer {AEG_BUFFER}, TP net; cuts: max_episode_length={AEG_EPISODE}, "
         f"use_init_easy_cases with r_min=0")
-    wrappers = {"encoder_pair_forward": fe.encoder_pair_forward,
-                "encoder_forward": fe.encoder_forward, "tp_forward": tl.tp_forward,
-                "encoder_backward": fe.encoder_backward, "weight_grads": fe.weight_grads,
-                "tp_backward": tl.tp_backward,
-                "farthest_point_sampling": fps.farthest_point_sampling}
+    wrappers = Launches("encoder_pair_forward", "encoder_forward", "tp_forward",
+                        "encoder_backward", "weight_grads", "tp_backward",
+                        "farthest_point_sampling")
     with tempfile.TemporaryDirectory() as run_dir:
         argv = [f"env.num_envs={NUM_ENVS}", f"env.max_episode_length={AEG_EPISODE}",
                 f"env.buffer_length={AEG_BUFFER}", "env.use_init_easy_cases=true",
                 "env.r_min=0.0", f"algo.train_every={STEPS}", f"max_iters={iters}",
                 "log_interval=1", "save_interval=-1", f"run_dir={run_dir}", "run_name=aeg",
                 "seed=3"]
-        for fn in wrappers.values():
-            fn.launches = 0
+        wrappers.reset()
         metrics = harness.train(argv, default_task="HideAndSeek_envgen", device=dev)
-        launches = {name: fn.launches for name, fn in wrappers.items()}
+        launches = wrappers.read()
         log(f"  launches over {iters} iterations: {launches}")
         cycles = (iters * STEPS // AEG_EPISODE) // 3
         if launches["farthest_point_sampling"] < 1 or any(v < 1 for v in launches.values()):
@@ -1717,16 +1711,11 @@ def phase_inkernel(dev, card: str, rate4: float) -> dict:
     4's configuration, in each `direct_mode`.  Returns each loss kernel's
     launches over the run of its mode."""
     from mupe_tpu_torch.learning import init_carry, make_train_iter
-    from mupe_tpu_torch.ops import fused_encoder as fe
-    from mupe_tpu_torch.ops import tp_lstm as tl
 
     iters = WARMUP_ITERS + TIMED_ITERS + 1
-    wrappers = {"pair_forward_loss": fe.pair_forward_loss,
-                "pair_forward_loss_agrad": fe.pair_forward_loss_agrad,
-                "encoder_backward": fe.encoder_backward, "weight_grads": fe.weight_grads,
-                "encoder_pair_forward": fe.encoder_pair_forward,
-                "encoder_forward": fe.encoder_forward, "tp_forward": tl.tp_forward,
-                "tp_backward": tl.tp_backward}
+    wrappers = Launches("pair_forward_loss", "pair_forward_loss_agrad", "encoder_backward",
+                        "weight_grads", "encoder_pair_forward", "encoder_forward", "tp_forward",
+                        "tp_backward")
     kernel = {"fwdloss": "pair_forward_loss", "agrad": "pair_forward_loss_agrad"}
     minibatches = 16 * 4
     out = {}
@@ -1736,10 +1725,9 @@ def phase_inkernel(dev, card: str, rate4: float) -> dict:
         env, policy = make_slice(dev, NUM_ENVS, 800, use_inkernel_loss=True, direct_mode=mode)
         carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(4))
         train_iter = make_train_iter(env, policy)
-        for fn in wrappers.values():
-            fn.launches = 0
+        wrappers.reset()
         carry, metrics, ep_stats, seconds, split = run_train_iters(train_iter, carry)
-        launches = {name: fn.launches for name, fn in wrappers.items()}
+        launches = wrappers.read()
         log(f"  launches over {iters} iterations: {launches}")
         want = {kernel[mode]: minibatches * iters, "encoder_backward": minibatches * iters,
                 "encoder_pair_forward": STEPS * iters,
@@ -1773,15 +1761,10 @@ def phase_config_train(dev, card: str, phase: int, label: str, env_kw: dict, mod
     each."""
     from mupe_tpu_torch import harness
     from mupe_tpu_torch.learning import init_carry, make_train_iter
-    from mupe_tpu_torch.ops import fused_encoder as fe
-    from mupe_tpu_torch.ops import tp_lstm as tl
 
-    wrappers = {"encoder_pair_forward": fe.encoder_pair_forward,
-                "encoder_forward": fe.encoder_forward, "tp_forward": tl.tp_forward,
-                "encoder_backward": fe.encoder_backward, "weight_grads": fe.weight_grads,
-                "tp_backward": tl.tp_backward, "tp_weight_grads": tl.tp_weight_grads,
-                "pair_forward_loss": fe.pair_forward_loss,
-                "pair_forward_loss_agrad": fe.pair_forward_loss_agrad}
+    wrappers = Launches("encoder_pair_forward", "encoder_forward", "tp_forward",
+                        "encoder_backward", "weight_grads", "tp_backward", "tp_weight_grads",
+                        "pair_forward_loss", "pair_forward_loss_agrad")
     update = {None: "encoder_pair_forward", "fwdloss": "pair_forward_loss",
               "agrad": "pair_forward_loss_agrad"}
     for mode in modes:
@@ -1798,15 +1781,14 @@ def phase_config_train(dev, card: str, phase: int, label: str, env_kw: dict, mod
             f"{3 * env_cfg.future_prediction_step}")
         carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(5))
         train_iter = make_train_iter(env, policy)
-        for fn in wrappers.values():
-            fn.launches = 0
+        wrappers.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(2):
             carry, metrics, ep_stats = train_iter(carry)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in wrappers.items()}
+        launches = wrappers.read()
         log(f"  launches over 2 iterations: {launches}")
         if (launches["encoder_backward"] < 2 * 64 or launches["tp_backward"] < 2
                 or launches["tp_weight_grads"] != launches["tp_backward"]
@@ -1828,8 +1810,6 @@ def phase_recipe(dev, card: str, run_dir: str) -> Path:
     fractions of the recipe's scene sampler; returns the checkpoint
     directory."""
     from mupe_tpu_torch import harness
-    from mupe_tpu_torch.ops import fps
-    from mupe_tpu_torch.ops import fused_encoder as fe
     from mupe_tpu_torch.utils.config import parse_cli
 
     prof = Path(run_dir) / "prof"
@@ -1840,16 +1820,13 @@ def phase_recipe(dev, card: str, run_dir: str) -> Path:
     log(f"[10] composed recipe: harness.train task=HideAndSeek_envgen {' '.join(RECIPE)}, "
         f"{NUM_ENVS} arenas; cuts: env.max_episode_length={AEG_EPISODE} env.r_min=0.0 "
         f"max_iters={RECIPE_ITERS}; eval_interval=1 guard_nan=true profile_dir")
-    wrappers = {"encoder_pair_forward": fe.encoder_pair_forward,
-                "farthest_point_sampling": fps.farthest_point_sampling}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = Launches("encoder_pair_forward", "farthest_point_sampling")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     metrics = harness.train(argv, default_task="HideAndSeek_envgen", device=dev)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = wrappers.read()
     log(f"  launches over {RECIPE_ITERS} iterations and their evaluation episodes: {launches}")
     if (launches["farthest_point_sampling"] < 1
             or launches["encoder_pair_forward"] < RECIPE_ITERS * (2 * STEPS + AEG_EPISODE)):
@@ -1904,22 +1881,18 @@ def phase_evaluate(dev, card: str, model_dir: Path) -> dict:
     scene.  Returns the first evaluation's launch counts, result, rate and
     argv."""
     from mupe_tpu_torch import harness
-    from mupe_tpu_torch.ops import fused_encoder as fe
-    from mupe_tpu_torch.ops import tp_lstm as tl
     from mupe_tpu_torch.utils.config import parse_cli
 
     argv = [f"env.num_envs={NUM_ENVS}", "env.use_random_cylinder=false", "env.scenario_flag=wall",
             "env.use_eval=true", f"model_dir={model_dir}", "seed=0"]
     log(f"[10] evaluation: harness.evaluate {' '.join(argv[:4])}, {EVAL_EPISODE}-step greedy "
         f"episodes, the recipe's checkpoint")
-    wrappers = {"encoder_pair_forward": fe.encoder_pair_forward, "tp_forward": tl.tp_forward}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = Launches("encoder_pair_forward", "tp_forward")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = harness.evaluate(argv, device=dev)
     seconds = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = wrappers.read()
     log(f"  launches over one evaluation: {launches}")
     if launches != {"encoder_pair_forward": EVAL_EPISODE, "tp_forward": EVAL_EPISODE + 1}:
         raise AssertionError(f"launches {launches}: want one pair forward a step and one TP "
@@ -2499,8 +2472,24 @@ def check_option_update_against_cpu(dev, **algo) -> None:
     hold_update(f"MAPPO {algo}", new, metrics)
 
 
-def _count(wrappers):
-    return {name: fn.launches for name, fn in wrappers.items()}
+class Launches:
+    """Launches of the named kernel wrappers (every wrapper by default)
+    since `reset()`, read from the kernel spans' counts of
+    `mupe_tpu_torch/utils/trace.py`."""
+
+    def __init__(self, *names: str):
+        self.names = names or tuple(KERNEL_SPANS)
+        self.reset()
+
+    def _now(self) -> dict:
+        counts = trace.counts()
+        return {n: sum(counts[s] for s in KERNEL_SPANS[n]) for n in self.names}
+
+    def reset(self) -> None:
+        self.base = self._now()
+
+    def read(self) -> dict:
+        return {n: v - self.base[n] for n, v in self._now().items()}
 
 
 def _train_finite(tag, train_iter, carry, iters):
@@ -2532,20 +2521,15 @@ def phase_options(dev, card: str) -> dict:
     from mupe_tpu_torch import harness
     from mupe_tpu_torch.envs import HideAndSeek, HideAndSeekCfg, tree_to
     from mupe_tpu_torch.learning import init_carry, make_rollout, make_train_iter
-    from mupe_tpu_torch.ops import fused_encoder as fe
-    from mupe_tpu_torch.ops import tp_lstm as tl
 
-    wrappers = {"encoder_forward": fe.encoder_forward,
-                "encoder_pair_forward": fe.encoder_pair_forward,
-                "encoder_backward": fe.encoder_backward, "weight_grads": fe.weight_grads,
-                "tp_forward": tl.tp_forward, "tp_backward": tl.tp_backward}
+    wrappers = Launches("encoder_forward", "encoder_pair_forward", "encoder_backward",
+                        "weight_grads", "tp_forward", "tp_backward")
     log(f"[12] MAPPO share_actor=False: make_train_iter, HideAndSeek {NUM_ENVS} arenas x "
         f"{STEPS} steps, bench.py's MAPPOCfg (TP net on), 1 warm-up + {OPT_TIMED} timed")
     env, policy = make_slice(dev, NUM_ENVS, 800, share_actor=False)
     carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(12))
     train_iter = make_train_iter(env, policy)
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers.reset()
     carry, *_ = train_iter(carry)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2553,7 +2537,7 @@ def phase_options(dev, card: str) -> dict:
         carry, metrics, ep_stats = train_iter(carry)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    per_iter = {k: v / (OPT_TIMED + 1) for k, v in _count(wrappers).items()}
+    per_iter = {k: v / (OPT_TIMED + 1) for k, v in wrappers.read().items()}
     log(f"  launches per iteration: {per_iter}")
     n = 3
     want = {"encoder_forward": STEPS * (n + 1) + 1 + 4 * 16 * (n + 1),
@@ -2617,11 +2601,10 @@ def phase_options(dev, card: str) -> dict:
         if not err <= 3e-2 * scale:
             raise AssertionError(f"state critic act: card and CPU disagree on {what}")
     # train_op on the card over the whole batch (bench.py's minibatches)
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers.reset()
     new_p, m_p = pol_p.train_op(carry_p.ts, traj, carry_p.obs, last_state=carry_p.state)
     torch.cuda.synchronize()
-    took = _count(wrappers)
+    took = wrappers.read()
     log(f"  state critic train_op on the card ({NUM_ENVS} x {STEPS}): launches {took}")
     if took["encoder_forward"] < 1 + 2 * 4 * 16 or took["encoder_backward"] != 2 * 4 * 16:
         raise AssertionError(f"the state critic's update skipped a kernel: {took}")
@@ -2787,14 +2770,6 @@ DEPTH_BIG = (64, 48)                          # DepthCameraCfg's own default siz
 DEPTH_TOL, DEPTH_OVER_SHARE = 1e-5, 1e-4      # frame / metres; share of pixels past it
 RMA_ITERS = 8                                 # phases of 4, 2 and 2 iterations
 BUFFER_L, BUFFER_WINDOWS, BUFFER_SEQ = 128, 4096, 16
-
-
-def _kernel_wrappers() -> dict:
-    """Every kernel wrapper of the port, by name (each counts its launches)."""
-    from mupe_tpu_torch.ops import fps, fused_encoder as fe, tp_lstm as tl
-
-    return {f"{m.__name__.rsplit('.', 1)[-1]}.{n}": getattr(m, n) for m in (fe, tl, fps)
-            for n in dir(m) if callable(getattr(m, n)) and hasattr(getattr(m, n), "launches")}
 
 
 def _vision_train(dev, card: str, kind: str) -> float:
@@ -3070,9 +3045,7 @@ def phase_vision_rma(dev, card: str) -> None:
     the full scene card vs CPU; RMA's three phases through `train` and
     `update_adaptation`'s six losses card vs CPU; the ring buffer.  None of
     these paths launches a kernel of the port: the counts stay 0."""
-    wrappers = _kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = Launches()
     log(f"[13] ppo_vision on Hover's depth camera (32 x 24): {VISION_ENVS} arenas x "
         f"{HOVER_STEPS} steps, {HOVER_MINIBATCHES} minibatches, on {card}")
     for kind in ("conv", "mobilenet_v3_small"):
@@ -3088,10 +3061,10 @@ def phase_vision_rma(dev, card: str) -> None:
         _rma_train(dev, card, run_dir)
     _adaptation_checks(dev)
     _buffer_check(dev, card)
-    launched = {k: v for k, v in _count(wrappers).items() if v}
+    launched = {k: v for k, v in wrappers.read().items() if v}
     if launched:
         raise AssertionError(f"phase 13's paths launched kernels: {launched}")
-    log(f"  phase 13 launched none of the port's {len(wrappers)} kernel wrappers")
+    log(f"  phase 13 launched none of the port's {len(wrappers.names)} kernel wrappers")
 
 
 # phase 14: data parallelism over the arena axis (torch.distributed)
@@ -3200,7 +3173,6 @@ def dp_worker(argv) -> int:
     BACKEND INIT_METHOD OUT_DIR`): "one" runs world size 1, without and
     then with a process group; "two" is one of two ranks sharing the card."""
     from mupe_tpu_torch import harness
-    from mupe_tpu_torch.ops import fps
     from mupe_tpu_torch.parallel import dist
     from mupe_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -3234,10 +3206,9 @@ def dp_worker(argv) -> int:
                               rank=rank)
     note = f"{role} rank {rank}/{world}"
     for mode in DP_MODES:
-        for fn in _kernel_wrappers().values():
-            fn.launches = 0
+        all_kernels = Launches()
         small, learner, carry, iteration, seconds = _dp_iteration(dev, mode, note)
-        report[f"launches_{mode}"] = {k: v for k, v in _count(_kernel_wrappers()).items() if v}
+        report[f"launches_{mode}"] = {k: v for k, v in all_kernels.read().items() if v}
         if role == "two":
             _dp_same_on_ranks(f"{note} learner, mode {mode}", learner)
         torch.save({"traj": small, "learner": learner}, out / f"{role}_{rank}_{mode}.pt")
@@ -3252,7 +3223,7 @@ def dp_worker(argv) -> int:
                 torch.tensor([report["iteration_s"]], dtype=torch.float64)).tolist()
     if role == "two":
         # check 3: AEG through one closed cycle (phase 5's cuts), each rank its arenas
-        fps.farthest_point_sampling.launches = 0
+        fps_launches = Launches("farthest_point_sampling")
         algo = {"train_every": STEPS}
         env_kw = {"num_envs": NUM_ENVS, "max_episode_length": AEG_EPISODE,
                   "buffer_length": AEG_BUFFER, "use_init_easy_cases": True, "r_min": 0.0}
@@ -3262,9 +3233,9 @@ def dp_worker(argv) -> int:
         carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(DP_SEED))
         carry, metrics, ep = make_train_iter(env, policy)(carry)
         gb = carry.env_state.gen
-        report["aeg_fps_launches"] = fps.farthest_point_sampling.launches
+        report["aeg_fps_launches"] = fps_launches.read()["farthest_point_sampling"]
         report["aeg_history_len"] = int(gb.history_len)
-        if fps.farthest_point_sampling.launches < 1 or int(gb.history_len) != AEG_BUFFER:
+        if report["aeg_fps_launches"] < 1 or int(gb.history_len) != AEG_BUFFER:
             raise AssertionError(f"{note}: AEG closed no cycle on the FPS path "
                                  f"({report['aeg_fps_launches']} launches)")
         _dp_same_on_ranks(f"{note} GenBuffer", {f.name: getattr(gb, f.name).cpu() for f in
@@ -3523,9 +3494,7 @@ def _fam_worker(role: str, rank: int, world: int, backend: str, init_method: str
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     report = {"role": role, "rank": rank, "launches": {}, "seconds": {}}
-    wrappers = _kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = Launches()
     if role == "fam1":
         # without a group, then with an NCCL group of one
         learners = {}
@@ -3564,7 +3533,7 @@ def _fam_worker(role: str, rank: int, world: int, backend: str, init_method: str
         if role == "fam2":
             _dp_same_on_ranks(f"{role} rank {rank} {case} learner", learner)
         torch.save({"traj": small, "learner": learner}, out / f"{role}_{rank}_{case}.pt")
-    report["launches"] = {k: v for k, v in _count(wrappers).items() if v}
+    report["launches"] = {k: v for k, v in wrappers.read().items() if v}
     (out / f"report_{role}_{rank}.json").write_text(json.dumps(report))
     dist.destroy()
     return 0
@@ -4019,23 +3988,19 @@ def _video_full_width(dev, card: str, first: dict, tmp: Path) -> None:
     frames the renderer draws from the collected arrays.  Prints the
     rates, the copy, render and encode times and the GIF's size."""
     from mupe_tpu_torch import harness
-    from mupe_tpu_torch.ops import fused_encoder as fe
-    from mupe_tpu_torch.ops import tp_lstm as tl
     from mupe_tpu_torch.utils import render
 
     path = tmp / "ev.gif"
     argv = first["argv"] + [f"video={path}", f"video_env_index={VIDEO_ARENA}"]
     log(f"[16] evaluation with a video: phase 10's harness.evaluate (wall, use_eval, {NUM_ENVS} "
         f"x {EVAL_EPISODE}) + video=ev.gif video_env_index={VIDEO_ARENA}")
-    wrappers = {"encoder_pair_forward": fe.encoder_pair_forward, "tp_forward": tl.tp_forward}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = Launches("encoder_pair_forward", "tp_forward")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with _Recorder() as rec:
         result = harness.evaluate(argv, device=dev)
     seconds = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = wrappers.read()
     if result != first["result"]:
         diff = {k: (v, first["result"].get(k)) for k, v in result.items()
                 if v != first["result"].get(k)}

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
+
 
 def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Hamilton product of two (..., 4) wxyz quaternions."""
@@ -54,7 +56,8 @@ def quat_rotate_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def quat_axis(q: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """The world-frame direction of a body basis axis (0=x/heading, 2=z/up)."""
     basis = torch.zeros(3, dtype=q.dtype, device=q.device)
-    basis[axis] = 1.0
+    with trace.span("sync.quat_axis"):  # the 1.0 is copied from the host
+        basis[axis] = 1.0
     return quat_rotate(q, basis.expand(q.shape[:-1] + (3,)))
 
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..ops.fps import farthest_point_sampling
+from ..utils import trace
 from .placement import Grid, continuous_to_grid, feasible_layout, outside_circle_mask
 
 
@@ -111,8 +112,8 @@ def nearby_from_draws(
     hi_dt = np.tile([bxy, bxy, max_height + 0.1], num_agents + 1)
     lo_c = np.tile([-cylinder_boundary, -cylinder_boundary, -20.0], num_cylinders)
     hi_c = np.tile([cylinder_boundary, cylinder_boundary, max_height / 2], num_cylinders)
-    lo = torch.as_tensor(np.concatenate([lo_dt, lo_c]), dtype=dt, device=dev)
-    hi = torch.as_tensor(np.concatenate([hi_dt, hi_c]), dtype=dt, device=dev)
+    lo = trace.to_device(np.concatenate([lo_dt, lo_c]), dev, dt, "nearby_bounds")
+    hi = trace.to_device(np.concatenate([hi_dt, hi_c]), dev, dt, "nearby_bounds")
 
     dt_part = dt_noise.to(dt) * expand_step
     cyl_xy = cyl_steps.to(dt) * grid.grid_size
@@ -195,8 +196,10 @@ def update_history(
     pool_valid = torch.cat([torch.arange(cap, device=dev) < gb.history_len, keep])
     total = gb.history_len + num_added
 
-    if int(total) > cap:
-        inf = torch.tensor(float("inf"), dtype=pool.dtype, device=dev)
+    with trace.span("sync.history_len"):
+        overflow = int(total) > cap
+    if overflow:
+        inf = trace.to_device(float("inf"), dev, pool.dtype, "history_inf")
         lo = torch.amin(torch.where(pool_valid[:, None], pool, inf), dim=0)
         hi = torch.amax(torch.where(pool_valid[:, None], pool, -inf), dim=0)
         norm = (pool - lo) / (hi - lo + eps)

@@ -28,6 +28,7 @@ from ..dynamics import step as dynamics_step
 from ..learning.tp_net import denormalize_predictions, normalize_groundtruth
 from ..parallel import dist
 from ..transforms.ctbr import hover_prev_action_init, pid_rate_transform
+from ..utils import trace
 from .base import Transition, register_env, where_done
 from .geometry import k_nearest_cylinders, line_blocked_by_cylinder
 from .placement import (
@@ -249,8 +250,8 @@ class HideAndSeek:
     def _uniform(self, gen, shape, lo, hi) -> torch.Tensor:
         """U(lo, hi) of `shape`; every uniform draw of the scene goes through
         here (tests inject the JAX package's draws by replacing it)."""
-        lo = torch.as_tensor(lo, dtype=torch.float32, device=self.device)
-        hi = torch.as_tensor(hi, dtype=torch.float32, device=self.device)
+        lo = trace.to_device(lo, self.device, torch.float32, "uniform_bounds")
+        hi = trace.to_device(hi, self.device, torch.float32, "uniform_bounds")
         u = self.shard.draw(lambda s: torch.rand(s, generator=gen, device=self.device), shape)
         return lo + (hi - lo) * u
 
@@ -495,7 +496,8 @@ class HideAndSeek:
         d = state.drone
         sv = d.state_vector()  # [E, n, 23]
         rel = d.pos[:, :, None, :] - d.pos[:, None, :, :]   # p_i − p_j
-        drone_rpos = rel[:, self._offdiag].reshape(e, n, n - 1, 3)
+        with trace.span("sync.offdiag_mask"):  # a boolean mask's count, read on the host
+            drone_rpos = rel[:, self._offdiag].reshape(e, n, n - 1, 3)
         cyl_masked, _, _ = k_nearest_cylinders(
             d.pos, state.cylinders, cfg.cylinder_size, cfg.max_height,
             cfg.obs_max_cylinder, cfg.mask_value,
@@ -575,129 +577,142 @@ class HideAndSeek:
         params = self.params
         dev = self.device
 
-        # action transform + stats bookkeeping
-        res = pid_rate_transform(params, state.drone, action, state.prev_action, state.pid, cfg.dt)
-        st = dict(state.stats)
-        ae_mean = torch.mean(res.action_error, dim=-1, keepdim=True)
-        st["action_error_order1_mean"] = st["action_error_order1_mean"] + ae_mean
-        st["action_error_order1_max"] = torch.maximum(st["action_error_order1_max"], ae_mean)
+        with trace.span("env.action"):
+            # action transform + stats bookkeeping
+            res = pid_rate_transform(params, state.drone, action, state.prev_action, state.pid,
+                                     cfg.dt)
+            st = dict(state.stats)
+            ae_mean = torch.mean(res.action_error, dim=-1, keepdim=True)
+            st["action_error_order1_mean"] = st["action_error_order1_mean"] + ae_mean
+            st["action_error_order1_max"] = torch.maximum(st["action_error_order1_max"], ae_mean)
 
-        # evader velocity from the potential field
-        force = prey_force(
-            state.drone.pos, state.target_pos, state.cylinders, cfg.cylinder_size,
-            cfg.arena_size, cfg.max_height, cfg.target_detect_radius,
-        )
-        t_vel = prey_velocity(force, state.v_prey, componentwise=cfg.prey_componentwise_norm)
-
-        # physics: drones (with downwash) + kinematic evader
-        drone, throttle_diff = dynamics_step(
-            params, state.drone, res.rotor_cmds, cfg.dt, self.rigid_cfg, enable_downwash=True
-        )
-        target_pos = state.target_pos + cfg.dt * t_vel
-        progress = state.progress + 1
-        mid = dataclasses.replace(
-            state, drone=drone, pid=res.pid_state, prev_action=res.ctbr_action,
-            target_pos=target_pos, target_vel=t_vel, progress=progress, stats=st,
-        )
-
-        blocked, broadcast_detect, target_rpos = self._detection(mid)
-        target_dist = torch.linalg.vector_norm(target_pos - drone.pos, dim=-1)  # [E, n]
-
-        # reward (hideandseek.py:919-1006)
-        active_dist = (target_dist > cfg.catch_radius).float()
-        distance_reward = -cfg.dist_reward_coef * target_dist * active_dist
-        st["distance_reward"] = st["distance_reward"] + distance_reward.mean(-1, keepdim=True)
-
-        if cfg.use_tp_net and tp_net is not None:
-            tp_valid = (state.progress > 0)[:, None].float()
-            err1 = torch.linalg.vector_norm(
-                state.tp_pred[:, 0] - target_pos[:, 0], dim=-1, keepdim=True
+        with trace.span("env.prey"):
+            # evader velocity from the potential field
+            force = prey_force(
+                state.drone.pos, state.target_pos, state.cylinders, cfg.cylinder_size,
+                cfg.arena_size, cfg.max_height, cfg.target_detect_radius,
             )
-            st["target_predicted_error"] = st["target_predicted_error"] + tp_valid * err1
-            dist_pred = torch.linalg.vector_norm(drone.pos - state.tp_pred[:, None, 0, :], dim=-1)
-            st["distance_predicted_reward"] = st["distance_predicted_reward"] + tp_valid * (
-                -cfg.dist_reward_coef * dist_pred.mean(-1, keepdim=True)
+            t_vel = prey_velocity(force, state.v_prey, componentwise=cfg.prey_componentwise_norm)
+
+        with trace.span("env.dynamics"):
+            # physics: drones (with downwash) + kinematic evader
+            drone, throttle_diff = dynamics_step(
+                params, state.drone, res.rotor_cmds, cfg.dt, self.rigid_cfg, enable_downwash=True
+            )
+            target_pos = state.target_pos + cfg.dt * t_vel
+            progress = state.progress + 1
+            mid = dataclasses.replace(
+                state, drone=drone, pid=res.pid_state, prev_action=res.ctbr_action,
+                target_pos=target_pos, target_vel=t_vel, progress=progress, stats=st,
             )
 
-        detect_b = broadcast_detect.expand(e, n)
-        detect_reward = cfg.detect_reward_coef * detect_b.float()
-        st["sum_detect_step"] = st["sum_detect_step"] + torch.any(detect_b, dim=1, keepdim=True)
-        st["detect_reward"] = st["detect_reward"] + detect_reward.mean(-1, keepdim=True)
+        with trace.span("env.detect"):
+            blocked, broadcast_detect, target_rpos = self._detection(mid)
+            target_dist = torch.linalg.vector_norm(target_pos - drone.pos, dim=-1)  # [E, n]
 
-        capture = target_dist < cfg.catch_radius
-        broadcast_capture = torch.any(capture & (~blocked), dim=-1, keepdim=True)
-        catch_reward = cfg.catch_reward_coef * broadcast_capture.expand(e, n).float()
-        capture_flag = torch.any(catch_reward > 0, dim=1, keepdim=True)
-        st["blocked"] = st["blocked"] + torch.all(blocked, dim=-1, keepdim=True)
-        st["success"] = torch.logical_or(capture_flag, st["success"].bool()).float()
-        current_capture_step = torch.where(
-            capture_flag[..., 0], progress.float(),
-            torch.full_like(progress, cfg.max_episode_length, dtype=torch.float32),
-        )[:, None]
-        st["first_capture_step"] = torch.minimum(st["first_capture_step"], current_capture_step)
-        st["catch_reward"] = st["catch_reward"] + catch_reward.mean(-1, keepdim=True)
+        with trace.span("env.reward"):
+            # reward (hideandseek.py:919-1006)
+            active_dist = (target_dist > cfg.catch_radius).float()
+            distance_reward = -cfg.dist_reward_coef * target_dist * active_dist
+            st["distance_reward"] = st["distance_reward"] + distance_reward.mean(-1, keepdim=True)
 
-        speed = torch.linalg.vector_norm(drone.vel, dim=-1)
-        speed_reward = -cfg.speed_coef * (speed > cfg.v_drone).float()
-        st["speed_reward"] = st["speed_reward"] + speed_reward.mean(-1, keepdim=True)
+            if cfg.use_tp_net and tp_net is not None:
+                tp_valid = (state.progress > 0)[:, None].float()
+                err1 = torch.linalg.vector_norm(
+                    state.tp_pred[:, 0] - target_pos[:, 0], dim=-1, keepdim=True
+                )
+                st["target_predicted_error"] = st["target_predicted_error"] + tp_valid * err1
+                dist_pred = torch.linalg.vector_norm(drone.pos - state.tp_pred[:, None, 0, :],
+                                                     dim=-1)
+                st["distance_predicted_reward"] = st["distance_predicted_reward"] + tp_valid * (
+                    -cfg.dist_reward_coef * dist_pred.mean(-1, keepdim=True)
+                )
 
-        # collisions: cylinders (XY), other drones, wall
-        cyl_rpos_xy = mid.cylinders[:, None, :, :2] - drone.pos[:, :, None, :2]
-        cyl_xy_dist = torch.linalg.vector_norm(cyl_rpos_xy, dim=-1)          # [E, n, C]
-        cyl_active = (mid.cylinders[..., 2] >= 0.0)[:, None, :]
-        coll_cyl = ((cyl_xy_dist - cfg.cylinder_size < cfg.collision_radius)
-                    & cyl_active).float().sum(-1)
-        collision_reward = -cfg.collision_coef * coll_cyl
-        st["collision_cylinder"] = st["collision_cylinder"] + coll_cyl.mean(-1, keepdim=True)
-        rel = drone.pos[:, :, None, :] - drone.pos[:, None, :, :]
-        ddist = torch.linalg.vector_norm(rel, dim=-1) + torch.eye(n, device=dev) * 1e6
-        coll_drone = (ddist < 2.0 * cfg.collision_radius).float().sum(-1)
-        collision_reward = collision_reward - cfg.collision_coef * coll_drone
-        st["collision_drone"] = st["collision_drone"] + coll_drone.mean(-1, keepdim=True)
-        coll_wall = (drone.pos[..., 2] > cfg.max_height).float() + (
-            torch.square(drone.pos[..., 0]) + torch.square(drone.pos[..., 1]) > cfg.arena_size**2
-        ).float()
-        collision_reward = collision_reward - cfg.collision_coef * coll_wall
-        collision_flag = torch.any(collision_reward < 0, dim=1, keepdim=True)
-        st["collision"] = st["collision"] + collision_flag
-        st["collision_wall"] = st["collision_wall"] + coll_wall.mean(-1, keepdim=True)
-        st["collision_reward"] = st["collision_reward"] + collision_reward.mean(-1, keepdim=True)
+            detect_b = broadcast_detect.expand(e, n)
+            detect_reward = cfg.detect_reward_coef * detect_b.float()
+            st["sum_detect_step"] = st["sum_detect_step"] + torch.any(detect_b, dim=1, keepdim=True)
+            st["detect_reward"] = st["detect_reward"] + detect_reward.mean(-1, keepdim=True)
 
-        # smoothness (deploy stage)
-        smoothness_coef = torch.clamp(
-            cfg.init_smoothness_coef + cfg.smooth_lr * state.update_epoch,
-            max=cfg.max_smoothness_coef,
-        )
-        st["smoothness_coef"] = smoothness_coef.expand(e, 1) * torch.ones_like(st["smoothness_coef"])
-        smoothness_reward = smoothness_coef * torch.exp(-res.action_error)
-        if not cfg.use_deployment:
-            smoothness_reward = torch.zeros_like(smoothness_reward)
-        st["smoothness_reward"] = st["smoothness_reward"] + smoothness_reward.mean(-1, keepdim=True)
-        st["smoothness_mean"] = st["smoothness_mean"] + throttle_diff.mean(-1, keepdim=True)
-        st["smoothness_max"] = torch.maximum(
-            st["smoothness_max"], throttle_diff.max(-1, keepdim=True).values
-        )
+            capture = target_dist < cfg.catch_radius
+            broadcast_capture = torch.any(capture & (~blocked), dim=-1, keepdim=True)
+            catch_reward = cfg.catch_reward_coef * broadcast_capture.expand(e, n).float()
+            capture_flag = torch.any(catch_reward > 0, dim=1, keepdim=True)
+            st["blocked"] = st["blocked"] + torch.all(blocked, dim=-1, keepdim=True)
+            st["success"] = torch.logical_or(capture_flag, st["success"].bool()).float()
+            current_capture_step = torch.where(
+                capture_flag[..., 0], progress.float(),
+                torch.full_like(progress, cfg.max_episode_length, dtype=torch.float32),
+            )[:, None]
+            st["first_capture_step"] = torch.minimum(st["first_capture_step"], current_capture_step)
+            st["catch_reward"] = st["catch_reward"] + catch_reward.mean(-1, keepdim=True)
 
-        reward = (distance_reward + detect_reward + catch_reward + collision_reward
-                  + speed_reward + smoothness_reward)  # [E, n]
-        st["return"] = st["return"] + reward.mean(-1, keepdim=True)
+            speed = torch.linalg.vector_norm(drone.vel, dim=-1)
+            speed_reward = -cfg.speed_coef * (speed > cfg.v_drone).float()
+            st["speed_reward"] = st["speed_reward"] + speed_reward.mean(-1, keepdim=True)
 
-        done_env = progress >= cfg.max_episode_length
-        done = done_env[:, None]
+            # collisions: cylinders (XY), other drones, wall
+            cyl_rpos_xy = mid.cylinders[:, None, :, :2] - drone.pos[:, :, None, :2]
+            cyl_xy_dist = torch.linalg.vector_norm(cyl_rpos_xy, dim=-1)          # [E, n, C]
+            cyl_active = (mid.cylinders[..., 2] >= 0.0)[:, None, :]
+            coll_cyl = ((cyl_xy_dist - cfg.cylinder_size < cfg.collision_radius)
+                        & cyl_active).float().sum(-1)
+            collision_reward = -cfg.collision_coef * coll_cyl
+            st["collision_cylinder"] = st["collision_cylinder"] + coll_cyl.mean(-1, keepdim=True)
+            rel = drone.pos[:, :, None, :] - drone.pos[:, None, :, :]
+            ddist = torch.linalg.vector_norm(rel, dim=-1) + torch.eye(n, device=dev) * 1e6
+            coll_drone = (ddist < 2.0 * cfg.collision_radius).float().sum(-1)
+            collision_reward = collision_reward - cfg.collision_coef * coll_drone
+            st["collision_drone"] = st["collision_drone"] + coll_drone.mean(-1, keepdim=True)
+            coll_wall = (drone.pos[..., 2] > cfg.max_height).float() + (
+                torch.square(drone.pos[..., 0]) + torch.square(drone.pos[..., 1])
+                > cfg.arena_size**2
+            ).float()
+            collision_reward = collision_reward - cfg.collision_coef * coll_wall
+            collision_flag = torch.any(collision_reward < 0, dim=1, keepdim=True)
+            st["collision"] = st["collision"] + collision_flag
+            st["collision_wall"] = st["collision_wall"] + coll_wall.mean(-1, keepdim=True)
+            st["collision_reward"] = (st["collision_reward"]
+                                      + collision_reward.mean(-1, keepdim=True))
 
-        out = torch.square(target_pos[..., 0]) + torch.square(target_pos[..., 1]) > cfg.arena_size**2
-        st["out_of_arena"] = torch.logical_or(st["out_of_arena"].bool(), out).float()
+            # smoothness (deploy stage)
+            smoothness_coef = torch.clamp(
+                cfg.init_smoothness_coef + cfg.smooth_lr * state.update_epoch,
+                max=cfg.max_smoothness_coef,
+            )
+            st["smoothness_coef"] = (smoothness_coef.expand(e, 1)
+                                     * torch.ones_like(st["smoothness_coef"]))
+            smoothness_reward = smoothness_coef * torch.exp(-res.action_error)
+            if not cfg.use_deployment:
+                smoothness_reward = torch.zeros_like(smoothness_reward)
+            st["smoothness_reward"] = (st["smoothness_reward"]
+                                       + smoothness_reward.mean(-1, keepdim=True))
+            st["smoothness_mean"] = st["smoothness_mean"] + throttle_diff.mean(-1, keepdim=True)
+            st["smoothness_max"] = torch.maximum(
+                st["smoothness_max"], throttle_diff.max(-1, keepdim=True).values
+            )
 
-        # per-episode normalization at done
-        ep_len = torch.clamp(progress.float(), min=1.0)[:, None]
-        div = torch.where(done, ep_len, torch.ones_like(ep_len))
-        for k in _EP_NORMALIZED:
-            st[k] = st[k] / div
+            reward = (distance_reward + detect_reward + catch_reward + collision_reward
+                      + speed_reward + smoothness_reward)  # [E, n]
+            st["return"] = st["return"] + reward.mean(-1, keepdim=True)
 
-        # TP bookkeeping: append the new frame to the history window
-        mid = dataclasses.replace(mid, stats=st)
-        frame = self._tp_frame(mid, broadcast_detect)
-        mid.history = torch.cat([state.history[:, 1:], frame[:, None, :]], dim=1)
+            done_env = progress >= cfg.max_episode_length
+            done = done_env[:, None]
+
+            out = (torch.square(target_pos[..., 0]) + torch.square(target_pos[..., 1])
+                   > cfg.arena_size**2)
+            st["out_of_arena"] = torch.logical_or(st["out_of_arena"].bool(), out).float()
+
+            # per-episode normalization at done
+            ep_len = torch.clamp(progress.float(), min=1.0)[:, None]
+            div = torch.where(done, ep_len, torch.ones_like(ep_len))
+            for k in _EP_NORMALIZED:
+                st[k] = st[k] / div
+
+        with trace.span("env.tp_frame"):
+            # TP bookkeeping: append the new frame to the history window
+            mid = dataclasses.replace(mid, stats=st)
+            frame = self._tp_frame(mid, broadcast_detect)
+            mid.history = torch.cat([state.history[:, 1:], frame[:, None, :]], dim=1)
 
         # auto-reset.  Episodes are synchronized, so a reset happens once per
         # max_episode_length steps; the gate reads done_env on the host
@@ -705,37 +720,42 @@ class HideAndSeek:
         # rank's arenas, so all draw the fresh scene together) and skips
         # the scene resample otherwise.
         if dist.any_across(done_env):
-            # evader speed curriculum: the mean success over every arena
-            mean_success = dist.global_sum(st["success"]) / self.shard.total
-            mid.v_prey = torch.where(mean_success >= 0.98,
-                                     torch.clamp(state.v_prey + 0.05, max=1.3), state.v_prey)
-            new_state = self._auto_reset(mid, st, done_env, gen)
-            detection = self._detection(new_state)
+            with trace.span("env.reset"):
+                # evader speed curriculum: the mean success over every arena
+                mean_success = dist.global_sum(st["success"]) / self.shard.total
+                mid.v_prey = torch.where(mean_success >= 0.98,
+                                         torch.clamp(state.v_prey + 0.05, max=1.3), state.v_prey)
+                new_state = self._auto_reset(mid, st, done_env, gen)
+                detection = self._detection(new_state)
         else:
             new_state = mid
             detection = (blocked, broadcast_detect, target_rpos)
 
         pred = None
         if cfg.use_tp_net and tp_net is not None:
-            pred = self._tp_predict(tp_net, new_state.history)
+            with trace.span("env.tp_predict"):
+                pred = self._tp_predict(tp_net, new_state.history)
             new_state.tp_pred = pred
-        obs, critic_state = self.observe_full(new_state, tp_net, detection=detection, pred=pred)
-        tp_gt = normalize_groundtruth(new_state.target_pos[:, 0], cfg.arena_size, cfg.max_height)
-        tp_done = (new_state.progress <= cfg.max_episode_length - cfg.future_prediction_step)[:, None]
-        info = {
-            "drone_state": drone.state_vector()[..., :13],
-            "ctbr": res.ctbr,
-            "prev_action": new_state.prev_action,
-            "state": critic_state,
-            "tp_input": new_state.history,
-            "tp_gt": tp_gt,
-            "tp_done": tp_done.float(),
-            "target_pos": target_pos,
-            "cylinders": state.cylinders,
-            "capture": capture_flag.float(),
-            "tp_pred": pred if pred is not None
-            else torch.zeros((e, cfg.future_prediction_step, 3), device=dev),
-        }
+        with trace.span("env.observe"):
+            obs, critic_state = self.observe_full(new_state, tp_net, detection=detection, pred=pred)
+            tp_gt = normalize_groundtruth(new_state.target_pos[:, 0], cfg.arena_size,
+                                          cfg.max_height)
+            tp_done = (new_state.progress
+                       <= cfg.max_episode_length - cfg.future_prediction_step)[:, None]
+            info = {
+                "drone_state": drone.state_vector()[..., :13],
+                "ctbr": res.ctbr,
+                "prev_action": new_state.prev_action,
+                "state": critic_state,
+                "tp_input": new_state.history,
+                "tp_gt": tp_gt,
+                "tp_done": tp_done.float(),
+                "target_pos": target_pos,
+                "cylinders": state.cylinders,
+                "capture": capture_flag.float(),
+                "tp_pred": pred if pred is not None
+                else torch.zeros((e, cfg.future_prediction_step, 3), device=dev),
+            }
         return new_state, Transition(
             obs=obs,
             reward=reward[..., None].expand(e, n, 1),

@@ -32,6 +32,7 @@ import torch
 
 from ..native import generate_easy_tasks
 from ..parallel import dist
+from ..utils import trace
 from .base import register_env
 from .genbuffer import GenBufferState, insert_weights, sample_nearby, update_history
 from .hideandseek import HideAndSeek, HideAndSeekCfg, HideAndSeekState
@@ -212,7 +213,8 @@ class HideAndSeekEnvgen(HideAndSeek):
                 torch.ones_like(gb.ratio_unif), gb.ratio_unif))
             gb = insert_weights(gb, success)
             gb = dataclasses.replace(gb, update_iter=gb.update_iter + 1)
-        update_iter = int(gb.update_iter)
+        with trace.span("sync.aeg_update_iter"):
+            update_iter = int(gb.update_iter)
 
         # close the eval cycle: filter into the history (+ FPS)
         cycle_done = any_done and update_iter >= cfg.eval_iter

@@ -32,6 +32,7 @@ from ..parallel import dist
 from ..transforms.ctbr import hover_prev_action_init, pid_rate_transform
 from ..sensors.depth import DepthCameraCfg, depth_image, pinhole_rays
 from ..transforms.obs import depth_image_norm, history_init, history_push
+from ..utils import trace
 from .base import Transition, register_env, where_done
 
 
@@ -417,7 +418,8 @@ class Hover:
         # fresh state is drawn only on the (synchronized) reset step, and
         # with ranks on the flag of every rank's arenas (all draw alike).
         if dist.any_across(done_env):
-            new_state = self._auto_reset(new_state, done_env, gen)
+            with trace.span("env.reset"):
+                new_state = self._auto_reset(new_state, done_env, gen)
 
         inst_obs = self._observe_now(new_state)
         if cfg.obs_noise:  # multiplicative, before the latency ring (hover.py:423-428)

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.dist import EnvShard
+from ..utils import trace
 
 
 class Grid(NamedTuple):
@@ -45,7 +46,7 @@ def _outside_circle_np(num_grid: int) -> np.ndarray:
 
 def outside_circle_mask(num_grid: int, device=None) -> torch.Tensor:
     """Cells at distance ≥ n//2 from the centre are outside the arena."""
-    return torch.as_tensor(_outside_circle_np(num_grid), device=device)
+    return trace.to_device(_outside_circle_np(num_grid), device, site="outside_circle")
 
 
 def continuous_to_grid(coords: torch.Tensor, grid: Grid) -> torch.Tensor:

@@ -54,9 +54,10 @@ from .learning.registry import is_recurrent, make_policy
 from .learning.rollout import (init_rnn_carry, make_rnn_train_iter, make_rollout,
                                obs_template)
 from .parallel import dist
+from .utils import trace
 from .utils.checkpoint import load_checkpoint, save_checkpoint
 from .utils.config import RunCfg, apply_overrides, parse_cli
-from .utils.debug import guard_train_iter, profile_trace
+from .utils.debug import guard_train_iter
 from .utils.logging import RunLogger, config_dict
 from .utils.render import episode_video
 
@@ -195,7 +196,7 @@ def _train(argv, default_task, deploy_stage, device) -> Dict[str, float]:
     for i in range(num_iters):
         if run_cfg.profile_dir and is_main:
             if i == 1:
-                prof.enter_context(profile_trace(run_cfg.profile_dir))
+                prof.enter_context(trace.profile_trace(run_cfg.profile_dir))
             elif i == 4:
                 prof.close()
         if deploy_stage:
@@ -441,32 +442,35 @@ def _greedy_episode(env, policy, ts, env_state, obs, gen: torch.Generator, state
         is_init = torch.ones(obs.shape[:-1] + (1,), dtype=torch.bool, device=obs.device)
     keys, sums, n_done, capture, frames = None, 0.0, 0.0, [], None
     length = env.cfg.max_episode_length
-    for t in range(length):
-        if recurrent:
-            action, _, _, a_rnn, c_rnn = policy.act(ts, obs, a_rnn, c_rnn, is_init,
-                                                    deterministic=True)
-        else:
-            action, _, _ = policy.act(ts, obs, deterministic=True, **state_kw)
-        env_state, tr = env.step(env_state, action, gen, *step_args)
-        if recurrent:
-            is_init = tr.done[:, :, None].expand(is_init.shape).to(torch.bool)
-        if state_kw:
-            state_kw["state"] = tr.info.get("state")
-        done = tr.done.float()                                      # [E, 1]
-        keys = keys or list(tr.stats)  # one order for every step
-        stats = torch.cat([tr.stats[k] for k in keys], dim=1)       # [E, K]
-        sums = sums + torch.sum(stats * done, dim=0)
-        n_done = n_done + torch.sum(done)
-        if "first_capture_step" in tr.stats:
-            capture.append(torch.where(tr.done, tr.stats["first_capture_step"], math.nan)[:, 0])
-        if video_index is not None:
-            frame = {"drone_pos": tr.info["drone_state"][video_index, :, :3],
-                     **{k: tr.info[k][video_index] for k in RENDER_KEYS if k in tr.info}}
-            if frames is None:
-                frames = {k: v.new_empty((length,) + v.shape) for k, v in frame.items()}
-            for k, v in frame.items():
-                frames[k][t] = v
-        obs = tr.obs
+    with trace.span("eval.episode"):
+        for t in range(length):
+            with trace.span("policy.act"):
+                if recurrent:
+                    action, _, _, a_rnn, c_rnn = policy.act(ts, obs, a_rnn, c_rnn, is_init,
+                                                            deterministic=True)
+                else:
+                    action, _, _ = policy.act(ts, obs, deterministic=True, **state_kw)
+            with trace.span("env.step"):
+                env_state, tr = env.step(env_state, action, gen, *step_args)
+            if recurrent:
+                is_init = tr.done[:, :, None].expand(is_init.shape).to(torch.bool)
+            if state_kw:
+                state_kw["state"] = tr.info.get("state")
+            done = tr.done.float()                                      # [E, 1]
+            keys = keys or list(tr.stats)  # one order for every step
+            stats = torch.cat([tr.stats[k] for k in keys], dim=1)       # [E, K]
+            sums = sums + torch.sum(stats * done, dim=0)
+            n_done = n_done + torch.sum(done)
+            if "first_capture_step" in tr.stats:
+                capture.append(torch.where(tr.done, tr.stats["first_capture_step"], math.nan)[:, 0])
+            if video_index is not None:
+                frame = {"drone_pos": tr.info["drone_state"][video_index, :, :3],
+                         **{k: tr.info[k][video_index] for k in RENDER_KEYS if k in tr.info}}
+                if frames is None:
+                    frames = {k: v.new_empty((length,) + v.shape) for k, v in frame.items()}
+                for k, v in frame.items():
+                    frames[k][t] = v
+            obs = tr.obs
     return keys, sums, n_done, torch.stack(capture) if capture else None, frames
 
 

@@ -71,6 +71,7 @@ from ..ops.fused_encoder import (
     split_flat,
 )
 from ..parallel import dist
+from ..utils import trace
 from .modules.distributions import Gaussian
 from .modules.networks import (
     FlatHeadNet,
@@ -382,8 +383,9 @@ def local_minibatches(mb_idx: torch.Tensor, e_local: int, shard) -> List[torch.T
     env = mb_idx % shard.total
     own = (env >= shard.offset) & (env < shard.offset + shard.size)
     local = (mb_idx // shard.total) * e_local + (env - shard.offset)
-    counts = torch.sum(own, dim=1).tolist()
-    return list(torch.split(local[own], counts))
+    with trace.span("sync.minibatch_counts"):
+        counts = torch.sum(own, dim=1).tolist()
+        return list(torch.split(local[own], counts))
 
 
 class MAPPOPolicy:
@@ -644,7 +646,7 @@ class MAPPOPolicy:
         cfg = self.cfg
         t_len, e, n_ag = traj["reward"].shape[:3]
         e_total = e if shard is None else shard.total
-        with torch.no_grad():
+        with torch.no_grad(), trace.span("update.prep"):
             next_value = self.value_op(ts, last_obs, last_state)
             values = ts.value_norm.denormalize(traj["value"].reshape(t_len, e * n_ag))
             next_value = ts.value_norm.denormalize(next_value.reshape(e * n_ag))
@@ -690,41 +692,45 @@ class MAPPOPolicy:
         metrics: Dict[str, torch.Tensor] = {"advantages_mean": adv_mean,
                                             "advantages_std": adv_std}
         if ts.tp_net is not None and "tp_input" in traj:
-            metrics.update(self._update_tp(ts, traj))
+            with trace.span("update.tp"):
+                metrics.update(self._update_tp(ts, traj))
         mark("tp")
 
-        b = t_len * e_total
-        mb_size = b // cfg.num_minibatches
-        dev = advantages.device
-        stop = (torch.zeros((), dtype=torch.bool, device=dev)
-                if cfg.target_kl is not None else None)
-        infos: Dict[str, List[torch.Tensor]] = {}
-        for epoch in range(cfg.ppo_epochs):
-            if perms is not None:
-                perm = perms[epoch].to(dev)
-            else:
-                perm = torch.randperm(b, generator=generator, device=dev)
-            mb_idx = perm[: mb_size * cfg.num_minibatches].reshape(cfg.num_minibatches, mb_size)
-            for idx in local_minibatches(mb_idx, e, shard):
-                info = update(ts, minibatch(idx), stop, mb_rows=mb_size)
-                if stop is not None:
-                    stop = torch.logical_or(stop, info["approx_kl"] > cfg.target_kl)
-                    info["kl_stop"] = stop.to(torch.float32)
-                for k, v in info.items():
-                    infos.setdefault(k, []).append(v)
-        with torch.no_grad():
-            metrics.update({k: torch.mean(torch.stack(v)) for k, v in infos.items()})
-            if cfg.entropy_target is not None:
-                err = cfg.entropy_target - metrics["entropy"]
-                err = torch.sign(err) * torch.clamp(torch.abs(err) - cfg.entropy_deadband, min=0.0)
-                err = torch.clamp(err, -cfg.entropy_err_clip, cfg.entropy_err_clip)
-                ts.entropy_coef = torch.clamp(
-                    ts.entropy_coef * torch.exp(cfg.entropy_adapt_speed * err),
-                    cfg.entropy_coef_min, cfg.entropy_coef_max)
-                metrics["entropy_coef"] = ts.entropy_coef
-            metrics["action_norm"] = dist.global_sum(
-                torch.linalg.vector_norm(traj["action"], dim=-1)) / count
-            metrics["value_running_mean"] = torch.mean(ts.value_norm.running_mean)
+        with trace.span("update.ppo"):
+            b = t_len * e_total
+            mb_size = b // cfg.num_minibatches
+            dev = advantages.device
+            stop = (torch.zeros((), dtype=torch.bool, device=dev)
+                    if cfg.target_kl is not None else None)
+            infos: Dict[str, List[torch.Tensor]] = {}
+            for epoch in range(cfg.ppo_epochs):
+                if perms is not None:
+                    perm = perms[epoch].to(dev)
+                else:
+                    perm = torch.randperm(b, generator=generator, device=dev)
+                mb_idx = perm[: mb_size * cfg.num_minibatches].reshape(cfg.num_minibatches,
+                                                                       mb_size)
+                for idx in local_minibatches(mb_idx, e, shard):
+                    info = update(ts, minibatch(idx), stop, mb_rows=mb_size)
+                    if stop is not None:
+                        stop = torch.logical_or(stop, info["approx_kl"] > cfg.target_kl)
+                        info["kl_stop"] = stop.to(torch.float32)
+                    for k, v in info.items():
+                        infos.setdefault(k, []).append(v)
+            with torch.no_grad():
+                metrics.update({k: torch.mean(torch.stack(v)) for k, v in infos.items()})
+                if cfg.entropy_target is not None:
+                    err = cfg.entropy_target - metrics["entropy"]
+                    err = torch.sign(err) * torch.clamp(torch.abs(err) - cfg.entropy_deadband,
+                                                        min=0.0)
+                    err = torch.clamp(err, -cfg.entropy_err_clip, cfg.entropy_err_clip)
+                    ts.entropy_coef = torch.clamp(
+                        ts.entropy_coef * torch.exp(cfg.entropy_adapt_speed * err),
+                        cfg.entropy_coef_min, cfg.entropy_coef_max)
+                    metrics["entropy_coef"] = ts.entropy_coef
+                metrics["action_norm"] = dist.global_sum(
+                    torch.linalg.vector_norm(traj["action"], dim=-1)) / count
+                metrics["value_running_mean"] = torch.mean(ts.value_norm.running_mean)
         mark("ppo")
         return ts, metrics
 

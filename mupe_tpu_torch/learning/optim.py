@@ -19,6 +19,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from ..utils import trace
+
 
 @dataclasses.dataclass
 class AdamState:
@@ -69,8 +71,8 @@ def adam_updates(
     nu = [(1 - b2) * (g * g) + b2 * v for g, v in zip(grads, state.nu)]
     count = state.count + 1
     c = count.to(torch.float32)
-    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=c.device), c)
-    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=c.device), c)
+    bc1 = 1 - torch.pow(trace.to_device(b1, c.device, torch.float32, "adam_betas"), c)
+    bc2 = 1 - torch.pow(trace.to_device(b2, c.device, torch.float32, "adam_betas"), c)
     direction = [(m / bc1) / (torch.sqrt(v / bc2) + eps) for m, v in zip(mu, nu)]
     if weight_decay > 0.0:
         direction = [d + weight_decay * p for d, p in zip(direction, params)]

@@ -30,6 +30,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..parallel import dist
+from ..utils import trace
 from .mappo import MAPPOPolicy, MAPPOState
 
 
@@ -159,9 +160,11 @@ def make_rollout(
             if sharded:
                 state_kw["noise"] = shard.draw(
                     lambda s: torch.randn(s, generator=gen, device=gen.device), noise_shape)
-            action, logp, value = policy.act(ts, obs, gen, deterministic=deterministic,
-                                             **state_kw)
-            env_state, tr = env.step(env_state, action, gen, *step_args)
+            with trace.span("policy.act"):
+                action, logp, value = policy.act(ts, obs, gen, deterministic=deterministic,
+                                                 **state_kw)
+            with trace.span("env.step"):
+                env_state, tr = env.step(env_state, action, gen, *step_args)
             cols["obs"].append(obs)
             if by_state:
                 cols["state"].append(last_state)
@@ -201,11 +204,15 @@ def make_train_iter(
 
     def train_iter(carry: IterCarry, perms: Optional[torch.Tensor] = None,
                    mark: Optional[Callable[[str], None]] = None):
-        carry, traj, ep_stats = rollout(carry)
-        if mark is not None:
-            mark("rollout")
-        ts, metrics = policy.train_op(carry.ts, traj, carry.obs, carry.generator, perms, mark,
-                                      last_state=carry.state, shard=getattr(env, "shard", None))
+        with trace.span("train.iter"):
+            with trace.span("rollout"):
+                carry, traj, ep_stats = rollout(carry)
+            if mark is not None:
+                mark("rollout")
+            with trace.span("update"):
+                ts, metrics = policy.train_op(carry.ts, traj, carry.obs, carry.generator, perms,
+                                              mark, last_state=carry.state,
+                                              shard=getattr(env, "shard", None))
         return dataclasses.replace(carry, ts=ts), metrics, ep_stats
 
     return train_iter
@@ -268,10 +275,11 @@ def make_rnn_rollout(env, policy, deterministic: bool = False):
         for _ in range(policy.cfg.train_every):
             noise = (shard.draw(lambda s: torch.randn(s, generator=gen, device=gen.device),
                                 noise_shape) if sharded else None)
-            action, logp, value, new_a, new_c = policy.act(ts, obs, a_rnn, c_rnn, is_init, gen,
-                                                           deterministic=deterministic,
-                                                           noise=noise)
-            env_state, tr = env.step(env_state, action, gen)
+            with trace.span("policy.act"):
+                action, logp, value, new_a, new_c = policy.act(
+                    ts, obs, a_rnn, c_rnn, is_init, gen, deterministic=deterministic, noise=noise)
+            with trace.span("env.step"):
+                env_state, tr = env.step(env_state, action, gen)
             for k, v in (("obs", obs), ("action", action), ("logp", logp), ("value", value),
                          ("reward", tr.reward), ("done", tr.done), ("is_init", is_init),
                          ("actor_rnn", a_rnn), ("critic_rnn", c_rnn)):
@@ -296,13 +304,16 @@ def make_rnn_train_iter(env, policy, deterministic: bool = False):
 
     def train_iter(carry: RNNIterCarry, perms: Optional[torch.Tensor] = None,
                    mark: Optional[Callable[[str], None]] = None):
-        carry, batch, ep_stats = rollout(carry)
-        if mark is not None:
-            mark("rollout")
-        ts, metrics = policy.train_op(carry.ts, batch, carry.generator, perms,
-                                      shard=getattr(env, "shard", None))
-        if mark is not None:
-            mark("update")
+        with trace.span("train.iter"):
+            with trace.span("rollout"):
+                carry, batch, ep_stats = rollout(carry)
+            if mark is not None:
+                mark("rollout")
+            with trace.span("update"):
+                ts, metrics = policy.train_op(carry.ts, batch, carry.generator, perms,
+                                              shard=getattr(env, "shard", None))
+            if mark is not None:
+                mark("update")
         return dataclasses.replace(carry, ts=ts), metrics, ep_stats
 
     return train_iter

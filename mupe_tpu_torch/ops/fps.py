@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import trace
 from . import build
 
 MAX_N = 1 << 20
@@ -155,6 +156,7 @@ def _launch(points: torch.Tensor, k: int, valid: torch.Tensor, start: torch.Tens
         cols = torch.empty((d + 1, n), dtype=torch.float32, device=points.device)
     lib = build.library()
     with torch.cuda.device(points.device):
+        trace.launching()
         err = lib.mupe_fps(
             points.data_ptr(), valid.data_ptr(), start.data_ptr(), n, d, k, c,
             INSTANCES.index(inst), None if cols is None else cols.data_ptr(),
@@ -177,9 +179,5 @@ def farthest_point_sampling(
         return reference_fps(points, k, valid, start_index)
     if valid is None:
         valid = torch.ones((points.shape[0],), dtype=torch.bool, device=points.device)
-    out = _launch(points, k, valid, _start_tensor(start_index, points.device))
-    farthest_point_sampling.launches += 1
-    return out
-
-
-farthest_point_sampling.launches = 0
+    with trace.span("kernel.fps"):
+        return _launch(points, k, valid, _start_tensor(start_index, points.device))

@@ -29,6 +29,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from ..parallel import dist
+from ..utils import trace
 from . import build
 from .tolerance import GradTol, KernelTol
 
@@ -556,6 +557,7 @@ def _launch(x: torch.Tensor, nets) -> Tuple[torch.Tensor, ...]:
     with torch.cuda.device(x.device):
         scratch = _stream_scratch("mupe_encoder_forward_scratch", x, *_groups_args(spec0),
                                   len(nets), s_pad)
+        trace.launching()
         err = lib.mupe_encoder_forward(
             x.data_ptr(), s, s_pad, *_groups_args(spec0),
             len(nets), build.ptr_array(leaf_ptrs), spec0.n_leaves,
@@ -570,9 +572,8 @@ def _launch(x: torch.Tensor, nets) -> Tuple[torch.Tensor, ...]:
 def _forward(nets, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     if x.device.type == "cpu":
         return tuple(reference_apply(spec, leaves, x) for spec, leaves in nets)
-    outs = _launch(x, nets)
-    (encoder_forward if len(nets) == 1 else encoder_pair_forward).launches += 1
-    return outs
+    with trace.span("kernel.encoder_fwd" if len(nets) == 1 else "kernel.pair_fwd"):
+        return _launch(x, nets)
 
 
 def n_params(spec: EncoderSpec) -> int:
@@ -699,6 +700,7 @@ def _launch_operands(x: torch.Tensor, nets, douts):
                          device=x.device, dtype=torch.float32)
         scratch = _stream_scratch("mupe_encoder_bwd_scratch", x, *_groups_args(spec0),
                                   len(nets), staged_rows(s))
+        trace.launching()
         err = lib.mupe_encoder_bwd_operands(
             x.data_ptr(), s, staged_rows(s), *_groups_args(spec0), len(nets),
             build.ptr_array([leaf.data_ptr() for _, leaves in nets for leaf in leaves]),
@@ -766,11 +768,8 @@ def weight_grads(items) -> None:
                     min(_KERNEL_WIDTH, m - c), spec.embed_dim, spec.embed_dim, spec.embed_dim,
                     k_rows, flat.data_ptr() + 4 * (offsets[leaf] + c * spec.embed_dim),
                     a.shape[-1]))
-    launch_weight_products(prods, items[0][2].device, stage_b_chunk)
-    weight_grads.launches += 1
-
-
-weight_grads.launches = 0
+    with trace.span("kernel.weight_grad"):
+        launch_weight_products(prods, items[0][2].device, stage_b_chunk)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -814,6 +813,7 @@ def _launch_weight_batch(prods, dev, chunk_of) -> None:
     field = lambda name: [getattr(p, name) for p in prods]  # noqa: E731
     lib = build.library()
     with torch.cuda.device(dev):
+        trace.launching()
         err = lib.mupe_weight_grads(
             len(prods), build.ptr_array(field("a")), build.ptr_array(field("d")),
             build.int_array(field("lda")), build.int_array(field("a_stride")),
@@ -832,18 +832,16 @@ def encoder_backward(nets, x: torch.Tensor, douts) -> Tuple[Tuple[torch.Tensor, 
     [S, head_dim] cotangent each).  Returns per network the gradients in
     the canonical leaf order, views of one flat vector.  On CPU tensors
     `reference_backward`; on CUDA tensors two stages, each one launch for
-    all the networks: the tile kernel of `csrc/fused_encoder_bwd.cu`
-    (counted here), then `weight_grads`."""
+    all the networks: the tile kernel of `csrc/fused_encoder_bwd.cu`,
+    then `weight_grads` (the span `kernel.encoder_bwd` or `kernel.pair_bwd`
+    holds both)."""
     if x.device.type == "cpu":
         return tuple(reference_backward(spec, leaves, x, d)
                      for (spec, leaves), d in zip(nets, douts))
-    flats, stagings = _launch_operands(x, nets, [d.contiguous() for d in douts])
-    encoder_backward.launches += 1
-    weight_grads([(spec, st, g) for (spec, _), st, g in zip(nets, stagings, flats)])
+    with trace.span("kernel.encoder_bwd" if len(nets) == 1 else "kernel.pair_bwd"):
+        flats, stagings = _launch_operands(x, nets, [d.contiguous() for d in douts])
+        weight_grads([(spec, st, g) for (spec, _), st, g in zip(nets, stagings, flats)])
     return tuple(split_flat(spec, g) for (spec, _), g in zip(nets, flats))
-
-
-encoder_backward.launches = 0
 
 
 def _nets(specs, leaves):
@@ -882,9 +880,6 @@ def encoder_forward(
     return out
 
 
-encoder_forward.launches = 0
-
-
 def encoder_pair_forward(
     spec_a: EncoderSpec,
     spec_b: EncoderSpec,
@@ -895,9 +890,6 @@ def encoder_pair_forward(
     """Two networks over the same rows (actor mean, critic value), one
     kernel launch in each direction; differentiable in both leaf sets."""
     return _EncoderFn.apply((spec_a, spec_b), x, *leaves_a, *leaves_b)
-
-
-encoder_pair_forward.launches = 0
 
 
 # ---------------------------------------------------------------- in-kernel PPO loss
@@ -1050,9 +1042,10 @@ def pair_forward_loss(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, a
     outs = [torch.empty(shape, device=x.device, dtype=torch.float32)
             for shape in ((s, a), (s, 1), (s, 1), (s, _N_STATS + a))]
     lib = build.library()
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), trace.span("kernel.pair_fwd_loss"):
         scratch = _stream_scratch("mupe_encoder_fwd_loss_scratch", x, *_groups_args(spec_a),
                                   staged_rows(s), 0)
+        trace.launching()
         err = lib.mupe_encoder_fwd_loss(
             x.data_ptr(), s, staged_rows(s), *_groups_args(spec_a),
             build.ptr_array([leaf.data_ptr() for leaf in (*la, *lc)]), spec_a.n_leaves, a,
@@ -1061,11 +1054,7 @@ def pair_forward_loss(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, a
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     build.check(err, "mupe_encoder_fwd_loss")
-    pair_forward_loss.launches += 1
     return tuple(outs)
-
-
-pair_forward_loss.launches = 0
 
 
 def pair_forward_loss_agrad(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_old, adv, v_old,
@@ -1073,15 +1062,16 @@ def pair_forward_loss_agrad(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_
     """`pair_forward_loss` followed by the actor's backward with dout = dmu
     → (dv1, dv2, stats, the actor's gradients in canonical leaf order, views
     of one flat vector).  On CPU tensors `reference_pair_fwd_loss_agrad`; on
-    CUDA tensors one launch of `pair_fwd_loss_agrad_kernel` (stage A, counted
-    here; + its fixed-order reduction), then `weight_grads` for the actor."""
+    CUDA tensors one launch of `pair_fwd_loss_agrad_kernel` (stage A; + its
+    fixed-order reduction), then `weight_grads` for the actor, both in the
+    span `kernel.pair_fwd_loss_agrad`."""
     if x.device.type == "cpu":
         return reference_pair_fwd_loss_agrad(spec_a, spec_c, loss, la, lc, log_std, x, act,
                                              logp_old, adv, v_old, ret)
-    outs, grads, staged = _launch_agrad_operands(spec_a, spec_c, loss, la, lc, log_std, x, act,
-                                                 logp_old, adv, v_old, ret)
-    pair_forward_loss_agrad.launches += 1
-    weight_grads([(spec_a, staged, grads)])
+    with trace.span("kernel.pair_fwd_loss_agrad"):
+        outs, grads, staged = _launch_agrad_operands(spec_a, spec_c, loss, la, lc, log_std, x,
+                                                     act, logp_old, adv, v_old, ret)
+        weight_grads([(spec_a, staged, grads)])
     return (*outs, split_flat(spec_a, grads))
 
 
@@ -1109,6 +1099,7 @@ def _launch_agrad_operands(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_o
                          dtype=torch.float32)
         scratch = _stream_scratch("mupe_encoder_fwd_loss_scratch", x, *_groups_args(spec_a),
                                   staged_rows(s), 1)
+        trace.launching()
         err = lib.mupe_encoder_fwd_loss_agrad(
             x.data_ptr(), s, staged_rows(s), *_groups_args(spec_a),
             build.ptr_array([leaf.data_ptr() for leaf in (*la, *lc)]), spec_a.n_leaves, a,
@@ -1121,9 +1112,6 @@ def _launch_agrad_operands(spec_a, spec_c, loss, la, lc, log_std, x, act, logp_o
         )
     build.check(err, "mupe_encoder_fwd_loss_agrad")
     return outs, grads, staged
-
-
-pair_forward_loss_agrad.launches = 0
 
 
 def _value_branch(loss: PPOLossCfg, sums, dv1, dv2):

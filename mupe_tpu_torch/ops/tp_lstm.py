@@ -22,6 +22,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from ..utils import trace
 from . import build
 from . import fused_encoder as fe
 from .fused_encoder import FLOOR_MULT, _bf16, _f32
@@ -147,6 +148,7 @@ def _launch(spec: TPLSTMSpec, leaves, x: torch.Tensor) -> torch.Tensor:
     wi, wh, b, wfc, bfc = leaves
     lib = build.library()
     with torch.cuda.device(x.device):
+        trace.launching()
         err = lib.mupe_tp_lstm_forward(
             x.data_ptr(), n, spec.t_steps, spec.input_dim,
             wi.data_ptr(), wh.data_ptr(), b.data_ptr(), wfc.data_ptr(),
@@ -372,6 +374,7 @@ def _launch_operands(spec: TPLSTMSpec, leaves, x: torch.Tensor, dy: torch.Tensor
                                                 ctypes.byref(blocks)), "mupe_tp_lstm_bwd_blocks")
         ws = torch.empty(blocks.value * (4 * spec.hidden + spec.out_dim), device=x.device,
                          dtype=torch.float32)
+        trace.launching()
         err = lib.mupe_tp_lstm_bwd_operands(
             x.data_ptr(), dy.data_ptr(), n, n_pad, spec.t_steps, spec.input_dim,
             wi.data_ptr(), wh.data_ptr(), b.data_ptr(), wfc.data_ptr(), bfc.data_ptr(),
@@ -431,13 +434,10 @@ def tp_weight_grads(spec: TPLSTMSpec, staged, flat: torch.Tensor) -> None:
         prods.append(fe.WeightProduct(hs + 2 * (t - 1) * n_pad * hd, dz + 2 * c, hd, hd, op,
                                       min(_TILE, op - c), o if op <= _TILE else op, n_pad,
                                       at + 4 * c))
-    fe.launch_weight_products(prods, flat.device, stage_b_chunk)
+    with trace.span("kernel.tp_weight_grad"):
+        fe.launch_weight_products(prods, flat.device, stage_b_chunk)
     if op > _TILE:
         flat[offs[3] : offs[4]].view(hd, o).copy_(wfc[:, :o])
-    tp_weight_grads.launches += 1
-
-
-tp_weight_grads.launches = 0
 
 
 def chunk_plan(spec: TPLSTMSpec, x: torch.Tensor, dy: torch.Tensor):
@@ -460,8 +460,9 @@ def tp_backward(
     """Gradients of sum(y · dy) for (wi, wh, b, wfc, bfc) over windows
     x [N, T, F] and cotangents dy [N, O]: on CPU tensors
     `reference_backward`, on CUDA tensors two stages a chunk of windows
-    (`window_chunks`): the tile kernel of `csrc/tp_lstm_bwd.cu` (counted
-    here), then `tp_weight_grads` (views of one flat gradient vector)."""
+    (`window_chunks`): the tile kernel of `csrc/tp_lstm_bwd.cu`, then
+    `tp_weight_grads` (views of one flat gradient vector), both in the span
+    `kernel.tp_bwd`."""
     if x.device.type == "cpu":
         return reference_backward(spec, leaves, x, dy)
     x, dy = x.contiguous(), dy.contiguous()
@@ -473,16 +474,13 @@ def tp_backward(
     total = None
     for xa, dya, staged, cs in chunk_plan(spec, x, dy):
         flat = torch.empty(_leaf_offsets(spec)[-1], device=x.device, dtype=torch.float32)
-        _launch_operands(spec, leaves, xa, dya, flat, staged, cs)
-        tp_backward.launches += 1
-        tp_weight_grads(spec, staged, flat)
+        with trace.span("kernel.tp_bwd"):
+            _launch_operands(spec, leaves, xa, dya, flat, staged, cs)
+            tp_weight_grads(spec, staged, flat)
         total = flat if total is None else total.add_(flat)
     shapes = spec.leaf_shapes()
     parts = torch.split(total, [math.prod(s) for s in shapes])
     return tuple(p.view(s) for p, s in zip(parts, shapes))
-
-
-tp_backward.launches = 0
 
 
 class _TPFn(torch.autograd.Function):
@@ -495,9 +493,8 @@ class _TPFn(torch.autograd.Function):
         ctx.save_for_backward(x, *leaves)
         if x.device.type == "cpu":
             return reference_forward(spec, leaves, x)
-        y = _launch(spec, leaves, x)
-        tp_forward.launches += 1
-        return y
+        with trace.span("kernel.tp_fwd"):
+            return _launch(spec, leaves, x)
 
     @staticmethod
     def backward(ctx, dy):
@@ -520,6 +517,3 @@ def tp_forward(
         xf = xf.contiguous()
     y = _TPFn.apply(spec, xf, *leaves)
     return y.reshape(batch_shape + (spec.out_dim,))
-
-
-tp_forward.launches = 0

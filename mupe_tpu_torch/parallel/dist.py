@@ -36,6 +36,8 @@ import torch
 import torch.distributed as tdist
 from torch import nn
 
+from ..utils import trace
+
 
 def init_distributed(backend: Optional[str] = None, init_method: Optional[str] = None,
                      world_size: Optional[int] = None, rank: Optional[int] = None) -> bool:
@@ -251,7 +253,8 @@ def any_across(flag: torch.Tensor) -> bool:
     one collective with a group).  Host branches that gate a draw decide
     on this, so every rank draws alike."""
     hit = torch.any(flag).to(torch.int32).reshape(1)
-    return bool(all_reduce_max(hit).item())
+    with trace.span("sync.any_across"):
+        return bool(all_reduce_max(hit).item())
 
 
 def global_sum(x: torch.Tensor, dims=None) -> torch.Tensor:

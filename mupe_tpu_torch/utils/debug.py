@@ -1,7 +1,6 @@
-"""Observability and failure detection (counterpart of mupe_tpu/utils/debug.py):
+"""Failure detection (counterpart of mupe_tpu/utils/debug.py; its profiler
+trace is `utils/trace.profile_trace`):
 
-- `profile_trace`: a `torch.profiler` trace of the enclosed block, written
-  into a directory as a Chrome trace;
 - `check_finite`: whether every floating tensor of a tree is finite, with a
   per-leaf report;
 - `guard_train_iter`: wraps a train iteration so that one whose loss went
@@ -9,29 +8,13 @@
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-from pathlib import Path
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 from torch import nn
 
-
-@contextlib.contextmanager
-def profile_trace(logdir: str):
-    """Profile the enclosed block and write `logdir/trace.json` (a Chrome
-    trace): the host's PyTorch ops and, with a card, its kernels, copies and
-    the runtime calls that launch them.  It is large: 3 training iterations
-    at 4096 arenas wrote 587 MB in ~37 s on an H100 (362 MB, ~19 s, for the
-    CUDA activity alone)."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    Path(logdir).mkdir(parents=True, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(str(Path(logdir) / "trace.json"))
+from . import trace
 
 
 def _leaves(obj: Any, path: str = ""):
@@ -134,7 +117,9 @@ def guard_train_iter(train_iter: Callable, metric_key: str = "policy_loss") -> C
     def wrapped(carry, *args, **kwargs):
         snap = _Snapshot(carry)
         new_carry, metrics, stats = train_iter(carry, *args, **kwargs)
-        if not bool(torch.isfinite(torch.as_tensor(metrics[metric_key]))):
+        with trace.span("sync.guard_nan"):
+            finite = bool(torch.isfinite(torch.as_tensor(metrics[metric_key])))
+        if not finite:
             snap.restore()
             flag = torch.ones((), device=torch.as_tensor(metrics[metric_key]).device)
             return carry, metrics, {**stats, "nan_skipped": flag}

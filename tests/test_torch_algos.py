@@ -22,6 +22,7 @@ from mupe_tpu_torch.learning import init_carry
 from mupe_tpu_torch.learning.registry import ALGOS, make_policy
 from mupe_tpu_torch.ops import fused_encoder as fe
 from mupe_tpu_torch.ops.tolerance import in_f64
+from mupe_tpu_torch.utils import trace
 from mupe_tpu_torch.utils.checkpoint import load_checkpoint
 
 torch.set_num_threads(1)
@@ -135,11 +136,14 @@ def test_encoder_kernels_at_the_options_specs(cuda, what):
                else 0.1 * torch.randn(sh, generator=g)).to(cuda) for sh in fe.leaf_shapes(spec)]
     x = (2.0 * torch.randn((s, spec.obs_dim), generator=g)).to(cuda)
     dout = torch.randn((s, spec.head_dim), generator=g).to(cuda)
-    n = (fe.encoder_forward.launches, fe.encoder_backward.launches)
+    counts = trace.counts()  # the kernel spans count the launches
+    launches = lambda: (counts["kernel.encoder_fwd"],  # noqa: E731
+                        counts["kernel.encoder_bwd"] + counts["kernel.pair_bwd"])
+    n = launches()
     out = fe.encoder_forward(spec, leaves, x)
     (grads,) = fe.encoder_backward([(spec, leaves)], x, [dout])
     torch.cuda.synchronize()
-    assert (fe.encoder_forward.launches, fe.encoder_backward.launches) == (n[0] + 1, n[1] + 1)
+    assert launches() == (n[0] + 1, n[1] + 1)
     errs = fe.KERNEL_TOL.errors(out, fe.reference_apply(spec, leaves, x),
                                 in_f64(fe.reference_apply, spec, leaves, x))
     assert fe.KERNEL_TOL.holds(errs), errs

@@ -179,6 +179,10 @@ def test_profile_dir_writes_a_trace(tmp_path):
         trace = json.load(f)
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any(n.startswith("aten::") for n in names)
+    # the program's ranges, and every span's summary (iteration 1 alone here)
+    assert {"env.reward", "sync.any_across", "update.prep"} <= names
+    spans = json.loads((tmp_path / "prof" / "spans.json").read_text())
+    assert spans["train.iter"]["count"] == 1 and spans["update.ppo"]["count"] == 1
 
 
 # ------------------------------------------------------------------ the NaN guard

@@ -30,6 +30,7 @@ from mupe_tpu_torch.ops import fps
 from mupe_tpu_torch.ops import fused_encoder as fe
 from mupe_tpu_torch.ops import tp_lstm as tl
 from mupe_tpu_torch.ops.tolerance import KernelTol, in_f64
+from mupe_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 GROUPS = ((1, 35), (3, 5), (2, 3))
@@ -84,11 +85,17 @@ def _loss_case(s, device="cpu", saturate=False):
     return spec_a, spec_c, la, lc, x, (spec_a, spec_c, loss, la, lc, *rows)
 
 
+def _launches(*spans):
+    """Kernel launches, as the program's kernel spans count them (summed)."""
+    counts = trace.counts()
+    return sum(counts[s] for s in spans)
+
+
 def _launch_counts():
-    return (fe.encoder_forward.launches, fe.encoder_pair_forward.launches,
-            tl.tp_forward.launches, fe.encoder_backward.launches, tl.tp_backward.launches,
-            fps.farthest_point_sampling.launches, fe.pair_forward_loss.launches,
-            fe.pair_forward_loss_agrad.launches, fe.weight_grads.launches)
+    return tuple(_launches(s) for s in (
+        "kernel.encoder_fwd", "kernel.pair_fwd", "kernel.tp_fwd", "kernel.encoder_bwd",
+        "kernel.pair_bwd", "kernel.tp_bwd", "kernel.tp_weight_grad", "kernel.fps",
+        "kernel.pair_fwd_loss", "kernel.pair_fwd_loss_agrad", "kernel.weight_grad"))
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
@@ -268,10 +275,10 @@ def _close_scaled(out, ref, tol, exact=None):
 @pytest.mark.parametrize("s", [1, 7, 8, 12288, 12289, 49152])
 def test_encoder_kernel_matches_plain_version(cuda, s):
     spec_a, spec_c, la, lc, x = _encoder_case(s, cuda)
-    n = fe.encoder_pair_forward.launches
+    n = _launches("kernel.pair_fwd")
     a, c = fe.encoder_pair_forward(spec_a, spec_c, la, lc, x)
     torch.cuda.synchronize()
-    assert fe.encoder_pair_forward.launches == n + 1
+    assert _launches("kernel.pair_fwd") == n + 1
     exact_c = in_f64(fe.reference_apply, spec_c, lc, x)
     _close_scaled(a, fe.reference_apply(spec_a, la, x), fe.KERNEL_TOL,
                   in_f64(fe.reference_apply, spec_a, la, x))
@@ -375,11 +382,12 @@ def test_encoder_backward_kernel_matches_plain_version(cuda, s, nets):
     ones = torch.ones((s, 1), device=cuda)
     case = [(spec_a, la), (spec_c, lc)][2 - nets:]
     douts = [da, ones][2 - nets:]
-    n = (fe.encoder_backward.launches, fe.weight_grads.launches)
+    bwd = ("kernel.encoder_bwd", "kernel.pair_bwd")
+    n = (_launches(*bwd), _launches("kernel.weight_grad"))
     grads = fe.encoder_backward(case, x, douts)
     again = fe.encoder_backward(case, x, douts)
     torch.cuda.synchronize()
-    assert (fe.encoder_backward.launches, fe.weight_grads.launches) == (n[0] + 2, n[1] + 2)
+    assert (_launches(*bwd), _launches("kernel.weight_grad")) == (n[0] + 2, n[1] + 2)
     tol = fe.BWD_KERNEL_TOL if s >= 300 else dataclasses.replace(fe.BWD_KERNEL_TOL, mean_rel=5e-3)
     for (spec, leaves), d, gk, g2 in zip(case, douts, grads, again):
         _bwd_close(gk, fe.reference_backward(spec, leaves, x, d), tol,
@@ -401,13 +409,13 @@ def test_loss_kernels_match_plain_version(cuda, s, saturate):
     their dmu are not the same bits).  Saturated rows (log-ratio past +-20)
     get dmu = 0."""
     spec_a, spec_c, la, lc, x, args = _loss_case(s, cuda, saturate)
-    n = (fe.pair_forward_loss.launches, fe.pair_forward_loss_agrad.launches)
+    n = (_launches("kernel.pair_fwd_loss"), _launches("kernel.pair_fwd_loss_agrad"))
     dmu, dv1, dv2, stats = fe.pair_forward_loss(*args)
     out = fe.pair_forward_loss_agrad(*args)
     again = fe.pair_forward_loss_agrad(*args)
     torch.cuda.synchronize()
-    assert (fe.pair_forward_loss.launches, fe.pair_forward_loss_agrad.launches) == (n[0] + 1,
-                                                                                    n[1] + 2)
+    assert (_launches("kernel.pair_fwd_loss"),
+            _launches("kernel.pair_fwd_loss_agrad")) == (n[0] + 1, n[1] + 2)
     ref = fe.reference_pair_fwd_loss(*args)
     exact = in_f64(fe.reference_pair_fwd_loss, *args)
     rows_tol, stats_tol = fe.loss_row_tols(s)
@@ -466,12 +474,12 @@ def test_weight_grads_kernel_matches_plain_version(cuda, s):
     d = torch.randn((s, 4), generator=torch.Generator().manual_seed(s)).to(cuda)
     st = _staged_on(spec_a, fe.reference_backward_operands(spec_a, la, x, d)[0], s, cuda)
     flat = torch.full((fe.n_params(spec_a),), 7.0, device=cuda)
-    n = fe.weight_grads.launches
+    n = _launches("kernel.weight_grad")
     fe.weight_grads([(spec_a, st, flat)])
     again = flat.clone()
     fe.weight_grads([(spec_a, st, again)])
     torch.cuda.synchronize()
-    assert fe.weight_grads.launches == n + 2 and torch.equal(flat, again)
+    assert _launches("kernel.weight_grad") == n + 2 and torch.equal(flat, again)
     views, ref = fe.split_flat(spec_a, flat), fe.reference_weight_grads(spec_a, st)
     wl = fe.weight_leaves(spec_a)
     _bwd_close([views[i] for i in wl], [ref[i] for i in wl], fe.WEIGHT_GRAD_TOL)
@@ -638,11 +646,11 @@ def _fps_holds(pts, valid, k):
     """Index for index equal to `reference_fps` (the same f32 sums in the same
     order), bit-identical on a repeat, no invalid point chosen."""
     start = torch.argmax(valid.to(torch.uint8))
-    launches = fps.farthest_point_sampling.launches
+    launches = _launches("kernel.fps")
     idx = fps.farthest_point_sampling(pts, k, valid, start)
     again = fps.farthest_point_sampling(pts, k, valid, start)
     torch.cuda.synchronize()
-    assert fps.farthest_point_sampling.launches == launches + 2
+    assert _launches("kernel.fps") == launches + 2
     assert idx.dtype == torch.int32 and tuple(idx.shape) == (k,)
     assert torch.equal(idx, fps.reference_fps(pts, k, valid, start))
     assert torch.equal(idx, again)
@@ -679,11 +687,11 @@ def test_fps_kernel_matches_plain_version(cuda, n, d, k, keep_last):
     in the resident instance past the register one (D = 33)."""
     pts, valid = _fps_case(n, cuda, d, keep_last)
     start = torch.argmax(valid.to(torch.uint8))
-    launches = fps.farthest_point_sampling.launches
+    launches = _launches("kernel.fps")
     idx = fps.farthest_point_sampling(pts, k, valid, start)
     again = fps.farthest_point_sampling(pts, k, valid, start)
     torch.cuda.synchronize()
-    assert fps.farthest_point_sampling.launches == launches + 2
+    assert _launches("kernel.fps") == launches + 2
     assert idx.dtype == torch.int32 and tuple(idx.shape) == (k,)
     assert torch.equal(idx, fps.reference_fps(pts, k, valid, start))
     assert torch.equal(idx, again)
