@@ -18,7 +18,11 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    bench.py's configuration, 2 warm-up + 3 timed iterations; prints training
    env-steps/s and where an iteration's time goes, checks launch counts,
    the metrics' keys and finiteness, and the update on the card against the
-   update on the CPU from the same state and trajectory;
+   update on the CPU from the same state and trajectory; then one iteration
+   whose rollout replays its CUDA graphs against one through the eager
+   segments, from twins of the carry (the same bits in every output, the
+   parameters and the generator after it), and prints the graphed one's
+   replay share;
 5. AEG training: `harness.train` with task HideAndSeek_envgen (4096 arenas,
    a 5000-task buffer, TP net), 2 warm-up + 3 timed iterations; prints AEG
    training env-steps/s, checks that closed cycles took the FPS kernel, the
@@ -1595,6 +1599,7 @@ def phase_train(dev, card: str):
             or launches["encoder_forward"] < iters or launches["tp_forward"] < 65 * iters):
         raise AssertionError(f"the training path skipped a kernel: {launches}")
     check_train_outputs(carry, metrics, ep_stats)
+    check_graphed_iteration(env, policy, carry)
     rate = NUM_ENVS * STEPS * TIMED_ITERS / seconds
     log(f"  training: {NUM_ENVS} x {STEPS} x {TIMED_ITERS} env-steps in {seconds:.4f} s "
         f"= {rate:.1f} env-steps/s ({seconds / TIMED_ITERS * 1e3:.2f} ms per iteration) "
@@ -1603,6 +1608,68 @@ def phase_train(dev, card: str):
         f"{k} {v * 1e3:.2f} ms" for k, v in split.items()))
     check_update_against_cpu(dev)
     return launches, rate
+
+
+def _eager_site(fn, *args, generators=(), **_):
+    """A graphed call site's eager twin: its function, run as it is."""
+    with trace.span("graph.eager"):
+        return fn(*generators, *args)
+
+
+def _bits_equal(a, b) -> bool:
+    from mupe_tpu_torch.utils import graphs
+
+    (la, sa), (lb, sb) = graphs.flatten(a), graphs.flatten(b)
+    flat = [(x.detach().contiguous().reshape(-1).view(torch.uint8),
+             y.detach().contiguous().reshape(-1).view(torch.uint8)) for x, y in zip(la, lb)]
+    return sa == sb and len(la) == len(lb) and all(torch.equal(x, y) for x, y in flat)
+
+
+def check_graphed_iteration(env, policy, carry) -> None:
+    """One training iteration whose rollout replays its CUDA graphs (act and
+    the env step's two segments) against one whose sites run their eager
+    segments, from twins of the carry: the trajectory, the episode stats,
+    the metrics, the parameters and optimizer state after the update, the
+    env state and the generator are the same bits.  Prints the graphed
+    iteration's replay share (`graph.replay` over `graph.replay` +
+    `graph.eager` calls)."""
+    import copy
+
+    from mupe_tpu_torch.learning import make_rollout
+
+    def twin():
+        gen = torch.Generator(device=carry.generator.device)
+        gen.set_state(carry.generator.get_state())
+        return dataclasses.replace(copy.deepcopy(dataclasses.replace(carry, generator=None)),
+                                   generator=gen)
+
+    def iteration(c):
+        c, traj, ep_stats = make_rollout(env, policy)(c)
+        ts, metrics = policy.train_op(c.ts, traj, c.obs, c.generator, last_state=c.state,
+                                      shard=env.shard)
+        return (traj, ep_stats, metrics, ts.actor_params(), ts.critic_params(),
+                list(ts.tp_net.leaves()), ts.actor_opt, ts.critic_opt, c.env_state,
+                c.obs), c.generator.get_state()
+
+    before = trace.counts().copy()
+    graphed, gen_g = iteration(twin())
+    calls = trace.counts() - before
+    sites = (env, "_graph_a"), (env, "_graph_b"), (policy, "_act_graph")
+    saved = [getattr(obj, name) for obj, name in sites]
+    try:
+        for obj, name in sites:
+            setattr(obj, name, _eager_site)
+        eager, gen_e = iteration(twin())
+    finally:
+        for (obj, name), site in zip(sites, saved):
+            setattr(obj, name, site)
+    share = calls["graph.replay"] / max(calls["graph.replay"] + calls["graph.eager"], 1)
+    same = _bits_equal(graphed, eager) and torch.equal(gen_g, gen_e)
+    log(f"  graphed iteration vs the eager segments: {calls['graph.replay']} replays, "
+        f"{calls['graph.eager']} eager calls, {calls['graph.capture']} captures (replay share "
+        f"{share:.4f}); every output, parameter and the generator bit-identical: {same}")
+    if not same:
+        raise AssertionError("the graphed iteration differs from the eager segments")
 
 
 def _equal_trees(a, b) -> bool:
@@ -3263,6 +3330,9 @@ def _dp_launch(role: str, world: int, backend: str, out: Path, phase: int = 14) 
     bounded, every child killed on the way out.  Returns their reports."""
     store = out / f"store_{role}"
     threads = os.cpu_count() or 1  # shared by the ranks: no oversubscription
+    # the workers share the card with this process: hand them the blocks
+    # its earlier phases cached
+    torch.cuda.empty_cache()
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), DP_WORKER_FLAG,
                                role, str(r), str(world), backend, f"file://{store}", str(out)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -3320,6 +3390,9 @@ def phase_parallel(dev, card: str) -> None:
     t0 = time.perf_counter()
     log(f"[14] data parallelism: bench.py's configuration ({NUM_ENVS} arenas x {STEPS} steps, "
         f"TP net) at world size 1 over NCCL, and at 2 ranks sharing the card over gloo")
+    torch.cuda.empty_cache()
+    log(f"  this process keeps {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved of the card for the workers")
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
         (one,) = _dp_launch("one", 1, "nccl", out)

@@ -5,9 +5,9 @@ arbitrary leading batch dimensions.
 """
 from __future__ import annotations
 
-import torch
+from typing import Dict, Tuple
 
-from ..utils import trace
+import torch
 
 
 def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -53,11 +53,22 @@ def quat_rotate_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return a - b + c
 
 
+# the identity basis, made once per device and dtype on the device itself
+_EYES: Dict[Tuple[torch.device, torch.dtype], torch.Tensor] = {}
+
+
+def _eye3(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    eye = _EYES.get((device, dtype))
+    if eye is None:
+        eye = torch.eye(3, dtype=dtype, device=device)
+        if not (eye.is_cuda and torch.cuda.is_current_stream_capturing()):
+            _EYES[(device, dtype)] = eye  # one made inside a capture is the graph's
+    return eye
+
+
 def quat_axis(q: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """The world-frame direction of a body basis axis (0=x/heading, 2=z/up)."""
-    basis = torch.zeros(3, dtype=q.dtype, device=q.device)
-    with trace.span("sync.quat_axis"):  # the 1.0 is copied from the host
-        basis[axis] = 1.0
+    basis = _eye3(q.device, q.dtype)[axis]
     return quat_rotate(q, basis.expand(q.shape[:-1] + (3,)))
 
 

@@ -15,6 +15,7 @@ autograd.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -28,7 +29,7 @@ from ..dynamics import step as dynamics_step
 from ..learning.tp_net import denormalize_predictions, normalize_groundtruth
 from ..parallel import dist
 from ..transforms.ctbr import hover_prev_action_init, pid_rate_transform
-from ..utils import trace
+from ..utils import graphs, trace
 from .base import Transition, register_env, where_done
 from .geometry import k_nearest_cylinders, line_blocked_by_cylinder
 from .placement import (
@@ -199,7 +200,14 @@ class HideAndSeek:
         self.num_agents = cfg.num_agents
         self.action_dim = 4
         self.grid = make_grid(cfg.arena_size, cfg.cylinder_size)
-        self._offdiag = ~torch.eye(cfg.num_agents, dtype=torch.bool, device=self.device)
+        # (i, j) of every other drone j of drone i, row by row: the order of
+        # a boolean off-diagonal mask, gathered without a host read
+        self._offdiag = tuple(ix.to(self.device) for ix in
+                              (~torch.eye(cfg.num_agents, dtype=torch.bool)).nonzero(as_tuple=True))
+        # the step's two segments, replayed as CUDA graphs on a card; the
+        # tensors they read besides their inputs
+        self._graph_a, self._graph_b = graphs.Graphed(), graphs.Graphed()
+        self._constants = graphs.flatten((self.params, self._offdiag))[0]
         if cfg.num_agents > 4 and (cfg.use_eval or not cfg.use_random_cylinder):
             # the fixed spawn tables (reference hideandseek.py:632-682) only
             # define 4 pursuer slots; silently broadcasting would alias spawns
@@ -489,22 +497,19 @@ class HideAndSeek:
 
     # ------------------------------------------------------------- observe
     @torch.no_grad()
-    def observe_full(self, state: HideAndSeekState, tp_net, detection=None, pred=None):
+    def observe_full(self, state: HideAndSeekState, tp_net, pred=None):
         """(obs dict for actors, state dict for a centralized critic)."""
         cfg = self.cfg
         e, n = cfg.num_envs, cfg.num_agents
         d = state.drone
         sv = d.state_vector()  # [E, n, 23]
         rel = d.pos[:, :, None, :] - d.pos[:, None, :, :]   # p_i − p_j
-        with trace.span("sync.offdiag_mask"):  # a boolean mask's count, read on the host
-            drone_rpos = rel[:, self._offdiag].reshape(e, n, n - 1, 3)
+        drone_rpos = rel[:, self._offdiag[0], self._offdiag[1]].reshape(e, n, n - 1, 3)
         cyl_masked, _, _ = k_nearest_cylinders(
             d.pos, state.cylinders, cfg.cylinder_size, cfg.max_height,
             cfg.obs_max_cylinder, cfg.mask_value,
         )
-        if detection is None:
-            detection = self._detection(state)
-        _, broadcast_detect, target_rpos = detection
+        _, broadcast_detect, target_rpos = self._detection(state)
         rpos_mask = (~broadcast_detect)[..., None, None]  # [E, 1, 1, 1]
         target_rpos_masked = torch.where(
             rpos_mask, torch.full_like(target_rpos, cfg.mask_value), target_rpos
@@ -572,6 +577,63 @@ class HideAndSeek:
         gen: Optional[torch.Generator] = None,
         tp_net=None,
     ) -> Tuple[HideAndSeekState, Transition]:
+        """One step of every arena: segment A (`_segment_a`, the action
+        through the TP frame), the reset gate on the host, then segment B
+        (`_segment_b`, the TP prediction and the observation).  On a card
+        each segment replays as a CUDA graph (`utils/graphs.py`); the gate
+        and a reset run eagerly between them.  The AEG buffer (`gen`)
+        passes by reference, outside the segments."""
+        cfg = self.cfg
+        e = cfg.num_envs
+        use_tp = cfg.use_tp_net and tp_net is not None
+        mid, out = self._graph_a(functools.partial(self._segment_a, use_tp),
+                                 dataclasses.replace(state, gen=None), action,
+                                 reads=self._constants, flags=(use_tp,))
+        mid.gen = state.gen
+        st, done_env = mid.stats, out["done_env"]
+
+        # auto-reset.  Episodes are synchronized, so a reset happens once per
+        # max_episode_length steps; the gate reads done_env on the host
+        # (one device→host sync per step; with ranks, the flag of every
+        # rank's arenas, so all draw the fresh scene together) and skips
+        # the scene resample otherwise.
+        if dist.any_across(done_env):
+            with trace.span("env.reset"):
+                # evader speed curriculum: the mean success over every arena
+                mean_success = dist.global_sum(st["success"]) / self.shard.total
+                mid.v_prey = torch.where(mean_success >= 0.98,
+                                         torch.clamp(state.v_prey + 0.05, max=1.3), state.v_prey)
+                new_state = self._auto_reset(mid, st, done_env, gen)
+        else:
+            new_state = mid
+
+        tp_reads = list(tp_net.parameters()) if use_tp else []
+        obs, critic_state, pred, tp_gt, tp_done = self._graph_b(
+            functools.partial(self._segment_b, tp_net), dataclasses.replace(new_state, gen=None),
+            reads=self._constants + tp_reads, flags=(use_tp,))
+        if pred is not None:
+            new_state.tp_pred = pred
+        info = {
+            "drone_state": out["drone_state"],
+            "ctbr": out["ctbr"],
+            "prev_action": new_state.prev_action,
+            "state": critic_state,
+            "tp_input": new_state.history,
+            "tp_gt": tp_gt,
+            "tp_done": tp_done,
+            "target_pos": mid.target_pos,
+            "cylinders": state.cylinders,
+            "capture": out["capture"],
+            "tp_pred": pred if pred is not None
+            else torch.zeros((e, cfg.future_prediction_step, 3), device=self.device),
+        }
+        return new_state, Transition(obs=obs, reward=out["reward"], done=out["done"], stats=st,
+                                     info=info)
+
+    def _segment_a(self, use_tp: bool, state: HideAndSeekState, action: torch.Tensor):
+        """The step up to the reset gate: the action transform, the evader,
+        the physics, detection, the reward and the stats, and the new TP
+        frame.  (the state after the step, before any reset; its outputs)."""
         cfg = self.cfg
         e, n = cfg.num_envs, cfg.num_agents
         params = self.params
@@ -616,7 +678,7 @@ class HideAndSeek:
             distance_reward = -cfg.dist_reward_coef * target_dist * active_dist
             st["distance_reward"] = st["distance_reward"] + distance_reward.mean(-1, keepdim=True)
 
-            if cfg.use_tp_net and tp_net is not None:
+            if use_tp:
                 tp_valid = (state.progress > 0)[:, None].float()
                 err1 = torch.linalg.vector_norm(
                     state.tp_pred[:, 0] - target_pos[:, 0], dim=-1, keepdim=True
@@ -714,52 +776,28 @@ class HideAndSeek:
             frame = self._tp_frame(mid, broadcast_detect)
             mid.history = torch.cat([state.history[:, 1:], frame[:, None, :]], dim=1)
 
-        # auto-reset.  Episodes are synchronized, so a reset happens once per
-        # max_episode_length steps; the gate reads done_env on the host
-        # (one device→host sync per step; with ranks, the flag of every
-        # rank's arenas, so all draw the fresh scene together) and skips
-        # the scene resample otherwise.
-        if dist.any_across(done_env):
-            with trace.span("env.reset"):
-                # evader speed curriculum: the mean success over every arena
-                mean_success = dist.global_sum(st["success"]) / self.shard.total
-                mid.v_prey = torch.where(mean_success >= 0.98,
-                                         torch.clamp(state.v_prey + 0.05, max=1.3), state.v_prey)
-                new_state = self._auto_reset(mid, st, done_env, gen)
-                detection = self._detection(new_state)
-        else:
-            new_state = mid
-            detection = (blocked, broadcast_detect, target_rpos)
+        return mid, {
+            "done_env": done_env,
+            "done": done,
+            "reward": reward[..., None].expand(e, n, 1),
+            "capture": capture_flag.float(),
+            "ctbr": res.ctbr,
+            "drone_state": drone.state_vector()[..., :13],
+        }
 
+    def _segment_b(self, tp_net, state: HideAndSeekState):
+        """The step after the reset gate, from the state it leaves: the TP
+        prediction, the observation (detection included) and the TP
+        targets.  (obs, critic state, prediction or None, tp_gt, tp_done)."""
+        cfg = self.cfg
         pred = None
         if cfg.use_tp_net and tp_net is not None:
             with trace.span("env.tp_predict"):
-                pred = self._tp_predict(tp_net, new_state.history)
-            new_state.tp_pred = pred
+                pred = self._tp_predict(tp_net, state.history)
         with trace.span("env.observe"):
-            obs, critic_state = self.observe_full(new_state, tp_net, detection=detection, pred=pred)
-            tp_gt = normalize_groundtruth(new_state.target_pos[:, 0], cfg.arena_size,
+            obs, critic_state = self.observe_full(state, tp_net, pred=pred)
+            tp_gt = normalize_groundtruth(state.target_pos[:, 0], cfg.arena_size,
                                           cfg.max_height)
-            tp_done = (new_state.progress
+            tp_done = (state.progress
                        <= cfg.max_episode_length - cfg.future_prediction_step)[:, None]
-            info = {
-                "drone_state": drone.state_vector()[..., :13],
-                "ctbr": res.ctbr,
-                "prev_action": new_state.prev_action,
-                "state": critic_state,
-                "tp_input": new_state.history,
-                "tp_gt": tp_gt,
-                "tp_done": tp_done.float(),
-                "target_pos": target_pos,
-                "cylinders": state.cylinders,
-                "capture": capture_flag.float(),
-                "tp_pred": pred if pred is not None
-                else torch.zeros((e, cfg.future_prediction_step, 3), device=dev),
-            }
-        return new_state, Transition(
-            obs=obs,
-            reward=reward[..., None].expand(e, n, 1),
-            done=done,
-            stats=st,
-            info=info,
-        )
+        return obs, critic_state, pred, tp_gt, tp_done.float()

@@ -43,6 +43,7 @@ zeros and launches no kernel.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -71,7 +72,7 @@ from ..ops.fused_encoder import (
     split_flat,
 )
 from ..parallel import dist
-from ..utils import trace
+from ..utils import graphs, trace
 from .modules.distributions import Gaussian
 from .modules.networks import (
     FlatHeadNet,
@@ -429,6 +430,7 @@ class MAPPOPolicy:
         self._default_modules = actor_module is None and critic_module is None
         # the agent axis of per-agent observations (mappo.py:544)
         self.agent_axis = -3 if obs_is_dict else -2
+        self._act_graph = graphs.Graphed()
 
     def specs(self, obs: Dict[str, torch.Tensor]):
         """(group names, actor spec, critic spec) for a dict observation
@@ -581,7 +583,20 @@ class MAPPOPolicy:
         Where the joint update applies, actor and critic run in one
         `encoder_pair_forward` launch.  `noise` (standard normal, the
         action's shape) replaces the generator's draw; `state` is the
-        centralized critic's input."""
+        centralized critic's input.  With the policy's own networks the
+        whole call replays as a CUDA graph on a card (`utils/graphs.py`),
+        keyed by the parameters' storage; injected networks (the PPO
+        family's) run eagerly."""
+        run = functools.partial(self._act, ts, deterministic)
+        if not self._default_modules:
+            return run(generator, obs, noise, state)
+        reads = [ts.log_std, *ts.actor.parameters(), *ts.actor.buffers(),
+                 *ts.critic.parameters(), *ts.critic.buffers()]
+        draws = not deterministic and noise is None
+        return self._act_graph(run, obs, noise, state, reads=reads, flags=(deterministic,),
+                               generators=(generator if draws else None,))
+
+    def _act(self, ts: MAPPOState, deterministic: bool, generator, obs, noise, state):
         if self.joint(obs):
             names, spec_a, spec_c = self.specs(obs)
             x, lead = pack_obs(spec_a, obs, names)

@@ -38,7 +38,7 @@ import torch
 
 # spans that hold other spans: they open no profiler range
 GROUPS = frozenset({"train.iter", "eval.episode", "rollout", "policy.act", "env.step",
-                    "update", "update.tp", "update.ppo"})
+                    "update", "update.tp", "update.ppo", "graph.eager", "graph.capture"})
 # spans that start a tree: every span inside shares their index as `root`
 ROOTS = frozenset({"train.iter", "eval.episode"})
 
@@ -130,7 +130,8 @@ def to_device(value, device, dtype=None, site: str = "to_device") -> torch.Tenso
 
 
 def counts() -> collections.Counter:
-    """How often each span was entered (0 for a name never entered)."""
+    """How often each span was entered (0 for a name never entered); the
+    live counter, which a graph's replay adds its capture's counts to."""
     return _counts
 
 

@@ -146,14 +146,14 @@ def test_a_hideandseek_iteration_records_the_tree_of_its_configuration():
     step, update = "train.iter/rollout/env.step", "train.iter/update"
     want = {"train.iter": 1, "train.iter/rollout": 1, update: 1,
             "train.iter/rollout/policy.act": steps, step: steps,
+            # the graphed sites run eagerly on the CPU: act and the step's two segments
+            "train.iter/rollout/policy.act/graph.eager": steps, f"{step}/graph.eager": 2 * steps,
             f"{step}/sync.any_across": steps, f"{step}/env.reset": 1,
             f"{update}/update.prep": 1, f"{update}/update.tp": 1, f"{update}/update.ppo": 1,
-            # copies from the host and a boolean mask: each waits for a card
-            f"{step}/env.observe/sync.quat_axis": 4 * steps,  # heading and up, twice
-            f"{step}/env.observe/sync.offdiag_mask": steps,
+            # copies from the host: each waits for a card (none left in a step)
             f"{step}/env.reset/sync.outside_circle": 9, f"{step}/env.reset/sync.uniform_bounds": 10,
             f"{update}/update.tp/sync.adam_betas": 2, f"{update}/update.ppo/sync.adam_betas": 8}
-    want.update({f"{step}/{p}": steps for p in ENV_PARTS})
+    want.update({f"{step}/graph.eager/{p}": steps for p in ENV_PARTS})
     assert dict(where) == want
     assert all(r["root"] == 0 and r["host_ms"] is not None for r in recs)
     # the counts count what ran, with or without a profiler
@@ -215,18 +215,30 @@ def _synced(train_iter, carry):
 @pytest.mark.gpu
 @pytest.mark.parametrize("task", ["HideAndSeek", "HideAndSeek_envgen"])
 def test_every_host_sync_of_an_iteration_is_a_sync_span(cuda, task):
-    """The second of two iterations at 1,024 arenas x 16 steps with 8-step
-    episodes (two resets; the AEG closes a cycle): the `sync.*` spans count
+    """Two iterations at 1,024 arenas x 16 steps with 8-step episodes (two
+    resets each; the AEG closes a cycle): in each the `sync.*` spans count
     exactly the synchronisations `torch.cuda.set_sync_debug_mode("warn")`
-    reports.  The first builds the kernels and caches constants."""
+    reports.  The first captures the rollout's graphs (a twin's iteration
+    before it built the kernels and cached constants); the step's host
+    copies (`quat_axis`) and boolean mask (`offdiag`) are gone, the reset
+    gate is its one sync outside a reset."""
     env_kw = {"num_envs": 1024, "max_episode_length": 8}
     if task == "HideAndSeek_envgen":
         env_kw.update(buffer_length=256, use_init_easy_cases=True, r_min=0.0)
-    env, pol, _, _ = harness.build(task, env_kw, {"train_every": 16}, device=cuda)
-    carry = init_carry(env, pol, torch.Generator(device=cuda).manual_seed(0))
-    train_iter = make_train_iter(env, pol)
-    carry, _, _ = _synced(train_iter, carry)
-    _, syncs, spans = _synced(train_iter, carry)
-    sites = collections.Counter(f"{w.filename}:{w.lineno}" for w in syncs)
-    assert spans.get("sync.any_across", 0) >= 16
-    assert sum(spans.values()) == len(syncs), (spans, sites)
+
+    def build():
+        env, pol, _, _ = harness.build(task, env_kw, {"train_every": 16}, device=cuda)
+        carry = init_carry(env, pol, torch.Generator(device=cuda).manual_seed(0))
+        return make_train_iter(env, pol), carry
+
+    twin_iter, twin = build()
+    twin_iter(twin)
+    train_iter, carry = build()
+    for first in (True, False):
+        before = trace.counts().copy()
+        carry, syncs, spans = _synced(train_iter, carry)
+        sites = collections.Counter(f"{w.filename}:{w.lineno}" for w in syncs)
+        assert (trace.counts()["graph.capture"] > before["graph.capture"]) == first
+        assert spans.get("sync.any_across", 0) >= 16
+        assert not {"sync.quat_axis", "sync.offdiag_mask"} & set(spans)
+        assert sum(spans.values()) == len(syncs), (spans, sites)
