@@ -291,9 +291,10 @@ class Hover:
         cam = DepthCameraCfg(width=self.cfg.depth_width, height=self.cfg.depth_height,
                              max_range=self.cfg.depth_max_range)
         d = state.drone
-        depth = depth_image(cam, d.pos, d.quat, target_pos=state.target_pos, target_radius=0.25,
-                            rays=self._rays)
-        return depth_image_norm(depth, cam.min_range, cam.max_range)[..., None]
+        with trace.span("env.depth"):
+            depth = depth_image(cam, d.pos, d.quat, target_pos=state.target_pos,
+                                target_radius=0.25, rays=self._rays)
+            return depth_image_norm(depth, cam.min_range, cam.max_range)[..., None]
 
     @torch.no_grad()
     def observe(self, state: HoverState):

@@ -992,9 +992,11 @@ class MAPPOPolicy:
     def _update_actor_critic(self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None,
                              mb_rows: Optional[int] = None):
         """One minibatch of the non-joint branch: `_update_actor`, then
-        `_update_critic`."""
-        return {**self._update_actor(ts, mb, stop, mb_rows),
-                **self._update_critic(ts, mb, stop, mb_rows)}
+        `_update_critic` (the spans `update.actor`, `update.critic`)."""
+        with trace.span("update.actor"):
+            info = self._update_actor(ts, mb, stop, mb_rows)
+        with trace.span("update.critic"):
+            return {**info, **self._update_critic(ts, mb, stop, mb_rows)}
 
     def _update_tp(self, ts: MAPPOState, traj: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """The TP net's supervised epochs (mappo.py:1197-1270): every window

@@ -26,6 +26,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ...parallel import dist
+from ...utils import trace
 from .networks import Leaf, apply_conv, apply_dense, conv_leaves, dense_leaves, frames_nchw
 
 BN_EPS = 1e-3  # torchvision MobileNetV3's BatchNorm eps
@@ -176,6 +177,10 @@ class MobileNetV3(nn.Module):
                 + _norm_leaves(f"{n}/_BatchStatsNorm_1", self.out_dim))
 
     def forward(self, p, x: torch.Tensor) -> torch.Tensor:
+        with trace.span("vision.backbone"):
+            return self._forward(p, x)
+
+    def _forward(self, p, x: torch.Tensor) -> torch.Tensor:
         n = self.path
         h, lead = frames_nchw(x)
         if h.shape[1] == 1:

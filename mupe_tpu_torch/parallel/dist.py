@@ -183,12 +183,18 @@ def _in_place(x: torch.Tensor, op: Callable[[torch.Tensor], Any]) -> torch.Tenso
     return y
 
 
+def _all_reduce(x: torch.Tensor, op) -> torch.Tensor:
+    """The all-reduce `op` of `x` over the ranks, as the span `dist.all_reduce`."""
+    with trace.span("dist.all_reduce"):
+        return _in_place(x, lambda y: tdist.all_reduce(y, op=op))
+
+
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     """The elementwise sum of `x` over the ranks (a new tensor; `x`
     itself without a group)."""
     if not is_initialized():
         return x
-    return _in_place(x, lambda y: tdist.all_reduce(y, op=tdist.ReduceOp.SUM))
+    return _all_reduce(x, tdist.ReduceOp.SUM)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -198,11 +204,11 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        return _in_place(x, lambda y: tdist.all_reduce(y, op=tdist.ReduceOp.SUM))
+        return _all_reduce(x, tdist.ReduceOp.SUM)
 
     @staticmethod
     def backward(ctx, grad):
-        return _in_place(grad, lambda y: tdist.all_reduce(y, op=tdist.ReduceOp.SUM))
+        return _all_reduce(grad, tdist.ReduceOp.SUM)
 
 
 def all_reduce_sum_grad(x: torch.Tensor) -> torch.Tensor:
@@ -218,7 +224,7 @@ def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
     """The elementwise maximum of `x` over the ranks."""
     if not is_initialized():
         return x
-    return _in_place(x, lambda y: tdist.all_reduce(y, op=tdist.ReduceOp.MAX))
+    return _all_reduce(x, tdist.ReduceOp.MAX)
 
 
 def all_reduce_tensors(tensors: Sequence[torch.Tensor]) -> list:
@@ -244,7 +250,8 @@ def all_gather_envs(x: torch.Tensor) -> torch.Tensor:
         return x
     y = x.detach().contiguous()
     parts = [torch.empty_like(y) for _ in range(world_size())]
-    tdist.all_gather(parts, y)
+    with trace.span("dist.all_gather"):
+        tdist.all_gather(parts, y)
     return torch.cat(parts, dim=0)
 
 

@@ -38,7 +38,8 @@ import torch
 
 # spans that hold other spans: they open no profiler range
 GROUPS = frozenset({"train.iter", "eval.episode", "rollout", "policy.act", "env.step",
-                    "update", "update.tp", "update.ppo", "graph.eager", "graph.capture"})
+                    "update", "update.tp", "update.ppo", "update.actor", "update.critic",
+                    "vision.backbone", "graph.eager", "graph.capture"})
 # spans that start a tree: every span inside shares their index as `root`
 ROOTS = frozenset({"train.iter", "eval.episode"})
 
