@@ -37,6 +37,10 @@ UPDATES = ("_update_joint_flat", "_update_joint_direct", "_update_actor_critic")
 # the optimizer steps the reference follows; the TP net takes one an iteration
 STEPS = 3
 TP_FIELDS = ("tp_input", "tp_gt", "tp_done", "done")
+# the numbers `update_readings` gives, and all that `readings` gives
+UPDATE_NUMBERS = ("loss", "first_loss", "grad", "median_grad", "group_grad", "change",
+                  "median_change", "group_change")
+NUMBERS = ("env", "act", "act_logp", "act_value") + UPDATE_NUMBERS
 
 
 def _model(env, layout, algo_cfg) -> Dict[str, Any]:
@@ -371,12 +375,13 @@ def reference(run, layout, algo_cfg, rnd: str):
 
 
 def readings(run, cap, first_obs, reset_gen, prog_after, env_cfg, ref, layout) -> Dict[str, float]:
-    """`env` (the reset and the env steps), `act` (the first rollout's
-    log-probs and values), and the update's `loss`, `grad`, `change`."""
+    """`env` (the reset and the env steps), `act`, `act_logp`, `act_value`
+    (the first rollout's log-probs and values), and the update's numbers
+    (`update_readings`)."""
     dev = run.device
     out = {"env": env_reading(run, cap, first_obs, reset_gen, env_cfg, ref)}
     first = cap.rollouts[0]["traj"]
-    out["act"] = act_reading(first["logp"], first["value"], first, ref, dev)
+    out.update(act_readings((first["logp"], first["value"]), act_outputs(first, ref, dev)))
     ref_up = update_reference(ref, cap.rollouts, dev)
     out.update(update_readings(program_update(cap, prog_after, layout), ref_up))
     return out
@@ -410,9 +415,15 @@ def act_outputs(traj, learner, dev, block: int = 8):
     return torch.cat(logps), torch.cat(values)
 
 
-def act_reading(logp, value, traj, ref, dev) -> float:
-    r_logp, r_value = act_outputs(traj, ref, dev)
-    return max(checks.widest_gap(logp.to(dev), r_logp), checks.widest_gap(value.to(dev), r_value))
+def act_readings(side, ref) -> Dict[str, float]:
+    """`act_logp` and `act_value`: the widest gap of the rollout's
+    log-probs and of its values (`side`, `ref`: each a pair [T, E, n, 1]),
+    each against the reference's largest; `act` the larger of the two.
+    A log-prob's gap grows as the inverse of the policy's smallest
+    standard deviation, the values' does not."""
+    out = {f"act_{k}": checks.widest_gap(p.to(r.device), r)
+           for k, p, r in zip(("logp", "value"), side, ref)}
+    return {"act": max(out.values()), **out}
 
 
 def _params(learner) -> Dict[str, List[torch.Tensor]]:
@@ -463,34 +474,47 @@ def program_update(cap: Capture, prog_after, layout) -> Dict[str, Any]:
 def update_readings(prog: Dict[str, Any], ref: Dict[str, Any]) -> Dict[str, float]:
     """`loss`: each step's loss (a minibatch's policy plus value loss; the
     TP loss), relative, and `first_loss` the first steps' alone; `grad`:
-    the first clipped gradient's norm by leaf; `change`: the norm of each
-    leaf's change over the steps, leaving out the leaves whose first
-    reference gradient is under a thousandth of the median leaf's, and
-    `median_change` the median leaf's gap.  A cell compares those its
-    limits name."""
+    the first clipped gradient's norm by leaf, the worst leaf's gap,
+    `median_grad` the median leaf's and `group_grad` the largest of the
+    parameter groups' median leaves' (actor with log_std, critic, TP);
+    `change`, `median_change` and `group_change`: the same of the norm of
+    each leaf's change over the steps.  The medians and `change` leave out
+    the leaves whose first reference gradient is under a thousandth of the
+    median leaf's (nought to rounding: Adam moves them by round-off
+    alone).  A cell compares those its limits name."""
     pairs = list(zip(prog["losses"], ref["losses"])) + list(zip(prog["tp_losses"],
                                                                 ref["tp_losses"]))
     if len(prog["losses"]) != len(ref["losses"]) or len(prog["tp_losses"]) != len(ref["tp_losses"]):
-        return {"loss": math.inf, "grad": math.inf, "change": math.inf}
+        return dict.fromkeys(UPDATE_NUMBERS, math.inf)
     gaps = [abs(p - r) / max(abs(r), 1e-12) for p, r in pairs]
     loss = max(gaps)
     first_loss = max(gaps[0], gaps[len(prog["losses"])] if prog["tp_losses"] else 0.0)
+    g_p, g_r, c_p, c_r, groups = leaf_norms_of(prog, ref)
+    med = sorted(g_r)[len(g_r) // 2]
+    keep = [g >= 1e-3 * med for g in g_r]
+    return {"loss": loss, "first_loss": first_loss, "grad": _update.gap_by_leaf(g_p, g_r),
+            "median_grad": _update.median_gap(g_p, g_r, keep),
+            "group_grad": _update.group_median_gap(g_p, g_r, groups, keep),
+            "change": _update.gap_by_leaf(c_p, c_r, keep),
+            "median_change": _update.median_gap(c_p, c_r, keep),
+            "group_change": _update.group_median_gap(c_p, c_r, groups, keep)}
+
+
+def leaf_norms_of(prog: Dict[str, Any], ref: Dict[str, Any]):
+    """The norms by leaf, in the order of the reference's groups (actor
+    with log_std last, critic, TP): the first clipped gradient's on each
+    side, then the change's over the steps on each side; and each leaf's
+    group."""
     keys = list(ref["first"])
     g_p = [n for k in keys for n in leaf_norms(prog["first"][k])]
     g_r = [n for k in keys for n in leaf_norms(ref["first"][k])]
-    med = sorted(g_r)[len(g_r) // 2]
-    keep = [g >= 1e-3 * med for g in g_r]
+    groups = [k for k in keys for _ in ref["first"][k]]
     c_p, c_r = [], []
     for k in keys:
         before = ref["before"][k]
         c_p += leaf_norms([a.to(b.device) - b for a, b in zip(prog["after"][k], before)])
         c_r += leaf_norms([a - b for a, b in zip(ref["after"][k], before)])
-    kept = [(p, r) for p, r, k in zip(c_p, c_r, keep) if k]
-    med = sorted(r for _, r in kept)[len(kept) // 2]
-    leaf_gaps = sorted(abs(p - r) / max(r, med) for p, r in kept)
-    return {"loss": loss, "first_loss": first_loss, "grad": _update.gap_by_leaf(g_p, g_r),
-            "change": _update.gap_by_leaf(c_p, c_r, keep),
-            "median_change": leaf_gaps[len(leaf_gaps) // 2]}
+    return g_p, g_r, c_p, c_r, groups
 
 
 def _split(flat: torch.Tensor, layout) -> List[torch.Tensor]:

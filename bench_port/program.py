@@ -36,18 +36,31 @@ class Layout:
     hidden: tuple
     tp: Optional[tuple]            # (input_dim, out_dim) of the TP net
 
-    def actor(self):
+    def tables(self) -> Dict[str, list]:
+        """(name, shape, kind) of each network's leaves (`nets`' tables)."""
         if self.groups is not None:
-            return nets.encoder_leaves(self.groups, self.action_dim)
-        return nets.flat_leaves(self.obs_dim, self.hidden, self.action_dim)
+            a, c = (nets.encoder_table(self.groups, h, self.names) for h in (self.action_dim, 1))
+        else:
+            a, c = (nets.flat_table(self.obs_dim, self.hidden, h) for h in (self.action_dim, 1))
+        return {"actor": a, "critic": c, "tp": nets.tp_table(*self.tp) if self.tp is not None
+                else []}
+
+    def actor(self):
+        return nets.unnamed(self.tables()["actor"])
 
     def critic(self):
-        if self.groups is not None:
-            return nets.encoder_leaves(self.groups, 1)
-        return nets.flat_leaves(self.obs_dim, self.hidden, 1)
+        return nets.unnamed(self.tables()["critic"])
 
     def tp_layout(self):
-        return nets.tp_leaves(*self.tp) if self.tp is not None else []
+        return nets.unnamed(self.tables()["tp"])
+
+    def leaf_names(self) -> List[str]:
+        """`<group>.<leaf>` of each leaf in the order of the training
+        check's norms: the actor's leaves and log_std, the critic's, the
+        TP net's."""
+        t = self.tables()
+        return ([f"actor.{n}" for n, _, _ in t["actor"]] + ["actor.log_std"]
+                + [f"critic.{n}" for n, _, _ in t["critic"]] + [f"tp.{n}" for n, _, _ in t["tp"]])
 
 
 def layout_of(env, policy) -> Layout:

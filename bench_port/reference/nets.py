@@ -52,37 +52,59 @@ def group_order(keys) -> List[str]:
     return first + sorted(k for k in keys if k not in first)
 
 
-def encoder_leaves(groups: Sequence[Tuple[int, int]], head: int) -> List[Tuple[Tuple[int, ...], str]]:
-    """(shape, kind) of each leaf: per group (Wg, bg), ln0, Wq, bq, Wk, bk,
-    Wv, bv, Wo, bo, ln1, W1, b1, W2, b2, ln2, Wh, bh; weights [in, out].
-    Kinds: "w" (a weight), "b" (a bias), "s" (a LayerNorm scale)."""
+def encoder_table(groups: Sequence[Tuple[int, int]], head: int,
+                  names: Sequence[str]) -> List[Tuple[str, Tuple[int, ...], str]]:
+    """(name, shape, kind) of each leaf: per group `g` (Wg.g, bg.g), ln0,
+    Wq, bq, Wk, bk, Wv, bv, Wo, bo, ln1, W1, b1, W2, b2, ln2, Wh, bh;
+    weights [in, out].  Kinds: "w" (a weight), "b" (a bias), "s" (a
+    LayerNorm scale)."""
     e, f = EMBED, FF
     out = []
-    for _, d in groups:
-        out += [((d, e), "w"), ((e,), "b")]
-    out += [((e,), "s"), ((e,), "b")]
-    out += [((e, e), "w"), ((e,), "b")] * 4
-    out += [((e,), "s"), ((e,), "b"), ((e, f), "w"), ((f,), "b"), ((f, e), "w"), ((e,), "b"),
-            ((e,), "s"), ((e,), "b"), ((e, head), "w"), ((head,), "b")]
-    return out
+    for g, (_, d) in zip(names, groups):
+        out += [(f"Wg.{g}", (d, e), "w"), (f"bg.{g}", (e,), "b")]
+    out += [("ln0.s", (e,), "s"), ("ln0.b", (e,), "b")]
+    for n in "qkvo":
+        out += [(f"W{n}", (e, e), "w"), (f"b{n}", (e,), "b")]
+    return out + [("ln1.s", (e,), "s"), ("ln1.b", (e,), "b"), ("W1", (e, f), "w"),
+                  ("b1", (f,), "b"), ("W2", (f, e), "w"), ("b2", (e,), "b"), ("ln2.s", (e,), "s"),
+                  ("ln2.b", (e,), "b"), ("Wh", (e, head), "w"), ("bh", (head,), "b")]
+
+
+def flat_table(in_dim: int, hidden: Sequence[int],
+               out: int) -> List[Tuple[str, Tuple[int, ...], str]]:
+    """LayerNorm(input), then per hidden width `i` (W, b, LN scale, LN
+    bias), then the head (W, b)."""
+    leaves = [("ln_in.s", (in_dim,), "s"), ("ln_in.b", (in_dim,), "b")]
+    d = in_dim
+    for i, u in enumerate(hidden):
+        leaves += [(f"W{i}", (d, u), "w"), (f"b{i}", (u,), "b"), (f"ln{i}.s", (u,), "s"),
+                   (f"ln{i}.b", (u,), "b")]
+        d = u
+    return leaves + [("Wh", (d, out), "w"), ("bh", (out,), "b")]
+
+
+def tp_table(in_dim: int, out: int) -> List[Tuple[str, Tuple[int, ...], str]]:
+    """wi [F, 4H], wh [H, 4H], b [4H], wfc [H, O], bfc [O]; gates i, f, g, o."""
+    h = TP_HIDDEN
+    return [("wi", (in_dim, 4 * h), "w"), ("wh", (h, 4 * h), "w"), ("b", (4 * h,), "b"),
+            ("wfc", (h, out), "w"), ("bfc", (out,), "b")]
+
+
+def unnamed(table) -> List[Tuple[Tuple[int, ...], str]]:
+    """A table's (shape, kind) pairs: the layout that leaves are made from."""
+    return [(shape, kind) for _, shape, kind in table]
+
+
+def encoder_leaves(groups: Sequence[Tuple[int, int]], head: int) -> List[Tuple[Tuple[int, ...], str]]:
+    return unnamed(encoder_table(groups, head, [str(i) for i in range(len(groups))]))
 
 
 def flat_leaves(in_dim: int, hidden: Sequence[int], out: int) -> List[Tuple[Tuple[int, ...], str]]:
-    """LayerNorm(input), then per hidden width (W, b, LN scale, LN bias),
-    then the head (W, b)."""
-    leaves = [((in_dim,), "s"), ((in_dim,), "b")]
-    d = in_dim
-    for u in hidden:
-        leaves += [((d, u), "w"), ((u,), "b"), ((u,), "s"), ((u,), "b")]
-        d = u
-    return leaves + [((d, out), "w"), ((out,), "b")]
+    return unnamed(flat_table(in_dim, hidden, out))
 
 
 def tp_leaves(in_dim: int, out: int) -> List[Tuple[Tuple[int, ...], str]]:
-    """wi [F, 4H], wh [H, 4H], b [4H], wfc [H, O], bfc [O]; gates i, f, g, o."""
-    h = TP_HIDDEN
-    return [((in_dim, 4 * h), "w"), ((h, 4 * h), "w"), ((4 * h,), "b"), ((h, out), "w"),
-            ((out,), "b")]
+    return unnamed(tp_table(in_dim, out))
 
 
 def make_leaves(layout, z: torch.Tensor) -> List[torch.Tensor]:

@@ -234,15 +234,46 @@ def leaf_norms(leaves: List[torch.Tensor]) -> List[float]:
     return [float(torch.linalg.vector_norm(l.double())) for l in leaves]
 
 
-def gap_by_leaf(prog: List[float], ref: List[float], keep: Optional[List[bool]] = None) -> float:
-    """The worst leaf's gap between two norms, against the reference's norm
-    of that leaf or of the median leaf, whichever is larger."""
+def leaf_gaps(prog: List[float], ref: List[float],
+              keep: Optional[List[bool]] = None) -> List[float]:
+    """Each kept leaf's gap between two norms, against the reference's norm
+    of that leaf or of the median kept leaf, whichever is larger."""
     if keep is None:
         keep = [True] * len(ref)
     kept = [r for r, k in zip(ref, keep) if k]
     med = sorted(kept)[len(kept) // 2] if kept else 0.0
-    gaps = [abs(p - r) / max(r, med, 1e-30) for p, r, k in zip(prog, ref, keep) if k]
-    return max(gaps) if gaps else 0.0
+    return [abs(p - r) / max(r, med, 1e-30) for p, r, k in zip(prog, ref, keep) if k]
+
+
+def gap_by_leaf(prog: List[float], ref: List[float], keep: Optional[List[bool]] = None) -> float:
+    """The worst leaf's gap (`leaf_gaps`)."""
+    return max(leaf_gaps(prog, ref, keep), default=0.0)
+
+
+def median_gap(prog: List[float], ref: List[float], keep: Optional[List[bool]] = None) -> float:
+    """The median leaf's gap (`leaf_gaps`; of an even count, the upper
+    one): a number that one leaf cannot swing, where Adam's first step
+    moves a leaf by about its learning rate on every element whatever
+    the size of the gradient, so that signs which rounding flips in a
+    near-zero gradient move a small leaf's change by its own size."""
+    gaps = sorted(leaf_gaps(prog, ref, keep))
+    return gaps[len(gaps) // 2] if gaps else 0.0
+
+
+def group_median_gap(prog: List[float], ref: List[float], groups: List[str],
+                     keep: Optional[List[bool]] = None) -> float:
+    """The largest, over parameter groups, of the group's median leaf's gap
+    (`median_gap` within the group): a fault confined to one group (the
+    critic's step, the TP net's gradient) moves that group's median where
+    the other groups' leaves hold the median of them all."""
+    if keep is None:
+        keep = [True] * len(ref)
+    out = 0.0
+    for g in dict.fromkeys(groups):
+        idx = [i for i, x in enumerate(groups) if x == g]
+        out = max(out, median_gap([prog[i] for i in idx], [ref[i] for i in idx],
+                                  [keep[i] for i in idx]))
+    return out
 
 
 def widest_gap(prog: torch.Tensor, ref: torch.Tensor) -> float:

@@ -7,13 +7,15 @@ import re
 
 import pytest
 
+from bench_port.drivers import train
 from conftest import BENCH, REPO, manifest
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 PATH = re.compile(r"^[A-Za-z0-9_./-]{1,200}$")
 # the numbers each driver reads; a cell compares those its limits name
-CHECKS = {"train": {"env", "act", "loss", "first_loss", "grad", "change", "median_change"},
+CHECKS = {"train": set(train.NUMBERS), "train_dp": set(train.NUMBERS) | {"ranks"},
+          "train_vision": {"env", "act"} | set(train.UPDATE_NUMBERS),
           "eval": {"env", "act", "stats"}}
 WIDTH = re.compile(r"(hidden|intermediate|latent|state|projection|head|expansion|_dim$|_rank$)")
 
