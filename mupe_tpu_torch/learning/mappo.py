@@ -10,7 +10,8 @@ PPO minibatches of `_update_joint_flat`, whose gradients come from the
 backward kernels through the autograd Functions under the forward wrappers,
 or, with `use_inkernel_loss`, of `_update_joint_direct`, whose loss
 gradients come out of the forward kernel itself (`pair_ppo_grads_fwdloss` /
-`pair_ppo_grads`).
+`pair_ppo_grads`).  On a card without ranks each joint minibatch replays as
+one CUDA graph (`_minibatch`, `utils/graphs.py`).
 
 Over flat observations ([..., n, D], Hover's) the actor and the critic are
 `FlatHeadNet`s (LayerNorm + MLP in `compute_dtype`, float32 heads) in plain
@@ -431,6 +432,7 @@ class MAPPOPolicy:
         # the agent axis of per-agent observations (mappo.py:544)
         self.agent_axis = -3 if obs_is_dict else -2
         self._act_graph = graphs.Graphed()
+        self._update_graph = graphs.Graphed()
 
     def specs(self, obs: Dict[str, torch.Tensor]):
         """(group names, actor spec, critic spec) for a dict observation
@@ -739,10 +741,11 @@ class MAPPOPolicy:
                     err = torch.sign(err) * torch.clamp(torch.abs(err) - cfg.entropy_deadband,
                                                         min=0.0)
                     err = torch.clamp(err, -cfg.entropy_err_clip, cfg.entropy_err_clip)
-                    ts.entropy_coef = torch.clamp(
+                    # in place: the graphed minibatch reads it by its storage
+                    ts.entropy_coef.copy_(torch.clamp(
                         ts.entropy_coef * torch.exp(cfg.entropy_adapt_speed * err),
-                        cfg.entropy_coef_min, cfg.entropy_coef_max)
-                    metrics["entropy_coef"] = ts.entropy_coef
+                        cfg.entropy_coef_min, cfg.entropy_coef_max))
+                    metrics["entropy_coef"] = ts.entropy_coef.clone()
                 metrics["action_norm"] = dist.global_sum(
                     torch.linalg.vector_norm(traj["action"], dim=-1)) / count
                 metrics["value_running_mean"] = torch.mean(ts.value_norm.running_mean)
@@ -840,13 +843,40 @@ class MAPPOPolicy:
         self._actor_step(ts, ga, stop)
         self._critic_step(ts, gc, stop)
 
+    def _minibatch(self, step: Callable, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop,
+                   mb_rows: Optional[int]) -> Dict[str, torch.Tensor]:
+        """One joint minibatch, `step(ts, mb_rows, mb, stop)`, with grad
+        disabled (the step enables it where it differentiates).  On a card
+        without ranks the call replays as one CUDA graph (`utils/graphs.py`):
+        the parameters, Adam's states and the adaptive entropy coefficient
+        are its `reads`, written in place, and the minibatch's rows and
+        `stop` are copied in, so one graph serves every minibatch of every
+        iteration; a key's first call is the real step, eager.  With ranks
+        it runs eagerly: the minibatches' rows, counted on the host, differ
+        by rank, and their collectives stay outside any graph."""
+        run = functools.partial(step, ts, mb_rows)
+        with torch.no_grad():
+            if dist.is_initialized():
+                return run(mb, stop)
+            reads = [*ts.actor_params(), *ts.critic_params(), *ts.actor_opt.tensors(),
+                     *ts.critic_opt.tensors()]
+            if ts.entropy_coef is not None:
+                reads.append(ts.entropy_coef)
+            return self._update_graph(run, mb, stop, reads=reads,
+                                      flags=(step.__name__, mb_rows))
+
     def _update_joint_flat(
         self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None,
         mb_rows: Optional[int] = None,
     ) -> Dict[str, torch.Tensor]:
         """One minibatch (mappo.py:949-1045): `_joint_grads`, then clip +
         Adam for the actor (log_std in its global norm) and the critic;
-        returns the info metrics, from sums over every rank."""
+        returns the info metrics, from sums over every rank.  One CUDA graph
+        on a card (`_minibatch`)."""
+        return self._minibatch(self._joint_flat_step, ts, mb, stop, mb_rows)
+
+    def _joint_flat_step(self, ts: MAPPOState, mb_rows: Optional[int],
+                         mb: Dict[str, torch.Tensor], stop) -> Dict[str, torch.Tensor]:
         ga, gc, terms = self._joint_grads(ts, mb, mb_rows)
         self._step(ts, ga, gc, stop)
         with torch.no_grad():
@@ -864,7 +894,6 @@ class MAPPOPolicy:
                 "approx_kl": kl / n,
             }
 
-    @torch.no_grad()
     def _update_joint_direct(
         self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None,
         mb_rows: Optional[int] = None,
@@ -877,7 +906,12 @@ class MAPPOPolicy:
         global count, `PPOLossCfg.n_rows`); the entropy bonus adds
         -entropy_coef to dlog_std (the Gaussian's entropy does not depend on
         the state).  The encoder gradients are summed over the ranks, then
-        `_step`; the metrics come from the sums."""
+        `_step`; the metrics come from the sums.  One CUDA graph on a card
+        (`_minibatch`)."""
+        return self._minibatch(self._joint_direct_step, ts, mb, stop, mb_rows)
+
+    def _joint_direct_step(self, ts: MAPPOState, mb_rows: Optional[int],
+                           mb: Dict[str, torch.Tensor], stop) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         a_dim = self.action_dim
         x = mb["obs_rows"]

@@ -19,7 +19,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from ..utils import trace
+from ..core.math import const
 
 
 @dataclasses.dataclass
@@ -71,8 +71,10 @@ def adam_updates(
     nu = [(1 - b2) * (g * g) + b2 * v for g, v in zip(grads, state.nu)]
     count = state.count + 1
     c = count.to(torch.float32)
-    bc1 = 1 - torch.pow(trace.to_device(b1, c.device, torch.float32, "adam_betas"), c)
-    bc2 = 1 - torch.pow(trace.to_device(b2, c.device, torch.float32, "adam_betas"), c)
+    # the betas are made on c's device once (`const`): a step copies nothing
+    # from the host, so it waits for nothing and can be captured in a graph
+    bc1 = 1 - torch.pow(const(b1, c.device), c)
+    bc2 = 1 - torch.pow(const(b2, c.device), c)
     direction = [(m / bc1) / (torch.sqrt(v / bc2) + eps) for m, v in zip(mu, nu)]
     if weight_decay > 0.0:
         direction = [d + weight_decay * p for d, p in zip(direction, params)]

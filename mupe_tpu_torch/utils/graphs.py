@@ -1,49 +1,74 @@
-"""CUDA graphs of the rollout step's sync-free pieces of work.
+"""CUDA graphs of the sync-free pieces of work: the rollout step's and the
+update's minibatch.
 
 At 4,096 arenas an env step is some 670 launches of a few microseconds of
-work each, so the host's launch rate, not the card, sets its time.  A
-`Graphed` call site captures its function once as a `torch.cuda.CUDAGraph`
-and replays it afterwards: one graph launch in place of the function's
-launches.
+work each, and a PPO minibatch some 150 Python and autograd launches, so
+the host's launch rate, not the card, sets their time.  A `Graphed` call
+site captures its function once as a `torch.cuda.CUDAGraph` and replays it
+afterwards: one graph launch in place of the function's launches.
 
     site = Graphed()
     out = site(fn, *args, reads=params, flags=(deterministic,), generators=(gen,))
 
-`fn(*generators, *args)` is a pure function of the tensors in `args`
-(tensors, dicts, lists, tuples and dataclasses of them; other leaves are
-static) that draws only from `generators` (None: the device's default
-one).  Each call copies the input tensors into the graph's static buffers
-(one grouped copy a dtype), replays the graph, and hands out its output
-tensors as views of one fresh clone of the graph's packed outputs, so
-that no later replay overwrites what a caller kept.  An output that is
-one of the inputs passes through: the caller gets its own tensor back.
+`fn(*generators, *args)` is a function of the tensors in `args` (tensors,
+dicts, lists, tuples and dataclasses of them; other leaves are static)
+that draws only from `generators` (None: the device's default one) and
+reads or writes no host value of a tensor.  Each call copies the input
+tensors into the graph's static buffers (one grouped copy a dtype),
+replays the graph, and hands out its output tensors as views of one fresh
+clone of the graph's packed outputs, so that no later replay overwrites
+what a caller kept.  An output that is one of the inputs passes through:
+the caller gets its own tensor back.
 
 - **Key.**  A graph is reused while the inputs' structure, shapes, dtypes
   and device, `flags` (the Python values that change the traced code),
   which generators are given and the data pointers of `reads` (every
   tensor the function reads but is not handed: parameters, env constants)
   are the same.  A parameter changed in place is read by the next replay;
-  one replaced is a new key and a new capture.  A site keeps at most
-  `MAX_GRAPHS` graphs, the least recently used leaving first.
+  one replaced is a new key and a new capture, and so is an input rebuilt
+  every call if it is passed as a `reads` (pass it as an input).  A site
+  keeps at most `MAX_GRAPHS` graphs, the least recently used leaving
+  first.
+- **State.**  `fn` may write in place into `reads` (the update's
+  parameters and Adam moments): each replay does so again, as each eager
+  call would.  So the first call of a key is the real call, run eagerly
+  on the real state; it is also the warm-up, where lazy initialisation
+  (kernel modules, cached constants, workspaces) happens outside the
+  capture.  The capture follows it on the static buffers and applies
+  nothing (a capture runs no kernel); replays start from the next call.
+  `fn`'s Python runs in the real call and in the capture, never in a
+  replay: what a wrapper of its parts does on the host (the benchmark
+  reads Adam's first moments after the first step) happens in the real
+  call, and must not happen in the capture.
 - **Generators.**  The graph draws from generators of its own, registered
   with it, and a replay moves each given generator's state through its
   own: it draws what the eager call would have drawn and leaves the
   generator where the eager call would.  The device's default generator
   is registered with every graph.
 - **When it engages.**  Only where every input is a CUDA tensor, grad is
-  disabled and no capture is running.  A capture happens at the first such
-  call of a key, never under `torch.profiler`; elsewhere the function runs
-  eagerly.
+  disabled at the site (`fn` may enable it inside: autograd's backward is
+  captured with the forward) and no capture is running.  A capture happens
+  at the first such call of a key, never under `torch.profiler`; elsewhere
+  the function runs eagerly.  A caller whose work holds collectives or host
+  reads keeps that work off the site: the update with ranks (its
+  minibatches' rows, counted on the host, differ by rank, and a gloo
+  collective cannot be captured) stays eager.
 - **Memory.**  Every graph of a device is captured on one side stream
   into one memory pool: replays run one at a time on the caller's stream
   and each clones its outputs before the next starts, so the graphs'
   intermediates may share memory, and a dead graph's memory serves the
   next capture instead of staying reserved.  Call the sites from one
   stream.
-- **Spans.**  Each call opens `graph.replay` or `graph.eager`; a capture
-  opens `graph.capture` first.  A replay adds to `trace.counts()` what its
-  capture counted (the `kernel.*` launches, the `env.*` parts), so the
-  counts are those of the eager calls.
+- **Spans.**  Each call opens `graph.replay` or `graph.eager`; a key's
+  first call opens `graph.capture` around the real call and the capture.
+  A replay adds to `trace.counts()` what its capture counted (the
+  `kernel.*` launches, the `env.*` parts), so the counts are those of the
+  eager calls.  A capture records two external CUDA events into the graph
+  for each `kernel.*` span it holds (`trace.capturing`); a replay under a
+  profiler gives each a record below its `graph.replay` span, timed by
+  the events that replay recorded (`trace.replayed`), and the graph's next
+  replay first reads those times (`trace.freeze`: a wait for the device,
+  after a profiled replay only).  Otherwise a replay waits for nothing.
 """
 from __future__ import annotations
 
@@ -126,14 +151,10 @@ def _capture_on(device: torch.device):
     return _CAPTURE[device]
 
 
-def _default_generator(device: torch.device) -> torch.Generator:
-    return torch.cuda.default_generators[device.index if device.index is not None
-                                         else torch.cuda.current_device()]
-
-
 class _Graph:
-    """One captured graph: its static inputs, its packed outputs and what
-    its capture counted."""
+    """One captured graph: its static inputs, its packed outputs, what its
+    capture counted and the kernel spans it holds.  Built right after the
+    key's first call, which ran eagerly: the capture applies nothing."""
 
     def __init__(self, fn: Callable, spec, leaves: List[torch.Tensor], reads,
                  generators: List[Any]):
@@ -145,27 +166,18 @@ class _Graph:
         for i, t in enumerate(leaves):
             groups[t.dtype].append(i)
         self.groups = [(idx, [self.static[i] for i in idx]) for idx in groups.values()]
-        self.copy_in(leaves)
         self.own = [None if g is None else torch.Generator(device=dev) for g in generators]
+        self.unread: List[Any] = []  # the kernel records of the last profiled replay
 
         counts = trace.counts()
         before = counts.copy()
-        given = [g for g in generators if g is not None] + [_default_generator(dev)]
-        rng = [g.get_state() for g in given]
-        current = torch.cuda.current_stream(dev)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            # the warm-up: lazy initialisation (libraries, kernel modules,
-            # workspaces) happens here, outside the capture
-            fn(*generators, *unflatten(spec, self.static))
-        for g, st in zip(given, rng):
-            g.set_state(st)
-        warm = counts.copy()
         self.graph = torch.cuda.CUDAGraph()
         for g in self.own:
             if g is not None:
                 self.graph.register_generator_state(g)
-        with torch.cuda.stream(stream):
+        current = torch.cuda.current_stream(dev)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream), trace.capturing() as self.spans:
             self.graph.capture_begin(holder.pool(), capture_error_mode="thread_local")
             try:
                 self._pack(fn(*self.own, *unflatten(spec, self.static)))
@@ -177,7 +189,7 @@ class _Graph:
                 raise
             self.graph.capture_end()
         current.wait_stream(stream)
-        self.counted = counts - warm
+        self.counted = counts - before
         counts.clear()
         counts.update(before)
 
@@ -217,7 +229,10 @@ class _Graph:
         for own, g in zip(self.own, generators):
             if own is not None:
                 own.set_state(g.get_state())
+        if self.unread:  # the replay records the same events again
+            trace.freeze(self.unread)
         self.graph.replay()
+        self.unread = trace.replayed(self.spans)
         for own, g in zip(self.own, generators):
             if own is not None:
                 g.set_state(own.get_state())
@@ -263,16 +278,16 @@ class Graphed:
                tuple((r.data_ptr(), r.shape, r.dtype) for r in reads), flags,
                tuple(g is None for g in generators))
         graph = self.graphs.get(key)
-        if graph is None:
-            if torch.autograd._profiler_enabled():
-                with trace.span("graph.eager"):
-                    return fn(*generators, *args)
-            with trace.span("graph.capture"):
-                graph = _Graph(fn, spec, leaves, reads, generators)
-            self.graphs[key] = graph
-            while len(self.graphs) > MAX_GRAPHS:
-                self.graphs.popitem(last=False)
-        else:
+        if graph is not None:
             self.graphs.move_to_end(key)
-        with trace.span("graph.replay"):
-            return graph.replay(leaves, generators)
+            with trace.span("graph.replay"):
+                return graph.replay(leaves, generators)
+        if torch.autograd._profiler_enabled():
+            with trace.span("graph.eager"):
+                return fn(*generators, *args)
+        with trace.span("graph.capture"):
+            out = fn(*generators, *args)  # the real call, and the capture's warm-up
+            self.graphs[key] = _Graph(fn, spec, leaves, reads, generators)
+        while len(self.graphs) > MAX_GRAPHS:
+            self.graphs.popitem(last=False)
+        return out

@@ -18,6 +18,12 @@ waits inside `backward()` while autograd's thread runs the kernels'
 backward, so those spans take the update's span as their parent.
 
 - `launching()`: a kernel wrapper's launch starts its span's device clock;
+- `capturing()`: while a CUDA graph is captured, each `kernel.*` span
+  records two external CUDA events into the graph (at its first launch and
+  at its end); `replayed(captured)`, under a profiler, gives a replay of
+  that graph a record of each of them below the open span, timed by the
+  events the replay recorded, and `freeze(records)` reads those times
+  before the graph's next replay records the same events again;
 - `to_device(value, device)`: a copy from the host, as a `sync.*` span;
 - `recorded()`: the records, with device, host and self milliseconds;
 - `clear()`: forget the records;
@@ -44,33 +50,35 @@ GROUPS = frozenset({"train.iter", "eval.episode", "rollout", "policy.act", "env.
 ROOTS = frozenset({"train.iter", "eval.episode"})
 
 _counts: collections.Counter = collections.Counter()
-_stack: List["_Record"] = []
+_stack: List[Any] = []  # the open `_Record`s, or while a graph is captured its `_Captured`s
 _records: List["_Record"] = []
 _cache: Optional[List[Dict[str, Any]]] = None
 _recording = torch.autograd._profiler_enabled
+# the kernel spans of the graph being captured (`capturing`), or None
+_captured: Optional[List["_Captured"]] = None
 
 
 class _Record:
     __slots__ = ("name", "index", "parent", "root", "path", "t0", "t1", "events", "rf",
-                 "launched")
+                 "launched", "anchor", "frozen")
 
-    def __init__(self, name: str):
-        parent = _stack[-1] if _stack else None
+    def __init__(self, name: str, parent: Optional["_Record"], live: bool = True):
         self.name = name
         self.index = len(_records)
         self.parent = parent.index if parent is not None else None
         self.path = parent.path + (parent.name,) if parent is not None else ()
         self.root = self.index if name in ROOTS else (parent.root if parent is not None else None)
-        self.rf = None
+        self.rf, self.events, self.launched, self.t1 = None, None, False, None
+        self.anchor = self.frozen = None  # a replayed kernel span's (`replayed`, `freeze`)
+        if not live:  # a replayed kernel span: `replayed` sets its events and times
+            return
         if name not in GROUPS:
             self.rf = torch.profiler.record_function(name)
             self.rf.__enter__()
-        self.events, self.launched = None, False
         if torch.cuda.is_initialized():
             self.events = (torch.cuda.Event(enable_timing=True),
                            torch.cuda.Event(enable_timing=True))
             self.events[0].record()
-        self.t1 = None
         self.t0 = time.perf_counter_ns()
 
     def close(self) -> None:
@@ -79,6 +87,25 @@ class _Record:
             self.events[1].record()
         if self.rf is not None:
             self.rf.__exit__(None, None, None)
+
+
+class _Captured:
+    """A kernel span opened while a graph is captured: its name, the
+    index of the captured kernel span around it (None: none) and two
+    external CUDA events, which the graph records at each replay."""
+
+    __slots__ = ("name", "index", "parent", "events", "launched")
+
+    def __init__(self, name: str, index: int, parent: Optional["_Captured"]):
+        self.name, self.index, self.launched = name, index, False
+        self.parent = parent.index if parent is not None else None
+        self.events = (torch.cuda.Event(enable_timing=True, external=True),
+                       torch.cuda.Event(enable_timing=True, external=True))
+
+    def close(self) -> None:
+        if not self.launched:
+            self.events[0].record()
+        self.events[1].record()
 
 
 class span:
@@ -94,10 +121,14 @@ class span:
         global _cache
         _counts[self.name] += 1
         if _recording():
-            self._rec = rec = _Record(self.name)
+            self._rec = rec = _Record(self.name, _stack[-1] if _stack else None)
             _stack.append(rec)
             _records.append(rec)
             _cache = None
+        elif _captured is not None and self.name.startswith("kernel."):
+            self._rec = rec = _Captured(self.name, len(_captured), _stack[-1] if _stack else None)
+            _stack.append(rec)
+            _captured.append(rec)
         else:
             self._rec = None
         return self
@@ -119,6 +150,53 @@ def launching() -> None:
         rec.launched = True
         if rec.events is not None:
             rec.events[0].record()
+
+
+@contextlib.contextmanager
+def capturing():
+    """Around the capture of a CUDA graph: yields the list that collects
+    the captured kernel spans (`_Captured`, in the order they opened).
+    Never under a profiler: a capture does not run under one."""
+    global _captured
+    _captured = []
+    try:
+        yield _captured
+    finally:
+        _captured = None
+
+
+def replayed(captured: List[_Captured]) -> List[_Record]:
+    """Right after a graph's replay, inside the span open around it: under
+    a profiler, a record for each kernel span of the graph's capture, with
+    its name and parentage below the open span and the device times of the
+    events this replay recorded (its host time is nought: the replay
+    launched it); [] otherwise."""
+    global _cache
+    top = _stack[-1] if _stack else None
+    if not (captured and _recording() and isinstance(top, _Record) and top.events is not None):
+        return []
+    now = time.perf_counter_ns()
+    out: List[_Record] = []
+    for c in captured:
+        rec = _Record(c.name, top if c.parent is None else out[c.parent], live=False)
+        rec.events, rec.anchor, rec.launched = c.events, top.events[0], True
+        rec.t0 = rec.t1 = now
+        _records.append(rec)
+        out.append(rec)
+    _cache = None
+    return out
+
+
+def freeze(records: List[_Record]) -> None:
+    """Read the device times of `replayed`'s records into them (the start
+    from the replay span's start, the duration) before their graph replays
+    again and records the same events anew: each waits for its end event."""
+    for r in records:
+        if r.events is not None:
+            start, end = r.events
+            end.synchronize()
+            r.frozen = (r.anchor.elapsed_time(start), start.elapsed_time(end))
+            r.events = None
 
 
 def to_device(value, device, dtype=None, site: str = "to_device") -> torch.Tensor:
@@ -169,7 +247,7 @@ def recorded() -> List[Dict[str, Any]]:
     timed = [r for r in _records if r.events is not None and r.t1 is not None]
     if timed:
         torch.cuda.synchronize()
-        origin = timed[0].events[0]
+        origin = timed[0].events[0]  # a live span's: a replayed one follows its replay's
     out, spans = [], {}
     t_origin = _records[0].t0 if _records else 0
     for r in _records:
@@ -180,6 +258,10 @@ def recorded() -> List[Dict[str, Any]]:
             if r.events is not None:
                 dev = r.events[0].elapsed_time(r.events[1])
                 start = origin.elapsed_time(r.events[0])
+                spans[r.index] = (start, start + dev)
+            elif r.frozen is not None:
+                offset, dev = r.frozen
+                start = origin.elapsed_time(r.anchor) + offset
                 spans[r.index] = (start, start + dev)
         out.append({"name": r.name, "index": r.index, "parent": r.parent, "root": r.root,
                     "path": r.path, "host_ms": host, "device_ms": dev,

@@ -146,13 +146,15 @@ def test_a_hideandseek_iteration_records_the_tree_of_its_configuration():
     step, update = "train.iter/rollout/env.step", "train.iter/update"
     want = {"train.iter": 1, "train.iter/rollout": 1, update: 1,
             "train.iter/rollout/policy.act": steps, step: steps,
-            # the graphed sites run eagerly on the CPU: act and the step's two segments
+            # the graphed sites run eagerly on the CPU: act, the step's two
+            # segments and the two PPO minibatches
             "train.iter/rollout/policy.act/graph.eager": steps, f"{step}/graph.eager": 2 * steps,
             f"{step}/sync.any_across": steps, f"{step}/env.reset": 1,
             f"{update}/update.prep": 1, f"{update}/update.tp": 1, f"{update}/update.ppo": 1,
-            # copies from the host: each waits for a card (none left in a step)
-            f"{step}/env.reset/sync.outside_circle": 9, f"{step}/env.reset/sync.uniform_bounds": 10,
-            f"{update}/update.tp/sync.adam_betas": 2, f"{update}/update.ppo/sync.adam_betas": 8}
+            f"{update}/update.ppo/graph.eager": 2,
+            # copies from the host: each waits for a card (none left in a step,
+            # none in an Adam step: its betas are device constants)
+            f"{step}/env.reset/sync.outside_circle": 9, f"{step}/env.reset/sync.uniform_bounds": 10}
     want.update({f"{step}/graph.eager/{p}": steps for p in ENV_PARTS})
     assert dict(where) == want
     assert all(r["root"] == 0 and r["host_ms"] is not None for r in recs)
