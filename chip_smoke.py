@@ -10,31 +10,28 @@ Phases, each of which raises on failure (so any failure exits non-zero):
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, and time both with CUDA events;
 3. the slice: HideAndSeek (4096 arenas, 3 pursuers, random cylinders, TP
-   net) with MAPPO acting, 2 warm-up + 3 timed rollouts of 64 steps, then
-   the bootstrap value; checks launch counts, finiteness, the episode-stat
-   keys and agreement with the CPU path on a small input; and a short
-   rollout with 8-step episodes so auto-reset and scene sampling run;
+   net) with MAPPO acting, ITERS rollouts of 64 steps, then the bootstrap
+   value; checks launch counts, finiteness, the episode-stat keys and
+   agreement with the CPU path on a small input; and a short rollout with
+   8-step episodes so auto-reset and scene sampling run;
 4. training: `make_train_iter` (rollout + the MAPPO and TP-net update) at
-   bench.py's configuration, 2 warm-up + 3 timed iterations; prints training
-   env-steps/s and where an iteration's time goes, checks launch counts,
-   the metrics' keys and finiteness, and the update on the card against the
+   bench.py's configuration, ITERS iterations; checks launch counts, the
+   metrics' keys and finiteness, and the update on the card against the
    update on the CPU from the same state and trajectory; then one iteration
    whose rollout replays its CUDA graphs against one through the eager
    segments, from twins of the carry (the same bits in every output, the
    parameters and the generator after it), and prints the graphed one's
    replay share;
 5. AEG training: `harness.train` with task HideAndSeek_envgen (4096 arenas,
-   a 5000-task buffer, TP net), 2 warm-up + 3 timed iterations; prints AEG
-   training env-steps/s, checks that closed cycles took the FPS kernel, the
-   buffer, the AEG stats, the update, `update_history` on the card against
-   the CPU, and a checkpoint written and read back;
+   a 5000-task buffer, TP net), ITERS iterations; checks that closed cycles
+   took the FPS kernel, the buffer, the AEG stats, the update,
+   `update_history` on the card against the CPU, and a checkpoint written
+   and read back;
 6. in-kernel-loss training: phase 4's configuration with
    `use_inkernel_loss=True`, once with `direct_mode="fwdloss"` and once with
-   "agrad", 2 warm-up + 3 timed iterations each (and one with its phases
-   synchronised); prints training env-steps/s per mode beside phase 4's and
-   where an iteration's time goes, checks each mode's launch counts
-   (64 loss-kernel launches an iteration, no pair forward from the update),
-   the metrics and the update on the card against the CPU;
+   "agrad", ITERS iterations each; checks each mode's launch counts (64
+   loss-kernel launches an iteration, no pair forward from the update), the
+   metrics and the update on the card against the CPU;
 7. wide-configuration training: HideAndSeek with 4 pursuers, 4 cylinder
    tokens, 10 predicted steps and the obstacles in the TP input (8 tokens,
    `state_self` 50 wide, TP input 34, TP output 30), at 1024 arenas, 2
@@ -61,8 +58,8 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    the FPS launches and the mixing fractions of its scene sampler); then
    `harness.evaluate` from its checkpoint at 4096 arenas on the wall
    scenario in eval mode, 800-step greedy episodes (every episode ends,
-   every stat finite, one pair forward and one TP forward a step; prints
-   the evaluation rate), and once over random cylinders with jitter (4096
+   every stat finite, one pair forward and one TP forward a step), and
+   once over random cylinders with jitter (4096
    distinct scenes); the card's evaluation against the CPU's (16 arenas,
    32 steps, phase 3's limits); and the NaN guard restoring a poisoned
    iteration's carry bit for bit, CUDA generator included.
@@ -78,19 +75,18 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    recipe's configuration (`HoverCfg(num_envs=1024, max_episode_length=300)`,
    `MAPPOCfg(train_every=32, num_minibatches=8)`, hidden (256, 256, 256),
    bf16) for about HOVER_SECONDS and at least HOVER_MIN_ITERS iterations:
-   the iteration count, env-steps/s, and the mean pos_error (the arenas'
-   distance to the target at an iteration's end) of the first and last 10
-   iterations (the last must sit below the
-   first; every value finite), and the episode-end pos_error stat of the
-   iterations that ended episodes.
+   the iteration count and the mean pos_error (the arenas' distance to the
+   target at an iteration's end) of the first and last 10 iterations (the
+   last must sit below the first; every value finite), and the episode-end
+   pos_error stat of the iterations that ended episodes.
 12. MAPPO's options and the PPO family: (a) rows 2 and 5 (`encoder_forward`,
    `encoder_backward`) against their plain versions with the f32 controls
    and timed, at a per-agent actor's 16,384 rows, the critic's 49,152 and
    the state critic's 16,384 (HideAndSeek's state widths, a head of 3);
-   (b) at bench.py's width, `share_actor=False`: 1 warm-up + 2 timed
-   iterations (env-steps/s; launches a iteration of rows 2, 3, 5 and 6, each
-   agent's actor and the critic one launch each), one `train_op` card vs
-   CPU; the relation encoders and `algo=transformer`, 2 iterations each,
+   (b) at bench.py's width, `share_actor=False`: OPT_ITERS iterations
+   (launches an iteration of rows 2, 3, 5 and 6, each agent's actor and the
+   critic one launch each), one `train_op` card vs CPU; the relation
+   encoders and `algo=transformer`, OPT_ITERS iterations each,
    finite; `critic_input="state"` on HideAndSeek refused with a ValueError,
    as the JAX package fails; the state critic at policy level over
    HideAndSeek's real observations and a well-formed state (its cylinders
@@ -104,17 +100,16 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    reach no `pallas_call`; the phase checks that every kernel's count stays
    0): ppo_vision on Hover's depth camera (32 x 24) at Hover's default 4,096
    arenas x 32 steps, 8 minibatches, with the conv backbone and with
-   MobileNetV3-Small, 1 warm-up + 2 timed iterations each (env-steps/s,
-   finite), and one act and one `train_op` each card vs CPU at 16 arenas
-   (phase 11's bounds); MobileNetV3-Small's forward + backward on one
-   update minibatch timed and profiled; MobileNetV3-Large forward + backward on one update
-   minibatch (16,384 frames), card vs CPU within 2x the CPU float32's own
-   error against the card's float64, timed; Hover's depth frame at 4,096 arenas and `depth_image` with
-   the wall, the ceiling, 6 cylinders and the target at 4,096 cameras of 64
-   x 48 (timed), card vs CPU, at most 1e-4 of the pixels (grazing rays)
-   past 1e-5; RMA through `train` (`task=Hover algo=ppo_adapt max_iters=8`
-   on the card: the last row phase 3, every logged value finite,
-   env-steps/s a phase) and `update_adaptation` card vs CPU for each of
+   MobileNetV3-Small, VISION_ITERS iterations each (finite), and one act and
+   one `train_op` each card vs CPU at 16 arenas (phase 11's bounds);
+   MobileNetV3-Large forward + backward on one update minibatch (16,384
+   frames), card vs CPU within 2x the CPU float32's own error against the
+   card's float64; Hover's depth frame at 4,096 arenas and `depth_image`
+   with the wall, the ceiling, 6 cylinders and the target at 4,096 cameras
+   of 64 x 48, card vs CPU, at most 1e-4 of the pixels (grazing rays) past
+   1e-5; RMA through `train` (`task=Hover algo=ppo_adapt max_iters=8` on
+   the card: the last row phase 3, every logged value finite) and
+   `update_adaptation` card vs CPU for each of
    its six losses on one phase-2 batch of 4,096 x 32 rows; the trajectory
    ring buffer (L = 128, E = 4,096, extended past its seam, 4,096 windows of
    16 steps) identical card vs CPU.
@@ -128,11 +123,8 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    bit-identical (an all-gathered digest), the joined trajectory, the
    first gradients and the learner held against the one rank's same
    iteration; AEG at 2 ranks (phase 5's cuts) through one closed cycle,
-   the buffer's bits equal on the ranks, each rank an FPS launch; Hover's
-   flat MAPPO at 2 ranks through `harness.train`; and, information only
-   (not a scaling measurement: the ranks share one card), the world-1 and
-   2-rank rates and the cost of drawing the action noise at the global
-   arena count.
+   the buffer's bits equal on the ranks, each rank an FPS launch; and
+   Hover's flat MAPPO at 2 ranks through `harness.train`.
 15. the PPO family across ranks, in worker processes (`--dp-worker
    fam1|fam2`): world size 1 over NCCL through `harness.train` for ppo_rnn
    and transformer at 4,096 arenas (2 iterations of 16 steps), the learner's
@@ -144,17 +136,16 @@ Phases, each of which raises on failure (so any failure exits non-zero):
    attitude, rate and DSL PID controllers, Dragon (300 steps with gimbal and
    joint commands) and the transport group (the demo's 900-tick ramp) at
    4,096 arenas, each held against the CPU's first 64 arenas and to the JAX
-   tests' physical checks, with env-steps/s; every
-   `mupe_tpu_torch.examples` module run on the card, exit 0.
+   tests' physical checks; every `mupe_tpu_torch.examples` module run on
+   the card, exit 0.
 16. evaluation videos (`utils/render.py`: numpy frames, its own GIF89a;
    host work, no kernel): phase 10's `harness.evaluate` again, its argv
    plus `video=` of arena VIDEO_ARENA (4,096 arenas x 800 steps): the stats
    equal phase 10's bit for bit, the pair-forward and TP-forward launches
    equal phase 10's (800 and 801), and the GIF decodes (`gif_decode`: the
    card's machine has no PIL) to 400 frames equal to the renderer's frames
-   of the collected arrays; prints the rate with the video against phase
-   10's, the device-to-host copy's time, the render and encode times (per
-   frame and in all) and the GIF's size; the card's frame dict against
+   of the collected arrays (prints the GIF's size); the card's frame dict
+   against
    the CPU's (16 arenas x 32 steps; the pursuers within 1e-2, the evader's
    y within two of its steps); `harness.train` at phase 10's cut with
    eval_interval=1 video=1 (2 iterations: eval_1.gif, eval_2.gif); two
@@ -245,11 +236,10 @@ KERNEL_SPANS = {"encoder_forward": ("kernel.encoder_fwd",),
                 "tp_forward": ("kernel.tp_fwd",), "tp_backward": ("kernel.tp_bwd",),
                 "tp_weight_grads": ("kernel.tp_weight_grad",),
                 "farthest_point_sampling": ("kernel.fps",)}
-WARMUP_ROLLOUTS = 2
-TIMED_ROLLOUTS = 3
 TIMING_RUNS = 20
-WARMUP_ITERS = 2
-TIMED_ITERS = 3
+# rollouts or training iterations a run of phases 3-6: the first captures
+# the CUDA graphs, the second only replays them
+ITERS = 2
 MB_ROWS = NUM_ENVS * STEPS // 16 * 3  # one PPO minibatch's encoder rows (16 minibatches)
 TP_WINDOWS = (STEPS - 5) * NUM_ENVS   # the TP step's windows (5 future steps)
 GROUPS = ((1, 35), (3, 5), (2, 3))  # state_self, cylinders, state_others
@@ -1412,34 +1402,23 @@ def hold_rollout(traj_g, traj_c) -> None:
         raise AssertionError("card and CPU rollouts disagree on done")
 
 
-def phase_slice(dev, card: str) -> None:
+def phase_slice(dev) -> None:
     from mupe_tpu_torch.envs.hideandseek import STAT_KEYS
     from mupe_tpu_torch.learning import init_carry, make_rollout
 
     log(f"[3] slice: HideAndSeek {NUM_ENVS} arenas x {STEPS} steps, MAPPO act + TP net")
     env, policy = make_slice(dev, NUM_ENVS, 800)
-    t0 = time.perf_counter()
     carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    log(f"  init_carry (reset + scene sampling + first observation): "
-        f"{time.perf_counter() - t0:.3f} s")
     rollout = make_rollout(env, policy)
     wrappers = Launches("encoder_pair_forward", "encoder_forward", "tp_forward")
-    for _ in range(WARMUP_ROLLOUTS):
+    for _ in range(ITERS):
         carry, traj, ep_stats = rollout(carry)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TIMED_ROLLOUTS):
-        carry, traj, ep_stats = rollout(carry)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     value = policy.value_op(carry.ts, carry.obs)
     torch.cuda.synchronize()
     launches = wrappers.read()
-    log(f"  launches over {WARMUP_ROLLOUTS + TIMED_ROLLOUTS} rollouts + value_op: {launches}")
-    rollouts = WARMUP_ROLLOUTS + TIMED_ROLLOUTS
-    if (launches["encoder_pair_forward"] < STEPS * rollouts
-            or launches["tp_forward"] < STEPS * rollouts
+    log(f"  launches over {ITERS} rollouts + value_op: {launches}")
+    if (launches["encoder_pair_forward"] < STEPS * ITERS
+            or launches["tp_forward"] < STEPS * ITERS
             or launches["encoder_forward"] < 1):
         raise AssertionError(f"the main path skipped a kernel: {launches}")
     shapes = {"value": (STEPS, NUM_ENVS, 3, 1), "reward": (STEPS, NUM_ENVS, 3, 1),
@@ -1456,10 +1435,6 @@ def phase_slice(dev, card: str) -> None:
         raise AssertionError("non-finite output in the slice")
     if set(ep_stats) != set(STAT_KEYS) | {"episode_count"}:
         raise AssertionError(f"ep_stats keys {sorted(ep_stats)}")
-    steps_per_s = NUM_ENVS * STEPS * TIMED_ROLLOUTS / seconds
-    log(f"  rollout: {NUM_ENVS} x {STEPS} x {TIMED_ROLLOUTS} env-steps in {seconds:.4f} s "
-        f"= {steps_per_s:.1f} env-steps/s ({seconds / TIMED_ROLLOUTS * 1e3:.2f} ms per "
-        f"rollout) on {card}")
 
     log("  short episodes (max_episode_length=8): auto-reset and scene sampling on the card")
     env8, policy8 = make_slice(dev, NUM_ENVS, 8)
@@ -1541,28 +1516,11 @@ def check_update_against_cpu(dev, env_kw=None, **algo) -> None:
         raise AssertionError("card and CPU updates disagree on the parameters")
 
 
-def run_train_iters(train_iter, carry):
-    """WARMUP_ITERS + TIMED_ITERS iterations, then a further one with the
-    phase boundaries synchronised, for the split.  Returns (carry, metrics,
-    ep_stats, seconds of the timed iterations, {phase: seconds})."""
-    for _ in range(WARMUP_ITERS):
+def run_train_iters(train_iter, carry, iters: int = ITERS):
+    """`iters` iterations: (carry, the last one's metrics and ep_stats)."""
+    for _ in range(iters):
         carry, metrics, ep_stats = train_iter(carry)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TIMED_ITERS):
-        carry, metrics, ep_stats = train_iter(carry)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    split, last = {}, [time.perf_counter()]
-
-    def mark(name):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        split[name] = split.get(name, 0.0) + now - last[0]
-        last[0] = now
-
-    carry, metrics, ep_stats = train_iter(carry, mark=mark)
-    return carry, metrics, ep_stats, seconds, split
+    return carry, metrics, ep_stats
 
 
 def check_train_outputs(carry, metrics, ep_stats) -> None:
@@ -1576,7 +1534,7 @@ def check_train_outputs(carry, metrics, ep_stats) -> None:
     log("  metrics: " + ", ".join(f"{k}={float(v):.5g}" for k, v in sorted(metrics.items())))
 
 
-def phase_train(dev, card: str):
+def phase_train(dev) -> dict:
     from mupe_tpu_torch.learning import init_carry, make_train_iter
 
     log(f"[4] training: make_train_iter, HideAndSeek {NUM_ENVS} arenas x {STEPS} steps, "
@@ -1586,9 +1544,9 @@ def phase_train(dev, card: str):
     train_iter = make_train_iter(env, policy)
     wrappers = Launches("encoder_pair_forward", "encoder_forward", "tp_forward",
                         "encoder_backward", "weight_grads", "tp_backward", "tp_weight_grads")
-    carry, metrics, ep_stats, seconds, split = run_train_iters(train_iter, carry)
+    carry, metrics, ep_stats = run_train_iters(train_iter, carry)
     launches = wrappers.read()
-    iters = WARMUP_ITERS + TIMED_ITERS + 1
+    iters = ITERS
     log(f"  launches over {iters} iterations: {launches} (weight_grads: the encoder "
         f"backward's stage B, one launch a backward; tp_weight_grads the TP backward's, one a "
         f"chunk of windows)")
@@ -1600,14 +1558,8 @@ def phase_train(dev, card: str):
         raise AssertionError(f"the training path skipped a kernel: {launches}")
     check_train_outputs(carry, metrics, ep_stats)
     check_graphed_iteration(env, policy, carry)
-    rate = NUM_ENVS * STEPS * TIMED_ITERS / seconds
-    log(f"  training: {NUM_ENVS} x {STEPS} x {TIMED_ITERS} env-steps in {seconds:.4f} s "
-        f"= {rate:.1f} env-steps/s ({seconds / TIMED_ITERS * 1e3:.2f} ms per iteration) "
-        f"on {card}")
-    log("  one iteration, phases synchronised: " + ", ".join(
-        f"{k} {v * 1e3:.2f} ms" for k, v in split.items()))
     check_update_against_cpu(dev)
-    return launches, rate
+    return launches
 
 
 def _eager_site(fn, *args, generators=(), **_):
@@ -1694,20 +1646,18 @@ def check_update_history_against_cpu(dev, gen_saved: dict) -> None:
     gb = GenBufferState(**gen_saved)
     gb.weight_sum = torch.randint(0, 4, gb.weight_sum.shape, generator=g).to(torch.float32)
     gb.weight_count = torch.tensor(3, dtype=torch.int32)
-    t0 = time.perf_counter()
     cpu, added_c = update_history(gb, 0.0, 0.9)
-    cpu_s = time.perf_counter() - t0
     card, added_g = update_history(tree_to(gb, dev), 0.0, 0.9)
     card = tree_to(card, "cpu")
     log(f"  update_history card vs CPU: {int(added_g)} vs {int(added_c)} added, history_len "
         f"{int(card.history_len)} vs {int(cpu.history_len)}, history bit-identical: "
-        f"{torch.equal(card.history, cpu.history)} (the CPU's plain FPS took {cpu_s:.2f} s)")
+        f"{torch.equal(card.history, cpu.history)}")
     if not (int(added_g) == int(added_c) and int(card.history_len) == int(cpu.history_len)
             and torch.equal(card.history, cpu.history)):
         raise AssertionError("update_history on the card disagrees with the CPU")
 
 
-def phase_aeg(dev, card: str) -> dict:
+def phase_aeg(dev) -> dict:
     """AEG training through the port's entry point: `harness.train` with task
     HideAndSeek_envgen at 4096 arenas, a 5000-task buffer and the TP net,
     bench.py's MAPPOCfg.  Cut so that cycles close inside the run:
@@ -1720,7 +1670,7 @@ def phase_aeg(dev, card: str) -> dict:
     from mupe_tpu_torch.utils.checkpoint import load_checkpoint, to_plain
     from mupe_tpu_torch.utils.config import parse_cli
 
-    iters = WARMUP_ITERS + TIMED_ITERS
+    iters = ITERS
     log(f"[5] AEG training: harness.train task=HideAndSeek_envgen, {NUM_ENVS} arenas x {STEPS} "
         f"steps, buffer {AEG_BUFFER}, TP net; cuts: max_episode_length={AEG_EPISODE}, "
         f"use_init_easy_cases with r_min=0")
@@ -1741,11 +1691,6 @@ def phase_aeg(dev, card: str) -> dict:
         if launches["farthest_point_sampling"] < 1 or any(v < 1 for v in launches.values()):
             raise AssertionError(f"the AEG path skipped a kernel: {launches}")
         log(f"  FPS launches {launches['farthest_point_sampling']} for {cycles} closed cycles")
-        with open(Path(run_dir) / "aeg" / "metrics.csv") as f:
-            rows = list(csv.DictReader(f))
-        frames = NUM_ENVS * STEPS
-        seconds = sum(frames / float(r["rollout_fps"]) for r in rows[WARMUP_ITERS:])
-        rate = frames * TIMED_ITERS / seconds
         missing = [k for k in METRIC_KEYS | {f"stats/{k}" for k in
                                              envgen_extra_stats(5)} if k not in metrics]
         if missing or not all(math.isfinite(v) for v in metrics.values()):
@@ -1766,20 +1711,17 @@ def phase_aeg(dev, card: str) -> dict:
             raise AssertionError("the full checkpoint did not read back equal")
         log(f"  checkpoint {full.name}/step_{iters} written and read back equal; "
             f"history_buffer {hist_len}")
-    log(f"  AEG training: {NUM_ENVS} x {STEPS} x {TIMED_ITERS} env-steps in {seconds:.4f} s "
-        f"= {rate:.1f} env-steps/s ({seconds / TIMED_ITERS * 1e3:.2f} ms per iteration, "
-        f"harness log rows {WARMUP_ITERS + 1}-{iters}) on {card}")
     check_update_history_against_cpu(dev, saved["env_state"]["gen"])
     return launches
 
 
-def phase_inkernel(dev, card: str, rate4: float) -> dict:
+def phase_inkernel(dev) -> dict:
     """Training with the in-kernel loss (`use_inkernel_loss=True`) at phase
     4's configuration, in each `direct_mode`.  Returns each loss kernel's
     launches over the run of its mode."""
     from mupe_tpu_torch.learning import init_carry, make_train_iter
 
-    iters = WARMUP_ITERS + TIMED_ITERS + 1
+    iters = ITERS
     wrappers = Launches("pair_forward_loss", "pair_forward_loss_agrad", "encoder_backward",
                         "weight_grads", "encoder_pair_forward", "encoder_forward", "tp_forward",
                         "tp_backward")
@@ -1793,7 +1735,7 @@ def phase_inkernel(dev, card: str, rate4: float) -> dict:
         carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(4))
         train_iter = make_train_iter(env, policy)
         wrappers.reset()
-        carry, metrics, ep_stats, seconds, split = run_train_iters(train_iter, carry)
+        carry, metrics, ep_stats = run_train_iters(train_iter, carry)
         launches = wrappers.read()
         log(f"  launches over {iters} iterations: {launches}")
         want = {kernel[mode]: minibatches * iters, "encoder_backward": minibatches * iters,
@@ -1806,12 +1748,6 @@ def phase_inkernel(dev, card: str, rate4: float) -> dict:
                                  f"and 64 backwards an iteration, each with its stage B, pair "
                                  f"forwards only from acting)")
         check_train_outputs(carry, metrics, ep_stats)
-        rate = NUM_ENVS * STEPS * TIMED_ITERS / seconds
-        log(f"  training ({mode}): {NUM_ENVS} x {STEPS} x {TIMED_ITERS} env-steps in "
-            f"{seconds:.4f} s = {rate:.1f} env-steps/s ({seconds / TIMED_ITERS * 1e3:.2f} ms per "
-            f"iteration) against phase 4's {rate4:.1f} on {card}")
-        log("  one iteration, phases synchronised: " + ", ".join(
-            f"{k} {v * 1e3:.2f} ms" for k, v in split.items()))
         check_update_against_cpu(dev, use_inkernel_loss=True, direct_mode=mode)
         out[kernel[mode]] = launches[kernel[mode]]
         if mode == "agrad":  # its stage B (and the critic backward's)
@@ -1819,7 +1755,7 @@ def phase_inkernel(dev, card: str, rate4: float) -> dict:
     return out
 
 
-def phase_config_train(dev, card: str, phase: int, label: str, env_kw: dict, modes) -> None:
+def phase_config_train(dev, phase: int, label: str, env_kw: dict, modes) -> None:
     """Training at another HideAndSeek configuration through `harness.build`
     (as `python -m mupe_tpu_torch.train env.<field>=<value> ...` builds it),
     at WIDE_NUM_ENVS arenas: 2 iterations in each of `modes` (None: the
@@ -1849,12 +1785,7 @@ def phase_config_train(dev, card: str, phase: int, label: str, env_kw: dict, mod
         carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(5))
         train_iter = make_train_iter(env, policy)
         wrappers.reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(2):
-            carry, metrics, ep_stats = train_iter(carry)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        carry, metrics, ep_stats = run_train_iters(train_iter, carry, 2)
         launches = wrappers.read()
         log(f"  launches over 2 iterations: {launches}")
         if (launches["encoder_backward"] < 2 * 64 or launches["tp_backward"] < 2
@@ -1862,12 +1793,10 @@ def phase_config_train(dev, card: str, phase: int, label: str, env_kw: dict, mod
                 or launches[update[mode]] < 2 * 64 or launches["tp_forward"] < 2 * (STEPS + 1)):
             raise AssertionError(f"the {label} configuration skipped a kernel: {launches}")
         check_train_outputs(carry, metrics, ep_stats)
-        log(f"  {label} training: {WIDE_NUM_ENVS} x {STEPS} x 2 env-steps in {seconds:.4f} s "
-            f"(first iterations, compile and warm-up included) on {card}")
         check_update_against_cpu(dev, env_kw=env_kw, **algo)
 
 
-def phase_recipe(dev, card: str, run_dir: str) -> Path:
+def phase_recipe(dev, run_dir: str) -> Path:
     """README's composed recipe through `harness.train` with
     `train_generator`'s defaults (task HideAndSeek_envgen) at NUM_ENVS
     arenas, cut as phase 5 (16-step episodes and r_min = 0, so that cycles
@@ -1888,11 +1817,7 @@ def phase_recipe(dev, card: str, run_dir: str) -> Path:
         f"{NUM_ENVS} arenas; cuts: env.max_episode_length={AEG_EPISODE} env.r_min=0.0 "
         f"max_iters={RECIPE_ITERS}; eval_interval=1 guard_nan=true profile_dir")
     wrappers = Launches("encoder_pair_forward", "farthest_point_sampling")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     metrics = harness.train(argv, default_task="HideAndSeek_envgen", device=dev)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     launches = wrappers.read()
     log(f"  launches over {RECIPE_ITERS} iterations and their evaluation episodes: {launches}")
     if (launches["farthest_point_sampling"] < 1
@@ -1901,10 +1826,6 @@ def phase_recipe(dev, card: str, run_dir: str) -> Path:
     with open(Path(run_dir) / "recipe" / "metrics.csv") as f:
         all_rows = list(csv.DictReader(f))
     rows = [r for r in all_rows if r.get("eval/episode_count")]
-    per_iter = [NUM_ENVS * STEPS / float(r["rollout_fps"]) for r in all_rows if r.get("rollout_fps")]
-    log("  seconds by iteration (from the harness's rollout_fps; each includes the previous "
-        "iteration's evaluation episode, iteration 5 the trace's export): "
-        + ", ".join(f"{t:.3f}" for t in per_iter))
     evals = [float(v) for r in rows for k, v in r.items() if k.startswith("eval/")]
     if len(rows) != RECIPE_ITERS or not all(math.isfinite(v) for v in evals):
         raise AssertionError(f"{len(rows)} eval rows, or a non-finite eval stat")
@@ -1918,10 +1839,6 @@ def phase_recipe(dev, card: str, run_dir: str) -> Path:
     log(f"  eval rows {len(rows)}: eval/success {metrics['eval/success']:.4f}, eval/return "
         f"{metrics['eval/return']:.4f}, eval/episode_count {metrics['eval/episode_count']:.0f}; "
         f"trace {trace.name} ({trace.stat().st_size} bytes) names encoder_fwd_kernel")
-    rate = NUM_ENVS * STEPS * RECIPE_ITERS / seconds
-    log(f"  recipe training: {NUM_ENVS} x {STEPS} x {RECIPE_ITERS} env-steps in {seconds:.4f} s "
-        f"= {rate:.1f} env-steps/s (first iteration, evaluation episodes, guard and the "
-        f"profiled iterations included) on {card}")
 
     sections, _ = parse_cli(argv)
     env, _, _, _ = harness.build("HideAndSeek_envgen", dict(sections["env"], eval_mix_rotate=False),
@@ -1938,15 +1855,14 @@ def phase_recipe(dev, card: str, run_dir: str) -> Path:
     return Path(run_dir) / "recipe" / "checkpoints"
 
 
-def phase_evaluate(dev, card: str, model_dir: Path) -> dict:
+def phase_evaluate(dev, model_dir: Path) -> dict:
     """`harness.evaluate` (`python -m mupe_tpu_torch.eval`) at NUM_ENVS arenas
     on the wall scenario in eval mode, 800-step greedy episodes, from the
     recipe's checkpoint: every episode ends (by truncation), every stat is
     finite, one pair-forward launch a step and one TP forward a step plus
     the first observation's.  Then eval mode over random cylinders with
     jitter (episodes cut to JITTER_EPISODE steps): every trial a distinct
-    scene.  Returns the first evaluation's launch counts, result, rate and
-    argv."""
+    scene.  Returns the first evaluation's launch counts, result and argv."""
     from mupe_tpu_torch import harness
     from mupe_tpu_torch.utils.config import parse_cli
 
@@ -1955,10 +1871,7 @@ def phase_evaluate(dev, card: str, model_dir: Path) -> dict:
     log(f"[10] evaluation: harness.evaluate {' '.join(argv[:4])}, {EVAL_EPISODE}-step greedy "
         f"episodes, the recipe's checkpoint")
     wrappers = Launches("encoder_pair_forward", "tp_forward")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     result = harness.evaluate(argv, device=dev)
-    seconds = time.perf_counter() - t0
     launches = wrappers.read()
     log(f"  launches over one evaluation: {launches}")
     if launches != {"encoder_pair_forward": EVAL_EPISODE, "tp_forward": EVAL_EPISODE + 1}:
@@ -1969,11 +1882,7 @@ def phase_evaluate(dev, card: str, model_dir: Path) -> dict:
             or not all(math.isfinite(v) for v in result.values())):
         raise AssertionError(f"evaluation: episodes {result['episodes']}, or a stat missing or "
                              f"non-finite")
-    rate = NUM_ENVS * EVAL_EPISODE / seconds
-    log(f"  evaluation: {NUM_ENVS} x {EVAL_EPISODE} greedy env-steps in {seconds:.4f} s = "
-        f"{rate:.1f} env-steps/s (checkpoint load, reset and first observation included; no "
-        f"trajectory stored) on {card}")
-    first = dict(launches=launches, result=result, rate=rate, argv=argv)
+    first = dict(launches=launches, result=result, argv=argv)
 
     argv = [f"env.num_envs={NUM_ENVS}", "env.use_eval=true", "env.eval_jitter_xy=0.05",
             "env.eval_jitter_rpy=0.1", f"env.max_episode_length={JITTER_EPISODE}",
@@ -2118,12 +2027,12 @@ def check_guard(dev) -> None:
         raise AssertionError("the guard did not restore the carry")
 
 
-def phase_eval(dev, card: str, run_dir: str) -> dict:
+def phase_eval(dev, run_dir: str) -> dict:
     """Phase 10: the composed recipe (its run in `run_dir`), evaluation at
     full width, the card's evaluation against the CPU's, and the NaN guard.
-    Returns the evaluation's launch counts, result, rate and argv."""
-    model_dir = phase_recipe(dev, card, run_dir)
-    first = phase_evaluate(dev, card, model_dir)
+    Returns the evaluation's launch counts, result and argv."""
+    model_dir = phase_recipe(dev, run_dir)
+    first = phase_evaluate(dev, model_dir)
     check_eval_against_cpu(dev)
     check_guard(dev)
     return first
@@ -2283,8 +2192,8 @@ def check_hover_update_against_cpu(dev) -> None:
         raise AssertionError("card and CPU flat updates disagree on the parameters")
 
 
-def phase_hover(dev, card: str) -> dict:
-    """Phase 11: Hover + flat MAPPO.  Returns the drive's numbers."""
+def phase_hover(dev) -> None:
+    """Phase 11: Hover + flat MAPPO."""
     from mupe_tpu_torch.envs import Hover, HoverCfg
     from mupe_tpu_torch.envs.hover import STAT_KEYS
     from mupe_tpu_torch.learning import MAPPOCfg, MAPPOPolicy, init_carry, make_train_iter
@@ -2309,7 +2218,6 @@ def phase_hover(dev, card: str) -> dict:
     # episode's phases about evenly.  The episode-end stat (the recipe's) is
     # kept where episodes ended (one iteration in 9.4).
     pos_errors, ended, iters = [], [], 0
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
     while True:
         carry, metrics, ep_stats = train_iter(carry)
@@ -2325,26 +2233,11 @@ def phase_hover(dev, card: str) -> dict:
             ended.append(float(ep_stats["pos_error"]))
         if time.perf_counter() - t0 >= HOVER_SECONDS and iters >= HOVER_MIN_ITERS:
             break
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    split, last_t = {}, [time.perf_counter()]
-
-    def mark(name):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        split[name] = split.get(name, 0.0) + now - last_t[0]
-        last_t[0] = now
-
-    carry, metrics, _ = train_iter(carry, mark=mark)
-    log("  one more iteration, phases synchronised: " + ", ".join(
-        f"{k} {v * 1e3:.2f} ms" for k, v in split.items()))
     if not (_all_finite(metrics) and all(bool(torch.isfinite(p).all()) for p in
                                          (carry.ts.actor.flat, carry.ts.critic.flat))):
         raise AssertionError("non-finite Hover parameter or metric after training")
-    rate = HOVER_ENVS * HOVER_STEPS * iters / seconds
     first, last = statistics.mean(pos_errors[:10]), statistics.mean(pos_errors[-10:])
-    log(f"  Hover training: {iters} iterations in {seconds:.3f} s = {rate:.1f} env-steps/s "
-        f"on {card}")
+    log(f"  Hover training: {iters} iterations")
     log(f"  pos_error (mean distance to the target at an iteration's end): first 10 "
         f"iterations {first:.4f}, last 10 {last:.4f}; by iteration: "
         + " ".join(f"{v:.3f}" for v in pos_errors))
@@ -2353,13 +2246,11 @@ def phase_hover(dev, card: str) -> dict:
     log("  metrics: " + ", ".join(f"{k}={float(v):.5g}" for k, v in sorted(metrics.items())))
     if not last < first:
         raise AssertionError(f"Hover's pos_error did not fall ({first} -> {last})")
-    return dict(iterations=iters, seconds=seconds, rate=rate, first=first, last=last)
 
 
 # phase 12: MAPPO's options and the PPO family
 OPT_ROWS = NUM_ENVS * STEPS // 16           # one agent's rows of a 49,152-row minibatch
-OPT_TIMED = 2                               # share_actor=False: 1 warm-up + 2 timed
-OPT_ITERS = 2                               # the relation encoders, the transformer
+OPT_ITERS = 2                               # each option's training run
 FAMILY_ITERS = 2                            # Hover's PPO family (cut from 3 for phase 13)
 SDF_ENVS, SDF_STEPS, SDF_POINTS = 512, 8, 64  # ppo_sdf: 4,096 rows x 64 points
 
@@ -2561,9 +2452,7 @@ class Launches:
 
 def _train_finite(tag, train_iter, carry, iters):
     """`iters` iterations; every metric and parameter finite."""
-    for _ in range(iters):
-        carry, metrics, ep_stats = train_iter(carry)
-    torch.cuda.synchronize()
+    carry, metrics, ep_stats = run_train_iters(train_iter, carry, iters)
     _check_finite(tag, carry, metrics, ep_stats, iters)
     return carry
 
@@ -2579,9 +2468,9 @@ def _check_finite(tag, carry, metrics, ep_stats, iters) -> None:
         f"{k}={float(v):.5g}" for k, v in sorted(metrics.items())))
 
 
-def phase_options(dev, card: str) -> dict:
-    """Phase 12, HideAndSeek at bench.py's width: per-agent actors (timed,
-    launches counted), the relation encoders and the transformer (finite),
+def phase_options(dev) -> dict:
+    """Phase 12, HideAndSeek at bench.py's width: per-agent actors (launches
+    counted), the relation encoders and the transformer (finite),
     the state critic's refusal, and the state critic at policy level.
     Returns the kernels' launches per iteration of the share_actor=False
     run."""
@@ -2592,19 +2481,12 @@ def phase_options(dev, card: str) -> dict:
     wrappers = Launches("encoder_forward", "encoder_pair_forward", "encoder_backward",
                         "weight_grads", "tp_forward", "tp_backward")
     log(f"[12] MAPPO share_actor=False: make_train_iter, HideAndSeek {NUM_ENVS} arenas x "
-        f"{STEPS} steps, bench.py's MAPPOCfg (TP net on), 1 warm-up + {OPT_TIMED} timed")
+        f"{STEPS} steps, bench.py's MAPPOCfg (TP net on), {OPT_ITERS} iterations")
     env, policy = make_slice(dev, NUM_ENVS, 800, share_actor=False)
     carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(12))
-    train_iter = make_train_iter(env, policy)
     wrappers.reset()
-    carry, *_ = train_iter(carry)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(OPT_TIMED):
-        carry, metrics, ep_stats = train_iter(carry)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    per_iter = {k: v / (OPT_TIMED + 1) for k, v in wrappers.read().items()}
+    carry, metrics, ep_stats = run_train_iters(make_train_iter(env, policy), carry, OPT_ITERS)
+    per_iter = {k: v / OPT_ITERS for k, v in wrappers.read().items()}
     log(f"  launches per iteration: {per_iter}")
     n = 3
     want = {"encoder_forward": STEPS * (n + 1) + 1 + 4 * 16 * (n + 1),
@@ -2614,11 +2496,7 @@ def phase_options(dev, card: str) -> dict:
                 "encoder_backward"]):
         raise AssertionError(f"share_actor=False skipped a kernel or took another: {per_iter}, "
                              f"want {want}")
-    _check_finite("share_actor=False", carry, metrics, ep_stats, OPT_TIMED + 1)
-    rate = NUM_ENVS * STEPS * OPT_TIMED / seconds
-    log(f"  share_actor=False training: {NUM_ENVS} x {STEPS} x {OPT_TIMED} env-steps in "
-        f"{seconds:.4f} s = {rate:.1f} env-steps/s ({seconds / OPT_TIMED * 1e3:.2f} ms per "
-        f"iteration) on {card}")
+    _check_finite("share_actor=False", carry, metrics, ep_stats, OPT_ITERS)
     check_option_update_against_cpu(dev, share_actor=False)
 
     for encoder in ("RelationEncoder", "PartialRelationEncoder"):
@@ -2701,7 +2579,7 @@ def phase_options(dev, card: str) -> dict:
                                      last_state=tree_to(last_st, d))
         metrics[d] = {k: float(v) for k, v in m.items()}
     hold_update("state critic", new, metrics)
-    return dict(launches_per_iteration=per_iter, rate=rate)
+    return per_iter
 
 
 def _hover_cpu_check(tag, dev, algo, env_kw, algo_kw) -> None:
@@ -2761,7 +2639,7 @@ def _hover_cpu_check(tag, dev, algo, env_kw, algo_kw) -> None:
     hold_update(tag, new, metrics, rel=1e-2, flat_tol=1e-4)
 
 
-def phase_family(dev, card: str) -> None:
+def phase_family(dev) -> None:
     """Phase 12, the PPO family: Hover at the drive recipe's width (1,024
     arenas x 32 steps) for ppo, ppo with the privileged branches (HOVER_DR),
     ppo_tconv and ppo_rnn, 2 iterations each through `harness.build`, and
@@ -2780,7 +2658,7 @@ def phase_family(dev, card: str) -> None:
              "ppo_tconv": ("ppo_tconv", {"obs_history_len": 32}, {}),
              "ppo_rnn": ("ppo_rnn", {}, {"train_seq_len": 16})}
     log(f"[12] the PPO family on Hover: {HOVER_ENVS} arenas x {HOVER_STEPS} steps, "
-        f"{FAMILY_ITERS} iterations each, on {card}")
+        f"{FAMILY_ITERS} iterations each")
     for tag, (algo, env_kw, algo_kw) in cases.items():
         env, pol, _, _ = harness.build(
             "Hover", dict(env_kw, num_envs=HOVER_ENVS, max_episode_length=HOVER_EPISODE),
@@ -2790,12 +2668,7 @@ def phase_family(dev, card: str) -> None:
         carry = (init_rnn_carry if rec else init_carry)(
             env, pol, torch.Generator(device=dev).manual_seed(30))
         it = (make_rnn_train_iter if rec else make_train_iter)(env, pol)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         _train_finite(tag, it, carry, FAMILY_ITERS)
-        seconds = time.perf_counter() - t0
-        log(f"  {tag}: {HOVER_ENVS * HOVER_STEPS * FAMILY_ITERS / seconds:.1f} env-steps/s "
-            f"over {FAMILY_ITERS} iterations (the first's warm-up included) on {card}")
         _hover_cpu_check(tag, dev, algo, env_kw, algo_kw)
 
     log(f"  ppo_sdf at policy level: {SDF_ENVS * SDF_STEPS} rows x {SDF_POINTS} points, "
@@ -2831,7 +2704,7 @@ def phase_family(dev, card: str) -> None:
 # phase 13: ppo_vision, the depth camera, RMA and the ring buffer at Hover's
 # default width (4,096 arenas, the drive recipe's 32 steps and 8 minibatches)
 VISION_ENVS = 4096
-VISION_TIMED = 2                              # 1 warm-up + 2 timed iterations
+VISION_ITERS = 2
 VISION_MB_FRAMES = VISION_ENVS * HOVER_STEPS // HOVER_MINIBATCHES  # 16,384
 DEPTH_BIG = (64, 48)                          # DepthCameraCfg's own default size
 DEPTH_TOL, DEPTH_OVER_SHARE = 1e-5, 1e-4      # frame / metres; share of pixels past it
@@ -2839,9 +2712,9 @@ RMA_ITERS = 8                                 # phases of 4, 2 and 2 iterations
 BUFFER_L, BUFFER_WINDOWS, BUFFER_SEQ = 128, 4096, 16
 
 
-def _vision_train(dev, card: str, kind: str) -> float:
+def _vision_train(dev, kind: str) -> None:
     """ppo_vision with backbone `kind` on Hover's depth camera at 4,096 x 32:
-    1 warm-up + 2 timed iterations, every metric and parameter finite."""
+    VISION_ITERS iterations, every metric and parameter finite."""
     from mupe_tpu_torch import harness
     from mupe_tpu_torch.learning import init_carry, make_train_iter
 
@@ -2850,51 +2723,12 @@ def _vision_train(dev, card: str, kind: str) -> float:
         dict(train_every=HOVER_STEPS, num_minibatches=HOVER_MINIBATCHES, vision_encoder=kind),
         algo="ppo_vision", device=dev)
     carry = init_carry(env, pol, torch.Generator(device=dev).manual_seed(60))
-    it = make_train_iter(env, pol)
-    carry = _train_finite(f"ppo_vision {kind} warm-up", it, carry, 1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _train_finite(f"ppo_vision {kind}", it, carry, VISION_TIMED)
-    seconds = time.perf_counter() - t0
-    rate = VISION_ENVS * HOVER_STEPS * VISION_TIMED / seconds
-    log(f"  ppo_vision {kind}: {rate:.1f} env-steps/s over {VISION_TIMED} timed iterations "
-        f"({seconds / VISION_TIMED:.3f} s an iteration) on {card}")
-    return rate
+    _train_finite(f"ppo_vision {kind}", make_train_iter(env, pol), carry, VISION_ITERS)
 
 
-def _mobilenet_small_minibatch(dev, card: str) -> None:
-    """Where MobileNetV3-Small's update goes: one network's forward +
-    backward on an update minibatch (16,384 frames of 24 x 32), its time
-    (CUDA events) and the three kernels of most device time (profiler)."""
-    from mupe_tpu_torch.learning.modules import mobilenet, networks
-
-    mod = mobilenet.MobileNetV3("enc", "small")
-    gen = torch.Generator().manual_seed(67)
-    p = {l.path: networks.init_leaf(l, gen).to(dev).requires_grad_(True)
-         for l in mod.leaf_specs(1)}
-    x = torch.rand((VISION_MB_FRAMES, 24, 32, 1), generator=gen).to(dev)
-
-    def step():
-        out = mod(p, x)
-        return torch.autograd.grad(torch.sum(out * out), list(p.values()))
-
-    ms = cuda_time_ms(step, runs=3, warmup=1)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        step()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0
-            and e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in rows) / 1e3
-    top = sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)[:3]
-    log(f"  mobilenet_v3_small forward + backward on {VISION_MB_FRAMES} frames: {ms:.3f} ms "
-        f"on {card}, device {total:.3f} ms; most device time: " + "; ".join(
-            f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top))
-
-
-def _mobilenet_large_check(dev, card: str) -> None:
+def _mobilenet_large_check(dev) -> None:
     """MobileNetV3-Large forward and backward on one update minibatch of
-    Hover's frames (16,384 of 24 x 32), card vs CPU, timed on the card.  Its
+    Hover's frames (16,384 of 24 x 32), card vs CPU.  Its
     batch-statistics norms over 16,384 x H x W values make float32's own
     rounding large (the gradients' float32 sat up to 8% of their scale from
     float64 on either device), so each tensor's floor is the CPU's float32
@@ -2909,20 +2743,15 @@ def _mobilenet_large_check(dev, card: str) -> None:
     x = torch.rand((VISION_MB_FRAMES, 24, 32, 1), generator=gen)
     cot = torch.randn((VISION_MB_FRAMES, mod.out_dim), generator=gen)
 
-    def run(d, dtype=torch.float32, inputs=None):
-        p, xd = inputs or ({l.path: v.to(d, dtype).requires_grad_(True)
-                            for l, v in zip(specs, leaves)}, x.to(d, dtype).requires_grad_(True))
+    def run(d, dtype=torch.float32):
+        p = {l.path: v.to(d, dtype).requires_grad_(True) for l, v in zip(specs, leaves)}
+        xd = x.to(d, dtype).requires_grad_(True)
         out = mod(p, xd)
         return [out, *torch.autograd.grad(torch.sum(out * cot.to(d, dtype)), [xd, *p.values()])]
 
     got = [t.detach().cpu() for t in run(dev)]
-    inputs = ({l.path: v.to(dev).requires_grad_(True) for l, v in zip(specs, leaves)},
-              x.to(dev).requires_grad_(True))
-    ms = cuda_time_ms(lambda: run(dev, inputs=inputs), runs=3, warmup=1)
     ref = [t.detach().cpu() for t in run(dev, torch.float64)]
-    t0 = time.perf_counter()
     want = run("cpu")
-    cpu_s = time.perf_counter() - t0
     ratio, floor_share = 0.0, 0.0
     net_scale = max(float(r.abs().max()) for r in ref[2:])
     for i, (g, r, c) in enumerate(zip(got, ref, want)):
@@ -2936,17 +2765,16 @@ def _mobilenet_large_check(dev, card: str) -> None:
         if not err <= 2 * floor + 1e-6 * scale:
             raise AssertionError(f"mobilenet_v3_large tensor {i}: card and CPU disagree ({err}; "
                                  f"the CPU's float32 error {floor}, scale {scale})")
-    log(f"  mobilenet_v3_large forward + backward on {VISION_MB_FRAMES} frames of 24 x 32: "
-        f"{ms:.3f} ms on {card} (CPU {cpu_s:.1f} s); card vs CPU at most {ratio:.3f}x the CPU "
-        f"float32's own error against float64 (tol 2x), which reached {floor_share:.3e} of a "
-        f"tensor's scale")
+    log(f"  mobilenet_v3_large forward + backward on {VISION_MB_FRAMES} frames of 24 x 32: card "
+        f"vs CPU at most {ratio:.3f}x the CPU float32's own error against float64 (tol 2x), "
+        f"which reached {floor_share:.3e} of a tensor's scale")
 
 
-def _depth_checks(dev, card: str) -> None:
+def _depth_checks(dev) -> None:
     """Hover's depth frame at 4,096 arenas card vs CPU (from the same states,
     after steps), and the full scene (arena wall, ceiling, 6 cylinders, the
-    target) at 4,096 cameras of 64 x 48, timed; pixels past DEPTH_TOL counted
-    and bounded (grazing rays)."""
+    target) at 4,096 cameras of 64 x 48; pixels past DEPTH_TOL counted and
+    bounded (grazing rays)."""
     from mupe_tpu_torch.envs import Hover, HoverCfg, tree_to
     from mupe_tpu_torch.sensors import depth
 
@@ -2980,19 +2808,18 @@ def _depth_checks(dev, card: str) -> None:
                                  target_radius=0.25)
 
     want, got = scene("cpu"), scene(dev).cpu()
-    ms = cuda_time_ms(lambda: scene(dev), runs=5)
     over = int(((got - want).abs() > DEPTH_TOL * want.abs()).sum())
     log(f"  depth_image, wall + ceiling + 6 cylinders + target, {VISION_ENVS} cameras of "
-        f"{w} x {h}: {ms:.3f} ms on {card}; card vs CPU {over} of {want.numel()} pixels past "
-        f"{DEPTH_TOL:g} relative (bound {DEPTH_OVER_SHARE:g} of them)")
+        f"{w} x {h}: card vs CPU {over} of {want.numel()} pixels past {DEPTH_TOL:g} relative "
+        f"(bound {DEPTH_OVER_SHARE:g} of them)")
     if over > DEPTH_OVER_SHARE * want.numel():
         raise AssertionError(f"depth_image: {over} pixels past {DEPTH_TOL} relative")
 
 
-def _rma_train(dev, card: str, run_dir: str) -> None:
+def _rma_train(run_dir: str) -> None:
     """`python -m mupe_tpu_torch.train task=Hover algo=ppo_adapt max_iters=8`
     (its `train`, on the card): the last row phase 3, every logged value
-    finite; env-steps/s of each phase (the median of its iterations)."""
+    finite."""
     from mupe_tpu_torch.harness import train
 
     argv = ["task=Hover", "algo=ppo_adapt", f"max_iters={RMA_ITERS}",
@@ -3008,10 +2835,6 @@ def _rma_train(dev, card: str, run_dir: str) -> None:
            if v != "" and not math.isfinite(float(v))]
     if bad:
         raise AssertionError(f"RMA: non-finite logged values {bad}")
-    for phase in (1, 2, 3):
-        fps_ = [float(r["rollout_fps"]) for r in rows if float(r["rma_phase"]) == phase]
-        log(f"  RMA phase {phase}: {statistics.median(fps_):.1f} env-steps/s (median of "
-            f"{len(fps_)} iterations: {', '.join(f'{v:.1f}' for v in fps_)}) on {card}")
     log(f"  RMA last row: " + ", ".join(f"{k}={v:.5g}" for k, v in sorted(last.items())
                                          if not k.startswith("stats/")))
 
@@ -3072,7 +2895,7 @@ def _adaptation_checks(dev) -> None:
             + "; parameters max_abs_err " + ", ".join(f"{e:.3e}" for e in errs))
 
 
-def _buffer_check(dev, card: str) -> None:
+def _buffer_check(dev) -> None:
     """TrajRingBuffer at the rollout's shape (L = 128, E = 4,096, Hover's
     observation): five extends of 32 steps (160: past the seam), then 4,096
     windows of 16 steps with the same injected draws, card vs CPU exactly."""
@@ -3093,19 +2916,16 @@ def _buffer_check(dev, card: str) -> None:
     t0 = torch.randint(0, BUFFER_L - BUFFER_SEQ, (BUFFER_WINDOWS,), generator=gen)
     out = {d: mybuffer.sample(b, BUFFER_WINDOWS, BUFFER_SEQ, env_idx=env_idx.to(d),
                               t0=t0.to(d)) for d, b in bufs.items()}
-    ms = cuda_time_ms(lambda: mybuffer.sample(bufs[dev], BUFFER_WINDOWS, BUFFER_SEQ,
-                                              env_idx=env_idx.to(dev), t0=t0.to(dev)), runs=5)
     (bc, vc), (bg, vg) = out["cpu"], out[dev]
     if not (int(bufs[dev].cursor) == int(bufs["cpu"].cursor) == 5 * HOVER_STEPS % BUFFER_L
             and bool(vg.all()) and torch.equal(vg.cpu(), vc)
             and all(torch.equal(bg[k].cpu(), bc[k]) for k in bc)):
         raise AssertionError("TrajRingBuffer: card and CPU differ")
     log(f"  TrajRingBuffer L={BUFFER_L} E={VISION_ENVS}: {5 * HOVER_STEPS} steps extended, "
-        f"{BUFFER_WINDOWS} windows of {BUFFER_SEQ} steps identical card vs CPU; sample "
-        f"{ms:.4f} ms on {card}")
+        f"{BUFFER_WINDOWS} windows of {BUFFER_SEQ} steps identical card vs CPU")
 
 
-def phase_vision_rma(dev, card: str) -> None:
+def phase_vision_rma(dev) -> None:
     """Phase 13: ppo_vision (conv and MobileNetV3-Small) on Hover's depth
     camera at 4,096 x 32, each with one act and one update card vs CPU;
     MobileNetV3-Large forward + backward card vs CPU; the depth frame and
@@ -3114,20 +2934,19 @@ def phase_vision_rma(dev, card: str) -> None:
     these paths launches a kernel of the port: the counts stay 0."""
     wrappers = Launches()
     log(f"[13] ppo_vision on Hover's depth camera (32 x 24): {VISION_ENVS} arenas x "
-        f"{HOVER_STEPS} steps, {HOVER_MINIBATCHES} minibatches, on {card}")
+        f"{HOVER_STEPS} steps, {HOVER_MINIBATCHES} minibatches")
     for kind in ("conv", "mobilenet_v3_small"):
-        _vision_train(dev, card, kind)
+        _vision_train(dev, kind)
         _hover_cpu_check(f"ppo_vision {kind}", dev, "ppo_vision", {"obs_depth": True},
                          {"vision_encoder": kind})
-    _mobilenet_small_minibatch(dev, card)
-    _mobilenet_large_check(dev, card)
-    _depth_checks(dev, card)
+    _mobilenet_large_check(dev)
+    _depth_checks(dev)
     log(f"[13] RMA (algo=ppo_adapt) on Hover: {VISION_ENVS} arenas x {HOVER_STEPS} steps, "
         f"{RMA_ITERS} iterations")
     with tempfile.TemporaryDirectory() as run_dir:
-        _rma_train(dev, card, run_dir)
+        _rma_train(run_dir)
     _adaptation_checks(dev)
-    _buffer_check(dev, card)
+    _buffer_check(dev)
     launched = {k: v for k, v in wrappers.read().items() if v}
     if launched:
         raise AssertionError(f"phase 13's paths launched kernels: {launched}")
@@ -3189,8 +3008,7 @@ def _dp_same_on_ranks(what: str, tensors: dict) -> None:
 def _dp_iteration(dev, mode, shard_note: str) -> tuple:
     """One training iteration of bench.py's configuration from seed DP_SEED
     through `harness.build` (this rank's arenas of the group): (the
-    trajectory's small fields on the CPU, the learner, the carry, the
-    iteration, the seconds it took)."""
+    trajectory's small fields on the CPU, the learner)."""
     import mupe_tpu_torch.learning.mappo as tmappo
     from mupe_tpu_torch import harness
     from mupe_tpu_torch.learning import init_carry
@@ -3201,13 +3019,6 @@ def _dp_iteration(dev, mode, shard_note: str) -> tuple:
         algo.update(use_inkernel_loss=True, direct_mode=mode)
     env, policy, _, _ = harness.build("HideAndSeek", {"num_envs": NUM_ENVS}, algo, device=dev)
     carry = init_carry(env, policy, torch.Generator(device=dev).manual_seed(DP_SEED))
-    rollout = make_rollout(env, policy)
-
-    def iteration(carry):
-        carry, traj, _ = rollout(carry)
-        ts, metrics = policy.train_op(carry.ts, traj, carry.obs, carry.generator,
-                                      shard=env.shard)
-        return carry, traj, metrics
 
     # the gradients of the first optimizer steps: the TP step, the first
     # minibatch's actor and critic
@@ -3218,21 +3029,18 @@ def _dp_iteration(dev, mode, shard_note: str) -> tuple:
             first.append([g.detach().cpu() for g in grads])
         return real(grads, state, lr, **kw)
 
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
     tmappo.adam_updates = recording
     try:
-        carry, traj, metrics = iteration(carry)
+        carry, traj, _ = make_rollout(env, policy)(carry)
+        _, metrics = policy.train_op(carry.ts, traj, carry.obs, carry.generator, shard=env.shard)
     finally:
         tmappo.adam_updates = real
-    torch.cuda.synchronize(dev)
-    seconds = time.perf_counter() - t0
     if not all(math.isfinite(float(v)) for v in metrics.values()):
         raise AssertionError(f"{shard_note} mode {mode}: non-finite metrics")
     small = {k: traj[k].detach().float().cpu() for k in DP_TRAJ_KEYS}
     learner = _dp_learner(carry.ts)
     learner.update({f"grad{i}_{j}": g for i, gs in enumerate(first) for j, g in enumerate(gs)})
-    return small, learner, carry, iteration, seconds
+    return small, learner
 
 
 def dp_worker(argv) -> int:
@@ -3260,9 +3068,8 @@ def dp_worker(argv) -> int:
                 dist.init_distributed(backend=backend, init_method=init_method,
                                       world_size=world, rank=rank)
                 report["backend"] = torch.distributed.get_backend()
-            m = harness.train(_dp_argv(str(out / "runs"), name, 2), default_task="HideAndSeek",
-                              device=dev)
-            report[f"{name}_rate"] = m["rollout_fps"]
+            harness.train(_dp_argv(str(out / "runs"), name, 2), default_task="HideAndSeek",
+                          device=dev)
             learners[name] = load_checkpoint(out / "runs" / name / "checkpoints")
         same = _equal_trees(learners["nogroup"], learners["group"])
         report["harness_bits_equal"] = same
@@ -3274,20 +3081,11 @@ def dp_worker(argv) -> int:
     note = f"{role} rank {rank}/{world}"
     for mode in DP_MODES:
         all_kernels = Launches()
-        small, learner, carry, iteration, seconds = _dp_iteration(dev, mode, note)
+        small, learner = _dp_iteration(dev, mode, note)
         report[f"launches_{mode}"] = {k: v for k, v in all_kernels.read().items() if v}
         if role == "two":
             _dp_same_on_ranks(f"{note} learner, mode {mode}", learner)
         torch.save({"traj": small, "learner": learner}, out / f"{role}_{rank}_{mode}.pt")
-        if mode is None:
-            # a second, warm iteration: the rate (information only)
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            iteration(carry)
-            torch.cuda.synchronize(dev)
-            report["iteration_s"] = time.perf_counter() - t0
-            report["iteration_s_all"] = dist.all_gather_envs(
-                torch.tensor([report["iteration_s"]], dtype=torch.float64)).tolist()
     if role == "two":
         # check 3: AEG through one closed cycle (phase 5's cuts), each rank its arenas
         fps_launches = Launches("farthest_point_sampling")
@@ -3319,7 +3117,6 @@ def dp_worker(argv) -> int:
             raise AssertionError(f"{note}: Hover's losses {losses.tolist()}")
         _dp_same_on_ranks(f"{note} Hover's losses", {"losses": losses})
         report["hover_losses"] = losses.tolist()
-        report["hover_rate"] = m["rollout_fps"]
     (out / f"report_{role}_{rank}.json").write_text(json.dumps(report))
     dist.destroy()
     return 0
@@ -3355,25 +3152,7 @@ def _dp_launch(role: str, world: int, backend: str, out: Path, phase: int = 14) 
     return [json.loads((out / f"report_{role}_{r}.json").read_text()) for r in range(world)]
 
 
-def _dp_draw_cost(dev, card: str) -> None:
-    """The cost of drawing at the global arena count: the action noise of a
-    rollout step (4,096 x 3 x 4 normals) made whole and sliced to one of 2
-    ranks' 2,048 arenas, against the local draw alone (CUDA events, medians
-    of 200 calls; information)."""
-    from mupe_tpu_torch.parallel import dist
-
-    gen = torch.Generator(device=dev).manual_seed(0)
-    shard = dist.EnvShard.of(NUM_ENVS, 0, 2)
-    shape = (shard.size, 3, 4)
-    whole = cuda_time_ms(lambda: shard.draw(
-        lambda s: torch.randn(s, generator=gen, device=dev), shape), runs=200, warmup=10)
-    local = cuda_time_ms(lambda: torch.randn(shape, generator=gen, device=dev), runs=200,
-                         warmup=10)
-    log(f"  [5] the action noise of a step for rank 0 of 2: drawn at {NUM_ENVS} arenas and "
-        f"sliced {whole:.4f} ms, drawn at {shard.size} {local:.4f} ms on {card}")
-
-
-def phase_parallel(dev, card: str) -> None:
+def phase_parallel(card: str) -> None:
     """Phase 14: data parallelism over the arena axis at bench.py's width
     (4,096 arenas x 64 steps, TP net), in worker processes (this process
     holds no process group).  1: world size 1 over NCCL through
@@ -3384,9 +3163,7 @@ def phase_parallel(dev, card: str) -> None:
     digest), the joined trajectory and the learner held against the one
     rank's same iteration; 3: AEG at 2 ranks (phase 5's cuts) through one
     closed cycle, the buffer's bits equal on the ranks, each rank an FPS
-    launch; 4: Hover's flat MAPPO at 2 ranks through `harness.train`; 5:
-    the rates, information only (not a scaling measurement: both ranks
-    share one card)."""
+    launch; 4: Hover's flat MAPPO at 2 ranks through `harness.train`."""
     t0 = time.perf_counter()
     log(f"[14] data parallelism: bench.py's configuration ({NUM_ENVS} arenas x {STEPS} steps, "
         f"TP net) at world size 1 over NCCL, and at 2 ranks sharing the card over gloo")
@@ -3432,14 +3209,6 @@ def phase_parallel(dev, card: str) -> None:
             "buffers bit-identical")
         log(f"  [4] Hover's flat MAPPO at 2 ranks through harness.train: losses "
             f"{two[0]['hover_losses']} on both ranks")
-        frames = NUM_ENVS * STEPS
-        agg = frames / max(two[0]["iteration_s_all"])
-        log(f"  [5] not a scaling measurement: world size 1 (harness, 2nd iteration) "
-            f"{one['group_rate']:.1f} env-steps/s ({one['nogroup_rate']:.1f} without a group); "
-            f"one warm iteration {frames / one['iteration_s']:.1f} at world size 1 and "
-            f"{agg:.1f} aggregate for 2 ranks sharing the card "
-            f"(iteration {max(two[0]['iteration_s_all']) * 1e3:.1f} ms) on {card}")
-    _dp_draw_cost(dev, card)
     log(f"[14] phase 14 took {time.perf_counter() - t0:.1f} s on {card}")
 
 
@@ -3566,7 +3335,7 @@ def _fam_worker(role: str, rank: int, world: int, backend: str, init_method: str
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    report = {"role": role, "rank": rank, "launches": {}, "seconds": {}}
+    report = {"role": role, "rank": rank, "launches": {}}
     wrappers = Launches()
     if role == "fam1":
         # without a group, then with an NCCL group of one
@@ -3578,14 +3347,10 @@ def _fam_worker(role: str, rank: int, world: int, backend: str, init_method: str
                 report["backend"] = torch.distributed.get_backend()
             for algo, argv in FAM_WORLD1.items():
                 run = f"{algo}_{name}"
-                t0 = time.perf_counter()
-                m = harness.train([*argv, f"env.num_envs={NUM_ENVS}",
-                                   f"algo.train_every={FAM_WORLD1_STEPS}", "max_iters=2",
-                                   "log_interval=1", "save_interval=-1",
-                                   f"run_dir={out / 'runs'}", f"run_name={run}",
-                                   f"seed={DP_SEED}"], device=dev)
-                report["seconds"][run] = time.perf_counter() - t0
-                report[f"{run}_rate"] = m["rollout_fps"]
+                harness.train([*argv, f"env.num_envs={NUM_ENVS}",
+                               f"algo.train_every={FAM_WORLD1_STEPS}", "max_iters=2",
+                               "log_interval=1", "save_interval=-1", f"run_dir={out / 'runs'}",
+                               f"run_name={run}", f"seed={DP_SEED}"], device=dev)
                 learners[run] = load_checkpoint(out / "runs" / run / "checkpoints")
         for algo in FAM_WORLD1:
             report[f"{algo}_bits_equal"] = _equal_trees(learners[f"{algo}_nogroup"],
@@ -3597,12 +3362,9 @@ def _fam_worker(role: str, rank: int, world: int, backend: str, init_method: str
         dist.init_distributed(backend=backend, init_method=init_method, world_size=world,
                               rank=rank)
     for case in FAM_CASES:
-        t0 = time.perf_counter()
         saved = out / f"rollout_{case}.pt" if FAM_CASES[case][1] == "HideAndSeek" else None
         small, learner = _fam_iteration(dev, case, replay=saved if role == "fam2" else None,
                                         keep=saved if role == "fam1" else None)
-        torch.cuda.synchronize(dev)
-        report["seconds"][case] = time.perf_counter() - t0
         if role == "fam2":
             _dp_same_on_ranks(f"{role} rank {rank} {case} learner", learner)
         torch.save({"traj": small, "learner": learner}, out / f"{role}_{rank}_{case}.pt")
@@ -3612,7 +3374,7 @@ def _fam_worker(role: str, rank: int, world: int, backend: str, init_method: str
     return 0
 
 
-def phase_family_ranks(card: str) -> None:
+def phase_family_ranks() -> None:
     """Phase 15, part 1: the PPO family across ranks, in worker processes.
     World size 1 over NCCL: `harness.train` of ppo_rnn and transformer at
     4,096 arenas, 2 iterations, the learner's bits equal to the same run
@@ -3621,7 +3383,6 @@ def phase_family_ranks(card: str) -> None:
     the ranks' learners bit-identical, the joined trajectory, the first
     gradients and the learner held against the one rank's iteration under
     phase 14's bounds.  No kernel launches on these paths."""
-    t0 = time.perf_counter()
     log(f"[15] the PPO family across ranks: {', '.join(FAM_CASES)}")
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
@@ -3629,9 +3390,7 @@ def phase_family_ranks(card: str) -> None:
         for algo in FAM_WORLD1:
             log(f"  [1] world size 1, {algo} through harness.train ({NUM_ENVS} arenas x "
                 f"{FAM_WORLD1_STEPS} steps, 2 iterations): with an NCCL group ({one['backend']}) "
-                f"= without, bit for bit: {one[f'{algo}_bits_equal']}; "
-                f"{one[f'{algo}_group_rate']:.1f} env-steps/s with, "
-                f"{one[f'{algo}_nogroup_rate']:.1f} without (2nd iteration) on {card}")
+                f"= without, bit for bit: {one[f'{algo}_bits_equal']}")
         two = _dp_launch("fam2", 2, "gloo", out, phase=15)
         failures = []
         for case in FAM_CASES:
@@ -3673,24 +3432,13 @@ def phase_family_ranks(card: str) -> None:
             log(f"  [2] {case} ({n_envs} arenas x {steps} steps): ranks bit-identical; "
                 f"{held} (limit {DP_TRAJ_REL}), "
                 f"the first gradients within {gerr:.3e} (limit {DP_GRAD_REL}), the learner "
-                f"within {perr:.3e} (limit {DP_PARAM_ATOL}); an iteration "
-                f"{two[0]['seconds'][case]:.2f} s a rank at 2, {one['seconds'][case]:.2f} s at 1")
+                f"within {perr:.3e} (limit {DP_PARAM_ATOL})")
         launched = {r["role"] + str(r["rank"]): r["launches"] for r in [one, *two] if r["launches"]}
         if launched:
             failures.append(f"the PPO family launched kernels: {launched}")
         if failures:
             raise AssertionError("[15] " + "; ".join(failures))
         log("  [3] every kernel count stayed 0 on these paths")
-    log(f"[15] part 1 took {time.perf_counter() - t0:.1f} s on {card}")
-
-
-def _a5_rate(run, steps: int, envs: int, dev) -> tuple:
-    """(run()'s result, env-steps/s on the card)."""
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    result = run()
-    torch.cuda.synchronize(dev)
-    return result, envs * steps / (time.perf_counter() - t0)
 
 
 def _a5_hold(tag: str, card_val: torch.Tensor, cpu_val: torch.Tensor) -> float:
@@ -3701,25 +3449,24 @@ def _a5_hold(tag: str, card_val: torch.Tensor, cpu_val: torch.Tensor) -> float:
     return err
 
 
-def phase_a5(dev, card: str) -> None:
+def phase_a5(dev) -> None:
     """Phase 15, part 2: the Lee, attitude, rate and DSL PID controllers,
     Dragon and the transport group at 4,096 arenas from seeded draws, each
     held against the port's CPU run of the first 64 arenas (A5_TRAJ_ATOL)
-    and to the JAX tests' physical checks; env-steps/s of each."""
+    and to the JAX tests' physical checks."""
     from mupe_tpu_torch import controllers as tc
     from mupe_tpu_torch.core import quat_rotate, quaternion_to_euler
     from mupe_tpu_torch.dynamics import dragon as dg
     from mupe_tpu_torch.dynamics import hover_state, make_params, step
     from mupe_tpu_torch.dynamics import transport as tr
 
-    t_start = time.perf_counter()
     g = torch.Generator().manual_seed(A5_SEED)
     e = A5_ENVS
     spawn = torch.randn((e, 1, 3), generator=g) * 0.3 + torch.tensor([0.0, 0.0, 2.0])
     offset = torch.randn((e, 1, 3), generator=g) * 0.3
     level = torch.tensor([1.0, 0.0, 0.0, 0.0]).expand(e, 1, 4).contiguous()
     log(f"[15] controllers, Dragon and the transport group at {e} arenas, the first "
-        f"{A5_CPU_ENVS} held against the CPU within {A5_TRAJ_ATOL} m, on {card}")
+        f"{A5_CPU_ENVS} held against the CPU within {A5_TRAJ_ATOL} m")
 
     # Lee position control, 1,000 steps: the Firefly and the Hummingbird hover
     # at the spawn point from 0.05 m (sd) away; the Crazyflie at its exact
@@ -3735,14 +3482,14 @@ def phase_a5(dev, card: str) -> None:
                 cmds = tc.lee_position_control(mixer, s.pos, s.quat, s.vel, s.angvel, target)
                 s, _ = step(params, s, cmds, 0.01)
             return s.pos
-        pos, rate = _a5_rate(lambda: lee(dev, e), 1000, e, dev)
+        pos = lee(dev, e)
         err = float((pos - spawn.to(dev)).norm(dim=-1).max())
         hold = _a5_hold(f"Lee {model}", pos, lee("cpu", A5_CPU_ENVS))
         if not err < (0.1 if model != "crazyflie" else 1e-5):
             raise AssertionError(f"[15] Lee {model}: {err:.3e} m from its target after 10 s")
         log(f"  Lee position control, {model}, 1,000 steps from "
             f"{'0.05 m (sd) away' if model != 'crazyflie' else 'its hover state'}: within "
-            f"{err:.2e} m of the target; card vs CPU {hold:.2e} m; {rate:.1f} drone-steps/s")
+            f"{err:.2e} m of the target; card vs CPU {hold:.2e} m")
 
     # attitude control over the demo's setpoints, weight-matching thrust, from
     # 50 m, on the Hummingbird and the Firefly: the Crazyflie's loop at
@@ -3766,12 +3513,12 @@ def phase_a5(dev, card: str) -> None:
                 rp = quaternion_to_euler(s.quat)[..., :2]
                 errs.append(float((rp - torch.tensor([roll, pitch], device=d)).norm(dim=-1).max()))
             return s.pos, errs
-        (pos, errs), rate = _a5_rate(lambda: attitude(dev, e), 500, e, dev)
+        pos, errs = attitude(dev, e)
         hold = _a5_hold(f"attitude {model}", pos, attitude("cpu", A5_CPU_ENVS)[0])
         if not max(errs) < 0.01:
             raise AssertionError(f"[15] attitude {model}: roll/pitch errors {errs}")
         log(f"  attitude control, {model}, the demo's 5 setpoints x 100 steps: roll/pitch within "
-            f"{max(errs):.2e} rad after each; card vs CPU {hold:.2e} m; {rate:.1f} drone-steps/s")
+            f"{max(errs):.2e} rad after each; card vs CPU {hold:.2e} m")
 
     # rate control: 45 deg/s of roll, 100 steps, from 50 m
     def rates(d, n):
@@ -3783,13 +3530,13 @@ def phase_a5(dev, card: str) -> None:
             cmds = tc.rate_control(mixer, s.quat, s.angvel, target, params.gravity.expand(n, 1, 1))
             s, _ = step(params, s, cmds, 0.01)
         return s.body_rate, s.pos
-    (body, pos), rate = _a5_rate(lambda: rates(dev, e), 100, e, dev)
+    body, pos = rates(dev, e)
     hold = _a5_hold("rate", pos, rates("cpu", A5_CPU_ENVS)[1])
     rerr = float((body[..., 0] - math.radians(45.0)).abs().max()) / math.radians(45.0)
     if not rerr < 0.05:
         raise AssertionError(f"[15] rate control: roll rate {rerr:.3f} off its target")
     log(f"  rate control, 45 deg/s roll, 100 steps: within {rerr:.2e} of the target; card vs "
-        f"CPU {hold:.2e} m; {rate:.1f} drone-steps/s")
+        f"CPU {hold:.2e} m")
 
     # DSL PID, 500 steps from 0.05 m (sd) off the spawn point.  Its gains (the
     # reference's PyBullet Crazyflie's motor model) do not hold this model's
@@ -3802,8 +3549,6 @@ def phase_a5(dev, card: str) -> None:
     pid = tc.DSLPIDState.zeros((e, 1), device=dev)
     zero3, zero1 = torch.zeros((e, 1, 3), device=dev), torch.zeros((e, 1, 1), device=dev)
     n, worst = A5_CPU_ENVS, 0.0
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
     for i in range(500):
         cmds, new_pid = tc.dsl_pid_control(s.pos, s.quat, s.vel, target, zero3, zero1, pid, 0.01)
         if i % 100 == 0:
@@ -3817,12 +3562,10 @@ def phase_a5(dev, card: str) -> None:
                         / max(1.0, float(ref.abs().max())))
         pid = new_pid
         s, _ = step(params, s, cmds, 0.01)
-    torch.cuda.synchronize(dev)
-    rate = e * 500 / (time.perf_counter() - t0)
     if not (worst <= 1e-5 and bool(torch.isfinite(s.pos).all())):
         raise AssertionError(f"[15] DSL PID: a tick card vs CPU {worst:.3e} of its scale")
     log(f"  DSL PID, 500 steps: finite; each 100th tick card vs CPU within {worst:.2e} of the "
-        f"commands' scale; {rate:.1f} drone-steps/s (5 host syncs included)")
+        f"commands' scale")
 
     # Dragon: hover thrust, every joint driven about z, the gimbals out and back
     cfg = dg.DragonCfg()
@@ -3843,7 +3586,7 @@ def phase_a5(dev, card: str) -> None:
         for i in range(300):
             s = dg.dragon_step(cfg, s, actions[i // 100], 0.01)
         return s
-    st, rate = _a5_rate(lambda: dragon(dev, e), 300, e, dev)
+    st = dragon(dev, e)
     hold = _a5_hold("Dragon", st.pos, dragon("cpu", A5_CPU_ENVS).pos)
     gaps = (st.pos[:, 1:] - st.pos[:, :-1]).norm(dim=-1)
     gap_err = float((gaps - cfg.link_spacing).abs().max())
@@ -3856,7 +3599,7 @@ def phase_a5(dev, card: str) -> None:
                              f"{end_to_end:.3f}, altitude {drop:.3f}")
     log(f"  Dragon, 300 steps (4 substeps each): the chain holds (gaps within {gap_err:.3f} m of "
         f"{cfg.link_spacing}), bent (end to end at most {end_to_end:.3f} m), altitude within "
-        f"{drop:.3f} m; card vs CPU {hold:.2e} m; {rate:.1f} arena-steps/s")
+        f"{drop:.3f} m; card vs CPU {hold:.2e} m")
 
     # transport: the demo's 900-tick ramp, 3 m across and 0.7 m up
     tcfg = tr.TransportCfg()
@@ -3873,7 +3616,7 @@ def phase_a5(dev, card: str) -> None:
                                            s.drones.angvel, start + frac * (goal - start))
             s = tr.transport_step(tcfg, params, s, cmds, dt=0.016)
         return s, goal
-    (st, goal), rate = _a5_rate(lambda: transport(dev, e), 900, e, dev)
+    st, goal = transport(dev, e)
     cpu_st, _ = transport("cpu", A5_CPU_ENVS)
     hold = max(_a5_hold("transport drones", st.drones.pos, cpu_st.drones.pos),
                _a5_hold("transport payload", st.payload_pos, cpu_st.payload_pos))
@@ -3886,17 +3629,15 @@ def phase_a5(dev, card: str) -> None:
         raise AssertionError(f"[15] transport: rods off by {rods:.3f}, payload below: {below}")
     log(f"  transport, the demo's 900 ticks (4 substeps each): rods within {rods:.3f} m of "
         f"{tcfg.bar_length}, the payload below the drones, mean drone target error {err:.3f} m; "
-        f"card vs CPU {hold:.2e} m; {rate:.1f} arena-steps/s")
-    log(f"[15] part 2 took {time.perf_counter() - t_start:.1f} s on {card}")
+        f"card vs CPU {hold:.2e} m")
 
 
-def phase_examples(card: str) -> None:
+def phase_examples() -> None:
     """Phase 15, part 3: every `mupe_tpu_torch.examples` module run as
     `python -m` would run it, on the card (its default), in one child
     process that must exit 0."""
     from mupe_tpu_torch.examples import EXAMPLES
 
-    t0 = time.perf_counter()
     code = ("import runpy, sys\n"
             f"for name in {list(EXAMPLES)!r}:\n"
             "    print('== ' + name, flush=True)\n"
@@ -3918,14 +3659,13 @@ def phase_examples(card: str) -> None:
         raise AssertionError(f"[15] the examples printed {sorted(blocks)}")
     for name in EXAMPLES:
         log(f"  python -m mupe_tpu_torch.examples.{name}: exit 0; last line: {blocks[name][-1]}")
-    log(f"[15] part 3, the examples on the card: {time.perf_counter() - t0:.1f} s on {card}")
 
 
 def phase_15(dev, card: str) -> None:
     t0 = time.perf_counter()
-    phase_family_ranks(card)
-    phase_a5(dev, card)
-    phase_examples(card)
+    phase_family_ranks()
+    phase_a5(dev)
+    phase_examples()
     log(f"[15] phase 15 took {time.perf_counter() - t0:.1f} s on {card}")
 
 # phase 16: evaluation videos (`utils/render.py`, `video` in evaluate and train)
@@ -4019,47 +3759,33 @@ def _hold_gif(tag: str, data: bytes, want: list) -> None:
 
 
 class _Recorder:
-    """Wraps the harness's `episode_video` and `_frames_to_host` for a run:
-    the info each video drew, the paths and the seconds of each (the copy
-    timed from a synchronised device)."""
+    """Wraps the harness's `episode_video` for a run: the info each video
+    drew and its path."""
 
     def __init__(self):
         from mupe_tpu_torch import harness
 
-        self.harness, self.infos, self.paths, self.copy_s, self.video_s = harness, [], [], [], []
-        self.real = (harness.episode_video, harness._frames_to_host)
+        self.harness, self.infos, self.paths = harness, [], []
+        self.real = harness.episode_video
 
     def __enter__(self):
-        real_video, real_host = self.real
-
         def video(info, cfg, path, *args, **kwargs):
-            t0 = time.perf_counter()
-            out = real_video(info, cfg, path, *args, **kwargs)
-            self.video_s.append(time.perf_counter() - t0)
             self.infos.append(info)
             self.paths.append(path)
-            return out
+            return self.real(info, cfg, path, *args, **kwargs)
 
-        def to_host(frames, owner):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = real_host(frames, owner)
-            self.copy_s.append(time.perf_counter() - t0)
-            return out
-
-        self.harness.episode_video, self.harness._frames_to_host = video, to_host
+        self.harness.episode_video = video
         return self
 
     def __exit__(self, *exc):
-        self.harness.episode_video, self.harness._frames_to_host = self.real
+        self.harness.episode_video = self.real
 
 
-def _video_full_width(dev, card: str, first: dict, tmp: Path) -> None:
+def _video_full_width(dev, first: dict, tmp: Path) -> None:
     """Phase 10's evaluation again (its argv, 4,096 arenas x 800 steps on
     the wall scenario) with `video` of arena VIDEO_ARENA: the stats equal
     phase 10's bit for bit, the launches too, and the GIF holds the 400
-    frames the renderer draws from the collected arrays.  Prints the
-    rates, the copy, render and encode times and the GIF's size."""
+    frames the renderer draws from the collected arrays."""
     from mupe_tpu_torch import harness
     from mupe_tpu_torch.utils import render
 
@@ -4068,11 +3794,8 @@ def _video_full_width(dev, card: str, first: dict, tmp: Path) -> None:
     log(f"[16] evaluation with a video: phase 10's harness.evaluate (wall, use_eval, {NUM_ENVS} "
         f"x {EVAL_EPISODE}) + video=ev.gif video_env_index={VIDEO_ARENA}")
     wrappers = Launches("encoder_pair_forward", "tp_forward")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with _Recorder() as rec:
         result = harness.evaluate(argv, device=dev)
-    seconds = time.perf_counter() - t0
     launches = wrappers.read()
     if result != first["result"]:
         diff = {k: (v, first["result"].get(k)) for k, v in result.items()
@@ -4082,29 +3805,18 @@ def _video_full_width(dev, card: str, first: dict, tmp: Path) -> None:
         raise AssertionError(f"[16] launches {launches} with a video, {first['launches']} "
                              f"without: rendering launched a kernel")
     (info,) = rec.infos
-    t1 = time.perf_counter()
     frames = _video_frames(info)
-    t_render = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    encoded = render.encode_gif(frames)
-    t_encode = time.perf_counter() - t1
     data = path.read_bytes()
-    if encoded != data:
+    if render.encode_gif(frames) != data:
         raise AssertionError("[16] encoding the same frames again gives another file")
     _hold_gif("the full-width evaluation", data, frames)
     n = len(frames)
     if n != EVAL_EPISODE // 2:
         raise AssertionError(f"[16] {n} frames for an {EVAL_EPISODE}-step episode")
-    rate = NUM_ENVS * EVAL_EPISODE / seconds
     log(f"  stats equal phase 10's bit for bit ({len(result)} values); launches {launches}, "
         f"phase 10's {first['launches']}: rendering launched no kernel")
     log(f"  the GIF decodes to {n} frames equal to render_trajectory of the collected arrays "
         f"({len(data)} bytes, {len(data) / n:.1f} a frame)")
-    log(f"  evaluation with the video {rate:.1f} env-steps/s (the whole call, the video "
-        f"written: {seconds:.4f} s), phase 10's without {first['rate']:.1f}; the device-to-host "
-        f"copy of the arena's {EVAL_EPISODE} steps {rec.copy_s[0] * 1e3:.3f} ms; episode_video "
-        f"{rec.video_s[0]:.4f} s; again, apart: render {t_render:.4f} s ({t_render / n * 1e3:.3f} "
-        f"ms a frame), encode {t_encode:.4f} s ({t_encode / n * 1e3:.3f} ms a frame) on {card}")
 
 
 def _hold_frame_dicts(tag: str, got: dict, want: dict, step: float, atol: float = 1e-2) -> str:
@@ -4152,7 +3864,7 @@ def _video_cpu(dev, first: dict, tmp: Path) -> None:
         f"{VIDEO_CPU_STEPS} steps, arena {VIDEO_CPU_ENVS - 3}: {held}")
 
 
-def _video_train(dev, card: str, tmp: Path) -> None:
+def _video_train(dev, tmp: Path) -> None:
     """`harness.train` at phase 10's cut, 2 iterations, eval_interval=1
     video=1: eval_1.gif and eval_2.gif in the run directory, each the
     renderer's frames of its collected arena."""
@@ -4162,17 +3874,15 @@ def _video_train(dev, card: str, tmp: Path) -> None:
             "env.r_min=0.0", "max_iters=2", "eval_interval=1", "video=1",
             f"video_env_index={VIDEO_ARENA}", "log_interval=1", "save_interval=-1",
             f"run_dir={tmp}", "run_name=train", "seed=10"]
-    t0 = time.perf_counter()
     with _Recorder() as rec:
         metrics = harness.train(argv, default_task="HideAndSeek_envgen", device=dev)
-    seconds = time.perf_counter() - t0
     names = sorted(p.name for p in (tmp / "train").glob("*.gif"))
     if names != ["eval_1.gif", "eval_2.gif"] or not math.isfinite(metrics["eval/return"]):
         raise AssertionError(f"[16] train with a video wrote {names}")
     for info, gif in zip(rec.infos, rec.paths):
         _hold_gif(f"train's {Path(gif).name}", Path(gif).read_bytes(), _video_frames(info))
     log(f"[16] harness.train at phase 10's cut, 2 iterations, eval_interval=1 video=1: {names}, "
-        f"{AEG_EPISODE // 2} frames each, equal to the renderer's; {seconds:.1f} s on {card}")
+        f"{AEG_EPISODE // 2} frames each, equal to the renderer's")
 
 
 def _video_rank_argv(run_dir: Path, name: str) -> list:
@@ -4201,13 +3911,12 @@ def _video_worker(rank: int, world: int, backend: str, init_method: str, out: Pa
     return 0
 
 
-def _video_ranks(dev, card: str, tmp: Path) -> None:
+def _video_ranks(dev, tmp: Path) -> None:
     """Two ranks sharing the card over gloo, arena VIDEO_RANK_ARENA on rank
     1: rank 0 writes eval_1.gif, rank 1 nothing, and its frames equal the
     one-rank run's (this process, no group)."""
     from mupe_tpu_torch import harness
 
-    t0 = time.perf_counter()
     ranks = _dp_launch("video", 2, "gloo", tmp, phase=16)
     written = [r["written"] for r in ranks]
     if [len(w) for w in written] != [1, 0]:
@@ -4221,14 +3930,13 @@ def _video_ranks(dev, card: str, tmp: Path) -> None:
                              f"{bad} differ")
     log(f"[16] 2 ranks sharing the card over gloo, {VIDEO_RANK_ENVS} arenas, arena "
         f"{VIDEO_RANK_ARENA} on rank 1: rank 0 wrote {Path(written[0][0]).name}, rank 1 none; its "
-        f"{len(two)} frames equal the one-rank run's; {time.perf_counter() - t0:.1f} s on {card}")
+        f"{len(two)} frames equal the one-rank run's")
 
 
-def _video_demo(card: str, tmp: Path) -> None:
+def _video_demo(tmp: Path) -> None:
     """`python -m mupe_tpu_torch.examples.demo_hideandseek_rollout --gif`
     in a child process (its working directory `tmp`): exit 0, `gif:`
     printed, 100 frames."""
-    t0 = time.perf_counter()
     repo = str(Path(__file__).resolve().parent)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (repo, os.environ.get("PYTHONPATH")) if p))
@@ -4244,7 +3952,7 @@ def _video_demo(card: str, tmp: Path) -> None:
         raise AssertionError(f"[16] the demo's GIF holds {len(frames)} frames")
     stats = "; ".join(" ".join(ln.split()) for ln in lines[1:-1])
     log(f"[16] python -m mupe_tpu_torch.examples.demo_hideandseek_rollout --gif: exit 0, "
-        f"{lines[-1]} ({len(frames)} frames); {stats}; {time.perf_counter() - t0:.1f} s on {card}")
+        f"{lines[-1]} ({len(frames)} frames); {stats}")
 
 
 def phase_video(dev, card: str, first: dict) -> None:
@@ -4255,11 +3963,11 @@ def phase_video(dev, card: str, first: dict) -> None:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        _video_full_width(dev, card, first, tmp)
+        _video_full_width(dev, first, tmp)
         _video_cpu(dev, first, tmp)
-        _video_train(dev, card, tmp)
-        _video_ranks(dev, card, tmp)
-        _video_demo(card, tmp)
+        _video_train(dev, tmp)
+        _video_ranks(dev, tmp)
+        _video_demo(tmp)
     log(f"[16] phase 16 took {time.perf_counter() - t0:.1f} s on {card}")
 
 
@@ -4275,35 +3983,32 @@ def main() -> int:
     log(f"[0] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     phase_build()
     kernels = phase_kernels(dev)
-    phase_slice(dev, card)
-    launches, rate = phase_train(dev, card)
-    launches["farthest_point_sampling"] = phase_aeg(dev, card)["farthest_point_sampling"]
-    launches.update(phase_inkernel(dev, card, rate))
-    phase_config_train(dev, card, 7, "wide-configuration", WIDE_ENV, (None, "agrad"))
-    phase_config_train(dev, card, 8, "16-token", TOK16_ENV, (None, "fwdloss", "agrad"))
-    phase_config_train(dev, card, 9, "past-the-tile-limits", LIMIT_ENV,
-                       (None, "fwdloss", "agrad"))
+    phase_slice(dev)
+    launches = phase_train(dev)
+    launches["farthest_point_sampling"] = phase_aeg(dev)["farthest_point_sampling"]
+    launches.update(phase_inkernel(dev))
+    phase_config_train(dev, 7, "wide-configuration", WIDE_ENV, (None, "agrad"))
+    phase_config_train(dev, 8, "16-token", TOK16_ENV, (None, "fwdloss", "agrad"))
+    phase_config_train(dev, 9, "past-the-tile-limits", LIMIT_ENV, (None, "fwdloss", "agrad"))
     # phase 10's run directory: phase 16 evaluates its checkpoint again
     eval_dir = tempfile.TemporaryDirectory()
-    first_eval = phase_eval(dev, card, eval_dir.name)
+    first_eval = phase_eval(dev, eval_dir.name)
     eval_launches = first_eval["launches"]
-    phase_hover(dev, card)
+    phase_hover(dev)
     t12 = time.perf_counter()
     option_kernels = phase_option_kernels(dev)
-    options = phase_options(dev, card)
-    phase_family(dev, card)
-    log(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s; share_actor=False training "
-        f"{options['rate']:.1f} env-steps/s on {card}")
+    per_iter = phase_options(dev)
+    phase_family(dev)
+    log(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s on {card}")
     t13 = time.perf_counter()
-    phase_vision_rma(dev, card)
+    phase_vision_rma(dev)
     log(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s on {card}")
-    phase_parallel(dev, card)
+    phase_parallel(card)
     phase_15(dev, card)
     with eval_dir:
         phase_video(dev, card, first_eval)
     for name, extra in option_kernels.items():
-        kernels[name].update(extra, share_actor_false_launches_per_iteration=options[
-            "launches_per_iteration"][name])
+        kernels[name].update(extra, share_actor_false_launches_per_iteration=per_iter[name])
     launches["encoder_backward:stage_b"] = launches["weight_grads"]
     launches["tp_backward:stage_b"] = launches["tp_weight_grads"]
     summary = {"kernels": [

@@ -343,22 +343,49 @@ def unpack_rows(meta: PackMeta, rows: torch.Tensor) -> Dict[str, torch.Tensor]:
     }
 
 
-def _huber_terms(pred, target, delta):
-    """optax.huber_loss, elementwise."""
+def _huber_sum(pred, target, delta):
+    """sum of optax.huber_loss."""
     abs_err = torch.abs(pred - target)
     quadratic = torch.minimum(abs_err, torch.full_like(abs_err, delta))
     linear = abs_err - quadratic
-    return 0.5 * quadratic ** 2 + delta * linear
+    return torch.sum(0.5 * quadratic ** 2 + delta * linear)
 
 
-def _huber(pred, target, delta):
-    """mean of optax.huber_loss."""
-    return torch.mean(_huber_terms(pred, target, delta))
+def _ppo_clip(cfg, logp_new, logp_old, adv, action_dim: int, n):
+    """The PPO-clip surrogate over `n` samples (every rank's): (ratio,
+    policy_loss), the log-ratio clamped to +-20 before the exp and the
+    surrogate scaled by the action's width, as the JAX package does."""
+    ratio = torch.exp(torch.clamp(logp_new - logp_old, -20.0, 20.0))
+    surr1 = ratio * adv
+    surr2 = torch.clamp(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param) * adv
+    return ratio, -torch.sum(torch.minimum(surr1, surr2) * action_dim) / n
 
 
-def _huber_sum(pred, target, delta):
-    """sum of optax.huber_loss."""
-    return torch.sum(_huber_terms(pred, target, delta))
+def _clipped_huber(cfg, values, old_values, returns, n):
+    """The two Huber means over `n` samples of the value loss: (h1, h2), of
+    the values and of the values clipped to +-clip_param about the old ones;
+    the loss is their max (`_max_branch`)."""
+    clipped = old_values + torch.clamp(values - old_values, -cfg.clip_param, cfg.clip_param)
+    return (_huber_sum(values, returns, cfg.huber_delta) / n,
+            _huber_sum(clipped, returns, cfg.huber_delta) / n)
+
+
+def _info_metrics(n, ratio_sums=None, value_sums=None) -> Dict[str, torch.Tensor]:
+    """The info metrics of `n` samples from statistics summed over every
+    rank: `ratio_sums` (sum ratio, sum ratio^2, sum of ratio - 1 - log ratio)
+    give ESS and approx_kl (the k3 estimator); `value_sums` (the Huber
+    means h1, h2, sum (value - return)^2, sum return, sum return^2) give
+    value_loss and explained_var."""
+    out = {}
+    if ratio_sums is not None:
+        ratio, ratio2, kl = ratio_sums
+        out.update(ESS=torch.square(ratio) / (ratio2 * n), approx_kl=kl / n)
+    if value_sums is not None:
+        h1, h2, sqerr, ret, ret2 = value_sums
+        ret_var = ret2 / n - torch.square(ret / n)
+        out.update(value_loss=torch.maximum(h1, h2),
+                   explained_var=1.0 - (sqerr / n) / (ret_var + 1e-8))
+    return out
 
 
 def _max_branch(h1, h2, g1, g2):
@@ -770,7 +797,9 @@ class MAPPOPolicy:
         the sums over the ranks, and the gradients are summed over the ranks;
         the entropy bonus's gradient (-entropy_coef on log_std, whatever the
         rows) is added after the sum.  Returns ([d actor.flat, d log_std],
-        [d critic.flat], the loss terms over every rank)."""
+        [d critic.flat], the terms over every rank: the info metrics but the
+        gradient norms, `sums` of ratio, ratio^2, k3, squared error, return
+        and return^2, and `count`)."""
         cfg = self.cfg
         act, logp_old, adv = mb["action"], mb["logp"], mb["advantages"]
         b_values, b_returns = mb["value"], mb["returns"]
@@ -790,14 +819,9 @@ class MAPPOPolicy:
                 log_std = ts.log_std.detach().requires_grad_(True)
                 z = (act - mean) * torch.exp(-log_std)
                 logp_new = torch.sum(-0.5 * torch.square(z) - log_std - _LOG_SQRT_2PI, dim=-1)
-                ratio = torch.exp(torch.clamp(logp_new - logp_old, -20.0, 20.0))
-                surr1 = ratio * adv
-                surr2 = torch.clamp(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param) * adv
-                policy_loss = -torch.sum(torch.minimum(surr1, surr2) * self.action_dim) / count
-                clipped = b_values + torch.clamp(values - b_values, -cfg.clip_param,
-                                                 cfg.clip_param)
-                h1 = _huber_sum(values, b_returns, cfg.huber_delta) / count
-                h2 = _huber_sum(clipped, b_returns, cfg.huber_delta) / count
+                ratio, policy_loss = _ppo_clip(cfg, logp_new, logp_old, adv, self.action_dim,
+                                               count)
+                h1, h2 = _clipped_huber(cfg, values, b_values, b_returns, count)
                 with torch.no_grad():
                     r, v = ratio.detach(), values.detach()
                     local = torch.stack([
@@ -813,7 +837,8 @@ class MAPPOPolicy:
         with torch.no_grad():
             grads[1] = grads[1] - self._entropy_coef(ts)   # d(-coef * entropy) / d log_std
         terms = dict(policy_loss=glob[0], entropy=_gaussian_entropy(ts.log_std.detach()),
-                     value_loss=torch.maximum(glob[1], glob[2]), sums=glob[3:], count=count)
+                     **_info_metrics(count, glob[3:6], (glob[1], glob[2], *glob[6:])),
+                     sums=glob[3:], count=count)
         return grads[:2], grads[2:], terms
 
     def _actor_step(self, ts: MAPPOState, ga, stop) -> None:
@@ -880,19 +905,8 @@ class MAPPOPolicy:
         ga, gc, terms = self._joint_grads(ts, mb, mb_rows)
         self._step(ts, ga, gc, stop)
         with torch.no_grad():
-            n = terms["count"]
-            ratio, ratio2, kl, sqerr, ret, ret2 = terms["sums"].unbind()
-            ret_var = ret2 / n - torch.square(ret / n)
-            return {
-                "policy_loss": terms["policy_loss"],
-                "actor_grad_norm": global_norm(ga),
-                "entropy": terms["entropy"],
-                "ESS": torch.square(ratio) / (ratio2 * n),
-                "value_loss": terms["value_loss"],
-                "critic_grad_norm": global_norm(gc),
-                "explained_var": 1.0 - (sqerr / n) / (ret_var + 1e-8),
-                "approx_kl": kl / n,
-            }
+            info = {k: v for k, v in terms.items() if k not in ("sums", "count")}
+            return dict(info, actor_grad_norm=global_norm(ga), critic_grad_norm=global_norm(gc))
 
     def _update_joint_direct(
         self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None,
@@ -965,11 +979,8 @@ class MAPPOPolicy:
                 dist_ = Gaussian(mean=mean, log_std=log_std.expand(mean.shape))
                 logp_new = dist_.log_prob(mb["action"])[..., None]
                 entropy = dist_.entropy()[..., None]
-                ratio = torch.exp(torch.clamp(logp_new - mb["logp"], -20.0, 20.0))
-                adv = mb["advantages"]
-                surr1 = ratio * adv
-                surr2 = torch.clamp(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param) * adv
-                policy_loss = -torch.sum(torch.minimum(surr1, surr2) * self.action_dim) / n
+                ratio, policy_loss = _ppo_clip(cfg, logp_new, mb["logp"], mb["advantages"],
+                                               self.action_dim, n)
                 entropy_loss = -torch.sum(entropy) / n
                 total = policy_loss + entropy_loss * self._entropy_coef(ts)
                 ga = list(torch.autograd.grad(total, [*net_flats(ts.actor), log_std]))
@@ -981,13 +992,8 @@ class MAPPOPolicy:
         *ga, glob = dist.all_reduce_tensors([*ga, local])
         self._actor_step(ts, ga, stop)
         with torch.no_grad():
-            return {
-                "policy_loss": glob[0],
-                "actor_grad_norm": global_norm(ga),
-                "entropy": -glob[1],
-                "ESS": torch.square(glob[2]) / (glob[3] * n),
-                "approx_kl": glob[4] / n,
-            }
+            return {"policy_loss": glob[0], "actor_grad_norm": global_norm(ga),
+                    "entropy": -glob[1], **_info_metrics(n, ratio_sums=glob[2:])}
 
     def _update_critic(self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None,
                        mb_rows: Optional[int] = None):
@@ -1004,10 +1010,7 @@ class MAPPOPolicy:
         else:
             with torch.enable_grad():
                 values = self._values(ts, mb["obs"], mb.get("state"))
-                clipped = b_values + torch.clamp(values - b_values, -cfg.clip_param,
-                                                 cfg.clip_param)
-                h1 = _huber_sum(values, b_returns, cfg.huber_delta) / n
-                h2 = _huber_sum(clipped, b_returns, cfg.huber_delta) / n
+                h1, h2 = _clipped_huber(cfg, values, b_values, b_returns, n)
                 with torch.no_grad():
                     v = values.detach()
                     glob = dist.all_reduce_sum(torch.stack([
@@ -1018,10 +1021,8 @@ class MAPPOPolicy:
         gc = dist.all_reduce_tensors(gc)
         self._critic_step(ts, gc, stop)
         with torch.no_grad():
-            h1, h2, sqerr, ret, ret2 = glob.unbind()
-            ret_var = ret2 / n - torch.square(ret / n)
-            return {"value_loss": torch.maximum(h1, h2), "critic_grad_norm": global_norm(gc),
-                    "explained_var": 1.0 - (sqerr / n) / (ret_var + 1e-8)}
+            return {**_info_metrics(n, value_sums=glob.unbind()),
+                    "critic_grad_norm": global_norm(gc)}
 
     def _update_actor_critic(self, ts: MAPPOState, mb: Dict[str, torch.Tensor], stop=None,
                              mb_rows: Optional[int] = None):

@@ -22,7 +22,7 @@ import torch
 
 from ..gae import compute_gae
 from ...parallel import dist
-from ..mappo import MAPPOCfg, _huber_sum, _max_branch, local_minibatches
+from ..mappo import MAPPOCfg, MAPPOPolicy, _clipped_huber, _max_branch, _ppo_clip, local_minibatches
 from ..modules.distributions import Gaussian
 from ..modules.networks import LeafNet, apply_head, apply_mlp, head_leaves, mlp_leaves
 from ..modules.rnn import masked_gru, masked_gru_leaves
@@ -135,9 +135,7 @@ class PPORNNPolicy:
     def _step(self, params, grads, opt: AdamState, lr: float) -> None:
         with torch.no_grad():
             upd, new_opt = adam_updates(clip_by_global_norm(grads, self.cfg.max_grad_norm), opt, lr)
-            for dst, src in zip(params + opt.tensors(),
-                                [p + u for p, u in zip(params, upd)] + new_opt.tensors()):
-                dst.copy_(src)
+            MAPPOPolicy._write(params, [p + u for p, u in zip(params, upd)], opt, new_opt, None)
 
     def train_op(self, ts: PPORNNState, batch: Dict[str, Any],
                  generator: Optional[torch.Generator] = None,
@@ -215,18 +213,12 @@ class PPORNNPolicy:
                 log_std = ts.log_std.detach().requires_grad_(True)
                 mean = _unroll(ts.actor, m["obs"], m["actor_rnn0"], m["is_init"])
                 dist_ = Gaussian(mean, log_std.expand(mean.shape))
-                ratio = torch.exp(torch.clamp(dist_.log_prob(m["action"])[..., None] - m["logp"],
-                                              -20.0, 20.0))
-                surr1 = ratio * m["adv"]
-                surr2 = torch.clamp(ratio, 1 - cfg.clip_param, 1 + cfg.clip_param) * m["adv"]
-                pl = -torch.sum(torch.minimum(surr1, surr2) * self.action_dim) / n
+                _, pl = _ppo_clip(cfg, dist_.log_prob(m["action"])[..., None], m["logp"], m["adv"],
+                                  self.action_dim, n)
                 loss = pl + cfg.entropy_coef * (-torch.sum(dist_.entropy()) / n)
                 ga = list(torch.autograd.grad(loss, [ts.actor.flat, log_std]))
                 vs = _unroll(ts.critic, m["obs"], m["critic_rnn0"], m["is_init"])
-                clipped = m["value"] + torch.clamp(vs - m["value"], -cfg.clip_param,
-                                                   cfg.clip_param)
-                h1 = _huber_sum(vs, m["ret"], cfg.huber_delta) / n
-                h2 = _huber_sum(clipped, m["ret"], cfg.huber_delta) / n
+                h1, h2 = _clipped_huber(cfg, vs, m["value"], m["ret"], n)
                 glob = dist.all_reduce_sum(torch.stack([pl.detach(), h1.detach(), h2.detach()]))
                 gc = list(torch.autograd.grad(_max_branch(h1, h2, glob[1], glob[2]),
                                               [ts.critic.flat]))
